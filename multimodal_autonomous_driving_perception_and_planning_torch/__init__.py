@@ -1,0 +1,67 @@
+"""PyTorch/CUDA port of the multimodal autonomous-driving perception and
+planning pipeline.
+
+A second package beside the JAX one, which stays the reference.  Plain
+tensor code is PyTorch; each TPU kernel of the JAX package becomes a kernel
+written by hand for Hopper (CUDA C++ for ``sm_90a`` under ``kernels/csrc``),
+with a plain PyTorch version beside it that runs for CPU tensors.  This
+slice covers the detections-mode path: track -> estimate -> plan.
+"""
+
+__version__ = "0.1.0"
+
+from .config import (
+    DEFAULT_CONFIG,
+    BEVConfig,
+    DetectorConfig,
+    EstimatorConfig,
+    LaneConfig,
+    MeshConfig,
+    PipelineConfig,
+    PlannerConfig,
+    TaggingConfig,
+    TrackerConfig,
+)
+from .pipeline import (
+    detections_from_arrays,
+    initial_state,
+    make_pipeline_step,
+    make_sequence_runner,
+)
+from .types import (
+    Detections,
+    KalmanState,
+    LaneObservation,
+    LaneState,
+    PipelineState,
+    PlanResult,
+    TaggingState,
+    TrackTable,
+    VehicleState,
+)
+
+__all__ = [
+    "DEFAULT_CONFIG",
+    "PipelineConfig",
+    "DetectorConfig",
+    "LaneConfig",
+    "TrackerConfig",
+    "EstimatorConfig",
+    "PlannerConfig",
+    "TaggingConfig",
+    "BEVConfig",
+    "MeshConfig",
+    "Detections",
+    "TrackTable",
+    "KalmanState",
+    "VehicleState",
+    "PlanResult",
+    "LaneState",
+    "LaneObservation",
+    "TaggingState",
+    "PipelineState",
+    "initial_state",
+    "make_pipeline_step",
+    "make_sequence_runner",
+    "detections_from_arrays",
+]

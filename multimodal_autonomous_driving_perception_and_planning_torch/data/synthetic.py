@@ -1,0 +1,117 @@
+"""Synthetic parity fixtures, in numpy only.
+
+Host-side generators that are bit-exact with the reference's seeded numpy
+semantics (src/perception/detector.py:125-169,
+data/loaders/video_loader.py:166-205).  They draw from a private
+``np.random.RandomState`` in place of numpy's global generator:
+``RandomState(seed)`` starts the same MT19937 stream as
+``np.random.seed(seed)``, so the draws are the same, and the generators are
+safe to call from several threads.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# Class-sampling weights from detector.py:159-160.
+CLASS_WEIGHTS = (0.6, 0.15, 0.1, 0.05, 0.03, 0.05, 0.01, 0.01)
+
+CLASS_NAMES = (
+    "car",
+    "truck",
+    "pedestrian",
+    "cyclist",
+    "motorcycle",
+    "bus",
+    "traffic_light",
+    "stop_sign",
+)  # detector.py:39-48
+
+
+def simulated_detections_for_frame(
+    frame_count: int, height: int = 480, width: int = 640
+):
+    """Detections for one frame, bit-exact with ObjectDetector._detect_simulated.
+
+    ``frame_count`` is the reference's post-increment counter, i.e. 1 for the
+    first frame (detector.py:96); the reference reseeds with
+    ``frame_count % 1000`` every frame.  Returns (boxes (n,4), class_ids (n,),
+    confidences (n,)).
+    """
+    rs = np.random.RandomState(frame_count % 1000)
+    num_vehicles = rs.randint(3, 8)
+    boxes, classes, confs = [], [], []
+    for i in range(num_vehicles):
+        distance_factor = rs.uniform(0.3, 1.0)
+        base_w = int(80 * distance_factor + 40)
+        base_h = int(60 * distance_factor + 30)
+        t = frame_count * 0.02
+        x_base = (i * 150 + int(50 * np.sin(t + i))) % (width - base_w)
+        y_base = int(height * 0.4 + (height * 0.4 * distance_factor))
+        x1 = max(0, x_base + rs.randint(-10, 10))
+        y1 = max(0, y_base + rs.randint(-5, 5))
+        x2 = min(width, x1 + base_w)
+        y2 = min(height, y1 + base_h)
+        class_id = rs.choice(len(CLASS_WEIGHTS), p=np.asarray(CLASS_WEIGHTS))
+        conf = rs.uniform(0.75, 0.98)
+        boxes.append((x1, y1, x2, y2))
+        classes.append(int(class_id))
+        confs.append(float(conf))
+    return (
+        np.asarray(boxes, np.float32),
+        np.asarray(classes, np.int32),
+        np.asarray(confs, np.float32),
+    )
+
+
+def simulated_detection_stream(
+    num_frames: int,
+    height: int = 480,
+    width: int = 640,
+    capacity: int = 16,
+    start_frame_count: int = 1,
+):
+    """Padded (F, D, ...) detection tables for a frame sequence.
+
+    Returns a dict of numpy arrays: bbox (F, D, 4), class_id (F, D),
+    confidence (F, D), valid (F, D).
+    """
+    bbox = np.zeros((num_frames, capacity, 4), np.float32)
+    cls = np.zeros((num_frames, capacity), np.int32)
+    conf = np.zeros((num_frames, capacity), np.float32)
+    valid = np.zeros((num_frames, capacity), bool)
+    for f in range(num_frames):
+        b, c, cf = simulated_detections_for_frame(start_frame_count + f, height, width)
+        n = min(len(b), capacity)
+        bbox[f, :n] = b[:n]
+        cls[f, :n] = c[:n]
+        conf[f, :n] = cf[:n]
+        valid[f, :n] = True
+    return {"bbox": bbox, "class_id": cls, "confidence": conf, "valid": valid}
+
+
+def ego_motion_stream(
+    num_frames: int, dt: float = 1.0 / 30.0, seed: int | None = 0
+) -> np.ndarray:
+    """(F, 4) [x, y, vx, vy] measurements, matching
+    VideoDataLoader.generate_ego_motion (video_loader.py:166-205):
+    constant 10 m/s, heading 0.05 sin(0.5 t), gaussian noise
+    sigma = (0.1, 0.1, 0.05, 0.05).  ``seed=None`` draws from fresh entropy."""
+    rs = np.random.RandomState(seed)
+    out = np.zeros((num_frames, 4), np.float64)
+    x = y = 0.0
+    speed = 10.0
+    for i in range(num_frames):
+        t = i * dt
+        heading = 0.05 * np.sin(t * 0.5)
+        vx = speed * np.cos(heading)
+        vy = speed * np.sin(heading)
+        x += vx * dt
+        y += vy * dt
+        out[i] = (
+            x + rs.normal(0, 0.1),
+            y + rs.normal(0, 0.1),
+            vx + rs.normal(0, 0.05),
+            vy + rs.normal(0, 0.05),
+        )
+    return out

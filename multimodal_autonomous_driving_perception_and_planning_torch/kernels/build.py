@@ -1,0 +1,84 @@
+"""Build the hand-written CUDA kernels from the sources in csrc/ at first use.
+
+With ninja present, `torch.utils.cpp_extension.load` compiles every ``.cu``
+source and the small pybind11 binding file in one call (ninja runs the
+compilers in parallel).  Without ninja, one ``nvcc -shared`` per source, all
+started together, builds a library with a plain C interface each, and ctypes
+binds them.  Either way the result exposes ``tracker_step`` and
+``kalman_step``, which take pointers and the stream as integers and return
+the CUDA error code of the launch.
+
+The output goes to ``kernels/build/`` inside the package (listed in
+.gitignore).  Kernels are built for Hopper only (``sm_90a``).  No source
+includes PyTorch's headers, which keeps the build to seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+from types import SimpleNamespace
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+CUDA_SOURCES = ("tracker_step.cu", "kalman_step.cu")
+BINDINGS = "bindings.cpp"
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
+_NAME = "madpp_torch_kernels"
+
+_kernels = None
+
+
+def kernels():
+    """The built kernel library, building it on the first call."""
+    global _kernels
+    if _kernels is None:
+        from torch.utils import cpp_extension
+
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        if cpp_extension.is_ninja_available():
+            _kernels = cpp_extension.load(
+                name=_NAME,
+                sources=[str(CSRC / BINDINGS)] + [str(CSRC / s) for s in CUDA_SOURCES],
+                build_directory=str(BUILD_DIR),
+                extra_cflags=["-O2"],
+                extra_cuda_cflags=list(NVCC_FLAGS),
+                verbose=False,
+            )
+        else:
+            _kernels = build_ctypes(cpp_extension.CUDA_HOME)
+    return _kernels
+
+
+def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
+    """Build each source into its own shared library with ``nvcc``, all in
+    parallel, and bind their C launchers with ctypes."""
+    nvcc = os.path.join(cuda_home, "bin", "nvcc") if cuda_home else "nvcc"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in CUDA_SOURCES:
+        target = BUILD_DIR / f"lib{Path(src).stem}.so"
+        # Build under a temporary name and rename, so that concurrent
+        # processes never load a half-written library.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(CSRC / src)]
+        jobs.append((subprocess.Popen(cmd), cmd, tmp, target))
+    for proc, cmd, tmp, target in jobs:
+        if proc.wait() != 0:
+            raise subprocess.CalledProcessError(proc.returncode, cmd)
+        os.replace(tmp, target)
+
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tracker = ctypes.CDLL(str(BUILD_DIR / "libtracker_step.so"))
+    tracker.madpp_tracker_step.argtypes = [vp] * 31 + [ci, ci, ci, cf, ci, ci, vp]
+    tracker.madpp_tracker_step.restype = ci
+    kalman = ctypes.CDLL(str(BUILD_DIR / "libkalman_step.so"))
+    kalman.madpp_kalman_step.argtypes = [vp] * 12 + [cf, cf, vp]
+    kalman.madpp_kalman_step.restype = ci
+    return SimpleNamespace(
+        tracker_step=tracker.madpp_tracker_step, kalman_step=kalman.madpp_kalman_step
+    )

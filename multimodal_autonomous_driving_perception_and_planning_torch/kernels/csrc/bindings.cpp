@@ -1,0 +1,53 @@
+// Python bindings of the kernels' C launchers, for the
+// torch.utils.cpp_extension build.  Pointers and the CUDA stream travel as
+// integers (tensor.data_ptr(), stream.cuda_stream), so the Python wrappers
+// call this module and the ctypes build the same way.  Only pybind11 is
+// included: PyTorch's own headers would add minutes to the build.
+
+#include <pybind11/pybind11.h>
+
+#include <cstdint>
+#include <stdexcept>
+
+extern "C" int madpp_tracker_step(
+    const void*, const void*, const void*, const void*, const void*, const void*,
+    const void*, const void*, const void*, const void*, const void*, const void*,
+    const void*, const void*, const void*, const void*, void*, void*, void*, void*,
+    void*, void*, void*, void*, void*, void*, void*, void*, void*, void*, void*, int,
+    int, int, float, int, int, void*);
+
+extern "C" int madpp_kalman_step(const void*, const void*, const void*, const void*,
+                                 const void*, const void*, const void*, const void*,
+                                 const void*, void*, void*, void*, float, float, void*);
+
+namespace {
+
+inline void* ptr(std::uintptr_t p) { return reinterpret_cast<void*>(p); }
+
+int tracker_step(pybind11::args a) {
+  if (a.size() != 38) throw std::invalid_argument("tracker_step takes 38 arguments");
+  void* p[31];
+  for (int i = 0; i < 31; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
+  return madpp_tracker_step(
+      p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12],
+      p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20], p[21], p[22], p[23],
+      p[24], p[25], p[26], p[27], p[28], p[29], p[30], a[31].cast<int>(),
+      a[32].cast<int>(), a[33].cast<int>(), a[34].cast<float>(), a[35].cast<int>(),
+      a[36].cast<int>(), ptr(a[37].cast<std::uintptr_t>()));
+}
+
+int kalman_step(pybind11::args a) {
+  if (a.size() != 15) throw std::invalid_argument("kalman_step takes 15 arguments");
+  void* p[12];
+  for (int i = 0; i < 12; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
+  return madpp_kalman_step(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9],
+                           p[10], p[11], a[12].cast<float>(), a[13].cast<float>(),
+                           ptr(a[14].cast<std::uintptr_t>()));
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("tracker_step", &tracker_step, "Launch kernel K1; returns the CUDA error code.");
+  m.def("kalman_step", &kalman_step, "Launch kernel K2; returns the CUDA error code.");
+}

@@ -1,0 +1,59 @@
+"""Motion planner: all candidates at once, then a stable sort by cost.
+
+The reference's 21 x 51 double Python loop (src/planning/motion_planner.py:
+264-303) as one broadcast tensor program (ops.quintic); selection is a
+stable sort over the costs, so the sorted list matches
+``candidates.sort(key=cost)`` and `best` is the first minimum.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..config import PlannerConfig
+from ..ops.quintic import candidate_grid, evaluate_costs, generate_candidates
+from ..types import PlanResult
+
+
+def plan(
+    current_state: torch.Tensor,
+    cfg: PlannerConfig,
+    reference_positions: Optional[torch.Tensor] = None,
+    reference_valid: Optional[torch.Tensor] = None,
+    obstacles: Optional[torch.Tensor] = None,
+    obstacles_valid: Optional[torch.Tensor] = None,
+) -> PlanResult:
+    """Plan from (x, y, heading, velocity) on ``current_state``'s device."""
+    lat, tv = candidate_grid(
+        cfg.num_samples, cfg.lateral_range, tuple(cfg.target_velocities), current_state.device
+    )
+    cand = generate_candidates(
+        current_state.to(torch.float32), lat, tv, cfg.planning_horizon, cfg.dt
+    )
+    costs = evaluate_costs(
+        cand,
+        w_lateral=cfg.w_lateral,
+        w_velocity=cfg.w_velocity,
+        w_acceleration=cfg.w_acceleration,
+        w_curvature=cfg.w_curvature,
+        cruise_velocity=cfg.cruise_velocity,
+        reference_positions=reference_positions,
+        reference_valid=reference_valid,
+        obstacles=obstacles,
+        obstacles_valid=obstacles_valid,
+    )
+    order = torch.sort(costs, stable=True).indices.to(torch.int32)
+    return PlanResult(
+        positions=cand.positions,
+        headings=cand.headings,
+        velocities=cand.velocities,
+        curvatures=cand.curvatures,
+        timestamps=cand.timestamps,
+        costs=costs,
+        lateral_offsets=cand.lateral_offsets,
+        target_velocities=cand.target_velocities,
+        best=order[0],
+        order=order,
+    )

@@ -1,0 +1,178 @@
+"""The port's tracker step (kernel K1's plain version) against the JAX
+package's, bit for bit.
+
+Each case makes its detections with numpy from a seed and feeds them to
+the port's `tracker_update_with_order` on CPU tensors, to the JAX
+`_tracker_update_xla` + `confirmed_order`, and to the TPU kernel
+`tracker_update_pallas` through the Pallas interpreter.  Every table field,
+`match`, the confirmed order and its count must be equal at every step.
+The cases are those of tests/test_tracker_pallas.py: tie-heavy quantized
+boxes, churn that forces misses and deaths, and a saturated table.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_autonomous_driving_perception_and_planning_torch.config import (
+    TrackerConfig as TrackerConfigT,
+)
+from multimodal_autonomous_driving_perception_and_planning_torch.ops import tracker_kernel
+from multimodal_autonomous_driving_perception_and_planning_torch.tracking import (
+    tracker as tracker_t,
+)
+from multimodal_autonomous_driving_perception_and_planning_torch.types import (
+    Detections as DetectionsT,
+    TrackTable as TrackTableT,
+)
+from multimodal_autonomous_driving_perception_and_planning_tpu.config import TrackerConfig
+from multimodal_autonomous_driving_perception_and_planning_tpu.ops.tracker_pallas import (
+    tracker_update_pallas,
+)
+from multimodal_autonomous_driving_perception_and_planning_tpu.tracking.tracker import (
+    _tracker_update_xla,
+    confirmed_order,
+)
+from multimodal_autonomous_driving_perception_and_planning_tpu.types import (
+    Detections,
+    TrackTable,
+)
+
+FIELDS = (
+    "track_id", "bbox", "class_id", "confidence", "age", "hits", "misses",
+    "trajectory", "traj_len", "velocity", "vel_count", "next_id",
+)
+
+
+def _random_dets(rng, d_cap, p_valid=0.6, quantize=True):
+    cx = rng.uniform(0, 600, d_cap)
+    cy = rng.uniform(0, 400, d_cap)
+    w = rng.uniform(30, 150, d_cap)
+    h = rng.uniform(30, 150, d_cap)
+    if quantize:  # coordinate ties -> exact IoU ties
+        cx, cy, w, h = (np.round(v / 20) * 20 for v in (cx, cy, w, h))
+    bbox = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], axis=1)
+    return {
+        "bbox": bbox.astype(np.float32),
+        "class_id": rng.integers(0, 8, d_cap).astype(np.int32),
+        "confidence": rng.uniform(0.5, 1.0, d_cap).astype(np.float32),
+        "valid": rng.random(d_cap) < p_valid,
+    }
+
+
+def _dets_jax(d):
+    return Detections(**{k: jnp.asarray(v) for k, v in d.items()})
+
+
+def _dets_torch(d):
+    return DetectionsT(**{k: torch.from_numpy(np.array(v)) for k, v in d.items()})
+
+
+class _Trio:
+    """The port, the JAX XLA path and the Pallas interpreter, stepped
+    together and compared after every step."""
+
+    def __init__(self, t_cap, traj_len, **cfg):
+        self.cfg_j = TrackerConfig(max_tracks=t_cap, trajectory_length=traj_len, **cfg)
+        self.cfg_t = TrackerConfigT(max_tracks=t_cap, trajectory_length=traj_len, **cfg)
+        self.xla = TrackTable.empty(t_cap, traj_len)
+        self.pal = TrackTable.empty(t_cap, traj_len)
+        self.port = TrackTableT.empty(t_cap, traj_len, "cpu")
+
+        def xla(table, dets):
+            table, match = _tracker_update_xla(table, dets, self.cfg_j, "cpu")
+            return (table, match, *confirmed_order(table, self.cfg_j.min_hits))
+
+        self.step_xla = jax.jit(xla)
+        self.step_pal = jax.jit(
+            lambda table, dets: tracker_update_pallas(table, dets, self.cfg_j, interpret=True)
+        )
+
+    def step(self, d, msg=""):
+        self.xla, m_x, o_x, n_x = self.step_xla(self.xla, _dets_jax(d))
+        self.pal, m_p, o_p, n_p = self.step_pal(self.pal, _dets_jax(d))
+        self.port, m_t, o_t, n_t = tracker_t.tracker_update_with_order(
+            self.port, _dets_torch(d), self.cfg_t
+        )
+        for name, ref, pal, got in (
+            ("match", m_x, m_p, m_t), ("order", o_x, o_p, o_t), ("n_confirmed", n_x, n_p, n_t)
+        ):
+            assert got.dtype == torch.int32, name
+            np.testing.assert_array_equal(got.numpy(), np.asarray(ref), err_msg=f"{msg} {name}")
+            np.testing.assert_array_equal(got.numpy(), np.asarray(pal), err_msg=f"{msg} {name}")
+        for f in FIELDS:
+            got = getattr(self.port, f).numpy()
+            for ref in (getattr(self.xla, f), getattr(self.pal, f)):
+                ref = np.asarray(ref)
+                assert got.dtype == ref.dtype and got.shape == ref.shape, f
+                np.testing.assert_array_equal(got, ref, err_msg=f"{msg} field {f}")
+
+
+@pytest.mark.parametrize("t_cap,d_cap", [(16, 8), (64, 16), (128, 64)])
+def test_tracker_matches_jax_stream(t_cap, d_cap):
+    """12 steps: births, matches, misses and deaths (max_age=2 forces deaths
+    quickly; p_valid churn forces misses), on tie-heavy quantized boxes."""
+    trio = _Trio(t_cap, 6, iou_threshold=0.1, max_age=2, min_hits=3)
+    rng = np.random.default_rng(t_cap + d_cap)
+    for step in range(12):
+        trio.step(_random_dets(rng, d_cap), msg=f"step {step}")
+
+
+def test_tracker_tracks_persist():
+    """A stationary stream gives a confirmed, aging track whose trajectory
+    ring wraps while its length counter keeps counting."""
+    trio = _Trio(16, 4, iou_threshold=0.3, max_age=30, min_hits=3)
+    bbox = np.zeros((8, 4), np.float32)
+    bbox[0] = [100, 100, 200, 200]
+    bbox[1] = [300, 50, 380, 120]
+    d = {
+        "bbox": bbox,
+        "class_id": np.zeros(8, np.int32),
+        "confidence": np.full((8,), 0.9, np.float32),
+        "valid": np.array([True, True] + [False] * 6),
+    }
+    for step in range(7):
+        trio.step(d, msg=f"step {step}")
+    assert int(trio.port.track_id[0]) == 1
+    assert int(trio.port.hits[0]) == 7
+    assert int(trio.port.traj_len[0]) == 7
+
+
+def test_tracker_saturated_table():
+    """More wanted births than free slots: births clamp to the free count
+    and next_id advances by the clamped amount."""
+    t_cap, d_cap = 8, 16
+    trio = _Trio(t_cap, 4, iou_threshold=0.3, max_age=30, min_hits=3)
+    rng = np.random.default_rng(0)
+    bbox = np.stack(
+        [np.arange(d_cap) * 300.0, np.zeros(d_cap),
+         np.arange(d_cap) * 300.0 + 100, np.full(d_cap, 100.0)], axis=1
+    ).astype(np.float32)
+    d = {
+        "bbox": bbox,
+        "class_id": rng.integers(0, 8, d_cap).astype(np.int32),
+        "confidence": np.full((d_cap,), 0.8, np.float32),
+        "valid": np.ones(d_cap, bool),
+    }
+    trio.step(d)
+    assert int(trio.port.next_id) == 1 + t_cap
+    # The next frame shifts every box: no matches, so all eight slots miss
+    # and the eight new detections find no free slot.
+    d["bbox"] = d["bbox"] + np.float32(150.0)
+    trio.step(d)
+    assert int(trio.port.next_id) == 1 + t_cap
+
+
+def test_cpu_path_launches_no_kernel():
+    """CPU tensors take the plain version; the launch counter stays put,
+    and the kernel's wrapper refuses CPU tensors outright."""
+    cfg = TrackerConfigT(max_tracks=16, trajectory_length=4)
+    table = TrackTableT.empty(16, 4, "cpu")
+    dets = _dets_torch(_random_dets(np.random.default_rng(1), 8))
+    before = tracker_kernel.launches
+    tracker_t.tracker_update_with_order(table, dets, cfg)
+    assert tracker_kernel.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tracker_kernel.tracker_step(table, dets, cfg, cfg.min_hits)
