@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detections-mode path on a CUDA card.
+"""Drive the PyTorch port's detections-mode paths on a CUDA card.
 
     python3 chip_smoke.py
 
@@ -11,17 +11,27 @@ Phases, each printing one JSON line:
      streams at (T, D) = (64, 16) and (128, 64) and the synthetic stream;
   4. kernel K2 (ego Kalman step) against its plain version on the card,
      step by step over a 300-frame chain with unmeasured frames;
-  5. the main path: `make_sequence_runner` on the card over the 300-frame
+  5. kernel K3 (tagging step) against its plain version on the card, the
+     state threaded through each side on its own, over random streams in
+     detections mode (120 frames), frames mode (60) and at T = 128 (60);
+  6. kernel K4 (standalone association) against its plain version on the
+     card, exact, over tie-quantized matrices and the empty and full ones;
+  7. the main path: `make_sequence_runner` on the card over the 300-frame
      synthetic stream in bench.py's configuration, against the same runner
      on the CPU, with each kernel's launches counted in that run;
-  6. times: each kernel and its plain version by CUDA events at the main
-     path's shapes, beside the kernel's bound, and the main path's frames/s.
+  8. the tagging path: the same with tagging on (apps/serve.py's default);
+  9. the association path: the public `ops.greedy_associate` on each frame
+     of the tagging path's run, against the association inside K1;
+ 10. times: each kernel and its plain version by CUDA events at the main
+     path's shapes, beside the kernel's bound, and the frames/s of the main
+     and tagging paths, timed in turns.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Without a card it exits 1 at once.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,24 +46,40 @@ from multimodal_autonomous_driving_perception_and_planning_torch.data.synthetic 
     simulated_detection_stream,
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.estimation.ego import (
+    _estimator_row_fused,
     _estimator_step_fused,
     _estimator_step_xla,
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.kernels import build
 from multimodal_autonomous_driving_perception_and_planning_torch.ops import (
+    association_kernel,
     kalman_kernel,
+    tagging_kernel,
     tracker_kernel,
 )
+from multimodal_autonomous_driving_perception_and_planning_torch.ops.association import (
+    _greedy_associate_plain,
+)
+from multimodal_autonomous_driving_perception_and_planning_torch.ops.geometry import pairwise_iou
 from multimodal_autonomous_driving_perception_and_planning_torch.ops.kalman import (
     make_constant_accel_model,
 )
+from multimodal_autonomous_driving_perception_and_planning_torch.tagging.rules import (
+    TaggingRules,
+    make_packed_tagging_step,
+    tagging_step_plain,
+    unpack_tags,
+)
 from multimodal_autonomous_driving_perception_and_planning_torch.tracking.tracker import (
+    _rank_by_count,
     confirmed_order,
     tracker_update,
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.types import (
     Detections,
     KalmanState,
+    LaneObservation,
+    TaggingState,
     VEHICLE_STATE_FIELDS,
     TrackTable,
 )
@@ -66,13 +92,31 @@ JAX_PKG = "multimodal_autonomous_driving_perception_and_planning_tpu"
 NUM_FRAMES = 300
 MAIN_ATOL = 1e-4  # PARITY.md budget: card against CPU over the whole run
 K2_ATOL, K2_RTOL = 1e-5, 1e-6  # kernel K2 against its plain version, per step
+# Kernel K3 against its plain version (tests/test_tagging_pallas.py's bars):
+# floats of the tags, and of the carried state.
+K3_ATOL, K3_STATE_ATOL = 1e-5, 1e-6
+# TTC = distance / closing speed turns the card's and the CPU's speed gap
+# (K2, about 5e-5 m/s) into distance / speed^2 times as much: up to about
+# 57 s^2/m on the synthetic stream.  The tagging path holds the two TTC tags
+# at MAIN_ATOL plus this relative bound.
+TTC_RTOL = 1e-5
+TTC_TAGS = ("track_ttc", "min_ttc")
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the float32 rate outside
 # the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_F64_PER_S = 34e12  # the data sheet's float64 rate outside the tensor cores
-PROFILED = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+# The card's activity only: tracing the host's operators too slows the
+# profiled run and takes seconds to read back.
+PROFILED = [torch.profiler.ProfilerActivity.CUDA]
+PLAIN_REPS = 50  # calls of a plain version a timing (the kernels take 2000)
 
+KERNEL_MODULES = {
+    "tracker_step": tracker_kernel,
+    "kalman_step": kalman_kernel,
+    "tagging_step": tagging_kernel,
+    "associate": association_kernel,
+}
 TABLE_FIELDS = (
     "track_id", "bbox", "class_id", "confidence", "age", "hits", "misses",
     "trajectory", "traj_len", "velocity", "vel_count", "next_id",
@@ -87,14 +131,21 @@ MAIN_FLOAT = (
 )
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries the seconds since the imports."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _START, 3)}
     print(json.dumps(obj), flush=True)
 
 
-def bench_config():
-    """bench.py:146-151: detections in, no frames, no tagging, serving outputs."""
+def bench_config(enable_tagging: bool = False):
+    """bench.py:146-151: detections in, no frames, no tagging, serving
+    outputs; with ``enable_tagging``, apps/serve.py:731-732's default."""
     return pt.DEFAULT_CONFIG.replace(
-        use_frames=False, enable_tagging=False, emit_candidates=False, emit_trajectories=False
+        use_frames=False, enable_tagging=enable_tagging, emit_candidates=False, emit_trajectories=False
     )
 
 
@@ -210,17 +261,215 @@ def check_kalman_kernel(device, frames: int = NUM_FRAMES) -> dict:
     return {"frames": frames, "unmeasured": sum(f % 7 == 3 for f in range(frames)), "max_abs_err": worst}
 
 
-def check_main_path(device, inputs: dict) -> dict:
+TAG_STATE_FIELDS = (
+    "scene_votes", "scene_count", "man_history", "man_count",
+    "int_centers", "int_len", "int_track_id", "frame_count",
+)
+
+
+def random_tagging_frame(rng, f: int, t_cap: int, d_cap: int, device):
+    """tests/test_tagging_pallas.py `_rand_frame` at (t_cap, d_cap): a random
+    detection table, a table whose live slots keep their ids (so the center
+    rings fill), and a vehicle-state row as kernel K2 writes it."""
+    n = int(rng.integers(0, d_cap))
+    valid = np.zeros(d_cap, bool)
+    valid[:n] = True
+    x1, y1 = rng.uniform(0, 600, d_cap), rng.uniform(0, 440, d_cap)
+    bw, bh = rng.uniform(5, 80, d_cap), rng.uniform(5, 80, d_cap)
+
+    def on(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    dets = Detections(
+        bbox=on(np.stack([x1, y1, x1 + bw, y1 + bh], 1), torch.float32),
+        class_id=on(rng.integers(0, 8, d_cap), torch.int32),
+        confidence=on(rng.uniform(0.3, 1.0, d_cap), torch.float32),
+        valid=on(valid, torch.bool),
+    )
+    alive = rng.random(t_cap) < 0.4
+    tx1, ty1 = rng.uniform(0, 600, t_cap), rng.uniform(0, 440, t_cap)
+    tw, th = rng.uniform(5, 120, t_cap), rng.uniform(1, 120, t_cap)
+    empty = TrackTable.empty(t_cap, 2, device)
+    table = TrackTable(**{
+        **{name: getattr(empty, name) for name in TABLE_FIELDS},
+        "track_id": on(np.where(alive, np.arange(1, t_cap + 1), 0), torch.int32),
+        "bbox": on(np.stack([tx1, ty1, tx1 + tw, ty1 + th], 1), torch.float32),
+        "class_id": on(rng.integers(0, 8, t_cap), torch.int32),
+        "hits": on(rng.integers(0, 6, t_cap), torch.int32),
+        "velocity": on(rng.normal(0, 3, (t_cap, 2)), torch.float32),
+        "vel_count": on(rng.integers(0, 3, t_cap), torch.int32),
+    })
+    row = [rng.uniform(-50, 50), rng.uniform(-50, 50), 0.0, 0.0, rng.uniform(-3.1, 3.1),
+           rng.uniform(0, 20), rng.uniform(-4, 2), rng.uniform(-0.4, 0.4), f / 30.0, 1.0, 1.0]
+    return dets, table, on(row, torch.float32)
+
+
+def random_lane_feats(rng, device):
+    """tests/test_tagging_pallas.py `_rand_lane_feats`, on the card."""
+    lf, rf = bool(rng.random() < 0.7), bool(rng.random() < 0.7)
+
+    def f32(v):
+        return torch.tensor(np.asarray(v, np.float32), device=device)
+
+    lane = LaneObservation(
+        left_fit=f32(rng.normal(0, [1e-4, 0.3, 200])),
+        right_fit=f32(rng.normal([0, 0, 450], [1e-4, 0.3, 100])),
+        left_found=torch.tensor(lf, device=device),
+        right_found=torch.tensor(rf, device=device),
+        left_confidence=f32(rng.uniform(0, 1)),
+        right_confidence=f32(rng.uniform(0, 1)),
+        offset_px=f32(rng.normal(0, 10)),
+        has_offset=torch.tensor(lf and rf, device=device),
+    )
+    feats = {
+        "center_edge_density": f32(rng.uniform(0, 0.4)),
+        "num_long_lines": torch.tensor(int(rng.integers(0, 12)), dtype=torch.int32, device=device),
+        "avg_line_length": f32(rng.uniform(50, 300)),
+        "green_ratio": f32(rng.uniform(0, 0.3)),
+        "brightness": f32(rng.uniform(30, 200)),
+        "laplacian_var": f32(rng.uniform(20, 2000)),
+    }
+    return lane, feats
+
+
+def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def _tagging_case(name, cfg, frames, seed, d_cap, frames_mode, device) -> dict:
+    """Step K3 and the plain version side by side, each threading its own
+    state: discrete tags and state equal, floats within their bounds."""
+    rules = TaggingRules.from_config(cfg)
+    step = make_packed_tagging_step(cfg)  # CUDA tensors: kernel K3
+    T = rules.max_tracks
+
+    def initial():
+        return TaggingState.initial(rules.window, rules.history, T, device,
+                                    interaction_history=rules.interaction_history)
+
+    s_plain, s_kern = initial(), initial()
+    rng = np.random.default_rng(seed)
+    worst: dict = {}
+    seen = {"road_type_raw": set(), "turning": set(), "primary_interaction": set()}
+    for f in range(frames):
+        dets, table, vrow = random_tagging_frame(rng, f, T, d_cap, device)
+        lane, feats = random_lane_feats(rng, device) if frames_mode else (None, None)
+        s_plain, *rows_p = tagging_step_plain(rules, s_plain, dets, table, vrow, lane, feats)
+        s_kern, *rows_k = step(s_kern, dets, table, vrow, lane, feats)
+        want, got = unpack_tags(*rows_p, T), unpack_tags(*rows_k, T)
+        for k, b in want.items():
+            a = got[k]
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"K3 {name} frame {f}: {k} is {a.dtype} {tuple(a.shape)}")
+            if b.is_floating_point():
+                err = _max_abs(a, b)
+                worst[k] = max(worst.get(k, 0.0), err)
+                if not err <= K3_ATOL:
+                    raise AssertionError(f"K3 {name} frame {f}: {k} off by {err}")
+            elif not torch.equal(a, b):
+                raise AssertionError(f"K3 {name} frame {f}: {k} {a.tolist()} vs plain {b.tolist()}")
+        for fld in TAG_STATE_FIELDS:
+            a, b = getattr(s_kern, fld), getattr(s_plain, fld)
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"K3 {name} frame {f}: state {fld} is {a.dtype} {tuple(a.shape)}")
+            if b.is_floating_point():
+                err = _max_abs(a, b)
+                worst[f"state.{fld}"] = max(worst.get(f"state.{fld}", 0.0), err)
+                if not err <= K3_STATE_ATOL:
+                    raise AssertionError(f"K3 {name} frame {f}: state {fld} off by {err}")
+            elif not torch.equal(a, b):
+                raise AssertionError(f"K3 {name} frame {f}: state {fld} differs from the plain version")
+        for k in seen:
+            seen[k].add(int(want[k]))
+    return {"case": name, "T": T, "D": d_cap, "frames": frames, "max_abs_err": worst,
+            "distinct": {k: sorted(v) for k, v in seen.items()}}
+
+
+def check_tagging_kernel(device, frames=(120, 60, 60)) -> list:
+    """K3 against its plain version: detections mode at (64, 16), frames
+    mode at (64, 16), and detections mode at (128, 64)."""
+    cfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
+    dense = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=128))
+    return [
+        _tagging_case("detections_64x16", cfg, frames[0], 7, 16, False, device),
+        _tagging_case("frames_64x16", cfg.replace(use_frames=True), frames[1], 11, 16, True, device),
+        _tagging_case("detections_128x64", dense, frames[2], 13, 64, False, device),
+    ]
+
+
+def random_association(rng, t: int, d: int, tied: bool = False):
+    """tests/test_association_pallas.py `_random_case`: IoUs quantized to
+    exact ties, dead rows and invalid columns at -1, a random rank
+    permutation; with ``tied``, ranks drawn with repeats instead."""
+    iou = rng.random((t, d), np.float32)
+    q = int(rng.integers(1, 6))
+    iou = np.round(iou * q) / q
+    alive, valid = rng.random(t) < 0.7, rng.random(d) < 0.8
+    iou = np.where(alive[:, None] & valid[None, :], iou, -1.0).astype(np.float32)
+    rank = np.argsort(np.argsort(rng.random(t))).astype(np.int32)
+    if tied:
+        rank = rng.integers(0, max(t // 4, 1), t).astype(np.int32)
+    return iou, rank
+
+
+def check_association_kernel(device, trials: int = 10) -> list:
+    """K4 against its plain version, exact, at (64, 16), (64, 64), (128, 64)
+    and (16, 16), with rank permutations and with tied ranks, and on the
+    empty and full (16, 16) matrices."""
+    cases = []
+
+    def compare(name, iou, rank, thr):
+        iou_t = torch.tensor(iou, device=device)
+        rank_t = torch.tensor(rank, device=device)
+        got = association_kernel.greedy_associate(iou_t, rank_t, thr)
+        want = _greedy_associate_plain(iou_t, rank_t, thr)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 {name}: {got.tolist()} vs plain {want.tolist()}")
+        return int((want >= 0).sum())
+
+    for t, d in ((64, 16), (64, 64), (128, 64), (16, 16)):
+        rng = np.random.default_rng(t * 1000 + d)
+        matched = [compare(f"{t}x{d} trial {i}", *random_association(rng, t, d),
+                           float(rng.choice([0.0, 0.3, 0.5]))) for i in range(trials)]
+        cases.append({"case": f"random_{t}x{d}", "trials": trials, "matched": matched})
+        tied = [compare(f"{t}x{d} tied trial {i}", *random_association(rng, t, d, tied=True), 0.3)
+                for i in range(trials)]
+        cases.append({"case": f"tied_ranks_{t}x{d}", "trials": trials, "matched": tied})
+    rank = np.arange(16, dtype=np.int32)
+    if compare("empty", np.full((16, 16), -1.0, np.float32), rank, 0.3) != 0:
+        raise AssertionError("K4 matched a pair in an empty matrix")
+    if compare("full", np.ones((16, 16), np.float32), rank, 0.3) != 16:
+        raise AssertionError("K4 left a row of a full matrix unmatched")
+    # Two rows of rank 0 at the best IoU of column 0 both take it.
+    two = np.full((16, 16), -1.0, np.float32)
+    two[0, 0] = two[1, 0] = 0.9
+    if compare("tied pair", two, np.zeros(16, np.int32), 0.3) != 2:
+        raise AssertionError("K4 did not give column 0 to both rows of a tied pair")
+    cases.append({"case": "empty_full_and_tied_pair_16x16"})
+    return cases
+
+
+def _zero_counts() -> None:
+    for module in KERNEL_MODULES.values():
+        module.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: module.launches for name, module in KERNEL_MODULES.items()}
+
+
+def check_main_path(device, inputs: dict, enable_tagging: bool = False):
     """The runner on the card against the same runner on the CPU; the
-    kernels' counts are zeroed just before the card run and read after."""
-    cfg = bench_config()
+    kernels' counts are zeroed just before the card run and read after.
+    Returns the summary and the card run's outputs."""
+    cfg = bench_config(enable_tagging)
     _, want = pt.make_sequence_runner(cfg, device="cpu")(pt.initial_state(cfg, device="cpu"), inputs)
     run = pt.make_sequence_runner(cfg, device=device)
     state = pt.initial_state(cfg, device=device)
-    tracker_kernel.launches = kalman_kernel.launches = 0
+    _zero_counts()
     _, got = run(state, inputs)
     torch.cuda.synchronize()
-    launches = {"tracker_step": tracker_kernel.launches, "kalman_step": kalman_kernel.launches}
+    launches = _read_counts()
     for k in MAIN_DISCRETE:
         if not torch.equal(got[k].cpu(), want[k]):
             raise AssertionError(f"main path: {k} on the card differs from the CPU run")
@@ -232,15 +481,71 @@ def check_main_path(device, inputs: dict) -> dict:
             (getattr(got["vehicle_state"], name).cpu() - getattr(want["vehicle_state"], name)).abs().max()
         )
     bad = {k: v for k, v in errs.items() if not v <= MAIN_ATOL}
+    if set(got["tags"]) != set(want["tags"]):
+        raise AssertionError("main path: the card run's tags differ in their keys from the CPU run's")
+    for k, b in want["tags"].items():
+        a = got["tags"][k].cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"main path: tag {k} is {a.dtype} {tuple(a.shape)}")
+        if not b.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"main path: tag {k} on the card differs from the CPU run")
+            continue
+        err = (a - b).abs()
+        errs[f"tags.{k}"] = float(err.max())
+        rtol = TTC_RTOL if k in TTC_TAGS else 0.0
+        if not bool((err <= MAIN_ATOL + rtol * b.abs()).all()):
+            bad[f"tags.{k}"] = float(err.max())
     if bad:
         raise AssertionError(f"main path: beyond atol {MAIN_ATOL}: {bad}")
-    for k, v in got.items():
+    for k, v in list(got.items()) + [(f"tags.{k}", v) for k, v in got["tags"].items()]:
         if isinstance(v, torch.Tensor) and v.is_floating_point() and not bool(torch.isfinite(v).all()):
             raise AssertionError(f"main path: {k} is not finite")
-    if launches != {"tracker_step": NUM_FRAMES, "kalman_step": NUM_FRAMES}:
-        raise AssertionError(f"main path: kernel launches {launches}, expected {NUM_FRAMES} each")
-    return {"frames": NUM_FRAMES, "launches": launches, "max_abs_err": errs,
-            "num_confirmed_last": int(got["num_confirmed"][-1]), "plan_best_last": int(got["plan_best"][-1])}
+    expected = {name: 0 for name in KERNEL_MODULES}
+    expected.update(tracker_step=NUM_FRAMES, kalman_step=NUM_FRAMES)
+    if enable_tagging:
+        expected["tagging_step"] = NUM_FRAMES
+    if launches != expected:
+        raise AssertionError(f"main path: kernel launches {launches}, expected {expected}")
+    summary = {"frames": NUM_FRAMES, "tagging": enable_tagging, "launches": launches, "max_abs_err": errs,
+               "num_confirmed_last": int(got["num_confirmed"][-1]), "plan_best_last": int(got["plan_best"][-1])}
+    if enable_tagging:
+        summary["ttc_beyond_atol"] = any(errs[f"tags.{k}"] > MAIN_ATOL for k in TTC_TAGS)
+        summary["distinct"] = {
+            k: sorted(set(got["tags"][k].cpu().tolist()))
+            for k in ("road_type", "lateral", "longitudinal", "turning", "primary_interaction", "overall_risk")
+        }
+    return summary, got
+
+
+def check_association_path(device, inputs: dict, outs: dict) -> dict:
+    """The public `ops.greedy_associate` (kernel K4 on the card) on every
+    frame of a card run: the table before the frame against its detections.
+    It must give K1's match of that frame.  The count is zeroed just before
+    and read after."""
+    cfg = bench_config(True).tracker
+    track_id, bbox, match = outs["track_id"], outs["track_bbox"], outs["match"]
+    det_bbox = torch.as_tensor(inputs["bbox"], device=device)
+    det_valid = torch.as_tensor(inputs["valid"], device=device)
+    i32_max = torch.iinfo(torch.int32).max
+    _zero_counts()
+    for f in range(NUM_FRAMES):
+        if f == 0:
+            prev_id = torch.zeros_like(track_id[0])
+            prev_bbox = torch.zeros_like(bbox[0])
+        else:
+            prev_id, prev_bbox = track_id[f - 1], bbox[f - 1]
+        alive = prev_id > 0
+        iou = torch.where(alive[:, None] & det_valid[f][None, :], pairwise_iou(prev_bbox, det_bbox[f]), -1.0)
+        rank = _rank_by_count(torch.where(alive, prev_id, i32_max))
+        got = pt.ops.greedy_associate(iou.contiguous(), rank, cfg.iou_threshold)
+        if not torch.equal(got, match[f]):
+            raise AssertionError(f"association path frame {f}: {got.tolist()} vs K1 {match[f].tolist()}")
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    if launches != {**{name: 0 for name in KERNEL_MODULES}, "associate": NUM_FRAMES}:
+        raise AssertionError(f"association path: kernel launches {launches}")
+    return {"frames": NUM_FRAMES, "launches": launches, "matched": int((match >= 0).sum())}
 
 
 def time_cuda(fn, reps: int, warmup: int = 20) -> float:
@@ -257,20 +562,27 @@ def time_cuda(fn, reps: int, warmup: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel_name: str, reps: int = 200) -> float:
-    """Mean device time of the kernel named ``kernel_name`` over ``reps``
-    calls, from the profiler's trace of the card."""
+def device_times(launchers: dict, reps: int = 100) -> dict:
+    """Mean device time of each kernel over ``reps`` calls of its launcher,
+    from one profiler trace of the card, and the launches the trace saw.
+    ``launchers`` maps a name to the launch function and the kernel's name
+    in the trace.  A trace can miss the first kernel after it starts, so a
+    small copy goes first, and a kernel may show one launch short."""
     with torch.profiler.profile(activities=PROFILED) as prof:
-        for _ in range(reps):
-            fn()
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    times = [
-        e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.name
-    ]
-    if len(times) != reps:
-        raise AssertionError(f"the profiler saw {len(times)} launches of {kernel_name}, expected {reps}")
-    return sum(times) / len(times) / 1e3
+        for fn, _ in launchers.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    result = {}
+    for name, (_, kernel_name) in launchers.items():
+        times = [e.time_range.elapsed_us() for e in on_device if kernel_name in e.name]
+        if not reps - 1 <= len(times) <= reps:
+            raise AssertionError(f"the profiler saw {len(times)} launches of {kernel_name}, expected {reps}")
+        result[name] = (sum(times) / len(times) / 1e3, len(times))
+    return result
 
 
 def _nbytes(*tensors) -> int:
@@ -284,7 +596,9 @@ def _table_tensors(table):
 def measure_kernels(device, inputs: dict, reps: int = 2000) -> dict:
     """Each kernel and its plain version at the main path's shapes: the
     tracker table after 100 synthetic frames with frame 101's detections,
-    the ego filter after 100 frames with a measured frame."""
+    the ego filter after 100 frames with a measured frame, and the tagging
+    stage and the association at the tagging path's state after 100
+    frames."""
     cfg = bench_config()
     table = TrackTable.empty(cfg.tracker.max_tracks, cfg.tracker.trajectory_length, device)
     for f in range(100):
@@ -306,8 +620,7 @@ def measure_kernels(device, inputs: dict, reps: int = 2000) -> dict:
 
     k1 = {
         "ms": time_cuda(launch_k1, reps),
-        "device_ms": device_ms(launch_k1, "tracker_step_kernel"),
-        "plain_ms": time_cuda(lambda: plain_tracker_step(table, dets, cfg.tracker), reps // 10),
+        "plain_ms": time_cuda(lambda: plain_tracker_step(table, dets, cfg.tracker), PLAIN_REPS),
         "bytes": k1_bytes, "operations": k1_ops, "peak_ops_per_s": PEAK_F32_PER_S,
     }
 
@@ -334,48 +647,151 @@ def measure_kernels(device, inputs: dict, reps: int = 2000) -> dict:
 
     k2 = {
         "ms": time_cuda(launch_k2, reps),
-        "device_ms": device_ms(launch_k2, "kalman_step_kernel"),
-        "plain_ms": time_cuda(lambda: _estimator_step_xla(ks, model, z, has, est), reps // 10),
+        "plain_ms": time_cuda(lambda: _estimator_step_xla(ks, model, z, has, est), PLAIN_REPS),
         "bytes": k2_bytes, "operations": k2_ops, "peak_ops_per_s": PEAK_F64_PER_S,
     }
-    for m in (k1, k2):
+
+    # K3 and K4 at the tagging path's shapes: the card run's state after 100
+    # synthetic frames, frame 101's detections and ego step.
+    tcfg = bench_config(True)
+    sub = {k: v[:100] for k, v in inputs.items()}
+    st, _ = pt.make_sequence_runner(tcfg, device=device)(pt.initial_state(tcfg, device=device), sub)
+    _, vrow = _estimator_row_fused(st.kalman, model, z, has, est)
+    rules = TaggingRules.from_config(tcfg)
+    table, tstate = st.tracks, st.tagging
+    new_state, tag_f, tag_i = tagging_kernel.tagging_step(rules, tstate, dets, table, vrow)
+    k3_bytes = tagging_bytes(rules, tstate, dets, table, new_state, tag_f, tag_i)
+    k3_ops = tagging_operations(t_cap, d_cap, rules.window, rules.history, rules.interaction_history)
+
+    def launch_k3():
+        return tagging_kernel.tagging_step(rules, tstate, dets, table, vrow)
+
+    k3 = {
+        "ms": time_cuda(launch_k3, reps),
+        "plain_ms": time_cuda(lambda: tagging_step_plain(rules, tstate, dets, table, vrow), PLAIN_REPS),
+        "bytes": k3_bytes, "operations": k3_ops, "peak_ops_per_s": PEAK_F32_PER_S,
+    }
+
+    alive = table.track_id > 0
+    iou = torch.where(alive[:, None] & dets.valid[None, :], pairwise_iou(table.bbox, dets.bbox), -1.0).contiguous()
+    rank = _rank_by_count(torch.where(alive, table.track_id, torch.iinfo(torch.int32).max))
+    thr = tcfg.tracker.iou_threshold
+    match = association_kernel.greedy_associate(iou, rank, thr)
+    # Counted from the kernel's loops on this run's data: a row scan and a
+    # column scan of the matrix and an accepting pass over the rows each
+    # round, at most matches + 1 rounds.
+    rounds = int((match >= 0).sum()) + 1
+
+    def launch_k4():
+        return association_kernel.greedy_associate(iou, rank, thr)
+
+    k4 = {
+        "ms": time_cuda(launch_k4, reps),
+        "plain_ms": time_cuda(lambda: _greedy_associate_plain(iou, rank, thr), PLAIN_REPS),
+        "bytes": _nbytes(iou, rank, match), "operations": rounds * (2 * t_cap * d_cap + t_cap),
+        "peak_ops_per_s": PEAK_F32_PER_S, "rounds_at_most": rounds,
+    }
+    launchers = {
+        "tracker_step": (launch_k1, "tracker_step_kernel"),
+        "kalman_step": (launch_k2, "kalman_step_kernel"),
+        "tagging_step": (launch_k3, "tagging_step_kernel"),
+        "associate": (launch_k4, "associate_kernel"),
+    }
+    for m, (dev_ms, seen) in zip((k1, k2, k3, k4), device_times(launchers).values()):
+        m["device_ms"], m["profiled_launches"] = dev_ms, seen
+    for m in (k1, k2, k3, k4):
         t_bytes = m["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = m["operations"] / m["peak_ops_per_s"] * 1e3
         m["bound_ms"], m["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return {"tracker_step": k1, "kalman_step": k2}
+    return {"tracker_step": k1, "kalman_step": k2, "tagging_step": k3, "associate": k4}
 
 
-def measure_main_path(device, inputs: dict, repeats: int = 3) -> dict:
-    """Frames/s of the main path over the 300-frame stream on the host
-    clock, ending in a synchronise; the best of a few runs after a warm one."""
-    cfg = bench_config()
-    run = pt.make_sequence_runner(cfg, device=device)
+def tagging_bytes(rules, state, dets, table, new_state, tag_f, tag_i) -> int:
+    """Bytes one K3 step moves on this frame's data, counted from the
+    kernel's reads: the valid flags, the class of each valid detection and
+    the confidence of each valid traffic light or stop sign; the table's
+    boxes, classes, ids, velocity counts and previous ids, the hits of live
+    slots, the forward velocity of slots with a velocity and the ring
+    lengths of slots that keep their id; six of the vehicle row's eleven
+    floats; the state's counters, and its rings but for the entries this
+    frame replaces.  Written: the new rings, lengths, counters and the two
+    packed rows."""
+    valid = dets.valid
+    cls = dets.class_id
+    n_valid = int(valid.sum())
+    n_signs = int((valid & ((cls == 6) | (cls == 7))).sum())
+    alive = table.track_id > 0
+    confirmed = alive & (table.hits >= rules.min_hits)
+    kept = state.int_track_id == table.track_id
+    slots = table.track_id.numel()
+    read = (
+        valid.numel() + 4 * n_valid + 4 * n_signs
+        + slots * (16 + 4 + 4 + 4 + 4) + 4 * int(alive.sum())
+        + 4 * int((table.vel_count > 0).sum()) + 4 * int(kept.sum())
+        + 4 * 6 + 4 * 3
+        + 4 * (rules.window - 1) + 4 * 6 * (rules.history - 1)
+        + 4 * (state.int_centers.numel() - 2 * int(confirmed.sum()))
+    )
+    written = _nbytes(new_state.scene_votes, new_state.man_history, new_state.int_centers,
+                      new_state.int_len, tag_f, tag_i) + 4 * 3
+    return read + written
+
+
+def tagging_operations(T: int, D: int, W: int, H: int, HI: int) -> int:
+    """Operations of one K3 step, counted from the kernel's loops: per slot
+    24 arithmetic operations and 15 comparisons (distance, TTC, centers,
+    drift, cascade); one select an entry of the center ring (2 HI a slot)
+    and of the maneuver history (6 H); 3 comparisons a slot on each of the
+    13 per-type threads and 10 on the count thread; the scene classifier's
+    6 a detection, 168 for the scores and total, 12 for the normalised
+    argmax, 5 a vote slot and about 60 more; the maneuver detector's
+    about 90."""
+    return T * (24 + 15 + 13 * 3 + 10 + 2 * HI) + 6 * H + 6 * D + 168 + 12 + 5 * W + 60 + 90
+
+
+def measure_paths(device, inputs: dict, rounds: int = 2, profiled_frames: int = 100) -> dict:
+    """Frames/s of the main path and of the tagging path over the 300-frame
+    stream, on the host clock around runs that end in a synchronise.  After
+    a warm run of each, ``rounds`` rounds in the order main, tagging,
+    tagging, main, so that a drift in the host's speed falls on both; the
+    best run of each counts.  Then a run of each over the stream's first
+    ``profiled_frames`` frames under the profiler (reading a trace back
+    takes longer the more device items it holds)."""
+    paths = {"main_path": False, "tagging_path": True}
+    runs = {name: pt.make_sequence_runner(bench_config(tag), device=device) for name, tag in paths.items()}
     xs = {k: torch.as_tensor(v).to(device) for k, v in inputs.items()}
-    run(pt.initial_state(cfg, device=device), xs)
-    times = []
-    for _ in range(repeats):
-        state = pt.initial_state(cfg, device=device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(state, xs)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    head = {k: v[:profiled_frames] for k, v in xs.items()}
 
-    # One more run under the profiler: the device's busy share of the wall
-    # time and the device work items (kernels, copies) a frame.
-    with torch.profiler.profile(activities=PROFILED) as prof:
+    def timed(name, frames=xs):
+        state = pt.initial_state(bench_config(paths[name]), device=device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(pt.initial_state(cfg, device=device), xs)
+        runs[name](state, frames)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in on_device)
-    return {
-        "frames": NUM_FRAMES, "seconds": times, "frames_per_s": NUM_FRAMES / min(times),
-        "profiled": {"wall_us": wall_us, "device_busy_us": busy_us, "busy_share": busy_us / wall_us,
-                     "device_items_per_frame": len(on_device) / NUM_FRAMES},
-    }
+        return time.perf_counter() - t0
+
+    for name in paths:
+        timed(name)
+    times = {name: [] for name in paths}
+    for _ in range(rounds):
+        for name in ("main_path", "tagging_path", "tagging_path", "main_path"):
+            times[name].append(timed(name))
+
+    # The device's busy share of the wall time and the device work items
+    # (kernels, copies) a frame.
+    result = {}
+    for name in paths:
+        with torch.profiler.profile(activities=PROFILED) as prof:
+            wall_us = timed(name, head) * 1e6
+        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in on_device)
+        result[name] = {
+            "frames": NUM_FRAMES, "seconds": times[name], "frames_per_s": NUM_FRAMES / min(times[name]),
+            "profiled": {"frames": profiled_frames, "wall_us": wall_us, "device_busy_us": busy_us,
+                         "busy_share": busy_us / wall_us,
+                         "device_items_per_frame": len(on_device) / profiled_frames},
+        }
+    return result
 
 
 def main() -> int:
@@ -402,25 +818,42 @@ def main() -> int:
     k2 = check_kalman_kernel(device)
     emit({"phase": "kalman_kernel", **k2})
 
+    k3 = check_tagging_kernel(device)
+    emit({"phase": "tagging_kernel", "cases": k3, "result": "discrete exact, floats within bounds"})
+    emit({"phase": "association_kernel", "cases": check_association_kernel(device), "result": "exact"})
+
     inputs = synthetic_inputs()
-    main_path = check_main_path(device, inputs)
+    main_path, _ = check_main_path(device, inputs)
     emit({"phase": "main_path", **main_path})
+    tagging_path, tagged = check_main_path(device, inputs, enable_tagging=True)
+    emit({"phase": "tagging_path", **tagging_path})
+    association_path = check_association_path(device, inputs, tagged)
+    emit({"phase": "association_path", **association_path})
 
+    t0 = time.perf_counter()
     times = measure_kernels(device, inputs)
-    fps = measure_main_path(device, inputs)
-    emit({"phase": "times", "card": smi, "kernels": times, "main_path": fps})
+    kernel_s = time.perf_counter() - t0
+    paths = measure_paths(device, inputs)
+    emit({"phase": "times", "card": smi, "kernels": times, **paths,
+          "seconds": {"kernels": kernel_s, "paths": time.perf_counter() - t0 - kernel_s}})
 
+    k3_err = max(v for case in k3 for v in case["max_abs_err"].values())
     sources = {
-        "tracker_step": (f"{PKG}/kernels/csrc/tracker_step.cu", f"{JAX_PKG}/ops/tracker_pallas.py:51", 0.0),
+        "tracker_step": (f"{PKG}/kernels/csrc/tracker_step.cu", f"{JAX_PKG}/ops/tracker_pallas.py:51",
+                         0.0, main_path),
         "kalman_step": (f"{PKG}/kernels/csrc/kalman_step.cu", f"{JAX_PKG}/ops/kalman_pallas.py:43",
-                        max(k2["max_abs_err"].values())),
+                        max(k2["max_abs_err"].values()), main_path),
+        "tagging_step": (f"{PKG}/kernels/csrc/tagging_step.cu", f"{JAX_PKG}/ops/tagging_pallas.py:109",
+                         k3_err, tagging_path),
+        "associate": (f"{PKG}/kernels/csrc/associate.cu", f"{JAX_PKG}/ops/association_pallas.py:33",
+                      0.0, association_path),
     }
     kernels = []
-    for name, (source, replaces, err) in sources.items():
+    for name, (source, replaces, err, path) in sources.items():
         m = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": main_path["launches"][name], "max_abs_err": err,
+            "launches": path["launches"][name], "max_abs_err": err,
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None,
         })

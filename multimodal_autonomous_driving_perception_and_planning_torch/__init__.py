@@ -4,8 +4,8 @@ planning pipeline.
 A second package beside the JAX one, which stays the reference.  Plain
 tensor code is PyTorch; each TPU kernel of the JAX package becomes a kernel
 written by hand for Hopper (CUDA C++ for ``sm_90a`` under ``kernels/csrc``),
-with a plain PyTorch version beside it that runs for CPU tensors.  This
-slice covers the detections-mode path: track -> estimate -> plan.
+with a plain PyTorch version beside it that runs for CPU tensors.  The port
+covers the detections-mode path: track -> estimate -> plan -> tag.
 """
 
 __version__ = "0.1.0"
@@ -21,6 +21,16 @@ from .config import (
     PlannerConfig,
     TaggingConfig,
     TrackerConfig,
+)
+from .tagging import (
+    CONDITIONS,
+    INTERACTIONS,
+    LATERAL,
+    LONGITUDINAL,
+    RISKS,
+    ROAD_TYPES,
+    TURNING,
+    make_tagging_step,
 )
 from .pipeline import (
     detections_from_arrays,
@@ -64,4 +74,12 @@ __all__ = [
     "make_pipeline_step",
     "make_sequence_runner",
     "detections_from_arrays",
+    "make_tagging_step",
+    "ROAD_TYPES",
+    "LATERAL",
+    "LONGITUDINAL",
+    "TURNING",
+    "INTERACTIONS",
+    "RISKS",
+    "CONDITIONS",
 ]

@@ -22,7 +22,7 @@ import torch
 from ..config import EstimatorConfig
 from ..ops import kalman_kernel
 from ..ops.kalman import KalmanModel, kalman_predict, kalman_update
-from ..types import KalmanState, VehicleState
+from ..types import KalmanState, VehicleState, vehicle_row, vehicle_state_from_row
 
 
 def extract_state(
@@ -77,14 +77,28 @@ def estimator_step(
     reference's measurement-skip branch).  CUDA tensors go through kernel
     K2, CPU tensors through the plain version.
     """
+    new_ks, row = estimator_step_row(ks, model, measurement, has_measurement, cfg)
+    return new_ks, vehicle_state_from_row(row)
+
+
+def estimator_step_row(
+    ks: KalmanState,
+    model: KalmanModel,
+    measurement: torch.Tensor,
+    has_measurement,
+    cfg: EstimatorConfig,
+) -> Tuple[KalmanState, torch.Tensor]:
+    """`estimator_step` with the vehicle state as one (11,) float32 row in
+    VehicleState field order: on the card, the row kernel K2 writes."""
     device = ks.x.device
     measurement = measurement.to(torch.float32)
     has_measurement = torch.as_tensor(has_measurement, dtype=torch.bool, device=device)
     if device.type == "cuda":
-        return _estimator_step_fused(ks, model, measurement, has_measurement, cfg)
+        return _estimator_row_fused(ks, model, measurement, has_measurement, cfg)
     if device.type != "cpu":
         raise ValueError(f"estimator_step: unsupported device {device}")
-    return _estimator_step_xla(ks, model, measurement, has_measurement, cfg)
+    new_ks, state = _estimator_step_xla(ks, model, measurement, has_measurement, cfg)
+    return new_ks, vehicle_row(state)
 
 
 def _estimator_step_xla(
@@ -115,6 +129,24 @@ def _estimator_step_xla(
     return new_ks, state
 
 
+def _estimator_row_fused(
+    ks: KalmanState,
+    model: KalmanModel,
+    measurement: torch.Tensor,
+    has_measurement: torch.Tensor,
+    cfg: EstimatorConfig,
+) -> Tuple[KalmanState, torch.Tensor]:
+    """`estimator_step_row` through kernel K2 (CUDA tensors only)."""
+    x, P, row = kalman_kernel.kalman_step(
+        ks, model, measurement, has_measurement, cfg.dt, cfg.speed_heading_hold
+    )
+    state = vehicle_state_from_row(row)
+    new_ks = KalmanState(
+        x=x, P=P, time=state.timestamp, prev_heading=state.heading, prev_speed=state.speed
+    )
+    return new_ks, row
+
+
 def _estimator_step_fused(
     ks: KalmanState,
     model: KalmanModel,
@@ -123,11 +155,5 @@ def _estimator_step_fused(
     cfg: EstimatorConfig,
 ) -> Tuple[KalmanState, VehicleState]:
     """`estimator_step` through kernel K2 (CUDA tensors only)."""
-    x, P, vs = kalman_kernel.kalman_step(
-        ks, model, measurement, has_measurement, cfg.dt, cfg.speed_heading_hold
-    )
-    state = VehicleState(*vs.unbind(0))
-    new_ks = KalmanState(
-        x=x, P=P, time=state.timestamp, prev_heading=state.heading, prev_speed=state.speed
-    )
-    return new_ks, state
+    new_ks, row = _estimator_row_fused(ks, model, measurement, has_measurement, cfg)
+    return new_ks, vehicle_state_from_row(row)

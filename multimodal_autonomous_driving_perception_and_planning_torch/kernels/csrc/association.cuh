@@ -1,18 +1,21 @@
 // The greedy mutual-max association fixpoint as a block-wide device
 // function, shared by kernel K1 (tracker_step.cu) and the standalone
-// association kernel still to be ported (K4, the JAX package's
-// ops/association_pallas.py).
+// association kernel K4 (associate.cu).
 #pragma once
 
 constexpr int kI32Max = 2147483647;
 
 // The fixpoint over an IoU matrix in shared memory (row stride `ld`); its
-// plain version is ops/association.py `greedy_associate`.  Entries of invalid pairs must already be -1.  A pair
-// is eligible while iou >= thr and iou >= 0 and neither its row nor its
+// plain version is ops/association.py `_greedy_associate_plain`, which it
+// equals on every input.  Entries of invalid pairs must already be -1.  A
+// pair is eligible while iou >= thr and iou >= 0 and neither its row nor its
 // column is taken.  Each round finds every row's best column (first column
 // at the row max) and every column's best row (lowest rank at the column
 // max), accepts the mutual pairs, and the loop ends with the first round
-// that accepts nothing.  Called by all threads of the block; ends synced.
+// that accepts nothing.  Rows that share the column's best IoU and rank are
+// all accepted, as the plain version's key rank * D + det ties them; with
+// distinct ranks (the tracker's) there is one.  Called by all threads of
+// the block; ends synced.
 __device__ inline void greedy_associate_block(const float* iou, int ld,
                                               const int* rank, int T, int D,
                                               float thr, int* match,
@@ -60,8 +63,9 @@ __device__ inline void greedy_associate_block(const float* iou, int ld,
     if (threadIdx.x == 0) *flag = 0;
     __syncthreads();
     for (int t = threadIdx.x; t < T; t += blockDim.x) {
-      int d = row_best[t];
-      if (d >= 0 && col_best[d] == t) {
+      const int d = row_best[t];
+      const int c = d >= 0 ? col_best[d] : -1;
+      if (c == t || (c >= 0 && rank[t] == rank[c] && iou[t * ld + d] == iou[c * ld + d])) {
         match[t] = d;
         row_done[t] = 1;
         col_done[d] = 1;

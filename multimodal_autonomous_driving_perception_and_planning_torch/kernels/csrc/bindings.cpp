@@ -20,6 +20,15 @@ extern "C" int madpp_kalman_step(const void*, const void*, const void*, const vo
                                  const void*, const void*, const void*, const void*,
                                  const void*, void*, void*, void*, float, float, void*);
 
+extern "C" int madpp_tagging_step(
+    const void*, const void*, const void*, const void*, const void*, const void*,
+    const void*, const void*, const void*, const void*, const void*, const void*,
+    const void*, const void*, const void*, const void*, const void*, const void*,
+    const void*, const void*, void*, void*, void*, void*, void*, void*, void*,
+    const void*, int, int, int, int, int, int, int, void*);
+
+extern "C" int madpp_associate(const void*, const void*, void*, int, int, float, void*);
+
 namespace {
 
 inline void* ptr(std::uintptr_t p) { return reinterpret_cast<void*>(p); }
@@ -45,9 +54,31 @@ int kalman_step(pybind11::args a) {
                            ptr(a[14].cast<std::uintptr_t>()));
 }
 
+int tagging_step(pybind11::args a) {
+  if (a.size() != 36) throw std::invalid_argument("tagging_step takes 36 arguments");
+  void* p[28];
+  for (int i = 0; i < 28; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
+  int n[7];
+  for (int i = 0; i < 7; ++i) n[i] = a[28 + i].cast<int>();
+  return madpp_tagging_step(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9],
+                            p[10], p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18],
+                            p[19], p[20], p[21], p[22], p[23], p[24], p[25], p[26], p[27],
+                            n[0], n[1], n[2], n[3], n[4], n[5], n[6],
+                            ptr(a[35].cast<std::uintptr_t>()));
+}
+
+int associate(pybind11::args a) {
+  if (a.size() != 7) throw std::invalid_argument("associate takes 7 arguments");
+  return madpp_associate(ptr(a[0].cast<std::uintptr_t>()), ptr(a[1].cast<std::uintptr_t>()),
+                         ptr(a[2].cast<std::uintptr_t>()), a[3].cast<int>(), a[4].cast<int>(),
+                         a[5].cast<float>(), ptr(a[6].cast<std::uintptr_t>()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("tracker_step", &tracker_step, "Launch kernel K1; returns the CUDA error code.");
   m.def("kalman_step", &kalman_step, "Launch kernel K2; returns the CUDA error code.");
+  m.def("tagging_step", &tagging_step, "Launch kernel K3; returns the CUDA error code.");
+  m.def("associate", &associate, "Launch kernel K4; returns the CUDA error code.");
 }

@@ -1,15 +1,16 @@
 """The per-frame pipeline and its sequence runner, detections mode.
 
 One frame is ``(state, inputs) -> (state', out)``: track (kernel K1 on the
-card), estimate the ego state (kernel K2 on the card), plan (tensor ops).
-The sequence runner loops that step over a whole sequence and writes each
-frame's outputs into preallocated ``(F, ...)`` buffers, so that no frame
-waits for the host.
+card), estimate the ego state (kernel K2 on the card), plan (tensor ops),
+and, with ``enable_tagging``, tag (kernel K3 on the card).  The sequence
+runner loops that step over a whole sequence and writes each frame's
+outputs into preallocated ``(F, ...)`` buffers, so that no frame waits for
+the host.  The tags travel as K3's two packed rows a frame and are
+unpacked into the 43-key dict once, after the loop.
 
-This slice runs with ``use_frames=False`` and ``enable_tagging=False``;
-the other configurations raise `NotImplementedError`.  Entry points run on
-the card unless the caller asks for ``device="cpu"``, where each kernel's
-plain version runs instead.
+This slice runs with ``use_frames=False``; ``use_frames=True`` raises
+`NotImplementedError`.  Entry points run on the card unless the caller
+asks for ``device="cpu"``, where each kernel's plain version runs instead.
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ from typing import Any, Dict
 import torch
 
 from .config import PipelineConfig
-from .estimation.ego import estimator_step
+from .estimation.ego import estimator_step_row
 from .ops.kalman import make_constant_accel_model
 from .planning.planner import plan
+from .tagging.rules import make_packed_tagging_step, unpack_tags
 from .tracking.tracker import tracker_update_with_order
 from .types import (
     VEHICLE_STATE_FIELDS,
@@ -32,6 +34,7 @@ from .types import (
     TaggingState,
     TrackTable,
     VehicleState,
+    vehicle_state_from_row,
 )
 from .utils.convert import kalman_model_from_numpy
 
@@ -56,11 +59,6 @@ def _check_slice(cfg: PipelineConfig) -> None:
         raise NotImplementedError(
             "use_frames=True (lanes and scene features from camera frames) is "
             "not ported yet: ROADMAP.md queue 1, item 7 (frames path)"
-        )
-    if cfg.enable_tagging:
-        raise NotImplementedError(
-            "enable_tagging=True is not ported yet: ROADMAP.md queue 1, item 6 "
-            "(tagging, with kernel K3)"
         )
 
 
@@ -91,19 +89,10 @@ def detections_from_arrays(arrs: Dict[str, Any], device="cuda") -> Detections:
     )
 
 
-def make_pipeline_step(cfg: PipelineConfig, device="cuda"):
-    """Build the per-frame step function.
-
-    Inputs per frame (all fixed-shape, on the step's device):
-      detections: Detections table
-      ego_measurement: (4,) [x, y, vx, vy]
-      has_measurement, reference_positions, reference_valid, obstacles,
-      obstacles_valid: optional, as in the JAX package.
-
-    Outputs: a dict of per-frame results, the JAX package's keys.
-    """
-    _check_slice(cfg)
-    dev = _resolve_device(device)
+def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
+    """The frame step: ``(state, inputs) -> (state', out, tag_rows)``, with
+    ``tag_rows`` K3's packed ``(tag_f, tag_i)``, or None without tagging,
+    ``out`` holding no "tags" and the vehicle state as K2's (11,) row."""
     model = kalman_model_from_numpy(
         *make_constant_accel_model(
             cfg.estimator.dt,
@@ -114,6 +103,7 @@ def make_pipeline_step(cfg: PipelineConfig, device="cuda"):
         device=dev,
     )
     measured = torch.ones((), dtype=torch.bool, device=dev)
+    tagging_step = make_packed_tagging_step(cfg) if cfg.enable_tagging else None
 
     def step(state: PipelineState, inputs: Dict[str, Any]):
         dets = inputs["detections"]
@@ -123,14 +113,15 @@ def make_pipeline_step(cfg: PipelineConfig, device="cuda"):
             state.tracks, dets, cfg.tracker, cfg.tracker.min_hits
         )
 
-        # Ego estimation: kernel K2 on the card.
-        kalman, vstate = estimator_step(
+        # Ego estimation: kernel K2 on the card, the state as its one row.
+        kalman, vrow = estimator_step_row(
             state.kalman,
             model,
             inputs["ego_measurement"],
             inputs.get("has_measurement", measured),
             cfg.estimator,
         )
+        vstate = vehicle_state_from_row(vrow)
 
         # Planning.
         current = torch.stack([vstate.x, vstate.y, vstate.heading, vstate.speed])
@@ -144,11 +135,18 @@ def make_pipeline_step(cfg: PipelineConfig, device="cuda"):
         )
         best = pr.best.view(1)
 
+        # Tagging: kernel K3 on the card.
+        if tagging_step is not None:
+            tagging_state, tag_f, tag_i = tagging_step(state.tagging, dets, table, vrow)
+            tag_rows = (tag_f, tag_i)
+        else:
+            tagging_state, tag_rows = state.tagging, None
+
         new_state = PipelineState(
             tracks=table,
             kalman=kalman,
             lanes=state.lanes,
-            tagging=state.tagging,
+            tagging=tagging_state,
             frame_idx=state.frame_idx + 1,
         )
         out = {
@@ -164,12 +162,11 @@ def make_pipeline_step(cfg: PipelineConfig, device="cuda"):
             "confirmed_order": order,
             "num_confirmed": n_confirmed,
             "match": match,
-            "vehicle_state": vstate,
+            "vehicle_state": vrow,
             "plan_costs": pr.costs,
             "plan_best": pr.best,
             "plan_best_positions": pr.positions.index_select(0, best)[0],
             "plan_best_velocities": pr.velocities.index_select(0, best)[0],
-            "tags": {},
         }
         if cfg.emit_trajectories:
             out["track_trajectory"] = table.trajectory
@@ -179,6 +176,30 @@ def make_pipeline_step(cfg: PipelineConfig, device="cuda"):
             out["plan_positions"] = pr.positions
             out["plan_velocities"] = pr.velocities
             out["plan_lateral_offsets"] = pr.lateral_offsets
+        return new_state, out, tag_rows
+
+    return step
+
+
+def make_pipeline_step(cfg: PipelineConfig, device="cuda"):
+    """Build the per-frame step function.
+
+    Inputs per frame (all fixed-shape, on the step's device):
+      detections: Detections table
+      ego_measurement: (4,) [x, y, vx, vy]
+      has_measurement, reference_positions, reference_valid, obstacles,
+      obstacles_valid: optional, as in the JAX package.
+
+    Outputs: a dict of per-frame results, the JAX package's keys; "tags"
+    holds the 43 tags with ``enable_tagging``, else nothing.
+    """
+    _check_slice(cfg)
+    frame_step = _make_frame_step(cfg, _resolve_device(device))
+
+    def step(state: PipelineState, inputs: Dict[str, Any]):
+        new_state, out, tag_rows = frame_step(state, inputs)
+        out["vehicle_state"] = vehicle_state_from_row(out["vehicle_state"])
+        out["tags"] = {} if tag_rows is None else unpack_tags(*tag_rows, cfg.tracker.max_tracks)
         return new_state, out
 
     return step
@@ -207,8 +228,9 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
     per-frame inputs of `make_pipeline_step`.  Returns ``(final_state,
     outs)``, ``outs`` holding the step's outputs with a leading time axis.
     """
-    step = make_pipeline_step(cfg, device)
+    _check_slice(cfg)
     dev = _resolve_device(device)
+    step = _make_frame_step(cfg, dev)
 
     def run(state: PipelineState, inputs: Dict[str, Any]):
         if "frame" in inputs:
@@ -242,10 +264,9 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
                 confidence=frame.pop("confidence"),
                 valid=frame.pop("valid"),
             )
-            state, out = step(state, frame)
-            del out["tags"]
-            vstate = out.pop("vehicle_state")
-            out["vehicle_state"] = torch.stack([getattr(vstate, n) for n in VEHICLE_STATE_FIELDS])
+            state, out, tag_rows = step(state, frame)
+            if tag_rows is not None:
+                out["tag_f"], out["tag_i"] = tag_rows
             if not bufs:
                 bufs = {
                     k: torch.empty((num_frames, *v.shape), dtype=v.dtype, device=dev)
@@ -260,7 +281,8 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
             outs["vehicle_state"] = VehicleState(
                 *(vs[:, i].contiguous() for i in range(len(VEHICLE_STATE_FIELDS)))
             )
-        outs["tags"] = {}
+        tag_f, tag_i = outs.pop("tag_f", None), outs.pop("tag_i", None)
+        outs["tags"] = {} if tag_f is None else unpack_tags(tag_f, tag_i, cfg.tracker.max_tracks)
         return state, outs
 
     return run

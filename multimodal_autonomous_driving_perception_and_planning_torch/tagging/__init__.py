@@ -1,0 +1,23 @@
+"""Rule-based tagging (scene, maneuver, interaction), kernel K3 on the card."""
+
+from .rules import (
+    CONDITIONS,
+    INTERACTIONS,
+    LATERAL,
+    LONGITUDINAL,
+    RISKS,
+    ROAD_TYPES,
+    TURNING,
+    make_tagging_step,
+)
+
+__all__ = [
+    "make_tagging_step",
+    "ROAD_TYPES",
+    "LATERAL",
+    "LONGITUDINAL",
+    "TURNING",
+    "INTERACTIONS",
+    "RISKS",
+    "CONDITIONS",
+]

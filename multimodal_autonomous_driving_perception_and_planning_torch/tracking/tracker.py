@@ -32,7 +32,7 @@ import torch
 
 from ..config import TrackerConfig
 from ..ops import tracker_kernel
-from ..ops.association import greedy_associate
+from ..ops.association import _greedy_associate_plain
 from ..ops.geometry import pairwise_iou
 from ..types import Detections, TrackTable
 
@@ -113,7 +113,8 @@ def tracker_update(
     iou = pairwise_iou(table.bbox, dets.bbox)
     valid_pair = table.alive[:, None] & dets.valid[None, :]
     iou = torch.where(valid_pair, iou, -1.0)
-    match = greedy_associate(iou, id_rank(table), cfg.iou_threshold)
+    # The plain association, so that K1's plain version stays plain on the card.
+    match = _greedy_associate_plain(iou, id_rank(table), cfg.iou_threshold)
     matched = match >= 0
     matched_i = matched.to(torch.int32)
     safe = torch.where(matched, match, 0).long()

@@ -144,6 +144,16 @@ class VehicleState:
 VEHICLE_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(VehicleState))
 
 
+def vehicle_row(vstate: VehicleState) -> torch.Tensor:
+    """The state as one (11,) float32 row in field order (a new tensor)."""
+    return torch.stack([torch.as_tensor(getattr(vstate, n), dtype=torch.float32) for n in VEHICLE_STATE_FIELDS])
+
+
+def vehicle_state_from_row(row: torch.Tensor) -> VehicleState:
+    """The state whose fields are views of the entries of an (11,) row."""
+    return VehicleState(*row.unbind(0))
+
+
 @_frozen
 class PlanResult:
     """Planner output: all candidates plus the selected optimum."""

@@ -1,0 +1,103 @@
+"""The PyTorch port's greedy association against the JAX package's.
+
+`_greedy_associate_plain` (kernel K4's plain version, which the plain
+tracker calls) is held bit for bit to the JAX XLA fixpoint on the cases of
+tests/test_association_pallas.py: tie-quantized IoUs at the pipeline's
+shapes, and the empty and saturated matrices.  `greedy_associate` takes
+the plain version for CPU tensors.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_autonomous_driving_perception_and_planning_torch.ops import (
+    association_kernel,
+    greedy_associate,
+)
+from multimodal_autonomous_driving_perception_and_planning_torch.ops.association import (
+    _greedy_associate_plain,
+)
+from multimodal_autonomous_driving_perception_and_planning_tpu.ops.association import (
+    greedy_associate as jax_greedy_associate,
+)
+from multimodal_autonomous_driving_perception_and_planning_tpu.ops.association_pallas import (
+    greedy_associate_pallas,
+)
+
+
+def _random_case(rng, t, d):
+    """tests/test_association_pallas.py `_random_case`."""
+    iou = rng.random((t, d), np.float32)
+    q = int(rng.integers(1, 6))
+    iou = np.round(iou * q) / q  # quantized: exact ties
+    alive = rng.random(t) < 0.7
+    valid = rng.random(d) < 0.8
+    iou = np.where(alive[:, None] & valid[None, :], iou, -1.0).astype(np.float32)
+    rank = np.argsort(np.argsort(rng.random(t))).astype(np.int32)
+    return iou, rank
+
+
+def _both(iou, rank, thr):
+    want = np.asarray(jax_greedy_associate(jnp.asarray(iou), jnp.asarray(rank), thr, backend="cpu"))
+    got = _greedy_associate_plain(torch.tensor(iou), torch.tensor(rank), thr).numpy()
+    assert got.dtype == want.dtype == np.int32
+    return got, want
+
+
+@pytest.mark.parametrize("shape", [(64, 16), (64, 64), (128, 64), (16, 16)])
+def test_plain_matches_jax(shape):
+    t, d = shape
+    rng = np.random.default_rng(t * 1000 + d)
+    for trial in range(10):
+        iou, rank = _random_case(rng, t, d)
+        thr = float(rng.choice([0.0, 0.3, 0.5]))
+        got, want = _both(iou, rank, thr)
+        np.testing.assert_array_equal(got, want, err_msg=f"trial {trial}")
+        np.testing.assert_array_equal(
+            greedy_associate(torch.tensor(iou), torch.tensor(rank), thr).numpy(), got
+        )
+
+
+def test_plain_empty_and_full():
+    """No eligible pair: every row unmatched.  Identical IoUs: the row-major
+    tie-break fills the diagonal."""
+    t = d = 16
+    rank = np.arange(t, dtype=np.int32)
+    got, want = _both(np.full((t, d), -1.0, np.float32), rank, 0.3)
+    np.testing.assert_array_equal(got, want)
+    assert (got == -1).all()
+    got, want = _both(np.ones((t, d), np.float32), rank, 0.3)
+    np.testing.assert_array_equal(got, want)
+    assert (got == np.arange(t)).all()
+
+
+@pytest.mark.parametrize("shape", [(16, 16), (64, 16)])
+def test_plain_matches_jax_on_tied_ranks(shape):
+    """Ranks that are not a permutation: rows of equal rank that share a
+    column's best IoU all take that column, in the JAX package's XLA
+    fixpoint and its K4 (interpreted) as in the port's plain version, which
+    kernel K4 is held to on the card."""
+    t, d = shape
+    rng = np.random.default_rng(t + d)
+    for trial in range(4):
+        iou, _ = _random_case(rng, t, d)
+        rank = rng.integers(0, max(t // 4, 1), t).astype(np.int32)
+        got, want = _both(iou, rank, 0.3)
+        np.testing.assert_array_equal(got, want, err_msg=f"trial {trial}")
+        kernel = greedy_associate_pallas(jnp.asarray(iou), jnp.asarray(rank), 0.3, interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(kernel), err_msg=f"trial {trial}")
+    # Two rows of rank 0 with the same best IoU in column 0 both take it.
+    iou = np.full((t, d), -1.0, np.float32)
+    iou[0, 0] = iou[1, 0] = 0.9
+    rank = np.zeros(t, np.int32)
+    got, want = _both(iou, rank, 0.3)
+    np.testing.assert_array_equal(got, want)
+    assert list(got[:2]) == [0, 0] and (got[2:] == -1).all()
+
+
+def test_kernel_wrapper_refuses_what_k4_does_not_take():
+    iou, rank = torch.zeros((4, 4)), torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="launches a CUDA kernel"):
+        association_kernel.greedy_associate(iou, rank, 0.3)

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 against their plain versions on a CUDA card.
+"""Kernels K1-K4 against their plain versions on a CUDA card.
 
 The kernels are CUDA C++ for sm_90a and have no CPU mode, so every test
 here needs the card: on a machine without one they skip.  Run them on the
@@ -40,8 +40,33 @@ def test_kalman_kernel_matches_plain(device):
 
 
 def test_main_path_on_card_matches_cpu(device):
-    result = chip_smoke.check_main_path(device, chip_smoke.synthetic_inputs())
-    assert result["launches"] == {"tracker_step": 300, "kalman_step": 300}
+    result, _ = chip_smoke.check_main_path(device, chip_smoke.synthetic_inputs())
+    assert result["launches"] == {"tracker_step": 300, "kalman_step": 300, "tagging_step": 0, "associate": 0}
+
+
+def test_tagging_kernel_matches_plain(device):
+    """Discrete tags and state exact, floats within 1e-5 (state 1e-6), the
+    state threaded through each side: detections mode, frames mode, T=128."""
+    cases = chip_smoke.check_tagging_kernel(device, frames=(40, 30, 20))
+    assert [c["case"] for c in cases] == ["detections_64x16", "frames_64x16", "detections_128x64"]
+    torch.cuda.synchronize()
+
+
+def test_association_kernel_matches_plain(device):
+    cases = chip_smoke.check_association_kernel(device, trials=3)
+    assert cases[-1]["case"] == "empty_full_and_tied_pair_16x16"
+    assert "tied_ranks_64x16" in [c["case"] for c in cases]
+    torch.cuda.synchronize()
+
+
+def test_tagging_and_association_paths_on_card(device):
+    """The tagging path on the card equals the CPU run, K1-K3 launched once a
+    frame; the public greedy_associate (K4) reproduces K1's matches."""
+    inputs = chip_smoke.synthetic_inputs()
+    result, outs = chip_smoke.check_main_path(device, inputs, enable_tagging=True)
+    assert result["launches"] == {"tracker_step": 300, "kalman_step": 300, "tagging_step": 300, "associate": 0}
+    assoc = chip_smoke.check_association_path(device, inputs, outs)
+    assert assoc["launches"]["associate"] == 300
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(device):
@@ -55,3 +80,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     table = TrackTable.empty(16, 4, device)
     with pytest.raises(ValueError, match="1..64 detections"):
         tracker_kernel.tracker_step(table, dets, TrackerConfig(), 3)
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import association_kernel
+
+    iou = torch.zeros((129, 4), device=device)
+    with pytest.raises(ValueError, match="1..128 rows"):
+        association_kernel.greedy_associate(iou, torch.zeros(129, dtype=torch.int32, device=device), 0.3)
+    with pytest.raises(ValueError, match="expected torch.int32"):
+        association_kernel.greedy_associate(iou[:4], torch.zeros(4, dtype=torch.int64, device=device), 0.3)

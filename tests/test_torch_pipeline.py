@@ -181,10 +181,15 @@ def test_optional_inputs_forwarded_and_unknown_keys_raise():
 
 
 def test_other_configurations_refused():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.make_sequence_runner(pt.DEFAULT_CONFIG.replace(enable_tagging=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pt.make_sequence_runner(pt.DEFAULT_CONFIG.replace(use_frames=False), device="cpu")
+    """Frames mode is not ported yet, with tagging on or off; detections
+    mode with tagging on is."""
+    for tagging in (False, True):
+        cfg = pt.DEFAULT_CONFIG.replace(enable_tagging=tagging)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            pt.make_sequence_runner(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 7"):
+            pt.make_pipeline_step(cfg, device="cpu")
+    pt.make_sequence_runner(pt.DEFAULT_CONFIG.replace(use_frames=False), device="cpu")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
