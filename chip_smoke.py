@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detections-mode paths on a CUDA card.
+"""Drive the PyTorch port's paths on a CUDA card.
 
     python3 chip_smoke.py
 
@@ -16,15 +16,27 @@ Phases, each printing one JSON line:
      detections mode (120 frames), frames mode (60) and at T = 128 (60);
   6. kernel K4 (standalone association) against its plain version on the
      card, exact, over tie-quantized matrices and the empty and full ones;
-  7. the main path: `make_sequence_runner` on the card over the 300-frame
+  7. kernel K5 (greedy-NMS keep mask) against its plain version on the
+     card, exact, over tie-quantized pools at K = 16 ... 1024, a
+     suppression chain, all dead, all kept, and a batch of 64 at K = 256;
+  8. the main path: `make_sequence_runner` on the card over the 300-frame
      synthetic stream in bench.py's configuration, against the same runner
      on the CPU, with each kernel's launches counted in that run;
-  8. the tagging path: the same with tagging on (apps/serve.py's default);
-  9. the association path: the public `ops.greedy_associate` on each frame
+  9. the tagging path: the same with tagging on (apps/serve.py's default);
+ 10. the association path: the public `ops.greedy_associate` on each frame
      of the tagging path's run, against the association inside K1;
- 10. times: each kernel and its plain version by CUDA events at the main
-     path's shapes, beside the kernel's bound, and the frames/s of the main
-     and tagging paths, timed in turns.
+ 11. the YOLO path in float32: `make_yolo_sequence_runner` (yolov8n at 640,
+     seeded weights) over 300 seeded 480x640 frames; the first chunk's
+     conv tower against the CPU's, the card's detection tables against the
+     plain `nms` on the card's own candidates, and the pipeline against
+     the CPU's on those tables;
+ 12. the YOLO path in the serving configuration (bf16, the JAX defaults):
+     its head logits against the float32 run's, its tables against the
+     plain `nms` on its own candidates;
+ 13. times: each kernel and its plain version by CUDA events at its path's
+     shapes, beside the kernel's bound; the frames/s of the main and
+     tagging paths, timed in turns; the YOLO detection chunk by stage and
+     the YOLO path's frames/s in both dtypes.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Without a card it exits 1 at once.
 """
@@ -33,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -51,9 +64,11 @@ from multimodal_autonomous_driving_perception_and_planning_torch.estimation.ego 
     _estimator_step_xla,
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.kernels import build
+from multimodal_autonomous_driving_perception_and_planning_torch.models import yolov8
 from multimodal_autonomous_driving_perception_and_planning_torch.ops import (
     association_kernel,
     kalman_kernel,
+    nms_kernel,
     tagging_kernel,
     tracker_kernel,
 )
@@ -63,6 +78,14 @@ from multimodal_autonomous_driving_perception_and_planning_torch.ops.association
 from multimodal_autonomous_driving_perception_and_planning_torch.ops.geometry import pairwise_iou
 from multimodal_autonomous_driving_perception_and_planning_torch.ops.kalman import (
     make_constant_accel_model,
+)
+from multimodal_autonomous_driving_perception_and_planning_torch.ops.nms import (
+    _nms_keep_plain,
+    nms,
+    nms_prefilter,
+)
+from multimodal_autonomous_driving_perception_and_planning_torch.perception.detector import (
+    make_yolo_sequence_runner,
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.tagging.rules import (
     TaggingRules,
@@ -106,6 +129,7 @@ TTC_TAGS = ("track_ttc", "min_ttc")
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_F64_PER_S = 34e12  # the data sheet's float64 rate outside the tensor cores
+PEAK_BF16_PER_S = 989e12  # dense bf16 on the tensor cores
 # The card's activity only: tracing the host's operators too slows the
 # profiled run and takes seconds to read back.
 PROFILED = [torch.profiler.ProfilerActivity.CUDA]
@@ -116,7 +140,22 @@ KERNEL_MODULES = {
     "kalman_step": kalman_kernel,
     "tagging_step": tagging_kernel,
     "associate": association_kernel,
+    "nms_keep": nms_kernel,
 }
+# The YOLO path: yolov8n at 640 in 64-frame chunks, benchmarks/suite.py's
+# frames, with the JAX test's thresholds for random weights
+# (tests/test_yolo_nms.py:218-225) in float32 and the JAX defaults in bf16.
+YOLO_IMG, YOLO_BATCH, YOLO_PRE_TOPK, YOLO_IOU = 640, 64, 256, 0.45
+YOLO_F32 = dict(compute_dtype=torch.float32, score_threshold=0.05, map_to_taxonomy=False)
+YOLO_BF16 = dict(compute_dtype=torch.bfloat16, score_threshold=0.25, map_to_taxonomy=True)
+# Head logits against a reference, each scale's box and class logits: the
+# largest gap over the largest logit.  The card's float32 against the CPU's
+# (cuDNN and oneDNN sum in other orders; the port's CPU run stands 1.5e-6
+# from JAX's): 1e-4.  bf16 against float32 on the card: 0.05, from a bf16
+# CPU run at 160 and 640 px, which gave 0.013-0.021
+# (tests/test_torch_yolo.py holds the CPU to it).
+F32_LOGIT_REL = 1e-4
+BF16_LOGIT_REL = 0.05
 TABLE_FIELDS = (
     "track_id", "bbox", "class_id", "confidence", "age", "hits", "misses",
     "trajectory", "traj_len", "velocity", "vel_count", "next_id",
@@ -449,6 +488,57 @@ def check_association_kernel(device, trials: int = 10) -> list:
     return cases
 
 
+def random_nms_case(rng, k: int):
+    """tests/test_nms_pallas.py `_random_case`: centres and sizes quantized
+    to 10 px (exact IoU ties), scores descending with about a fifth dead."""
+    cx, cy = rng.uniform(0, 300, k), rng.uniform(0, 200, k)
+    w, h = rng.uniform(20, 120, k), rng.uniform(20, 120, k)
+    cx, cy, w, h = (np.round(v / 10) * 10 for v in (cx, cy, w, h))
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], axis=1).astype(np.float32)
+    scores = np.sort(rng.uniform(0, 1, k).astype(np.float32))[::-1].copy()
+    scores[rng.random(k) < 0.2] = 0.0
+    return boxes, np.sort(scores)[::-1].copy()
+
+
+def check_nms_kernel(device, trials: int = 8) -> list:
+    """K5 against its plain version, exact: tie-quantized pools at K = 16,
+    64, 256 and 1024 with thresholds of 0.1 to 0.7, the 24-box suppression
+    chain, all dead and all kept, and one launch over 64 pools of 256."""
+    cases = []
+
+    def compare(name, boxes, scores, thr):
+        b = torch.tensor(boxes, device=device).reshape(-1, boxes.shape[-2], 4)
+        s = torch.tensor(scores, device=device).reshape(b.shape[:2])
+        got = nms_kernel.nms_keep(b, s, thr)
+        want = _nms_keep_plain(b, s, thr)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 {name}: {got.int().tolist()} vs plain {want.int().tolist()}")
+        return int(want.sum())
+
+    for k in (16, 64, 256, 1024):
+        rng = np.random.default_rng(k)
+        kept = [compare(f"K={k} trial {i}", *random_nms_case(rng, k), float(rng.choice([0.1, 0.3, 0.45, 0.7])))
+                for i in range(trials)]
+        cases.append({"case": f"fuzz_K{k}", "trials": trials, "kept": kept})
+    n = 24
+    chain = np.stack([np.arange(n) * 5.0, np.zeros(n), np.arange(n) * 5.0 + 10.0, np.full(n, 10.0)], 1)
+    if compare("chain", chain.astype(np.float32), np.linspace(0.95, 0.5, n).astype(np.float32), 0.3) != (n + 1) // 2:
+        raise AssertionError("K5 did not keep every other box of the suppression chain")
+    k = 32
+    apart = np.stack([np.arange(k) * 100.0, np.zeros(k), np.arange(k) * 100.0 + 10, np.full(k, 10.0)], 1)
+    apart = apart.astype(np.float32)
+    if compare("all kept", apart, np.linspace(0.9, 0.3, k).astype(np.float32), 0.45) != k:
+        raise AssertionError("K5 dropped a box of a disjoint set")
+    if compare("all dead", apart, np.zeros(k, np.float32), 0.45) != 0:
+        raise AssertionError("K5 kept a dead box")
+    cases.append({"case": "chain_all_kept_all_dead"})
+    rng = np.random.default_rng(64)
+    pools = [random_nms_case(rng, 256) for _ in range(64)]
+    kept = compare("batch 64x256", np.stack([b for b, _ in pools]), np.stack([s for _, s in pools]), 0.45)
+    cases.append({"case": "batch_64x256", "kept": kept})
+    return cases
+
+
 def _zero_counts() -> None:
     for module in KERNEL_MODULES.values():
         module.launches = 0
@@ -456,6 +546,44 @@ def _zero_counts() -> None:
 
 def _read_counts() -> dict:
     return {name: module.launches for name, module in KERNEL_MODULES.items()}
+
+
+def compare_outputs(label: str, got: dict, want: dict) -> dict:
+    """A card run's outputs against the CPU run's: discrete outputs and
+    tags exact, floats within MAIN_ATOL (the TTC tags with TTC_RTOL on
+    top), every float finite.  Returns the worst gap of each float."""
+    for k in MAIN_DISCRETE:
+        if not torch.equal(got[k].cpu(), want[k]):
+            raise AssertionError(f"{label}: {k} on the card differs from the CPU run")
+    errs = {}
+    for k in MAIN_FLOAT:
+        errs[k] = float((got[k].cpu() - want[k]).abs().max())
+    for name in VEHICLE_STATE_FIELDS:
+        errs[f"vehicle_state.{name}"] = float(
+            (getattr(got["vehicle_state"], name).cpu() - getattr(want["vehicle_state"], name)).abs().max()
+        )
+    bad = {k: v for k, v in errs.items() if not v <= MAIN_ATOL}
+    if set(got["tags"]) != set(want["tags"]):
+        raise AssertionError(f"{label}: the card run's tags differ in their keys from the CPU run's")
+    for k, b in want["tags"].items():
+        a = got["tags"][k].cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{label}: tag {k} is {a.dtype} {tuple(a.shape)}")
+        if not b.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: tag {k} on the card differs from the CPU run")
+            continue
+        err = (a - b).abs()
+        errs[f"tags.{k}"] = float(err.max())
+        rtol = TTC_RTOL if k in TTC_TAGS else 0.0
+        if not bool((err <= MAIN_ATOL + rtol * b.abs()).all()):
+            bad[f"tags.{k}"] = float(err.max())
+    if bad:
+        raise AssertionError(f"{label}: beyond atol {MAIN_ATOL}: {bad}")
+    for k, v in list(got.items()) + [(f"tags.{k}", v) for k, v in got["tags"].items()]:
+        if isinstance(v, torch.Tensor) and v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{label}: {k} is not finite")
+    return errs
 
 
 def check_main_path(device, inputs: dict, enable_tagging: bool = False):
@@ -470,37 +598,7 @@ def check_main_path(device, inputs: dict, enable_tagging: bool = False):
     _, got = run(state, inputs)
     torch.cuda.synchronize()
     launches = _read_counts()
-    for k in MAIN_DISCRETE:
-        if not torch.equal(got[k].cpu(), want[k]):
-            raise AssertionError(f"main path: {k} on the card differs from the CPU run")
-    errs = {}
-    for k in MAIN_FLOAT:
-        errs[k] = float((got[k].cpu() - want[k]).abs().max())
-    for name in VEHICLE_STATE_FIELDS:
-        errs[f"vehicle_state.{name}"] = float(
-            (getattr(got["vehicle_state"], name).cpu() - getattr(want["vehicle_state"], name)).abs().max()
-        )
-    bad = {k: v for k, v in errs.items() if not v <= MAIN_ATOL}
-    if set(got["tags"]) != set(want["tags"]):
-        raise AssertionError("main path: the card run's tags differ in their keys from the CPU run's")
-    for k, b in want["tags"].items():
-        a = got["tags"][k].cpu()
-        if a.dtype != b.dtype or a.shape != b.shape:
-            raise AssertionError(f"main path: tag {k} is {a.dtype} {tuple(a.shape)}")
-        if not b.is_floating_point():
-            if not torch.equal(a, b):
-                raise AssertionError(f"main path: tag {k} on the card differs from the CPU run")
-            continue
-        err = (a - b).abs()
-        errs[f"tags.{k}"] = float(err.max())
-        rtol = TTC_RTOL if k in TTC_TAGS else 0.0
-        if not bool((err <= MAIN_ATOL + rtol * b.abs()).all()):
-            bad[f"tags.{k}"] = float(err.max())
-    if bad:
-        raise AssertionError(f"main path: beyond atol {MAIN_ATOL}: {bad}")
-    for k, v in list(got.items()) + [(f"tags.{k}", v) for k, v in got["tags"].items()]:
-        if isinstance(v, torch.Tensor) and v.is_floating_point() and not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"main path: {k} is not finite")
+    errs = compare_outputs("main path", got, want)
     expected = {name: 0 for name in KERNEL_MODULES}
     expected.update(tracker_step=NUM_FRAMES, kalman_step=NUM_FRAMES)
     if enable_tagging:
@@ -546,6 +644,122 @@ def check_association_path(device, inputs: dict, outs: dict) -> dict:
     if launches != {**{name: 0 for name in KERNEL_MODULES}, "associate": NUM_FRAMES}:
         raise AssertionError(f"association path: kernel launches {launches}")
     return {"frames": NUM_FRAMES, "launches": launches, "matched": int((match >= 0).sum())}
+
+
+def yolo_inputs(num_frames: int = NUM_FRAMES):
+    """benchmarks/suite.py:445-451: seeded random 480x640 frames (as uint8:
+    the same values in a quarter of the bytes) and the ego stream."""
+    frames = np.random.default_rng(0).integers(0, 255, (num_frames, 480, 640, 3)).astype(np.uint8)
+    return frames, ego_motion_stream(num_frames, seed=0).astype(np.float32)
+
+
+def yolo_params(device) -> dict:
+    """yolov8n's weights from the port's `init_fn` (Flax's initializers),
+    seeded."""
+    init_fn, _ = yolov8.make_yolo_detector(device=device)
+    return init_fn(torch.Generator().manual_seed(0))
+
+
+def relative_gaps(got, want) -> list:
+    """Each scale's box and class logits: the largest gap over the largest
+    logit."""
+    return [float((g.float().cpu() - w.float().cpu()).abs().max() / w.float().abs().max())
+            for gs, ws in zip(got, want) for g, w in zip(gs, ws)]
+
+
+@torch.inference_mode()
+def head_outputs(params: dict, frames, device, dtype):
+    """The conv tower's head outputs on ``frames`` at YOLO_IMG."""
+    model = yolov8.YOLOv8(variant="n", dtype=dtype).to(device)
+    model.load_state_dict(params, strict=True)
+    x, _, _ = yolov8.preprocess(torch.as_tensor(frames).to(device), YOLO_IMG)
+    return model(x)
+
+
+def check_yolo_tower(device, params: dict, frames):
+    """(a) The first chunk's conv tower and decode in float32, the card
+    against the CPU: head logits within F32_LOGIT_REL.  Returns the summary
+    and the card's head outputs."""
+    chunk = frames[:YOLO_BATCH]
+    got = head_outputs(params, chunk, device, torch.float32)
+    want = head_outputs({k: v.cpu() for k, v in params.items()}, chunk, torch.device("cpu"), torch.float32)
+    gaps = relative_gaps(got, want)
+    if not max(gaps) <= F32_LOGIT_REL:
+        raise AssertionError(f"YOLO tower: the card's head logits stand {gaps} from the CPU's")
+    cg = yolov8.candidates_from_outputs([(b.cpu(), c.cpu()) for b, c in got], 1.0, (0, 0))
+    cw = yolov8.candidates_from_outputs(want, 1.0, (0, 0))
+    return {
+        "frames": len(chunk), "relative_gaps": gaps, "bound": F32_LOGIT_REL,
+        "max_logit": [float(w.abs().max()) for ws in want for w in ws],
+        "decoded_max_abs_err": {k: _max_abs(cg[k], cw[k]) for k in ("boxes", "scores")},
+        "class_agreement": float((cg["classes"] == cw["classes"]).double().mean()),
+    }, got
+
+
+def check_yolo_path(device, params: dict, frames, ego, settings: dict, label: str):
+    """The YOLO runner on the card, its counts zeroed just before and read
+    after; (b) its detection tables against the plain `nms` run on the CPU
+    over the card's own candidates, bit for bit; (c) the CPU pipeline on
+    those tables against the card's outputs (`compare_outputs`).  Returns
+    the summary and the card's candidates."""
+    cfg = bench_config()
+    _, run = make_yolo_sequence_runner(cfg, batch=YOLO_BATCH, iou_threshold=YOLO_IOU, img_size=YOLO_IMG,
+                                       device=device, **settings)
+    state = pt.initial_state(cfg, device=device)
+    _zero_counts()
+    _, outs = run(params, state, frames, ego, keep_candidates=True)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    expected = {name: 0 for name in KERNEL_MODULES}
+    expected.update(tracker_step=len(frames), kalman_step=len(frames),
+                    nms_keep=math.ceil(len(frames) / YOLO_BATCH))
+    if launches != expected:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
+    tables, cands = outs.pop("detections"), outs.pop("candidates")
+    cpu_cands = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in cands.items()}
+    taxonomy = yolov8.taxonomy_map() if settings["map_to_taxonomy"] else None
+    want_tables = yolov8.tables_from_candidates(cpu_cands, YOLO_IOU, settings["score_threshold"],
+                                                cfg.detector.max_detections, YOLO_PRE_TOPK, taxonomy)
+    for k, want in want_tables.items():
+        got = tables[k].cpu()
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{label}: the card's {k} table differs from the plain nms on its candidates")
+    # The NMS result before the taxonomy drops classes, all frames in one
+    # K5 launch against the plain version (outside the counted run).
+    kw = dict(iou_threshold=YOLO_IOU, score_threshold=settings["score_threshold"],
+              max_det=cfg.detector.max_detections, pre_topk=YOLO_PRE_TOPK)
+    got_nms = nms(cands["boxes"], cands["scores"], cands["classes"], **kw)
+    want_nms = nms(cpu_cands["boxes"], cpu_cands["scores"], cpu_cands["classes"], **kw)
+    for k, want in want_nms._asdict().items():
+        if not torch.equal(getattr(got_nms, k).cpu(), want):
+            raise AssertionError(f"{label}: nms {k} with K5 differs from the plain nms over all frames")
+    inputs = {k: v.cpu() for k, v in tables.items()}
+    inputs["ego_measurement"] = ego
+    _, want = pt.make_sequence_runner(cfg, device="cpu")(pt.initial_state(cfg, device="cpu"), inputs)
+    errs = compare_outputs(label, outs, want)
+    valid = tables["valid"]
+    ids = outs["track_id"]
+    return {
+        "frames": len(frames), "settings": {k: str(v) for k, v in settings.items()}, "launches": launches,
+        "nms_kept": int(want_nms.valid.sum()),
+        "frames_with_detections": int(valid.any(dim=1).sum()), "detections": int(valid.sum()),
+        "track_births": int(torch.unique(ids[ids > 0]).numel()),
+        "num_confirmed_last": int(outs["num_confirmed"][-1]), "max_abs_err": errs,
+    }, cands
+
+
+def tower_flops_per_frame() -> int:
+    """The conv tower's FLOPs a frame (2 per multiply-add), counted by
+    PyTorch's FLOP counter from the port's own conv shapes on meta
+    tensors."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.device("meta"):
+        model = yolov8.YOLOv8(variant="n")
+        x = torch.empty(1, 3, YOLO_IMG, YOLO_IMG)
+    with FlopCounterMode(display=False) as counter:
+        model(x)
+    return counter.get_total_flops()
 
 
 def time_cuda(fn, reps: int, warmup: int = 20) -> float:
@@ -794,6 +1008,109 @@ def measure_paths(device, inputs: dict, rounds: int = 2, profiled_frames: int = 
     return result
 
 
+def measure_nms_kernel(device, cands: dict, reps: int = 2000) -> dict:
+    """K5 and its plain version at the YOLO path's shapes: the first
+    chunk's 64 pools of 256 from the float32 run's candidates."""
+    c = {k: cands[k][:YOLO_BATCH] for k in ("boxes", "scores", "classes")}
+    scores, _, _, iou_boxes = nms_prefilter(c["boxes"], c["scores"], c["classes"],
+                                            YOLO_F32["score_threshold"], YOLO_PRE_TOPK)
+    keep = nms_kernel.nms_keep(iou_boxes, scores, YOLO_IOU)
+
+    def launch():
+        return nms_kernel.nms_keep(iou_boxes, scores, YOLO_IOU)
+
+    # Counted on this chunk's data: 16 operations an IoU pair of live
+    # candidates, and one OR a word of the mask row of each kept one.
+    alive = (scores > 0).sum(dim=1).long()
+    words = math.ceil(scores.shape[1] / 32)
+    m = {
+        "ms": time_cuda(launch, reps),
+        "plain_ms": time_cuda(lambda: _nms_keep_plain(iou_boxes, scores, YOLO_IOU), PLAIN_REPS),
+        "bytes": _nbytes(iou_boxes, scores, keep),
+        "operations": int(16 * (alive * (alive - 1) // 2).sum() + words * keep.sum()),
+        "peak_ops_per_s": PEAK_F32_PER_S, "shape": list(iou_boxes.shape), "kept": int(keep.sum()),
+    }
+    m["device_ms"], m["profiled_launches"] = device_times({"nms_keep": (launch, "nms_keep_kernel")})["nms_keep"]
+    t_bytes = m["bytes"] / PEAK_BYTES_PER_S * 1e3
+    t_ops = m["operations"] / m["peak_ops_per_s"] * 1e3
+    m["bound_ms"], m["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return m
+
+
+def measure_yolo(device, params: dict, frames, ego, rounds: int = 2, reps: int = 3,
+                 profiled_frames: int = 100) -> dict:
+    """The detection chunk by stage (letterbox, conv tower, decode, NMS
+    with K5) by CUDA events over ``reps`` chunks after a warm one, in both
+    dtypes, with the tower's achieved share of the data sheet's peak; then
+    the YOLO path's frames/s, timed in turns (float32, bf16, bf16, float32)
+    after a warm run of each, and its device busy share over the first
+    ``profiled_frames`` frames."""
+    flops = tower_flops_per_frame()
+    chunk = torch.as_tensor(frames[:YOLO_BATCH]).to(device)
+    cfg = bench_config()
+    settings = {"float32": YOLO_F32, "bfloat16": YOLO_BF16}
+    peaks = {"float32": PEAK_F32_PER_S, "bfloat16": PEAK_BF16_PER_S}
+    result = {"tower_flops_per_frame": flops, "chunk": {}, "path": {}}
+    for name, st in settings.items():
+        model = yolov8.YOLOv8(variant="n", dtype=st["compute_dtype"]).to(device)
+        model.load_state_dict(params, strict=True)
+        taxonomy = yolov8.taxonomy_map() if st["map_to_taxonomy"] else None
+        stages = ("letterbox", "tower", "decode", "nms")
+        totals = dict.fromkeys(stages, 0.0)
+        with torch.inference_mode():
+            for rep in range(reps + 1):
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+                events[0].record()
+                x, scale, pad = yolov8.preprocess(chunk, YOLO_IMG)
+                events[1].record()
+                outputs = model(x)
+                events[2].record()
+                cands = yolov8.candidates_from_outputs(outputs, scale, pad)
+                events[3].record()
+                yolov8.tables_from_candidates(cands, YOLO_IOU, st["score_threshold"],
+                                              cfg.detector.max_detections, YOLO_PRE_TOPK, taxonomy)
+                events[4].record()
+                torch.cuda.synchronize()
+                if rep:
+                    for i, stage in enumerate(stages):
+                        totals[stage] += events[i].elapsed_time(events[i + 1]) / reps
+        tower_s = totals["tower"] / 1e3
+        result["chunk"][name] = {
+            "frames": YOLO_BATCH, "ms": totals, "ms_per_frame": sum(totals.values()) / YOLO_BATCH,
+            "tower_tflops_per_s": flops * YOLO_BATCH / tower_s / 1e12,
+            "tower_share_of_peak": flops * YOLO_BATCH / tower_s / peaks[name], "peak_per_s": peaks[name],
+        }
+
+    runs = {name: make_yolo_sequence_runner(cfg, batch=YOLO_BATCH, iou_threshold=YOLO_IOU, img_size=YOLO_IMG,
+                                            device=device, **st)[1] for name, st in settings.items()}
+
+    def timed(name, n=len(frames)):
+        state = pt.initial_state(cfg, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name](params, state, frames[:n], ego[:n])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for name in settings:
+        timed(name)
+    times = {name: [] for name in settings}
+    for _ in range(rounds):
+        for name in ("float32", "bfloat16", "bfloat16", "float32"):
+            times[name].append(timed(name))
+    for name in settings:
+        with torch.profiler.profile(activities=PROFILED) as prof:
+            wall_us = timed(name, profiled_frames) * 1e6
+        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in on_device)
+        result["path"][name] = {
+            "frames": len(frames), "seconds": times[name], "frames_per_s": len(frames) / min(times[name]),
+            "profiled": {"frames": profiled_frames, "wall_us": wall_us, "device_busy_us": busy_us,
+                         "busy_share": busy_us / wall_us, "device_items": len(on_device)},
+        }
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
@@ -821,6 +1138,7 @@ def main() -> int:
     k3 = check_tagging_kernel(device)
     emit({"phase": "tagging_kernel", "cases": k3, "result": "discrete exact, floats within bounds"})
     emit({"phase": "association_kernel", "cases": check_association_kernel(device), "result": "exact"})
+    emit({"phase": "nms_kernel", "cases": check_nms_kernel(device), "result": "exact"})
 
     inputs = synthetic_inputs()
     main_path, _ = check_main_path(device, inputs)
@@ -830,12 +1148,28 @@ def main() -> int:
     association_path = check_association_path(device, inputs, tagged)
     emit({"phase": "association_path", **association_path})
 
+    frames, ego = yolo_inputs()
+    params = yolo_params(device)
+    tower, f32_heads = check_yolo_tower(device, params, frames)
+    yolo_path, yolo_cands = check_yolo_path(device, params, frames, ego, YOLO_F32, "YOLO path float32")
+    emit({"phase": "yolo_path_float32", "tower": tower, **yolo_path})
+    bf16_gaps = relative_gaps(head_outputs(params, frames[:YOLO_BATCH], device, torch.bfloat16), f32_heads)
+    if not max(bf16_gaps) <= BF16_LOGIT_REL:
+        raise AssertionError(f"YOLO path bf16: head logits stand {bf16_gaps} from the float32 run's")
+    yolo_bf16, _ = check_yolo_path(device, params, frames, ego, YOLO_BF16, "YOLO path bf16")
+    emit({"phase": "yolo_path_bf16", "head_vs_float32": {"relative_gaps": bf16_gaps, "bound": BF16_LOGIT_REL},
+          **yolo_bf16})
+
     t0 = time.perf_counter()
     times = measure_kernels(device, inputs)
+    times["nms_keep"] = measure_nms_kernel(device, yolo_cands)
     kernel_s = time.perf_counter() - t0
     paths = measure_paths(device, inputs)
-    emit({"phase": "times", "card": smi, "kernels": times, **paths,
-          "seconds": {"kernels": kernel_s, "paths": time.perf_counter() - t0 - kernel_s}})
+    paths_s = time.perf_counter() - t0 - kernel_s
+    yolo_times = measure_yolo(device, params, frames, ego)
+    emit({"phase": "times", "card": smi, "kernels": times, **paths, "yolo": yolo_times,
+          "seconds": {"kernels": kernel_s, "paths": paths_s,
+                      "yolo": time.perf_counter() - t0 - kernel_s - paths_s}})
 
     k3_err = max(v for case in k3 for v in case["max_abs_err"].values())
     sources = {
@@ -847,6 +1181,8 @@ def main() -> int:
                          k3_err, tagging_path),
         "associate": (f"{PKG}/kernels/csrc/associate.cu", f"{JAX_PKG}/ops/association_pallas.py:33",
                       0.0, association_path),
+        "nms_keep": (f"{PKG}/kernels/csrc/nms_keep.cu", f"{JAX_PKG}/ops/nms_pallas.py:39",
+                     0.0, yolo_path),
     }
     kernels = []
     for name, (source, replaces, err, path) in sources.items():

@@ -5,9 +5,9 @@ source and the small pybind11 binding file in one call (ninja runs the
 compilers in parallel).  Without ninja, one ``nvcc -shared`` per source, all
 started together, builds a library with a plain C interface each, and ctypes
 binds them.  Either way the result exposes ``tracker_step`` (K1),
-``kalman_step`` (K2), ``tagging_step`` (K3) and ``associate`` (K4), which
-take pointers and the stream as integers and return the CUDA error code of
-the launch.
+``kalman_step`` (K2), ``tagging_step`` (K3), ``associate`` (K4) and
+``nms_keep`` (K5), which take pointers and the stream as integers and
+return the CUDA error code of the launch.
 
 The output goes to ``kernels/build/`` inside the package (listed in
 .gitignore).  Kernels are built for Hopper only (``sm_90a``).  No source
@@ -25,7 +25,7 @@ from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-CUDA_SOURCES = ("tracker_step.cu", "kalman_step.cu", "tagging_step.cu", "associate.cu")
+CUDA_SOURCES = ("tracker_step.cu", "kalman_step.cu", "tagging_step.cu", "associate.cu", "nms_keep.cu")
 BINDINGS = "bindings.cpp"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 _NAME = "madpp_torch_kernels"
@@ -86,9 +86,13 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
     associate = ctypes.CDLL(str(BUILD_DIR / "libassociate.so"))
     associate.madpp_associate.argtypes = [vp] * 3 + [ci, ci, cf, vp]
     associate.madpp_associate.restype = ci
+    nms = ctypes.CDLL(str(BUILD_DIR / "libnms_keep.so"))
+    nms.madpp_nms_keep.argtypes = [vp] * 3 + [ci, ci, cf, vp]
+    nms.madpp_nms_keep.restype = ci
     return SimpleNamespace(
         tracker_step=tracker.madpp_tracker_step,
         kalman_step=kalman.madpp_kalman_step,
         tagging_step=tagging.madpp_tagging_step,
         associate=associate.madpp_associate,
+        nms_keep=nms.madpp_nms_keep,
     )

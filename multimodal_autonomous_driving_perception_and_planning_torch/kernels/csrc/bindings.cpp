@@ -29,6 +29,8 @@ extern "C" int madpp_tagging_step(
 
 extern "C" int madpp_associate(const void*, const void*, void*, int, int, float, void*);
 
+extern "C" int madpp_nms_keep(const void*, const void*, void*, int, int, float, void*);
+
 namespace {
 
 inline void* ptr(std::uintptr_t p) { return reinterpret_cast<void*>(p); }
@@ -74,6 +76,13 @@ int associate(pybind11::args a) {
                          a[5].cast<float>(), ptr(a[6].cast<std::uintptr_t>()));
 }
 
+int nms_keep(pybind11::args a) {
+  if (a.size() != 7) throw std::invalid_argument("nms_keep takes 7 arguments");
+  return madpp_nms_keep(ptr(a[0].cast<std::uintptr_t>()), ptr(a[1].cast<std::uintptr_t>()),
+                        ptr(a[2].cast<std::uintptr_t>()), a[3].cast<int>(), a[4].cast<int>(),
+                        a[5].cast<float>(), ptr(a[6].cast<std::uintptr_t>()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -81,4 +90,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("kalman_step", &kalman_step, "Launch kernel K2; returns the CUDA error code.");
   m.def("tagging_step", &tagging_step, "Launch kernel K3; returns the CUDA error code.");
   m.def("associate", &associate, "Launch kernel K4; returns the CUDA error code.");
+  m.def("nms_keep", &nms_keep, "Launch kernel K5; returns the CUDA error code.");
 }

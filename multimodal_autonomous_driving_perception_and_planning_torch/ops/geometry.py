@@ -12,14 +12,14 @@ def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     non-positive.
 
     Args:
-      boxes_a: (A, 4) float tensor of (x1, y1, x2, y2).
-      boxes_b: (B, 4) float tensor.
+      boxes_a: (..., A, 4) float tensor of (x1, y1, x2, y2).
+      boxes_b: (..., B, 4) float tensor, the same leading dims.
 
     Returns:
-      (A, B) IoU matrix.
+      (..., A, B) IoU matrix.
     """
-    a = boxes_a[:, None, :]
-    b = boxes_b[None, :, :]
+    a = boxes_a[..., :, None, :]
+    b = boxes_b[..., None, :, :]
 
     x1 = torch.maximum(a[..., 0], b[..., 0])
     y1 = torch.maximum(a[..., 1], b[..., 1])

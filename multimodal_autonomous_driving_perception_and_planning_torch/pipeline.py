@@ -225,8 +225,10 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
 
     ``inputs`` is a dict of time-stacked arrays (numpy or tensors):
     detections (F, D, ...), ego_measurement (F, 4) and the optional
-    per-frame inputs of `make_pipeline_step`.  Returns ``(final_state,
-    outs)``, ``outs`` holding the step's outputs with a leading time axis.
+    per-frame inputs of `make_pipeline_step`.  Contiguous tensors already
+    on the runner's device in the input's dtype (the YOLO frontend's
+    detection tables) go in uncopied.  Returns ``(final_state, outs)``,
+    ``outs`` holding the step's outputs with a leading time axis.
     """
     _check_slice(cfg)
     dev = _resolve_device(device)

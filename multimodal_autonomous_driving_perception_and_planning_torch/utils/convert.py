@@ -1,7 +1,8 @@
-"""Carry pipeline state and the Kalman model between numpy and tensors.
+"""Carry pipeline state, the Kalman model and the YOLO weights between
+numpy and tensors.
 
-This path has no learned weights: its parameters are the carried state and
-the Kalman model.  `state_from_numpy` takes any tree with the
+`yolo_state_from_flax` carries the Flax YOLOv8's variables into the port's
+`YOLOv8`.  `state_from_numpy` takes any tree with the
 `PipelineState` field names, as attributes (the JAX package's state with
 numpy leaves) or as dict keys (what `state_to_numpy` returns), so a run can
 be started in one package and resumed in the other.
@@ -65,3 +66,36 @@ def kalman_model_from_numpy(F, H, Q, R, device) -> KalmanModel:
     return KalmanModel(
         *(torch.tensor(np.asarray(m, np.float32), device=device) for m in (F, H, Q, R))
     )
+
+
+# Flax leaf name -> the port's, by collection.
+_FLAX_LEAVES = {
+    ("params", "kernel"): "weight",
+    ("params", "scale"): "weight",
+    ("params", "bias"): "bias",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+
+
+def yolo_state_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The state dict of the port's `YOLOv8` from the Flax model's
+    variables (``params`` and ``batch_stats``, nested dicts of numpy
+    arrays): module paths joined with dots, conv kernels HWIO -> OIHW,
+    BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
+    running_var.  The port's model loads it with ``strict=True``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(collection, tree, path):
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(collection, value, path + [name])
+                continue
+            leaf = np.asarray(value, np.float32)
+            if name == "kernel":
+                leaf = leaf.transpose(3, 2, 0, 1)
+            out[".".join(path + [_FLAX_LEAVES[collection, name]])] = torch.tensor(leaf)
+
+    for collection in ("params", "batch_stats"):
+        walk(collection, variables[collection], [])
+    return out

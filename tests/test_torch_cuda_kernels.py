@@ -1,4 +1,5 @@
-"""Kernels K1-K4 against their plain versions on a CUDA card.
+"""Kernels K1-K5 against their plain versions on a CUDA card, and the paths
+that run them.
 
 The kernels are CUDA C++ for sm_90a and have no CPU mode, so every test
 here needs the card: on a machine without one they skip.  Run them on the
@@ -41,7 +42,8 @@ def test_kalman_kernel_matches_plain(device):
 
 def test_main_path_on_card_matches_cpu(device):
     result, _ = chip_smoke.check_main_path(device, chip_smoke.synthetic_inputs())
-    assert result["launches"] == {"tracker_step": 300, "kalman_step": 300, "tagging_step": 0, "associate": 0}
+    assert result["launches"] == {"tracker_step": 300, "kalman_step": 300, "tagging_step": 0, "associate": 0,
+                                  "nms_keep": 0}
 
 
 def test_tagging_kernel_matches_plain(device):
@@ -64,9 +66,33 @@ def test_tagging_and_association_paths_on_card(device):
     frame; the public greedy_associate (K4) reproduces K1's matches."""
     inputs = chip_smoke.synthetic_inputs()
     result, outs = chip_smoke.check_main_path(device, inputs, enable_tagging=True)
-    assert result["launches"] == {"tracker_step": 300, "kalman_step": 300, "tagging_step": 300, "associate": 0}
+    assert result["launches"] == {"tracker_step": 300, "kalman_step": 300, "tagging_step": 300, "associate": 0,
+                                  "nms_keep": 0}
     assoc = chip_smoke.check_association_path(device, inputs, outs)
     assert assoc["launches"]["associate"] == 300
+
+
+def test_nms_kernel_matches_plain(device):
+    """K5 exact: tie-quantized pools at K = 16 ... 1024, the chain, all dead,
+    all kept, a batch of 64 pools of 256."""
+    cases = chip_smoke.check_nms_kernel(device, trials=3)
+    assert [c["case"] for c in cases] == [
+        "fuzz_K16", "fuzz_K64", "fuzz_K256", "fuzz_K1024", "chain_all_kept_all_dead", "batch_64x256"
+    ]
+    torch.cuda.synchronize()
+
+
+def test_yolo_path_on_card_matches_cpu(device):
+    """The YOLO path on 100 frames in float32: the first chunk's tower
+    against the CPU's, the tables against the plain nms on the card's own
+    candidates, the pipeline against the CPU's; K5 once a chunk."""
+    frames, ego = chip_smoke.yolo_inputs(100)
+    params = chip_smoke.yolo_params(device)
+    tower, _ = chip_smoke.check_yolo_tower(device, params, frames)
+    assert max(tower["relative_gaps"]) <= chip_smoke.F32_LOGIT_REL
+    result, _ = chip_smoke.check_yolo_path(device, params, frames, ego, chip_smoke.YOLO_F32, "YOLO path")
+    assert result["launches"]["nms_keep"] == 2 and result["launches"]["tracker_step"] == 100
+    assert result["frames_with_detections"] == 100 and result["track_births"] > 0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(device):
@@ -88,3 +114,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
         association_kernel.greedy_associate(iou, torch.zeros(129, dtype=torch.int32, device=device), 0.3)
     with pytest.raises(ValueError, match="expected torch.int32"):
         association_kernel.greedy_associate(iou[:4], torch.zeros(4, dtype=torch.int64, device=device), 0.3)
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import nms_kernel
+
+    with pytest.raises(ValueError, match="1..1024 candidates"):
+        nms_kernel.nms_keep(torch.zeros((2, 1025, 4), device=device), torch.zeros((2, 1025), device=device), 0.45)
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        nms_kernel.nms_keep(torch.zeros((2, 8, 4), device=device), torch.zeros((2, 8), dtype=torch.float64,
+                                                                                device=device), 0.45)
