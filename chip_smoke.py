@@ -8,14 +8,21 @@ Phases, each printing one JSON line:
   2. the kernels build from the sources in the checkout (kernels/build.py);
   3. kernel K1 (tracker step) against its plain version on the card,
      exact on every output, over random, tie-quantized and saturated
-     streams at (T, D) = (64, 16) and (128, 64) and the synthetic stream;
+     streams at (T, D) = (64, 16) and (128, 64) (the latter at full
+     occupancy), the staircase and all-equal ladders at (64, 16), whose
+     association accepts one pair a round, and the synthetic stream;
   4. kernel K2 (ego Kalman step) against its plain version on the card,
      step by step over a 300-frame chain with unmeasured frames;
   5. kernel K3 (tagging step) against its plain version on the card, the
      state threaded through each side on its own, over random streams in
-     detections mode (120 frames), frames mode (60) and at T = 128 (60);
+     detections mode (120 frames), frames mode (60) and at T = 128 (60),
+     and over a crafted stream (40 frames, detections mode at T = 64 and
+     frames mode at T = 128) that reaches every corner of the aggregates:
+     all interaction types at once, ties on (risk, confidence) decided by
+     id, equal minimum TTC in several slots, center rings past their wrap;
   6. kernel K4 (standalone association) against its plain version on the
-     card, exact, over tie-quantized matrices and the empty and full ones;
+     card, exact, over tie-quantized matrices, the empty and full ones, the
+     ladders and (128, 64) matrices with nothing dead;
   7. kernel K5 (greedy-NMS keep mask) against its plain version on the
      card, exact, over tie-quantized pools at K = 16 ... 1024, a
      suppression chain, all dead, all kept, and a batch of 64 at K = 256;
@@ -34,9 +41,12 @@ Phases, each printing one JSON line:
      its head logits against the float32 run's, its tables against the
      plain `nms` on its own candidates;
  13. times: each kernel and its plain version by CUDA events at its path's
-     shapes, beside the kernel's bound; the frames/s of the main and
-     tagging paths, timed in turns; the YOLO detection chunk by stage and
-     the YOLO path's frames/s in both dtypes.
+     shapes, beside the kernel's bound; the launch floor (`floor_ms`, a
+     one-element add's device time) and where K1's, K3's and K4's time
+     goes (`split`: each wrapper's host split, each kernel on inputs that
+     take one part of its work away); the frames/s of the main and tagging
+     paths, timed in turns; the YOLO detection chunk by stage and the YOLO
+     path's frames/s in both dtypes.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Without a card it exits 1 at once.
 """
@@ -49,6 +59,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -219,11 +230,12 @@ def plain_tracker_step(table, dets, cfg):
     return new_table, match, order, n_confirmed
 
 
-def _tracker_case(name, cfg, dets_fn, steps, device) -> dict:
-    """Step K1 and the plain version side by side from the same table; every
-    output must be equal at every step."""
-    table = TrackTable.empty(cfg.max_tracks, cfg.trajectory_length, device)
-    max_alive = 0
+def _tracker_case(name, cfg, dets_fn, steps, device, table=None) -> dict:
+    """Step K1 and the plain version side by side from the same table (an
+    empty one unless given); every output must be equal at every step."""
+    if table is None:
+        table = TrackTable.empty(cfg.max_tracks, cfg.trajectory_length, device)
+    max_alive = max_matched = 0
     for step in range(steps):
         dets = dets_fn(step)
         want = plain_tracker_step(table, dets, cfg)
@@ -235,12 +247,50 @@ def _tracker_case(name, cfg, dets_fn, steps, device) -> dict:
                 raise AssertionError(f"K1 {name} step {step}: {field} differs from the plain version")
         table = want[0]
         max_alive = max(max_alive, int((table.track_id > 0).sum()))
-    return {"case": name, "T": cfg.max_tracks, "steps": steps, "max_alive": max_alive}
+        max_matched = max(max_matched, int((want[1] >= 0).sum()))
+    return {"case": name, "T": cfg.max_tracks, "steps": steps, "max_alive": max_alive, "max_matched": max_matched}
+
+
+def ladder_arrays(t: int, d: int, step: float):
+    """A full table of ``t`` live tracks and ``d`` valid detections, as numpy
+    arrays: boxes 200 x 100 px, track i at x = i step and detection j at x =
+    -j step.  With step 1 the IoU falls with i + j (a staircase), and with
+    step 0 every pair has IoU 1; either way each association round accepts
+    exactly one pair, (k, k) in round k, the most rounds there are: d + 1.
+    Ids ascend with the slot, every track has 3 hits.  Returns the table's
+    fields that differ from an empty table, and the detections."""
+    def boxes(x):
+        x = np.asarray(x, np.float32)
+        return np.stack([x, np.zeros_like(x), x + 200, np.full_like(x, 100)], 1)
+
+    table = {"track_id": np.arange(1, t + 1, dtype=np.int32), "bbox": boxes(step * np.arange(t)),
+             "hits": np.full(t, 3, np.int32), "next_id": np.int32(t + 1)}
+    dets = {"bbox": boxes(-step * np.arange(d)), "class_id": np.zeros(d, np.int32),
+            "confidence": np.full(d, 0.9, np.float32), "valid": np.ones(d, bool)}
+    return table, dets
+
+
+def ladder_boxes(t: int, d: int, step: float, device):
+    """`ladder_arrays` as a TrackTable (L = 50) and Detections on ``device``."""
+    table, dets = ladder_arrays(t, d, step)
+    empty = TrackTable.empty(t, bench_config().tracker.trajectory_length, device)
+    table = dataclasses.replace(empty, **{k: torch.tensor(v, device=device) for k, v in table.items()})
+    return table, Detections(**{k: torch.tensor(v, device=device) for k, v in dets.items()})
+
+
+def ladder_iou(t: int, d: int, step: int) -> np.ndarray:
+    """K4's counterpart of `ladder_arrays`: iou[i, j] = (128 - step (i + j))
+    / 128, exact in float32 and above 0.3 up to (64, 16); with ranks 0..t-1
+    round k accepts (k, k)."""
+    i, j = np.meshgrid(np.arange(t), np.arange(d), indexing="ij")
+    return ((128 - step * (i + j)) / 128).astype(np.float32)
 
 
 def check_tracker_kernel(device, steps: int = 50) -> list:
     """K1 against its plain version: churn at (64, 16) and (128, 64), a
-    saturated (64, 16) table, and the synthetic stream at the default size."""
+    saturated (64, 16) table and a (128, 64) one at full occupancy, the
+    staircase and all-equal ladders at (64, 16) (one pair a round, 17
+    rounds), and the synthetic stream at the default size."""
     cases = []
     for t_cap, d_cap, seed in ((64, 16, 1), (128, 64, 2)):
         cfg = pt.TrackerConfig(iou_threshold=0.1, max_age=2, min_hits=3, max_tracks=t_cap)
@@ -248,17 +298,31 @@ def check_tracker_kernel(device, steps: int = 50) -> list:
         cases.append(_tracker_case(
             f"churn_{t_cap}x{d_cap}", cfg, lambda s, rng=rng, d=d_cap: random_dets(rng, d, device), steps, device
         ))
-    cfg = pt.TrackerConfig(iou_threshold=0.3, max_age=30, min_hits=3, max_tracks=64)
-    rng = np.random.default_rng(3)
-    cases.append(_tracker_case(
-        "saturated_64x16", cfg, lambda s: random_dets(rng, 16, device, p_valid=1.0), steps, device
-    ))
-    if cases[-1]["max_alive"] != 64:
-        raise AssertionError("the saturated case never filled its table")
+    for t_cap, d_cap, seed in ((64, 16, 3), (128, 64, 4)):
+        cfg = pt.TrackerConfig(iou_threshold=0.3, max_age=30, min_hits=3, max_tracks=t_cap)
+        rng = np.random.default_rng(seed)
+        cases.append(_tracker_case(
+            f"saturated_{t_cap}x{d_cap}", cfg, lambda s, rng=rng, d=d_cap: random_dets(rng, d, device, p_valid=1.0),
+            steps, device,
+        ))
+        if cases[-1]["max_alive"] != t_cap:
+            raise AssertionError(f"the saturated {t_cap}x{d_cap} case never filled its table")
+    cfg = bench_config().tracker
+    for name, step in (("staircase_64x16", 1.0), ("all_equal_64x16", 0.0)):
+        table, dets = ladder_boxes(64, 16, step, device)
+        cases.append(_tracker_case(name, cfg, lambda s, dets=dets: dets, 3, device, table=table))
+        if cases[-1]["max_matched"] != 16:
+            raise AssertionError(f"K1 {name}: the ladder did not match all 16 detections")
     inputs = synthetic_inputs()
     cases.append(_tracker_case(
         "synthetic_64x16", pt.TrackerConfig(), lambda s: frame_dets(inputs, s, device), NUM_FRAMES, device
     ))
+    # Rings off the fast path, on the synthetic stream's first 100 frames:
+    # T L odd (a ring that is not a multiple of 16 bytes, wrapping every 5
+    # writes), and L = 500 (a ring too large for shared memory).
+    for name, t_cap, length in (("odd_ring_63x16", 63, 5), ("long_ring_64x16", 64, 500)):
+        cfg = pt.TrackerConfig(max_tracks=t_cap, trajectory_length=length)
+        cases.append(_tracker_case(name, cfg, lambda s: frame_dets(inputs, s, device), 100, device))
     return cases
 
 
@@ -371,13 +435,114 @@ def random_lane_feats(rng, device):
     return lane, feats
 
 
+def crafted_tagging_arrays(rng, f: int, t_cap: int, d_cap: int):
+    """Frame ``f`` of a stream built to corner K3's aggregates, as numpy
+    arrays in the layout of tests/test_torch_tagging.py `_rand_frame`
+    (detections, table fields, vehicle state).  Every slot of six groups
+    of t_cap // 8 keeps its id (a fixed permutation, so id order is not slot
+    order) and is confirmed, and each group gives one interaction type, all
+    in every frame once the cut-ins have 10 frames of history: cut-in (cars
+    drifting toward the centre from x = 20 + 3 f, risk 1, confidence 0.7),
+    following (identical cars ahead, one TTC of about 5 s: equal minimum
+    TTC in every slot of the group), pedestrian crossing, pedestrian
+    waiting, cyclist (risk 1, confidence 0.7: ties the cut-ins on risk and
+    confidence, decided by id) and near miss.  The six types are all the
+    cascade can give; the other seven of the 13 codes never come out of
+    it.  The remaining slots are random and come and go.  Over 40 frames
+    the 30-entry center rings cross their wrap."""
+    ids = np.random.default_rng(t_cap).permutation(t_cap).astype(np.int32) + 1
+    g = t_cap // 8
+    # Per group: class, box (x1, y1, x2, y2), velocity count.
+    groups = (
+        (0, (-3 + 3 * f, 277, 37 + 3 * f, 317), 0),  # cut-in, distance about 12
+        (0, (300, 123, 340, 163), 1),  # following, distance about 20
+        (2, (300, 334, 340, 374), 0),  # pedestrian crossing, distance about 9
+        (2, (20, 334, 60, 374), 0),  # pedestrian waiting
+        (3, (300, 392, 340, 432), 0),  # cyclist, distance 6
+        (0, (300, 280, 340, 480), 0),  # near miss, distance about 2.7
+    )
+    alive = rng.random(t_cap) < 0.6
+    alive[: len(groups) * g] = True
+    tx1, ty1 = rng.uniform(0, 600, t_cap), rng.uniform(0, 440, t_cap)
+    tw, th = rng.uniform(5, 120, t_cap), rng.uniform(1, 120, t_cap)
+    bbox = np.stack([tx1, ty1, tx1 + tw, ty1 + th], 1)
+    cls = rng.integers(0, 8, t_cap)
+    hits = rng.integers(0, 6, t_cap)
+    vel_count = np.zeros(t_cap, np.int32)
+    velocity = rng.normal(0, 3, (t_cap, 2))
+    for k, (c, box, vc) in enumerate(groups):
+        sl = slice(k * g, (k + 1) * g)
+        cls[sl], bbox[sl], hits[sl], vel_count[sl] = c, box, 5, vc
+        velocity[sl] = (0.0, 6.0)
+    n = int(rng.integers(0, d_cap))
+    valid = np.zeros(d_cap, bool)
+    valid[:n] = True
+    x1, y1 = rng.uniform(0, 600, d_cap), rng.uniform(0, 440, d_cap)
+    dets = dict(
+        bbox=np.stack([x1, y1, x1 + 40, y1 + 40], 1).astype(np.float32),
+        class_id=rng.integers(0, 8, d_cap).astype(np.int32),
+        confidence=rng.uniform(0.3, 1.0, d_cap).astype(np.float32),
+        valid=valid,
+    )
+    table = dict(
+        track_id=np.where(alive, ids, 0).astype(np.int32), bbox=bbox.astype(np.float32),
+        class_id=cls.astype(np.int32), hits=hits.astype(np.int32),
+        velocity=velocity.astype(np.float32), vel_count=vel_count,
+    )
+    vs = dict(
+        x=rng.uniform(-50, 50), y=rng.uniform(-50, 50), vx=0.0, vy=0.0, heading=rng.uniform(-3.1, 3.1),
+        speed=10.0, acceleration=rng.uniform(-4, 2), yaw_rate=rng.uniform(-0.4, 0.4), timestamp=f / 30.0,
+        pos_uncertainty=1.0, vel_uncertainty=1.0,
+    )
+    return dets, table, {k: np.float32(v) for k, v in vs.items()}
+
+
+def crafted_tagging_frame(rng, f: int, t_cap: int, d_cap: int, device):
+    """`crafted_tagging_arrays` on ``device``: detections, table, vehicle row."""
+    dets, fields, vs = crafted_tagging_arrays(rng, f, t_cap, d_cap)
+
+    def on(a):
+        return torch.tensor(a, device=device)
+
+    empty = TrackTable.empty(t_cap, 2, device)
+    table = dataclasses.replace(empty, **{k: on(v) for k, v in fields.items()})
+    return (Detections(**{k: on(v) for k, v in dets.items()}), table,
+            on(np.array([vs[k] for k in VEHICLE_STATE_FIELDS], np.float32)))
+
+
+def aggregate_corners(tags: dict, table, ring_len, HI: int) -> dict:
+    """Which of K3's corner cases a frame reached, from the plain version's
+    tags: every type the cascade gives present at once; the primary
+    interaction's (risk rank, confidence) shared by two slots or more, so
+    that the id decides; the minimum TTC reached by two slots or more; a
+    center ring past its wrap."""
+    itype = tags["track_interaction_type"].cpu().numpy()
+    risk_rank = np.array([2, 3, 1, 0])[tags["track_interaction_risk"].cpu().numpy()]
+    conf = tags["track_interaction_confidence"].cpu().numpy()
+    has = itype >= 0
+    tie = False
+    if has.any():
+        best = max(zip(risk_rank[has], -conf[has]))
+        tie = int(((risk_rank == best[0]) & (-conf == best[1]) & has).sum()) >= 2
+    confirmed = ((table.track_id > 0) & (table.hits >= 3)).cpu().numpy()
+    ttc = tags["track_ttc"].cpu().numpy()
+    with_ttc = confirmed & tags["track_has_ttc"].cpu().numpy()
+    return {
+        "all_types": {1, 4, 6, 7, 8, 9} <= set(itype[has].tolist()),
+        "primary_tie": tie,
+        "equal_min_ttc": bool(with_ttc.any()) and int((ttc[with_ttc] == ttc[with_ttc].min()).sum()) >= 2,
+        "ring_wrap": int(ring_len.max()) > HI,
+    }
+
+
 def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def _tagging_case(name, cfg, frames, seed, d_cap, frames_mode, device) -> dict:
+def _tagging_case(name, cfg, frames, seed, d_cap, frames_mode, device, frame_fn=random_tagging_frame) -> dict:
     """Step K3 and the plain version side by side, each threading its own
-    state: discrete tags and state equal, floats within their bounds."""
+    state: discrete tags and state equal, floats within their bounds.
+    Counts the frames that reached each of `aggregate_corners`."""
     rules = TaggingRules.from_config(cfg)
     step = make_packed_tagging_step(cfg)  # CUDA tensors: kernel K3
     T = rules.max_tracks
@@ -390,8 +555,9 @@ def _tagging_case(name, cfg, frames, seed, d_cap, frames_mode, device) -> dict:
     rng = np.random.default_rng(seed)
     worst: dict = {}
     seen = {"road_type_raw": set(), "turning": set(), "primary_interaction": set()}
+    corners = dict.fromkeys(("all_types", "primary_tie", "equal_min_ttc", "ring_wrap"), 0)
     for f in range(frames):
-        dets, table, vrow = random_tagging_frame(rng, f, T, d_cap, device)
+        dets, table, vrow = frame_fn(rng, f, T, d_cap, device)
         lane, feats = random_lane_feats(rng, device) if frames_mode else (None, None)
         s_plain, *rows_p = tagging_step_plain(rules, s_plain, dets, table, vrow, lane, feats)
         s_kern, *rows_k = step(s_kern, dets, table, vrow, lane, feats)
@@ -420,20 +586,41 @@ def _tagging_case(name, cfg, frames, seed, d_cap, frames_mode, device) -> dict:
                 raise AssertionError(f"K3 {name} frame {f}: state {fld} differs from the plain version")
         for k in seen:
             seen[k].add(int(want[k]))
+        for k, hit in aggregate_corners(want, table, s_plain.int_len, rules.interaction_history).items():
+            corners[k] += hit
     return {"case": name, "T": T, "D": d_cap, "frames": frames, "max_abs_err": worst,
-            "distinct": {k: sorted(v) for k, v in seen.items()}}
+            "distinct": {k: sorted(v) for k, v in seen.items()}, "corner_frames": corners}
 
 
-def check_tagging_kernel(device, frames=(120, 60, 60)) -> list:
+def check_tagging_kernel(device, frames=(120, 60, 60, 40)) -> list:
     """K3 against its plain version: detections mode at (64, 16), frames
-    mode at (64, 16), and detections mode at (128, 64)."""
+    mode at (64, 16), and detections mode at (128, 64), on random streams;
+    then the crafted stream (`crafted_tagging_arrays`) in detections mode at
+    (64, 16) and in frames mode at (128, 64), which must reach every corner
+    of `aggregate_corners`; then center rings of odd and of too large a
+    size for shared memory."""
     cfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
     dense = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=128))
-    return [
+    cases = [
         _tagging_case("detections_64x16", cfg, frames[0], 7, 16, False, device),
         _tagging_case("frames_64x16", cfg.replace(use_frames=True), frames[1], 11, 16, True, device),
         _tagging_case("detections_128x64", dense, frames[2], 13, 64, False, device),
+        _tagging_case("crafted_64x16", cfg, frames[3], 17, 16, False, device, crafted_tagging_frame),
+        _tagging_case("crafted_frames_128x64", dense.replace(use_frames=True), frames[3], 19, 64, True, device,
+                      crafted_tagging_frame),
     ]
+    for case in cases[3:5]:
+        missed = [k for k, n in case["corner_frames"].items() if n == 0]
+        if missed:
+            raise AssertionError(f"K3 {case['case']}: the crafted stream never reached {missed}")
+    # Rings off the fast path: 63 slots of 29 centers (a ring that is not a
+    # multiple of 16 bytes), and 500 centers (too large for shared memory).
+    odd = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=63),
+                      tagging=dataclasses.replace(cfg.tagging, interaction_history=29))
+    long = cfg.replace(tagging=dataclasses.replace(cfg.tagging, interaction_history=500))
+    cases.append(_tagging_case("odd_ring_63x16", odd, frames[3], 23, 16, False, device, crafted_tagging_frame))
+    cases.append(_tagging_case("long_ring_64x16", long, frames[2], 29, 16, False, device))
+    return cases
 
 
 def random_association(rng, t: int, d: int, tied: bool = False):
@@ -451,10 +638,18 @@ def random_association(rng, t: int, d: int, tied: bool = False):
     return iou, rank
 
 
+def full_association(rng, t: int, d: int):
+    """A (t, d) matrix with every row alive and every column valid: IoUs
+    quantized to exact ties, and a random rank permutation."""
+    iou = (np.round(rng.random((t, d)) * 4) / 4).astype(np.float32)
+    return iou, np.argsort(np.argsort(rng.random(t))).astype(np.int32)
+
+
 def check_association_kernel(device, trials: int = 10) -> list:
     """K4 against its plain version, exact, at (64, 16), (64, 64), (128, 64)
-    and (16, 16), with rank permutations and with tied ranks, and on the
-    empty and full (16, 16) matrices."""
+    and (16, 16), with rank permutations and with tied ranks; on the empty
+    and full (16, 16) matrices; on the (64, 16) staircase and all-equal
+    ladders (17 rounds); and on (128, 64) matrices with nothing dead."""
     cases = []
 
     def compare(name, iou, rank, thr):
@@ -485,6 +680,16 @@ def check_association_kernel(device, trials: int = 10) -> list:
     if compare("tied pair", two, np.zeros(16, np.int32), 0.3) != 2:
         raise AssertionError("K4 did not give column 0 to both rows of a tied pair")
     cases.append({"case": "empty_full_and_tied_pair_16x16"})
+    # The ladders: one pair a round, d + 1 rounds; and a (128, 64) matrix
+    # with every row alive and every column valid.
+    rank = np.arange(64, dtype=np.int32)
+    for name, step in (("staircase_64x16", 1), ("all_equal_64x16", 0)):
+        if compare(name, ladder_iou(64, 16, step), rank, 0.3) != 16:
+            raise AssertionError(f"K4 {name}: the ladder did not match all 16 columns")
+        cases.append({"case": name, "matched": 16})
+    rng = np.random.default_rng(128064)
+    full = [compare(f"full 128x64 trial {i}", *full_association(rng, 128, 64), 0.3) for i in range(trials)]
+    cases.append({"case": "full_128x64", "trials": trials, "matched": full})
     return cases
 
 
@@ -799,12 +1004,143 @@ def device_times(launchers: dict, reps: int = 100) -> dict:
     return result
 
 
+def launch_floor_ms(reps: int = 100) -> float:
+    """The device time of a one-element `add_`, from one profiler trace of
+    ``reps`` launches: the least a launch costs on the card, the yardstick
+    of the one-block kernels beside their bounds of nanoseconds."""
+    x = torch.ones(1, device="cuda")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        for _ in range(reps):
+            x.add_(1)
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not reps - 1 <= len(times) <= reps:
+        raise AssertionError(f"the profiler saw {len(times)} launches of add_, expected {reps}")
+    return sum(times) / len(times) / 1e3
+
+
+def host_split(fn, reps: int = 2000, top: int = 8) -> dict:
+    """Where a wrapper's host time goes: microseconds a call on the host
+    clock over ``reps`` calls (no synchronise inside), then ``cProfile``'s
+    own time of each function over another ``reps`` calls, the ``top``
+    largest, as microseconds and calls a wrapper call.  The profiler slows
+    every Python call, so its total stands above the clock's."""
+    import cProfile
+    import pstats
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt, nc, func) for func, (_, nc, tt, _, _) in stats.items()), reverse=True)
+    return {
+        "host_us": host_us,
+        "profiled_total_us": sum(r[0] for r in rows) / reps * 1e6,
+        "split_us": {f"{name} ({Path(file).name}:{line})" if line else name: [tt / reps * 1e6, nc / reps]
+                     for tt, nc, (file, line, name) in rows[:top]},
+    }
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _table_tensors(table):
     return [getattr(table, f) for f in TABLE_FIELDS]
+
+
+def tracker_state(device, inputs: dict, frames: int = 100):
+    """The main path's tracker table after ``frames`` synthetic frames (the
+    plain version) and the next frame's detections."""
+    cfg = bench_config().tracker
+    table = TrackTable.empty(cfg.max_tracks, cfg.trajectory_length, device)
+    for f in range(frames):
+        table = plain_tracker_step(table, frame_dets(inputs, f, device), cfg)[0]
+    return table, frame_dets(inputs, frames, device)
+
+
+def tagging_state(device, inputs: dict, frames: int = 100):
+    """The tagging path's state after ``frames`` synthetic frames of the
+    runner on the card, and the next frame's detections and vehicle row."""
+    cfg = bench_config(True)
+    est = cfg.estimator
+    model = kalman_model_from_numpy(
+        *make_constant_accel_model(est.dt, est.process_noise, est.measurement_noise, est.accel_noise_scale),
+        device=device,
+    )
+    sub = {k: v[:frames] for k, v in inputs.items()}
+    st, _ = pt.make_sequence_runner(cfg, device=device)(pt.initial_state(cfg, device=device), sub)
+    z = torch.tensor(inputs["ego_measurement"][frames], device=device)
+    _, vrow = _estimator_row_fused(st.kalman, model, z, torch.ones((), dtype=torch.bool, device=device), est)
+    return TaggingRules.from_config(cfg), st.tagging, frame_dets(inputs, frames, device), st.tracks, vrow
+
+
+def measure_split(device, inputs: dict) -> dict:
+    """Where K1's and K3's time goes, on the wrappers that a path calls.
+    The launch floor; each wrapper's host split (`host_split`); and each
+    kernel's device time on inputs that remove one part of its work at a
+    time: K1 at the main path's state (`tracker_state`), with its
+    trajectory ring cut to one point (L = 1), with no valid detection (one
+    association round, no birth), and on the (64, 16) staircase (17
+    rounds); K3 at the tagging path's state (`tagging_state`), with its
+    center ring cut to one entry (HI = 1) and with 64 detections; K4 on
+    that state's matrix, as `measure_kernels` times it, and on the
+    staircase."""
+    cfg = bench_config().tracker
+    table, dets = tracker_state(device, inputs)
+    rules, tstate, tdets, ttable, vrow = tagging_state(device, inputs)
+    k1_name, k3_name, k4_name = "tracker_step_kernel", "tagging_step_kernel", "associate_kernel"
+
+    def k1(tab, d):
+        return lambda: tracker_kernel.tracker_step(tab, d, cfg, cfg.min_hits)
+
+    def k3(r, s, d):
+        return lambda: tagging_kernel.tagging_step(r, s, d, ttable, vrow)
+
+    def k4(iou, rank):
+        return lambda: association_kernel.greedy_associate(iou, rank, cfg.iou_threshold)
+
+    no_dets = dataclasses.replace(dets, valid=torch.zeros_like(dets.valid))
+    ring1 = dataclasses.replace(table, trajectory=table.trajectory[:, :2].contiguous())
+    rules1 = dataclasses.replace(rules, interaction_history=1)
+    state1 = dataclasses.replace(tstate, int_centers=tstate.int_centers[:, :2].contiguous())
+    dense = random_dets(np.random.default_rng(5), 64, device, p_valid=0.7)
+    alive = ttable.track_id > 0
+    iou = torch.where(alive[:, None] & tdets.valid[None, :], pairwise_iou(ttable.bbox, tdets.bbox), -1.0)
+    rank = _rank_by_count(torch.where(alive, ttable.track_id, torch.iinfo(torch.int32).max))
+    iou = iou.contiguous()
+    stair_table, stair_dets = ladder_boxes(64, 16, 1.0, device)
+    stair_iou = torch.tensor(ladder_iou(64, 16, 1), device=device)
+    stair_rank = torch.arange(64, dtype=torch.int32, device=device)
+    variants = {
+        "tracker_step": {"base": k1(table, dets), "ring_L1": k1(ring1, dets), "no_detections": k1(table, no_dets),
+                         "staircase_64x16": k1(stair_table, stair_dets)},
+        "tagging_step": {"base": k3(rules, tstate, tdets), "ring_HI1": k3(rules1, state1, tdets),
+                         "detections_64": k3(rules, tstate, dense)},
+        "associate": {"base": k4(iou, rank), "staircase_64x16": k4(stair_iou, stair_rank)},
+    }
+    names = {"tracker_step": k1_name, "tagging_step": k3_name, "associate": k4_name}
+    device_ms = {
+        kernel: {v: device_times({v: (fn, names[kernel])})[v][0] for v, fn in vs.items()}
+        for kernel, vs in variants.items()
+    }
+    return {
+        "floor_ms": launch_floor_ms(),
+        "device_ms": device_ms,
+        "host": {kernel: host_split(vs["base"]) for kernel, vs in variants.items()},
+    }
 
 
 def measure_kernels(device, inputs: dict, reps: int = 2000) -> dict:
@@ -814,10 +1150,7 @@ def measure_kernels(device, inputs: dict, reps: int = 2000) -> dict:
     stage and the association at the tagging path's state after 100
     frames."""
     cfg = bench_config()
-    table = TrackTable.empty(cfg.tracker.max_tracks, cfg.tracker.trajectory_length, device)
-    for f in range(100):
-        table = plain_tracker_step(table, frame_dets(inputs, f, device), cfg.tracker)[0]
-    dets = frame_dets(inputs, 100, device)
+    table, dets = tracker_state(device, inputs)
     out = tracker_kernel.tracker_step(table, dets, cfg.tracker, cfg.tracker.min_hits)
     t_cap, d_cap = cfg.tracker.max_tracks, inputs["bbox"].shape[1]
     k1_bytes = _nbytes(*_table_tensors(table), dets.bbox, dets.class_id, dets.confidence, dets.valid) + _nbytes(
@@ -867,12 +1200,7 @@ def measure_kernels(device, inputs: dict, reps: int = 2000) -> dict:
 
     # K3 and K4 at the tagging path's shapes: the card run's state after 100
     # synthetic frames, frame 101's detections and ego step.
-    tcfg = bench_config(True)
-    sub = {k: v[:100] for k, v in inputs.items()}
-    st, _ = pt.make_sequence_runner(tcfg, device=device)(pt.initial_state(tcfg, device=device), sub)
-    _, vrow = _estimator_row_fused(st.kalman, model, z, has, est)
-    rules = TaggingRules.from_config(tcfg)
-    table, tstate = st.tracks, st.tagging
+    rules, tstate, dets, table, vrow = tagging_state(device, inputs)
     new_state, tag_f, tag_i = tagging_kernel.tagging_step(rules, tstate, dets, table, vrow)
     k3_bytes = tagging_bytes(rules, tstate, dets, table, new_state, tag_f, tag_i)
     k3_ops = tagging_operations(t_cap, d_cap, rules.window, rules.history, rules.interaction_history)
@@ -889,7 +1217,7 @@ def measure_kernels(device, inputs: dict, reps: int = 2000) -> dict:
     alive = table.track_id > 0
     iou = torch.where(alive[:, None] & dets.valid[None, :], pairwise_iou(table.bbox, dets.bbox), -1.0).contiguous()
     rank = _rank_by_count(torch.where(alive, table.track_id, torch.iinfo(torch.int32).max))
-    thr = tcfg.tracker.iou_threshold
+    thr = cfg.tracker.iou_threshold
     match = association_kernel.greedy_associate(iou, rank, thr)
     # Counted from the kernel's loops on this run's data: a row scan and a
     # column scan of the matrix and an accepting pass over the rows each
@@ -1163,11 +1491,13 @@ def main() -> int:
     t0 = time.perf_counter()
     times = measure_kernels(device, inputs)
     times["nms_keep"] = measure_nms_kernel(device, yolo_cands)
+    split = measure_split(device, inputs)
     kernel_s = time.perf_counter() - t0
     paths = measure_paths(device, inputs)
     paths_s = time.perf_counter() - t0 - kernel_s
     yolo_times = measure_yolo(device, params, frames, ego)
-    emit({"phase": "times", "card": smi, "kernels": times, **paths, "yolo": yolo_times,
+    emit({"phase": "times", "card": smi, "floor_ms": split.pop("floor_ms"), "kernels": times, "split": split,
+          **paths, "yolo": yolo_times,
           "seconds": {"kernels": kernel_s, "paths": paths_s,
                       "yolo": time.perf_counter() - t0 - kernel_s - paths_s}})
 

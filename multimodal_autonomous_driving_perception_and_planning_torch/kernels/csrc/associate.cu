@@ -12,9 +12,10 @@
 // matrix twice; both are far below the launch latency, so the call is
 // latency-bound.  The design keeps the whole fixpoint in one launch: the
 // matrix and the ranks go to shared memory once, and the rounds of
-// `greedy_associate_block` (association.cuh, shared with kernel K1) are
-// separated only by __syncthreads(), with no host synchronisation between
-// them.
+// `greedy_associate_block` (association.cuh, shared with kernel K1: two
+// parallel arg-max reductions and one `__syncthreads_or` a round) run with
+// no host synchronisation between them.  This kernel's own launch and
+// loads are as first written; only the shared fixpoint was redesigned.
 //
 // Limits: T <= 128, D <= 64 (the wrapper checks them).
 
@@ -34,10 +35,8 @@ associate_kernel(const float* iou, const int* rank, int* match, int T, int D, fl
   __shared__ int s_rank[kMaxT];
   __shared__ int s_match[kMaxT];
   __shared__ int s_row_best[kMaxT];
-  __shared__ int s_row_done[kMaxT];
   __shared__ int s_col_best[kMaxD];
-  __shared__ int s_col_done[kMaxD];
-  __shared__ int s_flag;
+  __shared__ unsigned s_row_done[kMaxT / 32], s_col_done[kMaxD / 32];
 
   const int ld = D + 1;
   for (int i = threadIdx.x; i < T * D; i += blockDim.x) {
@@ -47,7 +46,7 @@ associate_kernel(const float* iou, const int* rank, int* match, int T, int D, fl
   for (int t = threadIdx.x; t < T; t += blockDim.x) s_rank[t] = rank[t];
   __syncthreads();
   greedy_associate_block(s_iou, ld, s_rank, T, D, thr, s_match, s_row_best, s_col_best,
-                         s_row_done, s_col_done, &s_flag);
+                         s_row_done, s_col_done);
   for (int t = threadIdx.x; t < T; t += blockDim.x) match[t] = s_match[t];
 }
 

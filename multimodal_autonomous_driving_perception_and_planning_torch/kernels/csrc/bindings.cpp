@@ -12,9 +12,8 @@
 extern "C" int madpp_tracker_step(
     const void*, const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, const void*, const void*, const void*, const void*,
-    const void*, const void*, const void*, const void*, void*, void*, void*, void*,
-    void*, void*, void*, void*, void*, void*, void*, void*, void*, void*, void*, int,
-    int, int, float, int, int, void*);
+    const void*, const void*, const void*, const void*, void*, void*, int, int, int, float,
+    int, int, void*);
 
 extern "C" int madpp_kalman_step(const void*, const void*, const void*, const void*,
                                  const void*, const void*, const void*, const void*,
@@ -24,8 +23,8 @@ extern "C" int madpp_tagging_step(
     const void*, const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, const void*, const void*, const void*, const void*,
-    const void*, const void*, void*, void*, void*, void*, void*, void*, void*,
-    const void*, int, int, int, int, int, int, int, void*);
+    const void*, const void*, void*, void*, const void*, int, int, int, int, int, int, int,
+    void*);
 
 extern "C" int madpp_associate(const void*, const void*, void*, int, int, float, void*);
 
@@ -36,15 +35,14 @@ namespace {
 inline void* ptr(std::uintptr_t p) { return reinterpret_cast<void*>(p); }
 
 int tracker_step(pybind11::args a) {
-  if (a.size() != 38) throw std::invalid_argument("tracker_step takes 38 arguments");
-  void* p[31];
-  for (int i = 0; i < 31; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
+  if (a.size() != 25) throw std::invalid_argument("tracker_step takes 25 arguments");
+  void* p[18];
+  for (int i = 0; i < 18; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
   return madpp_tracker_step(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12],
-      p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20], p[21], p[22], p[23],
-      p[24], p[25], p[26], p[27], p[28], p[29], p[30], a[31].cast<int>(),
-      a[32].cast<int>(), a[33].cast<int>(), a[34].cast<float>(), a[35].cast<int>(),
-      a[36].cast<int>(), ptr(a[37].cast<std::uintptr_t>()));
+      p[13], p[14], p[15], p[16], p[17], a[18].cast<int>(), a[19].cast<int>(),
+      a[20].cast<int>(), a[21].cast<float>(), a[22].cast<int>(), a[23].cast<int>(),
+      ptr(a[24].cast<std::uintptr_t>()));
 }
 
 int kalman_step(pybind11::args a) {
@@ -57,16 +55,15 @@ int kalman_step(pybind11::args a) {
 }
 
 int tagging_step(pybind11::args a) {
-  if (a.size() != 36) throw std::invalid_argument("tagging_step takes 36 arguments");
-  void* p[28];
-  for (int i = 0; i < 28; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
+  if (a.size() != 31) throw std::invalid_argument("tagging_step takes 31 arguments");
+  void* p[23];
+  for (int i = 0; i < 23; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
   int n[7];
-  for (int i = 0; i < 7; ++i) n[i] = a[28 + i].cast<int>();
+  for (int i = 0; i < 7; ++i) n[i] = a[23 + i].cast<int>();
   return madpp_tagging_step(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9],
                             p[10], p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18],
-                            p[19], p[20], p[21], p[22], p[23], p[24], p[25], p[26], p[27],
-                            n[0], n[1], n[2], n[3], n[4], n[5], n[6],
-                            ptr(a[35].cast<std::uintptr_t>()));
+                            p[19], p[20], p[21], p[22], n[0], n[1], n[2], n[3], n[4], n[5],
+                            n[6], ptr(a[30].cast<std::uintptr_t>()));
 }
 
 int associate(pybind11::args a) {

@@ -19,17 +19,39 @@
 // Bound on an H100: at T=64 the step reads about 17 KB and writes about
 // 17 KB, the two copies of the (T, 60) float32 center ring being most of
 // it, about 1e-5 ms at 3.35 TB/s; its arithmetic is a few thousand
-// operations.  Both are far below the launch latency, so the step is
-// latency-bound.  The design answers with one launch: one thread per track
-// slot for the interaction work, the ring copies spread over the block, and
-// the aggregates on a few threads that read the slots' results from shared
-// memory -- thread k < 13 the presence and last-wins confidence of
-// interaction type k, thread 32 the counts, minima, primary interaction and
-// overall risk, thread 64 the scene classifier and the maneuver detector.
+// operations.  Both are far below the launch latency, so what bounds the
+// step is its chain of dependent steps: round trips to device memory and
+// barrier-separated phases.  The design keeps that chain to one wave of
+// loads and three phases, in one block of 256 threads:
+//  A. every input is requested at once: the center ring, the maneuver
+//     history and the vote ring go to shared memory by asynchronous
+//     16-byte copies (`cp.async`), each slot's fields to its thread's
+//     registers, the detection columns to the scene warp's registers;
+//  B. warps 0-3 run the per-slot work (distance, TTC, center ring, cut-in
+//     drift, cascade), one thread a slot; beside them warp 4 runs the scene
+//     classifier, its counts as warp sums and "the last matching detection
+//     wins" as the highest matching index, and warp 5 the maneuver
+//     detector, summing its window oldest first from shared memory so its
+//     floats stay bit-identical, and writes the history ring out;
+//  C. warps 0-3 reduce the slots' results, each warp a share of the
+//     aggregates: presence by `__any_sync`, the last-wins confidence of
+//     each type as the first slot of the highest id (`__reduce_max_sync`
+//     then `__reduce_min_sync`), the counts by `__reduce_add_sync`, the
+//     minima of distance and TTC as a `__reduce_min_sync` on their bits,
+//     and the primary interaction on its key (risk rank desc, confidence
+//     asc, id asc, slot asc) one component at a time.  Every key has a total
+//     order, so no tag depends on the order of combination.  Warps 4-7
+//     write the center ring out from shared memory as 16-byte stores with
+//     this frame's centers patched in.
 // The state's counters and the timestamp are written here too, so nothing
-// goes back to the host.
+// goes back to the host.  Rings that do not fit in shared memory are read
+// from device memory instead, and rings that are not 16-byte aligned or
+// not a multiple of 16 bytes take 4-byte copies for what is left.
 //
-// Output layout (ops/tagging_kernel.py FLOAT_TAGS, INT_TAGS):
+// Outputs are carved from one float32 and one int32 buffer, each field at a
+// multiple of 4 elements (16 bytes), in the order of ops/tagging_kernel.py
+// `output_shapes`: floats center ring (T, 2 HI), maneuver history (H, 6),
+// tag_f; ints votes (W), ring lengths (T), counters (3), tag_i.
 //   tag_f: [0, 12) the JAX package's SF row, [12] timestamp,
 //          [13, 26) per-type confidence, then per slot: confidence,
 //          distance, relative speed, TTC (T each);
@@ -42,14 +64,22 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block.cuh"
+
 namespace {
 
 constexpr int kMaxT = 128;
-constexpr int kThreads = 128;
-constexpr int kTypes = 13;  // interaction types
-constexpr int kSF = 13;     // float scalars, the timestamp included
-constexpr int kSI = 21;     // int scalars
+constexpr int kThreads = 256;
+constexpr int kSceneWarp = 4, kManeuverWarp = 5;
+constexpr int kDetRegs = 2;  // chunks of 32 detections the scene warp loads in the first wave
+constexpr int kTypes = 13;   // interaction types
+constexpr int kSF = 13;      // float scalars, the timestamp included
+constexpr int kSI = 21;      // int scalars
 constexpr int kI32Max = 2147483647;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kInfBits = 0x7f800000u;  // +inf as bits
+// Dynamic shared memory the kernel may take for the staged rings.
+constexpr size_t kMaxDynamicSmem = 200 * 1024;
 
 // The order of PARAM_NAMES in ops/tagging_kernel.py.
 struct TagParams {
@@ -87,18 +117,35 @@ struct TagIn {
 };
 
 struct TagOut {
-  int* votes;
-  float* mhist;
-  float* icent;
-  int* ilen;
-  int* counts;  // scene_count, man_count, frame_count
-  float* tag_f;
-  int* tag_i;
+  float *icent, *mhist, *tag_f;
+  int *votes, *ilen, *counts, *tag_i;  // counts: scene_count, man_count, frame_count
 };
 
 struct TagDims {
   int T, D, W, H, HI, min_hits;
+  int stage;  // the rings go through shared memory
 };
+
+__host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~(size_t)3; }
+
+// The output fields in the buffers, each at a multiple of 4 elements
+// (ops/tagging_kernel.py `output_shapes`).
+TagOut carve(float* f, int* i, const TagDims& dm) {
+  TagOut o;
+  o.icent = f;
+  f += round4((size_t)2 * dm.T * dm.HI);
+  o.mhist = f;
+  f += round4((size_t)6 * dm.H);
+  o.tag_f = f;
+  o.votes = i;
+  i += round4(dm.W);
+  o.ilen = i;
+  i += round4(dm.T);
+  o.counts = i;
+  i += 4;
+  o.tag_i = i;
+  return o;
+}
 
 // VehicleState field order.
 enum { kX = 0, kY = 1, kHeading = 4, kSpeed = 5, kAccel = 6, kYaw = 7 };
@@ -134,39 +181,65 @@ __device__ __constant__ float kSceneW[7][6] = {
     {0.0f, 0.0f, 0.2f, 0.1f, 0.0f, 0.0f},
 };
 
-// Scene classifier and vote ring (rules.py `_scene`), on one thread.
+// The scene warp's detections: lane l holds d = l + 32 c for c < kDetRegs,
+// loaded in the first wave.
+struct DetRegs {
+  bool valid[kDetRegs];
+  int cls[kDetRegs];
+  float conf[kDetRegs];
+};
+
+// Scene classifier and vote ring (rules.py `_scene`) on one warp.  The
+// detection counts are warp sums, and "the last matching detection wins"
+// takes the highest matching index, which lane (d mod 32) holds.  The rest
+// runs on lane 0.  `votes` is the vote ring before this frame, `count` the
+// scene counter, `frow` and `lrow` the frames-mode rows.
 template <bool FramesMode>
 __device__ void scene_classify(const TagIn& in, const TagOut& out, const TagDims& dm,
-                               const TagParams& p, float speed) {
-  bool any_dets = false, has_tl = false, has_ss = false;
-  int traffic = 0, vehicles = 0, peds = 0;
-  float tl_conf = 0.0f, ss_conf = 0.0f;
-  for (int d = 0; d < dm.D; ++d) {
-    if (!in.dvalid[d]) continue;
-    any_dets = true;
-    const int c = in.dcls[d];
+                               const TagParams& p, float speed, const int* votes, const DetRegs& dr,
+                               const float* frow, const float* lrow, int count) {
+  const int lane = threadIdx.x & 31;
+  int traffic = 0, vehicles = 0, peds = 0, tl_d = -1, ss_d = -1;
+  bool any = false;
+  float tl_c = 0.0f, ss_c = 0.0f;
+  auto take = [&](int d, bool valid, int c, float conf) {
+    if (!valid) return;
+    any = true;
     traffic += (c == kTLight) + (c == kSSign);
     vehicles += (c == kCar) + (c == kTruck) + (c == kBus);
     peds += (c == kPed);
-    if (c == kTLight) {  // the last matching detection wins
-      has_tl = true;
-      tl_conf = in.dconf[d];
+    if (c == kTLight) {  // a lane's detections ascend, so its last match stays
+      tl_d = d;
+      tl_c = conf;
     }
     if (c == kSSign) {
-      has_ss = true;
-      ss_conf = in.dconf[d];
+      ss_d = d;
+      ss_c = conf;
     }
-  }
+  };
+#pragma unroll
+  for (int c = 0; c < kDetRegs; ++c) take(32 * c + lane, dr.valid[c], dr.cls[c], dr.conf[c]);
+  for (int d = 32 * kDetRegs + lane; d < dm.D; d += 32) take(d, in.dvalid[d], in.dcls[d], in.dconf[d]);
+  const bool any_dets = __any_sync(kFull, any);
+  traffic = __reduce_add_sync(kFull, traffic);
+  vehicles = __reduce_add_sync(kFull, vehicles);
+  peds = __reduce_add_sync(kFull, peds);
+  const int tl_last = __reduce_max_sync(kFull, tl_d);
+  const int ss_last = __reduce_max_sync(kFull, ss_d);
+  const float tl_conf = __shfl_sync(kFull, tl_c, tl_last & 31);
+  const float ss_conf = __shfl_sync(kFull, ss_c, ss_last & 31);
+  if (lane != 0) return;
+  const bool has_tl = tl_last >= 0, has_ss = ss_last >= 0;
 
   float brightness = 128.0f, lap_var = 1000.0f;
   bool dense_center = false, many_long = false, green = false, both_lanes = false;
   if (FramesMode) {
-    dense_center = in.frow[0] > 0.15f;
-    many_long = in.frow[1] > 5.0f && in.frow[2] > 150.0f;
-    green = in.frow[3] > 0.15f;
-    brightness = in.frow[4];
-    lap_var = in.frow[5];
-    both_lanes = in.lrow[6] > 0.0f && in.lrow[7] > 0.0f;
+    dense_center = frow[0] > 0.15f;
+    many_long = frow[1] > 5.0f && frow[2] > 150.0f;
+    green = frow[3] > 0.15f;
+    brightness = frow[4];
+    lap_var = frow[5];
+    both_lanes = lrow[6] > 0.0f && lrow[7] > 0.0f;
   }
   const float conds[7] = {
       dense_center ? 1.0f : 0.0f,
@@ -202,7 +275,6 @@ __device__ void scene_classify(const TagIn& in, const TagOut& out, const TagDims
   // Majority vote over the last <= W road types, this one included, with
   // the first appearance in the window breaking ties.
   const int W = dm.W;
-  const int count = *in.scene_count;
   const int widx = fmod_i(count, W);
   const int count1 = count + 1;
   const int n_hist = min(count1, W);
@@ -212,7 +284,7 @@ __device__ void scene_classify(const TagIn& in, const TagOut& out, const TagDims
     first6[r] = W + 1;
   }
   for (int s = 0; s < W; ++s) {
-    const int v = s == widx ? road_type : in.votes[s];
+    const int v = s == widx ? road_type : votes[s];
     const int j = fmod_i(s - count1, W);  // window position, oldest first
     if (j >= W - n_hist && v >= 0 && v < 6) {
       counts6[v] += 1;
@@ -231,14 +303,14 @@ __device__ void scene_classify(const TagIn& in, const TagOut& out, const TagDims
   }
   const bool use_vote = n_hist >= 2 && max_count > n_hist / 2;
   const int smoothed = use_vote ? winner : road_type;
-  for (int s = 0; s < W; ++s) out.votes[s] = s == widx ? smoothed : in.votes[s];
+  for (int s = 0; s < W; ++s) out.votes[s] = s == widx ? smoothed : votes[s];
   out.counts[0] = count1;
 
   int lane_count = 2;
   if (FramesMode) {
     const float yb = p.frame_height;
-    const float lb = fadd(fadd(fmul(fmul(in.lrow[0], yb), yb), fmul(in.lrow[1], yb)), in.lrow[2]);
-    const float rb = fadd(fadd(fmul(fmul(in.lrow[3], yb), yb), fmul(in.lrow[4], yb)), in.lrow[5]);
+    const float lb = fadd(fadd(fmul(fmul(lrow[0], yb), yb), fmul(lrow[1], yb)), lrow[2]);
+    const float rb = fadd(fadd(fmul(fmul(lrow[3], yb), yb), fmul(lrow[4], yb)), lrow[5]);
     const float width = fabsf(fsub(rb, lb));
     lane_count = both_lanes ? (width > 200.0f ? 3 : (width > 100.0f ? 2 : 1)) : 2;
   }
@@ -264,14 +336,14 @@ __device__ void scene_classify(const TagIn& in, const TagOut& out, const TagDims
 }
 
 // Maneuver detector over the history ring (rules.py `_maneuver`), on one
-// thread.  `entry` is this frame's (speed, heading, accel, yaw, x, y).
-__device__ void maneuver_detect(const TagIn& in, const TagOut& out, const TagDims& dm,
-                                const TagParams& p, const float* entry) {
+// thread.  `entry` is this frame's (speed, heading, accel, yaw, x, y),
+// `mhist` the ring before this frame and `count` its counter.
+__device__ void maneuver_detect(const TagOut& out, const TagDims& dm, const TagParams& p,
+                                const float* entry, const float* mhist, int count) {
   const int H = dm.H;
-  const int count = *in.man_count;
   const int widx = fmod_i(count, H);
   const int count1 = count + 1;
-  auto at = [&](int slot, int k) { return slot == widx ? entry[k] : in.mhist[slot * 6 + k]; };
+  auto at = [&](int slot, int k) { return slot == widx ? entry[k] : mhist[slot * 6 + k]; };
   const float speed = entry[0], accel = entry[2], yaw = entry[3];
   const float deg = p.deg_per_rad;
   const float yaw_deg = fmul(yaw, deg);
@@ -351,6 +423,7 @@ __device__ void maneuver_detect(const TagIn& in, const TagOut& out, const TagDim
 template <bool FramesMode>
 __global__ void __launch_bounds__(kThreads)
 tagging_step_kernel(TagIn in, TagOut out, TagDims dm, TagParams p) {
+  extern __shared__ __align__(16) float s_dyn[];  // staged: center ring, history ring, votes
   __shared__ int s_conf[kMaxT];
   __shared__ int s_lwidx[kMaxT];  // ring column pair written this frame, -1 for none
   __shared__ float s_cx[kMaxT], s_cy[kMaxT];
@@ -358,36 +431,92 @@ tagging_step_kernel(TagIn in, TagOut out, TagDims dm, TagParams p) {
   __shared__ float s_iconf[kMaxT], s_dist[kMaxT], s_ttc[kMaxT];
 
   const int T = dm.T, HI = dm.HI, tix = threadIdx.x;
-  const float speed = in.vrow[kSpeed];
+  const int lane = tix & 31, warp = tix >> 5;
+  const int n_ring = 2 * T * HI, n_hist = 6 * dm.H;
   float* tf = out.tag_f;
   int* ti = out.tag_i;
 
-  // --- per slot: distance, TTC, center ring, cut-in drift, cascade --------
-  for (int t = tix; t < T; t += blockDim.x) {
-    const int id = in.tid[t], cls = in.tcls[t];
-    const float b0 = in.tbox[t * 4], b1 = in.tbox[t * 4 + 1];
-    const float b2 = in.tbox[t * 4 + 2], b3 = in.tbox[t * 4 + 3];
-    const bool conf = id > 0 && in.thits[t] >= dm.min_hits;
+  PHASE_CLOCK(0);
+  // --- A. one wave of loads ------------------------------------------------
+  const float* icent = in.icent;
+  const float* mhist = in.mhist;
+  const int* votes = in.votes;
+  if (dm.stage) {
+    float* s_icent = s_dyn;
+    float* s_mhist = s_icent + round4(n_ring);
+    int* s_votes = reinterpret_cast<int*>(s_mhist + round4(n_hist));
+    stage_async(s_icent, in.icent, n_ring);
+    stage_async(s_mhist, in.mhist, n_hist);
+    stage_async(s_votes, in.votes, dm.W);
+    icent = s_icent;
+    mhist = s_mhist;
+    votes = s_votes;
+  }
+  const float speed = in.vrow[kSpeed];
+  int id = 0, cls = 0, hits = 0, velc = 0, iprev = 0, ilen = 0, count = 0, frames = 0;
+  float b0 = 0.0f, b1 = 0.0f, b2 = 0.0f, b3 = 0.0f, vel_y = 0.0f;
+  DetRegs dr;
+  float entry[6], frow[6], lrow[8];
+  if (tix < T) {
+    const int t = tix;
+    id = in.tid[t];
+    cls = in.tcls[t];
+    b0 = in.tbox[t * 4];
+    b1 = in.tbox[t * 4 + 1];
+    b2 = in.tbox[t * 4 + 2];
+    b3 = in.tbox[t * 4 + 3];
+    hits = in.thits[t];
+    velc = in.tvelc[t];
+    vel_y = in.tvel[t * 2 + 1];
+    iprev = in.iprev[t];
+    ilen = in.ilen[t];
+  } else if (warp == kSceneWarp) {
+#pragma unroll
+    for (int c = 0; c < kDetRegs; ++c) {
+      const int d = 32 * c + lane;
+      dr.valid[c] = d < dm.D && in.dvalid[d];
+      dr.cls[c] = d < dm.D ? in.dcls[d] : 0;
+      dr.conf[c] = d < dm.D ? in.dconf[d] : 0.0f;
+    }
+    count = *in.scene_count;
+    if (FramesMode) {
+      for (int k = 0; k < 6; ++k) frow[k] = in.frow[k];
+      for (int k = 0; k < 8; ++k) lrow[k] = in.lrow[k];
+    }
+  } else if (warp == kManeuverWarp) {
+    const int fields[6] = {kSpeed, kHeading, kAccel, kYaw, kX, kY};
+    for (int k = 0; k < 6; ++k) entry[k] = in.vrow[fields[k]];
+    count = *in.man_count;
+    frames = *in.frame_count;
+  }
+  if (dm.stage) cp_async_wait_all();
+  __syncthreads();
+  PHASE_CLOCK(1);
+
+  // --- B. per slot, beside the scene and the maneuver warps -----------------
+  if (tix < T) {
+    const int t = tix;
+    const bool conf = id > 0 && hits >= dm.min_hits;
 
     const float box_h = fsub(b3, b1);
     const float base_d = fma_d(fma_d(-b3, p.inv_frame_height, 1.0f), 50.0f, 5.0f);
     const float size_f = fdiv(100.0f, fadd(box_h, 10.0f));
     const float dist =
         box_h <= 0.0f ? 50.0f : fminf(fmaxf(fmul(fadd(base_d, size_f), 0.5f), 2.0f), 100.0f);
-    const float rel = in.tvelc[t] > 0 ? fsub(speed, in.tvel[t * 2 + 1]) : 0.0f;
+    const float rel = velc > 0 ? fsub(speed, vel_y) : 0.0f;
     const bool ttc_ok = rel > 0.1f;
     const float ttc = ttc_ok ? fdiv(dist, rel) : INFINITY;
     const bool has_ttc = ttc_ok && ttc > 0.0f;
 
     // Center ring: a slot claimed by a new id starts afresh.
-    const int lens = in.iprev[t] == id ? in.ilen[t] : 0;
+    const int lens = iprev == id ? ilen : 0;
     const int lwidx = fmod_i(lens, HI);
     const int hist_len = conf ? lens + 1 : lens;
     const float cx = fmul(fadd(b0, b2), 0.5f);
     const float cy = fmul(fadd(b1, b3), 0.5f);
     const int oldest = hist_len < HI ? 0 : fmod_i(hist_len, HI);
     const int newest = fmod_i(hist_len - 1, HI);
-    const float* ring = in.icent + (size_t)t * 2 * HI;
+    const float* ring = icent + (size_t)t * 2 * HI;
     const float start_x = (conf && oldest == lwidx) ? cx : ring[2 * oldest];
     const float end_x = (conf && newest == lwidx) ? cx : ring[2 * newest];
     const bool cut_drift = fabsf(fsub(end_x, p.half_width)) < fabsf(fsub(start_x, p.half_width));
@@ -442,119 +571,209 @@ tagging_step_kernel(TagIn in, TagOut out, TagDims dm, TagParams p) {
     s_iconf[t] = iconf;
     s_dist[t] = dist;
     s_ttc[t] = ttc;
+  } else if (warp == kSceneWarp) {
+    scene_classify<FramesMode>(in, out, dm, p, speed, votes, dr, frow, lrow, count);
+  } else if (warp == kManeuverWarp) {
+    if (lane == 0) {
+      maneuver_detect(out, dm, p, entry, mhist, count);
+      out.counts[2] = frames + 1;
+      tf[12] = fmul(__int2float_rn(frames), p.inv_fps);  // timestamp
+    }
+    const int mwidx = fmod_i(count, dm.H);
+    for (int i = lane; i < n_hist; i += 32) {
+      const int r = i / 6;
+      out.mhist[i] = r == mwidx ? entry[i - r * 6] : mhist[i];
+    }
   }
   __syncthreads();
+  PHASE_CLOCK(2);
 
-  // --- the rings, copied by the whole block with this frame's entries -----
-  const int ring_w = 2 * HI;
-  for (int i = tix; i < T * ring_w; i += blockDim.x) {
-    const int t = i / ring_w, c = i - t * ring_w;
-    out.icent[i] = s_lwidx[t] == (c >> 1) ? ((c & 1) ? s_cy[t] : s_cx[t]) : in.icent[i];
-  }
-  const float entry[6] = {speed, in.vrow[kHeading], in.vrow[kAccel],
-                          in.vrow[kYaw], in.vrow[kX], in.vrow[kY]};
-  const int mwidx = fmod_i(*in.man_count, dm.H);
-  for (int i = tix; i < dm.H * 6; i += blockDim.x) {
-    const int r = i / 6;
-    out.mhist[i] = r == mwidx ? entry[i - r * 6] : in.mhist[i];
-  }
-
-  // --- aggregates, each on its own thread ----------------------------------
-  if (tix < kTypes) {
-    // Presence (confidence > 0.5) and last-wins confidence of type `tix`:
-    // the first slot holding the highest id of that type.
-    bool any = false, present = false;
-    int best_id = -1, best_slot = 0;
-    for (int t = 0; t < T; ++t) {
-      if (s_itype[t] != tix) continue;
-      any = true;
-      present |= s_iconf[t] > 0.5f;
-      if (s_id[t] > best_id) {
-        best_id = s_id[t];
+  // --- C. aggregates on warps 0-3, the center ring out on warps 4-7 ---------
+  // Distances are clamped to [2, 100] (a box with a NaN gives 2) and a TTC
+  // counts only when it is positive, so the minima see no NaN and no
+  // signed zero: on such floats the order of the bits is that of the values.
+  if (warp < 2) {
+    // Presence (confidence > 0.5) and last-wins confidence of the types
+    // [7 warp, 7 warp + 7): the first slot holding the highest id.  Each
+    // lane holds its slots t = lane + 32 j in registers.
+    int type[kMaxT / 32], ids[kMaxT / 32];
+    float conf[kMaxT / 32];
+#pragma unroll
+    for (int j = 0; j < kMaxT / 32; ++j) {
+      const int t = lane + 32 * j;
+      type[j] = t < T ? s_itype[t] : -1;
+      ids[j] = t < T ? s_id[t] : 0;
+      conf[j] = t < T ? s_iconf[t] : 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 7; ++kk) {
+      const int k = 7 * warp + kk;
+      int best_id = -1, best_slot = kI32Max;
+      bool present = false;
+#pragma unroll
+      for (int j = 0; j < kMaxT / 32; ++j) {
+        if (type[j] != k) continue;
+        present |= conf[j] > 0.5f;
+        if (ids[j] > best_id) {
+          best_id = ids[j];
+          best_slot = lane + 32 * j;
+        }
+      }
+      const int top = __reduce_max_sync(kFull, best_id);
+      const int slot = __reduce_min_sync(kFull, best_id == top ? best_slot : kI32Max);
+      present = __any_sync(kFull, present);
+      if (lane == 0 && k < kTypes) {
+        tf[kSF + k] = top >= 0 ? s_iconf[slot] : 0.0f;
+        ti[kSI + k] = present;
+      }
+    }
+  } else if (warp == 2) {
+    int n_conf = 0, peds = 0, cycs = 0, vehs = 0;
+    unsigned dmin = kInfBits, tmin = kInfBits;
+#pragma unroll
+    for (int j = 0; j < kMaxT / 32; ++j) {
+      const int t = lane + 32 * j;
+      if (t >= T || !s_conf[t]) continue;
+      const int c = s_cls[t];
+      n_conf += 1;
+      peds += c == kPed;
+      cycs += c == kCyc;
+      vehs += c == kCar || c == kTruck || c == kBus || c == kMoto;
+      dmin = min(dmin, __float_as_uint(s_dist[t]));
+      if (s_httc[t]) tmin = min(tmin, __float_as_uint(s_ttc[t]));
+    }
+    n_conf = __reduce_add_sync(kFull, n_conf);
+    peds = __reduce_add_sync(kFull, peds);
+    cycs = __reduce_add_sync(kFull, cycs);
+    vehs = __reduce_add_sync(kFull, vehs);
+    dmin = __reduce_min_sync(kFull, dmin);
+    tmin = __reduce_min_sync(kFull, tmin);
+    if (lane == 0) {
+      tf[10] = dmin < kInfBits ? __uint_as_float(dmin) : 0.0f;
+      tf[11] = tmin < kInfBits ? __uint_as_float(tmin) : 0.0f;
+      ti[8] = n_conf;
+      ti[9] = peds;
+      ti[10] = cycs;
+      ti[11] = vehs;
+      ti[20] = tmin < kInfBits;
+    }
+  } else if (warp == 3) {
+    // Primary interaction: the best (risk rank desc, confidence asc, id
+    // asc, slot asc); confidences are positive, so their bits order them.
+    int rank = -1, max_risk = 0, best_id = kI32Max, best_slot = kI32Max;
+    unsigned conf_bits = ~0u, tmin = kInfBits;
+#pragma unroll
+    for (int j = 0; j < kMaxT / 32; ++j) {
+      const int t = lane + 32 * j;
+      if (t >= T) continue;
+      if (s_conf[t] && s_httc[t]) tmin = min(tmin, __float_as_uint(s_ttc[t]));
+      if (s_itype[t] < 0) continue;
+      max_risk = max(max_risk, s_irisk[t]);
+      const int r = risk_rank(s_irisk[t]);
+      const unsigned c = __float_as_uint(s_iconf[t]);
+      const int i = s_id[t];
+      if (r > rank || (r == rank && (c < conf_bits || (c == conf_bits && i < best_id)))) {
+        rank = r;
+        conf_bits = c;
+        best_id = i;
         best_slot = t;
       }
     }
-    tf[kSF + tix] = any ? s_iconf[best_slot] : 0.0f;
-    ti[kSI + tix] = present;
-  } else if (tix == 32) {
-    int n_conf = 0, peds = 0, cycs = 0, vehs = 0, max_risk = 0;
-    float min_dist = INFINITY, min_ttc = INFINITY;
-    bool any_int = false;
-    // Primary interaction: the best (risk rank desc, confidence asc, id
-    // asc), the first slot on a full tie.
-    int best_rank = -1, best_id = kI32Max, best_slot = 0;
-    float best_conf = INFINITY;
-    for (int t = 0; t < T; ++t) {
-      if (s_conf[t]) {
-        const int c = s_cls[t];
-        n_conf += 1;
-        peds += c == kPed;
-        cycs += c == kCyc;
-        vehs += c == kCar || c == kTruck || c == kBus || c == kMoto;
-        min_dist = fminf(min_dist, s_dist[t]);
-        if (s_httc[t]) min_ttc = fminf(min_ttc, s_ttc[t]);
-      }
-      if (s_itype[t] >= 0) {
-        any_int = true;
-        max_risk = max(max_risk, s_irisk[t]);
-        const int r = risk_rank(s_irisk[t]);
-        const float c = s_iconf[t];
-        const int id = s_id[t];
-        if (r > best_rank || (r == best_rank && (c < best_conf || (c == best_conf && id < best_id)))) {
-          best_rank = r;
-          best_conf = c;
-          best_id = id;
-          best_slot = t;
-        }
-      }
+    const int top_rank = __reduce_max_sync(kFull, rank);
+    const unsigned top_conf = __reduce_min_sync(kFull, rank == top_rank ? conf_bits : ~0u);
+    const bool tied = rank == top_rank && conf_bits == top_conf;
+    const int top_id = __reduce_min_sync(kFull, tied ? best_id : kI32Max);
+    const int slot = __reduce_min_sync(kFull, tied && best_id == top_id ? best_slot : kI32Max);
+    max_risk = __reduce_max_sync(kFull, max_risk);
+    tmin = __reduce_min_sync(kFull, tmin);
+    if (lane == 0) {
+      const bool any_int = top_rank >= 0;
+      const bool critical = tmin < kInfBits && __uint_as_float(tmin) < p.ttc_critical;
+      ti[6] = any_int ? s_itype[slot] : -1;
+      ti[7] = any_int ? (critical ? 3 : max_risk) : 0;
     }
-    const bool has_min_ttc = min_ttc < INFINITY;
-    const bool critical = has_min_ttc && min_ttc < p.ttc_critical;
-    tf[10] = min_dist < INFINITY ? min_dist : 0.0f;
-    tf[11] = has_min_ttc ? min_ttc : 0.0f;
-    ti[6] = any_int ? s_itype[best_slot] : -1;
-    ti[7] = any_int ? (critical ? 3 : max_risk) : 0;
-    ti[8] = n_conf;
-    ti[9] = peds;
-    ti[10] = cycs;
-    ti[11] = vehs;
-    ti[20] = has_min_ttc;
-  } else if (tix == 64) {
-    scene_classify<FramesMode>(in, out, dm, p, speed);
-    maneuver_detect(in, out, dm, p, entry);
-    const int frames = *in.frame_count;
-    out.counts[2] = frames + 1;
-    tf[12] = fmul(__int2float_rn(frames), p.inv_fps);  // timestamp
+  } else {
+    // The center ring, each confirmed slot's center at its write index.
+    const int ring_w = 2 * HI;
+    auto patched = [&](int t, int c, float v) {
+      return s_lwidx[t] == (c >> 1) ? ((c & 1) ? s_cy[t] : s_cx[t]) : v;
+    };
+    const int j = tix - 4 * 32, nj = kThreads - 4 * 32;
+    int done = 0;
+    if (aligned16(out.icent) && aligned16(icent)) {
+      const int n4 = n_ring >> 2;
+      for (int i = j; i < n4; i += nj) {
+        float4 v = reinterpret_cast<const float4*>(icent)[i];
+        float* e = &v.x;
+        int t = (4 * i) / ring_w, c = 4 * i - t * ring_w;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          e[k] = patched(t, c, e[k]);
+          if (++c == ring_w) {
+            c = 0;
+            ++t;
+          }
+        }
+        reinterpret_cast<float4*>(out.icent)[i] = v;
+      }
+      done = n4 << 2;
+    }
+    for (int i = done + j; i < n_ring; i += nj) {
+      const int t = i / ring_w;
+      out.icent[i] = patched(t, i - t * ring_w, icent[i]);
+    }
   }
+#ifdef MADPP_PHASE_CLOCK
+  __syncthreads();
+  PHASE_CLOCK(3);
+#endif
+}
+
+template <bool FramesMode>
+int launch(const TagIn& in, const TagOut& out, const TagDims& dm, const TagParams& p, size_t smem,
+           cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(tagging_step_kernel<FramesMode>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  tagging_step_kernel<FramesMode><<<1, kThreads, smem, stream>>>(in, out, dm, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int madpp_tagging_step(
-    const void* dcls, const void* dconf, const void* dvalid, const void* tbox, const void* tcls, const void* tid, const void* thits,
-    const void* tvel, const void* tvelc, const void* vrow, const void* votes,
-    const void* scene_count, const void* mhist, const void* man_count, const void* icent,
-    const void* ilen, const void* iprev, const void* frame_count, const void* lrow,
-    const void* frow, void* o_votes, void* o_mhist, void* o_icent, void* o_ilen,
-    void* o_counts, void* o_tag_f, void* o_tag_i, const void* host_params, int T, int D,
-    int W, int H, int HI, int min_hits, int frames_mode, void* stream) {
+    const void* dcls, const void* dconf, const void* dvalid, const void* tbox, const void* tcls,
+    const void* tid, const void* thits, const void* tvel, const void* tvelc, const void* vrow,
+    const void* votes, const void* scene_count, const void* mhist, const void* man_count,
+    const void* icent, const void* ilen, const void* iprev, const void* frame_count,
+    const void* lrow, const void* frow, void* out_f, void* out_i, const void* host_params,
+    int T, int D, int W, int H, int HI, int min_hits, int frames_mode, void* stream) {
   if (T < 1 || T > kMaxT || D < 1 || W < 1 || H < 1 || HI < 1) return (int)cudaErrorInvalidValue;
   if (frames_mode && (lrow == nullptr || frow == nullptr)) return (int)cudaErrorInvalidValue;
-  TagIn in{(const int*)dcls, (const float*)dconf, (const bool*)dvalid, (const float*)tbox, (const int*)tcls, (const int*)tid, (const int*)thits,
-           (const float*)tvel, (const int*)tvelc, (const float*)vrow, (const int*)votes,
-           (const int*)scene_count, (const float*)mhist, (const int*)man_count,
-           (const float*)icent, (const int*)ilen, (const int*)iprev,
-           (const int*)frame_count, (const float*)lrow, (const float*)frow};
-  TagOut out{(int*)o_votes, (float*)o_mhist, (float*)o_icent, (int*)o_ilen,
-             (int*)o_counts, (float*)o_tag_f, (int*)o_tag_i};
-  TagDims dm{T, D, W, H, HI, min_hits};
+  TagIn in{(const int*)dcls, (const float*)dconf, (const bool*)dvalid, (const float*)tbox,
+           (const int*)tcls, (const int*)tid, (const int*)thits, (const float*)tvel,
+           (const int*)tvelc, (const float*)vrow, (const int*)votes, (const int*)scene_count,
+           (const float*)mhist, (const int*)man_count, (const float*)icent, (const int*)ilen,
+           (const int*)iprev, (const int*)frame_count, (const float*)lrow, (const float*)frow};
+  const size_t staged = sizeof(float) * (round4((size_t)2 * T * HI) + round4((size_t)6 * H) + round4(W));
+  const TagDims dm{T, D, W, H, HI, min_hits, staged <= kMaxDynamicSmem ? 1 : 0};
+  const TagOut out = carve((float*)out_f, (int*)out_i, dm);
   TagParams p;
   const float* hp = (const float*)host_params;
   float* pp = reinterpret_cast<float*>(&p);
   for (int i = 0; i < kNumParams; ++i) pp[i] = hp[i];
-  if (frames_mode)
-    tagging_step_kernel<true><<<1, kThreads, 0, (cudaStream_t)stream>>>(in, out, dm, p);
-  else
-    tagging_step_kernel<false><<<1, kThreads, 0, (cudaStream_t)stream>>>(in, out, dm, p);
-  return (int)cudaGetLastError();
+  const size_t smem = dm.stage ? staged : 0;
+  return frames_mode ? launch<true>(in, out, dm, p, smem, (cudaStream_t)stream)
+                     : launch<false>(in, out, dm, p, smem, (cudaStream_t)stream);
 }
+
+#ifdef MADPP_PHASE_CLOCK
+// The phase clocks of the last launch (4 stamps), for split_compare.py
+// --phases.
+extern "C" int madpp_phase_clock(long long* clocks, int* rounds) {
+  *rounds = 0;
+  return (int)cudaMemcpyFromSymbol(clocks, madpp_phase_cycles, 16 * sizeof(long long));
+}
+#endif

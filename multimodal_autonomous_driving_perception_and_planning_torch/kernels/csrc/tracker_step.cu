@@ -4,22 +4,47 @@
 // Replaces the Pallas TPU kernel in the JAX package's
 // ops/tracker_pallas.py (`_make_kernel`, launched by `tracker_update_pallas`).
 // Its plain PyTorch version is tracking/tracker.py `tracker_update` followed
-// by `confirmed_order`; the kernel is bit-identical to it.
+// by `confirmed_order`; the kernel is bit-identical to it on every output.
 //
 // Bound on an H100: at T=64 slots, D=16 detections, L=50 the step reads
 // about 29.6 KB and writes about 29.7 KB (the trajectory ring dominates),
-// about 18 ns at 3.35 TB/s, and does a few thousand flops.  Both are far
-// below the launch latency of a few microseconds, so the step is
-// latency-bound.  The design answers that by doing the whole step in one
-// launch: the table and the (T, D) IoU matrix stay in shared memory, every
-// phase is separated only by __syncthreads(), and nothing goes back to the
-// host (next_id and the confirmed count stay on the device).
+// about 18 ns at 3.35 TB/s, and does a few thousand operations.  Both are
+// far below the launch latency, so what bounds the step is its chain of
+// dependent steps: each round trip to device memory (about a microsecond
+// with the launch's cold caches) and each barrier-separated phase.  The
+// design keeps that chain short:
+//  - one wave of loads at the start: every thread requests all of its
+//    inputs at once (the slot fields into registers of the slot's thread,
+//    boxes and detections into shared memory), and the trajectory ring goes
+//    to shared memory by asynchronous 16-byte copies (`cp.async`) whose
+//    latency hides behind the IoU and the ranks;
+//  - the association as parallel arg-max reductions with one
+//    `__syncthreads_or` a round (association.cuh, shared with K4);
+//  - both stable ranks (`id_rank` and the confirmed order) as parallel
+//    counts, a few threads a slot over 16-byte loads of the keys, summed by
+//    shuffles;
+//  - births without a barrier: the free slots and the unmatched detections
+//    are bit masks, and slot t finds its detection as the r-th set bit;
+//  - the ring goes out right after the association, from shared memory as
+//    16-byte stores that need no per-element logic, and after one barrier
+//    each slot's thread stores this frame's write (two floats, or the row
+//    of a birth) over it.  A ring that does not fit in shared memory (L
+//    above about 170 at T = 128, D = 64) is copied from device memory
+//    instead; one that is not 16-byte aligned or not a multiple of 16
+//    bytes (T L odd) takes 4-byte copies for what is left.
+// Nothing goes back to the host: next_id and the confirmed count stay on
+// the device.
 //
 // Exactness: the IoU must equal `pairwise_iou` bit for bit, or tie-breaks
 // and track ids move.  Every float operation on that path uses the _rn
-// intrinsics, which the compiler never contracts into an FMA.
+// intrinsics, which the compiler never contracts into an FMA.  Every
+// reduction runs on a key with a total order.
 //
-// Limits: T <= 128, D <= 64 (the wrapper checks them).
+// Outputs are carved from one float32 and one int32 buffer, each field at a
+// multiple of 4 elements (16 bytes), in the order of ops/tracker_kernel.py
+// `FLOAT_FIELDS` and `INT_FIELDS`.
+//
+// Limits: T <= 128, D <= 64, L >= 1 (the wrapper checks them).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,6 +56,10 @@ namespace {
 constexpr int kMaxT = 128;
 constexpr int kMaxD = 64;
 constexpr int kThreads = 256;
+constexpr int kDetThread0 = kThreads - kMaxD;  // threads 192-255 load the detections
+// Dynamic shared memory the kernel may take: the staged ring and the IoU
+// matrix, under the 227 KB a block may use beside the static arrays.
+constexpr size_t kMaxDynamicSmem = 200 * 1024;
 
 struct TrackerIn {
   const int* track_id;
@@ -52,258 +81,303 @@ struct TrackerIn {
 };
 
 struct TrackerOut {
-  int* track_id;
-  float* bbox;
-  int* class_id;
-  float* conf;
-  int* age;
-  int* hits;
-  int* misses;
-  float* traj;
-  int* traj_len;
-  float* vel;
-  int* vel_count;
-  int* next_id;
-  int* match;
-  int* order;
-  int* n_conf;
+  float *traj, *bbox, *conf, *vel;
+  int *track_id, *class_id, *age, *hits, *misses, *traj_len, *vel_count, *match, *order, *next_id, *n_conf;
 };
 
 struct TrackerParams {
   int T, D, L;
   float iou_threshold;
   int max_age, min_hits;
+  int stage_ring;  // the ring goes through shared memory
 };
+
+__host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~(size_t)3; }
+
+// The output fields in the buffers, each at a multiple of 4 elements:
+// ops/tracker_kernel.py FLOAT_FIELDS (trajectory, bbox, confidence,
+// velocity) and INT_FIELDS (track_id, class_id, age, hits, misses,
+// traj_len, vel_count, match, order, next_id, n_confirmed).
+TrackerOut carve(float* f, int* i, int T, int L) {
+  TrackerOut o;
+  float** fs[] = {&o.traj, &o.bbox, &o.conf, &o.vel};
+  const size_t fn[] = {(size_t)2 * T * L, (size_t)4 * T, (size_t)T, (size_t)2 * T};
+  for (int k = 0; k < 4; ++k) {
+    *fs[k] = f;
+    f += round4(fn[k]);
+  }
+  int** is[] = {&o.track_id, &o.class_id, &o.age, &o.hits, &o.misses, &o.traj_len,
+                &o.vel_count, &o.match, &o.order, &o.next_id, &o.n_conf};
+  for (int k = 0; k < 11; ++k) {
+    *is[k] = i;
+    i += round4(k < 9 ? (size_t)T : 1);
+  }
+  return o;
+}
 
 __device__ __forceinline__ float center(float a, float b) {
   return __fmul_rn(__fadd_rn(a, b), 0.5f);
 }
 
-// Number of set flags before index `i`; `bits` holds one ballot word per
-// 32 indices.
+// Number of set flags before index `i`; `bits` holds one word per 32.
 __device__ __forceinline__ int prefix_count(const unsigned* bits, int i) {
   int c = 0;
   for (int w = 0; w < (i >> 5); ++w) c += __popc(bits[w]);
   return c + __popc(bits[i >> 5] & ((1u << (i & 31)) - 1u));
 }
 
+// Stable ascending rank of each of `key[0..T)` (ties by index), counted in
+// parallel: P = 256 / T threads (a power of two) share slot t, each
+// comparing t's key with a contiguous share of the others, read 16 bytes
+// at a time, and a shuffle sum adds the shares.  `key` is 16-byte aligned
+// with room for kMaxT entries.  Writes rank[t] = r, or order[r] = t where
+// `rank` is null.  (A warp ballot a slot and 32 keys, tried first, cost
+// about 3,000 cycles a rank on the card: 8 dependent ballots a warp.)
+__device__ __forceinline__ void stable_rank(const int* key, int T, int* rank, int* order) {
+  const int per = min(32, floor_pow2(kThreads / T));
+  const int t = threadIdx.x / per, sub = threadIdx.x & (per - 1);
+  const int span = (((T + per - 1) / per) + 3) & ~3;  // per * span <= kMaxT
+  int r = 0;
+  if (t < T) {
+    const int kt = key[t];
+#pragma unroll 4
+    for (int j = sub * span; j < (sub + 1) * span; j += 4) {
+      const int4 k = *reinterpret_cast<const int4*>(key + j);
+      r += (j < T) && (k.x < kt || (k.x == kt && j < t));
+      r += (j + 1 < T) && (k.y < kt || (k.y == kt && j + 1 < t));
+      r += (j + 2 < T) && (k.z < kt || (k.z == kt && j + 2 < t));
+      r += (j + 3 < T) && (k.w < kt || (k.w == kt && j + 3 < t));
+    }
+  }
+  for (int off = per >> 1; off > 0; off >>= 1) r += __shfl_xor_sync(0xffffffffu, r, off);
+  if (sub == 0 && t < T) {
+    if (rank) rank[t] = r;
+    else order[r] = t;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
-  extern __shared__ float s_iou[];  // T * (D + 1), padded rows
-  __shared__ float s_tb[kMaxT][4];
-  __shared__ float s_db[kMaxD][4];
+  extern __shared__ __align__(16) float s_dyn[];  // [ring (if staged)] [IoU T x (D + 1)]
+  __shared__ float4 s_tb[kMaxT];
+  __shared__ float4 s_db[kMaxD];
   __shared__ int s_id[kMaxT];
+  __shared__ __align__(16) int s_key[kMaxT];  // the id key, then the confirmed key
   __shared__ int s_rank[kMaxT];
   __shared__ int s_match[kMaxT];
   __shared__ int s_row_best[kMaxT];
-  __shared__ int s_row_done[kMaxT];
-  __shared__ int s_okey[kMaxT];
-  __shared__ int s_traj_mode[kMaxT];  // 0 keep, 1 ring write, 2 birth
-  __shared__ int s_widx[kMaxT];
-  __shared__ float s_cx[kMaxT];
-  __shared__ float s_cy[kMaxT];
-  __shared__ int s_dvalid[kMaxD];
   __shared__ int s_col_best[kMaxD];
-  __shared__ int s_col_done[kMaxD];
-  __shared__ int s_det_of_rank[kMaxD];
-  __shared__ unsigned s_free_bits[kMaxT / 32];
-  __shared__ unsigned s_want_bits[kMaxD / 32];
-  __shared__ unsigned s_conf_bits[kMaxT / 32];
-  __shared__ int s_flag;
+  __shared__ int s_dcls[kMaxD];
+  __shared__ float s_dconf[kMaxD];
+  __shared__ unsigned s_row_done[kMaxT / 32], s_col_done[kMaxD / 32];
+  __shared__ unsigned s_valid_bits[kMaxD / 32], s_free_bits[kMaxT / 32], s_conf_bits[kMaxT / 32];
+  __shared__ int s_next_id;
 
-  const int T = p.T, D = p.D, L = p.L;
+  const int T = p.T, D = p.D, W = 2 * p.L;
   const int ld = D + 1;
+  const int n_ring = T * W;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  float* s_ring = s_dyn;
+  float* s_iou = s_dyn + (p.stage_ring ? round4(n_ring) : 0);
+  PHASE_CLOCK(0);
 
-  // --- load the table's boxes and ids and the detections -----------------
-  for (int t = tid; t < T; t += blockDim.x) {
-    s_id[t] = in.track_id[t];
-    for (int k = 0; k < 4; ++k) s_tb[t][k] = in.bbox[t * 4 + k];
-  }
-  for (int d = tid; d < D; d += blockDim.x) {
-    s_dvalid[d] = in.det_valid[d] ? 1 : 0;
-    for (int k = 0; k < 4; ++k) s_db[d][k] = in.det_bbox[d * 4 + k];
+  // --- one wave of loads ----------------------------------------------------
+  if (p.stage_ring) stage_async(s_ring, in.traj, n_ring);
+  int id0 = 0, cls = 0, age = 0, hits = 0, misses = 0, vcnt = 0, tlen = 0;
+  float conf = 0.0f, vx = 0.0f, vy = 0.0f;
+  if (tid < kMaxT) {
+    const bool slot = tid < T;
+    if (slot) {
+      const int t = tid;
+      id0 = in.track_id[t];
+      s_tb[t] = make_float4(in.bbox[4 * t], in.bbox[4 * t + 1], in.bbox[4 * t + 2], in.bbox[4 * t + 3]);
+      cls = in.class_id[t];
+      conf = in.conf[t];
+      age = in.age[t];
+      hits = in.hits[t];
+      misses = in.misses[t];
+      tlen = in.traj_len[t];
+      vx = in.vel[2 * t];
+      vy = in.vel[2 * t + 1];
+      vcnt = in.vel_count[t];
+      s_id[t] = id0;
+      s_key[t] = id0 > 0 ? id0 : kI32Max;
+    }
+    const unsigned b = __ballot_sync(0xffffffffu, slot && id0 == 0);
+    if (lane == 0) s_free_bits[warp] = b;
+  } else if (tid >= kDetThread0) {
+    const int d = tid - kDetThread0;
+    bool valid = false;
+    if (d < D) {
+      valid = in.det_valid[d];
+      s_db[d] = make_float4(in.det_bbox[4 * d], in.det_bbox[4 * d + 1], in.det_bbox[4 * d + 2],
+                            in.det_bbox[4 * d + 3]);
+      s_dcls[d] = in.det_class[d];
+      s_dconf[d] = in.det_conf[d];
+    }
+    const unsigned b = __ballot_sync(0xffffffffu, valid);
+    if (lane == 0) s_valid_bits[d >> 5] = b;
+  } else if (tid == kMaxT) {
+    s_next_id = *in.next_id;
   }
   __syncthreads();
+  PHASE_CLOCK(1);
 
-  // --- IoU, op for op `pairwise_iou`; invalid pairs are -1 ----------------
-  for (int i = tid; i < T * D; i += blockDim.x) {
-    const int t = i / D, d = i - t * D;
-    const float ax1 = s_tb[t][0], ay1 = s_tb[t][1], ax2 = s_tb[t][2], ay2 = s_tb[t][3];
-    const float bx1 = s_db[d][0], by1 = s_db[d][1], bx2 = s_db[d][2], by2 = s_db[d][3];
-    const float iw = __fsub_rn(fminf(ax2, bx2), fmaxf(ax1, bx1));
-    const float ih = __fsub_rn(fminf(ay2, by2), fmaxf(ay1, by1));
+  // --- IoU, op for op `pairwise_iou`; invalid pairs are -1 ------------------
+  const int step_t = kThreads / D, step_d = kThreads - step_t * D;
+  for (int i = tid, t = tid / D, d = tid - (tid / D) * D; i < T * D; i += kThreads) {
+    const float4 a = s_tb[t], b = s_db[d];
+    const float iw = __fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x));
+    const float ih = __fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y));
     const float inter = (iw > 0.0f && ih > 0.0f) ? __fmul_rn(iw, ih) : 0.0f;
-    const float area_a = __fmul_rn(__fsub_rn(ax2, ax1), __fsub_rn(ay2, ay1));
-    const float area_b = __fmul_rn(__fsub_rn(bx2, bx1), __fsub_rn(by2, by1));
+    const float area_a = __fmul_rn(__fsub_rn(a.z, a.x), __fsub_rn(a.w, a.y));
+    const float area_b = __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
     const float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
     float v = uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f;
-    if (!(s_id[t] > 0 && s_dvalid[d])) v = -1.0f;
+    if (!(s_id[t] > 0 && ((s_valid_bits[d >> 5] >> (d & 31)) & 1u))) v = -1.0f;
     s_iou[t * ld + d] = v;
-  }
-  // --- stable rank of each slot by id, dead slots last (`id_rank`) -------
-  for (int t = tid; t < T; t += blockDim.x) {
-    const int kt = s_id[t] > 0 ? s_id[t] : kI32Max;
-    int r = 0;
-    for (int j = 0; j < T; ++j) {
-      const int kj = s_id[j] > 0 ? s_id[j] : kI32Max;
-      r += (kj < kt) || (kj == kt && j < t);
+    t += step_t;
+    d += step_d;
+    if (d >= D) {
+      d -= D;
+      ++t;
     }
-    s_rank[t] = r;
   }
-  __syncthreads();
+  // Stable rank of each slot by id, dead slots last (`id_rank`).
+  stable_rank(s_key, T, s_rank, nullptr);
+  PHASE_CLOCK(2);
+  // The ring has had the IoU and the ranks to land; the association's
+  // first barrier makes every thread's copies visible.
+  if (p.stage_ring) cp_async_wait_all();
 
-  greedy_associate_block(s_iou, ld, s_rank, T, D, p.iou_threshold, s_match,
-                         s_row_best, s_col_best, s_row_done, s_col_done, &s_flag);
+  greedy_associate_block(s_iou, ld, s_rank, T, D, p.iou_threshold, s_match, s_row_best, s_col_best,
+                         s_row_done, s_col_done);
+  PHASE_CLOCK(3);
 
-  // --- birth ranks: ballot scans over the free slots and wanted dets -----
-  if (tid < kMaxT) {
-    const bool free_slot = tid < T && s_id[tid] == 0;
-    const unsigned b = __ballot_sync(0xffffffffu, free_slot);
-    if (lane == 0) s_free_bits[warp] = b;
+  // --- the ring out as it was, 16 bytes a store where both ends allow ------
+  // This frame's writes follow after a barrier, from each slot's thread.
+  const float* src = p.stage_ring ? s_ring : in.traj;
+  int done = 0;
+  if (aligned16(out.traj) && aligned16(src)) {
+    const int n4 = n_ring >> 2;
+    for (int i = tid; i < n4; i += kThreads)
+      reinterpret_cast<float4*>(out.traj)[i] = reinterpret_cast<const float4*>(src)[i];
+    done = n4 << 2;
   }
-  if (tid < kMaxD) {
-    const bool want = tid < D && s_dvalid[tid] && !s_col_done[tid];
-    const unsigned b = __ballot_sync(0xffffffffu, want);
-    if (lane == 0) s_want_bits[warp] = b;
-  }
-  __syncthreads();
-  int n_free = 0, n_want = 0;
+  for (int i = done + tid; i < n_ring; i += kThreads) out.traj[i] = src[i];
+
+  // --- births: the k-th unmatched valid detection takes the k-th free slot
+  const unsigned want0 = s_valid_bits[0] & ~s_col_done[0];
+  const unsigned want1 = s_valid_bits[1] & ~s_col_done[1];
+  int n_free = 0;
   for (int w = 0; w < kMaxT / 32; ++w) n_free += __popc(s_free_bits[w]);
-  for (int w = 0; w < kMaxD / 32; ++w) n_want += __popc(s_want_bits[w]);
-  const int n_birth = min(n_free, n_want);
-  for (int d = tid; d < D; d += blockDim.x) {
-    if ((s_want_bits[d >> 5] >> (d & 31)) & 1u) {
-      const int r = prefix_count(s_want_bits, d);
-      if (r < n_birth) s_det_of_rank[r] = d;
-    }
-  }
+  const int n_birth = min(n_free, __popc(want0) + __popc(want1));
+  const int next_id = s_next_id;
   __syncthreads();
-  const int next_id = *in.next_id;
+  PHASE_CLOCK(4);
 
   // --- per slot: matched update, birth, death ------------------------------
-  for (int t = tid; t < T; t += blockDim.x) {
-    const int id0 = s_id[t];
-    const int alive = id0 > 0 ? 1 : 0;
-    const int m = s_match[t];
-    const bool matched = m >= 0;
-
-    int id = id0;
-    float bx1 = s_tb[t][0], by1 = s_tb[t][1], bx2 = s_tb[t][2], by2 = s_tb[t][3];
-    int cls = in.class_id[t];
-    float conf = in.conf[t];
-    int age = in.age[t] + alive;
-    int hits = in.hits[t] + (matched ? 1 : 0);
-    int misses = matched ? 0 : in.misses[t] + alive;
-    float vx = in.vel[t * 2 + 0], vy = in.vel[t * 2 + 1];
-    int vcnt = in.vel_count[t] + (matched ? 1 : 0);
-    int tlen = in.traj_len[t];
-    int mode = 0;
-    float cx = 0.0f, cy = 0.0f;
-
-    if (matched) {
-      cx = center(s_db[m][0], s_db[m][2]);
-      cy = center(s_db[m][1], s_db[m][3]);
-      vx = __fsub_rn(cx, center(bx1, bx2));  // before the bbox overwrite
-      vy = __fsub_rn(cy, center(by1, by2));
-      bx1 = s_db[m][0];
-      by1 = s_db[m][1];
-      bx2 = s_db[m][2];
-      by2 = s_db[m][3];
-      conf = in.det_conf[m];
-      mode = 1;
-      s_widx[t] = tlen % L;
-      tlen += 1;
-    }
-    if (id0 == 0) {
-      const int r = prefix_count(s_free_bits, t);
-      if (r < n_birth) {
-        const int d = s_det_of_rank[r];
-        id = next_id + r;
-        bx1 = s_db[d][0];
-        by1 = s_db[d][1];
-        bx2 = s_db[d][2];
-        by2 = s_db[d][3];
-        cls = in.det_class[d];
-        conf = in.det_conf[d];
-        age = 0;
-        hits = 1;
-        misses = 0;
-        vx = 0.0f;
-        vy = 0.0f;
-        vcnt = 0;
-        tlen = 1;
-        mode = 2;
-        cx = center(bx1, bx2);
-        cy = center(by1, by2);
-      }
-    }
-    if (id > 0 && misses > p.max_age) {  // strictly after the miss increment
-      id = 0;
-      hits = 0;
-      tlen = 0;
-      vcnt = 0;
-    }
-
-    out.track_id[t] = id;
-    out.bbox[t * 4 + 0] = bx1;
-    out.bbox[t * 4 + 1] = by1;
-    out.bbox[t * 4 + 2] = bx2;
-    out.bbox[t * 4 + 3] = by2;
-    out.class_id[t] = cls;
-    out.conf[t] = conf;
-    out.age[t] = age;
-    out.hits[t] = hits;
-    out.misses[t] = misses;
-    out.vel[t * 2 + 0] = vx;
-    out.vel[t * 2 + 1] = vy;
-    out.vel_count[t] = vcnt;
-    out.traj_len[t] = tlen;
-    out.match[t] = m;
-    s_traj_mode[t] = mode;
-    s_cx[t] = cx;
-    s_cy[t] = cy;
-    s_okey[t] = (id > 0 && hits >= p.min_hits) ? id : kI32Max;
-  }
-  __syncthreads();
-
-  // --- trajectory ring: copy, with the matched write or the birth row -----
-  const int W = 2 * L;
-  for (int i = tid; i < T * W; i += blockDim.x) {
-    const int t = i / W, c = i - t * W;
-    const int mode = s_traj_mode[t];
-    float v = in.traj[i];
-    if (mode == 2) {
-      v = c == 0 ? s_cx[t] : (c == 1 ? s_cy[t] : 0.0f);
-    } else if (mode == 1 && (c >> 1) == s_widx[t]) {
-      v = (c & 1) ? s_cy[t] : s_cx[t];
-    }
-    out.traj[i] = v;
-  }
-
-  // --- confirmed order: stable by (id, slot), unconfirmed slots last ------
-  for (int t = tid; t < T; t += blockDim.x) {
-    const int kt = s_okey[t];
-    int r = 0;
-    for (int j = 0; j < T; ++j) {
-      const int kj = s_okey[j];
-      r += (kj < kt) || (kj == kt && j < t);
-    }
-    out.order[r] = t;
-  }
   if (tid < kMaxT) {
-    const bool confirmed = tid < T && s_okey[tid] != kI32Max;
+    bool confirmed = false;
+    if (tid < T) {
+      const int t = tid;
+      const int alive = id0 > 0 ? 1 : 0;
+      const int m = s_match[t];
+      const bool matched = m >= 0;
+      const float4 tb = s_tb[t];
+      int id = id0;
+      float4 box = tb;
+      age += alive;
+      hits += matched ? 1 : 0;
+      misses = matched ? 0 : misses + alive;
+      vcnt += matched ? 1 : 0;
+
+      float* ring = out.traj + (size_t)t * W;
+      if (matched) {
+        const float4 db = s_db[m];
+        const float cx = center(db.x, db.z), cy = center(db.y, db.w);
+        vx = __fsub_rn(cx, center(tb.x, tb.z));  // before the bbox overwrite
+        vy = __fsub_rn(cy, center(tb.y, tb.w));
+        box = db;
+        conf = s_dconf[m];
+        const int widx = tlen % p.L;
+        ring[2 * widx] = cx;
+        ring[2 * widx + 1] = cy;
+        tlen += 1;
+      }
+      if (id0 == 0) {
+        int r = prefix_count(s_free_bits, t);
+        if (r < n_birth) {
+          id = next_id + r;
+          // The r-th set bit of the wanted mask.
+          unsigned w = want0;
+          int base = 0;
+          if (r >= __popc(want0)) {
+            r -= __popc(want0);
+            w = want1;
+            base = 32;
+          }
+          for (int k = 0; k < r; ++k) w &= w - 1u;
+          const int d = base + __ffs(w) - 1;
+          box = s_db[d];
+          cls = s_dcls[d];
+          conf = s_dconf[d];
+          age = 0;
+          hits = 1;
+          misses = 0;
+          vx = 0.0f;
+          vy = 0.0f;
+          vcnt = 0;
+          tlen = 1;
+          ring[0] = center(box.x, box.z);
+          ring[1] = center(box.y, box.w);
+          for (int c = 2; c < W; ++c) ring[c] = 0.0f;
+        }
+      }
+      if (id > 0 && misses > p.max_age) {  // strictly after the miss increment
+        id = 0;
+        hits = 0;
+        tlen = 0;
+        vcnt = 0;
+      }
+
+      out.track_id[t] = id;
+      out.bbox[4 * t + 0] = box.x;
+      out.bbox[4 * t + 1] = box.y;
+      out.bbox[4 * t + 2] = box.z;
+      out.bbox[4 * t + 3] = box.w;
+      out.class_id[t] = cls;
+      out.conf[t] = conf;
+      out.age[t] = age;
+      out.hits[t] = hits;
+      out.misses[t] = misses;
+      out.vel[2 * t + 0] = vx;
+      out.vel[2 * t + 1] = vy;
+      out.vel_count[t] = vcnt;
+      out.traj_len[t] = tlen;
+      out.match[t] = m;
+      confirmed = id > 0 && hits >= p.min_hits;
+      s_key[t] = confirmed ? id : kI32Max;
+    }
     const unsigned b = __ballot_sync(0xffffffffu, confirmed);
     if (lane == 0) s_conf_bits[warp] = b;
   }
   __syncthreads();
+  PHASE_CLOCK(5);
+
+  // --- confirmed order: stable by (id, slot), unconfirmed slots last ------
+  stable_rank(s_key, T, nullptr, out.order);
   if (tid == 0) {
     int n = 0;
     for (int w = 0; w < kMaxT / 32; ++w) n += __popc(s_conf_bits[w]);
     *out.n_conf = n;
     *out.next_id = next_id + n_birth;
   }
+#ifdef MADPP_PHASE_CLOCK
+  __syncthreads();
+  PHASE_CLOCK(6);
+#endif
 }
 
 }  // namespace
@@ -313,10 +387,7 @@ extern "C" int madpp_tracker_step(
     const void* age, const void* hits, const void* misses, const void* traj,
     const void* traj_len, const void* vel, const void* vel_count, const void* next_id,
     const void* det_bbox, const void* det_class, const void* det_conf,
-    const void* det_valid, void* o_track_id, void* o_bbox, void* o_class_id,
-    void* o_conf, void* o_age, void* o_hits, void* o_misses, void* o_traj,
-    void* o_traj_len, void* o_vel, void* o_vel_count, void* o_next_id, void* o_match,
-    void* o_order, void* o_n_conf, int T, int D, int L, float iou_threshold,
+    const void* det_valid, void* out_f, void* out_i, int T, int D, int L, float iou_threshold,
     int max_age, int min_hits, void* stream) {
   if (T < 1 || T > kMaxT || D < 1 || D > kMaxD || L < 1) return (int)cudaErrorInvalidValue;
   TrackerIn in{(const int*)track_id, (const float*)bbox, (const int*)class_id,
@@ -325,12 +396,29 @@ extern "C" int madpp_tracker_step(
                (const float*)vel, (const int*)vel_count, (const int*)next_id,
                (const float*)det_bbox, (const int*)det_class, (const float*)det_conf,
                (const bool*)det_valid};
-  TrackerOut out{(int*)o_track_id, (float*)o_bbox, (int*)o_class_id, (float*)o_conf,
-                 (int*)o_age, (int*)o_hits, (int*)o_misses, (float*)o_traj,
-                 (int*)o_traj_len, (float*)o_vel, (int*)o_vel_count, (int*)o_next_id,
-                 (int*)o_match, (int*)o_order, (int*)o_n_conf};
-  TrackerParams p{T, D, L, iou_threshold, max_age, min_hits};
-  const size_t smem = sizeof(float) * (size_t)T * (size_t)(D + 1);
+  const TrackerOut out = carve((float*)out_f, (int*)out_i, T, L);
+  const size_t iou_bytes = sizeof(float) * (size_t)T * (size_t)(D + 1);
+  const size_t ring_bytes = sizeof(float) * round4((size_t)2 * T * L);
+  const bool stage = ring_bytes + iou_bytes <= kMaxDynamicSmem;
+  const size_t smem = iou_bytes + (stage ? ring_bytes : 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(tracker_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  TrackerParams p{T, D, L, iou_threshold, max_age, min_hits, stage ? 1 : 0};
   tracker_step_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(in, out, p);
   return (int)cudaGetLastError();
 }
+
+#ifdef MADPP_PHASE_CLOCK
+// The phase clocks of the last launch (7 stamps) and the association's
+// round count since the last call, for split_compare.py --phases.
+extern "C" int madpp_phase_clock(long long* clocks, int* rounds) {
+  cudaError_t err = cudaMemcpyFromSymbol(clocks, madpp_phase_cycles, 16 * sizeof(long long));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(rounds, madpp_phase_rounds, sizeof(int));
+  const int zero = 0;
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(madpp_phase_rounds, &zero, sizeof(int));
+  return (int)err;
+}
+#endif

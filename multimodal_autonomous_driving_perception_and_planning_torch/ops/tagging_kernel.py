@@ -11,19 +11,27 @@ which the plain version shares.
 Bound on an H100: at T=64 a step reads about 17 KB and writes about 17 KB,
 the two copies of the (T, 60) float32 center ring being most of it: about
 1e-5 ms at 3.35 TB/s.  Its arithmetic is a few thousand operations.  Both
-are far below the launch latency, so the step is latency-bound; the kernel
-answers with one launch a frame, one block, per-slot work on one thread a
-slot, the aggregates on a few threads from shared memory, and no host
-synchronisation: the state's counters and the frame's timestamp are
-written on the device.
+are far below the launch latency, so the step is latency-bound: on the
+device by its chain of dependent phases (tagging_step.cu says what the
+kernel does about it), and on the host by this wrapper, whose time a call
+sets the rate of the tagging path.  So the wrapper does one pass of checks,
+two allocations (the new state and the packed rows are carved from one
+float32 and one int32 buffer, `output_fields`), and takes the stream
+without re-entering the device context.  It reads nothing back from the
+device and allocates nothing that depends on the data, so a CUDA graph can
+capture it; the state's counters and the frame's timestamp are written on
+the device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..kernels import build
 from ..types import TaggingState
+from . import launch
 
 MAX_TRACKS = 128  # one thread a track slot
 
@@ -85,16 +93,29 @@ def row_width(layout, max_tracks: int) -> int:
 # Launches of the kernel in this process; only `tagging_step` adds to it.
 launches = 0
 
+# The new state's fields and the packed rows, in the order the kernel carves
+# its two buffers (tagging_step.cu `carve`).
+FLOAT_FIELDS = ("int_centers", "man_history", "tag_f")
+INT_FIELDS = ("scene_votes", "int_len", "counts", "tag_i")
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device):
-    if t.device != device:
-        raise ValueError(f"tagging_step: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"tagging_step: {name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"tagging_step: {name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"tagging_step: {name} is not contiguous")
+
+@functools.lru_cache(maxsize=None)
+def output_shapes(T: int, W: int, H: int, HI: int) -> tuple:
+    """The shapes of FLOAT_FIELDS and of INT_FIELDS; ``counts`` holds the
+    scene, maneuver and frame counters."""
+    return (
+        ((T, 2 * HI), (H, 6), (row_width(FLOAT_TAGS, T),)),
+        ((W,), (T,), (3,), (row_width(INT_TAGS, T),)),
+    )
+
+
+def output_fields(T: int, W: int, H: int, HI: int, device) -> tuple:
+    """The kernel's outputs carved from one float32 and one int32 buffer:
+    ``(float buffer, int buffer, {field: tensor})``."""
+    f_shapes, i_shapes = output_shapes(T, W, H, HI)
+    fbuf, f = launch.carve(f_shapes, torch.float32, device)
+    ibuf, i = launch.carve(i_shapes, torch.int32, device)
+    return fbuf, ibuf, dict(zip(FLOAT_FIELDS + INT_FIELDS, f + i))
 
 
 def tagging_step(rules, state: TaggingState, dets, table, vrow, lane_row=None, feat_row=None):
@@ -145,47 +166,33 @@ def tagging_step(rules, state: TaggingState, dets, table, vrow, lane_row=None, f
         ("int_track_id", state.int_track_id, i32, (T,)),
         ("frame_count", state.frame_count, i32, ()),
     )
-    for name, t, dtype, shape in ins:
-        _check(name, t, dtype, shape, device)
     if frames_mode:
-        _check("lane_row", lane_row, f32, (8,), device)
-        _check("feat_row", feat_row, f32, (6,), device)
+        ins += (("lane_row", lane_row, f32, (8,)), ("feat_row", feat_row, f32, (6,)))
+    launch.check_inputs("tagging_step", device, ins)
     params = rules.params
     if params.dtype.name != "float32" or params.shape != (len(PARAM_NAMES),) or not params.flags.c_contiguous:
         raise ValueError(f"tagging_step: rules.params must be ({len(PARAM_NAMES)},) float32")
 
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=device)
-
-    votes = empty((W,), i32)
-    mhist = empty((H, 6), f32)
-    icent = empty((T, 2 * HI), f32)
-    ilen = empty((T,), i32)
-    counts = empty((3,), i32)  # scene_count, man_count, frame_count
-    tag_f = empty((row_width(FLOAT_TAGS, T),), f32)
-    tag_i = empty((row_width(INT_TAGS, T),), i32)
-    rows = (lane_row.data_ptr(), feat_row.data_ptr()) if frames_mode else (0, 0)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = build.kernels().tagging_step(
-            *[t.data_ptr() for _, t, _, _ in ins],
-            *rows,
-            votes.data_ptr(), mhist.data_ptr(), icent.data_ptr(), ilen.data_ptr(),
-            counts.data_ptr(), tag_f.data_ptr(), tag_i.data_ptr(),
-            params.ctypes.data,
-            T, D, W, H, HI, int(rules.min_hits), int(frames_mode), stream,
-        )
+    fbuf, ibuf, out = output_fields(T, W, H, HI, device)
+    ptrs = [t.data_ptr() for _, t, _, _ in ins]
+    if not frames_mode:
+        ptrs += [0, 0]
+    kernel = build.kernels().tagging_step
+    args = (fbuf.data_ptr(), ibuf.data_ptr(), params.ctypes.data, T, D, W, H, HI, int(rules.min_hits),
+            int(frames_mode))
+    err = launch.launch(device, lambda stream: kernel(*ptrs, *args, stream))
     if err != 0:
         raise RuntimeError(f"tagging_step: kernel launch failed with CUDA error {err}")
     launches += 1
+    counts = out["counts"]
     new_state = TaggingState(
-        scene_votes=votes,
+        scene_votes=out["scene_votes"],
         scene_count=counts[0],
-        man_history=mhist,
+        man_history=out["man_history"],
         man_count=counts[1],
-        int_centers=icent,
-        int_len=ilen,
+        int_centers=out["int_centers"],
+        int_len=out["int_len"],
         int_track_id=table.track_id,
         frame_count=counts[2],
     )
-    return new_state, tag_f, tag_i
+    return new_state, out["tag_f"], out["tag_i"]

@@ -9,36 +9,58 @@ version is tracking/tracker.py `tracker_update` followed by
 Bound on an H100: at T=64, D=16, L=50 a step reads about 29.6 KB and writes
 about 29.7 KB (the trajectory ring dominates), about 18 ns at 3.35 TB/s, and
 its arithmetic is a few thousand operations.  Both are far below the launch
-latency of a few microseconds, so the step is latency-bound; the kernel
-answers with one launch per frame in one thread block, the table in shared
-memory and no host synchronisation (`next_id` and the confirmed count stay
-on the device).
+latency, so the step is latency-bound: on the device by its chain of
+dependent phases (tracker_step.cu says what the kernel does about it), and
+on the host by this wrapper, whose time a call sets the rate of a path that
+launches one step a frame.  So the wrapper does one thing per call: one
+pass of checks, two allocations (the outputs are carved from one float32
+and one int32 buffer, `output_fields`), 18 pointers to the binding, and the
+stream without re-entering the device context.  It reads nothing back from
+the device and allocates nothing that depends on the data, so a CUDA graph
+can capture it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..config import TrackerConfig
 from ..kernels import build
 from ..types import Detections, TrackTable
+from . import launch
 
 MAX_TRACKS = 128
 MAX_DETECTIONS = 64
+
+# The output fields, in the order the kernel carves its two buffers
+# (tracker_step.cu `carve`).
+FLOAT_FIELDS = ("trajectory", "bbox", "confidence", "velocity")
+INT_FIELDS = (
+    "track_id", "class_id", "age", "hits", "misses", "traj_len", "vel_count",
+    "match", "order", "next_id", "n_confirmed",
+)
 
 # Launches of the kernel in this process; only `tracker_step` adds to it.
 launches = 0
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device):
-    if t.device != device:
-        raise ValueError(f"tracker_step: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"tracker_step: {name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"tracker_step: {name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"tracker_step: {name} is not contiguous")
+@functools.lru_cache(maxsize=None)
+def output_shapes(T: int, L: int) -> tuple:
+    """The shapes of FLOAT_FIELDS and of INT_FIELDS at T slots and a ring of
+    L points."""
+    per_slot = {"trajectory": (T, 2 * L), "bbox": (T, 4), "velocity": (T, 2), "next_id": (), "n_confirmed": ()}
+    return (tuple(per_slot.get(k, (T,)) for k in FLOAT_FIELDS), tuple(per_slot.get(k, (T,)) for k in INT_FIELDS))
+
+
+def output_fields(T: int, L: int, device) -> tuple:
+    """The kernel's outputs carved from one float32 and one int32 buffer:
+    ``(float buffer, int buffer, {field: tensor})``."""
+    f_shapes, i_shapes = output_shapes(T, L)
+    fbuf, f = launch.carve(f_shapes, torch.float32, device)
+    ibuf, i = launch.carve(i_shapes, torch.int32, device)
+    return fbuf, ibuf, dict(zip(FLOAT_FIELDS + INT_FIELDS, f + i))
 
 
 def tracker_step(table: TrackTable, dets: Detections, cfg: TrackerConfig, min_hits: int):
@@ -78,42 +100,14 @@ def tracker_step(table: TrackTable, dets: Detections, cfg: TrackerConfig, min_hi
         ("det_confidence", dets.confidence, f32, (D,)),
         ("det_valid", dets.valid, torch.bool, (D,)),
     )
-    for name, t, dtype, shape in ins:
-        _check(name, t, dtype, shape, device)
-
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=device)
-
-    out = TrackTable(
-        track_id=empty((T,), i32),
-        bbox=empty((T, 4), f32),
-        class_id=empty((T,), i32),
-        confidence=empty((T,), f32),
-        age=empty((T,), i32),
-        hits=empty((T,), i32),
-        misses=empty((T,), i32),
-        trajectory=empty((T, 2 * L), f32),
-        traj_len=empty((T,), i32),
-        velocity=empty((T, 2), f32),
-        vel_count=empty((T,), i32),
-        next_id=empty((), i32),
-    )
-    match = empty((T,), i32)
-    order = empty((T,), i32)
-    n_confirmed = empty((), i32)
-    out_ptrs = [
-        out.track_id, out.bbox, out.class_id, out.confidence, out.age, out.hits,
-        out.misses, out.trajectory, out.traj_len, out.velocity, out.vel_count,
-        out.next_id, match, order, n_confirmed,
-    ]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = build.kernels().tracker_step(
-            *[t.data_ptr() for _, t, _, _ in ins],
-            *[t.data_ptr() for t in out_ptrs],
-            T, D, L, float(cfg.iou_threshold), int(cfg.max_age), int(min_hits), stream,
-        )
+    launch.check_inputs("tracker_step", device, ins)
+    fbuf, ibuf, out = output_fields(T, L, device)
+    ptrs = [t.data_ptr() for _, t, _, _ in ins]
+    kernel = build.kernels().tracker_step
+    args = (fbuf.data_ptr(), ibuf.data_ptr(), T, D, L, float(cfg.iou_threshold), int(cfg.max_age), int(min_hits))
+    err = launch.launch(device, lambda stream: kernel(*ptrs, *args, stream))
     if err != 0:
         raise RuntimeError(f"tracker_step: kernel launch failed with CUDA error {err}")
     launches += 1
-    return out, match, order, n_confirmed
+    new_table = TrackTable(**{k: out[k] for k in TrackTable.__dataclass_fields__})
+    return new_table, out["match"], out["order"], out["n_confirmed"]

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from multimodal_autonomous_driving_perception_and_planning_torch.ops import (
     association_kernel,
     greedy_associate,
@@ -95,6 +97,27 @@ def test_plain_matches_jax_on_tied_ranks(shape):
     got, want = _both(iou, rank, 0.3)
     np.testing.assert_array_equal(got, want)
     assert list(got[:2]) == [0, 0] and (got[2:] == -1).all()
+
+
+@pytest.mark.parametrize("case", ["staircase_64x16", "all_equal_64x16", "full_128x64"])
+def test_plain_matches_jax_on_adversarial_matrices(case):
+    """The matrices chip_smoke.py holds K4 to its plain version on, here held
+    to the JAX XLA fixpoint and JAX's K4 in the interpreter: the staircase
+    and the all-equal ladder (one pair a round, 17 rounds, the diagonal),
+    and (128, 64) matrices with every row alive and every column valid."""
+    if case == "full_128x64":
+        rng = np.random.default_rng(128064)
+        matrices = [chip_smoke.full_association(rng, 128, 64) for _ in range(2)]
+    else:
+        step = 1 if case.startswith("staircase") else 0
+        matrices = [(chip_smoke.ladder_iou(64, 16, step), np.arange(64, dtype=np.int32))]
+    for iou, rank in matrices:
+        got, want = _both(iou, rank, 0.3)
+        np.testing.assert_array_equal(got, want)
+        kernel = greedy_associate_pallas(jnp.asarray(iou), jnp.asarray(rank), 0.3, interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(kernel))
+        if case != "full_128x64":
+            assert list(got[:16]) == list(range(16)) and (got[16:] == -1).all()
 
 
 def test_kernel_wrapper_refuses_what_k4_does_not_take():

@@ -25,11 +25,13 @@ def device():
 
 
 def test_tracker_kernel_matches_plain(device):
-    """Every output exact at every step: churn at (64, 16) and (128, 64), a
-    saturated table, and the 300-frame synthetic stream."""
+    """Every output exact at every step: churn at (64, 16) and (128, 64),
+    saturated tables at (64, 16) and (128, 64), the staircase and
+    all-equal ladders, and the 300-frame synthetic stream."""
     cases = chip_smoke.check_tracker_kernel(device, steps=20)
     assert [c["case"] for c in cases] == [
-        "churn_64x16", "churn_128x64", "saturated_64x16", "synthetic_64x16"
+        "churn_64x16", "churn_128x64", "saturated_64x16", "saturated_128x64", "staircase_64x16",
+        "all_equal_64x16", "synthetic_64x16", "odd_ring_63x16", "long_ring_64x16",
     ]
     torch.cuda.synchronize()
 
@@ -48,16 +50,21 @@ def test_main_path_on_card_matches_cpu(device):
 
 def test_tagging_kernel_matches_plain(device):
     """Discrete tags and state exact, floats within 1e-5 (state 1e-6), the
-    state threaded through each side: detections mode, frames mode, T=128."""
-    cases = chip_smoke.check_tagging_kernel(device, frames=(40, 30, 20))
-    assert [c["case"] for c in cases] == ["detections_64x16", "frames_64x16", "detections_128x64"]
+    state threaded through each side: detections mode, frames mode, T=128,
+    and the crafted stream that reaches every corner of the aggregates."""
+    cases = chip_smoke.check_tagging_kernel(device, frames=(40, 30, 20, 40))
+    assert [c["case"] for c in cases] == [
+        "detections_64x16", "frames_64x16", "detections_128x64", "crafted_64x16", "crafted_frames_128x64",
+        "odd_ring_63x16", "long_ring_64x16",
+    ]
     torch.cuda.synchronize()
 
 
 def test_association_kernel_matches_plain(device):
     cases = chip_smoke.check_association_kernel(device, trials=3)
-    assert cases[-1]["case"] == "empty_full_and_tied_pair_16x16"
-    assert "tied_ranks_64x16" in [c["case"] for c in cases]
+    names = [c["case"] for c in cases]
+    assert names[-4:] == ["empty_full_and_tied_pair_16x16", "staircase_64x16", "all_equal_64x16", "full_128x64"]
+    assert "tied_ranks_64x16" in names
     torch.cuda.synchronize()
 
 

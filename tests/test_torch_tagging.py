@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 import multimodal_autonomous_driving_perception_and_planning_torch as pt
 import multimodal_autonomous_driving_perception_and_planning_tpu as pj
 from multimodal_autonomous_driving_perception_and_planning_torch import types as tt
@@ -145,7 +147,7 @@ def _assert_states_match(st_t, st_j, where):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6, err_msg=f"{where}: {fld}")
 
 
-def _run_stream(jax_step, frames, seed, frames_mode):
+def _run_stream(jax_step, frames, seed, frames_mode, frame=_rand_frame, corners=None):
     cfg_t = pt.DEFAULT_CONFIG.replace(use_frames=frames_mode, enable_tagging=True)
     step_t = rules_t.make_tagging_step(cfg_t)
     state_j = tj.TaggingState.initial(
@@ -157,7 +159,7 @@ def _run_stream(jax_step, frames, seed, frames_mode):
     seen = {"road_type_raw": set(), "turning": set(), "primary_interaction": set()}
     rng = np.random.default_rng(seed)
     for f in range(frames):
-        dets, table, vs = _rand_frame(rng, f)
+        dets, table, vs = frame(rng, f)
         lane, feats = _rand_lane_feats(rng) if frames_mode else (None, None)
         dj, tab_j, vj, lj, fj = _jax_inputs(dets, table, vs, lane, feats)
         dt, tab_t, vt, lt, ft = _torch_inputs(dets, table, vs, lane, feats)
@@ -167,6 +169,10 @@ def _run_stream(jax_step, frames, seed, frames_mode):
         _assert_states_match(state_t, state_j, f"frame {f}")
         for k in seen:
             seen[k].add(int(tags_t[k]))
+        if corners is not None:
+            hits = chip_smoke.aggregate_corners(tags_t, tab_t, state_t.int_len, cfg_t.tagging.interaction_history)
+            for k, hit in hits.items():
+                corners[k] = corners.get(k, 0) + hit
     return seen
 
 
@@ -181,6 +187,21 @@ def test_plain_step_matches_jax_rules(frames_mode):
     # untested: other road types, turning, more interaction types.
     assert len(seen["road_type_raw"]) >= 2 and len(seen["turning"]) >= 4
     assert len(seen["primary_interaction"]) >= 4
+
+
+@pytest.mark.parametrize("frames_mode", [False, True], ids=["detections", "frames"])
+def test_plain_step_matches_jax_rules_on_crafted_stream(frames_mode):
+    """chip_smoke.py's crafted stream, which K3 is held to its plain version
+    on: all six interaction types the cascade gives in one frame, ties on
+    (risk, confidence) decided by id, equal minimum TTC in several slots,
+    center rings past their wrap.  Here the plain version against the JAX
+    XLA rule engines over 40 frames; every corner must be reached."""
+    cfg_j = pj.DEFAULT_CONFIG.replace(use_frames=frames_mode, enable_tagging=True)
+    jax_step = jax.jit(make_jax_tagging_step(cfg_j, backend="cpu"))
+    corners = {}
+    _run_stream(jax_step, 40, 17, frames_mode,
+                frame=lambda rng, f: chip_smoke.crafted_tagging_arrays(rng, f, _T, _D), corners=corners)
+    assert all(corners.values()) and len(corners) == 4, corners
 
 
 def test_plain_step_matches_jax_kernel_interpreted():

@@ -10,11 +10,15 @@ The cases are those of tests/test_tracker_pallas.py: tie-heavy quantized
 boxes, churn that forces misses and deaths, and a saturated table.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from multimodal_autonomous_driving_perception_and_planning_torch.config import (
     TrackerConfig as TrackerConfigT,
@@ -74,12 +78,18 @@ class _Trio:
     """The port, the JAX XLA path and the Pallas interpreter, stepped
     together and compared after every step."""
 
-    def __init__(self, t_cap, traj_len, **cfg):
+    def __init__(self, t_cap, traj_len, table=None, **cfg):
+        """``table``: numpy arrays of the fields that differ from an empty
+        table, the same start on every side."""
         self.cfg_j = TrackerConfig(max_tracks=t_cap, trajectory_length=traj_len, **cfg)
         self.cfg_t = TrackerConfigT(max_tracks=t_cap, trajectory_length=traj_len, **cfg)
-        self.xla = TrackTable.empty(t_cap, traj_len)
-        self.pal = TrackTable.empty(t_cap, traj_len)
-        self.port = TrackTableT.empty(t_cap, traj_len, "cpu")
+        table = table or {}
+        jax_fields = {k: jnp.asarray(v) for k, v in table.items()}
+        self.xla = dataclasses.replace(TrackTable.empty(t_cap, traj_len), **jax_fields)
+        self.pal = dataclasses.replace(TrackTable.empty(t_cap, traj_len), **jax_fields)
+        self.port = dataclasses.replace(
+            TrackTableT.empty(t_cap, traj_len, "cpu"), **{k: torch.tensor(v) for k, v in table.items()}
+        )
 
         def xla(table, dets):
             table, match = _tracker_update_xla(table, dets, self.cfg_j, "cpu")
@@ -118,6 +128,25 @@ def test_tracker_matches_jax_stream(t_cap, d_cap):
     rng = np.random.default_rng(t_cap + d_cap)
     for step in range(12):
         trio.step(_random_dets(rng, d_cap), msg=f"step {step}")
+
+
+@pytest.mark.parametrize("case", ["staircase_64x16", "all_equal_64x16", "saturated_128x64"])
+def test_tracker_matches_jax_adversarial(case):
+    """The cases chip_smoke.py holds K1 to its plain version on, here held to
+    the JAX tracker and its TPU kernel in the interpreter: the staircase
+    and the all-equal ladder from a full table (one pair a round, 17
+    rounds), and a (128, 64) table filled by fully valid detections."""
+    if case == "saturated_128x64":
+        trio = _Trio(128, 6, iou_threshold=0.3, max_age=30, min_hits=3)
+        rng = np.random.default_rng(4)
+        for step in range(4):
+            trio.step(_random_dets(rng, 64, p_valid=1.0), msg=f"step {step}")
+        assert int((trio.port.track_id > 0).sum()) == 128
+        return
+    table, dets = chip_smoke.ladder_arrays(64, 16, 1.0 if case.startswith("staircase") else 0.0)
+    trio = _Trio(64, 6, table=table, iou_threshold=0.3, max_age=30, min_hits=3)
+    for step in range(2):
+        trio.step(dets, msg=f"step {step}")
 
 
 def test_tracker_tracks_persist():
