@@ -133,9 +133,6 @@ __device__ inline void greedy_associate_block(const float* iou, int ld, const in
       const unsigned b = __ballot_sync(0xffffffffu, accepted);
       if (lane == 0 && b) row_done[tid >> 5] |= b;
     }
-#ifdef MADPP_PHASE_CLOCK
-    if (tid == 0) ++madpp_phase_rounds;
-#endif
     if (!__syncthreads_or(accepted)) break;
   }
 }

@@ -1,25 +1,9 @@
 // Block-wide helpers of the one-block kernels K1 (tracker_step.cu) and K3
 // (tagging_step.cu): asynchronous staging of their rings into shared
-// memory, and phase clocks for measuring where a launch's time goes.
+// memory.
 #pragma once
 
 #include <stdint.h>
-
-// Phase clocks, compiled in only with -DMADPP_PHASE_CLOCK (split_compare.py
-// --phases): thread 0 stores the SM's cycle counter at each phase boundary
-// of K1 or K3, and the association counts its rounds.
-#ifdef MADPP_PHASE_CLOCK
-__device__ long long madpp_phase_cycles[16];
-__device__ int madpp_phase_rounds;
-#define PHASE_CLOCK(k)                                        \
-  do {                                                        \
-    if (threadIdx.x == 0) madpp_phase_cycles[k] = clock64();   \
-  } while (0)
-#else
-#define PHASE_CLOCK(k) \
-  do {                 \
-  } while (0)
-#endif
 
 // Asynchronous copies from device to shared memory (`cp.async`).
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

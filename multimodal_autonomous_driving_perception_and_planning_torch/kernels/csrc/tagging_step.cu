@@ -436,7 +436,6 @@ tagging_step_kernel(TagIn in, TagOut out, TagDims dm, TagParams p) {
   float* tf = out.tag_f;
   int* ti = out.tag_i;
 
-  PHASE_CLOCK(0);
   // --- A. one wave of loads ------------------------------------------------
   const float* icent = in.icent;
   const float* mhist = in.mhist;
@@ -491,7 +490,6 @@ tagging_step_kernel(TagIn in, TagOut out, TagDims dm, TagParams p) {
   }
   if (dm.stage) cp_async_wait_all();
   __syncthreads();
-  PHASE_CLOCK(1);
 
   // --- B. per slot, beside the scene and the maneuver warps -----------------
   if (tix < T) {
@@ -586,7 +584,6 @@ tagging_step_kernel(TagIn in, TagOut out, TagDims dm, TagParams p) {
     }
   }
   __syncthreads();
-  PHASE_CLOCK(2);
 
   // --- C. aggregates on warps 0-3, the center ring out on warps 4-7 ---------
   // Distances are clamped to [2, 100] (a box with a NaN gives 2) and a TTC
@@ -723,10 +720,6 @@ tagging_step_kernel(TagIn in, TagOut out, TagDims dm, TagParams p) {
       out.icent[i] = patched(t, i - t * ring_w, icent[i]);
     }
   }
-#ifdef MADPP_PHASE_CLOCK
-  __syncthreads();
-  PHASE_CLOCK(3);
-#endif
 }
 
 template <bool FramesMode>
@@ -768,12 +761,3 @@ extern "C" int madpp_tagging_step(
   return frames_mode ? launch<true>(in, out, dm, p, smem, (cudaStream_t)stream)
                      : launch<false>(in, out, dm, p, smem, (cudaStream_t)stream);
 }
-
-#ifdef MADPP_PHASE_CLOCK
-// The phase clocks of the last launch (4 stamps), for split_compare.py
-// --phases.
-extern "C" int madpp_phase_clock(long long* clocks, int* rounds) {
-  *rounds = 0;
-  return (int)cudaMemcpyFromSymbol(clocks, madpp_phase_cycles, 16 * sizeof(long long));
-}
-#endif

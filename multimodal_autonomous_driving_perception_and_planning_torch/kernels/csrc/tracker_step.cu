@@ -180,7 +180,6 @@ tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
   const int lane = tid & 31, warp = tid >> 5;
   float* s_ring = s_dyn;
   float* s_iou = s_dyn + (p.stage_ring ? round4(n_ring) : 0);
-  PHASE_CLOCK(0);
 
   // --- one wave of loads ----------------------------------------------------
   if (p.stage_ring) stage_async(s_ring, in.traj, n_ring);
@@ -222,7 +221,6 @@ tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
     s_next_id = *in.next_id;
   }
   __syncthreads();
-  PHASE_CLOCK(1);
 
   // --- IoU, op for op `pairwise_iou`; invalid pairs are -1 ------------------
   const int step_t = kThreads / D, step_d = kThreads - step_t * D;
@@ -246,14 +244,12 @@ tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
   }
   // Stable rank of each slot by id, dead slots last (`id_rank`).
   stable_rank(s_key, T, s_rank, nullptr);
-  PHASE_CLOCK(2);
   // The ring has had the IoU and the ranks to land; the association's
   // first barrier makes every thread's copies visible.
   if (p.stage_ring) cp_async_wait_all();
 
   greedy_associate_block(s_iou, ld, s_rank, T, D, p.iou_threshold, s_match, s_row_best, s_col_best,
                          s_row_done, s_col_done);
-  PHASE_CLOCK(3);
 
   // --- the ring out as it was, 16 bytes a store where both ends allow ------
   // This frame's writes follow after a barrier, from each slot's thread.
@@ -275,7 +271,6 @@ tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
   const int n_birth = min(n_free, __popc(want0) + __popc(want1));
   const int next_id = s_next_id;
   __syncthreads();
-  PHASE_CLOCK(4);
 
   // --- per slot: matched update, birth, death ------------------------------
   if (tid < kMaxT) {
@@ -364,7 +359,6 @@ tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
     if (lane == 0) s_conf_bits[warp] = b;
   }
   __syncthreads();
-  PHASE_CLOCK(5);
 
   // --- confirmed order: stable by (id, slot), unconfirmed slots last ------
   stable_rank(s_key, T, nullptr, out.order);
@@ -374,10 +368,6 @@ tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
     *out.n_conf = n;
     *out.next_id = next_id + n_birth;
   }
-#ifdef MADPP_PHASE_CLOCK
-  __syncthreads();
-  PHASE_CLOCK(6);
-#endif
 }
 
 }  // namespace
@@ -410,15 +400,3 @@ extern "C" int madpp_tracker_step(
   tracker_step_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(in, out, p);
   return (int)cudaGetLastError();
 }
-
-#ifdef MADPP_PHASE_CLOCK
-// The phase clocks of the last launch (7 stamps) and the association's
-// round count since the last call, for split_compare.py --phases.
-extern "C" int madpp_phase_clock(long long* clocks, int* rounds) {
-  cudaError_t err = cudaMemcpyFromSymbol(clocks, madpp_phase_cycles, 16 * sizeof(long long));
-  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(rounds, madpp_phase_rounds, sizeof(int));
-  const int zero = 0;
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(madpp_phase_rounds, &zero, sizeof(int));
-  return (int)err;
-}
-#endif

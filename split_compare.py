@@ -3,23 +3,18 @@
 checkout and, beside it, for another checkout of the port.
 
     python3 split_compare.py [OTHER_CHECKOUT] [--out FILE]
-    python3 split_compare.py --phases [--out FILE]
 
-Runs `chip_smoke.measure_split` (the launch floor, each wrapper's host
-split, and each kernel's device time on inputs that take away one part of
-its work at a time) in a fresh process per run.  With OTHER_CHECKOUT (for
-example the parent commit unpacked with ``git archive``), the runs go in
-turns, other, this, this, other, so that a drift of the card or the host
-falls on both; each run builds that checkout's kernels.  Prints one JSON
-line a run and, with --out, writes them all to FILE.
-
-With --phases it builds K1 and K3 of this checkout once more with
-``-DMADPP_PHASE_CLOCK`` (nvcc, bound with ctypes), which makes thread 0
-store the SM's cycle counter at each phase boundary, launches them through
-their wrappers on `measure_split`'s base inputs and the (64, 16) staircase,
-and prints the median cycles of each phase over 50 launches, the
-association's rounds, and the SM clock that nvidia-smi reads.  Needs a
-card.
+Runs, in a fresh process per run, this script's `chip_smoke.measure_split`
+(the launch floor, each wrapper's host split, and each kernel's device time
+on inputs that take away one part of its work at a time),
+`chip_smoke.measure_kernels` (each wrapper's ms a call by CUDA events and
+its kernel's device time, K2 included) and `chip_smoke.measure_paths` (the
+main and tagging paths' frames/s and busy share) against the package of
+the checkout the run starts in.  With OTHER_CHECKOUT (for example the
+parent commit unpacked with ``git archive``), the runs go in turns, other,
+this, this, other, so that a drift of the card or the host falls on both;
+each run builds that checkout's kernels.  Prints one JSON line a run and,
+with --out, writes them all to FILE.  Needs a card.
 """
 
 from __future__ import annotations
@@ -32,7 +27,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-# One run: this script's `chip_smoke.measure_split` against the package of
+# One run: this checkout's `chip_smoke` measurements against the package of
 # the checkout the process starts in (first on the path).
 _RUN = """
 import importlib.util, json, subprocess, sys, time, torch
@@ -43,7 +38,9 @@ spec.loader.exec_module(smoke)
 t0 = time.perf_counter()
 smoke.build.kernels()
 build_s = time.perf_counter() - t0
-result = smoke.measure_split(torch.device("cuda"), smoke.synthetic_inputs())
+device, inputs = torch.device("cuda"), smoke.synthetic_inputs()
+result = {"split": smoke.measure_split(device, inputs), "kernels": smoke.measure_kernels(device, inputs),
+          "paths": smoke.measure_paths(device, inputs)}
 card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                       capture_output=True, text=True).stdout.strip()
 print(json.dumps({"package": smoke.pt.__file__, "card": card, "build_s": build_s, **result}))
@@ -56,84 +53,6 @@ def run(checkout: Path) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-# The phases between K1's and K3's clock stamps (tracker_step.cu and
-# tagging_step.cu, PHASE_CLOCK).
-K1_PHASES = ("loads", "iou_and_rank", "association", "ring_out_and_births", "per_slot", "order")
-K3_PHASES = ("loads", "slots_scene_maneuver", "aggregates_and_ring_out")
-
-
-def phase_clocks(reps: int = 50) -> dict:
-    """Median cycles of each phase of K1 and K3 (see the module's doc)."""
-    import ctypes
-    import statistics
-    from types import SimpleNamespace
-
-    import torch
-
-    sys.path.insert(0, str(HERE))
-    import chip_smoke as smoke
-    from multimodal_autonomous_driving_perception_and_planning_torch.kernels import build
-
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    real = build.kernels()
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
-    out_dir = build.BUILD_DIR / "phase_clock"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs = {}
-    for src, argtypes in (("tracker_step", [vp] * 18 + [ci, ci, ci, cf, ci, ci, vp]),
-                          ("tagging_step", [vp] * 23 + [ci] * 7 + [vp])):
-        so = out_dir / f"lib{src}.so"
-        subprocess.run([nvcc, *build.NVCC_FLAGS, "-DMADPP_PHASE_CLOCK", "-shared", "-Xcompiler", "-fPIC",
-                        "-o", str(so), str(build.CSRC / f"{src}.cu")], check=True)
-        lib = ctypes.CDLL(str(so))
-        getattr(lib, f"madpp_{src}").argtypes = argtypes
-        getattr(lib, f"madpp_{src}").restype = ci
-        lib.madpp_phase_clock.argtypes = [vp, vp]
-        libs[src] = lib
-    # The wrappers launch whatever `build.kernels()` holds: the clocked K1
-    # and K3, the others as built.
-    names = ("tracker_step", "kalman_step", "tagging_step", "associate", "nms_keep")
-    build._kernels = SimpleNamespace(**{k: getattr(real, k) for k in names})
-    build._kernels.tracker_step = libs["tracker_step"].madpp_tracker_step
-    build._kernels.tagging_step = libs["tagging_step"].madpp_tagging_step
-
-    device = torch.device("cuda")
-    inputs = smoke.synthetic_inputs()
-    cfg = smoke.bench_config().tracker
-    table, dets = smoke.tracker_state(device, inputs)
-    stair_table, stair_dets = smoke.ladder_boxes(64, 16, 1.0, device)
-    rules, tstate, tdets, ttable, vrow = smoke.tagging_state(device, inputs)
-    k1, k3 = smoke.tracker_kernel.tracker_step, smoke.tagging_kernel.tagging_step
-    cases = {
-        "tracker_step.base": ("tracker_step", K1_PHASES, lambda: k1(table, dets, cfg, cfg.min_hits)),
-        "tracker_step.staircase_64x16": ("tracker_step", K1_PHASES,
-                                         lambda: k1(stair_table, stair_dets, cfg, cfg.min_hits)),
-        "tagging_step.base": ("tagging_step", K3_PHASES, lambda: k3(rules, tstate, tdets, ttable, vrow)),
-    }
-    clocks = (ctypes.c_longlong * 16)()
-    rounds = ctypes.c_int()
-    result = {}
-    for name, (src, phases, fn) in cases.items():
-        per_phase, per_rounds = {k: [] for k in phases}, []
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-            if libs[src].madpp_phase_clock(clocks, ctypes.byref(rounds)) != 0:
-                raise RuntimeError("reading the phase clocks failed")
-            for i, k in enumerate(phases):
-                per_phase[k].append(clocks[i + 1] - clocks[i])
-            per_rounds.append(rounds.value)
-        result[name] = {"cycles": {k: statistics.median(v) for k, v in per_phase.items()},
-                        "total_cycles": sum(statistics.median(v) for v in per_phase.values()),
-                        "rounds": statistics.median(per_rounds)}
-    result["clocks_sm_mhz"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip()
-    return result
-
-
 def main(argv) -> int:
     args = list(argv)
     out_file = None
@@ -141,17 +60,13 @@ def main(argv) -> int:
         i = args.index("--out")
         out_file = Path(args[i + 1])
         del args[i:i + 2]
-    if "--phases" in args:
-        results = phase_clocks()
-        print(json.dumps(results), flush=True)
-    else:
-        other = Path(args[0]).resolve() if args else None
-        order = [("other", other), ("this", HERE), ("this", HERE), ("other", other)] if other else [("this", HERE)]
-        results = []
-        for label, checkout in order:
-            result = {"run": label, **run(checkout)}
-            print(json.dumps(result), flush=True)
-            results.append(result)
+    other = Path(args[0]).resolve() if args else None
+    order = [("other", other), ("this", HERE), ("this", HERE), ("other", other)] if other else [("this", HERE)]
+    results = []
+    for label, checkout in order:
+        result = {"run": label, **run(checkout)}
+        print(json.dumps(result), flush=True)
+        results.append(result)
     if out_file is not None:
         out_file.parent.mkdir(parents=True, exist_ok=True)
         out_file.write_text(json.dumps(results, indent=1))
