@@ -9,10 +9,17 @@ Phases, each printing one JSON line:
   3. kernel K1 (tracker step) against its plain version on the card,
      exact on every output, over random, tie-quantized and saturated
      streams at (T, D) = (64, 16) and (128, 64) (the latter at full
-     occupancy), the staircase and all-equal ladders at (64, 16), whose
-     association accepts one pair a round, and the synthetic stream;
+     occupancy), the staircase and all-equal ladders at (64, 16) and the
+     staircase at (128, 64), whose association accepts one pair a round,
+     IoUs exactly at the threshold and +0 IoUs all tied under a threshold
+     of 0, exactly 32 and 33 eligible pairs (either side of the
+     association's sparse limit), and the synthetic stream;
   4. kernel K2 (ego Kalman step) against its plain version on the card,
-     step by step over a 300-frame chain with unmeasured frames;
+     step by step over a 300-frame chain with unmeasured frames, then on
+     single steps from crafted states (speed either side of the heading
+     hold, a heading wrapping across +-pi, unmeasured, P at 1e4, and an
+     ill-conditioned innovation covariance, held to the plain version
+     evaluated in float64);
   5. kernel K3 (tagging step) against its plain version on the card, the
      state threaded through each side on its own, over random streams in
      detections mode (120 frames), frames mode (60) and at T = 128 (60),
@@ -22,7 +29,10 @@ Phases, each printing one JSON line:
      id, equal minimum TTC in several slots, center rings past their wrap;
   6. kernel K4 (standalone association) against its plain version on the
      card, exact, over tie-quantized matrices, the empty and full ones, the
-     ladders and (128, 64) matrices with nothing dead;
+     ladders (the staircase at (128, 64) too), (128, 64) matrices with
+     nothing dead, and the key-order corners (-0 and +0, IoU at the
+     threshold, NaN, ranks at int32's ends in tied groups), dense, with
+     few eligible pairs, and with exactly 32 and 33;
   7. kernel K5 (greedy-NMS keep mask) against its plain version on the
      card, exact, over tie-quantized pools at K = 16 ... 1024, a
      suppression chain, all dead, all kept, and a batch of 64 at K = 256;
@@ -42,9 +52,9 @@ Phases, each printing one JSON line:
      plain `nms` on its own candidates;
  13. times: each kernel and its plain version by CUDA events at its path's
      shapes, beside the kernel's bound; the launch floor (`floor_ms`, a
-     one-element add's device time) and where K1's, K3's and K4's time
-     goes (`split`: each wrapper's host split, each kernel on inputs that
-     take one part of its work away); the frames/s of the main and tagging
+     one-element add's device time) and where K1's to K4's time goes
+     (`split`: each wrapper's host split, each kernel on inputs that take
+     one part of its work away); the frames/s of the main and tagging
      paths, timed in turns; the YOLO detection chunk by stage and the YOLO
      path's frames/s in both dtypes.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -88,6 +98,7 @@ from multimodal_autonomous_driving_perception_and_planning_torch.ops.association
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.ops.geometry import pairwise_iou
 from multimodal_autonomous_driving_perception_and_planning_torch.ops.kalman import (
+    KalmanModel,
     make_constant_accel_model,
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.ops.nms import (
@@ -116,6 +127,7 @@ from multimodal_autonomous_driving_perception_and_planning_torch.types import (
     TaggingState,
     VEHICLE_STATE_FIELDS,
     TrackTable,
+    VehicleState,
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.utils.convert import (
     kalman_model_from_numpy,
@@ -272,25 +284,76 @@ def ladder_arrays(t: int, d: int, step: float):
 
 def ladder_boxes(t: int, d: int, step: float, device):
     """`ladder_arrays` as a TrackTable (L = 50) and Detections on ``device``."""
-    table, dets = ladder_arrays(t, d, step)
+    return table_on(*ladder_arrays(t, d, step), device)
+
+
+def table_on(table: dict, dets: dict, device):
+    """A table's fields that differ from an empty one and detections, as
+    numpy arrays, as a TrackTable (L = 50) and Detections on ``device``."""
+    t = len(table["track_id"])
     empty = TrackTable.empty(t, bench_config().tracker.trajectory_length, device)
     table = dataclasses.replace(empty, **{k: torch.tensor(v, device=device) for k, v in table.items()})
     return table, Detections(**{k: torch.tensor(v, device=device) for k, v in dets.items()})
 
 
-def ladder_iou(t: int, d: int, step: int) -> np.ndarray:
+def ladder_iou(t: int, d: int, step: float) -> np.ndarray:
     """K4's counterpart of `ladder_arrays`: iou[i, j] = (128 - step (i + j))
-    / 128, exact in float32 and above 0.3 up to (64, 16); with ranks 0..t-1
-    round k accepts (k, k)."""
+    / 128, exact in float32 for a step of a multiple of 1/2; with step 1
+    the pairs (k, k) stand above 0.3 up to (64, 16), with step 1/2 up to
+    (128, 64).  With ranks 0..t-1 round k accepts (k, k)."""
     i, j = np.meshgrid(np.arange(t), np.arange(d), indexing="ij")
     return ((128 - step * (i + j)) / 128).astype(np.float32)
+
+
+def corner_arrays(t: int, d: int, zero_iou: bool):
+    """K1's key-order corners as numpy arrays, like `ladder_arrays`: a full
+    table of ``t`` live tracks whose ids are a seeded permutation (so the
+    rank by id is not the slot) and ``d`` valid detections.  Every track has
+    the box [0, 0, 10, 1]; the even detections [0, 0, 3, 1] stand at IoU
+    0.3 exactly (3 / 10 in float32), the threshold, with every track, and
+    the odd ones just below it.  With ``zero_iou`` the tracks lie apart
+    from every detection instead: each pair has IoU +0, which a threshold of
+    0 admits, all tied."""
+    ids = np.random.default_rng(t * d).permutation(t).astype(np.int32) + 1
+    if zero_iou:
+        x = 1000 + 20 * np.arange(t, dtype=np.float32)
+        tb = np.stack([x, np.zeros(t), x + 10, np.full(t, 10)], 1)
+        y = 20 * np.arange(d, dtype=np.float32)
+        db = np.stack([y, np.full(d, 500), y + 10, np.full(d, 510)], 1)
+    else:
+        tb = np.tile(np.array([0, 0, 10, 1]), (t, 1))
+        db = np.array([[0, 0, 3 if j % 2 == 0 else 2.99, 1] for j in range(d)])
+    table = {"track_id": ids, "bbox": tb.astype(np.float32), "hits": np.full(t, 3, np.int32),
+             "next_id": np.int32(t + 1)}
+    dets = {"bbox": db.astype(np.float32), "class_id": np.zeros(d, np.int32),
+            "confidence": np.full(d, 0.9, np.float32), "valid": np.ones(d, bool)}
+    return table, dets
+
+
+def boundary_arrays(live: int, at_threshold: int):
+    """`corner_arrays(64, 16, False)` with only the first ``live`` tracks
+    alive and only the first ``at_threshold`` detections at IoU 0.3, the
+    others just below it: exactly live * at_threshold eligible pairs, all
+    tied, one accepted a round."""
+    table, dets = corner_arrays(64, 16, False)
+    table["track_id"][live:] = 0
+    table["hits"][live:] = 0
+    dets["bbox"][:, 2] = np.where(np.arange(16) < at_threshold, np.float32(3), np.float32(2.99))
+    return table, dets
+
+
+# (live tracks, detections at the threshold): 32 and 33 eligible pairs, the
+# two sides of the association's sparse limit (association.cuh).
+BOUNDARY_CASES = ((16, 2), (11, 3))
 
 
 def check_tracker_kernel(device, steps: int = 50) -> list:
     """K1 against its plain version: churn at (64, 16) and (128, 64), a
     saturated (64, 16) table and a (128, 64) one at full occupancy, the
     staircase and all-equal ladders at (64, 16) (one pair a round, 17
-    rounds), and the synthetic stream at the default size."""
+    rounds) and the staircase at (128, 64) (65 rounds), the key-order
+    corners of `corner_arrays`, 32 and 33 eligible pairs
+    (`boundary_arrays`), and the synthetic stream at the default size."""
     cases = []
     for t_cap, d_cap, seed in ((64, 16, 1), (128, 64, 2)):
         cfg = pt.TrackerConfig(iou_threshold=0.1, max_age=2, min_hits=3, max_tracks=t_cap)
@@ -313,6 +376,26 @@ def check_tracker_kernel(device, steps: int = 50) -> list:
         cases.append(_tracker_case(name, cfg, lambda s, dets=dets: dets, 3, device, table=table))
         if cases[-1]["max_matched"] != 16:
             raise AssertionError(f"K1 {name}: the ladder did not match all 16 detections")
+    table, dets = ladder_boxes(128, 64, 0.5, device)
+    cfg128 = dataclasses.replace(cfg, max_tracks=128)
+    cases.append(_tracker_case("staircase_128x64", cfg128, lambda s: dets, 3, device, table=table))
+    if cases[-1]["max_matched"] != 64:
+        raise AssertionError("K1 staircase_128x64: the ladder did not match all 64 detections")
+    # The key-order corners: IoU exactly at the threshold, and +0 IoUs all
+    # tied under a threshold of 0; ranks by permuted ids.
+    corners = (("threshold_ties_64x16", False, 0.3, 8), ("zero_iou_ties_64x16", True, 0.0, 16))
+    for name, zero_iou, thr, matched in corners:
+        table, dets = table_on(*corner_arrays(64, 16, zero_iou), device)
+        corner_cfg = dataclasses.replace(cfg, iou_threshold=thr)
+        cases.append(_tracker_case(name, corner_cfg, lambda s, dets=dets: dets, 3, device, table=table))
+        if cases[-1]["max_matched"] != matched:
+            raise AssertionError(f"K1 {name}: {cases[-1]['max_matched']} matches, expected {matched}")
+    for live, at_threshold in BOUNDARY_CASES:
+        table, dets = table_on(*boundary_arrays(live, at_threshold), device)
+        name = f"eligible_{live * at_threshold}_64x16"
+        cases.append(_tracker_case(name, cfg, lambda s, dets=dets: dets, 1, device, table=table))
+        if cases[-1]["max_matched"] != at_threshold:
+            raise AssertionError(f"K1 {name}: {cases[-1]['max_matched']} matches, expected {at_threshold}")
     inputs = synthetic_inputs()
     cases.append(_tracker_case(
         "synthetic_64x16", pt.TrackerConfig(), lambda s: frame_dets(inputs, s, device), NUM_FRAMES, device
@@ -333,24 +416,75 @@ def _kalman_close(got, want, scale=1.0):
     return ok, float(err.max())
 
 
+def kalman_corner_states(hold: float, initial_covariance: float) -> dict:
+    """Single ego steps from crafted states, as float32 numpy arrays
+    ``(x, P, time, prev_heading, prev_speed, z, has_measurement)``: the
+    speed 0.1% below and above ``hold`` (the heading held, then taken from
+    atan2; far enough from it that float32 and float64 agree on the side),
+    a heading that wraps across +-pi between the predicted and the updated
+    state, an unmeasured step with a measurement far off, P at 1e4 on the
+    diagonal (S = P1[:4, :4] + R dwarfs R but is well conditioned, about
+    1.07), and ``ill_conditioned_P``: 1e4 in every entry plus 1e-3 on the
+    diagonal, position, velocity and acceleration fully correlated
+    (eigenvalues 1e-3 and 6e4), whose S has a condition number of about
+    3.9e4."""
+    f32 = np.float32
+    P0 = np.eye(6, dtype=f32) * f32(initial_covariance)
+    cases = {}
+    for name, scale in (("speed_below_hold", 1 - 1e-3), ("speed_above_hold", 1 + 1e-3)):
+        v = hold * scale
+        x = np.array([1.0, 2.0, v * math.cos(0.7), v * math.sin(0.7), 0.0, 0.0], f32)
+        # The measurement equals the prediction: the update leaves the speed.
+        z = np.array([x[0] + x[2] * 0.033, x[1] + x[3] * 0.033, x[2], x[3]], f32)
+        cases[name] = (x, P0, f32(1.0), f32(0.5), f32(v), z, True)
+    x = np.array([0.0, 0.0, -5.0, 0.01, 0.0, 0.0], f32)
+    z = np.array([-0.165, 0.0003, -5.0, -0.08], f32)
+    cases["heading_wrap"] = (x, P0, f32(2.0), f32(3.14), f32(5.0), z, True)
+    x = np.array([3.0, -2.0, 4.0, 1.0, 0.5, -0.2], f32)
+    cases["unmeasured"] = (x, P0, f32(3.0), f32(0.2), f32(4.1), np.full(4, 1e3, f32), False)
+    x = np.array([10.0, 5.0, 3.0, 1.0, 0.0, 0.0], f32)
+    z = np.array([10.5, 4.8, 3.3, 0.9], f32)
+    cases["large_P"] = (x, np.eye(6, dtype=f32) * f32(1e4), f32(4.0), f32(0.3), f32(3.2), z, True)
+    P = np.full((6, 6), 1e4, f32) + np.eye(6, dtype=f32) * f32(1e-3)
+    cases["ill_conditioned_P"] = (x, P, f32(4.0), f32(0.3), f32(3.2), z, True)
+    return cases
+
+
+# Crafted states whose plain step in float32 stands off its own algebra in
+# float64 by more than K2's bars: K2 keeps its algebra in double, so it is
+# held to `plain_step_float64` there.
+KALMAN_FLOAT64_CASES = ("ill_conditioned_P",)
+
+
+def plain_step_float64(ks, model, z, has, cfg):
+    """`_estimator_step_xla` on float64 copies of its inputs, its outputs
+    rounded to float32: the plain step without float32's rounding."""
+    f64 = torch.float64
+    ks64 = KalmanState(*(t.to(f64) for t in (ks.x, ks.P, ks.time, ks.prev_heading, ks.prev_speed)))
+    new, vs = _estimator_step_xla(ks64, KalmanModel(*(m.to(f64) for m in model)), z.to(f64), has, cfg)
+    new = KalmanState(*(t.float() for t in (new.x, new.P, new.time, new.prev_heading, new.prev_speed)))
+    return new, VehicleState(**{f: getattr(vs, f).float() for f in VEHICLE_STATE_FIELDS})
+
+
 def check_kalman_kernel(device, frames: int = NUM_FRAMES) -> dict:
     """K2 against its plain version, step by step from the plain chain's
-    state, every seventh frame unmeasured.  x, P and the reported fields are
-    held at atol 1e-5 + rtol 1e-6 (positions reach 100 m, where one float32
-    step is 8e-6); acceleration and yaw rate are finite differences over
-    dt, so that bound holds for them times dt."""
+    state, every seventh frame unmeasured, then on the single steps of
+    `kalman_corner_states`.  x, P and the reported fields are held at atol
+    1e-5 + rtol 1e-6 (positions reach 100 m, where one float32 step is
+    8e-6); acceleration and yaw rate are finite differences over dt, so
+    that bound holds for them times dt.  On `KALMAN_FLOAT64_CASES` the
+    reference is `plain_step_float64`, and the float32 plain step's own
+    distance from it is reported (``float32_plain_gap``)."""
     cfg = pt.DEFAULT_CONFIG.estimator
     model = kalman_model_from_numpy(
         *make_constant_accel_model(cfg.dt, cfg.process_noise, cfg.measurement_noise, cfg.accel_noise_scale),
         device=device,
     )
-    ego = torch.tensor(ego_motion_stream(frames, dt=1.0 / 30.0, seed=0), dtype=torch.float32, device=device)
-    ks = KalmanState.initial(cfg.initial_covariance, device)
-    worst = {}
-    for f in range(frames):
-        has = torch.tensor(f % 7 != 3, device=device)
-        want_ks, want_vs = _estimator_step_xla(ks, model, ego[f], has, cfg)
-        got_ks, got_vs = _estimator_step_fused(ks, model, ego[f], has, cfg)
+    worst, gap = {}, {}
+
+    def compare(label, ks, z, has, plain=_estimator_step_xla):
+        want_ks, want_vs = plain(ks, model, z, has, cfg)
+        got_ks, got_vs = _estimator_step_fused(ks, model, z, has, cfg)
         checks = [("state.x", got_ks.x, want_ks.x, 1.0), ("state.P", got_ks.P, want_ks.P, 1.0)]
         for name in VEHICLE_STATE_FIELDS:
             scale = cfg.dt if name in ("acceleration", "yaw_rate") else 1.0
@@ -359,9 +493,26 @@ def check_kalman_kernel(device, frames: int = NUM_FRAMES) -> dict:
             ok, err = _kalman_close(a, b, scale)
             worst[name] = max(worst.get(name, 0.0), err)
             if not ok:
-                raise AssertionError(f"K2 frame {f}: {name} {a.tolist()} vs plain {b.tolist()}")
-        ks = want_ks
-    return {"frames": frames, "unmeasured": sum(f % 7 == 3 for f in range(frames)), "max_abs_err": worst}
+                raise AssertionError(f"K2 {label}: {name} {a.tolist()} vs plain {b.tolist()}")
+        return want_ks
+
+    ego = torch.tensor(ego_motion_stream(frames, dt=1.0 / 30.0, seed=0), dtype=torch.float32, device=device)
+    ks = KalmanState.initial(cfg.initial_covariance, device)
+    for f in range(frames):
+        ks = compare(f"frame {f}", ks, ego[f], torch.tensor(f % 7 != 3, device=device))
+    corners = kalman_corner_states(cfg.speed_heading_hold, cfg.initial_covariance)
+    for name, (x, P, time0, heading, speed, z, has) in corners.items():
+        ks = KalmanState(*(torch.tensor(a, device=device) for a in (x, P, time0, heading, speed)))
+        z, has = torch.tensor(z, device=device), torch.tensor(has, device=device)
+        if name in KALMAN_FLOAT64_CASES:
+            compare(name, ks, z, has, plain_step_float64)
+            exact, plain = plain_step_float64(ks, model, z, has, cfg), _estimator_step_xla(ks, model, z, has, cfg)
+            gap[name] = {"x": float((plain[0].x - exact[0].x).abs().max()),
+                         "P": float((plain[0].P - exact[0].P).abs().max())}
+        else:
+            compare(name, ks, z, has)
+    return {"frames": frames, "unmeasured": sum(f % 7 == 3 for f in range(frames)), "corners": list(corners),
+            "max_abs_err": worst, "float32_plain_gap": gap}
 
 
 TAG_STATE_FIELDS = (
@@ -645,11 +796,65 @@ def full_association(rng, t: int, d: int):
     return iou, np.argsort(np.argsort(rng.random(t))).astype(np.int32)
 
 
+I32_MIN, I32_MAX = int(np.iinfo(np.int32).min), int(np.iinfo(np.int32).max)
+# Ranks at the ends of int32, negative and around zero: their tie-break keys
+# rank * D + column wrap in int32, as the plain version computes them.
+KEY_RANKS = (I32_MIN, I32_MIN + 1, -7, -1, 0, 1, I32_MAX - 1, I32_MAX)
+KEY_CORNER_SHAPES = ((16, 16), (64, 16), (16, 3), (33, 17), (128, 64))
+KEY_CORNER_THRESHOLDS = (0.0, 0.3)
+
+
+def key_corner_values(thr: float) -> np.ndarray:
+    """The key-order corners as float32 IoUs: -1, -0.0, +0.0, exactly the
+    threshold, a float just below it, NaN, and three IoUs that tie."""
+    f32 = np.float32
+    # Just below the threshold, but never a subnormal: XLA on the CPU
+    # flushes those to zero, so JAX would take -1e-45 for -0.
+    below = np.nextafter(f32(thr), f32(-1)) if thr > 0 else f32(-1e-6)
+    return np.array([-1.0, -0.0, 0.0, thr, below, np.nan, 0.5, 0.75, 1.0], f32)
+
+
+def key_corner_ranks(rng, t: int, d: int) -> np.ndarray:
+    """``t`` ranks drawn with repeats (tied groups) from `KEY_RANKS` and the
+    two ranks whose key rank * d + column crosses int32's end inside the
+    row when d is not a power of two."""
+    wrap = I32_MAX // d
+    pool = np.array(KEY_RANKS + (wrap, -wrap - 1), np.int64)
+    return rng.choice(pool, t).astype(np.int32)
+
+
+def key_corner_association(rng, t: int, d: int, thr: float, keep: int | None = None):
+    """A (t, d) matrix on the corners of the association's key order
+    (`key_corner_values`) with `key_corner_ranks`.  With ``keep``, all but
+    that many entries are -1 (few eligible pairs, as on the paths)."""
+    iou = rng.choice(key_corner_values(thr), (t, d), p=[0.2, 0.1, 0.1, 0.15, 0.05, 0.1, 0.1, 0.1, 0.1])
+    if keep is not None:
+        dead = np.ones(t * d, bool)
+        dead[rng.choice(t * d, min(keep, t * d), replace=False)] = False
+        iou[dead.reshape(t, d)] = -1.0
+    return iou.astype(np.float32), key_corner_ranks(rng, t, d)
+
+
+def eligible_association(rng, t: int, d: int, thr: float, n: int):
+    """A key-order corner matrix with exactly ``n`` eligible entries: those
+    drawn from the eligible corners (-0 and +0 under a threshold of 0, the
+    threshold, the tied IoUs), every other entry from the others (-1, just
+    below the threshold, NaN); ranks from `key_corner_ranks`."""
+    vals = key_corner_values(thr)
+    ok = (vals >= thr) & (vals >= 0)
+    iou = rng.choice(vals[~ok], t * d)
+    iou[rng.choice(t * d, n, replace=False)] = rng.choice(vals[ok], n)
+    return iou.reshape(t, d).astype(np.float32), key_corner_ranks(rng, t, d)
+
+
 def check_association_kernel(device, trials: int = 10) -> list:
     """K4 against its plain version, exact, at (64, 16), (64, 64), (128, 64)
     and (16, 16), with rank permutations and with tied ranks; on the empty
     and full (16, 16) matrices; on the (64, 16) staircase and all-equal
-    ladders (17 rounds); and on (128, 64) matrices with nothing dead."""
+    ladders (17 rounds) and the (128, 64) staircase (65 rounds); on
+    (128, 64) matrices with nothing dead; on the key-order corners of
+    `key_corner_association`; and on exactly 32 and 33 eligible entries
+    (`eligible_association`), either side of the sparse limit."""
     cases = []
 
     def compare(name, iou, rank, thr):
@@ -687,9 +892,32 @@ def check_association_kernel(device, trials: int = 10) -> list:
         if compare(name, ladder_iou(64, 16, step), rank, 0.3) != 16:
             raise AssertionError(f"K4 {name}: the ladder did not match all 16 columns")
         cases.append({"case": name, "matched": 16})
+    if compare("staircase_128x64", ladder_iou(128, 64, 0.5), np.arange(128, dtype=np.int32), 0.3) != 64:
+        raise AssertionError("K4 staircase_128x64: the ladder did not match all 64 columns")
+    cases.append({"case": "staircase_128x64", "matched": 64})
     rng = np.random.default_rng(128064)
     full = [compare(f"full 128x64 trial {i}", *full_association(rng, 128, 64), 0.3) for i in range(trials)]
     cases.append({"case": "full_128x64", "trials": trials, "matched": full})
+    # The key-order corners: -0 and +0, IoU at the threshold, NaN, ranks at
+    # int32's ends in tied groups.
+    for t, d in KEY_CORNER_SHAPES:
+        rng = np.random.default_rng(7 * t + d)
+        matched = [compare(f"key corners {t}x{d} thr {thr} trial {i}", *key_corner_association(rng, t, d, thr), thr)
+                   for thr in KEY_CORNER_THRESHOLDS for i in range(trials)]
+        cases.append({"case": f"key_corners_{t}x{d}", "trials": len(matched), "matched": matched})
+    # The same corners with at most 32 entries left (the kernel's list of
+    # eligible entries) and with just more than 32.
+    for t, d in ((64, 16), (128, 64)):
+        rng = np.random.default_rng(11 * t + d)
+        matched = [compare(f"few corners {t}x{d} keep {keep} thr {thr}",
+                           *key_corner_association(rng, t, d, thr, keep=keep), thr)
+                   for keep in (24, 40, 64) for thr in KEY_CORNER_THRESHOLDS for _ in range(trials)]
+        cases.append({"case": f"key_corners_few_{t}x{d}", "trials": len(matched), "matched": matched})
+    for t, d in ((64, 16), (128, 64)):
+        rng = np.random.default_rng(13 * t + d)
+        matched = [compare(f"eligible {n} {t}x{d} thr {thr}", *eligible_association(rng, t, d, thr, n), thr)
+                   for n in (32, 33) for thr in KEY_CORNER_THRESHOLDS for _ in range(trials)]
+        cases.append({"case": f"eligible_32_33_{t}x{d}", "trials": len(matched), "matched": matched})
     return cases
 
 
@@ -981,27 +1209,44 @@ def time_cuda(fn, reps: int, warmup: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def traced_device_us(run, kernel_names, reps: int, warm: bool = True, tries: int = 3) -> dict:
+    """Device microseconds of each launch of each kernel in
+    ``kernel_names`` (a part of its name in the trace; "" takes every
+    kernel) while ``run()`` launches each ``reps`` times, from one profiler
+    trace of the card.  A trace can miss the first kernel after it starts,
+    so with ``warm`` a small copy goes first, and a kernel may show one
+    launch short.  The tracer also drops a few records now and then (3 of
+    100 once, on an H100), so a trace that shows fewer is taken again, up
+    to ``tries`` traces in all."""
+    for attempt in range(tries):
+        with torch.profiler.profile(activities=PROFILED) as prof:
+            if warm:
+                torch.ones(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        times = {k: [e.time_range.elapsed_us() for e in on_device if k in e.name] for k in kernel_names}
+        short = {k: len(t) for k, t in times.items() if not reps - 1 <= len(t) <= reps}
+        if not short:
+            return times
+        print(f"# trace {attempt + 1} of {tries} saw {short} launches, expected {reps}", file=sys.stderr)
+    raise AssertionError(f"the profiler saw {short} launches, expected {reps}, in each of {tries} traces")
+
+
 def device_times(launchers: dict, reps: int = 100) -> dict:
     """Mean device time of each kernel over ``reps`` calls of its launcher,
     from one profiler trace of the card, and the launches the trace saw.
     ``launchers`` maps a name to the launch function and the kernel's name
-    in the trace.  A trace can miss the first kernel after it starts, so a
-    small copy goes first, and a kernel may show one launch short."""
-    with torch.profiler.profile(activities=PROFILED) as prof:
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
+    in the trace."""
+
+    def run():
         for fn, _ in launchers.values():
             for _ in range(reps):
                 fn()
-        torch.cuda.synchronize()
-    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    result = {}
-    for name, (_, kernel_name) in launchers.items():
-        times = [e.time_range.elapsed_us() for e in on_device if kernel_name in e.name]
-        if not reps - 1 <= len(times) <= reps:
-            raise AssertionError(f"the profiler saw {len(times)} launches of {kernel_name}, expected {reps}")
-        result[name] = (sum(times) / len(times) / 1e3, len(times))
-    return result
+
+    times = traced_device_us(run, {k for _, k in launchers.values()}, reps)
+    return {name: (sum(times[k]) / len(times[k]) / 1e3, len(times[k])) for name, (_, k) in launchers.items()}
 
 
 def launch_floor_ms(reps: int = 100) -> float:
@@ -1010,13 +1255,12 @@ def launch_floor_ms(reps: int = 100) -> float:
     of the one-block kernels beside their bounds of nanoseconds."""
     x = torch.ones(1, device="cuda")
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=PROFILED) as prof:
+
+    def run():
         for _ in range(reps):
             x.add_(1)
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not reps - 1 <= len(times) <= reps:
-        raise AssertionError(f"the profiler saw {len(times)} launches of add_, expected {reps}")
+
+    times = traced_device_us(run, {""}, reps, warm=False)[""]
     return sum(times) / len(times) / 1e3
 
 
@@ -1061,6 +1305,14 @@ def _table_tensors(table):
     return [getattr(table, f) for f in TABLE_FIELDS]
 
 
+def association_inputs(table, dets):
+    """The IoU matrix and row ranks of K1's association for ``table`` and
+    ``dets``, as K4 takes them."""
+    alive = table.track_id > 0
+    iou = torch.where(alive[:, None] & dets.valid[None, :], pairwise_iou(table.bbox, dets.bbox), -1.0).contiguous()
+    return iou, _rank_by_count(torch.where(alive, table.track_id, torch.iinfo(torch.int32).max))
+
+
 def tracker_state(device, inputs: dict, frames: int = 100):
     """The main path's tracker table after ``frames`` synthetic frames (the
     plain version) and the next frame's detections."""
@@ -1087,21 +1339,42 @@ def tagging_state(device, inputs: dict, frames: int = 100):
     return TaggingRules.from_config(cfg), st.tagging, frame_dets(inputs, frames, device), st.tracks, vrow
 
 
+def kalman_state(device, inputs: dict, frames: int = 100):
+    """The main path's ego filter after ``frames`` measured synthetic frames
+    (the plain version), its model, and the next frame's measurement and
+    has-measurement flag (True)."""
+    est = bench_config().estimator
+    model = kalman_model_from_numpy(
+        *make_constant_accel_model(est.dt, est.process_noise, est.measurement_noise, est.accel_noise_scale),
+        device=device,
+    )
+    ego = torch.tensor(inputs["ego_measurement"], device=device)
+    ks = KalmanState.initial(est.initial_covariance, device)
+    has = torch.ones((), dtype=torch.bool, device=device)
+    for f in range(frames):
+        ks, _ = _estimator_step_xla(ks, model, ego[f], has, est)
+    return ks, model, ego[frames], has
+
+
 def measure_split(device, inputs: dict) -> dict:
-    """Where K1's and K3's time goes, on the wrappers that a path calls.
+    """Where K1's, K2's, K3's and K4's time goes, on the wrappers that a path calls.
     The launch floor; each wrapper's host split (`host_split`); and each
     kernel's device time on inputs that remove one part of its work at a
     time: K1 at the main path's state (`tracker_state`), with its
     trajectory ring cut to one point (L = 1), with no valid detection (one
-    association round, no birth), and on the (64, 16) staircase (17
-    rounds); K3 at the tagging path's state (`tagging_state`), with its
-    center ring cut to one entry (HI = 1) and with 64 detections; K4 on
-    that state's matrix, as `measure_kernels` times it, and on the
-    staircase."""
+    association round, no birth), on the (64, 16) staircase (17 rounds)
+    and on the (128, 64) staircase (65 rounds, the most at the kernel's
+    largest shape); K3 at the tagging path's state (`tagging_state`), with
+    its center ring cut to one entry (HI = 1) and with 64 detections; K2
+    at the main path's filter state (`kalman_state`), measured and
+    unmeasured (no update); K4 on the tagging state's matrix, as
+    `measure_kernels` times it, on the two staircases, and on a (128, 64)
+    matrix with nothing dead (`full_association`)."""
     cfg = bench_config().tracker
+    est = bench_config().estimator
+    ks, model, z, has = kalman_state(device, inputs)
     table, dets = tracker_state(device, inputs)
     rules, tstate, tdets, ttable, vrow = tagging_state(device, inputs)
-    k1_name, k3_name, k4_name = "tracker_step_kernel", "tagging_step_kernel", "associate_kernel"
 
     def k1(tab, d):
         return lambda: tracker_kernel.tracker_step(tab, d, cfg, cfg.min_hits)
@@ -1112,26 +1385,35 @@ def measure_split(device, inputs: dict) -> dict:
     def k4(iou, rank):
         return lambda: association_kernel.greedy_associate(iou, rank, cfg.iou_threshold)
 
+    def k2(h):
+        return lambda: kalman_kernel.kalman_step(ks, model, z, h, est.dt, est.speed_heading_hold)
+
     no_dets = dataclasses.replace(dets, valid=torch.zeros_like(dets.valid))
     ring1 = dataclasses.replace(table, trajectory=table.trajectory[:, :2].contiguous())
     rules1 = dataclasses.replace(rules, interaction_history=1)
     state1 = dataclasses.replace(tstate, int_centers=tstate.int_centers[:, :2].contiguous())
     dense = random_dets(np.random.default_rng(5), 64, device, p_valid=0.7)
-    alive = ttable.track_id > 0
-    iou = torch.where(alive[:, None] & tdets.valid[None, :], pairwise_iou(ttable.bbox, tdets.bbox), -1.0)
-    rank = _rank_by_count(torch.where(alive, ttable.track_id, torch.iinfo(torch.int32).max))
-    iou = iou.contiguous()
+    iou, rank = association_inputs(ttable, tdets)
     stair_table, stair_dets = ladder_boxes(64, 16, 1.0, device)
     stair_iou = torch.tensor(ladder_iou(64, 16, 1), device=device)
     stair_rank = torch.arange(64, dtype=torch.int32, device=device)
+    big_table, big_dets = ladder_boxes(128, 64, 0.5, device)
+    big_cfg = dataclasses.replace(cfg, max_tracks=128)
+    big_iou = torch.tensor(ladder_iou(128, 64, 0.5), device=device)
+    big_rank = torch.arange(128, dtype=torch.int32, device=device)
+    full_iou, full_rank = (torch.tensor(a, device=device) for a in full_association(np.random.default_rng(5), 128, 64))
     variants = {
         "tracker_step": {"base": k1(table, dets), "ring_L1": k1(ring1, dets), "no_detections": k1(table, no_dets),
-                         "staircase_64x16": k1(stair_table, stair_dets)},
+                         "staircase_64x16": k1(stair_table, stair_dets),
+                         "staircase_128x64": lambda: tracker_kernel.tracker_step(big_table, big_dets, big_cfg,
+                                                                                 big_cfg.min_hits)},
         "tagging_step": {"base": k3(rules, tstate, tdets), "ring_HI1": k3(rules1, state1, tdets),
                          "detections_64": k3(rules, tstate, dense)},
-        "associate": {"base": k4(iou, rank), "staircase_64x16": k4(stair_iou, stair_rank)},
+        "kalman_step": {"base": k2(has), "unmeasured": k2(torch.zeros_like(has))},
+        "associate": {"base": k4(iou, rank), "staircase_64x16": k4(stair_iou, stair_rank),
+                      "staircase_128x64": k4(big_iou, big_rank), "full_128x64": k4(full_iou, full_rank)},
     }
-    names = {"tracker_step": k1_name, "tagging_step": k3_name, "associate": k4_name}
+    names = {name: f"{name}_kernel" for name in variants}
     device_ms = {
         kernel: {v: device_times({v: (fn, names[kernel])})[v][0] for v, fn in vs.items()}
         for kernel, vs in variants.items()
@@ -1172,16 +1454,7 @@ def measure_kernels(device, inputs: dict, reps: int = 2000) -> dict:
     }
 
     est = cfg.estimator
-    model = kalman_model_from_numpy(
-        *make_constant_accel_model(est.dt, est.process_noise, est.measurement_noise, est.accel_noise_scale),
-        device=device,
-    )
-    ego = torch.tensor(inputs["ego_measurement"], device=device)
-    ks = KalmanState.initial(est.initial_covariance, device)
-    has = torch.ones((), dtype=torch.bool, device=device)
-    for f in range(100):
-        ks, _ = _estimator_step_xla(ks, model, ego[f], has, est)
-    z = ego[100]
+    ks, model, z, has = kalman_state(device, inputs)
     x, P, vs = kalman_kernel.kalman_step(ks, model, z, has, est.dt, est.speed_heading_hold)
     k2_bytes = _nbytes(ks.x, ks.P, ks.time, ks.prev_heading, z, has, model.F, model.Q, model.R) + _nbytes(x, P, vs)
     # Float64 operations of a measured step, counted from the
@@ -1214,9 +1487,7 @@ def measure_kernels(device, inputs: dict, reps: int = 2000) -> dict:
         "bytes": k3_bytes, "operations": k3_ops, "peak_ops_per_s": PEAK_F32_PER_S,
     }
 
-    alive = table.track_id > 0
-    iou = torch.where(alive[:, None] & dets.valid[None, :], pairwise_iou(table.bbox, dets.bbox), -1.0).contiguous()
-    rank = _rank_by_count(torch.where(alive, table.track_id, torch.iinfo(torch.int32).max))
+    iou, rank = association_inputs(table, dets)
     thr = cfg.tracker.iou_threshold
     match = association_kernel.greedy_associate(iou, rank, thr)
     # Counted from the kernel's loops on this run's data: a row scan and a

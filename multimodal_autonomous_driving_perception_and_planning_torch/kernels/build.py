@@ -78,7 +78,7 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
     tracker.madpp_tracker_step.argtypes = [vp] * 18 + [ci, ci, ci, cf, ci, ci, vp]
     tracker.madpp_tracker_step.restype = ci
     kalman = ctypes.CDLL(str(BUILD_DIR / "libkalman_step.so"))
-    kalman.madpp_kalman_step.argtypes = [vp] * 12 + [cf, cf, vp]
+    kalman.madpp_kalman_step.argtypes = [vp] * 10 + [cf, cf, vp]
     kalman.madpp_kalman_step.restype = ci
     tagging = ctypes.CDLL(str(BUILD_DIR / "libtagging_step.so"))
     tagging.madpp_tagging_step.argtypes = [vp] * 23 + [ci] * 7 + [vp]

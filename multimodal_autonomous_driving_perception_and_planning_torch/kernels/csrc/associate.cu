@@ -5,17 +5,21 @@
 // ops/association_pallas.py (`_associate_kernel`, launched by
 // `greedy_associate_pallas`).  Its plain PyTorch version is
 // ops/association.py `_greedy_associate_plain`, and the kernel equals it on
-// every input, tied row ranks included.
+// every input: tied row ranks, ranks anywhere in int32, -0 and +0, NaN.
 //
 // Bound on an H100: at (T, D) = (64, 16) the call reads 4.4 KB and writes
-// 256 B, about 1.4 ns at 3.35 TB/s, and each association round scans the
-// matrix twice; both are far below the launch latency, so the call is
-// latency-bound.  The design keeps the whole fixpoint in one launch: the
-// matrix and the ranks go to shared memory once, and the rounds of
-// `greedy_associate_block` (association.cuh, shared with kernel K1: two
-// parallel arg-max reductions and one `__syncthreads_or` a round) run with
-// no host synchronisation between them.  This kernel's own launch and
-// loads are as first written; only the shared fixpoint was redesigned.
+// 256 B, about 1.4 ns at 3.35 TB/s, and each association round compares
+// the matrix's entries a few times; both are far below the launch latency,
+// so the call is latency-bound: by its round trips to device memory and by
+// the chain of dependent steps of each round.  The design:
+//  - one wave of loads: each of 256 threads starts asynchronous copies
+//    (`cp.async`, 16 bytes where the rows allow it, else 4) of an eighth
+//    of its rows and their ranks straight into the padded layout of the
+//    key matrix, with no division an element, and waits once;
+//  - the fixpoint (association.cuh `greedy_associate`, shared with K1):
+//    the block writes the keys over the staged IoUs and lists the
+//    eligible pairs; warp 0 runs the rounds when at most 32 are eligible,
+//    a warp a 32 rows otherwise, with one barrier a round.
 //
 // Limits: T <= 128, D <= 64 (the wrapper checks them).
 
@@ -27,36 +31,46 @@ namespace {
 
 constexpr int kMaxT = 128;
 constexpr int kMaxD = 64;
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+
+static_assert(kThreads / 32 <= kAssocWarps, "the association lists entries a warp");
 
 __global__ void __launch_bounds__(kThreads)
-associate_kernel(const float* iou, const int* rank, int* match, int T, int D, float thr) {
-  extern __shared__ float s_iou[];  // T * (D + 1), padded rows
+associate_kernel(const float* __restrict__ iou, const int* __restrict__ rank, int* __restrict__ match, int T,
+                 int D, float thr) {
+  extern __shared__ __align__(16) unsigned s_keys[];  // 32 ceil(T / 32) rows of assoc_key_stride(D)
+  __shared__ __align__(16) unsigned s_scratch[kAssocScratch];
   __shared__ int s_rank[kMaxT];
-  __shared__ int s_match[kMaxT];
-  __shared__ int s_row_best[kMaxT];
-  __shared__ int s_col_best[kMaxD];
-  __shared__ unsigned s_row_done[kMaxT / 32], s_col_done[kMaxD / 32];
+  __shared__ unsigned s_col_done[kMaxD / 32];
 
-  const int ld = D + 1;
-  for (int i = threadIdx.x; i < T * D; i += blockDim.x) {
-    const int t = i / D;
-    s_iou[t * ld + (i - t * D)] = iou[i];
+  const int ldk = assoc_key_stride(D);
+  const bool vec = (D & 3) == 0 && aligned16(iou);
+  const int tid = threadIdx.x;
+  if (tid < T) cp_async4(s_rank + tid, rank + tid);
+  // Thread (t mod 32, part) copies an eighth of row t's columns.
+  const int part = tid >> 5, parts = kThreads >> 5;
+  for (int t = tid & 31; t < T; t += 32) {
+    const float* src = iou + t * D;
+    unsigned* dst = s_keys + t * ldk;
+    if (vec) {
+      for (int c = 4 * part; c < D; c += 4 * parts) cp_async16(dst + c, src + c);
+    } else {
+      for (int c = part; c < D; c += parts) cp_async4(dst + c, src + c);
+    }
   }
-  for (int t = threadIdx.x; t < T; t += blockDim.x) s_rank[t] = rank[t];
+  cp_async_wait_all();
   __syncthreads();
-  greedy_associate_block(s_iou, ld, s_rank, T, D, thr, s_match, s_row_best, s_col_best,
-                         s_row_done, s_col_done);
-  for (int t = threadIdx.x; t < T; t += blockDim.x) match[t] = s_match[t];
+  greedy_associate(reinterpret_cast<const float*>(s_keys), ldk, s_keys, s_rank, T, D, thr, match, s_col_done,
+                   s_scratch);
 }
 
 }  // namespace
 
-extern "C" int madpp_associate(const void* iou, const void* rank, void* match, int T, int D,
-                               float thr, void* stream) {
+extern "C" int madpp_associate(const void* iou, const void* rank, void* match, int T, int D, float thr,
+                               void* stream) {
   if (T < 1 || T > kMaxT || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)T * (size_t)(D + 1);
-  associate_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)iou, (const int*)rank, (int*)match, T, D, thr);
+  const size_t smem = sizeof(unsigned) * 32 * (size_t)((T + 31) / 32) * (size_t)assoc_key_stride(D);
+  associate_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>((const float*)iou, (const int*)rank,
+                                                               (int*)match, T, D, thr);
   return (int)cudaGetLastError();
 }

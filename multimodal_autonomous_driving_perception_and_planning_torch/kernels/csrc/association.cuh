@@ -2,16 +2,49 @@
 // function, shared by kernel K1 (tracker_step.cu) and the standalone
 // association kernel K4 (associate.cu).
 //
-// What bounds the fixpoint on an H100: its matrix is at most 128 x 64
-// floats in shared memory, so each round is a few hundred shared loads and
-// comparisons.  The cost is the chain of dependent steps, not the bytes:
-// the earlier version walked every column's 64 rows on one thread (three
-// shared loads and a dependent compare a row) and closed each round with
-// three barriers.  Here each round is two parallel arg-max reductions, a
-// few shared loads a lane followed by a shuffle tree, then one accepting
-// pass and one `__syncthreads_or` that both publishes the round's writes
-// and says whether it accepted a pair.  A staircase matrix that accepts one
-// pair a round (min(T, D) + 1 rounds) is the worst case.
+// What bounds the fixpoint on an H100: its matrix is at most 128 x 64, so
+// a round is a few thousand comparisons.  The cost is the chain of
+// dependent steps a round, not the bytes: a round spread over the block
+// waits on barriers, shared atomics and shuffle trees (about 1.35 us a
+// round on the card), and a warp alone issues an instruction only when
+// the one it waits on is done.  So the design cuts instructions off the
+// chain, with no atomic, and at most one barrier a round:
+//  - once a launch, the whole block turns each entry into one 32-bit key
+//    whose unsigned order is the IoU's among eligible entries (the IoU's
+//    bits with -0 turned into +0, plus one; 0 for an entry that is not
+//    eligible: below the threshold, negative, NaN), and each warp lists
+//    its eligible ones by ballots (a shared atomic a step was several
+//    times slower in a clocked build).  Each row's tie-break key is
+//    rank * D + d in int32 arithmetic that wraps, as the plain version
+//    computes it, offset by 2^31 so that it orders as an unsigned number;
+//    (IoU key, inverted tie-break key) is one 64-bit key.
+//  - Sparse rounds, when at most 32 entries are eligible (every matrix of
+//    the paths: at most 19 on the synthetic stream): lane e of warp 0 holds
+//    entry e and finds once, in one pass over the list, the entries of its
+//    row or column (`conflict`) and those of them that beat it (`better`).
+//    A round is then two ballots: an entry is taken when no live entry of
+//    `better` is left, and retires when an entry of `conflict` is taken.
+//  - Dense rounds otherwise, on a warp a 32 rows (ceil(T / 32) warps, one
+//    on each of the SM's four schedulers at T = 128; one warp for all
+//    rows took 4.5 us a (128, 64) round on the card): lane l of warp w
+//    holds row 32 w + l, whose keys live in shared memory in rows padded to a
+//    multiple of 16 columns, plus 4 words so that 16-byte loads of 32 rows
+//    hit distinct banks.  A round reads the row 16 columns at a time with
+//    16-byte loads, masks taken rows and columns with bits held in
+//    registers, takes the row's best as a tree of 64-bit maxima, and each
+//    column's best over the warp's rows as two warp reductions
+//    (`__reduce_max_sync` of the IoU key, `__reduce_min_sync` of the
+//    tie-break key among the rows at that maximum; a lane a column over
+//    the warp's 32 rows, from 32 loads and a tree of compares, was slower
+//    at (64, 16) and at (128, 64) on the card).  Lane 0 writes them to
+//    shared memory with a mask of the columns that the warp's best row of
+//    the column also picked; after one barrier every warp combines the
+//    warps' bests: a column is taken when a warp holding its best flagged
+//    it, and a row is accepted when its warp's best of its column is the
+//    best of all.  Double buffers by round keep a warp that runs ahead
+//    off what the others still read.  A staircase matrix that accepts one
+//    pair a round (min(T, D) + 1 rounds) is the worst case.
+// Either way the loop ends with the first round that takes nothing.
 #pragma once
 
 #include <stdint.h>
@@ -20,119 +53,296 @@
 
 constexpr int kI32Max = 2147483647;
 
+// The most eligible entries the sparse rounds take (a warp's lanes); more
+// go to the dense rounds.  Built with -DASSOC_SPARSE_MAX=0, every matrix
+// takes the dense rounds (split_compare.py times the two on one matrix).
+#ifndef ASSOC_SPARSE_MAX
+#define ASSOC_SPARSE_MAX 32
+#endif
+static_assert(ASSOC_SPARSE_MAX >= 0 && ASSOC_SPARSE_MAX <= 32, "the sparse rounds hold an entry a lane");
+
 // Largest power of two <= n, for n >= 1.
 __device__ __forceinline__ int floor_pow2(int n) { return 1 << (31 - __clz(n)); }
 
-// The fixpoint over an IoU matrix in shared memory (row stride `ld`); its
-// plain version is ops/association.py `_greedy_associate_plain`, which it
-// equals on every input.  Entries of invalid pairs must already be -1.  A
-// pair is eligible while iou >= thr and iou >= 0 and neither its row nor its
-// column is taken.  Each round finds every row's best column (the key IoU
-// desc, column asc) and every column's best row (IoU desc, rank asc, row
-// asc), accepts the mutual pairs, and the loop ends with the first round
-// that accepts nothing.  Rows that share the column's best IoU and rank are
-// all accepted, as the plain version's key rank * D + det ties them; with
-// distinct ranks (the tracker's) there is one.  Every reduction runs on a
-// key with a total order (IoU is compared as a float: a -0 and a +0 tie, as
-// in the plain version, and a NaN is never eligible), so its result does not
-// depend on the order in which lanes combine.
-//
-// Called by all threads of the block; needs blockDim.x a multiple of 32 and
-// >= T, T <= 128, D <= 64.  `row_done` holds 4 words and `col_done` 2, one
-// bit a row or column; they are left set for the caller (`col_done` marks
-// the matched detections).  Ends synced.
-__device__ inline void greedy_associate_block(const float* iou, int ld, const int* rank, int T, int D,
-                                              float thr, int* match, int* row_best, int* col_best,
-                                              unsigned* row_done, unsigned* col_done) {
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int lane = tid & 31;
-  for (int t = tid; t < T; t += nthreads) match[t] = -1;
-  if (tid < 4) row_done[tid] = 0u;
-  if (tid < 2) col_done[tid] = 0u;
-  // Lanes a row and a column: powers of two, so each group lies in one warp.
-  const int rl = min(32, floor_pow2(nthreads / T));
-  const int cl = min(32, floor_pow2(nthreads / D));
-  const int my_row = tid / rl, row_sub = tid & (rl - 1);
-  const int my_col = tid / cl, col_sub = tid & (cl - 1);
-  __syncthreads();
+// Row stride, in 32-bit words, of the key matrix of `greedy_associate`
+// for D columns: D rounded up to 16, plus 4.  The key matrix holds
+// 32 * ceil(T / 32) rows.
+__host__ __device__ __forceinline__ int assoc_key_stride(int D) { return ((D + 15) & ~15) + 4; }
+
+// The warps of a block `greedy_associate` has room for, and the words of
+// the scratch it takes beside the keys: a list segment of 32 eligible
+// entries a warp (4 words each), the matches (128), the compacted list or
+// the columns' keys of a dense round (128), a count a warp.
+constexpr int kAssocWarps = 8;
+constexpr int kAssocScratch = kAssocWarps * 128 + 128 + 128 + kAssocWarps;
+// The warps of the dense rounds (a warp a 32 rows, T <= 128); their column
+// bests (2 x 4 x 64 pairs) take the list segments' room, their masks
+// (2 x 4 pairs) the compacted list's.
+constexpr int kAssocDenseWarps = 4;
+static_assert(2 * kAssocDenseWarps * 64 * 2 <= kAssocWarps * 128 && 2 * kAssocDenseWarps * 2 <= 128,
+              "the dense rounds' scratch");
+
+// The eligible entry's key: its IoU's bits (sign cleared, so -0 ties +0)
+// plus one, which orders as the IoU among entries >= 0; 0 if not eligible.
+__device__ __forceinline__ unsigned assoc_key(float v, float thr) {
+  return (v >= thr && v >= 0.0f) ? (__float_as_uint(v) & 0x7fffffffu) + 1u : 0u;
+}
+
+// Sparse rounds on one warp over the `n` <= 32 entries of `list`, each
+// (row, column, low and high word of (IoU key << 32 | ~tie-break key)).
+// Writes match[t] for t < T and the taken columns to `col_done`.
+__device__ inline void associate_sparse(const uint4* list, int n, int T, int* s_match, int* match,
+                                        unsigned* col_done) {
+  const int lane = threadIdx.x & 31;
+  const uint4 me = list[lane];  // read past n too: masked below
+  const unsigned valid = n >= 32 ? 0xffffffffu : (1u << n) - 1u;
+  unsigned conflict = 0u, better = 0u;  // the entries of my row or column; those that beat me
+  for (int j0 = 0; j0 < n; j0 += 8) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = j0 + jj;
+      const uint4 o = list[j & 31];
+      const bool same = (o.x == me.x) | (o.y == me.y);
+      const bool gt = (o.w > me.w) | ((o.w == me.w) & (o.z > me.z));
+      conflict |= same ? 1u << (j & 31) : 0u;
+      better |= (same & gt) ? 1u << (j & 31) : 0u;
+    }
+  }
+  conflict &= valid;
+  better &= valid;
+  for (int t = lane; t < T; t += 32) s_match[t] = -1;
+  __syncwarp();
+  bool alive = lane < n;
+  unsigned live = valid;  // the live entries
+  bool took = false;
   while (true) {
-    // The taken rows and columns as 64-bit masks in registers.
-    const uint64_t cdone = (uint64_t)col_done[0] | ((uint64_t)col_done[1] << 32);
-    const uint64_t rdone_lo = (uint64_t)row_done[0] | ((uint64_t)row_done[1] << 32);
-    const uint64_t rdone_hi = (uint64_t)row_done[2] | ((uint64_t)row_done[3] << 32);
-    auto row_taken = [&](int t) { return (((t < 64 ? rdone_lo : rdone_hi) >> (t & 63)) & 1u) != 0; };
+    const bool take = alive && (better & live) == 0u;
+    const unsigned acc = __ballot_sync(0xffffffffu, take);
+    if (acc == 0u) break;
+    took |= take;
+    alive = alive && (conflict & acc) == 0u;
+    live = __ballot_sync(0xffffffffu, alive);
+  }
+  if (took) s_match[me.x] = (int)me.y;
+  const unsigned lo = __reduce_or_sync(0xffffffffu, took && me.y < 32u ? 1u << me.y : 0u);
+  const unsigned hi = __reduce_or_sync(0xffffffffu, took && me.y >= 32u ? 1u << (me.y & 31u) : 0u);
+  __syncwarp();
+  for (int t = lane; t < T; t += 32) match[t] = s_match[t];
+  if (lane == 0) col_done[0] = lo, col_done[1] = hi;
+}
 
-    // Row best: (IoU desc, column asc) over this lane's columns, then across
-    // the row's lanes.
-    float rv = -1.0f;
-    int rd = -1;
-    if (my_row < T && !row_taken(my_row)) {
-      const float* row = iou + my_row * ld;
-#pragma unroll 4
-      for (int d = row_sub; d < D; d += rl) {
-        const float v = row[d];
-        if (!((cdone >> d) & 1u) && v >= thr && v >= 0.0f && v > rv) {
-          rv = v;
-          rd = d;
-        }
-      }
-    }
-    for (int off = rl >> 1; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, rv, off);
-      const int od = __shfl_xor_sync(0xffffffffu, rd, off);
-      if (ov > rv || (ov == rv && od >= 0 && (rd < 0 || od < rd))) {
-        rv = ov;
-        rd = od;
-      }
-    }
-    if (row_sub == 0 && my_row < T) row_best[my_row] = rd;
+// The better of two column bests (IoU key, larger first; tie-break key,
+// smaller first).
+__device__ __forceinline__ uint2 col_best(uint2 a, uint2 b) {
+  return (b.x > a.x || (b.x == a.x && b.y < a.y)) ? b : a;
+}
 
-    // Column best: (IoU desc, rank asc, row asc) over this lane's rows, then
-    // across the column's lanes.
-    float cv = -1.0f;
-    int cr = kI32Max, ct = -1;
-    if (my_col < D && !((cdone >> my_col) & 1u)) {
-#pragma unroll 4
-      for (int t = col_sub; t < T; t += cl) {
-        const float v = iou[t * ld + my_col];
-        const int r = rank[t];
-        if (!row_taken(t) && v >= thr && v >= 0.0f && (v > cv || (v == cv && (r < cr || (r == cr && t < ct))))) {
-          cv = v;
-          cr = r;
-          ct = t;
-        }
+// Dense rounds over the key matrix `keys` (see `greedy_associate`), called
+// by warps 0 .. R - 1, R = ceil(T / 32): warp w holds rows 32 w + lane.
+// `part` holds 2 x kAssocDenseWarps x 64 column bests, `flags` 2 x
+// kAssocDenseWarps masks, both double-buffered by round so that one
+// barrier a round keeps the warps apart.  Writes match[t] for t < T and,
+// from warp 0, the taken columns to `col_done`.
+__device__ inline void associate_dense(const unsigned* keys, const int* rank, int T, int D, uint2* part,
+                                       uint2* flags, int* match, unsigned* col_done) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = threadIdx.x;
+  const int R = (T + 31) >> 5, nchunk = (D + 15) >> 4;
+  const uint4* row = reinterpret_cast<const uint4*>(keys + t * assoc_key_stride(D));
+  const unsigned base = t < T ? (unsigned)rank[t] * (unsigned)D + 0x80000000u : 0u;  // the tie-break key's base
+  unsigned rmask = t < T ? 0xffffffffu : 0u;  // all ones while the row is live
+  int m_out = -1;
+  unsigned long long cdone = 0ull;  // taken columns
+  for (int buf = 0;; buf ^= 1) {
+    uint2* own_part = part + (buf * kAssocDenseWarps + warp) * 64;
+    unsigned long long best = 0ull;  // (IoU key, ~tie-break key)
+    for (int j = 0; j < nchunk; ++j) {
+      const unsigned cl = ~(unsigned)(cdone >> (16 * j));  // live columns
+      unsigned kk[16], cmax[16], cmin[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 v = row[4 * j + q];
+        kk[4 * q] = v.x & (0u - ((cl >> (4 * q)) & 1u)) & rmask;
+        kk[4 * q + 1] = v.y & (0u - ((cl >> (4 * q + 1)) & 1u)) & rmask;
+        kk[4 * q + 2] = v.z & (0u - ((cl >> (4 * q + 2)) & 1u)) & rmask;
+        kk[4 * q + 3] = v.w & (0u - ((cl >> (4 * q + 3)) & 1u)) & rmask;
+      }
+      // The row's best as a tree of independent compares.
+      const unsigned nb = ~base - 16u * j;  // ~(base + column)
+      unsigned long long key[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) key[i] = ((unsigned long long)kk[i] << 32) | (nb - i);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) key[i] = key[i + 8] > key[i] ? key[i + 8] : key[i];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) key[i] = key[i + 4] > key[i] ? key[i + 4] : key[i];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) key[i] = key[i + 2] > key[i] ? key[i + 2] : key[i];
+      key[0] = key[1] > key[0] ? key[1] : key[0];
+      best = key[0] > best ? key[0] : best;
+      // Each column's best over this warp's rows: the IoU key's maximum,
+      // then the least tie-break key among the rows at it (a taken
+      // column's maximum is 0: no row can accept it).
+#pragma unroll
+      for (int i = 0; i < 16; ++i) cmax[i] = __reduce_max_sync(0xffffffffu, kk[i]);
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        cmin[i] = __reduce_min_sync(0xffffffffu, kk[i] == cmax[i] ? base + 16u * j + i : 0xffffffffu);
+      if (lane == 0) {
+        uint4* dst = reinterpret_cast<uint4*>(own_part + 16 * j);
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          dst[q] = make_uint4(cmax[2 * q], cmin[2 * q], cmax[2 * q + 1], cmin[2 * q + 1]);
       }
     }
-    for (int off = cl >> 1; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, cv, off);
-      const int orank = __shfl_xor_sync(0xffffffffu, cr, off);
-      const int ot = __shfl_xor_sync(0xffffffffu, ct, off);
-      if (ot >= 0 && (ct < 0 || ov > cv || (ov == cv && (orank < cr || (orank == cr && ot < ct))))) {
-        cv = ov;
-        cr = orank;
-        ct = ot;
-      }
+    __syncwarp();
+    // The row's best pair is its warp's best of that column (`top`); the
+    // warp flags those columns for the others.
+    const int d = (int)((~(unsigned)best - base) & 63u);
+    const uint2 own = own_part[d];
+    const bool top = ((unsigned)(best >> 32) != 0u) & (own.x == (unsigned)(best >> 32)) & (own.y == ~(unsigned)best);
+    const unsigned flo = __reduce_or_sync(0xffffffffu, top && d < 32 ? 1u << d : 0u);
+    const unsigned fhi = __reduce_or_sync(0xffffffffu, top && d >= 32 ? 1u << (d & 31) : 0u);
+    if (lane == 0) flags[buf * kAssocDenseWarps + warp] = make_uint2(flo, fhi);
+    if (R > 1) {
+      asm volatile("bar.sync 1, %0;" ::"r"(32 * R) : "memory");
+    } else {
+      __syncwarp();
     }
-    if (col_sub == 0 && my_col < D) col_best[my_col] = ct;
-    __syncthreads();
+    // Column c is taken when a warp whose best of c is the best of all
+    // flagged it; lane l looks at columns l and l + 32, every warp alike.
+    // A row is accepted when its warp's best of its column is the best of
+    // all.
+    const uint2* now = part + buf * kAssocDenseWarps * 64;
+    const uint2* now_flags = flags + buf * kAssocDenseWarps;
+    bool taken[2] = {false, false};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (lane + 32 * h >= 16 * nchunk) continue;
+      uint2 g = make_uint2(0u, 0xffffffffu);
+      bool flagged = false;
+      for (int w = 0; w < R; ++w) {
+        const uint2 p = now[w * 64 + lane + 32 * h];
+        const bool f = ((h ? now_flags[w].y : now_flags[w].x) >> lane) & 1u;
+        const bool better = p.x > g.x || (p.x == g.x && p.y < g.y);
+        flagged = better ? f : flagged || (f && p.x == g.x && p.y == g.y);
+        g = better ? p : g;
+      }
+      taken[h] = g.x != 0u && flagged;
+    }
+    uint2 top_d = own;
+    for (int w = 0; w < R; ++w) top_d = col_best(top_d, now[w * 64 + d]);
+    const unsigned lo = __ballot_sync(0xffffffffu, taken[0]), hi = __ballot_sync(0xffffffffu, taken[1]);
+    if ((lo | hi) == 0u) break;
+    cdone |= ((unsigned long long)hi << 32) | lo;
+    const bool took = top && top_d.x == own.x && top_d.y == own.y;
+    m_out = took ? d : m_out;
+    rmask = took ? 0u : rmask;
+  }
+  if (t < T) match[t] = m_out;
+  if (t == 0) {
+    col_done[0] = (unsigned)cdone;
+    col_done[1] = (unsigned)(cdone >> 32);
+  }
+}
 
-    // Accept the mutual pairs, and rows of the column's best rank that tie
-    // its best IoU.  Warps 0-3 hold rows 0-127, one a lane.
-    bool accepted = false;
-    if (tid < 128) {
-      const int t = tid;
-      if (t < T) {
-        const int d = row_best[t];
-        const int c = d >= 0 ? col_best[d] : -1;
-        if (c == t || (c >= 0 && rank[t] == rank[c] && iou[t * ld + d] == iou[c * ld + d])) {
-          accepted = true;
-          match[t] = d;
-          atomicOr(&col_done[d >> 5], 1u << (d & 31));
-        }
-      }
-      const unsigned b = __ballot_sync(0xffffffffu, accepted);
-      if (lane == 0 && b) row_done[tid >> 5] |= b;
+// The block's part of `greedy_associate`: the keys of the padded matrix
+// (W columns, 32 ceil(T / 32) rows; 0 outside T x D), one entry a thread
+// and step, four steps' loads in flight at once, and this warp's eligible
+// entries in `seg` in order, by ballots.  Returns the warp's count of them
+// (only the first 32 are stored).
+template <int W>
+__device__ __forceinline__ unsigned associate_keys(const float* iou, int ld, unsigned* keys, const int* rank,
+                                                   int T, int D, float thr, uint4* seg) {
+  const int lane = threadIdx.x & 31, step = blockDim.x;
+  const int n = 32 * ((T + 31) >> 5) * W, ldk = assoc_key_stride(D);
+  unsigned woff = 0u;
+  for (int i0 = threadIdx.x; i0 < n; i0 += 4 * step) {
+    // Four loads in flight before any store: `keys` may be `iou`.
+    float f[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * step, t = i / W, d = i - W * (i / W);
+      f[u] = (i < n && t < T && d < D) ? iou[t * ld + d] : -1.0f;
     }
-    if (!__syncthreads_or(accepted)) break;
+    // Then the four ballots (i < n is the same across a warp), then the
+    // stores, so that no branch stands between the ballots.
+    unsigned k[4], b[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) k[u] = assoc_key(f[u], thr);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) b[u] = __ballot_sync(0xffffffffu, k[u] != 0u);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * step, t = i / W, d = i - W * (i / W);
+      if (i < n) keys[t * ldk + d] = k[u];
+      const unsigned at = woff + __popc(b[u] & ((1u << lane) - 1u));
+      if (k[u] != 0u && at < 32u)
+        seg[at] = make_uint4(t, d, ~((unsigned)rank[t] * (unsigned)D + 0x80000000u + d), k[u]);
+      woff += __popc(b[u]);
+    }
+  }
+  return woff;
+}
+
+// The fixpoint; its plain version is ops/association.py
+// `_greedy_associate_plain`, which it equals on every input: ties of IoU,
+// -0 and +0, NaN, tied ranks and ranks anywhere in int32 (the tie-break
+// key rank * D + d wraps as the plain version's does).  A pair is eligible
+// while iou >= thr and iou >= 0 and neither its row nor its column is
+// taken.  Each round takes every eligible pair that is the best of its
+// row (IoU desc, key asc) and of its column (IoU desc, key asc; rows of
+// equal key tie, and all of them take the column).
+//
+// Called by all threads of the block (a multiple of 32, at least 128),
+// T <= 128, D <= 64; warp 0 runs sparse rounds, warps 0 .. ceil(T / 32) - 1
+// dense ones (on named barrier 1).  `iou` is the (T, D) matrix in shared
+// memory with row stride `ld`; entries of invalid pairs must already be
+// -1.  `keys` is shared memory of 32 ceil(T / 32) rows of
+// `assoc_key_stride(D)` words, 16-byte aligned; it may be `iou` itself
+// when `ld` is that stride (each thread reads an entry before it writes
+// its key over it).  `rank` has T entries; the caller syncs the block
+// after writing it and `iou`.  `scratch` is shared memory of
+// kAssocScratch words, 16-byte aligned.  Writes match[t] for t < T (the
+// matched column or -1) and the taken columns as two words of bits to
+// `col_done`.  The caller syncs before reading them.
+__device__ inline void greedy_associate(const float* iou, int ld, unsigned* keys, const int* rank, int T, int D,
+                                        float thr, int* match, unsigned* col_done, unsigned* scratch) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint4* segs = reinterpret_cast<uint4*>(scratch);  // a segment of 32 entries a warp
+  int* s_match = reinterpret_cast<int*>(scratch + kAssocWarps * 128);
+  unsigned* s_aux = scratch + kAssocWarps * 128 + 128;  // the compacted list, or a dense round's columns
+  unsigned* s_cnt = scratch + kAssocWarps * 128 + 256;
+  // Keys over the padded matrix (0 outside T x D); each warp lists its
+  // eligible entries in its own segment, in order, by ballots: no atomics.
+  unsigned woff = 0u;
+  switch ((D + 15) >> 4) {
+    case 1: woff = associate_keys<16>(iou, ld, keys, rank, T, D, thr, segs + warp * 32); break;
+    case 2: woff = associate_keys<32>(iou, ld, keys, rank, T, D, thr, segs + warp * 32); break;
+    case 3: woff = associate_keys<48>(iou, ld, keys, rank, T, D, thr, segs + warp * 32); break;
+    default: woff = associate_keys<64>(iou, ld, keys, rank, T, D, thr, segs + warp * 32); break;
+  }
+  if (lane == 0) s_cnt[warp] = woff;
+  __syncthreads();
+  // Every warp: the list's length; warp 0: entry e of it on lane e.
+  const int nwarps = blockDim.x >> 5;
+  int c[kAssocWarps];
+#pragma unroll
+  for (int w = 0; w < kAssocWarps; ++w) c[w] = w < nwarps ? (int)s_cnt[w] : 0;
+  int n = 0, w_e = 0, at_e = 0;
+#pragma unroll
+  for (int w = 0; w < kAssocWarps; ++w) {
+    if (lane >= n && lane < n + c[w]) w_e = w, at_e = lane - n;
+    n += c[w];
+  }
+  if (n <= ASSOC_SPARSE_MAX) {
+    if (warp != 0) return;
+    uint4* list = reinterpret_cast<uint4*>(s_aux);
+    if (lane < n) list[lane] = segs[w_e * 32 + at_e];
+    __syncwarp();
+    associate_sparse(list, n, T, s_match, match, col_done);
+  } else if (warp < ((T + 31) >> 5)) {
+    // The list's segments are free now: they hold the column bests.
+    associate_dense(keys, rank, T, D, reinterpret_cast<uint2*>(scratch), reinterpret_cast<uint2*>(s_aux), match,
+                    col_done);
   }
 }

@@ -17,7 +17,7 @@ extern "C" int madpp_tracker_step(
 
 extern "C" int madpp_kalman_step(const void*, const void*, const void*, const void*,
                                  const void*, const void*, const void*, const void*,
-                                 const void*, void*, void*, void*, float, float, void*);
+                                 const void*, void*, float, float, void*);
 
 extern "C" int madpp_tagging_step(
     const void*, const void*, const void*, const void*, const void*, const void*,
@@ -46,12 +46,11 @@ int tracker_step(pybind11::args a) {
 }
 
 int kalman_step(pybind11::args a) {
-  if (a.size() != 15) throw std::invalid_argument("kalman_step takes 15 arguments");
-  void* p[12];
-  for (int i = 0; i < 12; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
+  if (a.size() != 13) throw std::invalid_argument("kalman_step takes 13 arguments");
+  void* p[10];
+  for (int i = 0; i < 10; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
   return madpp_kalman_step(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9],
-                           p[10], p[11], a[12].cast<float>(), a[13].cast<float>(),
-                           ptr(a[14].cast<std::uintptr_t>()));
+                           a[10].cast<float>(), a[11].cast<float>(), ptr(a[12].cast<std::uintptr_t>()));
 }
 
 int tagging_step(pybind11::args a) {

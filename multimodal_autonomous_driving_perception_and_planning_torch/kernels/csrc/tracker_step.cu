@@ -18,8 +18,10 @@
 //    boxes and detections into shared memory), and the trajectory ring goes
 //    to shared memory by asynchronous 16-byte copies (`cp.async`) whose
 //    latency hides behind the IoU and the ranks;
-//  - the association as parallel arg-max reductions with one
-//    `__syncthreads_or` a round (association.cuh, shared with K4);
+//  - the association's keys built by the block, its rounds on one warp
+//    with no barrier when at most 32 pairs are eligible (every frame of
+//    the paths), else on a warp a 32 slots with one barrier a round
+//    (association.cuh `greedy_associate`, shared with K4);
 //  - both stable ranks (`id_rank` and the confirmed order) as parallel
 //    counts, a few threads a slot over 16-byte loads of the keys, summed by
 //    shuffles;
@@ -56,9 +58,11 @@ namespace {
 constexpr int kMaxT = 128;
 constexpr int kMaxD = 64;
 constexpr int kThreads = 256;
+static_assert(kThreads / 32 <= kAssocWarps, "the association lists entries a warp");
 constexpr int kDetThread0 = kThreads - kMaxD;  // threads 192-255 load the detections
-// Dynamic shared memory the kernel may take: the staged ring and the IoU
-// matrix, under the 227 KB a block may use beside the static arrays.
+// Dynamic shared memory the kernel may take: the staged ring, the IoU
+// matrix and the association's keys, under the 227 KB a block may use
+// beside the static arrays.
 constexpr size_t kMaxDynamicSmem = 200 * 1024;
 
 struct TrackerIn {
@@ -158,18 +162,18 @@ __device__ __forceinline__ void stable_rank(const int* key, int T, int* rank, in
 
 __global__ void __launch_bounds__(kThreads)
 tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
-  extern __shared__ __align__(16) float s_dyn[];  // [ring (if staged)] [IoU T x (D + 1)]
+  // [ring (if staged)] [IoU T x (D + 1)] [association keys]
+  extern __shared__ __align__(16) float s_dyn[];
   __shared__ float4 s_tb[kMaxT];
   __shared__ float4 s_db[kMaxD];
   __shared__ int s_id[kMaxT];
   __shared__ __align__(16) int s_key[kMaxT];  // the id key, then the confirmed key
   __shared__ int s_rank[kMaxT];
   __shared__ int s_match[kMaxT];
-  __shared__ int s_row_best[kMaxT];
-  __shared__ int s_col_best[kMaxD];
+  __shared__ __align__(16) unsigned s_assoc[kAssocScratch];
   __shared__ int s_dcls[kMaxD];
   __shared__ float s_dconf[kMaxD];
-  __shared__ unsigned s_row_done[kMaxT / 32], s_col_done[kMaxD / 32];
+  __shared__ unsigned s_col_done[kMaxD / 32];
   __shared__ unsigned s_valid_bits[kMaxD / 32], s_free_bits[kMaxT / 32], s_conf_bits[kMaxT / 32];
   __shared__ int s_next_id;
 
@@ -180,6 +184,7 @@ tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
   const int lane = tid & 31, warp = tid >> 5;
   float* s_ring = s_dyn;
   float* s_iou = s_dyn + (p.stage_ring ? round4(n_ring) : 0);
+  unsigned* s_keys = reinterpret_cast<unsigned*>(s_iou + round4((size_t)T * ld));
 
   // --- one wave of loads ----------------------------------------------------
   if (p.stage_ring) stage_async(s_ring, in.traj, n_ring);
@@ -244,12 +249,12 @@ tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
   }
   // Stable rank of each slot by id, dead slots last (`id_rank`).
   stable_rank(s_key, T, s_rank, nullptr);
-  // The ring has had the IoU and the ranks to land; the association's
-  // first barrier makes every thread's copies visible.
+  // The ring has had the IoU and the ranks to land; the barrier makes
+  // every thread's copies visible.
   if (p.stage_ring) cp_async_wait_all();
-
-  greedy_associate_block(s_iou, ld, s_rank, T, D, p.iou_threshold, s_match, s_row_best, s_col_best,
-                         s_row_done, s_col_done);
+  __syncthreads();
+  greedy_associate(s_iou, ld, s_keys, s_rank, T, D, p.iou_threshold, s_match, s_col_done, s_assoc);
+  __syncthreads();
 
   // --- the ring out as it was, 16 bytes a store where both ends allow ------
   // This frame's writes follow after a barrier, from each slot's thread.
@@ -387,10 +392,11 @@ extern "C" int madpp_tracker_step(
                (const float*)det_bbox, (const int*)det_class, (const float*)det_conf,
                (const bool*)det_valid};
   const TrackerOut out = carve((float*)out_f, (int*)out_i, T, L);
-  const size_t iou_bytes = sizeof(float) * (size_t)T * (size_t)(D + 1);
+  const size_t iou_bytes = sizeof(float) * round4((size_t)T * (size_t)(D + 1));
+  const size_t key_bytes = sizeof(unsigned) * 32 * (size_t)((T + 31) / 32) * (size_t)assoc_key_stride(D);
   const size_t ring_bytes = sizeof(float) * round4((size_t)2 * T * L);
-  const bool stage = ring_bytes + iou_bytes <= kMaxDynamicSmem;
-  const size_t smem = iou_bytes + (stage ? ring_bytes : 0);
+  const bool stage = ring_bytes + iou_bytes + key_bytes <= kMaxDynamicSmem;
+  const size_t smem = iou_bytes + key_bytes + (stage ? ring_bytes : 0);
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(tracker_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

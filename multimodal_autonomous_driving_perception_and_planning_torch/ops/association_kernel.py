@@ -9,8 +9,12 @@ every input, tied row ranks included.
 
 Bound on an H100: at (64, 16) a call moves about 4.6 KB, about 1.4 ns at
 3.35 TB/s, and a few thousand comparisons: it is latency-bound.  The
-kernel runs every round of the fixpoint inside one launch from shared
-memory, where the plain version synchronises with the host once a round.
+kernel runs every round of the fixpoint inside one launch, on one warp
+(at most 32 eligible pairs) or a warp a 32 rows, from keys in shared
+memory, where the plain version synchronises with the host once a
+round.  The wrapper does one pass of checks (ops/launch.py),
+one allocation and the launch on the current stream without re-entering
+the device context.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
+from . import launch
 
 MAX_ROWS = 128
 MAX_COLS = 64
@@ -40,23 +45,13 @@ def greedy_associate(iou: torch.Tensor, row_rank: torch.Tensor, iou_threshold: f
         raise ValueError(
             f"greedy_associate takes 1..{MAX_ROWS} rows and 1..{MAX_COLS} columns; got ({T}, {D})"
         )
-    for name, t, dtype, shape in (
-        ("iou", iou, torch.float32, (T, D)),
-        ("row_rank", row_rank, torch.int32, (T,)),
-    ):
-        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"greedy_associate: {name} is {t.dtype} {tuple(t.shape)} on {t.device}; "
-                f"expected {dtype} {shape} on {device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"greedy_associate: {name} is not contiguous")
+    launch.check_inputs(
+        "greedy_associate", device, (("iou", iou, torch.float32, (T, D)), ("row_rank", row_rank, torch.int32, (T,)))
+    )
     match = torch.empty((T,), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = build.kernels().associate(
-            iou.data_ptr(), row_rank.data_ptr(), match.data_ptr(), T, D, float(iou_threshold), stream
-        )
+    kernel = build.kernels().associate
+    args = (iou.data_ptr(), row_rank.data_ptr(), match.data_ptr(), T, D, float(iou_threshold))
+    err = launch.launch(device, lambda stream: kernel(*args, stream))
     if err != 0:
         raise RuntimeError(f"greedy_associate: kernel launch failed with CUDA error {err}")
     launches += 1

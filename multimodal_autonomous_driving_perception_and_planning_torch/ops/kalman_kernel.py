@@ -9,11 +9,16 @@ to XLA, so the whole step is one launch.
 
 Bound on an H100: the step moves about 0.8 KB and does about 2,300
 floating-point operations, well under a nanosecond either way and far
-below the launch latency; it is latency-bound.  The kernel keeps the whole
-6x6 algebra in one thread's registers: no shared memory, no
-synchronisation, one launch per frame.  The state stays float32 in memory;
-the algebra runs in double, which keeps the finite-difference acceleration
-close to the float64 reference (see the note in kalman_step.cu).
+below the launch latency; it is latency-bound.  The kernel shares the step
+over one warp: one wave of loads, one entry of each 6x6 product a lane,
+the gain's six rows on six lanes (kalman_step.cu says more).  The state
+stays float32 in memory; the algebra runs in double, which keeps the
+finite-difference acceleration close to the float64 reference.
+
+The wrapper does one thing per call (ops/launch.py): one pass of checks,
+one output buffer carved into x, P and the vehicle row (`output_fields`;
+the kernel carves the same offsets), and the stream without re-entering
+the device context.
 """
 
 from __future__ import annotations
@@ -25,9 +30,20 @@ import torch
 from ..kernels import build
 from ..ops.kalman import KalmanModel
 from ..types import VEHICLE_STATE_FIELDS, KalmanState
+from . import launch
+
+# The output fields in the kernel's buffer (kalman_step.cu kOutX, kOutP,
+# kOutVs): x (6,), P (6, 6), the vehicle row (11,).
+OUTPUT_SHAPES = ((6,), (6, 6), (len(VEHICLE_STATE_FIELDS),))
 
 # Launches of the kernel in this process; only `kalman_step` adds to it.
 launches = 0
+
+
+def output_fields(device) -> tuple:
+    """The kernel's outputs carved from one float32 buffer:
+    ``(buffer, [x, P, vs])``."""
+    return launch.carve(OUTPUT_SHAPES, torch.float32, device)
 
 
 def kalman_step(
@@ -59,24 +75,12 @@ def kalman_step(
         ("Q", model.Q, f32, (6, 6)),
         ("R", model.R, f32, (4, 4)),
     )
-    for name, t, dtype, shape in ins:
-        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"kalman_step: {name} is {t.dtype} {tuple(t.shape)} on {t.device}; "
-                f"expected {dtype} {shape} on {device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"kalman_step: {name} is not contiguous")
-    x = torch.empty((6,), dtype=f32, device=device)
-    P = torch.empty((6, 6), dtype=f32, device=device)
-    vs = torch.empty((len(VEHICLE_STATE_FIELDS),), dtype=f32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = build.kernels().kalman_step(
-            *[t.data_ptr() for _, t, _, _ in ins],
-            x.data_ptr(), P.data_ptr(), vs.data_ptr(),
-            float(dt), float(speed_heading_hold), stream,
-        )
+    launch.check_inputs("kalman_step", device, ins)
+    buf, (x, P, vs) = output_fields(device)
+    ptrs = [t.data_ptr() for _, t, _, _ in ins]
+    kernel = build.kernels().kalman_step
+    args = (buf.data_ptr(), float(dt), float(speed_heading_hold))
+    err = launch.launch(device, lambda stream: kernel(*ptrs, *args, stream))
     if err != 0:
         raise RuntimeError(f"kalman_step: kernel launch failed with CUDA error {err}")
     launches += 1

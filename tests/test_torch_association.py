@@ -99,15 +99,18 @@ def test_plain_matches_jax_on_tied_ranks(shape):
     assert list(got[:2]) == [0, 0] and (got[2:] == -1).all()
 
 
-@pytest.mark.parametrize("case", ["staircase_64x16", "all_equal_64x16", "full_128x64"])
+@pytest.mark.parametrize("case", ["staircase_64x16", "all_equal_64x16", "full_128x64", "staircase_128x64"])
 def test_plain_matches_jax_on_adversarial_matrices(case):
     """The matrices chip_smoke.py holds K4 to its plain version on, here held
     to the JAX XLA fixpoint and JAX's K4 in the interpreter: the staircase
     and the all-equal ladder (one pair a round, 17 rounds, the diagonal),
-    and (128, 64) matrices with every row alive and every column valid."""
+    (128, 64) matrices with every row alive and every column valid, and
+    the (128, 64) staircase (65 rounds)."""
     if case == "full_128x64":
         rng = np.random.default_rng(128064)
         matrices = [chip_smoke.full_association(rng, 128, 64) for _ in range(2)]
+    elif case == "staircase_128x64":
+        matrices = [(chip_smoke.ladder_iou(128, 64, 0.5), np.arange(128, dtype=np.int32))]
     else:
         step = 1 if case.startswith("staircase") else 0
         matrices = [(chip_smoke.ladder_iou(64, 16, step), np.arange(64, dtype=np.int32))]
@@ -117,10 +120,63 @@ def test_plain_matches_jax_on_adversarial_matrices(case):
         kernel = greedy_associate_pallas(jnp.asarray(iou), jnp.asarray(rank), 0.3, interpret=True)
         np.testing.assert_array_equal(got, np.asarray(kernel))
         if case != "full_128x64":
-            assert list(got[:16]) == list(range(16)) and (got[16:] == -1).all()
+            d = iou.shape[1]
+            assert list(got[:d]) == list(range(d)) and (got[d:] == -1).all()
 
 
 def test_kernel_wrapper_refuses_what_k4_does_not_take():
     iou, rank = torch.zeros((4, 4)), torch.arange(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="launches a CUDA kernel"):
         association_kernel.greedy_associate(iou, rank, 0.3)
+
+
+@pytest.mark.parametrize("thr", chip_smoke.KEY_CORNER_THRESHOLDS)
+@pytest.mark.parametrize("shape", chip_smoke.KEY_CORNER_SHAPES)
+def test_plain_matches_jax_on_key_order_corners(shape, thr):
+    """The key-order corners chip_smoke.py holds K4 to its plain version
+    on, here held to the JAX XLA fixpoint and JAX's K4 in the interpreter:
+    -0.0 and +0.0 entries (tied as IoU 0), IoUs exactly at the threshold
+    and just below it, NaN (never eligible), and ranks at INT32_MIN,
+    negative and INT32_MAX in tied groups, whose tie-break keys
+    rank * D + column wrap in int32 alike in all three; with D not a power
+    of two the wrap falls inside a row.  Dense draws, and draws with few
+    entries left (the kernel's list of at most 32 eligible ones)."""
+    t, d = shape
+    rng = np.random.default_rng(7 * t + d)
+    for trial, keep in enumerate((None, None, 24)):
+        iou, rank = chip_smoke.key_corner_association(rng, t, d, thr, keep=keep)
+        got, want = _both(iou, rank, thr)
+        np.testing.assert_array_equal(got, want, err_msg=f"trial {trial}")
+        kernel = greedy_associate_pallas(jnp.asarray(iou), jnp.asarray(rank), thr, interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(kernel), err_msg=f"trial {trial}")
+
+
+@pytest.mark.parametrize("n", [32, 33])
+@pytest.mark.parametrize("shape", [(64, 16), (128, 64)])
+def test_plain_matches_jax_either_side_of_the_sparse_limit(shape, n):
+    """Exactly 32 and 33 eligible entries (chip_smoke.py
+    `eligible_association`: key-order corners, K4's limit of the sparse
+    rounds either side), held to the JAX XLA fixpoint and JAX's K4 in the
+    interpreter, under both thresholds."""
+    t, d = shape
+    rng = np.random.default_rng(13 * t + d)
+    for thr in chip_smoke.KEY_CORNER_THRESHOLDS:
+        iou, rank = chip_smoke.eligible_association(rng, t, d, thr, n)
+        assert int(((iou >= thr) & (iou >= 0)).sum()) == n
+        got, want = _both(iou, rank, thr)
+        np.testing.assert_array_equal(got, want, err_msg=f"thr {thr}")
+        kernel = greedy_associate_pallas(jnp.asarray(iou), jnp.asarray(rank), thr, interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(kernel), err_msg=f"thr {thr}")
+
+
+def test_tie_break_key_wraps_in_int32():
+    """The tie-break key is rank * D + column in int32 arithmetic: a row of
+    rank INT32_MAX at D = 16 has key -16 + column and so comes before a row
+    of rank 0 in a column where both hold the best IoU, in JAX and in the
+    port alike."""
+    iou = np.full((2, 16), -1.0, np.float32)
+    iou[:, 0] = 0.5
+    rank = np.array([np.iinfo(np.int32).max, 0], np.int32)
+    got, want = _both(iou, rank, 0.3)
+    np.testing.assert_array_equal(got, want)
+    assert list(got) == [0, -1]

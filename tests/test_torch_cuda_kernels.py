@@ -27,11 +27,14 @@ def device():
 def test_tracker_kernel_matches_plain(device):
     """Every output exact at every step: churn at (64, 16) and (128, 64),
     saturated tables at (64, 16) and (128, 64), the staircase and
-    all-equal ladders, and the 300-frame synthetic stream."""
+    all-equal ladders and the (128, 64) staircase, IoUs exactly at the
+    threshold and +0 IoUs all tied, 32 and 33 eligible pairs, and the
+    300-frame synthetic stream."""
     cases = chip_smoke.check_tracker_kernel(device, steps=20)
     assert [c["case"] for c in cases] == [
         "churn_64x16", "churn_128x64", "saturated_64x16", "saturated_128x64", "staircase_64x16",
-        "all_equal_64x16", "synthetic_64x16", "odd_ring_63x16", "long_ring_64x16",
+        "all_equal_64x16", "staircase_128x64", "threshold_ties_64x16", "zero_iou_ties_64x16",
+        "eligible_32_64x16", "eligible_33_64x16", "synthetic_64x16", "odd_ring_63x16", "long_ring_64x16",
     ]
     torch.cuda.synchronize()
 
@@ -39,6 +42,10 @@ def test_tracker_kernel_matches_plain(device):
 def test_kalman_kernel_matches_plain(device):
     result = chip_smoke.check_kalman_kernel(device, frames=100)
     assert result["unmeasured"] > 0
+    assert result["corners"] == [
+        "speed_below_hold", "speed_above_hold", "heading_wrap", "unmeasured", "large_P", "ill_conditioned_P"
+    ]
+    assert list(result["float32_plain_gap"]) == list(chip_smoke.KALMAN_FLOAT64_CASES)
     torch.cuda.synchronize()
 
 
@@ -63,7 +70,12 @@ def test_tagging_kernel_matches_plain(device):
 def test_association_kernel_matches_plain(device):
     cases = chip_smoke.check_association_kernel(device, trials=3)
     names = [c["case"] for c in cases]
-    assert names[-4:] == ["empty_full_and_tied_pair_16x16", "staircase_64x16", "all_equal_64x16", "full_128x64"]
+    assert names[8:13] == [
+        "empty_full_and_tied_pair_16x16", "staircase_64x16", "all_equal_64x16", "staircase_128x64", "full_128x64"
+    ]
+    assert names[13:] == [f"key_corners_{t}x{d}" for t, d in chip_smoke.KEY_CORNER_SHAPES] + [
+        "key_corners_few_64x16", "key_corners_few_128x64", "eligible_32_33_64x16", "eligible_32_33_128x64"
+    ]
     assert "tied_ranks_64x16" in names
     torch.cuda.synchronize()
 
@@ -119,7 +131,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     iou = torch.zeros((129, 4), device=device)
     with pytest.raises(ValueError, match="1..128 rows"):
         association_kernel.greedy_associate(iou, torch.zeros(129, dtype=torch.int32, device=device), 0.3)
-    with pytest.raises(ValueError, match="expected torch.int32"):
+    with pytest.raises(TypeError, match="expected torch.int32"):
         association_kernel.greedy_associate(iou[:4], torch.zeros(4, dtype=torch.int64, device=device), 0.3)
 
     from multimodal_autonomous_driving_perception_and_planning_torch.ops import nms_kernel

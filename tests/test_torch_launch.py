@@ -1,9 +1,10 @@
-"""The host side of kernels K1 and K3 on the CPU: the output buffers the
-wrappers carve (ops/launch.py `carve`, `tracker_kernel.output_fields`,
-`tagging_kernel.output_fields`) and the one-pass input checks.
+"""The host side of kernels K1, K2 and K3 on the CPU: the output buffers
+the wrappers carve (ops/launch.py `carve`, `tracker_kernel.output_fields`,
+`kalman_kernel.output_fields`, `tagging_kernel.output_fields`) and the
+one-pass input checks.
 
-The kernels carve the same two buffers by the same rule (tracker_step.cu
-and tagging_step.cu `carve`): fields in order, each starting at a multiple
+The kernels carve the same buffers by the same rule (tracker_step.cu and
+tagging_step.cu `carve`, kalman_step.cu kOutX, kOutP, kOutVs): fields in order, each starting at a multiple
 of 4 elements, so that each ring starts 16-byte aligned and the kernels can
 store it with 16-byte vector stores.  These tests hold the Python side to
 that rule with an independent offset count; the card's runs in
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from multimodal_autonomous_driving_perception_and_planning_torch.ops import (
+    kalman_kernel,
     launch,
     tagging_kernel,
     tracker_kernel,
@@ -73,6 +75,17 @@ def test_tagging_output_fields(T, W, H, HI):
     assert out["int_centers"].data_ptr() == fbuf.data_ptr()
     assert out["tag_f"].numel() == tagging_kernel.row_width(tagging_kernel.FLOAT_TAGS, T)
     assert out["tag_i"].numel() == tagging_kernel.row_width(tagging_kernel.INT_TAGS, T)
+
+
+def test_kalman_output_fields():
+    """K2's one float32 buffer: x (6,), P (6, 6) and the vehicle row (11,)
+    at the offsets the kernel writes (0, 8 and 44 floats), each 16-byte
+    aligned and contiguous, none overlapping."""
+    buf, fields = kalman_kernel.output_fields("cpu")
+    names = ("x", "P", "vs")
+    _check_fields(buf, names, kalman_kernel.OUTPUT_SHAPES, dict(zip(names, fields)), torch.float32)
+    assert [(t.data_ptr() - buf.data_ptr()) // 4 for t in fields] == [0, 8, 44]
+    assert buf.numel() == 56
 
 
 def test_carved_fields_are_independent():

@@ -130,12 +130,13 @@ def test_tracker_matches_jax_stream(t_cap, d_cap):
         trio.step(_random_dets(rng, d_cap), msg=f"step {step}")
 
 
-@pytest.mark.parametrize("case", ["staircase_64x16", "all_equal_64x16", "saturated_128x64"])
+@pytest.mark.parametrize("case", ["staircase_64x16", "all_equal_64x16", "saturated_128x64", "staircase_128x64"])
 def test_tracker_matches_jax_adversarial(case):
     """The cases chip_smoke.py holds K1 to its plain version on, here held to
     the JAX tracker and its TPU kernel in the interpreter: the staircase
     and the all-equal ladder from a full table (one pair a round, 17
-    rounds), and a (128, 64) table filled by fully valid detections."""
+    rounds), a (128, 64) table filled by fully valid detections, and the
+    (128, 64) staircase (65 rounds)."""
     if case == "saturated_128x64":
         trio = _Trio(128, 6, iou_threshold=0.3, max_age=30, min_hits=3)
         rng = np.random.default_rng(4)
@@ -143,10 +144,42 @@ def test_tracker_matches_jax_adversarial(case):
             trio.step(_random_dets(rng, 64, p_valid=1.0), msg=f"step {step}")
         assert int((trio.port.track_id > 0).sum()) == 128
         return
+    if case == "staircase_128x64":
+        table, dets = chip_smoke.ladder_arrays(128, 64, 0.5)
+        trio = _Trio(128, 6, table=table, iou_threshold=0.3, max_age=30, min_hits=3)
+        trio.step(dets)
+        assert int((trio.port.hits > 3).sum()) == 64
+        return
     table, dets = chip_smoke.ladder_arrays(64, 16, 1.0 if case.startswith("staircase") else 0.0)
     trio = _Trio(64, 6, table=table, iou_threshold=0.3, max_age=30, min_hits=3)
     for step in range(2):
         trio.step(dets, msg=f"step {step}")
+
+
+@pytest.mark.parametrize("zero_iou", [False, True], ids=["threshold_ties", "zero_iou_ties"])
+def test_tracker_matches_jax_on_key_order_corners(zero_iou):
+    """The key-order corners chip_smoke.py holds K1 to its plain version on,
+    here held to the JAX tracker and its TPU kernel in the interpreter: a
+    full table with permuted ids, every track at IoU 0.3 exactly (the
+    threshold) with every even detection; and every pair at IoU +0 under a
+    threshold of 0, all tied, so that the id rank and the column decide."""
+    table, dets = chip_smoke.corner_arrays(64, 16, zero_iou)
+    trio = _Trio(64, 6, table=table, iou_threshold=0.0 if zero_iou else 0.3, max_age=30, min_hits=3)
+    for step in range(2):
+        trio.step(dets, msg=f"step {step}")
+    assert int((trio.port.track_id > 0).sum()) == 64
+
+
+@pytest.mark.parametrize("live,at_threshold", chip_smoke.BOUNDARY_CASES, ids=["eligible_32", "eligible_33"])
+def test_tracker_matches_jax_either_side_of_the_sparse_limit(live, at_threshold):
+    """Exactly 32 and 33 eligible pairs (chip_smoke.py `boundary_arrays`:
+    ``live`` tracks with permuted ids, ``at_threshold`` detections at IoU
+    0.3 exactly, all tied), held to the JAX tracker and its TPU kernel in
+    the interpreter; the id rank gives one detection a round."""
+    table, dets = chip_smoke.boundary_arrays(live, at_threshold)
+    trio = _Trio(64, 6, table=table, iou_threshold=0.3, max_age=30, min_hits=3)
+    trio.step(dets)
+    assert int((trio.port.hits > 3).sum()) == at_threshold
 
 
 def test_tracker_tracks_persist():
