@@ -35,7 +35,11 @@ Phases, each printing one JSON line:
      few eligible pairs, and with exactly 32 and 33;
   7. kernel K5 (greedy-NMS keep mask) against its plain version on the
      card, exact, over tie-quantized pools at K = 16 ... 1024, a
-     suppression chain, all dead, all kept, and a batch of 64 at K = 256;
+     suppression chain, all dead, all kept, and `nms_cases`: K either side of a 32-bit word at B = 1 and 3, chains
+     across words, IoUs at and within 2 ulps of the threshold, thresholds
+     of 0, below 0 and from 1 up, class-offset, degenerate, NaN and inf
+     boxes, dead entries between live ones, subnormal IoUs, and batches of
+     1 to 200 images; and boxes off 16-byte alignment;
   8. the main path: `make_sequence_runner` on the card over the 300-frame
      synthetic stream in bench.py's configuration, against the same runner
      on the CPU, with each kernel's launches counted in that run;
@@ -52,9 +56,10 @@ Phases, each printing one JSON line:
      plain `nms` on its own candidates;
  13. times: each kernel and its plain version by CUDA events at its path's
      shapes, beside the kernel's bound; the launch floor (`floor_ms`, a
-     one-element add's device time) and where K1's to K4's time goes
+     one-element add's device time) and where K1's to K5's time goes
      (`split`: each wrapper's host split, each kernel on inputs that take
-     one part of its work away); the frames/s of the main and tagging
+     one part of its work away, K5 with the cluster size each launch
+     takes); the frames/s of the main and tagging
      paths, timed in turns; the YOLO detection chunk by stage and the YOLO
      path's frames/s in both dtypes.
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -63,13 +68,16 @@ Any failure raises and exits non-zero.  Without a card it exits 1 at once.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import json
 import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -933,10 +941,199 @@ def random_nms_case(rng, k: int):
     return boxes, np.sort(scores)[::-1].copy()
 
 
+class NmsCase(NamedTuple):
+    """One input of the keep mask: boxes (B, K, 4) and scores (B, K),
+    float32, a threshold, the kept count the case is built to give (None:
+    not built for one), and which JAX on the CPU equals the plain version
+    there: "compiled" (jitted and in the Pallas interpreter), "op_by_op"
+    (called without jit: under jit XLA contracts a multiply-add of the
+    union, which moves IoUs near the threshold; ROADMAP.md, faults) or
+    "none" (XLA on the CPU flushes subnormal IoUs)."""
+
+    boxes: np.ndarray
+    scores: np.ndarray
+    thr: float
+    kept: int | None = None
+    jax: str = "compiled"
+
+
+NMS_SIZES = (1, 31, 32, 33, 63, 65, 255, 257, 1023)
+NMS_BATCHES = ((1, 256), (8, 256), (64, 256), (132, 256), (200, 256), (8, 1024))
+NMS_NEAR_THRESHOLDS = (0.3, 0.45, 0.7)
+
+
+def _iou32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """`pairwise_iou` of row pairs in float32, op for op."""
+    iw = np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0])
+    ih = np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1])
+    inter = np.where((iw > 0) & (ih > 0), iw * ih, np.float32(0))
+    union = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1]) + (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    union = union - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(union > 0, inter / np.where(union > 0, union, np.float32(1)), np.float32(0))
+
+
+def _far_boxes(n: int, y: float = 5000.0) -> np.ndarray:
+    """``n`` disjoint 10x10 boxes 100 apart on the row at ``y``."""
+    x = np.arange(n) * 100.0
+    return np.stack([x, np.full(n, y), x + 10.0, np.full(n, y + 10.0)], 1).astype(np.float32)
+
+
+def _descending(k: int) -> np.ndarray:
+    return np.linspace(0.95, 0.05, k).astype(np.float32)
+
+
+def _pools(rng, b: int, k: int):
+    pools = [random_nms_case(rng, k) for _ in range(b)]
+    return np.stack([p[0] for p in pools]), np.stack([p[1] for p in pools])
+
+
+def _chain(n: int, k: int) -> NmsCase:
+    """A chain of ``n`` boxes 5 apart (IoU 1/3 with the next, 0 with the one
+    after) then ``k - n`` disjoint ones: every other link kept, across words."""
+    x = np.arange(n) * 5.0
+    chain = np.stack([x, np.zeros(n), x + 10.0, np.full(n, 10.0)], 1).astype(np.float32)
+    boxes = np.concatenate([chain, _far_boxes(k - n)])
+    return NmsCase(boxes[None], _descending(k)[None], 0.3, kept=(n + 1) // 2 + k - n)
+
+
+def _near_threshold(rng, thr: float, pairs: int = 128) -> NmsCase:
+    """``pairs`` pairs of boxes, each pair on a row of its own, whose
+    float32 IoU stands 0, 1 or 2 ulps from float32(thr), either side, found
+    by nudging the second box's shift d in ulps about (w - d) / (w + d) =
+    thr.  The pairs' boxes stand in a random order."""
+    t = np.float32(thr)
+    found = []
+    for m in range(pairs):
+        want = m % 5 - 2  # ulps from thr
+        y0 = np.float32(200.0 * m)
+        for _ in range(100):
+            w, h = (np.float32(v) for v in rng.uniform(20, 100, 2))
+            d0 = np.float32(float(w) * (1 - thr) / (1 + thr))
+            d = d0 + np.arange(-64, 65, dtype=np.float32) * np.spacing(d0)
+            a = np.array([0, y0, w, y0 + h], np.float32)
+            b = np.stack([d, np.full_like(d, y0), d + w, np.full_like(d, y0 + h)], 1).astype(np.float32)
+            ulps = _iou32(a[None], b).view(np.int32) - t.view(np.int32)
+            hit = np.flatnonzero(ulps == want)
+            if hit.size:
+                found.append((a, b[hit[0]]))
+                break
+        else:
+            raise AssertionError(f"no pair {want} ulps from {thr} at pair {m}")
+    boxes = np.stack([x for pair in found for x in pair])
+    order = rng.permutation(len(boxes))
+    suppressed = sum(int(_iou32(a, b) > t) for a, b in found)
+    return NmsCase(boxes[order][None], _descending(len(boxes))[None], thr, kept=len(boxes) - suppressed,
+                   jax="op_by_op")
+
+
+def _three_level(c_index: int) -> np.ndarray:
+    """K = 128 disjoint boxes but for A at 31, B at 32 (next word) and C at
+    ``c_index``: A suppresses B, B would suppress C, A does not reach C."""
+    boxes = _far_boxes(128)
+    boxes[31] = [0, 0, 10, 10]
+    boxes[32] = [3, 0, 13, 10]  # IoU with A 7/13
+    boxes[c_index] = [6, 0, 16, 10]  # with A 4/16, with B 7/13
+    return boxes
+
+
+def _degenerate(rng, k: int = 128) -> np.ndarray:
+    """Random pools with zero-area, inverted and repeated boxes."""
+    boxes, _ = random_nms_case(rng, k)
+    idx = rng.permutation(k)
+    boxes[idx[:16], 2] = boxes[idx[:16], 0]  # zero width
+    boxes[idx[16:32], 3] = boxes[idx[16:32], 1]  # zero height
+    boxes[idx[32:48]] = boxes[idx[32:48]][:, [2, 3, 0, 1]]  # inverted
+    boxes[idx[48:64]] = boxes[idx[64:80]]  # repeated
+    return boxes
+
+
+def _subnormal_iou(k: int = 32) -> NmsCase:
+    """IoUs and intersections below float32's normal range at threshold 0:
+    a 1e5 box over a 1e-15 one (IoU about 1e-40) and two equal 1e-20 boxes
+    (their intersection about 1e-40), beside disjoint ones.  XLA on the CPU
+    flushes these to 0, so JAX cannot be held to this case; the kernel and
+    the plain version keep them."""
+    boxes = _far_boxes(k, y=-5000.0)
+    boxes[0], boxes[1] = [0, 0, 1e5, 1e5], [0, 0, 1e-15, 1e-15]
+    boxes[2] = boxes[3] = [-1e-19, -1e-19, -9e-20, -9e-20]
+    return NmsCase(boxes[None], _descending(k)[None], 0.0, kept=k - 2, jax="none")
+
+
+@functools.lru_cache(maxsize=None)
+def nms_cases() -> dict:
+    """K5's cases, by name, built with numpy from fixed seeds: the sizes
+    either side of a 32-bit word at B = 1 and 3, chains that cross words,
+    a three-level chain whose middle link sits in the next word, one box
+    that suppresses in every later word, IoUs at and within 2 ulps of the
+    threshold, thresholds of 0 (touching boxes), below 0 and from 1 up,
+    class-offset coordinates at class 79, degenerate boxes, NaN and inf
+    coordinates, dead entries between live ones, subnormal IoUs, and
+    batches of 1 to 200 images."""
+    cases = {}
+    for k in NMS_SIZES:
+        for b in (1, 3):
+            rng = np.random.default_rng(1000 * k + b)
+            cases[f"K{k}_B{b}"] = NmsCase(*_pools(rng, b, k), float(rng.choice([0.1, 0.3, 0.45, 0.7])))
+    cases["chain_100_K256"] = _chain(100, 256)
+    cases["chain_600_K1024"] = _chain(600, 1024)
+    cases["three_level_next_word"] = NmsCase(np.stack([_three_level(40), _three_level(95)]),
+                                             np.stack([_descending(128)] * 2), 0.45, kept=2 * 127)
+    early = _far_boxes(256)
+    early[0] = [0, 0, 100, 100]
+    for j in [3] + [32 * w + 7 for w in range(1, 8)]:
+        early[j] = [1, 1, 100, 100]  # IoU 0.9801 with box 0
+    cases["early_box_every_word"] = NmsCase(early[None], _descending(256)[None], 0.45, kept=256 - 8)
+    half = _far_boxes(64)
+    for i, j in ((0, 1), (31, 32), (10, 50), (62, 63)):
+        half[i] = [1000 * i, 0, 1000 * i + 2, 1]
+        half[j] = [1000 * i, 0, 1000 * i + 1, 1]  # IoU exactly 0.5
+    cases["iou_at_threshold"] = NmsCase(half[None], _descending(64)[None], 0.5, kept=64)
+    cases["iou_above_threshold"] = NmsCase(half[None], _descending(64)[None],
+                                           float(np.nextafter(np.float32(0.5), np.float32(0))), kept=60)
+    rng = np.random.default_rng(77)
+    for thr in NMS_NEAR_THRESHOLDS:
+        cases[f"near_threshold_{thr}"] = _near_threshold(rng, thr)
+    grid = np.arange(64, dtype=np.float32)
+    touching = np.stack([grid % 8 * 10, grid // 8 * 10, grid % 8 * 10 + 10, grid // 8 * 10 + 10], 1)
+    touching[::5] += 5.0  # some overlap their neighbours
+    cases["thr_zero_touching"] = NmsCase(touching[None].astype(np.float32), _descending(64)[None], 0.0)
+    for name, thr in (("thr_negative", -0.1), ("thr_one", 1.0), ("thr_above_one", 1.5)):
+        boxes, scores = _pools(np.random.default_rng(int(10 * thr) + 50), 2, 96)
+        boxes[:, 48:64] = boxes[:, 0:16]  # identical boxes: IoU exactly 1
+        cases[name] = NmsCase(boxes, scores, thr)
+    rng = np.random.default_rng(79)
+    boxes, scores = _pools(rng, 2, 256)
+    boxes = boxes * np.float32(2.0)  # up to 640 px
+    classes = rng.integers(77, 80, (2, 256)).astype(np.float32)
+    cases["class_offset_79"] = NmsCase(boxes + (classes * np.float32(7680.0))[..., None], scores, 0.45)
+    rng = np.random.default_rng(17)
+    degenerate = np.stack([_degenerate(rng), _degenerate(rng)])
+    scores = np.stack([random_nms_case(rng, 128)[1] for _ in range(2)])
+    cases["degenerate_boxes"] = NmsCase(degenerate, scores, 0.45)
+    cases["degenerate_boxes_thr0"] = NmsCase(degenerate, scores, 0.0)
+    boxes, scores = _pools(np.random.default_rng(23), 2, 96)
+    bad = np.random.default_rng(24).random(boxes.shape) < 0.08
+    boxes[bad] = np.random.default_rng(25).choice(np.float32([np.nan, np.inf, -np.inf]), int(bad.sum()))
+    cases["nan_inf_coords"] = NmsCase(boxes, scores, 0.3)
+    rng = np.random.default_rng(29)
+    boxes, scores = _pools(rng, 2, 96)
+    scores = rng.uniform(0.05, 1.0, scores.shape).astype(np.float32)  # live, in no order
+    dead = rng.random(scores.shape) < 0.3
+    scores[dead] = rng.choice(np.float32([0.0, -0.0, -0.5, np.nan]), int(dead.sum()))
+    cases["dead_between_live"] = NmsCase(boxes, scores, 0.45)
+    cases["subnormal_iou"] = _subnormal_iou()
+    for b, k in NMS_BATCHES:
+        rng = np.random.default_rng(b * 7 + k)
+        cases[f"batch_{b}x{k}"] = NmsCase(*_pools(rng, b, k), 0.45)
+    return cases
+
+
 def check_nms_kernel(device, trials: int = 8) -> list:
     """K5 against its plain version, exact: tie-quantized pools at K = 16,
     64, 256 and 1024 with thresholds of 0.1 to 0.7, the 24-box suppression
-    chain, all dead and all kept, and one launch over 64 pools of 256."""
+    chain, all dead and all kept, and every case of `nms_cases` (with the
+    kept count a case is built for), batches of 1 to 200 pools among them."""
     cases = []
 
     def compare(name, boxes, scores, thr):
@@ -965,10 +1162,20 @@ def check_nms_kernel(device, trials: int = 8) -> list:
     if compare("all dead", apart, np.zeros(k, np.float32), 0.45) != 0:
         raise AssertionError("K5 kept a dead box")
     cases.append({"case": "chain_all_kept_all_dead"})
-    rng = np.random.default_rng(64)
-    pools = [random_nms_case(rng, 256) for _ in range(64)]
-    kept = compare("batch 64x256", np.stack([b for b, _ in pools]), np.stack([s for _, s in pools]), 0.45)
-    cases.append({"case": "batch_64x256", "kept": kept})
+    for name, case in nms_cases().items():
+        kept = compare(name, case.boxes, case.scores, case.thr)
+        if case.kept is not None and kept != case.kept:
+            raise AssertionError(f"K5 {name}: kept {kept}, the case is built to keep {case.kept}")
+        cases.append({"case": name, "shape": list(case.scores.shape), "thr": case.thr, "kept": kept})
+    # Boxes 4 bytes past a 16-byte boundary: the kernel's scalar loads.
+    case = nms_cases()["batch_8x256"]
+    flat = torch.empty(case.boxes.size + 1, device=device)
+    b = flat[1:].view(case.boxes.shape)
+    b.copy_(torch.tensor(case.boxes, device=device))
+    s = torch.tensor(case.scores, device=device)
+    if not torch.equal(nms_kernel.nms_keep(b, s, case.thr), _nms_keep_plain(b, s, case.thr)):
+        raise AssertionError("K5 differs from the plain version on boxes that are not 16-byte aligned")
+    cases.append({"case": "misaligned_boxes", "shape": list(case.scores.shape)})
     return cases
 
 
@@ -1356,8 +1563,65 @@ def kalman_state(device, inputs: dict, frames: int = 100):
     return ks, model, ego[frames], has
 
 
-def measure_split(device, inputs: dict) -> dict:
-    """Where K1's, K2's, K3's and K4's time goes, on the wrappers that a path calls.
+def yolo_chunk_candidates(device, params: dict | None = None) -> dict:
+    """The NMS candidates of the YOLO path's first float32 chunk: yolov8n at
+    YOLO_IMG on the first 64 seeded frames, in network coordinates."""
+    frames, _ = yolo_inputs(YOLO_BATCH)
+    outputs = head_outputs(params if params is not None else yolo_params(device), frames, device, torch.float32)
+    return yolov8.candidates_from_outputs(outputs, 1.0, (0, 0))
+
+
+def nms_pools_from(cands: dict) -> dict:
+    """K5's inputs (iou_boxes, scores) from the first chunk of the YOLO
+    path's float32 candidates, as `nms` builds them: the 64 frames at
+    pre_topk 256 (the path's) and the first 8 at 1024 (`nms`'s default)."""
+    pools = {}
+    for name, b, k in (("yolo_64x256", YOLO_BATCH, YOLO_PRE_TOPK), ("yolo_8x1024", 8, 1024)):
+        scores, _, _, iou_boxes = nms_prefilter(*(cands[f][:b] for f in ("boxes", "scores", "classes")),
+                                                YOLO_F32["score_threshold"], k)
+        pools[name] = (iou_boxes, scores)
+    return pools
+
+
+def nms_variants(device, pools: dict) -> dict:
+    """`measure_split`'s K5 inputs, by name: (iou_boxes, scores, threshold)
+    on the card."""
+    boxes, scores = pools["yolo_64x256"]
+    B, K = scores.shape
+
+    def tile(box_rows, score_row):
+        b = torch.tensor(np.broadcast_to(box_rows, (B, K, 4)).copy(), device=device)
+        return b, torch.tensor(np.broadcast_to(score_row, (B, K)).copy(), device=device)
+
+    chain = nms_cases()["chain_100_K256"]
+    alive = _descending(K)
+    return {
+        "yolo_64x256": (boxes, scores, YOLO_IOU),
+        "yolo_8x256": (boxes[:8].contiguous(), scores[:8].contiguous(), YOLO_IOU),
+        "yolo_1x256": (boxes[:1].contiguous(), scores[:1].contiguous(), YOLO_IOU),
+        "yolo_8x1024": (*pools["yolo_8x1024"], YOLO_IOU),
+        "all_dead_64x256": (boxes, torch.zeros_like(scores), YOLO_IOU),
+        "all_kept_64x256": (*tile(_far_boxes(K), alive), YOLO_IOU),
+        "one_survivor_64x256": (*tile(np.tile(np.float32([[0, 0, 10, 10]]), (K, 1)), alive), YOLO_IOU),
+        "chain_100_64x256": (*tile(chain.boxes[0], chain.scores[0]), chain.thr),
+    }
+
+
+def nms_cluster_size(B: int, K: int) -> int | None:
+    """The thread block cluster, in blocks an image, that K5 launches with
+    at (B, K) on this card, from the built library (None where the library
+    has no such query, as a checkout's from before the clusters)."""
+    lib = build.kernels()
+    path = getattr(lib, "__file__", None) or str(build.BUILD_DIR / "libnms_keep.so")
+    query = getattr(ctypes.CDLL(path), "madpp_nms_keep_cluster", None)
+    if query is None:
+        return None
+    query.argtypes, query.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return query(B, K)
+
+
+def measure_split(device, inputs: dict, nms_pools: dict | None = None) -> dict:
+    """Where K1's to K5's time goes, on the wrappers that a path calls.
     The launch floor; each wrapper's host split (`host_split`); and each
     kernel's device time on inputs that remove one part of its work at a
     time: K1 at the main path's state (`tracker_state`), with its
@@ -1369,7 +1633,13 @@ def measure_split(device, inputs: dict) -> dict:
     at the main path's filter state (`kalman_state`), measured and
     unmeasured (no update); K4 on the tagging state's matrix, as
     `measure_kernels` times it, on the two staircases, and on a (128, 64)
-    matrix with nothing dead (`full_association`)."""
+    matrix with nothing dead (`full_association`); K5 on the YOLO path's
+    first float32 chunk (`nms_pools`, from `yolo_chunk_candidates` when not
+    given) at (64, 256) as `measure_nms_kernel` times it, its first 8 images
+    and its first image, its first 8 at pre_topk 1024, and at (64, 256) all
+    dead, all kept (disjoint boxes), one survivor an image (one box
+    repeated) and the 100-box chain (`nms_cases`) in every image, with the
+    cluster size each launch takes (`nms_cluster_size`)."""
     cfg = bench_config().tracker
     est = bench_config().estimator
     ks, model, z, has = kalman_state(device, inputs)
@@ -1413,6 +1683,10 @@ def measure_split(device, inputs: dict) -> dict:
         "associate": {"base": k4(iou, rank), "staircase_64x16": k4(stair_iou, stair_rank),
                       "staircase_128x64": k4(big_iou, big_rank), "full_128x64": k4(full_iou, full_rank)},
     }
+    nms_inputs = nms_variants(device, nms_pools or nms_pools_from(yolo_chunk_candidates(device)))
+    variants["nms_keep"] = {
+        v: (lambda b=b, s=s, t=t: nms_kernel.nms_keep(b, s, t)) for v, (b, s, t) in nms_inputs.items()
+    }
     names = {name: f"{name}_kernel" for name in variants}
     device_ms = {
         kernel: {v: device_times({v: (fn, names[kernel])})[v][0] for v, fn in vs.items()}
@@ -1421,7 +1695,8 @@ def measure_split(device, inputs: dict) -> dict:
     return {
         "floor_ms": launch_floor_ms(),
         "device_ms": device_ms,
-        "host": {kernel: host_split(vs["base"]) for kernel, vs in variants.items()},
+        "host": {kernel: host_split(next(iter(vs.values()))) for kernel, vs in variants.items()},
+        "nms_cluster": {v: nms_cluster_size(*s.shape) for v, (_, s, _) in nms_inputs.items()},
     }
 
 
@@ -1607,12 +1882,11 @@ def measure_paths(device, inputs: dict, rounds: int = 2, profiled_frames: int = 
     return result
 
 
-def measure_nms_kernel(device, cands: dict, reps: int = 2000) -> dict:
+def measure_nms_kernel(device, pools: dict, reps: int = 2000) -> dict:
     """K5 and its plain version at the YOLO path's shapes: the first
-    chunk's 64 pools of 256 from the float32 run's candidates."""
-    c = {k: cands[k][:YOLO_BATCH] for k in ("boxes", "scores", "classes")}
-    scores, _, _, iou_boxes = nms_prefilter(c["boxes"], c["scores"], c["classes"],
-                                            YOLO_F32["score_threshold"], YOLO_PRE_TOPK)
+    chunk's 64 pools of 256 from the float32 run's candidates
+    (`nms_pools_from`)."""
+    iou_boxes, scores = pools["yolo_64x256"]
     keep = nms_kernel.nms_keep(iou_boxes, scores, YOLO_IOU)
 
     def launch():
@@ -1761,8 +2035,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     times = measure_kernels(device, inputs)
-    times["nms_keep"] = measure_nms_kernel(device, yolo_cands)
-    split = measure_split(device, inputs)
+    pools = nms_pools_from(yolo_cands)
+    times["nms_keep"] = measure_nms_kernel(device, pools)
+    split = measure_split(device, inputs, pools)
     kernel_s = time.perf_counter() - t0
     paths = measure_paths(device, inputs)
     paths_s = time.perf_counter() - t0 - kernel_s

@@ -1,106 +1,330 @@
-// Kernel K5: the greedy-NMS keep mask, one image per thread block, B images
-// per launch.
+// Kernel K5: the greedy-NMS keep mask of B images in one launch, a thread
+// block cluster of 1 to 8 blocks an image.
 //
 // Replaces the Pallas TPU kernel in the JAX package's ops/nms_pallas.py
-// (`_nms_keep_kernel`, launched by `nms_keep_pallas`).  Its plain PyTorch
-// version is ops/nms.py `_nms_keep_plain`, the suppression fixpoint
+// (`_nms_keep_kernel`, :39, launched by `nms_keep_pallas`, :86).  Its plain
+// PyTorch version is ops/nms.py `_nms_keep_plain`, the suppression fixpoint
 //   keep_j = alive_j & !any_i (keep_i & S_ij),  S_ij = (i < j) & (iou_ij > thr),
-// iterated from keep = alive.  Since S_ij needs i < j, keep_j depends only on
-// earlier candidates, so the fixpoint is unique and equals sequential greedy
-// NMS in score order; this kernel computes greedy directly, with no rounds,
-// and equals the fixpoint bit for bit on every input.
+// iterated from keep = alive, alive_j = score_j > 0 (NaN is dead; dead
+// entries may stand anywhere).  Since S_ij needs i < j, keep_j depends only
+// on earlier candidates, so the fixpoint is unique and equals sequential
+// greedy NMS in index order; this kernel computes that greedy result and
+// equals the fixpoint bit for bit on every input.
 //
-// Bound on an H100: at (B, K) = (64, 256) the call reads 344 KB (boxes and
-// scores) and writes 16 KB, about 0.1 us at 3.35 TB/s, and computes at most
-// K (K - 1) / 2 IoUs an image, about 0.5 us at 67 TFLOP/s float32.  The
-// greedy scan is serial in score order, which no roofline covers.  The
-// design: one block an image builds the suppression bits of every pair
-// (i < j) into shared memory, a warp ballot per 32 columns, and one warp
-// then walks the rows in order, OR-ing the row of each kept candidate into
-// a "removed" mask held one 32-bit word per lane.  Nothing goes back to the
-// host between images or rounds.
+// Bound on an H100 SXM: at the YOLO path's (B, K) = (64, 256) a call reads
+// 344 KB (boxes and scores) and writes 16 KB, 0.1 us at 3.35 TB/s, and
+// needs 16 operations an IoU pair of live candidates, 0.5 us at 67 TFLOP/s
+// float32; both lie under the card's launch floor of about 1.1 us, so the
+// bound cannot be approached, let alone half of it.
+//
+// The design, against what held the one-block-an-image version back:
+//  1. Grid.  A cluster of C blocks an image, C the largest of 8, 4, 2 for
+//     which all B clusters are resident at once, one block an SM
+//     (cudaOccupancyMaxActiveClusters), and every warp of the cluster gets
+//     an item of the mask build; else C = 1.  Every block builds a share of
+//     the mask into rank 0's shared memory (distributed shared memory), the
+//     items dealt out across the ranks in turn; rank 0 then scans.
+//  2. Mask build.  Only what the scan can read: row i, words w >= i / 32,
+//     as items (row group g, word w, quarter q) read from a table of (g, w)
+//     pairs, so no index needs a runtime division; items whose rows or
+//     columns are all dead are skipped.  A warp takes an item: lane b is row
+//     32 g + b and computes the 8 bits of quarter q of word w from 8
+//     independent IoUs against column boxes broadcast from shared memory,
+//     branch-free, then stores them as one byte.  The division is not on
+//     this path: iou > thr is decided as inter > union * hi or
+//     inter < union * lo, hi and lo 2^-19 (16 ulps) either side of thr,
+//     which the rounded quotient cannot cross; a pair between the two, or
+//     with a threshold outside [2^-20, 2^20] or an area outside
+//     [2^-38, 2^38], takes the exact __fdiv_rn (rare, warp-uniform branch).
+//  3. Scan.  Warp 0 of rank 0 takes a 32-candidate word at a time, lane w'
+//     holding the removed bits of word w'.  Within word w lane b holds row
+//     32 w + b's diagonal word: if no candidate suppresses another (one
+//     ballot), all are kept; else the fixpoint keep = cand & ~OR_{b in keep}
+//     diag_b runs from keep = cand, one warp OR-reduction a round, as many
+//     rounds as the word's longest suppression chain.  Then the kept rows
+//     with a bit in a later word (nz, from the build's ballots) are OR-ed
+//     into the later words, lane w' taking word w', eight independent loads
+//     at a time.  The serial chain is W words, not K candidates.
+//  4. Loads.  One wave: thread i loads candidate i's box (16 bytes; scalar
+//     loads if the pointer is not 16-byte aligned) and score; the alive and
+//     area-range words are ballots.  The first cluster barrier is split
+//     (relaxed arrive before the loads, wait after them).
+//  5. Host.  The opt-in shared-memory size and the cluster occupancies are
+//     set and read once a device, not on every launch.
 //
 // Exactness: the IoU is `pairwise_iou` op for op with the _rn intrinsics,
-// which nvcc never contracts into an FMA (as in kernel K1), so every
-// threshold decision equals the plain version's.
+// which nvcc never contracts into an FMA.  With union in [2^-40, 2^40] and
+// thr in [2^-20, 2^20] both products are normal, each off by at most 2^-24,
+// so inter > union * hi puts the quotient above thr (1 + 2^-20) and its
+// rounding above thr, and inter < union * lo below.  fminf/fmaxf differ
+// from torch.minimum/maximum only on NaN, and a NaN coordinate makes an
+// area, and so the union, NaN: an IoU of 0 on both sides.
 //
-// Limits: 1 <= K <= 1024 (the wrapper checks it).  Shared memory is 16 K +
-// 4 K ceil(K / 32) + 4 ceil(K / 32) bytes: 12.3 KB at K = 256, 144 KB at
-// K = 1024, which needs the opt-in dynamic shared-memory attribute.
+// Shared memory, each block of a cluster, W = ceil(K / 32), Kp = 32 W,
+// S = Kp + 1, P = W (W + 1) / 2 pairs, 4 P items:
+//   boxes   float4[Kp]       (16 Kp bytes; zero beyond K)
+//   areas   float[Kp]
+//   alive   uint32[32]       bit b of word w: score of 32 w + b > 0
+//   ok      uint32[32]       bit b of word w: area of 32 w + b in range
+//   nzg     uint32[32]       bit b of word g: row 32 g + b has a bit in a
+//                            word after g (rank 0's, from the nz slots)
+//   nz      uint32[4 P]      an item's rows with a bit set (rank 0's)
+//   mask    uint32[W * S]    word w of row i at w * S + i (rank 0's); the
+//                            stride S keeps both the build's and the scan's
+//                            accesses free of bank conflicts
+//   pairs   uint16[P]        (g << 8) | w for w >= g
+// 14.4 KB at K = 256, 162 KB at K = 1024 (under the opt-in 227 KB).
+//
+// Limits: 1 <= K <= 1024 and B >= 1 (the wrapper checks both).  The launch
+// goes on the given stream, allocates nothing and never synchronises.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+#ifndef NMS_MAX_CLUSTER
+#define NMS_MAX_CLUSTER 8  // largest cluster an image; build with 1 for one block an image
+#endif
 
 namespace {
 
 constexpr int kMaxK = 1024;
-constexpr int kThreads = 256;
+constexpr int kMaxW = kMaxK / 32;
+constexpr int kThreads = 1024;  // a thread a candidate at K = 1024
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
+// The division-free decision's ranges and margin (header, point 2).
+constexpr float kThrLo = 0x1p-20f, kThrHi = 0x1p20f, kAreaLo = 0x1p-38f, kAreaHi = 0x1p38f;
+constexpr float kMargin = 0x1p-19f;
 
-__device__ __forceinline__ float iou_rn(float4 a, float4 b) {
+__host__ __device__ inline int words(int K) { return (K + 31) >> 5; }
+
+__host__ __device__ inline int pairs(int W) { return W * (W + 1) / 2; }
+
+__host__ __device__ inline size_t smem_bytes(int K) {
+  const size_t W = words(K), Kp = 32 * W, S = Kp + 1, items = 4 * pairs((int)W);
+  return 16 * Kp + 4 * Kp + 4 * 3 * kMaxW + 4 * items + 4 * W * S + ((2 * pairs((int)W) + 3) & ~(size_t)3);
+}
+
+// iou(a, b) > thr, `pairwise_iou` op for op, with the exact division.
+__device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b, float area_b, float thr) {
   const float iw = __fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x));
   const float ih = __fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y));
   const float inter = (iw > 0.0f && ih > 0.0f) ? __fmul_rn(iw, ih) : 0.0f;
-  const float area_a = __fmul_rn(__fsub_rn(a.z, a.x), __fsub_rn(a.w, a.y));
-  const float area_b = __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
   const float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
-  return uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f;
+  return (uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f) > thr;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ scores,
                 bool* __restrict__ keep, int K, float thr) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int W = (K + 31) >> 5;  // 32-bit words a row
-  float4* s_box = reinterpret_cast<float4*>(smem);  // K boxes
-  unsigned* s_mask = reinterpret_cast<unsigned*>(s_box + K);  // K rows of W words
-  unsigned* s_removed = s_mask + (size_t)K * W;  // W words
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank(), csize = cluster.num_blocks();
+  const int W = words(K), Kp = W << 5, S = Kp + 1, P = pairs(W), items = P << 2;
+  float4* s_box = reinterpret_cast<float4*>(smem);
+  float* s_area = reinterpret_cast<float*>(s_box + Kp);
+  unsigned* s_alive = reinterpret_cast<unsigned*>(s_area + Kp);
+  unsigned* s_ok = s_alive + kMaxW;
+  unsigned* s_nzg = s_ok + kMaxW;
+  unsigned* s_nz = s_nzg + kMaxW;
+  unsigned* s_mask = s_nz + items;
+  unsigned short* s_pair = reinterpret_cast<unsigned short*>(s_mask + (size_t)W * S);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const size_t img = blockIdx.x;
-  const float* bx = boxes + img * K * 4;
-  const float* sc = scores + img * K;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t img = blockIdx.x >> (__ffs(csize) - 1);  // csize is a power of 2
+  const float* bx = boxes + img * (size_t)K * 4;
+  const float* sc = scores + img * (size_t)K;
+  // Every block of the cluster must run before any touches another's
+  // shared memory: arrive now, wait after the loads.  Nothing is ordered by
+  // this barrier, so it is relaxed (no fence).
+  if (csize > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
 
-  for (int i = tid; i < K; i += kThreads) {
-    s_box[i] = make_float4(bx[4 * i], bx[4 * i + 1], bx[4 * i + 2], bx[4 * i + 3]);
+  // One wave of loads: thread i takes candidate i's box and score.
+  float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float score = 0.0f;
+  if (tid < K) {
+    b = (reinterpret_cast<uintptr_t>(bx) & 15u) == 0
+            ? __ldg(reinterpret_cast<const float4*>(bx) + tid)
+            : make_float4(bx[4 * tid], bx[4 * tid + 1], bx[4 * tid + 2], bx[4 * tid + 3]);
+    score = sc[tid];
   }
-  // Dead candidates (score <= 0) start removed: never kept, never suppress.
-  for (int w = warp; w < W; w += kWarps) {
-    const int j = w * 32 + lane;
-    const unsigned alive = __ballot_sync(kFull, j < K && sc[j] > 0.0f);
-    if (lane == 0) s_removed[w] = ~alive;
+  const float area = __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
+  if (tid < Kp) {
+    s_box[tid] = b;
+    s_area[tid] = area;
+  }
+  const unsigned alive = __ballot_sync(kFull, tid < K && score > 0.0f);  // NaN is dead
+  const unsigned ok = __ballot_sync(kFull, area >= kAreaLo && area <= kAreaHi);
+  if (lane == 0 && warp < W) {
+    s_alive[warp] = alive;
+    s_ok[warp] = ok;
+  }
+  if (tid < W) {  // the (g, w) pairs of row group g = tid, after those of groups < g
+    const int g = tid;
+    int p = g * W - g * (g - 1) / 2;
+    for (int w = g; w < W; ++w) s_pair[p++] = (unsigned short)((g << 8) | w);
   }
   __syncthreads();
+  if (csize > 1) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 
-  // Row i, word w: bit b set iff j = 32 w + b > i and iou(i, j) > thr.
-  for (int q = warp; q < K * W; q += kWarps) {
-    const int i = q / W, w = q - i * W;
-    unsigned bits = 0u;
-    if (w * 32 + 31 > i) {  // warp-uniform: the word holds some j > i
-      const int j = w * 32 + lane;
-      const bool s = j > i && j < K && iou_rn(s_box[i], s_box[j]) > thr;
-      bits = __ballot_sync(kFull, s);
+  // Mask build.  Item (g, w, q): rows 32 g + lane, columns 32 w + 8 q + k,
+  // one byte of word w of each row into rank 0's mask, and into rank 0's
+  // nz slot of the item the rows with a bit set (0 for a skipped item).
+  unsigned* mask0 = csize > 1 ? cluster.map_shared_rank(s_mask, 0) : s_mask;
+  unsigned* nz0 = csize > 1 ? cluster.map_shared_rank(s_nz, 0) : s_nz;
+  const bool fast = thr >= kThrLo && thr <= kThrHi;
+  const float hi = __fmul_rn(thr, 1.0f + kMargin), lo = __fmul_rn(thr, 1.0f - kMargin);
+  for (int it = warp * (int)csize + (int)rank; it < items; it += (int)csize * kWarps) {
+    const unsigned pr = s_pair[it >> 2];
+    const int q = it & 3, g = pr >> 8, w = pr & 255;
+    unsigned rows = 0u;
+    if (((s_alive[w] >> (q << 3)) & 0xffu) != 0u && s_alive[g] != 0u) {
+      const int i = (g << 5) + lane, j0 = (w << 5) + (q << 3);
+      const float4 a = s_box[i];
+      const float area_a = s_area[i];
+      unsigned bits = 0u, slow = 0xffu;
+      if (fast && ((s_ok[w] >> (q << 3)) & 0xffu) == 0xffu) {  // warp-uniform
+        unsigned open = 0u;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float4 c = s_box[j0 + k];
+          const float iw = __fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x));
+          const float ih = __fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y));
+          const float inter = (iw > 0.0f && ih > 0.0f) ? __fmul_rn(iw, ih) : 0.0f;
+          const float uni = __fsub_rn(__fadd_rn(area_a, s_area[j0 + k]), inter);
+          const bool above = inter > __fmul_rn(uni, hi), below = inter < __fmul_rn(uni, lo);
+          if (above) bits |= 1u << k;
+          if (!(above || below)) open |= 1u << k;
+        }
+        if ((s_ok[g] >> lane) & 1u) slow = open;
+      }
+      if (__any_sync(kFull, slow != 0u)) {  // rare: decide with the exact division
+        while (slow != 0u) {
+          const int k = __ffs(slow) - 1;
+          slow &= slow - 1u;
+          const unsigned bit = 1u << k;
+          bits = iou_above(a, area_a, s_box[j0 + k], s_area[j0 + k], thr) ? bits | bit : bits & ~bit;
+        }
+      }
+      if (w == g) bits &= ~((2u << lane) - 1u) >> (q << 3);  // only j > i
+      reinterpret_cast<unsigned char*>(mask0 + (size_t)w * S + i)[q] = (unsigned char)bits;
+      rows = __ballot_sync(kFull, bits != 0u);
     }
-    if (lane == 0) s_mask[q] = bits;
+    if (lane == 0) nz0[it] = rows;
+  }
+  if (csize > 1) {
+    cluster.sync();  // the whole mask in rank 0
+  } else {
+    __syncthreads();
+  }
+  if (rank != 0) return;
+  // nz of row group g = warp: the rows with a bit in a word after g, the OR
+  // of the nz slots of the group's items past the diagonal, items
+  // 4 (p + 1) .. 4 (p + W - g) - 1 with p = g W - g (g - 1) / 2.
+  if (warp < W) {
+    const int g = warp, p = g * W - g * (g - 1) / 2;
+    unsigned v = 0u;
+    for (int t = 4 * (p + 1) + lane; t < 4 * (p + W - g); t += 32) v |= s_nz[t];
+    v = __reduce_or_sync(kFull, v);
+    if (lane == 0) s_nzg[g] = v;
   }
   __syncthreads();
+  if (warp != 0) return;
 
-  // Greedy scan in score order on warp 0: lane w holds removed word w.
-  if (warp == 0) {
-    unsigned removed = lane < W ? s_removed[lane] : 0u;
-    for (int i = 0; i < K; ++i) {
-      const unsigned r = __shfl_sync(kFull, removed, i >> 5);
-      if (!((r >> (i & 31)) & 1u) && lane < W) removed |= s_mask[(size_t)i * W + lane];
+  // Greedy scan, a word at a time (header, point 3); lane w' holds the
+  // removed bits of word w', dead candidates and those past K from the start.
+  unsigned removed = lane < W ? ~s_alive[lane] : 0u;
+  bool* out = keep + img * (size_t)K;
+  unsigned diag = s_mask[lane], nz = s_nzg[0];
+  for (int w = 0; w < W; ++w) {
+    const bool more = w + 1 < W;
+    const unsigned diag_next = more ? s_mask[(size_t)(w + 1) * (S + 32) + lane] : 0u;
+    const unsigned nz_next = more ? s_nzg[w + 1] : 0u;
+    const unsigned cand = ~__shfl_sync(kFull, removed, w);
+    unsigned kept = cand;
+    if (__ballot_sync(kFull, ((cand >> lane) & 1u) && (diag & cand) != 0u) != 0u) {
+      for (;;) {
+        const unsigned next = cand & ~__reduce_or_sync(kFull, (kept >> lane) & 1u ? diag : 0u);
+        if (next == kept) break;
+        kept = next;
+      }
     }
-    if (lane < W) s_removed[lane] = removed;
+    const int j = (w << 5) + lane;
+    if (j < K) out[j] = (kept >> lane) & 1u;
+    unsigned m = kept & nz;  // kept rows with a bit in a later word
+    const bool mine = lane > w && lane < W;
+    const unsigned* col = s_mask + (size_t)lane * S + (w << 5);
+    while (m != 0u) {
+      unsigned v = 0u;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int r = __ffs(m) - 1;
+        m &= m - 1u;
+        if (mine && r >= 0) v |= col[r];
+      }
+      removed |= v;
+    }
+    diag = diag_next;
+    nz = nz_next;
   }
-  __syncthreads();
+}
 
-  for (int j = tid; j < K; j += kThreads) {
-    keep[img * K + j] = !((s_removed[j >> 5] >> (j & 31)) & 1u);
+struct DeviceState {
+  bool ready;
+  int max_clusters[4];  // resident clusters of 1, 2, 4, 8 blocks at K = 1024's shared memory
+};
+
+DeviceState g_devices[kMaxDevices];
+
+cudaError_t prepare(DeviceState& st) {
+  const int smem = (int)smem_bytes(kMaxK);
+  cudaError_t err = cudaFuncSetAttribute(nms_keep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  st.max_clusters[0] = 0;
+  for (int e = 1, c = 2; e < 4; ++e, c <<= 1) {
+    st.max_clusters[e] = 0;
+    if (c > NMS_MAX_CLUSTER) continue;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = c;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(c);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&st.max_clusters[e], nms_keep_kernel, &cfg);
+    if (err != cudaSuccess) return err;
   }
+  st.ready = true;
+  return cudaSuccess;
+}
+
+// The cluster size of a launch at (B, K): the largest of 8, 4, 2 (up to
+// NMS_MAX_CLUSTER) whose B clusters are all resident at once, one block an
+// SM, and whose warps all get an item of the mask build.
+unsigned cluster_size(const DeviceState& st, int B, int K) {
+  const int items = pairs(words(K)) * 4;
+  for (int e = 3; e >= 1; --e) {
+    const int size = 1 << e;
+    if (B <= st.max_clusters[e] && size * kWarps <= items) return size;
+  }
+  return 1;
+}
+
+cudaError_t device_state(DeviceState** st) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  *st = &g_devices[dev];
+  return (*st)->ready ? cudaSuccess : prepare(**st);
 }
 
 }  // namespace
@@ -108,14 +332,32 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
 extern "C" int madpp_nms_keep(const void* boxes, const void* scores, void* keep, int B, int K,
                               float thr, void* stream) {
   if (B < 1 || K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  const size_t W = (size_t)(K + 31) / 32;
-  const size_t smem = 16 * (size_t)K + 4 * (size_t)K * W + 4 * W;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nms_keep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  nms_keep_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)boxes, (const float*)scores, (bool*)keep, K, thr);
+  DeviceState* st = nullptr;
+  cudaError_t err = device_state(&st);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned c = cluster_size(*st, B, K);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)B * c);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes(K);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, nms_keep_kernel, (const float*)boxes, (const float*)scores, (bool*)keep, K, thr);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The cluster size a launch at (B, K) takes on the current device, or minus
+// the CUDA error code.
+extern "C" int madpp_nms_keep_cluster(int B, int K) {
+  if (B < 1 || K < 1 || K > kMaxK) return -(int)cudaErrorInvalidValue;
+  DeviceState* st = nullptr;
+  const cudaError_t err = device_state(&st);
+  return err == cudaSuccess ? (int)cluster_size(*st, B, K) : -(int)err;
 }

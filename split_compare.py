@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of kernels K1 to K4 goes on a CUDA card, for this checkout
+"""Where the time of kernels K1 to K5 goes on a CUDA card, for this checkout
 and, beside it, for another checkout of the port.
 
     python3 split_compare.py [OTHER_CHECKOUT] [--out FILE]
@@ -7,17 +7,22 @@ and, beside it, for another checkout of the port.
 
 Runs, in a fresh process per run, `chip_smoke.measure_split` (the launch
 floor, each wrapper's host split, and each kernel's device time on inputs
-that take away one part of its work at a time), `chip_smoke.measure_kernels`
-(each wrapper's ms a call by CUDA events and its kernel's device time, K2
-included) and `chip_smoke.measure_paths` (the main and tagging paths'
-frames/s and busy share) against the package of the checkout the run starts
-in.  The runs of this checkout also time K4 on the tagging path's matrix
-built as usual and built with ``-DASSOC_SPARSE_MAX=0`` (`dense_fork`: the
-sparse rounds against the dense ones on one matrix).  With OTHER_CHECKOUT
-(for example the parent commit unpacked with ``git archive``), the runs go
-in turns, other, this, this, other, so that a drift of the card or the host
-falls on both; each run builds that checkout's kernels.  Prints one JSON
-line a run and, with --out, writes them all to FILE.
+that take away one part of its work at a time; K5 on the YOLO path's first
+float32 chunk and on crafted pools, `chip_smoke.nms_variants`),
+`chip_smoke.measure_kernels` (each wrapper's ms a call by CUDA events and
+its kernel's device time, K2 included), `chip_smoke.measure_nms_kernel`
+(K5's ms a call and device time at the YOLO chunk's (64, 256)) and
+`chip_smoke.measure_paths` (the main and tagging paths' frames/s and busy
+share) against the package of the checkout the run starts in.  The runs
+of this checkout also time K4 on the tagging path's matrix built as usual
+and built with ``-DASSOC_SPARSE_MAX=0`` (`dense_fork`: the sparse rounds
+against the dense ones on one matrix), and K5 on its split inputs built
+with ``-DNMS_MAX_CLUSTER=1`` (`single_block_fork`: one block an image
+against a cluster of blocks an image).  With OTHER_CHECKOUT (for example
+the parent commit unpacked with ``git archive``), the runs go in turns,
+other, this, this, other, so that a drift of the card or the host falls on
+both; each run builds that checkout's kernels.  Prints one JSON line a run
+and, with --out, writes them all to FILE.
 
 With --resources it prints instead, once a checkout, each kernel's
 registers a thread and its stack, static shared and spilled bytes, as
@@ -81,27 +86,19 @@ def dense_fork(smoke, device, inputs) -> dict:
     sparse rounds) and built with ``-DASSOC_SPARSE_MAX=0`` (every matrix
     takes the dense rounds); both held to the plain version first."""
     import torch
-    from torch.utils import cpp_extension
 
-    build, cfg = smoke.build, smoke.bench_config().tracker
+    cfg = smoke.bench_config().tracker
     _, _, dets, table, _ = smoke.tagging_state(device, inputs)
     iou, rank = smoke.association_inputs(table, dets)
     thr = cfg.iou_threshold
-    out = tempfile.mkdtemp(dir=build.BUILD_DIR)
-    lib_path = os.path.join(out, "libassociate_dense.so")
-    nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
-    subprocess.run([nvcc, *build.NVCC_FLAGS, "-DASSOC_SPARSE_MAX=0", "-shared", "-Xcompiler", "-fPIC", "-o",
-                    lib_path, str(build.CSRC / "associate.cu")], check=True)
-    lib = ctypes.CDLL(lib_path)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.madpp_associate.argtypes = [vp] * 3 + [ci, ci, cf, vp]
-    lib.madpp_associate.restype = ci
+    lib = _fork_library(smoke, "associate.cu", "ASSOC_SPARSE_MAX=0", "madpp_associate", [vp] * 3 + [ci, ci, cf, vp])
     match = torch.empty(iou.shape[0], dtype=torch.int32, device=device)
     T, D = iou.shape
 
     def dense():
         stream = torch.cuda.current_stream(device).cuda_stream
-        if lib.madpp_associate(iou.data_ptr(), rank.data_ptr(), match.data_ptr(), T, D, thr, stream) != 0:
+        if lib(iou.data_ptr(), rank.data_ptr(), match.data_ptr(), T, D, thr, stream) != 0:
             raise RuntimeError("the dense-only K4 failed to launch")
 
     def sparse():
@@ -115,6 +112,47 @@ def dense_fork(smoke, device, inputs) -> dict:
     return {"eligible": eligible, "rounds_at_most": int((want >= 0).sum()) + 1,
             "sparse_ms": smoke.device_times({"k4": (sparse, "associate_kernel")})["k4"][0],
             "dense_ms": smoke.device_times({"k4": (dense, "associate_kernel")})["k4"][0]}
+
+
+def _fork_library(smoke, source: str, define: str, symbol: str, argtypes):
+    """``source`` built with ``-D<define>`` into a library of its own, and
+    its C launcher ``symbol``."""
+    from torch.utils import cpp_extension
+
+    build = smoke.build
+    out = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    lib_path = os.path.join(out, f"lib{Path(source).stem}_fork.so")
+    nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
+    subprocess.run([nvcc, *build.NVCC_FLAGS, f"-D{define}", "-shared", "-Xcompiler", "-fPIC", "-o",
+                    lib_path, str(build.CSRC / source)], check=True)
+    fn = getattr(ctypes.CDLL(lib_path), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def single_block_fork(smoke, device, pools) -> dict:
+    """K5's device time on `measure_split`'s K5 inputs (`nms_variants`),
+    built with ``-DNMS_MAX_CLUSTER=1`` (one block an image at every B),
+    each launch first held to the plain version."""
+    import torch
+
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = _fork_library(smoke, "nms_keep.cu", "NMS_MAX_CLUSTER=1", "madpp_nms_keep", [vp] * 3 + [ci, ci, cf, vp])
+    result = {}
+    for name, (boxes, scores, thr) in smoke.nms_variants(device, pools).items():
+        B, K = scores.shape
+        keep = torch.empty((B, K), dtype=torch.bool, device=device)
+
+        def launch(boxes=boxes, scores=scores, keep=keep, B=B, K=K, thr=thr):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            if lib(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), B, K, thr, stream) != 0:
+                raise RuntimeError("the one-block K5 failed to launch")
+
+        launch()
+        if not torch.equal(keep, smoke._nms_keep_plain(boxes, scores, thr)):
+            raise AssertionError(f"the one-block K5 differs from the plain version on {name}")
+        result[name] = smoke.device_times({name: (launch, "nms_keep_kernel")})[name][0]
+    return result
 
 
 def run_one(label: str, resources: bool) -> dict:
@@ -132,10 +170,12 @@ def run_one(label: str, resources: bool) -> dict:
     if resources:
         return {**result, "resources": kernel_resources(smoke)}
     device, inputs = torch.device("cuda"), smoke.synthetic_inputs()
-    result.update(split=smoke.measure_split(device, inputs), kernels=smoke.measure_kernels(device, inputs),
-                  paths=smoke.measure_paths(device, inputs))
+    pools = smoke.nms_pools_from(smoke.yolo_chunk_candidates(device))
+    result.update(split=smoke.measure_split(device, inputs, pools), kernels=smoke.measure_kernels(device, inputs),
+                  nms=smoke.measure_nms_kernel(device, pools), paths=smoke.measure_paths(device, inputs))
     if label == "this":
         result["dense_fork"] = dense_fork(smoke, device, inputs)
+        result["single_block_fork"] = single_block_fork(smoke, device, pools)
     return result
 
 

@@ -93,11 +93,15 @@ def test_tagging_and_association_paths_on_card(device):
 
 def test_nms_kernel_matches_plain(device):
     """K5 exact: tie-quantized pools at K = 16 ... 1024, the chain, all dead,
-    all kept, a batch of 64 pools of 256."""
+    all kept, and every case of `chip_smoke.nms_cases` (sizes either side
+    of a word, chains across words, thresholds at and near the IoU,
+    degenerate, NaN and inf boxes, dead entries between live ones,
+    subnormal IoUs, batches of 1 to 200 pools, 64 of 256 among them), and
+    boxes that are not 16-byte aligned (the kernel's scalar loads)."""
     cases = chip_smoke.check_nms_kernel(device, trials=3)
     assert [c["case"] for c in cases] == [
-        "fuzz_K16", "fuzz_K64", "fuzz_K256", "fuzz_K1024", "chain_all_kept_all_dead", "batch_64x256"
-    ]
+        "fuzz_K16", "fuzz_K64", "fuzz_K256", "fuzz_K1024", "chain_all_kept_all_dead"
+    ] + list(chip_smoke.nms_cases()) + ["misaligned_boxes"]
     torch.cuda.synchronize()
 
 
@@ -138,6 +142,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
 
     with pytest.raises(ValueError, match="1..1024 candidates"):
         nms_kernel.nms_keep(torch.zeros((2, 1025, 4), device=device), torch.zeros((2, 1025), device=device), 0.45)
-    with pytest.raises(ValueError, match="expected torch.float32"):
+    with pytest.raises(TypeError, match="expected torch.float32"):
         nms_kernel.nms_keep(torch.zeros((2, 8, 4), device=device), torch.zeros((2, 8), dtype=torch.float64,
                                                                                 device=device), 0.45)

@@ -3,16 +3,21 @@
 The port's plain keep mask (`_nms_keep_plain`, kernel K5's reference on
 the CPU) against JAX's XLA fixpoint (`nms_keep_xla`) and JAX's Pallas
 kernel in the interpreter (`nms_keep_pallas(..., interpret=True)`), on the
-cases of tests/test_nms_pallas.py; and the port's `nms` against JAX's
+cases of tests/test_nms_pallas.py and on kernel K5's cases
+(`chip_smoke.nms_cases`, built with numpy); and the port's `nms` against JAX's
 `nms(..., backend="cpu")` on boxes, scores, classes and valid, tied scores
 included.  Inputs are made with numpy and handed to both.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from multimodal_autonomous_driving_perception_and_planning_torch.ops import nms as nms_t
 from multimodal_autonomous_driving_perception_and_planning_tpu.ops.nms import nms as nms_j
 from multimodal_autonomous_driving_perception_and_planning_tpu.ops.nms import nms_keep_xla
@@ -79,6 +84,88 @@ def test_plain_keep_batched():
     assert got.shape == (3, 64) and got.dtype == bool
     for i, (b, s) in enumerate(cases):
         np.testing.assert_array_equal(got[i], np.asarray(nms_keep_xla(jnp.asarray(b), jnp.asarray(s), 0.45)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_keeps(thr):
+    """JAX's XLA fixpoint and its interpreted Pallas kernel over a batch of
+    images, jitted at one threshold (the JAX frontend vmaps the kernel)."""
+    xla = jax.jit(jax.vmap(lambda b, s: nms_keep_xla(b, s, thr)))
+    pallas = jax.jit(jax.vmap(lambda b, s: nms_keep_pallas(b, s, thr, interpret=True)))
+    return xla, pallas
+
+
+def _case_ids(mode):
+    return [name for name, case in chip_smoke.nms_cases().items() if case.jax == mode]
+
+
+@pytest.mark.parametrize("name", _case_ids("compiled") + _case_ids("op_by_op"))
+def test_plain_keep_matches_jax_on_kernel_cases(name):
+    """K5's card cases on the CPU: the port's plain keep mask bit for bit
+    against JAX's XLA fixpoint and JAX's Pallas kernel in the interpreter,
+    jitted over the batch, and the kept count a case is built to give.  On
+    the near-threshold cases JAX is called without jit, image by image, and
+    the Pallas interpreter is left out: it compiles the kernel body, and
+    compiled XLA contracts a multiply-add of the union
+    (`test_compiled_jax_contracts_the_union`).  The subnormal case is left
+    out: XLA on the CPU flushes subnormal IoUs and intersections to 0, the
+    port does not (ROADMAP.md, faults); the card check holds K5 to the plain
+    version there."""
+    case = chip_smoke.nms_cases()[name]
+    port = nms_t._nms_keep_plain(torch.tensor(case.boxes), torch.tensor(case.scores), case.thr).numpy()
+    if case.jax == "compiled":
+        xla, pallas = _jax_keeps(case.thr)
+        boxes, scores = jnp.asarray(case.boxes), jnp.asarray(case.scores)
+        np.testing.assert_array_equal(port, np.asarray(xla(boxes, scores)), err_msg=f"{name}: XLA")
+        np.testing.assert_array_equal(port, np.asarray(pallas(boxes, scores)), err_msg=f"{name}: Pallas")
+    else:
+        for i, (b, s) in enumerate(zip(case.boxes, case.scores)):
+            want = np.asarray(nms_keep_xla(jnp.asarray(b), jnp.asarray(s), case.thr))
+            np.testing.assert_array_equal(port[i], want, err_msg=f"{name}: XLA op by op, image {i}")
+    if case.kept is not None:
+        assert int(port.sum()) == case.kept
+
+
+def _keep_contracted(boxes, scores, thr):
+    """The greedy keep mask over `pairwise_iou` with its union computed as
+    fma(w_b, h_b, area_a) - inter, one rounding for the multiply-add, in
+    numpy (the product of two float32 is exact in float64, and here so is
+    the sum)."""
+    a, b = boxes[:, None, :], boxes[None, :, :]
+    iw = np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0])
+    ih = np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1])
+    inter = np.where((iw > 0) & (ih > 0), iw * ih, np.float32(0))
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    prod = (b[..., 2] - b[..., 0]).astype(np.float64) * (b[..., 3] - b[..., 1]).astype(np.float64)
+    total = prod + area_a
+    assert ((total - prod) == area_a).all()  # the float64 sum is exact: one rounding below
+    union = total.astype(np.float32) - inter
+    iou = np.where(union > 0, inter / np.where(union > 0, union, np.float32(1)), np.float32(0))
+    k = len(scores)
+    S = (iou > np.float32(thr)) & (np.arange(k)[:, None] < np.arange(k)[None, :])
+    keep = np.zeros(k, bool)
+    for j in range(k):
+        keep[j] = scores[j] > 0 and not (S[:j, j] & keep[:j]).any()
+    return keep
+
+
+@pytest.mark.parametrize("name", _case_ids("op_by_op"))
+def test_compiled_jax_contracts_the_union(name):
+    """Pins a fault (ROADMAP.md, faults): under jit, XLA's CPU compiler
+    computes `pairwise_iou`'s union as fma(w_b, h_b, area_a) - inter, one
+    rounding for the multiply-add, and so does the Pallas interpreter.  The
+    port, K1 and K5 included, computes it op for op, as JAX does without
+    jit.  On IoUs within 2 ulps of the threshold the two keep masks stand
+    apart."""
+    case = chip_smoke.nms_cases()[name]
+    boxes, scores = case.boxes[0], case.scores[0]
+    port = nms_t._nms_keep_plain(torch.tensor(boxes), torch.tensor(scores), case.thr).numpy()
+    xla, pallas = _jax_keeps(case.thr)
+    compiled = [np.asarray(f(jnp.asarray(case.boxes), jnp.asarray(case.scores)))[0] for f in (xla, pallas)]
+    contracted = _keep_contracted(boxes, scores, case.thr)
+    np.testing.assert_array_equal(compiled[0], contracted)
+    np.testing.assert_array_equal(compiled[1], contracted)
+    assert (port != contracted).any()
 
 
 def _nms_both(boxes, scores, classes, **kw):
