@@ -13,7 +13,9 @@ Phases, each printing one JSON line:
      staircase at (128, 64), whose association accepts one pair a round,
      IoUs exactly at the threshold and +0 IoUs all tied under a threshold
      of 0, exactly 32 and 33 eligible pairs (either side of the
-     association's sparse limit), and the synthetic stream;
+     association's sparse limit), (128, 64) IoUs within 2 ulps of the
+     threshold (where the union's contracted rounding decides), and the
+     synthetic stream;
   4. kernel K2 (ego Kalman step) against its plain version on the card,
      step by step over a 300-frame chain with unmeasured frames, then on
      single steps from crafted states (speed either side of the heading
@@ -46,23 +48,36 @@ Phases, each printing one JSON line:
   9. the tagging path: the same with tagging on (apps/serve.py's default);
  10. the association path: the public `ops.greedy_associate` on each frame
      of the tagging path's run, against the association inside K1;
- 11. the YOLO path in float32: `make_yolo_sequence_runner` (yolov8n at 640,
+ 11. the frames path, the JAX package's default configuration
+     (DEFAULT_CONFIG with the serving outputs: camera frames -> lanes and
+     scene features -> track -> estimate -> plan -> tag, K3 in frames
+     mode): `make_sequence_runner` on the card over 300 road frames from
+     the port's generator (the adjacent lane's dashes scrolling) with the
+     synthetic detections and ego stream, against the same runner on the
+     CPU: discrete outputs and tags exact, floats within the budget, the
+     lane fits by their x at three rows; K1, K2 and K3 counted;
+ 12. the YOLO path in float32: `make_yolo_sequence_runner` (yolov8n at 640,
      seeded weights) over 300 seeded 480x640 frames; the first chunk's
      conv tower against the CPU's, the card's detection tables against the
      plain `nms` on the card's own candidates, and the pipeline against
      the CPU's on those tables;
- 12. the YOLO path in the serving configuration (bf16, the JAX defaults):
+ 13. the YOLO path in the serving configuration (bf16, the JAX defaults):
      its head logits against the float32 run's, its tables against the
      plain `nms` on its own candidates;
- 13. times: each kernel and its plain version by CUDA events at its path's
+ 14. the YOLO path with frames: one 64-frame chunk of the road frames with
+     ``use_frames=True`` in bf16, against the frames runner on its own
+     tables, and its lanes and frame-decided tags against the frames
+     path's;
+ 15. times: each kernel and its plain version by CUDA events at its path's
      shapes, beside the kernel's bound; the launch floor (`floor_ms`, a
      one-element add's device time) and where K1's to K5's time goes
      (`split`: each wrapper's host split, each kernel on inputs that take
      one part of its work away, K5 with the cluster size each launch
-     takes); the frames/s of the main and tagging
-     paths, timed in turns; the YOLO detection chunk by stage and the YOLO
-     path's frames/s in both dtypes.
-Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+     takes); the frames/s of the main, tagging and frames paths, timed in
+     turns; the lane step's device time by stage (`lane_split`); the YOLO
+     detection chunk by stage and the YOLO path's frames/s in both dtypes.
+Then the script's seconds, a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Without a card it exits 1 at once.
 """
 
@@ -350,6 +365,48 @@ def boundary_arrays(live: int, at_threshold: int):
     return table, dets
 
 
+def near_threshold_arrays(seed: int, thr: float = 0.3, pairs: int = 64):
+    """A (128, 64) tracker step, as numpy arrays like `corner_arrays`:
+    track m and detection m (m < ``pairs``) are boxes of unequal sizes, on
+    a row of their own, whose float32 IoU (as the jitted JAX package
+    computes it, `_iou32`) stands 0, 1 or 2 ulps from float32(thr), either
+    side; where one of the shifts that give it is decided the other way by
+    the union op for op, that shift is taken.  The other tracks lie far
+    from every detection."""
+    rng = np.random.default_rng(seed)
+    t = np.float32(thr)
+    tb, db = _far_boxes(128, y=90000.0), np.zeros((pairs, 4), np.float32)
+    for m in range(pairs):
+        want, y0 = m % 5 - 2, np.float32(300.0 * m)
+        for _ in range(1000):
+            wa, ha, wb, hb = rng.uniform(20, 100, 4).astype(np.float32)
+            ys = np.float32(y0 + rng.uniform(0, 20))
+            oh = min(float(y0 + ha), float(ys + hb)) - float(ys)
+            iw = thr * (float(wa) * float(ha) + float(wb) * float(hb)) / (1 + thr) / oh
+            if not 0 < iw < min(wa, wb):
+                continue
+            d0 = np.float32(float(wa) - iw)
+            d = d0 + np.arange(-64, 65, dtype=np.float32) * np.spacing(d0)
+            a = np.array([0, y0, wa, y0 + ha], np.float32)
+            b = np.stack([d, np.full_like(d, ys), d + wb, np.full_like(d, ys + hb)], 1).astype(np.float32)
+            iou = _iou32(a[None], b)
+            hit = np.flatnonzero(iou.view(np.int32) - t.view(np.int32) == want)
+            if hit.size:
+                flips = hit[(iou[hit] >= t) != (_iou32(a[None], b[hit], contracted=False) >= t)]
+                tb[m], db[m] = a, b[(flips if flips.size else hit)[0]]
+                break
+        else:
+            raise AssertionError(f"no pair {want} ulps from {thr} at pair {m}")
+    ids = np.random.default_rng(seed + 1).permutation(128).astype(np.int32) + 1
+    table = {"track_id": ids, "bbox": tb, "hits": np.full(128, 3, np.int32), "next_id": np.int32(129)}
+    dets = {"bbox": db, "class_id": np.zeros(pairs, np.int32),
+            "confidence": np.full(pairs, 0.9, np.float32), "valid": np.ones(pairs, bool)}
+    return table, dets
+
+
+# Seeds of `near_threshold_arrays`, K1's near-threshold cases.
+NEAR_THRESHOLD_SEEDS = (11, 12)
+
 # (live tracks, detections at the threshold): 32 and 33 eligible pairs, the
 # two sides of the association's sparse limit (association.cuh).
 BOUNDARY_CASES = ((16, 2), (11, 3))
@@ -361,7 +418,8 @@ def check_tracker_kernel(device, steps: int = 50) -> list:
     staircase and all-equal ladders at (64, 16) (one pair a round, 17
     rounds) and the staircase at (128, 64) (65 rounds), the key-order
     corners of `corner_arrays`, 32 and 33 eligible pairs
-    (`boundary_arrays`), and the synthetic stream at the default size."""
+    (`boundary_arrays`), IoUs within 2 ulps of the threshold
+    (`near_threshold_arrays`), and the synthetic stream at the default size."""
     cases = []
     for t_cap, d_cap, seed in ((64, 16, 1), (128, 64, 2)):
         cfg = pt.TrackerConfig(iou_threshold=0.1, max_age=2, min_hits=3, max_tracks=t_cap)
@@ -404,6 +462,11 @@ def check_tracker_kernel(device, steps: int = 50) -> list:
         cases.append(_tracker_case(name, cfg, lambda s, dets=dets: dets, 1, device, table=table))
         if cases[-1]["max_matched"] != at_threshold:
             raise AssertionError(f"K1 {name}: {cases[-1]['max_matched']} matches, expected {at_threshold}")
+    # IoUs within 2 ulps of the threshold, where the union's rounding decides.
+    for seed in NEAR_THRESHOLD_SEEDS:
+        table, dets = table_on(*near_threshold_arrays(seed), device)
+        cases.append(_tracker_case(f"near_threshold_{seed}_128x64", cfg128, lambda s, dets=dets: dets, 1, device,
+                                   table=table))
     inputs = synthetic_inputs()
     cases.append(_tracker_case(
         "synthetic_64x16", pt.TrackerConfig(), lambda s: frame_dets(inputs, s, device), NUM_FRAMES, device
@@ -944,10 +1007,8 @@ def random_nms_case(rng, k: int):
 class NmsCase(NamedTuple):
     """One input of the keep mask: boxes (B, K, 4) and scores (B, K),
     float32, a threshold, the kept count the case is built to give (None:
-    not built for one), and which JAX on the CPU equals the plain version
-    there: "compiled" (jitted and in the Pallas interpreter), "op_by_op"
-    (called without jit: under jit XLA contracts a multiply-add of the
-    union, which moves IoUs near the threshold; ROADMAP.md, faults) or
+    not built for one), and whether JAX on the CPU, jitted and in the
+    Pallas interpreter, equals the plain version there: "compiled", or
     "none" (XLA on the CPU flushes subnormal IoUs)."""
 
     boxes: np.ndarray
@@ -962,13 +1023,22 @@ NMS_BATCHES = ((1, 256), (8, 256), (64, 256), (132, 256), (200, 256), (8, 1024))
 NMS_NEAR_THRESHOLDS = (0.3, 0.45, 0.7)
 
 
-def _iou32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """`pairwise_iou` of row pairs in float32, op for op."""
+def _iou32(a: np.ndarray, b: np.ndarray, contracted: bool = True) -> np.ndarray:
+    """`pairwise_iou` of row pairs in float32, as the jitted JAX package
+    computes it: the union fma(w_b, h_b, area_a) - inter, one rounding for
+    the fma (the float32 product is exact in float64, and on these boxes
+    so is the sum); ``contracted=False``: op for op."""
     iw = np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0])
     ih = np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1])
     inter = np.where((iw > 0) & (ih > 0), iw * ih, np.float32(0))
-    union = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1]) + (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
-    union = union - inter
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    w_b, h_b = b[..., 2] - b[..., 0], b[..., 3] - b[..., 1]
+    if contracted:
+        total = w_b.astype(np.float64) * h_b + area_a
+        assert (total - w_b.astype(np.float64) * h_b == area_a).all()  # exact: one rounding below
+        union = total.astype(np.float32) - inter
+    else:
+        union = area_a + w_b * h_b - inter
     with np.errstate(divide="ignore", invalid="ignore"):
         return np.where(union > 0, inter / np.where(union > 0, union, np.float32(1)), np.float32(0))
 
@@ -1022,9 +1092,10 @@ def _near_threshold(rng, thr: float, pairs: int = 128) -> NmsCase:
             raise AssertionError(f"no pair {want} ulps from {thr} at pair {m}")
     boxes = np.stack([x for pair in found for x in pair])
     order = rng.permutation(len(boxes))
-    suppressed = sum(int(_iou32(a, b) > t) for a, b in found)
-    return NmsCase(boxes[order][None], _descending(len(boxes))[None], thr, kept=len(boxes) - suppressed,
-                   jax="op_by_op")
+    # The union is not symmetric: the earlier box of a pair is the row.
+    first = np.argsort(order)[0::2] < np.argsort(order)[1::2]
+    suppressed = sum(int(_iou32(*(pair if f else pair[::-1])) > t) for pair, f in zip(found, first))
+    return NmsCase(boxes[order][None], _descending(len(boxes))[None], thr, kept=len(boxes) - suppressed)
 
 
 def _three_level(c_index: int) -> np.ndarray:
@@ -1386,6 +1457,151 @@ def check_yolo_path(device, params: dict, frames, ego, settings: dict, label: st
         "track_births": int(torch.unique(ids[ids > 0]).numel()),
         "num_confirmed_last": int(outs["num_confirmed"][-1]), "max_abs_err": errs,
     }, cands
+
+
+# The frames path: the JAX package's default configuration with the
+# serving outputs (benchmarks/suite.py's frames rows), 300 road frames.
+LANE_X_ATOL = 1e-3  # a fit's x at rows h, 0.8h and 0.6h, the card against the CPU
+LANE_FIT_RTOL = 1e-4  # a fit's linear and constant coefficients
+LANE_FIELDS = ("left_fit", "right_fit", "left_found", "right_found", "left_confidence", "right_confidence",
+               "offset_px", "has_offset")
+# The tags that only the frame decides (brightness, Laplacian, lanes): the
+# YOLO run with frames must give the frames path's.
+FRAME_TAGS = ("cond_night", "cond_day", "cond_day_confidence", "cond_fog", "lane_count")
+
+
+def frames_config():
+    """DEFAULT_CONFIG (frames and tagging on) with the serving outputs."""
+    return pt.DEFAULT_CONFIG.replace(emit_candidates=False, emit_trajectories=False)
+
+
+def frames_inputs(num_frames: int = NUM_FRAMES) -> dict:
+    """The synthetic stream with road frames from the port's generator, the
+    adjacent lane's dashes scrolling (uint8, 276 MB at 300 frames)."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.data.frames import SyntheticRoadGenerator
+
+    frames = SyntheticRoadGenerator(draw_adjacent_dash=True).generate_frames(num_frames)
+    return dict(synthetic_inputs(num_frames), frame=frames)
+
+
+def compare_lane_obs(label: str, got: LaneObservation, want: LaneObservation) -> dict:
+    """A card run's lane observations against the CPU run's: the flags, the
+    confidences and the offset equal (an offset may differ only where its
+    truncated value stands within 1e-3 of an integer), the fits' x at rows
+    h, 0.8h and 0.6h within LANE_X_ATOL, their linear and constant
+    coefficients within LANE_FIT_RTOL, and the curvature by its share of x
+    at the bottom row within LANE_X_ATOL.  Returns the largest gaps."""
+    g = {k: getattr(got, k).cpu() for k in LANE_FIELDS}
+    w = {k: getattr(want, k) for k in LANE_FIELDS}
+    for k in ("left_found", "right_found", "has_offset", "left_confidence", "right_confidence"):
+        if not torch.equal(g[k], w[k]):
+            raise AssertionError(f"{label}: lane {k} on the card differs from the CPU run")
+    h = float(frames_config().frame_height)
+    flipped = g["offset_px"] != w["offset_px"]
+    if bool(flipped.any()):
+        for k in ("left_fit", "right_fit"):
+            fit = w[k][flipped]
+            v = fit[:, 0] * h * h + fit[:, 1] * h + fit[:, 2]
+            if not bool(((v - v.round()).abs() <= 1e-3).all()):
+                raise AssertionError(f"{label}: lane offset differs where no truncation stands at an integer")
+    gaps = {"offset_flips": int(flipped.sum())}
+    for k in ("left_fit", "right_fit"):
+        a, b = g[k].double(), w[k].double()
+        x_gap = max(float(((a[:, 0] - b[:, 0]) * y * y + (a[:, 1] - b[:, 1]) * y + a[:, 2] - b[:, 2]).abs().max())
+                    for y in (h, 0.8 * h, 0.6 * h))
+        rel = torch.where(a == b, 0.0, (a - b).abs() / b.abs())  # 0 where a frame found no lane
+        a_gap = float(((a[:, 0] - b[:, 0]).abs() * h * h).max())
+        gaps[k] = {"x_at_rows": x_gap, "rel_a": float(rel[:, 0].max()), "rel_b": float(rel[:, 1].max()),
+                   "rel_c": float(rel[:, 2].max()), "a_h2": a_gap}
+        if not (x_gap <= LANE_X_ATOL and float(rel[:, 1:].max()) <= LANE_FIT_RTOL and a_gap <= LANE_X_ATOL):
+            raise AssertionError(f"{label}: lane {k} beyond its bounds: {gaps[k]}")
+    if not all(bool(torch.isfinite(g[k]).all()) for k in ("left_fit", "right_fit", "offset_px")):
+        raise AssertionError(f"{label}: a lane fit is not finite")
+    return gaps
+
+
+def check_frames_path(device, inputs: dict):
+    """The frames path: `make_sequence_runner(DEFAULT_CONFIG)` on the card
+    over 300 road frames against the same runner on the CPU
+    (`compare_outputs` and `compare_lane_obs`), the kernels' counts zeroed
+    just before the card run and read after.  Returns the summary and the
+    card run's outputs."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import image as image_ops
+
+    cfg = frames_config()
+    t0 = time.perf_counter()
+    _, want = pt.make_sequence_runner(cfg, device="cpu")(pt.initial_state(cfg, device="cpu"), inputs)
+    cpu_s = time.perf_counter() - t0
+    run = pt.make_sequence_runner(cfg, device=device)
+    state = pt.initial_state(cfg, device=device)
+    hyst = dict(image_ops.hysteresis_stats)
+    _zero_counts()
+    _, got = run(state, inputs)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    hyst = {k: image_ops.hysteresis_stats[k] - hyst[k] for k in hyst}
+    expected = {name: 0 for name in KERNEL_MODULES}
+    expected.update(tracker_step=NUM_FRAMES, kalman_step=NUM_FRAMES, tagging_step=NUM_FRAMES)
+    if launches != expected:
+        raise AssertionError(f"frames path: kernel launches {launches}, expected {expected}")
+    errs = compare_outputs("frames path", got, want)
+    lane_gaps = compare_lane_obs("frames path", got["lane_obs"], want["lane_obs"])
+    lane = got["lane_obs"]
+    summary = {
+        "frames": NUM_FRAMES, "config": "DEFAULT_CONFIG", "launches": launches, "max_abs_err": errs,
+        "lane_gaps": lane_gaps, "cpu_seconds": cpu_s,
+        "hysteresis": {"canny_calls_per_frame": hyst["calls"] / NUM_FRAMES,
+                       "rounds_per_frame": hyst["rounds"] / NUM_FRAMES, "host_reads_per_frame": hyst["syncs"] / NUM_FRAMES},
+        "lanes_found": {"left": int(lane.left_found.sum()), "right": int(lane.right_found.sum()),
+                        "offset": int(lane.has_offset.sum())},
+        "distinct": {k: sorted(set(got["tags"][k].cpu().tolist())) for k in ("road_type", "lane_count", "cond_fog")},
+        "num_confirmed_last": int(got["num_confirmed"][-1]), "plan_best_last": int(got["plan_best"][-1]),
+    }
+    return summary, got
+
+
+def check_yolo_frames(device, params: dict, inputs: dict, frames_out: dict) -> dict:
+    """One 64-frame chunk of road frames through `make_yolo_sequence_runner`
+    with ``use_frames=True`` in the serving configuration (bf16), its counts
+    zeroed just before and read after: every output equals the frames
+    runner's on the card fed the same detection tables, and the lane
+    observations and the frame-decided tags equal the frames path's on
+    those frames (lanes do not depend on detections)."""
+    cfg = frames_config()
+    n = YOLO_BATCH
+    frames, ego = inputs["frame"][:n], inputs["ego_measurement"][:n]
+    _, run = make_yolo_sequence_runner(cfg, batch=YOLO_BATCH, iou_threshold=YOLO_IOU, img_size=YOLO_IMG,
+                                       device=device, **YOLO_BF16)
+    _zero_counts()
+    _, outs = run(params, pt.initial_state(cfg, device=device), frames, ego, keep_candidates=True)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    expected = {name: 0 for name in KERNEL_MODULES}
+    expected.update(tracker_step=n, kalman_step=n, tagging_step=n, nms_keep=1)
+    if launches != expected:
+        raise AssertionError(f"YOLO with frames: kernel launches {launches}, expected {expected}")
+    tables = outs.pop("detections")
+    outs.pop("candidates")
+    _, want = pt.make_sequence_runner(cfg, device=device)(pt.initial_state(cfg, device=device),
+                                                          dict(tables, ego_measurement=ego, frame=frames))
+    for k in MAIN_DISCRETE + MAIN_FLOAT:
+        if not torch.equal(outs[k], want[k]):
+            raise AssertionError(f"YOLO with frames: {k} differs from the frames runner on its tables")
+    for k, v in want["tags"].items():
+        if not torch.equal(outs["tags"][k], v):
+            raise AssertionError(f"YOLO with frames: tag {k} differs from the frames runner on its tables")
+    for k in LANE_FIELDS:
+        a = getattr(outs["lane_obs"], k)
+        if not (torch.equal(a, getattr(want["lane_obs"], k)) and torch.equal(a, getattr(frames_out["lane_obs"], k)[:n])):
+            raise AssertionError(f"YOLO with frames: lane {k} differs from the frames path's")
+    for k in FRAME_TAGS:
+        if not torch.equal(outs["tags"][k], frames_out["tags"][k][:n]):
+            raise AssertionError(f"YOLO with frames: tag {k} differs from the frames path's")
+    valid = tables["valid"]
+    return {"frames": n, "settings": {k: str(v) for k, v in YOLO_BF16.items()}, "launches": launches,
+            "detections": int(valid.sum()), "lanes_found": int(outs["lane_obs"].has_offset.sum()),
+            "checked": "every output equal to the frames runner on its tables; lanes and frame tags equal to "
+                       "the frames path's"}
 
 
 def tower_flops_per_frame() -> int:
@@ -1837,40 +2053,46 @@ def tagging_operations(T: int, D: int, W: int, H: int, HI: int) -> int:
     return T * (24 + 15 + 13 * 3 + 10 + 2 * HI) + 6 * H + 6 * D + 168 + 12 + 5 * W + 60 + 90
 
 
-def measure_paths(device, inputs: dict, rounds: int = 2, profiled_frames: int = 100) -> dict:
+def measure_paths(device, inputs: dict, rounds: int = 2, profiled_frames: int = 100,
+                  frames: dict | None = None) -> dict:
     """Frames/s of the main path and of the tagging path over the 300-frame
-    stream, on the host clock around runs that end in a synchronise.  After
+    stream (and of the frames path over ``frames``, `frames_inputs`, when
+    given), on the host clock around runs that end in a synchronise.  After
     a warm run of each, ``rounds`` rounds in the order main, tagging,
-    tagging, main, so that a drift in the host's speed falls on both; the
-    best run of each counts.  Then a run of each over the stream's first
-    ``profiled_frames`` frames under the profiler (reading a trace back
-    takes longer the more device items it holds)."""
-    paths = {"main_path": False, "tagging_path": True}
-    runs = {name: pt.make_sequence_runner(bench_config(tag), device=device) for name, tag in paths.items()}
-    xs = {k: torch.as_tensor(v).to(device) for k, v in inputs.items()}
-    head = {k: v[:profiled_frames] for k, v in xs.items()}
+    frames, frames, tagging, main, so that a drift in the host's speed falls
+    on all; the best run of each counts.  Then a run of each over the
+    stream's first ``profiled_frames`` frames under the profiler (reading a
+    trace back takes longer the more device items it holds)."""
+    configs = {"main_path": bench_config(False), "tagging_path": bench_config(True)}
+    streams = {"main_path": inputs, "tagging_path": inputs}
+    if frames is not None:
+        configs["frames_path"], streams["frames_path"] = frames_config(), frames
+    runs = {name: pt.make_sequence_runner(cfg, device=device) for name, cfg in configs.items()}
+    xs = {name: {k: torch.as_tensor(v).to(device) for k, v in stream.items()} for name, stream in streams.items()}
+    heads = {name: {k: v[:profiled_frames] for k, v in x.items()} for name, x in xs.items()}
 
-    def timed(name, frames=xs):
-        state = pt.initial_state(bench_config(paths[name]), device=device)
+    def timed(name, head=False):
+        state = pt.initial_state(configs[name], device=device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        runs[name](state, frames)
+        runs[name](state, (heads if head else xs)[name])
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    for name in paths:
+    for name in configs:
         timed(name)
-    times = {name: [] for name in paths}
+    times = {name: [] for name in configs}
+    order = list(configs)
     for _ in range(rounds):
-        for name in ("main_path", "tagging_path", "tagging_path", "main_path"):
+        for name in order + order[::-1]:
             times[name].append(timed(name))
 
     # The device's busy share of the wall time and the device work items
     # (kernels, copies) a frame.
     result = {}
-    for name in paths:
+    for name in configs:
         with torch.profiler.profile(activities=PROFILED) as prof:
-            wall_us = timed(name, head) * 1e6
+            wall_us = timed(name, head=True) * 1e6
         on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_us = sum(e.time_range.elapsed_us() for e in on_device)
         result[name] = {
@@ -1880,6 +2102,81 @@ def measure_paths(device, inputs: dict, rounds: int = 2, profiled_frames: int = 
                          "device_items_per_frame": len(on_device) / profiled_frames},
         }
     return result
+
+
+def stage_device_us(fn, reps: int) -> tuple[float, float]:
+    """Device microseconds and device items (kernels, copies) a call of
+    ``fn``, over ``reps`` calls, from one profiler trace, after a warm
+    call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in on_device) / reps, len(on_device) / reps
+
+
+def measure_lane_split(device, frames, reps: int = 20) -> dict:
+    """The lane step's device time a frame by stage, on the frames path's
+    road frames (each stage on the inputs the step gives it on frame 10):
+    gray, blur, median and thresholds, the lane Canny with the ROI mask,
+    the scene pass's downsample and Canny, the compaction of both edge
+    lists, the voting of both, the peaks and pool of both, the segments of
+    both, the fit with the EMA, and the scene statistics, with the device
+    items (kernels, copies) each puts on the card; and the whole step on
+    the same frame, beside the stages' sum."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import hough, image as image_ops
+    from multimodal_autonomous_driving_perception_and_planning_torch.perception import lanes
+
+    cfg = frames_config()
+    lc = cfg.lanes
+    h, w = cfg.frame_height, cfg.frame_width
+    step = lanes.make_lane_step(cfg, device)
+    frame = torch.as_tensor(frames[10]).to(device)
+    state = pt.initial_state(cfg, device=device).lanes
+    st = {}
+    step(state, frame, st)
+    roi = torch.as_tensor(image_ops.trapezoid_roi_mask(h, w, lc.roi_bottom_frac, lc.roi_top_frac,
+                                                       lc.roi_top_y_frac), device=device)
+    rows = (int(h * lc.roi_top_y_frac), h)
+    lane_kw = dict(vote_threshold=lc.hough_threshold, max_lines=lc.max_lines)
+    scene_kw = dict(vote_threshold=50, max_lines=lc.scene_max_lines)
+    lane_diag = int(math.ceil(math.hypot(h, w)))
+    scene_diag = int(math.ceil(math.hypot(h // 2, w // 2)))
+    masked = st["edges"] & roi
+    peaks = {p: hough.select_peaks(st[f"{p}_acc"], **kw)[:2] for p, kw in (("lane", lane_kw), ("scene", scene_kw))}
+    hl = st["lane_hough"]
+    stages = {
+        "gray": lambda: image_ops.bgr_to_gray_u8(frame),
+        "blur": lambda: image_ops.gaussian_blur5_u8(st["gray"]),
+        "median": lambda: torch.floor(0.7 * image_ops.median_u8(st["blurred"])),
+        "lane_canny": lambda: image_ops.canny(st["blurred"], st["low"], st["high"]) & roi,
+        "scene_downsample_canny": lambda: image_ops.canny(image_ops.downsample2_u8(st["gray"]), 50.0, 150.0),
+        "compaction": lambda: (hough.compact_edges(masked, lc.lane_edge_capacity, rows),
+                               hough.compact_edges(st["scene_edges"], max(256, lc.scene_edge_capacity // 4))),
+        "voting": lambda: (hough.vote(st["lane_x"], st["lane_y"], st["lane_edge_valid"], lc.num_thetas, lane_diag),
+                           hough.vote(st["scene_x"], st["scene_y"], st["scene_edge_valid"], lc.num_thetas,
+                                      scene_diag)),
+        "peaks_pool": lambda: (hough.select_peaks(st["lane_acc"], **lane_kw),
+                               hough.select_peaks(st["scene_acc"], **scene_kw)),
+        "segments": lambda: (
+            hough.segments_from_peaks(st["lane_x"], st["lane_y"], st["lane_edge_valid"], *peaks["lane"], lane_diag,
+                                      lc.num_thetas, lc.hough_min_line_length, True),
+            hough.segments_from_peaks(st["scene_x"], st["scene_y"], st["scene_edge_valid"], *peaks["scene"],
+                                      scene_diag, lc.num_thetas, 50.0, lc.scene_refine)),
+        "fit": lambda: lanes._separate_and_fit(hl.segments, hl.valid, w, h, min_abs_slope=lc.min_abs_slope),
+        "scene_statistics": lambda: (image_ops.bgr_to_hsv_green_ratio(frame), image_ops.mean_u8(st["gray"]),
+                                     image_ops.laplacian_variance(st["gray"]),
+                                     image_ops.mean_bool(st["scene_edges"][80:160, 106:213])),
+    }
+    split = {name: stage_device_us(fn, reps) for name, fn in stages.items()}
+    whole_us, whole_items = stage_device_us(lambda: step(state, frame), reps)
+    return {"device_us_per_frame": {k: v[0] for k, v in split.items()},
+            "device_items_per_frame": {k: v[1] for k, v in split.items()},
+            "stages_sum_us": sum(v[0] for v in split.values()), "lane_step_us": whole_us,
+            "lane_step_items": whole_items, "frame": 10, "reps": reps}
 
 
 def measure_nms_kernel(device, pools: dict, reps: int = 2000) -> dict:
@@ -2020,6 +2317,9 @@ def main() -> int:
     emit({"phase": "tagging_path", **tagging_path})
     association_path = check_association_path(device, inputs, tagged)
     emit({"phase": "association_path", **association_path})
+    road = frames_inputs()
+    frames_path, frames_out = check_frames_path(device, road)
+    emit({"phase": "frames_path", **frames_path})
 
     frames, ego = yolo_inputs()
     params = yolo_params(device)
@@ -2032,6 +2332,8 @@ def main() -> int:
     yolo_bf16, _ = check_yolo_path(device, params, frames, ego, YOLO_BF16, "YOLO path bf16")
     emit({"phase": "yolo_path_bf16", "head_vs_float32": {"relative_gaps": bf16_gaps, "bound": BF16_LOGIT_REL},
           **yolo_bf16})
+    emit({"phase": "yolo_with_frames", **check_yolo_frames(device, params, road, frames_out)})
+    del frames_out
 
     t0 = time.perf_counter()
     times = measure_kernels(device, inputs)
@@ -2039,8 +2341,10 @@ def main() -> int:
     times["nms_keep"] = measure_nms_kernel(device, pools)
     split = measure_split(device, inputs, pools)
     kernel_s = time.perf_counter() - t0
-    paths = measure_paths(device, inputs)
+    paths = measure_paths(device, inputs, frames=road)
+    lane_split = measure_lane_split(device, road["frame"])
     paths_s = time.perf_counter() - t0 - kernel_s
+    emit({"phase": "lane_split", "card": smi, **lane_split})
     yolo_times = measure_yolo(device, params, frames, ego)
     emit({"phase": "times", "card": smi, "floor_ms": split.pop("floor_ms"), "kernels": times, "split": split,
           **paths, "yolo": yolo_times,
@@ -2069,6 +2373,7 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None,
         })
+    emit({"phase": "total", "seconds": time.perf_counter() - _START})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0

@@ -5,9 +5,11 @@ A second package beside the JAX one, which stays the reference.  Plain
 tensor code is PyTorch; each TPU kernel of the JAX package becomes a kernel
 written by hand for Hopper (CUDA C++ for ``sm_90a`` under ``kernels/csrc``),
 with a plain PyTorch version beside it that runs for CPU tensors.  The port
-covers the detections-mode path (track -> estimate -> plan -> tag) and the
-YOLO path in front of it (camera frames -> YOLOv8 -> NMS:
-`perception.detector.make_yolo_sequence_runner`).
+covers the JAX package's default configuration, the frames path (camera
+frames -> lanes and scene features -> track -> estimate -> plan -> tag,
+`DEFAULT_CONFIG`), the detections-mode path (track -> estimate -> plan ->
+tag, ``use_frames=False``), and the YOLO path in front of either (camera
+frames -> YOLOv8 -> NMS: `perception.detector.make_yolo_sequence_runner`).
 """
 
 __version__ = "0.1.0"

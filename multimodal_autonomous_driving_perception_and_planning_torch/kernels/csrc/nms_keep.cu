@@ -52,13 +52,20 @@
 //  5. Host.  The opt-in shared-memory size and the cluster occupancies are
 //     set and read once a device, not on every launch.
 //
-// Exactness: the IoU is `pairwise_iou` op for op with the _rn intrinsics,
-// which nvcc never contracts into an FMA.  With union in [2^-40, 2^40] and
-// thr in [2^-20, 2^20] both products are normal, each off by at most 2^-24,
-// so inter > union * hi puts the quotient above thr (1 + 2^-20) and its
+// Exactness: the IoU is `pairwise_iou` as the jitted JAX package computes
+// it, with the _rn intrinsics, which nvcc never contracts: compiled XLA
+// contracts the union to fma(w_b, h_b, area_a) - inter, so the kernel takes
+// __fmaf_rn there (one rounding) and everything else op for op.  The proof
+// below reads only the union value that the reference divides by, however
+// it was rounded, and its range: with area_a and area_b = w_b * h_b (rounded)
+// in [2^-38, 2^38], the exact w_b * h_b is within 2^-24 of area_b, and the
+// contracted union, at least max(area_a, w_b h_b) - 1 ulp and at most twice
+// 2^38 + 1 ulp, stays in [2^-40, 2^40].  With union there and thr in
+// [2^-20, 2^20] both products are normal, each off by at most 2^-24, so
+// inter > union * hi puts the quotient above thr (1 + 2^-20) and its
 // rounding above thr, and inter < union * lo below.  fminf/fmaxf differ
-// from torch.minimum/maximum only on NaN, and a NaN coordinate makes an
-// area, and so the union, NaN: an IoU of 0 on both sides.
+// from torch.minimum/maximum only on NaN, and a NaN coordinate makes w_b,
+// h_b or area_a, and so the union, NaN: an IoU of 0 on both sides.
 //
 // Shared memory, each block of a cluster, W = ceil(K / 32), Kp = 32 W,
 // S = Kp + 1, P = W (W + 1) / 2 pairs, 4 P items:
@@ -109,12 +116,18 @@ __host__ __device__ inline size_t smem_bytes(int K) {
   return 16 * Kp + 4 * Kp + 4 * 3 * kMaxW + 4 * items + 4 * W * S + ((2 * pairs((int)W) + 3) & ~(size_t)3);
 }
 
-// iou(a, b) > thr, `pairwise_iou` op for op, with the exact division.
-__device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b, float area_b, float thr) {
+// The union of `pairwise_iou` as compiled XLA computes it: fma(w_b, h_b,
+// area_a) - inter, one rounding for the fma.
+__device__ __forceinline__ float contracted_union(float area_a, float4 b, float inter) {
+  return __fsub_rn(__fmaf_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y), area_a), inter);
+}
+
+// iou(a, b) > thr, as the jitted `pairwise_iou` decides it, with the exact division.
+__device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b, float thr) {
   const float iw = __fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x));
   const float ih = __fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y));
   const float inter = (iw > 0.0f && ih > 0.0f) ? __fmul_rn(iw, ih) : 0.0f;
-  const float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
+  const float uni = contracted_union(area_a, b, inter);
   return (uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f) > thr;
 }
 
@@ -195,7 +208,7 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
           const float iw = __fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x));
           const float ih = __fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y));
           const float inter = (iw > 0.0f && ih > 0.0f) ? __fmul_rn(iw, ih) : 0.0f;
-          const float uni = __fsub_rn(__fadd_rn(area_a, s_area[j0 + k]), inter);
+          const float uni = contracted_union(area_a, c, inter);
           const bool above = inter > __fmul_rn(uni, hi), below = inter < __fmul_rn(uni, lo);
           if (above) bits |= 1u << k;
           if (!(above || below)) open |= 1u << k;
@@ -207,7 +220,7 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
           const int k = __ffs(slow) - 1;
           slow &= slow - 1u;
           const unsigned bit = 1u << k;
-          bits = iou_above(a, area_a, s_box[j0 + k], s_area[j0 + k], thr) ? bits | bit : bits & ~bit;
+          bits = iou_above(a, area_a, s_box[j0 + k], thr) ? bits | bit : bits & ~bit;
         }
       }
       if (w == g) bits &= ~((2u << lane) - 1u) >> (q << 3);  // only j > i

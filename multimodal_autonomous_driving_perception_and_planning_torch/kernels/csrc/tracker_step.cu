@@ -227,7 +227,8 @@ tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
   }
   __syncthreads();
 
-  // --- IoU, op for op `pairwise_iou`; invalid pairs are -1 ------------------
+  // --- IoU as the jitted `pairwise_iou` computes it: the union contracted to
+  // fma(w_b, h_b, area_a) - inter, one rounding for the fma; invalid pairs -1
   const int step_t = kThreads / D, step_d = kThreads - step_t * D;
   for (int i = tid, t = tid / D, d = tid - (tid / D) * D; i < T * D; i += kThreads) {
     const float4 a = s_tb[t], b = s_db[d];
@@ -235,8 +236,7 @@ tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
     const float ih = __fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y));
     const float inter = (iw > 0.0f && ih > 0.0f) ? __fmul_rn(iw, ih) : 0.0f;
     const float area_a = __fmul_rn(__fsub_rn(a.z, a.x), __fsub_rn(a.w, a.y));
-    const float area_b = __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
-    const float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
+    const float uni = __fsub_rn(__fmaf_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y), area_a), inter);
     float v = uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f;
     if (!(s_id[t] > 0 && ((s_valid_bits[d >> 5] >> (d & 31)) & 1u))) v = -1.0f;
     s_iou[t * ld + d] = v;

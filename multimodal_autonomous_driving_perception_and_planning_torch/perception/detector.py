@@ -18,7 +18,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..models.yolov8 import make_yolo_detector
-from ..pipeline import _check_slice, _resolve_device, make_sequence_runner
+from ..pipeline import _resolve_device, make_sequence_runner
 
 TABLE_KEYS = ("bbox", "class_id", "confidence", "valid")
 
@@ -98,10 +98,10 @@ def make_yolo_sequence_runner(
     (T, N, ...)) of the run, for checking the NMS stage.
 
     ``compute_dtype`` defaults to bfloat16 (the conv tower); the decode /
-    NMS tail and the pipeline run in float32.  ``cfg.use_frames`` (lanes
-    and scene features from the frames) is not ported yet and raises.
+    NMS tail and the pipeline run in float32.  With ``cfg.use_frames`` the
+    frames also go into the pipeline: lanes, scene features and
+    frames-mode tags.
     """
-    _check_slice(cfg)
     dev = _resolve_device(device)
     init_fn, detect_fn = make_yolo_detector(
         variant=variant,
@@ -118,6 +118,8 @@ def make_yolo_sequence_runner(
     def run(params, state, frames, ego, keep_candidates: bool = False):
         stream, candidates = _detect_chunks(detect_fn, params, frames, batch, dev, keep_candidates)
         inputs = dict(stream, ego_measurement=torch.as_tensor(ego, dtype=torch.float32))
+        if cfg.use_frames:
+            inputs["frame"] = frames
         final, outs = run_frames(state, inputs)
         if keep_candidates:
             outs["detections"], outs["candidates"] = stream, candidates

@@ -1,16 +1,18 @@
-"""The per-frame pipeline and its sequence runner, detections mode.
+"""The per-frame pipeline and its sequence runner.
 
-One frame is ``(state, inputs) -> (state', out)``: track (kernel K1 on the
-card), estimate the ego state (kernel K2 on the card), plan (tensor ops),
-and, with ``enable_tagging``, tag (kernel K3 on the card).  The sequence
-runner loops that step over a whole sequence and writes each frame's
-outputs into preallocated ``(F, ...)`` buffers, so that no frame waits for
-the host.  The tags travel as K3's two packed rows a frame and are
-unpacked into the 43-key dict once, after the loop.
+One frame is ``(state, inputs) -> (state', out)``: with ``use_frames`` and
+a camera frame, find the lanes and the scene features (tensor ops,
+perception/lanes.py); track (kernel K1 on the card), estimate the ego state
+(kernel K2 on the card), plan (tensor ops), and, with ``enable_tagging``,
+tag (kernel K3 on the card, in frames mode when the frame gave lanes and
+scene features).  The sequence runner loops that step over a whole
+sequence and writes each frame's outputs into preallocated ``(F, ...)``
+buffers, so that no frame waits for the host but for the Canny
+hysteresis's convergence reads.  The tags travel as K3's two packed rows a
+frame and the lane observation as two rows, unpacked once, after the loop.
 
-This slice runs with ``use_frames=False``; ``use_frames=True`` raises
-`NotImplementedError`.  Entry points run on the card unless the caller
-asks for ``device="cpu"``, where each kernel's plain version runs instead.
+Entry points run on the card unless the caller asks for ``device="cpu"``,
+where each kernel's plain version runs instead.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from .config import PipelineConfig
 from .estimation.ego import estimator_step_row
 from .ops.kalman import make_constant_accel_model
+from .perception.lanes import make_lane_step
 from .planning.planner import plan
 from .tagging.rules import make_packed_tagging_step, unpack_tags
 from .tracking.tracker import tracker_update_with_order
@@ -29,6 +32,7 @@ from .types import (
     VEHICLE_STATE_FIELDS,
     Detections,
     KalmanState,
+    LaneObservation,
     LaneState,
     PipelineState,
     TaggingState,
@@ -52,14 +56,6 @@ def _resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
-
-
-def _check_slice(cfg: PipelineConfig) -> None:
-    if cfg.use_frames:
-        raise NotImplementedError(
-            "use_frames=True (lanes and scene features from camera frames) is "
-            "not ported yet: ROADMAP.md queue 1, item 7 (frames path)"
-        )
 
 
 def initial_state(cfg: PipelineConfig, device="cuda") -> PipelineState:
@@ -89,10 +85,34 @@ def detections_from_arrays(arrs: Dict[str, Any], device="cuda") -> Detections:
     )
 
 
+# The lane observation's fields in its two packed rows a frame.
+_LANE_F = (("left_fit", 3), ("right_fit", 3), ("left_confidence", 1), ("right_confidence", 1), ("offset_px", 1))
+_LANE_B = ("left_found", "right_found", "has_offset")
+
+
+def _pack_lane_obs(obs: LaneObservation):
+    """The observation as a (9,) float32 row and a (3,) bool row."""
+    f = torch.cat([getattr(obs, k).reshape(-1) for k, _ in _LANE_F])
+    return f, torch.stack([getattr(obs, k) for k in _LANE_B])
+
+
+def _unpack_lane_obs(f: torch.Tensor, b: torch.Tensor) -> LaneObservation:
+    """`_pack_lane_obs`'s rows, stacked over frames, back into fields."""
+    fields, off = {}, 0
+    for k, n in _LANE_F:
+        piece = f[..., off : off + n]
+        fields[k] = piece if n > 1 else piece[..., 0]
+        off += n
+    fields.update({k: b[..., i] for i, k in enumerate(_LANE_B)})
+    return LaneObservation(**{k: v.contiguous() for k, v in fields.items()})
+
+
 def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
-    """The frame step: ``(state, inputs) -> (state', out, tag_rows)``, with
-    ``tag_rows`` K3's packed ``(tag_f, tag_i)``, or None without tagging,
-    ``out`` holding no "tags" and the vehicle state as K2's (11,) row."""
+    """The frame step: ``(state, inputs) -> (state', out, rows)``, with
+    ``rows`` the packed rows of the frame: K3's ``tag_f``/``tag_i`` with
+    tagging and the lane observation's ``lane_f``/``lane_b`` with lanes.
+    ``out`` holds no "tags" and no "lane_obs", and the vehicle state as
+    K2's (11,) row."""
     model = kalman_model_from_numpy(
         *make_constant_accel_model(
             cfg.estimator.dt,
@@ -104,9 +124,18 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
     )
     measured = torch.ones((), dtype=torch.bool, device=dev)
     tagging_step = make_packed_tagging_step(cfg) if cfg.enable_tagging else None
+    lane_step = make_lane_step(cfg, dev) if cfg.use_frames else None
 
     def step(state: PipelineState, inputs: Dict[str, Any]):
         dets = inputs["detections"]
+        rows = {}
+
+        # Lanes and scene features, from the camera frame.
+        if lane_step is not None and "frame" in inputs:
+            lanes, lane_obs, frame_feats = lane_step(state.lanes, inputs["frame"])
+            rows["lane_f"], rows["lane_b"] = _pack_lane_obs(lane_obs)
+        else:
+            lanes, lane_obs, frame_feats = state.lanes, None, None
 
         # Tracking: kernel K1 on the card, the confirmed order included.
         table, match, order, n_confirmed = tracker_update_with_order(
@@ -135,17 +164,18 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
         )
         best = pr.best.view(1)
 
-        # Tagging: kernel K3 on the card.
+        # Tagging: kernel K3 on the card, in frames mode with lanes.
         if tagging_step is not None:
-            tagging_state, tag_f, tag_i = tagging_step(state.tagging, dets, table, vrow)
-            tag_rows = (tag_f, tag_i)
+            tagging_state, rows["tag_f"], rows["tag_i"] = tagging_step(
+                state.tagging, dets, table, vrow, lane_obs, frame_feats
+            )
         else:
-            tagging_state, tag_rows = state.tagging, None
+            tagging_state = state.tagging
 
         new_state = PipelineState(
             tracks=table,
             kalman=kalman,
-            lanes=state.lanes,
+            lanes=lanes,
             tagging=tagging_state,
             frame_idx=state.frame_idx + 1,
         )
@@ -176,9 +206,18 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
             out["plan_positions"] = pr.positions
             out["plan_velocities"] = pr.velocities
             out["plan_lateral_offsets"] = pr.lateral_offsets
-        return new_state, out, tag_rows
+        return new_state, out, rows
 
     return step
+
+
+def _unpack_rows(outs: Dict[str, Any], max_tracks: int) -> None:
+    """Replace the packed rows in ``outs`` by "tags" (always) and
+    "lane_obs" (with lanes)."""
+    tag_f, tag_i = outs.pop("tag_f", None), outs.pop("tag_i", None)
+    outs["tags"] = {} if tag_f is None else unpack_tags(tag_f, tag_i, max_tracks)
+    if "lane_f" in outs:
+        outs["lane_obs"] = _unpack_lane_obs(outs.pop("lane_f"), outs.pop("lane_b"))
 
 
 def make_pipeline_step(cfg: PipelineConfig, device="cuda"):
@@ -187,19 +226,22 @@ def make_pipeline_step(cfg: PipelineConfig, device="cuda"):
     Inputs per frame (all fixed-shape, on the step's device):
       detections: Detections table
       ego_measurement: (4,) [x, y, vx, vy]
+      frame: optional (H, W, 3) BGR image, uint8 or int32: with
+        ``use_frames``, lanes and scene features (and frames-mode tags)
       has_measurement, reference_positions, reference_valid, obstacles,
       obstacles_valid: optional, as in the JAX package.
 
     Outputs: a dict of per-frame results, the JAX package's keys; "tags"
-    holds the 43 tags with ``enable_tagging``, else nothing.
+    holds the 43 tags with ``enable_tagging``, else nothing; "lane_obs" the
+    LaneObservation when the frame gave lanes.
     """
-    _check_slice(cfg)
     frame_step = _make_frame_step(cfg, _resolve_device(device))
 
     def step(state: PipelineState, inputs: Dict[str, Any]):
-        new_state, out, tag_rows = frame_step(state, inputs)
+        new_state, out, rows = frame_step(state, inputs)
+        out.update(rows)
         out["vehicle_state"] = vehicle_state_from_row(out["vehicle_state"])
-        out["tags"] = {} if tag_rows is None else unpack_tags(*tag_rows, cfg.tracker.max_tracks)
+        _unpack_rows(out, cfg.tracker.max_tracks)
         return new_state, out
 
     return step
@@ -217,7 +259,9 @@ _INPUT_DTYPES = {
     "reference_valid": torch.bool,
     "obstacles": torch.float32,  # planner obstacle penalties
     "obstacles_valid": torch.bool,
+    "frame": None,  # (F, H, W, 3) uint8 or int32, kept in its dtype
 }
+_FRAME_DTYPES = (torch.uint8, torch.int32)
 
 
 def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
@@ -225,20 +269,25 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
 
     ``inputs`` is a dict of time-stacked arrays (numpy or tensors):
     detections (F, D, ...), ego_measurement (F, 4) and the optional
-    per-frame inputs of `make_pipeline_step`.  Contiguous tensors already
-    on the runner's device in the input's dtype (the YOLO frontend's
-    detection tables) go in uncopied.  Returns ``(final_state, outs)``,
-    ``outs`` holding the step's outputs with a leading time axis.
+    per-frame inputs of `make_pipeline_step`, "frame" (F, H, W, 3) uint8
+    or int32 among them (kept in its dtype: 300 uint8 frames at 640x480 are
+    276 MB).  Contiguous tensors already on the runner's device in the
+    input's dtype (the YOLO frontend's detection tables) go in uncopied.
+    Returns ``(final_state, outs)``, ``outs`` holding the step's outputs
+    with a leading time axis.
     """
-    _check_slice(cfg)
     dev = _resolve_device(device)
     step = _make_frame_step(cfg, dev)
 
+    def as_input(k, v):
+        if k != "frame":
+            return torch.as_tensor(v, dtype=_INPUT_DTYPES[k]).to(dev).contiguous()
+        v = torch.as_tensor(v)
+        if v.dtype not in _FRAME_DTYPES:
+            raise TypeError(f"frames are uint8 or int32, not {v.dtype}")
+        return v.to(dev).contiguous()
+
     def run(state: PipelineState, inputs: Dict[str, Any]):
-        if "frame" in inputs:
-            raise NotImplementedError(
-                "camera frames are not ported yet: ROADMAP.md queue 1, item 7"
-            )
         unknown = set(inputs) - set(_INPUT_DTYPES)
         if unknown:
             raise ValueError(
@@ -251,10 +300,7 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
             raise ValueError(
                 f"the state is on {state.tracks.track_id.device}, the runner on {dev}"
             )
-        xs = {
-            k: torch.as_tensor(v, dtype=_INPUT_DTYPES[k]).to(dev).contiguous()
-            for k, v in inputs.items()
-        }
+        xs = {k: as_input(k, v) for k, v in inputs.items()}
         num_frames = xs["bbox"].shape[0]
 
         bufs: Dict[str, torch.Tensor] = {}
@@ -266,9 +312,8 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
                 confidence=frame.pop("confidence"),
                 valid=frame.pop("valid"),
             )
-            state, out, tag_rows = step(state, frame)
-            if tag_rows is not None:
-                out["tag_f"], out["tag_i"] = tag_rows
+            state, out, rows = step(state, frame)
+            out.update(rows)
             if not bufs:
                 bufs = {
                     k: torch.empty((num_frames, *v.shape), dtype=v.dtype, device=dev)
@@ -283,8 +328,7 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
             outs["vehicle_state"] = VehicleState(
                 *(vs[:, i].contiguous() for i in range(len(VEHICLE_STATE_FIELDS)))
             )
-        tag_f, tag_i = outs.pop("tag_f", None), outs.pop("tag_i", None)
-        outs["tags"] = {} if tag_f is None else unpack_tags(tag_f, tag_i, cfg.tracker.max_tracks)
+        _unpack_rows(outs, cfg.tracker.max_tracks)
         return state, outs
 
     return run

@@ -28,13 +28,16 @@ def test_tracker_kernel_matches_plain(device):
     """Every output exact at every step: churn at (64, 16) and (128, 64),
     saturated tables at (64, 16) and (128, 64), the staircase and
     all-equal ladders and the (128, 64) staircase, IoUs exactly at the
-    threshold and +0 IoUs all tied, 32 and 33 eligible pairs, and the
-    300-frame synthetic stream."""
+    threshold and +0 IoUs all tied, 32 and 33 eligible pairs, IoUs within
+    2 ulps of the threshold (the union contracted as compiled XLA rounds
+    it), and the 300-frame synthetic stream."""
     cases = chip_smoke.check_tracker_kernel(device, steps=20)
     assert [c["case"] for c in cases] == [
         "churn_64x16", "churn_128x64", "saturated_64x16", "saturated_128x64", "staircase_64x16",
         "all_equal_64x16", "staircase_128x64", "threshold_ties_64x16", "zero_iou_ties_64x16",
-        "eligible_32_64x16", "eligible_33_64x16", "synthetic_64x16", "odd_ring_63x16", "long_ring_64x16",
+        "eligible_32_64x16", "eligible_33_64x16",
+    ] + [f"near_threshold_{seed}_128x64" for seed in chip_smoke.NEAR_THRESHOLD_SEEDS] + [
+        "synthetic_64x16", "odd_ring_63x16", "long_ring_64x16",
     ]
     torch.cuda.synchronize()
 
@@ -116,6 +119,20 @@ def test_yolo_path_on_card_matches_cpu(device):
     result, _ = chip_smoke.check_yolo_path(device, params, frames, ego, chip_smoke.YOLO_F32, "YOLO path")
     assert result["launches"]["nms_keep"] == 2 and result["launches"]["tracker_step"] == 100
     assert result["frames_with_detections"] == 100 and result["track_births"] > 0
+
+
+def test_frames_path_on_card_matches_cpu(device):
+    """The frames path (DEFAULT_CONFIG) over 300 road frames on the card
+    against the CPU, K1-K3 once a frame; then a 64-frame YOLO chunk with
+    frames, against the frames runner on its tables and the frames path's
+    lanes."""
+    road = chip_smoke.frames_inputs()
+    result, outs = chip_smoke.check_frames_path(device, road)
+    assert result["launches"] == {"tracker_step": 300, "kalman_step": 300, "tagging_step": 300, "associate": 0,
+                                  "nms_keep": 0}
+    assert result["lanes_found"]["offset"] > 0
+    yolo = chip_smoke.check_yolo_frames(device, chip_smoke.yolo_params(device), road, outs)
+    assert yolo["launches"]["nms_keep"] == 1 and yolo["launches"]["tagging_step"] == 64
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(device):

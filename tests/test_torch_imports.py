@@ -32,3 +32,11 @@ def test_the_walk_sees_the_port():
     assert len(FILES) > 15
     assert "torch" in set(_imported_modules(PORT / "pipeline.py"))
     assert "jax" in {m.split(".")[0] for m in _imported_modules(ROOT / "tests" / "test_torch_pipeline.py")}
+
+
+def test_frames_generator_needs_no_cv2():
+    """The port draws its road frames with numpy alone: the card's machine
+    has no cv2.  The JAX package's generator imports it."""
+    assert "cv2" not in {m.split(".")[0] for m in _imported_modules(PORT / "data" / "frames.py")}
+    jax_frames = ROOT / "multimodal_autonomous_driving_perception_and_planning_tpu" / "data" / "frames.py"
+    assert "cv2" in set(_imported_modules(jax_frames))

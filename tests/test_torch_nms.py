@@ -99,49 +99,35 @@ def _case_ids(mode):
     return [name for name, case in chip_smoke.nms_cases().items() if case.jax == mode]
 
 
-@pytest.mark.parametrize("name", _case_ids("compiled") + _case_ids("op_by_op"))
+@pytest.mark.parametrize("name", _case_ids("compiled"))
 def test_plain_keep_matches_jax_on_kernel_cases(name):
     """K5's card cases on the CPU: the port's plain keep mask bit for bit
     against JAX's XLA fixpoint and JAX's Pallas kernel in the interpreter,
-    jitted over the batch, and the kept count a case is built to give.  On
-    the near-threshold cases JAX is called without jit, image by image, and
-    the Pallas interpreter is left out: it compiles the kernel body, and
-    compiled XLA contracts a multiply-add of the union
-    (`test_compiled_jax_contracts_the_union`).  The subnormal case is left
-    out: XLA on the CPU flushes subnormal IoUs and intersections to 0, the
-    port does not (ROADMAP.md, faults); the card check holds K5 to the plain
-    version there."""
+    jitted over the batch, as the JAX frontend runs them, and the kept
+    count a case is built to give.  The near-threshold cases are among
+    them: compiled XLA contracts a multiply-add of the union, and the port
+    computes the union the same way
+    (`test_port_contracts_the_union_like_compiled_jax`).  The subnormal
+    case is left out: XLA on the CPU flushes subnormal IoUs and
+    intersections to 0, the port does not (ROADMAP.md, faults); the card
+    check holds K5 to the plain version there."""
     case = chip_smoke.nms_cases()[name]
     port = nms_t._nms_keep_plain(torch.tensor(case.boxes), torch.tensor(case.scores), case.thr).numpy()
-    if case.jax == "compiled":
-        xla, pallas = _jax_keeps(case.thr)
-        boxes, scores = jnp.asarray(case.boxes), jnp.asarray(case.scores)
-        np.testing.assert_array_equal(port, np.asarray(xla(boxes, scores)), err_msg=f"{name}: XLA")
-        np.testing.assert_array_equal(port, np.asarray(pallas(boxes, scores)), err_msg=f"{name}: Pallas")
-    else:
-        for i, (b, s) in enumerate(zip(case.boxes, case.scores)):
-            want = np.asarray(nms_keep_xla(jnp.asarray(b), jnp.asarray(s), case.thr))
-            np.testing.assert_array_equal(port[i], want, err_msg=f"{name}: XLA op by op, image {i}")
+    xla, pallas = _jax_keeps(case.thr)
+    boxes, scores = jnp.asarray(case.boxes), jnp.asarray(case.scores)
+    np.testing.assert_array_equal(port, np.asarray(xla(boxes, scores)), err_msg=f"{name}: XLA")
+    np.testing.assert_array_equal(port, np.asarray(pallas(boxes, scores)), err_msg=f"{name}: Pallas")
     if case.kept is not None:
         assert int(port.sum()) == case.kept
 
 
-def _keep_contracted(boxes, scores, thr):
-    """The greedy keep mask over `pairwise_iou` with its union computed as
-    fma(w_b, h_b, area_a) - inter, one rounding for the multiply-add, in
-    numpy (the product of two float32 is exact in float64, and here so is
-    the sum)."""
-    a, b = boxes[:, None, :], boxes[None, :, :]
-    iw = np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0])
-    ih = np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1])
-    inter = np.where((iw > 0) & (ih > 0), iw * ih, np.float32(0))
-    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
-    prod = (b[..., 2] - b[..., 0]).astype(np.float64) * (b[..., 3] - b[..., 1]).astype(np.float64)
-    total = prod + area_a
-    assert ((total - prod) == area_a).all()  # the float64 sum is exact: one rounding below
-    union = total.astype(np.float32) - inter
-    iou = np.where(union > 0, inter / np.where(union > 0, union, np.float32(1)), np.float32(0))
+def _keep_model(boxes, scores, thr, contracted):
+    """The greedy keep mask over `chip_smoke._iou32`, in numpy: the union
+    fma(w_b, h_b, area_a) - inter with one rounding for the multiply-add
+    (``contracted``), or op for op."""
     k = len(scores)
+    a, b = np.repeat(boxes[:, None], k, 1), np.repeat(boxes[None], k, 0)
+    iou = chip_smoke._iou32(a, b, contracted=contracted)
     S = (iou > np.float32(thr)) & (np.arange(k)[:, None] < np.arange(k)[None, :])
     keep = np.zeros(k, bool)
     for j in range(k):
@@ -149,23 +135,58 @@ def _keep_contracted(boxes, scores, thr):
     return keep
 
 
-@pytest.mark.parametrize("name", _case_ids("op_by_op"))
-def test_compiled_jax_contracts_the_union(name):
-    """Pins a fault (ROADMAP.md, faults): under jit, XLA's CPU compiler
-    computes `pairwise_iou`'s union as fma(w_b, h_b, area_a) - inter, one
-    rounding for the multiply-add, and so does the Pallas interpreter.  The
-    port, K1 and K5 included, computes it op for op, as JAX does without
-    jit.  On IoUs within 2 ulps of the threshold the two keep masks stand
-    apart."""
-    case = chip_smoke.nms_cases()[name]
+@pytest.mark.parametrize("thr", chip_smoke.NMS_NEAR_THRESHOLDS)
+def test_port_contracts_the_union_like_compiled_jax(thr):
+    """Under jit, XLA's CPU compiler computes `pairwise_iou`'s union as
+    fma(w_b, h_b, area_a) - inter, one rounding for the multiply-add, and
+    so does the Pallas interpreter; the port's `pairwise_iou` (and K1 and
+    K5) compute it the same way.  On IoUs within 2 ulps of the threshold
+    the port, compiled JAX and the numpy model of the contracted union give
+    one keep mask, and the union op for op gives another."""
+    case = chip_smoke.nms_cases()[f"near_threshold_{thr}"]
     boxes, scores = case.boxes[0], case.scores[0]
     port = nms_t._nms_keep_plain(torch.tensor(boxes), torch.tensor(scores), case.thr).numpy()
     xla, pallas = _jax_keeps(case.thr)
     compiled = [np.asarray(f(jnp.asarray(case.boxes), jnp.asarray(case.scores)))[0] for f in (xla, pallas)]
-    contracted = _keep_contracted(boxes, scores, case.thr)
+    contracted = _keep_model(boxes, scores, case.thr, contracted=True)
+    np.testing.assert_array_equal(port, contracted)
     np.testing.assert_array_equal(compiled[0], contracted)
     np.testing.assert_array_equal(compiled[1], contracted)
-    assert (port != contracted).any()
+    assert (_keep_model(boxes, scores, case.thr, contracted=False) != contracted).any()
+
+
+def test_fma32_rounds_once():
+    """`ops.geometry.fma32` against the exactly rounded a * b + c (Python
+    fractions), on random float32 triples and on ones whose float64 sum is
+    inexact (c far below or far above the product), where a plain float64
+    sum rounded again to float32 can round twice."""
+    from fractions import Fraction
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops.geometry import fma32
+
+    rng = np.random.default_rng(3)
+    n = 4000
+    a = rng.uniform(-100, 100, n).astype(np.float32)
+    b = rng.uniform(-100, 100, n).astype(np.float32)
+    c = (rng.uniform(-1, 1, n) * 10.0 ** rng.integers(-30, 30, n)).astype(np.float32)
+    # Halfway cases: c is the product's rounding error plus half a float32 ulp.
+    p = a.astype(np.float64) * b
+    half = np.spacing(p.astype(np.float32)).astype(np.float64) / 2
+    c[: n // 4] = ((p - p.astype(np.float32)) + half)[: n // 4].astype(np.float32)
+    got = fma32(torch.tensor(a), torch.tensor(b), torch.tensor(c)).numpy()
+    want = np.array([_round32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got, want)
+
+
+def _round32(q):
+    """The float32 nearest to the rational ``q``, ties to even."""
+    from fractions import Fraction
+
+    lo = np.float32(float(q))  # rounded twice: at most one ulp off
+    cands = [lo, np.nextafter(lo, np.float32(-np.inf)), np.nextafter(lo, np.float32(np.inf))]
+    best = min(cands, key=lambda v: (abs(Fraction(float(v)) - q), int(np.array(v).view(np.int32)) & 1))
+    return best
 
 
 def _nms_both(boxes, scores, classes, **kw):

@@ -181,14 +181,18 @@ def test_optional_inputs_forwarded_and_unknown_keys_raise():
 
 
 def test_other_configurations_refused():
-    """Frames mode is not ported yet, with tagging on or off; detections
-    mode with tagging on is."""
+    """Frames mode (the default configuration) builds, with tagging on or
+    off, and so does detections mode; a Hough theta grid whose XLA tables
+    the port does not carry is refused."""
     for tagging in (False, True):
         cfg = pt.DEFAULT_CONFIG.replace(enable_tagging=tagging)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            pt.make_sequence_runner(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 7"):
-            pt.make_pipeline_step(cfg, device="cpu")
+        pt.make_sequence_runner(cfg, device="cpu")
+        pt.make_pipeline_step(cfg, device="cpu")
+        odd = cfg.replace(lanes=dataclasses.replace(cfg.lanes, num_thetas=90))
+        with pytest.raises(NotImplementedError, match="item 7a"):
+            pt.make_sequence_runner(odd, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 7a"):
+            pt.make_pipeline_step(odd, device="cpu")
     pt.make_sequence_runner(pt.DEFAULT_CONFIG.replace(use_frames=False), device="cpu")
 
 

@@ -238,3 +238,21 @@ def test_cpu_path_launches_no_kernel():
     assert tracker_kernel.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         tracker_kernel.tracker_step(table, dets, cfg, cfg.min_hits)
+
+
+@pytest.mark.parametrize("seed", chip_smoke.NEAR_THRESHOLD_SEEDS)
+def test_tracker_matches_jax_near_the_threshold(seed):
+    """64 track-detection pairs of unequal sizes whose IoU stands within 2
+    ulps of the threshold 0.3 (`chip_smoke.near_threshold_arrays`), held to
+    the jitted JAX tracker and its TPU kernel in the Pallas interpreter.
+    Both compute the union as fma(w_det, h_det, area_track) - inter, one
+    rounding for the fma, and so does the port; the union op for op decides
+    some of these pairs the other way."""
+    table, dets = chip_smoke.near_threshold_arrays(seed)
+    trio = _Trio(128, 6, table=table, iou_threshold=0.3, max_age=30, min_hits=3)
+    trio.step(dets)
+    a, b = table["bbox"][:64], dets["bbox"]
+    t = np.float32(0.3)
+    contracted = chip_smoke._iou32(a, b) >= t
+    np.testing.assert_array_equal(trio.port.hits.numpy()[:64] > 3, contracted)
+    assert (contracted != (chip_smoke._iou32(a, b, contracted=False) >= t)).any()

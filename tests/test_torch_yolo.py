@@ -274,9 +274,14 @@ def test_bf16_cpu_run_within_chip_smoke_bound():
 
 
 def test_yolo_runner_refuses_without_card_and_frames_mode(monkeypatch):
+    """Frames mode builds (lanes from the same frames); a Hough theta grid
+    whose XLA tables the port does not carry is refused, and so is a run
+    without a card."""
     cfg = pt.DEFAULT_CONFIG.replace(use_frames=False)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_yolo_sequence_runner(pt.DEFAULT_CONFIG, device="cpu")
+    make_yolo_sequence_runner(pt.DEFAULT_CONFIG, device="cpu")
+    odd = pt.DEFAULT_CONFIG.replace(lanes=dataclasses.replace(pt.DEFAULT_CONFIG.lanes, num_thetas=90))
+    with pytest.raises(NotImplementedError, match="item 7a"):
+        make_yolo_sequence_runner(odd, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_yolo_sequence_runner(cfg)
