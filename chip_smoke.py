@@ -1463,6 +1463,7 @@ def check_yolo_path(device, params: dict, frames, ego, settings: dict, label: st
 # serving outputs (benchmarks/suite.py's frames rows), 300 road frames.
 LANE_X_ATOL = 1e-3  # a fit's x at rows h, 0.8h and 0.6h, the card against the CPU
 LANE_FIT_RTOL = 1e-4  # a fit's linear and constant coefficients
+LANE_A_RTOL = 1e-3  # its curvature coefficient, ~1e-5 on straight lanes (tests/test_torch_lanes.py)
 LANE_FIELDS = ("left_fit", "right_fit", "left_found", "right_found", "left_confidence", "right_confidence",
                "offset_px", "has_offset")
 # The tags that only the frame decides (brightness, Laplacian, lanes): the
@@ -1489,8 +1490,9 @@ def compare_lane_obs(label: str, got: LaneObservation, want: LaneObservation) ->
     confidences and the offset equal (an offset may differ only where its
     truncated value stands within 1e-3 of an integer), the fits' x at rows
     h, 0.8h and 0.6h within LANE_X_ATOL, their linear and constant
-    coefficients within LANE_FIT_RTOL, and the curvature by its share of x
-    at the bottom row within LANE_X_ATOL.  Returns the largest gaps."""
+    coefficients within LANE_FIT_RTOL, and the curvature within LANE_A_RTOL
+    and by its share of x at the bottom row within LANE_X_ATOL.  Returns
+    the largest gaps."""
     g = {k: getattr(got, k).cpu() for k in LANE_FIELDS}
     w = {k: getattr(want, k) for k in LANE_FIELDS}
     for k in ("left_found", "right_found", "has_offset", "left_confidence", "right_confidence"):
@@ -1513,7 +1515,8 @@ def compare_lane_obs(label: str, got: LaneObservation, want: LaneObservation) ->
         a_gap = float(((a[:, 0] - b[:, 0]).abs() * h * h).max())
         gaps[k] = {"x_at_rows": x_gap, "rel_a": float(rel[:, 0].max()), "rel_b": float(rel[:, 1].max()),
                    "rel_c": float(rel[:, 2].max()), "a_h2": a_gap}
-        if not (x_gap <= LANE_X_ATOL and float(rel[:, 1:].max()) <= LANE_FIT_RTOL and a_gap <= LANE_X_ATOL):
+        if not (x_gap <= LANE_X_ATOL and float(rel[:, 1:].max()) <= LANE_FIT_RTOL and a_gap <= LANE_X_ATOL
+                and float(rel[:, 0].max()) <= LANE_A_RTOL):
             raise AssertionError(f"{label}: lane {k} beyond its bounds: {gaps[k]}")
     if not all(bool(torch.isfinite(g[k]).all()) for k in ("left_fit", "right_fit", "offset_px")):
         raise AssertionError(f"{label}: a lane fit is not finite")
@@ -1526,20 +1529,16 @@ def check_frames_path(device, inputs: dict):
     (`compare_outputs` and `compare_lane_obs`), the kernels' counts zeroed
     just before the card run and read after.  Returns the summary and the
     card run's outputs."""
-    from multimodal_autonomous_driving_perception_and_planning_torch.ops import image as image_ops
-
     cfg = frames_config()
     t0 = time.perf_counter()
     _, want = pt.make_sequence_runner(cfg, device="cpu")(pt.initial_state(cfg, device="cpu"), inputs)
     cpu_s = time.perf_counter() - t0
     run = pt.make_sequence_runner(cfg, device=device)
     state = pt.initial_state(cfg, device=device)
-    hyst = dict(image_ops.hysteresis_stats)
     _zero_counts()
     _, got = run(state, inputs)
     torch.cuda.synchronize()
     launches = _read_counts()
-    hyst = {k: image_ops.hysteresis_stats[k] - hyst[k] for k in hyst}
     expected = {name: 0 for name in KERNEL_MODULES}
     expected.update(tracker_step=NUM_FRAMES, kalman_step=NUM_FRAMES, tagging_step=NUM_FRAMES)
     if launches != expected:
@@ -1550,8 +1549,6 @@ def check_frames_path(device, inputs: dict):
     summary = {
         "frames": NUM_FRAMES, "config": "DEFAULT_CONFIG", "launches": launches, "max_abs_err": errs,
         "lane_gaps": lane_gaps, "cpu_seconds": cpu_s,
-        "hysteresis": {"canny_calls_per_frame": hyst["calls"] / NUM_FRAMES,
-                       "rounds_per_frame": hyst["rounds"] / NUM_FRAMES, "host_reads_per_frame": hyst["syncs"] / NUM_FRAMES},
         "lanes_found": {"left": int(lane.left_found.sum()), "right": int(lane.right_found.sum()),
                         "offset": int(lane.has_offset.sum())},
         "distinct": {k: sorted(set(got["tags"][k].cpu().tolist())) for k in ("road_type", "lane_count", "cond_fog")},
@@ -2118,6 +2115,40 @@ def stage_device_us(fn, reps: int) -> tuple[float, float]:
     return sum(e.time_range.elapsed_us() for e in on_device) / reps, len(on_device) / reps
 
 
+def lane_stage_inputs(device, frame: torch.Tensor) -> dict:
+    """The lane step's intermediates on one frame, from the public stage
+    functions as `perception.lanes.make_lane_step` chains them, with the
+    rounds and host reads of its two Canny hysteresis loops."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import hough, image as image_ops
+
+    cfg = frames_config()
+    lc = cfg.lanes
+    h, w = cfg.frame_height, cfg.frame_width
+    st = {"roi": torch.as_tensor(image_ops.trapezoid_roi_mask(h, w, lc.roi_bottom_frac, lc.roi_top_frac,
+                                                              lc.roi_top_y_frac), device=device)}
+    st["gray"] = image_ops.bgr_to_gray_u8(frame)
+    st["blurred"] = image_ops.gaussian_blur5_u8(st["gray"])
+    med = image_ops.median_u8(st["blurred"])
+    low = torch.floor(torch.clamp(torch.tensor(0.7, device=device) * med, min=0.0))
+    high = torch.floor(torch.clamp(torch.tensor(1.3, device=device) * med, max=255.0))
+    edges, lane_rounds, lane_reads = image_ops.canny_rounds(st["blurred"], low, high)
+    st["masked"] = edges & st["roi"]
+    st["scene_edges"], scene_rounds, scene_reads = image_ops.canny_rounds(
+        image_ops.downsample2_u8(st["gray"]), 50.0, 150.0)
+    st["rounds"], st["reads"] = lane_rounds + scene_rounds, lane_reads + scene_reads
+    st["low"], st["high"] = low, high
+    passes = (("lane", st["masked"], lc.lane_edge_capacity, (int(h * lc.roi_top_y_frac), h),
+               dict(vote_threshold=lc.hough_threshold, max_lines=lc.max_lines), int(math.ceil(math.hypot(h, w)))),
+              ("scene", st["scene_edges"], max(256, lc.scene_edge_capacity // 4), None,
+               dict(vote_threshold=50, max_lines=lc.scene_max_lines), int(math.ceil(math.hypot(h // 2, w // 2)))))
+    for p, edge_map, capacity, rows, kw, diag in passes:
+        x, y, valid, _ = hough.compact_edges(edge_map, capacity, rows)
+        acc = hough.vote(x, y, valid, lc.num_thetas, diag)
+        st[p] = dict(x=x, y=y, valid=valid, acc=acc, kw=kw, diag=diag, capacity=capacity, rows=rows,
+                     peaks=hough.select_peaks(acc, **kw)[:2])
+    return st
+
+
 def measure_lane_split(device, frames, reps: int = 20) -> dict:
     """The lane step's device time a frame by stage, on the frames path's
     road frames (each stage on the inputs the step gives it on frame 10):
@@ -2126,46 +2157,45 @@ def measure_lane_split(device, frames, reps: int = 20) -> dict:
     lists, the voting of both, the peaks and pool of both, the segments of
     both, the fit with the EMA, and the scene statistics, with the device
     items (kernels, copies) each puts on the card; and the whole step on
-    the same frame, beside the stages' sum."""
+    the same frame, beside the stages' sum.  Also the hysteresis rounds
+    and host reads a frame of both Canny passes over all the frames."""
     from multimodal_autonomous_driving_perception_and_planning_torch.ops import hough, image as image_ops
     from multimodal_autonomous_driving_perception_and_planning_torch.perception import lanes
 
     cfg = frames_config()
     lc = cfg.lanes
     h, w = cfg.frame_height, cfg.frame_width
+    frames_dev = torch.as_tensor(frames).to(device)
+    rounds = reads = 0
+    for f in frames_dev:
+        st = lane_stage_inputs(device, f)
+        rounds, reads = rounds + st["rounds"], reads + st["reads"]
+    frame = frames_dev[10]
+    st = lane_stage_inputs(device, frame)
     step = lanes.make_lane_step(cfg, device)
-    frame = torch.as_tensor(frames[10]).to(device)
     state = pt.initial_state(cfg, device=device).lanes
-    st = {}
-    step(state, frame, st)
-    roi = torch.as_tensor(image_ops.trapezoid_roi_mask(h, w, lc.roi_bottom_frac, lc.roi_top_frac,
-                                                       lc.roi_top_y_frac), device=device)
-    rows = (int(h * lc.roi_top_y_frac), h)
-    lane_kw = dict(vote_threshold=lc.hough_threshold, max_lines=lc.max_lines)
-    scene_kw = dict(vote_threshold=50, max_lines=lc.scene_max_lines)
-    lane_diag = int(math.ceil(math.hypot(h, w)))
-    scene_diag = int(math.ceil(math.hypot(h // 2, w // 2)))
-    masked = st["edges"] & roi
-    peaks = {p: hough.select_peaks(st[f"{p}_acc"], **kw)[:2] for p, kw in (("lane", lane_kw), ("scene", scene_kw))}
-    hl = st["lane_hough"]
+    lp, sp = st["lane"], st["scene"]
+    hl = hough.hough_segments(st["masked"], min_line_length=lc.hough_min_line_length, num_thetas=lc.num_thetas,
+                              edge_capacity=lp["capacity"], row_range=lp["rows"], **lp["kw"])
+    _, obs, _ = step(state, frame)
+    (lf, _, _), (rf, _, _) = lanes._separate_and_fit(hl.segments, hl.valid, w, h, min_abs_slope=lc.min_abs_slope)
+    if not (torch.equal(obs.left_fit, lf) and torch.equal(obs.right_fit, rf)):
+        raise AssertionError("lane split: the stages do not chain as the lane step does")
     stages = {
         "gray": lambda: image_ops.bgr_to_gray_u8(frame),
         "blur": lambda: image_ops.gaussian_blur5_u8(st["gray"]),
         "median": lambda: torch.floor(0.7 * image_ops.median_u8(st["blurred"])),
-        "lane_canny": lambda: image_ops.canny(st["blurred"], st["low"], st["high"]) & roi,
+        "lane_canny": lambda: image_ops.canny(st["blurred"], st["low"], st["high"]) & st["roi"],
         "scene_downsample_canny": lambda: image_ops.canny(image_ops.downsample2_u8(st["gray"]), 50.0, 150.0),
-        "compaction": lambda: (hough.compact_edges(masked, lc.lane_edge_capacity, rows),
-                               hough.compact_edges(st["scene_edges"], max(256, lc.scene_edge_capacity // 4))),
-        "voting": lambda: (hough.vote(st["lane_x"], st["lane_y"], st["lane_edge_valid"], lc.num_thetas, lane_diag),
-                           hough.vote(st["scene_x"], st["scene_y"], st["scene_edge_valid"], lc.num_thetas,
-                                      scene_diag)),
-        "peaks_pool": lambda: (hough.select_peaks(st["lane_acc"], **lane_kw),
-                               hough.select_peaks(st["scene_acc"], **scene_kw)),
+        "compaction": lambda: (hough.compact_edges(st["masked"], lp["capacity"], lp["rows"]),
+                               hough.compact_edges(st["scene_edges"], sp["capacity"])),
+        "voting": lambda: tuple(hough.vote(p["x"], p["y"], p["valid"], lc.num_thetas, p["diag"]) for p in (lp, sp)),
+        "peaks_pool": lambda: tuple(hough.select_peaks(p["acc"], **p["kw"]) for p in (lp, sp)),
         "segments": lambda: (
-            hough.segments_from_peaks(st["lane_x"], st["lane_y"], st["lane_edge_valid"], *peaks["lane"], lane_diag,
-                                      lc.num_thetas, lc.hough_min_line_length, True),
-            hough.segments_from_peaks(st["scene_x"], st["scene_y"], st["scene_edge_valid"], *peaks["scene"],
-                                      scene_diag, lc.num_thetas, 50.0, lc.scene_refine)),
+            hough.segments_from_peaks(lp["x"], lp["y"], lp["valid"], *lp["peaks"], lp["diag"], lc.num_thetas,
+                                      lc.hough_min_line_length, True),
+            hough.segments_from_peaks(sp["x"], sp["y"], sp["valid"], *sp["peaks"], sp["diag"], lc.num_thetas,
+                                      50.0, lc.scene_refine)),
         "fit": lambda: lanes._separate_and_fit(hl.segments, hl.valid, w, h, min_abs_slope=lc.min_abs_slope),
         "scene_statistics": lambda: (image_ops.bgr_to_hsv_green_ratio(frame), image_ops.mean_u8(st["gray"]),
                                      image_ops.laplacian_variance(st["gray"]),
@@ -2173,10 +2203,13 @@ def measure_lane_split(device, frames, reps: int = 20) -> dict:
     }
     split = {name: stage_device_us(fn, reps) for name, fn in stages.items()}
     whole_us, whole_items = stage_device_us(lambda: step(state, frame), reps)
+    n = len(frames_dev)
     return {"device_us_per_frame": {k: v[0] for k, v in split.items()},
             "device_items_per_frame": {k: v[1] for k, v in split.items()},
             "stages_sum_us": sum(v[0] for v in split.values()), "lane_step_us": whole_us,
-            "lane_step_items": whole_items, "frame": 10, "reps": reps}
+            "lane_step_items": whole_items, "frame": 10, "reps": reps,
+            "hysteresis": {"frames": n, "canny_calls_per_frame": 2, "rounds_per_frame": rounds / n,
+                           "host_reads_per_frame": reads / n}}
 
 
 def measure_nms_kernel(device, pools: dict, reps: int = 2000) -> dict:

@@ -70,7 +70,7 @@
 // Shared memory, each block of a cluster, W = ceil(K / 32), Kp = 32 W,
 // S = Kp + 1, P = W (W + 1) / 2 pairs, 4 P items:
 //   boxes   float4[Kp]       (16 Kp bytes; zero beyond K)
-//   areas   float[Kp]
+//   sides   float2[Kp]       (x2 - x1, y2 - y1) of each box, rounded
 //   alive   uint32[32]       bit b of word w: score of 32 w + b > 0
 //   ok      uint32[32]       bit b of word w: area of 32 w + b in range
 //   nzg     uint32[32]       bit b of word g: row 32 g + b has a bit in a
@@ -80,7 +80,7 @@
 //                            stride S keeps both the build's and the scan's
 //                            accesses free of bank conflicts
 //   pairs   uint16[P]        (g << 8) | w for w >= g
-// 14.4 KB at K = 256, 162 KB at K = 1024 (under the opt-in 227 KB).
+// 15.4 KB at K = 256, 166 KB at K = 1024 (under the opt-in 227 KB).
 //
 // Limits: 1 <= K <= 1024 and B >= 1 (the wrapper checks both).  The launch
 // goes on the given stream, allocates nothing and never synchronises.
@@ -113,21 +113,40 @@ __host__ __device__ inline int pairs(int W) { return W * (W + 1) / 2; }
 
 __host__ __device__ inline size_t smem_bytes(int K) {
   const size_t W = words(K), Kp = 32 * W, S = Kp + 1, items = 4 * pairs((int)W);
-  return 16 * Kp + 4 * Kp + 4 * 3 * kMaxW + 4 * items + 4 * W * S + ((2 * pairs((int)W) + 3) & ~(size_t)3);
+  return 16 * Kp + 8 * Kp + 4 * 3 * kMaxW + 4 * items + 4 * W * S + ((2 * pairs((int)W) + 3) & ~(size_t)3);
 }
 
 // The union of `pairwise_iou` as compiled XLA computes it: fma(w_b, h_b,
-// area_a) - inter, one rounding for the fma.
-__device__ __forceinline__ float contracted_union(float area_a, float4 b, float inter) {
-  return __fsub_rn(__fmaf_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y), area_a), inter);
+// area_a) - inter, one rounding for the fma; wh_b = (w_b, h_b).
+__device__ __forceinline__ float contracted_union(float area_a, float2 wh_b, float inter) {
+  return __fsub_rn(__fmaf_rn(wh_b.x, wh_b.y, area_a), inter);
+}
+
+// The 32-bit shared::cluster address of `p` in rank 0's shared memory (a
+// block's own shared::cta address is one, for a cluster of 1), and stores
+// through such addresses.  A generic pointer to another block's shared
+// memory (`map_shared_rank`) is 64 bits from the shared window's base,
+// whose special-register reads the compiler hoisted above the loads.
+__device__ __forceinline__ unsigned rank0_addr(const void* p, bool clustered) {
+  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if (clustered) asm("mapa.shared::cluster.u32 %0, %1, 0;" : "=r"(a) : "r"(a));
+  return a;
+}
+
+__device__ __forceinline__ void st_cluster_u8(unsigned addr, unsigned v) {
+  asm volatile("st.shared::cluster.u8 [%0], %1;" ::"r"(addr), "h"((unsigned short)(v & 0xffu)) : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_u32(unsigned addr, unsigned v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
 }
 
 // iou(a, b) > thr, as the jitted `pairwise_iou` decides it, with the exact division.
-__device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b, float thr) {
+__device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b, float2 wh_b, float thr) {
   const float iw = __fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x));
   const float ih = __fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y));
   const float inter = (iw > 0.0f && ih > 0.0f) ? __fmul_rn(iw, ih) : 0.0f;
-  const float uni = contracted_union(area_a, b, inter);
+  const float uni = contracted_union(area_a, wh_b, inter);
   return (uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f) > thr;
 }
 
@@ -139,8 +158,8 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
   const unsigned rank = cluster.block_rank(), csize = cluster.num_blocks();
   const int W = words(K), Kp = W << 5, S = Kp + 1, P = pairs(W), items = P << 2;
   float4* s_box = reinterpret_cast<float4*>(smem);
-  float* s_area = reinterpret_cast<float*>(s_box + Kp);
-  unsigned* s_alive = reinterpret_cast<unsigned*>(s_area + Kp);
+  float2* s_wh = reinterpret_cast<float2*>(s_box + Kp);
+  unsigned* s_alive = reinterpret_cast<unsigned*>(s_wh + Kp);
   unsigned* s_ok = s_alive + kMaxW;
   unsigned* s_nzg = s_ok + kMaxW;
   unsigned* s_nz = s_nzg + kMaxW;
@@ -165,10 +184,11 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
             : make_float4(bx[4 * tid], bx[4 * tid + 1], bx[4 * tid + 2], bx[4 * tid + 3]);
     score = sc[tid];
   }
-  const float area = __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
+  const float2 wh = make_float2(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
+  const float area = __fmul_rn(wh.x, wh.y);
   if (tid < Kp) {
     s_box[tid] = b;
-    s_area[tid] = area;
+    s_wh[tid] = wh;
   }
   const unsigned alive = __ballot_sync(kFull, tid < K && score > 0.0f);  // NaN is dead
   const unsigned ok = __ballot_sync(kFull, area >= kAreaLo && area <= kAreaHi);
@@ -187,8 +207,7 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
   // Mask build.  Item (g, w, q): rows 32 g + lane, columns 32 w + 8 q + k,
   // one byte of word w of each row into rank 0's mask, and into rank 0's
   // nz slot of the item the rows with a bit set (0 for a skipped item).
-  unsigned* mask0 = csize > 1 ? cluster.map_shared_rank(s_mask, 0) : s_mask;
-  unsigned* nz0 = csize > 1 ? cluster.map_shared_rank(s_nz, 0) : s_nz;
+  const unsigned mask0 = rank0_addr(s_mask, csize > 1), nz0 = rank0_addr(s_nz, csize > 1);
   const bool fast = thr >= kThrLo && thr <= kThrHi;
   const float hi = __fmul_rn(thr, 1.0f + kMargin), lo = __fmul_rn(thr, 1.0f - kMargin);
   for (int it = warp * (int)csize + (int)rank; it < items; it += (int)csize * kWarps) {
@@ -198,7 +217,8 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
     if (((s_alive[w] >> (q << 3)) & 0xffu) != 0u && s_alive[g] != 0u) {
       const int i = (g << 5) + lane, j0 = (w << 5) + (q << 3);
       const float4 a = s_box[i];
-      const float area_a = s_area[i];
+      const float2 wh_a = s_wh[i];
+      const float area_a = __fmul_rn(wh_a.x, wh_a.y);
       unsigned bits = 0u, slow = 0xffu;
       if (fast && ((s_ok[w] >> (q << 3)) & 0xffu) == 0xffu) {  // warp-uniform
         unsigned open = 0u;
@@ -208,7 +228,7 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
           const float iw = __fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x));
           const float ih = __fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y));
           const float inter = (iw > 0.0f && ih > 0.0f) ? __fmul_rn(iw, ih) : 0.0f;
-          const float uni = contracted_union(area_a, c, inter);
+          const float uni = contracted_union(area_a, s_wh[j0 + k], inter);
           const bool above = inter > __fmul_rn(uni, hi), below = inter < __fmul_rn(uni, lo);
           if (above) bits |= 1u << k;
           if (!(above || below)) open |= 1u << k;
@@ -220,14 +240,14 @@ nms_keep_kernel(const float* __restrict__ boxes, const float* __restrict__ score
           const int k = __ffs(slow) - 1;
           slow &= slow - 1u;
           const unsigned bit = 1u << k;
-          bits = iou_above(a, area_a, s_box[j0 + k], thr) ? bits | bit : bits & ~bit;
+          bits = iou_above(a, area_a, s_box[j0 + k], s_wh[j0 + k], thr) ? bits | bit : bits & ~bit;
         }
       }
       if (w == g) bits &= ~((2u << lane) - 1u) >> (q << 3);  // only j > i
-      reinterpret_cast<unsigned char*>(mask0 + (size_t)w * S + i)[q] = (unsigned char)bits;
+      st_cluster_u8(mask0 + 4u * (unsigned)(w * S + i) + (unsigned)q, bits);
       rows = __ballot_sync(kFull, bits != 0u);
     }
-    if (lane == 0) nz0[it] = rows;
+    if (lane == 0) st_cluster_u32(nz0 + 4u * (unsigned)it, rows);
   }
   if (csize > 1) {
     cluster.sync();  // the whole mask in rank 0

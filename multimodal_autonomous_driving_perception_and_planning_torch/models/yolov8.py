@@ -32,7 +32,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..ops.nms import nms
-from ..pipeline import _resolve_device
+from ..utils.device import resolve_device
 
 # depth multiple, width multiple, max-channel cap.
 YOLOV8_VARIANTS = {
@@ -446,7 +446,7 @@ def make_yolo_detector(
     tail stay float32.  ``pre_topk`` bounds the NMS candidate pool (top-K by
     score out of the 8400 anchors at 640).
     """
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     model = YOLOv8(num_classes=num_classes, variant=variant, dtype=compute_dtype)
     taxonomy = taxonomy_map(num_classes) if map_to_taxonomy else None
 

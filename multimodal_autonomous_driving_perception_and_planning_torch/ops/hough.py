@@ -250,15 +250,14 @@ def select_peaks(acc: torch.Tensor, vote_threshold: int, max_lines: int):
     """The strongest ``max_lines`` peaks: every 5x5 peak in scan order into
     a pool of max(4 max_lines, 256), then the pool's top ``max_lines`` by
     votes, ties in pool (scan) order as lax.top_k.  Returns (votes (L,)
-    int32, flat bin (L,) int64, pool overflow () bool, the peak mask, the
-    pool's indices and validity)."""
+    int32, flat bin (L,) int64, pool overflow () bool)."""
     is_peak = _peaks(acc, vote_threshold)
     pool_size = max(4 * max_lines, 256)
     pool_idx, pool_valid, total_peaks = compact_mask(is_peak.reshape(-1), pool_size)
     pool_scores = torch.where(pool_valid, acc.reshape(-1)[pool_idx.long()], 0)
     scores, in_pool = torch.sort(pool_scores, descending=True, stable=True)
     flat_idx = pool_idx[in_pool[:max_lines]].long()
-    return scores[:max_lines], flat_idx, total_peaks > pool_size, is_peak, pool_idx, pool_valid
+    return scores[:max_lines], flat_idx, total_peaks > pool_size
 
 
 def segments_from_peaks(x, y, valid, scores, flat_idx, diag: int, num_thetas: int, min_line_length: float,
@@ -338,23 +337,19 @@ def hough_segments(
     edge_capacity: int = 8192,
     row_range=None,
     refine: bool = True,
-    stages: dict | None = None,
 ) -> HoughLines:
     """Dense Hough transform and segment reconstruction of an (H, W) bool
     edge map: rho resolution 1 px, theta resolution pi / ``num_thetas``.
     At most ``edge_capacity`` edge pixels vote (the first in scan order;
     ``edges_overflow`` says when more were set).  ``refine=False`` is the
     feature-only mode: the grid theta's direction and the coarse support.
-    ``stages``: when given, a dict that receives the intermediate tensors
-    (the edge list, accumulator, peak mask, pool) for checks."""
+    The stages (`compact_edges`, `vote`, `select_peaks`,
+    `segments_from_peaks`) are public, for checks of their own."""
     h, w = edges.shape
     diag = int(math.ceil(math.sqrt(h * h + w * w)))
     x, y, valid, n_edges = compact_edges(edges, edge_capacity, row_range)
     acc = vote(x, y, valid, num_thetas, diag)
-    scores, flat_idx, overflow, is_peak, pool_idx, pool_valid = select_peaks(acc, vote_threshold, max_lines)
-    if stages is not None:
-        stages.update(x=x, y=y, edge_valid=valid, n_edges=n_edges, acc=acc, is_peak=is_peak,
-                      pool_idx=pool_idx, pool_valid=pool_valid, flat_idx=flat_idx)
+    scores, flat_idx, overflow = select_peaks(acc, vote_threshold, max_lines)
     segments, keep, length = segments_from_peaks(x, y, valid, scores, flat_idx, diag, num_thetas,
                                                  min_line_length, refine)
     return HoughLines(

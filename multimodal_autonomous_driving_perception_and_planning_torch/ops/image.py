@@ -98,15 +98,18 @@ def _shift(a: torch.Tensor, di: int, dj: int) -> torch.Tensor:
 
 # Hysteresis rounds between two reads of the "changed" flag.
 HYSTERESIS_BLOCK = 8
-# Running totals of `canny` calls, hysteresis rounds and host reads, for
-# the profile.
-hysteresis_stats = {"calls": 0, "rounds": 0, "syncs": 0}
 
 
 def canny(gray: torch.Tensor, low, high, hysteresis_iters: int = 64) -> torch.Tensor:
     """Canny edge map (L1 gradient, like cv2.Canny's default) of an (H, W)
     uint8-valued image, with scalar thresholds ``low`` and ``high``
-    (tensors or numbers); an (H, W) bool map.
+    (tensors or numbers); an (H, W) bool map.  See `canny_rounds`."""
+    return canny_rounds(gray, low, high, hysteresis_iters)[0]
+
+
+def canny_rounds(gray: torch.Tensor, low, high, hysteresis_iters: int = 64):
+    """`canny`'s edge map, with the hysteresis rounds it ran and the host
+    reads it made: (edges, rounds, reads).
 
     Hysteresis grows the strong edges through the weak ones to their
     fixpoint, at most ``hysteresis_iters`` rounds, as the JAX package's
@@ -146,10 +149,7 @@ def canny(gray: torch.Tensor, low, high, hysteresis_iters: int = 64) -> torch.Te
         syncs += 1
         if torch.equal(s, before):
             break
-    hysteresis_stats["calls"] += 1
-    hysteresis_stats["rounds"] += rounds
-    hysteresis_stats["syncs"] += syncs
-    return s > 0
+    return s > 0, rounds, syncs
 
 
 def laplacian_variance(gray: torch.Tensor) -> torch.Tensor:

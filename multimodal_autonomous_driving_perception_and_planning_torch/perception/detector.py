@@ -18,7 +18,8 @@ import torch
 
 from ..config import PipelineConfig
 from ..models.yolov8 import make_yolo_detector
-from ..pipeline import _resolve_device, make_sequence_runner
+from ..pipeline import make_sequence_runner
+from ..utils.device import resolve_device
 
 TABLE_KEYS = ("bbox", "class_id", "confidence", "valid")
 
@@ -60,7 +61,7 @@ def make_yolo_frontend(
 ):
     """Build (init_fn, stream_fn): stream_fn(params, frames (T, H, W, 3)) ->
     detection stream dict of (T, D, ...) tensors on the device."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     init_fn, detect_fn = make_yolo_detector(
         variant=variant,
         max_det=cfg.detector.max_detections,
@@ -102,7 +103,7 @@ def make_yolo_sequence_runner(
     frames also go into the pipeline: lanes, scene features and
     frames-mode tags.
     """
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     init_fn, detect_fn = make_yolo_detector(
         variant=variant,
         max_det=cfg.detector.max_detections,

@@ -40,6 +40,7 @@ from ..ops.image import (
     trapezoid_roi_mask,
 )
 from ..types import LaneObservation, LaneState
+from ..utils.device import resolve_device
 
 # jnp.linspace(0, 1, 8) as float32, the fit's sample grid along a segment
 # (two of its values differ from torch.linspace's).
@@ -149,14 +150,12 @@ def make_scene_features(cfg: PipelineConfig):
     """The scene classifier's frame features (scene_classifier.py:145-257):
     a second, fixed-threshold Canny and feature-only Hough pass, at
     1/``scene_downsample`` resolution with its thresholds scaled, plus the
-    HSV green ratio, the brightness and the Laplacian variance.
-
-    ``scene_features(frame, gray, stages=None)``; ``stages``, when given,
-    receives the pass's edge map and Hough intermediates."""
+    HSV green ratio, the brightness and the Laplacian variance:
+    ``scene_features(frame, gray) -> dict``."""
     lc = cfg.lanes
     s = max(1, int(lc.scene_downsample))
 
-    def scene_features(frame: torch.Tensor, gray: torch.Tensor, stages: dict | None = None) -> Dict[str, torch.Tensor]:
+    def scene_features(frame: torch.Tensor, gray: torch.Tensor) -> Dict[str, torch.Tensor]:
         if s > 1:
             gray_s = downsample2_u8(gray) if s == 2 else gray[::s, ::s]
         else:
@@ -164,7 +163,6 @@ def make_scene_features(cfg: PipelineConfig):
         hs, ws = gray_s.shape
         edges2 = canny(gray_s, 50.0, 150.0)
         center_density = mean_bool(edges2[hs // 3 : 2 * hs // 3, ws // 3 : 2 * ws // 3])
-        hough_stages = {} if stages is not None else None
         scene_hl = hough_segments(
             edges2,
             vote_threshold=max(1, 100 // s),
@@ -173,11 +171,7 @@ def make_scene_features(cfg: PipelineConfig):
             max_lines=lc.scene_max_lines,
             edge_capacity=max(256, lc.scene_edge_capacity // (s * s)),
             refine=lc.scene_refine,
-            stages=hough_stages,
         )
-        if stages is not None:
-            stages.update(scene_gray=gray_s, scene_edges=edges2, scene_hough=scene_hl,
-                          **{f"scene_{k}": v for k, v in hough_stages.items()})
         n_lines = scene_hl.valid.to(torch.int32).sum()
         # The float64 sum of at most 32 float32 lengths is exact, so the card
         # and the CPU round one value (XLA sums in float32, an ulp or two away).
@@ -195,14 +189,15 @@ def make_scene_features(cfg: PipelineConfig):
     return scene_features
 
 
-def make_lane_step(cfg: PipelineConfig, device="cpu"):
-    """Build ``lane_step(state, frame, stages=None) -> (state', obs,
-    feats)`` for (H, W, 3) BGR frames on ``device``: the lane fits with
-    their EMA, the LaneObservation, and the scene features.  ``stages``,
-    when given, receives the intermediate tensors for checks."""
+def make_lane_step(cfg: PipelineConfig, device="cuda"):
+    """Build ``lane_step(state, frame) -> (state', obs, feats)`` for
+    (H, W, 3) BGR frames on ``device`` (the card unless the caller asks for
+    ``"cpu"``): the lane fits with their EMA, the LaneObservation, and the
+    scene features."""
+    device = resolve_device(device)
     h, w = cfg.frame_height, cfg.frame_width
     lc = cfg.lanes
-    theta_tables(lc.num_thetas, torch.device(device))  # refuses a grid whose tables are not carried
+    theta_tables(lc.num_thetas, device)  # refuses a grid whose tables are not carried
     roi = torch.as_tensor(
         trapezoid_roi_mask(h, w, lc.roi_bottom_frac, lc.roi_top_frac, lc.roi_top_y_frac), device=device
     )
@@ -221,7 +216,7 @@ def make_lane_step(cfg: PipelineConfig, device="cpu"):
         int-casts the rasterised points)."""
         return torch.trunc(fma32(fit[0] * yb, yb, fit[1] * yb) + fit[2])
 
-    def lane_step(state: LaneState, frame: torch.Tensor, stages: dict | None = None):
+    def lane_step(state: LaneState, frame: torch.Tensor):
         gray = bgr_to_gray_u8(frame)
         blurred = gaussian_blur5_u8(gray)
         med = median_u8(blurred)
@@ -229,7 +224,6 @@ def make_lane_step(cfg: PipelineConfig, device="cpu"):
         high = torch.floor(torch.clamp(c13 * med, max=255.0))
         edges = canny(blurred, low, high)
         masked = edges & roi
-        hough_stages = {} if stages is not None else None
         hl = hough_segments(
             masked,
             vote_threshold=lc.hough_threshold,
@@ -238,7 +232,6 @@ def make_lane_step(cfg: PipelineConfig, device="cpu"):
             max_lines=lc.max_lines,
             edge_capacity=lc.lane_edge_capacity,
             row_range=(int(h * lc.roi_top_y_frac), h),
-            stages=hough_stages,
         )
         (lf, l_found, l_conf), (rf, r_found, r_conf) = _separate_and_fit(
             hl.segments, hl.valid, w, h, min_abs_slope=lc.min_abs_slope
@@ -264,9 +257,6 @@ def make_lane_step(cfg: PipelineConfig, device="cpu"):
             offset_px=offset,
             has_offset=both,
         )
-        if stages is not None:
-            stages.update(gray=gray, blurred=blurred, median=med, low=low, high=high, edges=edges,
-                          lane_hough=hl, **{f"lane_{k}": v for k, v in hough_stages.items()})
-        return new_state, obs, scene_features(frame, gray, stages)
+        return new_state, obs, scene_features(frame, gray)
 
     return lane_step

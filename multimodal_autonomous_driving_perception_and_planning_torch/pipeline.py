@@ -41,25 +41,11 @@ from .types import (
     vehicle_state_from_row,
 )
 from .utils.convert import kalman_model_from_numpy
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "kernels' plain versions on the CPU"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
-    return dev
+from .utils.device import resolve_device
 
 
 def initial_state(cfg: PipelineConfig, device="cuda") -> PipelineState:
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     return PipelineState(
         tracks=TrackTable.empty(cfg.tracker.max_tracks, cfg.tracker.trajectory_length, dev),
         kalman=KalmanState.initial(cfg.estimator.initial_covariance, dev),
@@ -76,7 +62,7 @@ def initial_state(cfg: PipelineConfig, device="cuda") -> PipelineState:
 
 
 def detections_from_arrays(arrs: Dict[str, Any], device="cuda") -> Detections:
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     return Detections(
         bbox=torch.as_tensor(arrs["bbox"], dtype=torch.float32, device=dev),
         class_id=torch.as_tensor(arrs["class_id"], dtype=torch.int32, device=dev),
@@ -235,7 +221,7 @@ def make_pipeline_step(cfg: PipelineConfig, device="cuda"):
     holds the 43 tags with ``enable_tagging``, else nothing; "lane_obs" the
     LaneObservation when the frame gave lanes.
     """
-    frame_step = _make_frame_step(cfg, _resolve_device(device))
+    frame_step = _make_frame_step(cfg, resolve_device(device))
 
     def step(state: PipelineState, inputs: Dict[str, Any]):
         new_state, out, rows = frame_step(state, inputs)
@@ -276,7 +262,7 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
     Returns ``(final_state, outs)``, ``outs`` holding the step's outputs
     with a leading time axis.
     """
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     step = _make_frame_step(cfg, dev)
 
     def as_input(k, v):

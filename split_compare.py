@@ -3,7 +3,7 @@
 and, beside it, for another checkout of the port.
 
     python3 split_compare.py [OTHER_CHECKOUT] [--out FILE]
-    python3 split_compare.py --resources [OTHER_CHECKOUT]
+    python3 split_compare.py --resources [--sass-dir DIR] [OTHER_CHECKOUT]
 
 Runs, in a fresh process per run, `chip_smoke.measure_split` (the launch
 floor, each wrapper's host split, and each kernel's device time on inputs
@@ -26,8 +26,11 @@ and, with --out, writes them all to FILE.
 
 With --resources it prints instead, once a checkout, each kernel's
 registers a thread and its stack, static shared and spilled bytes, as
-``cuobjdump -res-usage`` reads them from the built library.  Needs a card
-and the CUDA toolkit.
+``cuobjdump -res-usage`` reads them from the built library, and the count
+of its SASS instructions by opcode (``cuobjdump -sass``); with
+``--sass-dir DIR`` it also writes each kernel's listing to
+DIR/<run>_<kernel>.sass, for a diff of the two checkouts' code.  Needs a
+card and the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import re
 import subprocess
 import sys
 import tempfile
+from collections import Counter
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -77,7 +81,30 @@ def kernel_resources(smoke) -> dict:
                 usage[name] = {k.lower(): int(m.group(1)) for k, m in fields.items() if m}
     if set(usage) != set(smoke.KERNEL_MODULES):
         raise AssertionError(f"cuobjdump reported {sorted(usage)}, expected {sorted(smoke.KERNEL_MODULES)}")
-    return usage
+    return usage, files, tool
+
+
+def kernel_sass(smoke, files, tool) -> dict:
+    """Each kernel's SASS listing (``cuobjdump -sass``), one instruction a
+    line."""
+    listings, name = {}, None
+    for f in files:
+        text = subprocess.run([tool, "-sass", f], check=True, capture_output=True, text=True).stdout
+        for line in text.splitlines():
+            function = re.search(r"Function : (\S+)", line)
+            if function:
+                name = next((k for k in smoke.KERNEL_MODULES if f"{k}_kernel" in function.group(1)), None)
+            elif name:
+                ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);", line)
+                if ins:
+                    listings.setdefault(name, []).append(ins.group(1).strip())
+    return listings
+
+
+def opcode_counts(listing) -> dict:
+    """Instructions by opcode (the predicate and the modifiers dropped)."""
+    ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0] for ins in listing)
+    return dict(sorted(ops.items(), key=lambda kv: (-kv[1], kv[0])))
 
 
 def dense_fork(smoke, device, inputs) -> dict:
@@ -155,7 +182,7 @@ def single_block_fork(smoke, device, pools) -> dict:
     return result
 
 
-def run_one(label: str, resources: bool) -> dict:
+def run_one(label: str, resources: bool, sass_dir: Path | None = None) -> dict:
     """One run in this process: see the module's docstring."""
     import time
 
@@ -168,7 +195,14 @@ def run_one(label: str, resources: bool) -> dict:
     smoke.build.kernels()
     result = {"package": smoke.pt.__file__, "card": card, "build_s": time.perf_counter() - t0}
     if resources:
-        return {**result, "resources": kernel_resources(smoke)}
+        usage, files, tool = kernel_resources(smoke)
+        listings = kernel_sass(smoke, files, tool)
+        if sass_dir is not None:
+            sass_dir.mkdir(parents=True, exist_ok=True)
+            for k, listing in listings.items():
+                (sass_dir / f"{label}_{k}.sass").write_text("\n".join(listing) + "\n")
+        sass = {k: {"instructions": len(v), "opcodes": opcode_counts(v)} for k, v in listings.items()}
+        return {**result, "resources": usage, "sass": sass}
     device, inputs = torch.device("cuda"), smoke.synthetic_inputs()
     pools = smoke.nms_pools_from(smoke.yolo_chunk_candidates(device))
     result.update(split=smoke.measure_split(device, inputs, pools), kernels=smoke.measure_kernels(device, inputs),
@@ -179,8 +213,9 @@ def run_one(label: str, resources: bool) -> dict:
     return result
 
 
-def run(label: str, checkout: Path, resources: bool) -> dict:
+def run(label: str, checkout: Path, resources: bool, sass_dir: Path | None = None) -> dict:
     cmd = [sys.executable, str(HERE / "split_compare.py"), "--run-one", label] + (["--resources"] if resources else [])
+    cmd += ["--sass-dir", str(sass_dir)] if sass_dir is not None else []
     out = subprocess.run(cmd, cwd=checkout, check=True, capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(checkout)})
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -191,8 +226,13 @@ def main(argv) -> int:
     resources = "--resources" in args
     if resources:
         args.remove("--resources")
+    sass_dir = None
+    if "--sass-dir" in args:
+        i = args.index("--sass-dir")
+        sass_dir = Path(args[i + 1]).resolve()
+        del args[i:i + 2]
     if "--run-one" in args:
-        print(json.dumps(run_one(args[args.index("--run-one") + 1], resources)))
+        print(json.dumps(run_one(args[args.index("--run-one") + 1], resources, sass_dir)))
         return 0
     out_file = None
     if "--out" in args:
@@ -206,7 +246,7 @@ def main(argv) -> int:
         order = [("other", other), ("this", HERE), ("this", HERE), ("other", other)] if other else [("this", HERE)]
     results = []
     for label, checkout in order:
-        result = {"run": label, **run(label, checkout, resources)}
+        result = {"run": label, **run(label, checkout, resources, sass_dir)}
         print(json.dumps(result), flush=True)
         results.append(result)
     if out_file is not None:

@@ -10,11 +10,10 @@ flags, the offset and every discrete tag.  Floats: the track and plan
 outputs and the float tags within atol 1e-4 (TTC within rtol 1e-5); the
 lane fits by the x they give at rows h, 0.8h and 0.6h within 1e-3 px, the
 linear and constant coefficients within rtol 1e-4, and the curvature
-coefficient by its share of x at the bottom row within 1e-3 px: it is
-about 1e-6 to 1e-5 on these nearly straight lanes, and XLA's own float32
-value of it stands 5e-4 (relative) from the float64 fit, as its normal
-equations are 512-term FMA chains whose rounding the port's tensor sums
-do not replay (PERF.md section 2).
+coefficient within rtol 1e-3 and by its share of x at the bottom row
+within 1e-3 px: it is about 1e-6 to 1e-5 on these nearly straight lanes,
+where float32 rounding at the scale of x moves it by up to 7e-4 relative
+(tests/test_torch_lanes.py::test_curvature_gap_follows_its_conditioning).
 
 Also here: the per-frame step against the runner, the port's numpy
 generator against the JAX package's cv2 one, and the YOLO runner with
@@ -46,6 +45,7 @@ ATOL = 1e-4
 TTC_RTOL = 1e-5
 X_ATOL = 1e-3
 FIT_RTOL = 1e-4
+CURVATURE_RTOL = 1e-3
 DISCRETE = ("track_id", "track_class_id", "track_hits", "track_misses", "track_age", "track_vel_count",
             "confirmed_order", "num_confirmed", "match", "plan_best")
 FLOAT = ("track_bbox", "track_confidence", "track_velocity", "plan_costs", "plan_best_positions",
@@ -127,6 +127,7 @@ def assert_lane_obs_match(got, want):
             xb = b[:, 0].astype(np.float64) * y * y + b[:, 1].astype(np.float64) * y + b[:, 2]
             np.testing.assert_allclose(xa, xb, rtol=0, atol=X_ATOL, err_msg=f"{k} x at row {y}")
         np.testing.assert_allclose(a[:, 1:], b[:, 1:], rtol=FIT_RTOL, atol=0, err_msg=f"{k} b, c")
+        np.testing.assert_allclose(a[:, 0], b[:, 0], rtol=CURVATURE_RTOL, atol=0, err_msg=f"{k} a")
         np.testing.assert_allclose(a[:, 0] * H * H, b[:, 0] * H * H, rtol=0, atol=X_ATOL, err_msg=f"{k} a h^2")
 
 

@@ -242,18 +242,19 @@ def test_lane_pass_matches_jax(frame_edges, name):
     atol 1e-4.  The accumulator equals a numpy histogram of compiled
     JAX's rounded ``rho`` over the port's edge list."""
     edges = frame_edges[name][0]
-    stages = {}
-    got = ht.hough_segments(torch.as_tensor(edges), refine=True, stages=stages, **LANE_KW)
+    got = ht.hough_segments(torch.as_tensor(edges), refine=True, **LANE_KW)
     want = _jax_hough(refine=True, **LANE_KW)(jnp.asarray(edges))
     _assert_lines_match(got, want, exact_floats=False)
-    x, y, v = (stages[k].numpy() for k in ("x", "y", "edge_valid"))
+    x, y, v, _ = ht.compact_edges(torch.as_tensor(edges), LANE_KW["edge_capacity"], LANE_KW["row_range"])
+    acc = ht.vote(x, y, v, 180, 800)
+    x, y, v = x.numpy(), y.numpy(), v.numpy()
     rho_j = np.asarray(jax.jit(
         lambda x, y: jnp.cos(_theta_grid())[:, None] * x[None, :] + jnp.sin(_theta_grid())[:, None] * y[None, :]
     )(x, y))
     bins = np.round(rho_j).astype(np.int64) + 800
     hist = np.zeros((180, 1601), np.int64)
     np.add.at(hist, (np.broadcast_to(np.arange(180)[:, None], bins.shape)[:, v], bins[:, v]), 1)
-    np.testing.assert_array_equal(stages["acc"].numpy(), hist)
+    np.testing.assert_array_equal(acc.numpy(), hist)
     if name == "road":
         assert got.valid.any() and not bool(got.edges_overflow)
     else:
@@ -294,11 +295,14 @@ def test_line_near_the_theta_wrap():
     edges[rows, (100 + (rows - 10) * 0.02).astype(int)] = True  # slightly tilted: theta ~179
     edges[rows, (130 - (rows - 10) * 0.02).astype(int)] = True  # the other way: theta ~1
     kw = dict(vote_threshold=20, min_line_length=20.0, num_thetas=180, max_lines=16, edge_capacity=512)
-    stages = {}
-    got = ht.hough_segments(torch.as_tensor(edges), stages=stages, **kw)
+    got = ht.hough_segments(torch.as_tensor(edges), **kw)
     want = _jax_hough(refine=True, **kw)(jnp.asarray(edges))
     _assert_lines_match(got, want, exact_floats=False)
-    theta = stages["flat_idx"].numpy()[got.valid.numpy()] // stages["acc"].shape[1]
+    x, y, v, _ = ht.compact_edges(torch.as_tensor(edges), kw["edge_capacity"])
+    acc = ht.vote(x, y, v, 180, 200)  # ceil(hypot(120, 160)) = 200
+    scores, flat_idx, _ = ht.select_peaks(acc, kw["vote_threshold"], kw["max_lines"])
+    np.testing.assert_array_equal(scores.numpy(), got.votes.numpy())
+    theta = flat_idx.numpy()[got.valid.numpy()] // acc.shape[1]
     assert (theta == 0).any() and (theta > 170).any()
     got, want = _both(edges, refine=False, **kw)
     _assert_lines_match(got, want, exact_floats=True)
