@@ -68,14 +68,32 @@ Phases, each printing one JSON line:
      ``use_frames=True`` in bf16, against the frames runner on its own
      tables, and its lanes and frame-decided tags against the frames
      path's;
- 15. times: each kernel and its plain version by CUDA events at its path's
+ 15. the lane axis: K1, K2 and K3 at B = 1, 8 and 64 lanes a launch, each
+     lane on its own random stream, against each lane's B = 1 launch (bit
+     for bit) and plain version (`lane_kernels`; at B = 8 also rings of 63
+     slots, off 16-byte alignment, and K3 in frames mode at (128, 64));
+ 16. the batched path: the tagging path over 8 distinct streams in one
+     `make_batched_sequence_runner`, each lane against its own unbatched
+     card run, one launch of K1, K2 and K3 a frame for all lanes;
+ 17. the multi-camera path: `parallel.mesh.make_multicamera_runner` over 8
+     cameras in the main path's configuration, each camera against its
+     own card run, the fleet count against the sum over cameras;
+ 18. the serve path: the port's server (`apps.serve`, --batch 8, 64-frame
+     chunks) on the card under ``tools/serve_loadgen.py --sessions 8
+     --chunks 4`` in a subprocess, whose JSON line it prints: no error,
+     one launch of K1-K3 a frame of each batched run; then one served
+     chunk against the runner;
+ 19. the per-agent Kalman bank over 300 frames x 64 agents against the CPU;
+ 20. times: each kernel and its plain version by CUDA events at its path's
      shapes, beside the kernel's bound; the launch floor (`floor_ms`, a
      one-element add's device time) and where K1's to K5's time goes
      (`split`: each wrapper's host split, each kernel on inputs that take
      one part of its work away, K5 with the cluster size each launch
      takes); the frames/s of the main, tagging and frames paths, timed in
      turns; the lane step's device time by stage (`lane_split`); the YOLO
-     detection chunk by stage and the YOLO path's frames/s in both dtypes.
+     detection chunk by stage and the YOLO path's frames/s in both dtypes;
+     then (`lane_times`) K1-K3 at B = 1, 8 and 64 beside their bounds, and
+     the tagging path's lane-frames/s at B = 1, 8 and 64, in turns.
 Then the script's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Without a card it exits 1 at once.
@@ -151,6 +169,7 @@ from multimodal_autonomous_driving_perception_and_planning_torch.types import (
     VEHICLE_STATE_FIELDS,
     TrackTable,
     VehicleState,
+    vehicle_state_from_row,
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.utils.convert import (
     kalman_model_from_numpy,
@@ -1629,7 +1648,8 @@ def time_cuda(fn, reps: int, warmup: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def traced_device_us(run, kernel_names, reps: int, warm: bool = True, tries: int = 3) -> dict:
+def traced_device_us(run, kernel_names, reps: int, warm: bool = True, tries: int = 3,
+                     min_seen: int | None = None) -> dict:
     """Device microseconds of each launch of each kernel in
     ``kernel_names`` (a part of its name in the trace; "" takes every
     kernel) while ``run()`` launches each ``reps`` times, from one profiler
@@ -1637,7 +1657,8 @@ def traced_device_us(run, kernel_names, reps: int, warm: bool = True, tries: int
     so with ``warm`` a small copy goes first, and a kernel may show one
     launch short.  The tracer also drops a few records now and then (3 of
     100 once, on an H100), so a trace that shows fewer is taken again, up
-    to ``tries`` traces in all."""
+    to ``tries`` traces in all; with ``min_seen``, a trace that shows at
+    least that many launches of each kernel is kept."""
     for attempt in range(tries):
         with torch.profiler.profile(activities=PROFILED) as prof:
             if warm:
@@ -1647,14 +1668,15 @@ def traced_device_us(run, kernel_names, reps: int, warm: bool = True, tries: int
             torch.cuda.synchronize()
         on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         times = {k: [e.time_range.elapsed_us() for e in on_device if k in e.name] for k in kernel_names}
-        short = {k: len(t) for k, t in times.items() if not reps - 1 <= len(t) <= reps}
+        least = reps - 1 if min_seen is None else min_seen
+        short = {k: len(t) for k, t in times.items() if not least <= len(t) <= reps}
         if not short:
             return times
         print(f"# trace {attempt + 1} of {tries} saw {short} launches, expected {reps}", file=sys.stderr)
     raise AssertionError(f"the profiler saw {short} launches, expected {reps}, in each of {tries} traces")
 
 
-def device_times(launchers: dict, reps: int = 100) -> dict:
+def device_times(launchers: dict, reps: int = 100, min_seen: int | None = None) -> dict:
     """Mean device time of each kernel over ``reps`` calls of its launcher,
     from one profiler trace of the card, and the launches the trace saw.
     ``launchers`` maps a name to the launch function and the kernel's name
@@ -1665,7 +1687,7 @@ def device_times(launchers: dict, reps: int = 100) -> dict:
             for _ in range(reps):
                 fn()
 
-    times = traced_device_us(run, {k for _, k in launchers.values()}, reps)
+    times = traced_device_us(run, {k for _, k in launchers.values()}, reps, min_seen=min_seen)
     return {name: (sum(times[k]) / len(times[k]) / 1e3, len(times[k])) for name, (_, k) in launchers.items()}
 
 
@@ -1719,6 +1741,15 @@ def host_split(fn, reps: int = 2000, top: int = 8) -> dict:
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _tensors(out) -> list:
+    """The tensors of a wrapper's result (tuples and tables of them)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if dataclasses.is_dataclass(out):
+        return [t for f in dataclasses.fields(out) for t in _tensors(getattr(out, f.name))]
+    return [t for o in out for t in _tensors(o)]
 
 
 def _table_tensors(table):
@@ -1943,8 +1974,10 @@ def measure_kernels(device, inputs: dict, reps: int = 2000) -> dict:
 
     est = cfg.estimator
     ks, model, z, has = kalman_state(device, inputs)
-    x, P, vs = kalman_kernel.kalman_step(ks, model, z, has, est.dt, est.speed_heading_hold)
-    k2_bytes = _nbytes(ks.x, ks.P, ks.time, ks.prev_heading, z, has, model.F, model.Q, model.R) + _nbytes(x, P, vs)
+    out = kalman_kernel.kalman_step(ks, model, z, has, est.dt, est.speed_heading_hold)
+    k2_bytes = _nbytes(ks.x, ks.P, ks.time, ks.prev_heading, z, has, model.F, model.Q, model.R) + _nbytes(
+        *_tensors(out)
+    )
     # Float64 operations of a measured step, counted from the
     # kernel's loops: predict 573, first extraction 4, innovation covariance
     # and Cholesky 46, gain 192, state update 58, Joseph form 1416, reported
@@ -2314,6 +2347,481 @@ def measure_yolo(device, params: dict, frames, ego, rounds: int = 2, reps: int =
     return result
 
 
+# --- the lane axis: K1-K3 over B lanes, the batched runner, the multi-camera
+# runner, the server, the Kalman bank --------------------------------------
+
+LANE_COUNTS = (1, 8, 64)
+LANE_STEPS = {1: 12, 8: 12, 64: 6}  # steps of each lane check (the plain version runs lane by lane)
+BATCHED_LANES = 8  # the server's --batch, the batched path's and the multi-camera path's lanes
+PLANNER_FLOATS = ("plan_costs", "plan_best_positions", "plan_best_velocities")
+SERVE_CHUNK, SERVE_SESSIONS, SERVE_CHUNKS = 64, 8, 4
+
+
+def _lane_ops():
+    """The port's lane helpers, imported when called, so that
+    `split_compare.py` can load this script against a checkout without them."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.types import lane_of, stack_lanes
+
+    return lane_of, stack_lanes
+
+
+def _assert_same(label: str, got, want) -> None:
+    """Every tensor of ``got`` equal to ``want``'s, dtypes and bits."""
+    for i, (a, b) in enumerate(zip(_tensors(got), _tensors(want), strict=True)):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{label}: output {i} differs")
+
+
+def _lane_tracker_case(name, cfg, B, steps, d_cap, device, seed) -> dict:
+    """K1 over B lanes of distinct random streams, each step from the plain
+    chain's tables: the batched launch equal to each lane's plain step and
+    to each lane's B = 1 launch, every output, bit for bit."""
+    lane_of, stack_lanes = _lane_ops()
+    rngs = [np.random.default_rng(seed + 1000 * b) for b in range(B)]
+    tables = [TrackTable.empty(cfg.max_tracks, cfg.trajectory_length, device)] * B
+    matched = 0
+    for step in range(steps):
+        dets = [random_dets(rng, d_cap, device) for rng in rngs]
+        got = tracker_kernel.tracker_step(stack_lanes(tables), stack_lanes(dets), cfg, cfg.min_hits)
+        want = [plain_tracker_step(t, d, cfg) for t, d in zip(tables, dets)]
+        ones = [tracker_kernel.tracker_step(t, d, cfg, cfg.min_hits) for t, d in zip(tables, dets)]
+        _assert_same(f"K1 {name} B={B} step {step} against the plain version", got, stack_lanes(want))
+        _assert_same(f"K1 {name} B={B} step {step} against B = 1 launches", got, stack_lanes(ones))
+        tables = [w[0] for w in want]
+        matched += int((got[1] >= 0).sum())
+    return {"case": name, "B": B, "steps": steps, "matches": matched}
+
+
+def _lane_kalman_case(B, steps, device, seed) -> dict:
+    """K2 over B lanes of distinct ego streams (some frames unmeasured),
+    each step from the plain chain's states: the batched launch bit for bit
+    each lane's B = 1 launch, and within K2's bounds of the plain step."""
+    lane_of, stack_lanes = _lane_ops()
+    cfg = pt.DEFAULT_CONFIG.estimator
+    model = kalman_model_from_numpy(
+        *make_constant_accel_model(cfg.dt, cfg.process_noise, cfg.measurement_noise, cfg.accel_noise_scale),
+        device=device,
+    )
+    ego = torch.tensor(np.stack([ego_motion_stream(steps, dt=cfg.dt, seed=seed + b) for b in range(B)]),
+                       dtype=torch.float32, device=device)
+    has = torch.tensor(np.random.default_rng(seed).random((B, steps)) < 0.85, device=device)
+    states = [KalmanState.initial(cfg.initial_covariance, device)] * B
+    worst = 0.0
+    for f in range(steps):
+        z, h = ego[:, f].contiguous(), has[:, f].contiguous()
+        got = kalman_kernel.kalman_step(stack_lanes(states), model, z, h, cfg.dt, cfg.speed_heading_hold)
+        ones = [kalman_kernel.kalman_step(s, model, z[b], h[b], cfg.dt, cfg.speed_heading_hold)
+                for b, s in enumerate(states)]
+        _assert_same(f"K2 B={B} frame {f} against B = 1 launches", got, stack_lanes(ones))
+        for b, s in enumerate(states):
+            want_ks, want_vs = _estimator_step_xla(s, model, z[b], h[b], cfg)
+            got_ks, got_vs = lane_of(got[0], b), vehicle_state_from_row(got[1][b])
+            checks = [(got_ks.x, want_ks.x, 1.0), (got_ks.P, want_ks.P, 1.0)] + [
+                (getattr(got_vs, n), getattr(want_vs, n), cfg.dt if n in ("acceleration", "yaw_rate") else 1.0)
+                for n in VEHICLE_STATE_FIELDS
+            ]
+            for a, w, scale in checks:
+                ok, err = _kalman_close(a, w, scale)
+                worst = max(worst, err)
+                if not ok:
+                    raise AssertionError(f"K2 B={B} frame {f} lane {b}: {a.tolist()} vs plain {w.tolist()}")
+            states[b] = want_ks
+    return {"case": "ego_streams", "B": B, "steps": steps, "unmeasured": int((~has).sum()), "max_abs_err": worst}
+
+
+def _lane_tagging_case(name, cfg, B, steps, d_cap, frames_mode, device, seed) -> dict:
+    """K3 over B lanes of distinct random frames, each step from the plain
+    chain's states: the batched launch bit for bit each lane's B = 1
+    launch (rows and state), its discrete tags and state equal to the plain
+    version's and its floats within K3's bounds."""
+    lane_of, stack_lanes = _lane_ops()
+    rules = TaggingRules.from_config(cfg)
+    T = rules.max_tracks
+    rngs = [np.random.default_rng(seed + 1000 * b) for b in range(B)]
+    states = [TaggingState.initial(rules.window, rules.history, T, device,
+                                   interaction_history=rules.interaction_history)] * B
+    worst = 0.0
+    for f in range(steps):
+        frames = [random_tagging_frame(rng, f, T, d_cap, device) for rng in rngs]
+        lanes = [random_lane_feats(rng, device) if frames_mode else (None, None) for rng in rngs]
+        lane_rows = feat_rows = None
+        if frames_mode:
+            lane_rows = torch.stack([torch.cat([l.left_fit, l.right_fit, torch.stack([l.left_found, l.right_found]).float()])
+                                     for l, _ in lanes])
+            feat_rows = torch.stack([torch.stack([fe[k].float() for k in (
+                "center_edge_density", "num_long_lines", "avg_line_length", "green_ratio", "brightness",
+                "laplacian_var")]) for _, fe in lanes])
+        dets, tables, vrows = (stack_lanes([fr[i] for fr in frames]) for i in range(3))
+        got = tagging_kernel.tagging_step(rules, stack_lanes(states), dets, tables, vrows, lane_rows, feat_rows)
+        ones = [tagging_kernel.tagging_step(rules, s, *frames[b],
+                                            None if lane_rows is None else lane_rows[b],
+                                            None if feat_rows is None else feat_rows[b])
+                for b, s in enumerate(states)]
+        _assert_same(f"K3 {name} B={B} frame {f} against B = 1 launches", got, stack_lanes(ones))
+        for b, s in enumerate(states):
+            want = tagging_step_plain(rules, s, *frames[b], *lanes[b])
+            got_b = lane_of(got, b)
+            for a, w in zip(_tensors(got_b), _tensors(want), strict=True):
+                if a.dtype != w.dtype or a.shape != w.shape:
+                    raise AssertionError(f"K3 {name} B={B} frame {f} lane {b}: {a.dtype} {tuple(a.shape)}")
+                if w.is_floating_point():
+                    err = _max_abs(a, w)
+                    worst = max(worst, err)
+                    if not err <= K3_ATOL:
+                        raise AssertionError(f"K3 {name} B={B} frame {f} lane {b}: off by {err}")
+                elif not torch.equal(a, w):
+                    raise AssertionError(f"K3 {name} B={B} frame {f} lane {b}: differs from the plain version")
+            states[b] = want[0]
+    return {"case": name, "B": B, "steps": steps, "max_abs_err": worst}
+
+
+def check_lane_kernels(device, lane_counts=LANE_COUNTS, steps: dict | None = None) -> list:
+    """K1, K2 and K3 at B lanes a launch, each lane on its own stream:
+    every lane equal to its B = 1 launch (bit for bit) and to its plain
+    version (K1 and K3's discrete outputs exact, floats within their
+    bounds); at B = 8 also K1 and K3 on rings of 63 slots (lanes off
+    16-byte alignment), K3 in frames mode at (128, 64)."""
+    steps = steps or LANE_STEPS
+    cfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
+    odd = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=63, trajectory_length=7),
+                      tagging=dataclasses.replace(cfg.tagging, interaction_history=29))
+    dense = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=128))
+    cases = []
+    for B in lane_counts:
+        n = steps[B]
+        cases.append(_lane_tracker_case("churn_64x16", cfg.tracker, B, n, 16, device, 31))
+        cases.append(_lane_kalman_case(B, n, device, 37))
+        cases.append(_lane_tagging_case("detections_64x16", cfg, B, n, 16, False, device, 41))
+        cases.append(_lane_tagging_case("frames_64x16", cfg, B, n, 16, True, device, 43))
+        if B == 8:
+            cases.append(_lane_tracker_case("odd_ring_63x16", odd.tracker, B, n, 16, device, 47))
+            cases.append(_lane_tagging_case("odd_ring_63x16", odd, B, n, 16, False, device, 53))
+            cases.append(_lane_tagging_case("frames_128x64", dense, B, n, 64, True, device, 59))
+    return cases
+
+
+def lane_streams(B: int, num_frames: int = NUM_FRAMES) -> list:
+    """B distinct synthetic streams: the detector's counter phase and the
+    ego noise's seed differ a lane (tests/test_multicamera.py's streams)."""
+    out = []
+    for b in range(B):
+        dets = simulated_detection_stream(num_frames, start_frame_count=1 + 7 * b)
+        ego = ego_motion_stream(num_frames, dt=1.0 / 30.0, seed=b).astype(np.float32)
+        out.append(dict(dets, ego_measurement=ego))
+    return out
+
+
+def _stack_streams(streams: list) -> dict:
+    return {k: np.stack([s[k] for s in streams]) for k in streams[0]}
+
+
+def compare_lane(label: str, got: dict, b: int, want: dict) -> float:
+    """Lane ``b`` of a batched card run against an unbatched card run: every
+    output and tag bit for bit (the kernels run each lane as its B = 1
+    launch does), but the planner's floats, held at MAIN_ATOL (its batched
+    reductions may sum in another order); returns their largest gap."""
+    gap = 0.0
+    for k, w in want.items():
+        if k == "tags":
+            for t, v in w.items():
+                if not torch.equal(got["tags"][t][b], v):
+                    raise AssertionError(f"{label}: lane {b} tag {t} differs from its unbatched run")
+        elif k == "vehicle_state":
+            for f in VEHICLE_STATE_FIELDS:
+                if not torch.equal(getattr(got[k], f)[b], getattr(w, f)):
+                    raise AssertionError(f"{label}: lane {b} vehicle_state.{f} differs from its unbatched run")
+        elif k in PLANNER_FLOATS:
+            err = float((got[k][b] - w).abs().max())
+            gap = max(gap, err)
+            if not err <= MAIN_ATOL:
+                raise AssertionError(f"{label}: lane {b} {k} off by {err}")
+        elif not torch.equal(got[k][b], w):
+            raise AssertionError(f"{label}: lane {b} {k} differs from its unbatched run")
+    return gap
+
+
+def _singles(cfg, device, streams: list) -> list:
+    run = pt.make_sequence_runner(cfg, device=device)
+    return [run(pt.initial_state(cfg, device=device), s) for s in streams]
+
+
+def check_batched_path(device, streams: list) -> dict:
+    """The tagging path at B lanes (`make_batched_sequence_runner`) on the
+    card, its counts zeroed just before and read after: each lane equal to
+    its own unbatched card run, and one launch of K1, K2 and K3 a frame
+    for all lanes."""
+    _, stack_lanes = _lane_ops()
+    cfg = bench_config(True)
+    B, frames = len(streams), streams[0]["bbox"].shape[0]
+    singles = _singles(cfg, device, streams)
+    run = pt.make_batched_sequence_runner(cfg, device=device)
+    state = stack_lanes([pt.initial_state(cfg, device=device)] * B)
+    inputs = _stack_streams(streams)
+    _zero_counts()
+    final, got = run(state, inputs)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    expected = {name: 0 for name in KERNEL_MODULES}
+    expected.update(tracker_step=frames, kalman_step=frames, tagging_step=frames)
+    if launches != expected:
+        raise AssertionError(f"batched path: kernel launches {launches}, expected {expected}")
+    gap = max(compare_lane("batched path", got, b, w) for b, (_, w) in enumerate(singles))
+    for b, (f, _) in enumerate(singles):
+        _assert_same(f"batched path: lane {b}'s final state", _lane_ops()[0](final, b), f)
+    return {"lanes": B, "frames": frames, "launches": launches, "planner_max_abs_gap": gap,
+            "num_confirmed_last": got["num_confirmed"][:, -1].tolist()}
+
+
+def check_multicamera_path(device, streams: list) -> dict:
+    """The multi-camera runner (`parallel.mesh`) on one card over C cameras
+    in the main path's configuration, its counts zeroed just before and
+    read after: each camera equal to its own unbatched card run, the fleet
+    count the sum over cameras."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.parallel.mesh import (
+        make_camera_mesh,
+        make_multicamera_runner,
+        stack_states,
+    )
+
+    cfg = bench_config(False)
+    C, frames = len(streams), streams[0]["bbox"].shape[0]
+    singles = _singles(cfg, device, streams)
+    runner = make_multicamera_runner(cfg, make_camera_mesh(1, device=device))
+    states = stack_states(cfg, C, device=device)
+    inputs = _stack_streams(streams)
+    _zero_counts()
+    _, got, fleet = runner(states, inputs)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    expected = {name: 0 for name in KERNEL_MODULES}
+    expected.update(tracker_step=frames, kalman_step=frames)
+    if launches != expected:
+        raise AssertionError(f"multi-camera path: kernel launches {launches}, expected {expected}")
+    gap = max(compare_lane("multi-camera path", got, c, w) for c, (_, w) in enumerate(singles))
+    fleet = fleet["fleet_confirmed_per_frame"]
+    if not torch.equal(fleet, torch.stack([w["num_confirmed"] for _, w in singles]).sum(0, dtype=torch.int32)):
+        raise AssertionError("multi-camera path: the fleet count is not the sum of the cameras' own counts")
+    return {"cameras": C, "frames": frames, "launches": launches, "planner_max_abs_gap": gap,
+            "fleet_confirmed_last": int(fleet[-1])}
+
+
+SERVED_KEYS = ("track_id", "track_bbox", "track_class_id", "track_confidence", "confirmed_order", "num_confirmed",
+               "plan_best", "plan_best_positions", "plan_best_velocities")
+
+
+def check_serve_path(device) -> dict:
+    """The port's server (`apps.serve`) on the card with --batch 8 and
+    64-frame chunks, driven by ``tools/serve_loadgen.py --sessions 8
+    --chunks 4`` in a subprocess, the counts zeroed just before and read
+    after: no error, and one launch of K1, K2 and K3 a frame of each
+    batched run.  Then one session's chunk over HTTP against the unbatched
+    runner on the card."""
+    import urllib.request
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.apps.serve import _npz_bytes, _npz_load, serve
+
+    cfg = bench_config(True)
+    httpd = serve(cfg=cfg, chunk=SERVE_CHUNK, port=0, block=False, batch=BATCHED_LANES, device=device)
+    ps = httpd.pipeline_server
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        runs0 = ps.batcher.stats()["dispatches"]
+        _zero_counts()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve().parent / "tools" / "serve_loadgen.py"), "--url", url,
+             "--sessions", str(SERVE_SESSIONS), "--chunks", str(SERVE_CHUNKS)],
+            capture_output=True, text=True, timeout=600,
+        )
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        runs = ps.batcher.stats()["dispatches"] - runs0
+        if proc.returncode != 0:
+            raise AssertionError(f"serve path: the load generator exited {proc.returncode}: {proc.stderr[-2000:]}")
+        loadgen = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(loadgen), flush=True)
+        if loadgen["errors"] or loadgen["completed_requests"] != SERVE_SESSIONS * SERVE_CHUNKS:
+            raise AssertionError(f"serve path: {loadgen['completed_requests']} requests, errors {loadgen['errors']}")
+        expected = {name: 0 for name in KERNEL_MODULES}
+        expected.update(tracker_step=runs * SERVE_CHUNK, kalman_step=runs * SERVE_CHUNK,
+                        tagging_step=runs * SERVE_CHUNK)
+        if launches != expected:
+            raise AssertionError(f"serve path: kernel launches {launches}, expected {expected} for {runs} runs")
+
+        chunk = {k: v[:SERVE_CHUNK] for k, v in synthetic_inputs(SERVE_CHUNK).items()}
+        with urllib.request.urlopen(urllib.request.Request(f"{url}/session", method="POST"), timeout=60) as r:
+            sid = json.loads(r.read())["session"]
+        req = urllib.request.Request(f"{url}/infer?session={sid}", data=_npz_bytes(chunk), method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            served = _npz_load(r.read())
+        _, want = pt.make_sequence_runner(cfg, device=device)(pt.initial_state(cfg, device=device), chunk)
+        want_host = {k: want[k].cpu().numpy() for k in SERVED_KEYS}
+        want_host.update({f"tag_{k}": v.cpu().numpy() for k, v in want["tags"].items()})
+        gap = 0.0
+        for k, w in want_host.items():
+            if k in PLANNER_FLOATS:
+                gap = max(gap, float(np.abs(served[k] - w).max()))
+                if not gap <= MAIN_ATOL:
+                    raise AssertionError(f"serve path: the served {k} is off by {gap}")
+            elif served[k].dtype != w.dtype or not np.array_equal(served[k], w):
+                raise AssertionError(f"serve path: the served {k} differs from the runner's")
+        return {"batch": BATCHED_LANES, "chunk": SERVE_CHUNK, "runs": runs, "launches": launches,
+                "loadgen": {k: loadgen[k] for k in ("value", "unit", "completed_requests", "request_latency_ms",
+                                                     "warmup_seconds")},
+                "server_metrics": loadgen["server_metrics"], "session_check": {"planner_max_abs_gap": gap},
+                "device": ps.device.type}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        ps.close()
+
+
+def kalman_bank_workload(T: int = NUM_FRAMES, N: int = 64) -> dict:
+    """benchmarks/suite.py `bench_kalman_bank`'s workload: N agents on
+    drifting paths over T frames."""
+    rng = np.random.default_rng(0)
+    path = np.cumsum(rng.normal(2.0, 0.5, (T, N, 2)), axis=0).astype(np.float32)
+    bbox = np.zeros((T, N, 4), np.float32)
+    bbox[..., 0], bbox[..., 2] = path[..., 0] - 10, path[..., 0] + 10
+    bbox[..., 1], bbox[..., 3] = path[..., 1] - 10, path[..., 1] + 10
+    return {"track_id": np.tile(np.arange(1, N + 1, dtype=np.int32), (T, 1)), "track_bbox": bbox,
+            "track_velocity": np.zeros((T, N, 2), np.float32), "track_vel_count": np.ones((T, N), np.int32)}
+
+
+def check_kalman_bank(device) -> dict:
+    """The per-agent Kalman bank (`tracking.kalman_bank`) on the card over
+    300 frames x 64 agents against the CPU: valid exact, positions and
+    velocities within MAIN_ATOL; its time on the host clock (the bank is
+    torch ops, no kernel of this repository)."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.tracking.kalman_bank import make_kalman_bank
+
+    outs = kalman_bank_workload()
+    N = outs["track_id"].shape[1]
+    cfg = pt.DEFAULT_CONFIG.replace(tracker=dataclasses.replace(pt.DEFAULT_CONFIG.tracker, max_tracks=N))
+    want = make_kalman_bank(cfg, device="cpu")(outs)
+    smooth = make_kalman_bank(cfg, device=device)
+    xs = {k: torch.as_tensor(v).to(device) for k, v in outs.items()}
+    got = smooth(xs)
+    torch.cuda.synchronize()
+    if not torch.equal(got["valid"].cpu(), want["valid"]):
+        raise AssertionError("Kalman bank: valid differs from the CPU's")
+    errs = {k: float((got[k].cpu() - want[k]).abs().max()) for k in ("positions", "velocities")}
+    if not max(errs.values()) <= MAIN_ATOL:
+        raise AssertionError(f"Kalman bank: beyond atol {MAIN_ATOL}: {errs}")
+    seconds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smooth(xs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    frames = outs["track_id"].shape[0]
+    return {"frames": frames, "agents": N, "max_abs_err": errs, "seconds": seconds,
+            "frames_per_s": frames / min(seconds)}
+
+
+def measure_lane_kernels(device, inputs: dict, lane_counts=LANE_COUNTS, reps: int = 500) -> dict:
+    """K1, K2 and K3 at B lanes a launch on the paths' states
+    (`tracker_state`, `kalman_state`, `tagging_state`) repeated over the
+    lanes: each wrapper's ms a call (CUDA events), its kernel's device ms
+    (profiler), and the bound at B lanes: B times one lane's bytes and
+    operations, counted as `measure_kernels` counts them."""
+    _, stack_lanes = _lane_ops()
+    cfg = bench_config()
+    est = cfg.estimator
+    table, dets = tracker_state(device, inputs)
+    ks, model, z, has = kalman_state(device, inputs)
+    rules, tstate, tdets, ttable, vrow = tagging_state(device, inputs)
+    one = tracker_kernel.tracker_step(table, dets, cfg.tracker, cfg.tracker.min_hits)
+    t_cap, d_cap = cfg.tracker.max_tracks, inputs["bbox"].shape[1]
+    k1_bytes = _nbytes(*_table_tensors(table), dets.bbox, dets.class_id, dets.confidence, dets.valid) + _nbytes(
+        *_tensors(one))
+    k1_ops = t_cap * d_cap * (16 + 2 * (int((one[1] >= 0).sum()) + 1)) + 2 * t_cap * t_cap
+    k2_bytes = _nbytes(ks.x, ks.P, ks.time, ks.prev_heading, z, has) + _nbytes(
+        *_tensors(kalman_kernel.kalman_step(ks, model, z, has, est.dt, est.speed_heading_hold)))
+    k2_ops = 573 + 4 + 46 + 192 + 58 + 1416 + 14
+    new_state, tag_f, tag_i = tagging_kernel.tagging_step(rules, tstate, tdets, ttable, vrow)
+    k3_bytes = tagging_bytes(rules, tstate, tdets, ttable, new_state, tag_f, tag_i)
+    k3_ops = tagging_operations(t_cap, d_cap, rules.window, rules.history, rules.interaction_history)
+    shared = _nbytes(model.F, model.Q, model.R)  # K2's model, read once for all lanes
+    result = {}
+    for B in lane_counts:
+        tab, dt_, k, zz, hh = (stack_lanes([x] * B) for x in (table, dets, ks, z, has))
+        ts, td, tt, tv = (stack_lanes([x] * B) for x in (tstate, tdets, ttable, vrow))
+        launchers = {
+            "tracker_step": (lambda: tracker_kernel.tracker_step(tab, dt_, cfg.tracker, cfg.tracker.min_hits),
+                             "tracker_step_kernel"),
+            "kalman_step": (lambda: kalman_kernel.kalman_step(k, model, zz, hh, est.dt, est.speed_heading_hold),
+                            "kalman_step_kernel"),
+            "tagging_step": (lambda: tagging_kernel.tagging_step(rules, ts, td, tt, tv), "tagging_step_kernel"),
+        }
+        work = {"tracker_step": (B * k1_bytes, B * k1_ops, PEAK_F32_PER_S),
+                "kalman_step": (B * k2_bytes + shared, B * k2_ops, PEAK_F64_PER_S),
+                "tagging_step": (B * k3_bytes, B * k3_ops, PEAK_F32_PER_S)}
+        for name, launcher in launchers.items():
+            # One trace a kernel; the mean over the launches the trace kept
+            # (the tracer drops a few records now and then).
+            dev_ms, seen = device_times({name: launcher}, min_seen=90)[name]
+            nbytes, ops, peak = work[name]
+            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak * 1e3
+            bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            result.setdefault(name, {})[f"B{B}"] = {
+                "ms": time_cuda(launcher[0], reps), "device_ms": dev_ms, "profiled_launches": seen,
+                "bytes": nbytes, "operations": ops, "bound_ms": bound, "bound_by": by,
+            }
+    return result
+
+
+def measure_batched_paths(device, lane_counts=(BATCHED_LANES, 64), rounds: int = 2,
+                          profiled_frames: int = 100) -> dict:
+    """Lane-frames/s of the tagging path at B lanes (the batched runner over
+    B distinct 300-frame streams) against the unbatched tagging path, on the
+    host clock around runs that end in a synchronise, in turns (unbatched,
+    then each B, then back), the best run of each; then the device's busy
+    share and device items a frame over the first ``profiled_frames``
+    frames under the profiler."""
+    _, stack_lanes = _lane_ops()
+    cfg = bench_config(True)
+    streams = lane_streams(max(lane_counts))
+    inputs = {1: {k: torch.as_tensor(v).to(device) for k, v in streams[0].items()}}
+    runs = {1: pt.make_sequence_runner(cfg, device=device)}
+    for B in lane_counts:
+        inputs[B] = {k: torch.as_tensor(v).to(device) for k, v in _stack_streams(streams[:B]).items()}
+        runs[B] = pt.make_batched_sequence_runner(cfg, device=device)
+
+    def timed(B, frames=NUM_FRAMES):
+        state = pt.initial_state(cfg, device=device)
+        if B > 1:
+            state = stack_lanes([state] * B)
+        xs = {k: (v[:frames] if B == 1 else v[:, :frames]) for k, v in inputs[B].items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[B](state, xs)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    order = list(runs)
+    for B in order:
+        timed(B)
+    times = {B: [] for B in order}
+    for _ in range(rounds):
+        for B in order + order[::-1]:
+            times[B].append(timed(B))
+    result = {}
+    for B in order:
+        with torch.profiler.profile(activities=PROFILED) as prof:
+            wall_us = timed(B, profiled_frames) * 1e6
+        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in on_device)
+        result[f"B{B}"] = {
+            "lanes": B, "frames": NUM_FRAMES, "seconds": times[B],
+            "lane_frames_per_s": B * NUM_FRAMES / min(times[B]),
+            "profiled": {"frames": profiled_frames, "wall_us": wall_us, "device_busy_us": busy_us,
+                         "busy_share": busy_us / wall_us,
+                         "device_items_per_frame": len(on_device) / profiled_frames},
+        }
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
@@ -2368,6 +2876,14 @@ def main() -> int:
     emit({"phase": "yolo_with_frames", **check_yolo_frames(device, params, road, frames_out)})
     del frames_out
 
+    emit({"phase": "lane_kernels", "cases": check_lane_kernels(device),
+          "result": "each lane bit for bit its B = 1 launch; K1 exact, K2 and K3 within bounds of the plain version"})
+    streams = lane_streams(BATCHED_LANES)
+    emit({"phase": "batched_path", **check_batched_path(device, streams)})
+    emit({"phase": "multicamera_path", **check_multicamera_path(device, streams)})
+    emit({"phase": "serve_path", **check_serve_path(device)})
+    emit({"phase": "kalman_bank", **check_kalman_bank(device)})
+
     t0 = time.perf_counter()
     times = measure_kernels(device, inputs)
     pools = nms_pools_from(yolo_cands)
@@ -2383,6 +2899,9 @@ def main() -> int:
           **paths, "yolo": yolo_times,
           "seconds": {"kernels": kernel_s, "paths": paths_s,
                       "yolo": time.perf_counter() - t0 - kernel_s - paths_s}})
+    t0 = time.perf_counter()
+    emit({"phase": "lane_times", "card": smi, "kernels": measure_lane_kernels(device, inputs),
+          "paths": measure_batched_paths(device), "seconds": time.perf_counter() - t0})
 
     k3_err = max(v for case in k3 for v in case["max_abs_err"].values())
     sources = {

@@ -10,6 +10,10 @@ frames -> lanes and scene features -> track -> estimate -> plan -> tag,
 `DEFAULT_CONFIG`), the detections-mode path (track -> estimate -> plan ->
 tag, ``use_frames=False``), and the YOLO path in front of either (camera
 frames -> YOLOv8 -> NMS: `perception.detector.make_yolo_sequence_runner`).
+The serving tier runs B streams at once with a lane axis through the
+kernels: the micro-batched session server (`apps.serve`), the one-card
+multi-camera runner (`parallel.mesh`), the per-agent Kalman bank
+(`tracking.kalman_bank`) and checkpoint/resume (`utils.checkpoint`).
 """
 
 __version__ = "0.1.0"
@@ -39,6 +43,7 @@ from .tagging import (
 from .pipeline import (
     detections_from_arrays,
     initial_state,
+    make_batched_sequence_runner,
     make_pipeline_step,
     make_sequence_runner,
 )
@@ -77,6 +82,7 @@ __all__ = [
     "initial_state",
     "make_pipeline_step",
     "make_sequence_runner",
+    "make_batched_sequence_runner",
     "detections_from_arrays",
     "make_tagging_step",
     "ROAD_TYPES",

@@ -1,0 +1,631 @@
+"""Inference server over the pipeline's sequence runner.
+
+    python -m multimodal_autonomous_driving_perception_and_planning_torch.apps.serve --batch 8
+
+A stdlib HTTP server feeds fixed-size chunks to the runner.  Sessions carry
+the runner's state across requests, so a client that streams a long drive
+in chunks gets the results of one uninterrupted run (the exactness
+contract that checkpoint/resume shares).  The endpoints, the wire format
+and the metrics are the JAX package's server's (its apps/serve.py), so the
+same clients and `tools/serve_loadgen.py` drive either.
+
+Wire format: request and response bodies are ``npz`` (numpy savez).
+
+Endpoints:
+  GET  /healthz           liveness, device, chunk size
+  GET  /info              configuration summary
+  POST /session           create a session -> {"session": id}
+  POST /infer?session=id  npz with bbox/class_id/confidence/valid/
+                          ego_measurement (+frame with use_frames), each
+                          with a leading time axis of the chunk size;
+                          returns an npz of per-frame outputs
+  POST /reset?session=id  reset the session's state
+  GET  /session_state?session=id  the session's state as npz, its leaves
+                          ``leaf0..leafN`` in the JAX package's order, so a
+                          state exported by either server imports into the
+                          other
+  POST /session_state     import an exported state -> new session id
+  GET  /metrics           request counters, inference latency
+                          percentiles, uptime (JSON)
+  DELETE /session?session=id  drop a session
+
+Each session holds a whole `PipelineState` on the device, so the table of
+sessions is bounded: at ``max_sessions`` the least recently used one is
+evicted.  The server binds 127.0.0.1 by default; /session is
+unauthenticated.
+
+Micro-batching (``--batch B``): concurrent /infer requests against
+different sessions coalesce into one run of the batched runner
+(`pipeline.make_batched_sequence_runner`) over up to B lanes, after a
+short collection window.  Each frame of that run launches kernels K1, K2
+and K3 once for all B lanes.  Unused lanes repeat lane 0 and are
+discarded.  Two queued chunks of the same session never share a run: they
+chain in arrival order.  The runner runs on the card unless the server is
+made with ``device="cpu"``.
+
+Not in this slice: a serialized artifact of the runner (``artifact_bytes``
+is null; ROADMAP item 11) and ``--dp`` across cards (ROADMAP item 10b).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import threading
+import time
+from collections import OrderedDict
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, Optional
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_CONFIG
+from ..pipeline import initial_state, make_batched_sequence_runner, make_sequence_runner
+from ..types import lane_of, stack_lanes, tree_leaves
+from ..utils.convert import state_from_leaves
+from ..utils.device import resolve_device
+from ..utils.export import example_sequence_inputs
+
+# Per-frame outputs returned to clients: tracks, ego state, plan, tags.
+_OUTPUT_KEYS = (
+    "track_id",
+    "track_bbox",
+    "track_class_id",
+    "track_confidence",
+    "confirmed_order",
+    "num_confirmed",
+    "plan_best",
+    "plan_best_positions",
+    "plan_best_velocities",
+)
+_VEHICLE_KEYS = ("x", "y", "speed", "heading", "acceleration", "yaw_rate")
+_NUMPY_DTYPES = {torch.float32: np.float32, torch.int32: np.int32, torch.bool: np.bool_}
+
+
+def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Copy tensors to the host with one synchronisation: on the card, each
+    into pinned memory without blocking, then one wait for the stream."""
+    if not tensors:
+        return {}
+    if next(iter(tensors.values())).device.type != "cuda":
+        return {k: v.numpy() for k, v in tensors.items()}
+    host = {}
+    for k, v in tensors.items():
+        host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host[k].copy_(v, non_blocking=True)
+    torch.cuda.current_stream(next(iter(tensors.values())).device).synchronize()
+    return {k: v.numpy() for k, v in host.items()}
+
+
+class _BatchRequest:
+    """One queued /infer awaiting a batched run."""
+
+    __slots__ = ("sid", "inputs", "event", "outs", "error", "cancelled")
+
+    def __init__(self, sid, inputs):
+        self.sid = sid
+        self.inputs = inputs
+        self.event = threading.Event()
+        self.outs = None
+        self.error: Optional[Exception] = None
+        self.cancelled = False  # the waiter timed out; must not advance its session
+
+
+class _MicroBatcher:
+    """Coalesces concurrent /infer requests into batched runs.
+
+    Requests queue FIFO; the dispatcher thread waits ``window_s`` after the
+    first arrival for the batch to fill, then runs up to ``batch`` lanes.
+    At most one lane per session a run: a session's queued chunks chain in
+    order.  The thread pins the server's device once, as PyTorch's current
+    device and stream are per thread.
+    """
+
+    def __init__(self, server: "PipelineServer", window_s: float = 0.005):
+        self.server = server
+        self.window_s = float(window_s)
+        self._queue: list = []
+        self._cv = threading.Condition()
+        self._closed = False
+        self.dispatches = 0  # batched runs
+        self.lanes_served = 0  # real (non-padding) lanes across runs
+        self._thread = threading.Thread(target=self._loop, name="serve-microbatch", daemon=True)
+        self._thread.start()
+
+    def submit(self, req: _BatchRequest) -> None:
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("server is shutting down")
+            self._queue.append(req)
+            self._cv.notify()
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify()
+        self._thread.join(timeout=60)
+
+    def cancel(self, req: _BatchRequest) -> None:
+        """Drop a timed-out request: still queued, it is removed (its
+        session never advances); already in a run, the cancelled flag makes
+        `_dispatch_lanes` skip its state write-back, so the client's retry
+        of the same chunk is not applied twice."""
+        with self._cv:
+            req.cancelled = True
+            self._queue = [r for r in self._queue if r is not req]
+
+    def record_dispatch(self, lanes: int) -> None:
+        """One batched run, serving ``lanes`` real lanes."""
+        with self._cv:
+            self.dispatches += 1
+            self.lanes_served += lanes
+
+    def stats(self) -> Dict[str, int]:
+        with self._cv:
+            return {"dispatches": self.dispatches, "lanes_served": self.lanes_served}
+
+    def _take_batch(self) -> list:
+        """Pop up to ``batch`` requests, one per distinct session (FIFO)."""
+        taken, seen, remaining = [], set(), []
+        for req in self._queue:
+            if req.cancelled:
+                continue
+            if len(taken) < self.server.batch and req.sid not in seen:
+                taken.append(req)
+                seen.add(req.sid)
+            else:
+                remaining.append(req)
+        self._queue = remaining
+        return taken
+
+    def _loop(self) -> None:
+        if self.server.device.type == "cuda":
+            torch.cuda.set_device(self.server.device)
+        while True:
+            with self._cv:
+                while not self._queue and not self._closed:
+                    self._cv.wait()
+                if self._closed and not self._queue:
+                    return
+                # Short fill window: gather whatever arrives meanwhile.
+                deadline = time.time() + self.window_s
+                while len({r.sid for r in self._queue}) < self.server.batch and not self._closed:
+                    left = deadline - time.time()
+                    if left <= 0:
+                        break
+                    self._cv.wait(timeout=left)
+                batch = self._take_batch()
+            if batch:
+                self.server._dispatch_lanes(batch)
+
+
+class PipelineServer:
+    """Owns the runner, the sessions and the device lock."""
+
+    def __init__(
+        self,
+        cfg=None,
+        chunk: int = 64,
+        max_sessions: int = 64,
+        batch: int = 1,
+        batch_window_ms: float = 5.0,
+        dp: int = 1,
+        device="cuda",
+    ):
+        if cfg is None:
+            # Serving ships only _OUTPUT_KEYS; the candidates and rings
+            # would be stacked a frame and then discarded.
+            cfg = DEFAULT_CONFIG.replace(emit_candidates=False, emit_trajectories=False)
+        self.cfg = cfg
+        self.chunk = int(chunk)
+        self.batch = int(batch)
+        if self.batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        self.dp = int(dp)
+        if self.dp < 1:
+            raise ValueError(f"dp must be >= 1, got {dp}")
+        if self.dp > 1:
+            raise ValueError(
+                f"dp={dp}: sharding the lane axis over cards needs torch.distributed (ROADMAP item 10b); "
+                "this server drives one card"
+            )
+        self.device = resolve_device(device)
+        self.run = (make_batched_sequence_runner if self.batch > 1 else make_sequence_runner)(cfg, self.device)
+        self._initial_state = lambda: initial_state(self.cfg, self.device)
+        # Requests are per-session chunks: the specs stay unbatched even on
+        # a batched server (lanes stack at dispatch).
+        self._example = example_sequence_inputs(self.cfg, self.chunk)
+        self.sessions: "OrderedDict[str, Any]" = OrderedDict()  # LRU order
+        self.max_sessions = int(max_sessions)
+        self._next_id = 0
+        self._lock = threading.Lock()  # one run at a time
+        # Warm up before the socket binds: the first run builds the kernels.
+        t0 = time.time()
+        zeros = {k: np.zeros(spec.shape, _NUMPY_DTYPES[spec.dtype]) for k, spec in self._example.items()}
+        with self._on_device():
+            if self.batch > 1:
+                state = stack_lanes([self._initial_state()] * self.batch)
+                _, outs = self.run(state, {k: np.stack([v] * self.batch) for k, v in zeros.items()})
+            else:
+                _, outs = self.run(self._initial_state(), zeros)
+            _to_host({"plan_best": outs["plan_best"]})
+        self.warmup_seconds = time.time() - t0
+        self.batcher: Optional[_MicroBatcher] = (
+            _MicroBatcher(self, window_s=batch_window_ms / 1e3) if self.batch > 1 else None
+        )
+        self.started_at = time.time()
+        self.request_counts: Dict[str, int] = {}
+        self._infer_seconds: list = []  # the last <= 1024 inference wall times
+
+    def _on_device(self):
+        """The server's card as the current device, in any thread."""
+        return torch.cuda.device(self.device) if self.device.type == "cuda" else contextlib.nullcontext()
+
+    def close(self) -> None:
+        if self.batcher is not None:
+            self.batcher.close()
+
+    # -- session management -------------------------------------------------
+    def _add_session(self, state) -> str:
+        with self._lock:
+            while len(self.sessions) >= self.max_sessions:
+                self.sessions.popitem(last=False)  # evict the least recently used
+            sid = f"s{self._next_id}"
+            self._next_id += 1
+            self.sessions[sid] = state
+        return sid
+
+    def create_session(self) -> str:
+        return self._add_session(self._initial_state())
+
+    def reset_session(self, sid: str) -> None:
+        with self._lock:
+            if sid not in self.sessions:
+                raise KeyError(sid)
+            self.sessions[sid] = self._initial_state()
+            self.sessions.move_to_end(sid)
+
+    def delete_session(self, sid: str) -> None:
+        with self._lock:
+            if sid not in self.sessions:
+                raise KeyError(sid)
+            del self.sessions[sid]
+
+    def count_request(self, route: str) -> None:
+        with self._lock:
+            self.request_counts[route] = self.request_counts.get(route, 0) + 1
+
+    def metrics(self) -> Dict:
+        with self._lock:
+            lat = sorted(self._infer_seconds)
+            counts = dict(self.request_counts)
+            n_sessions = len(self.sessions)
+
+        def pct(p: float):
+            if not lat:
+                return None
+            return round(lat[min(len(lat) - 1, int(p * len(lat)))] * 1e3, 3)
+
+        out = {
+            "uptime_seconds": round(time.time() - self.started_at, 1),
+            "warmup_seconds": round(self.warmup_seconds, 2),
+            "sessions": n_sessions,
+            "requests": counts,
+            "infer_latency_ms": {"count": len(lat), "p50": pct(0.5), "p99": pct(0.99)},
+            "frames_per_chunk": self.chunk,
+        }
+        if self.batcher is not None:
+            out["batching"] = {"batch": self.batch, "dp": self.dp, **self.batcher.stats()}
+        return out
+
+    def export_session(self, sid: str) -> Dict[str, np.ndarray]:
+        """The session's state as named arrays ``leaf0..leafN`` in the JAX
+        package's leaf order (npz-able)."""
+        with self._lock:
+            if sid not in self.sessions:
+                raise KeyError(sid)
+            state = self.sessions[sid]
+            self.sessions.move_to_end(sid)
+        with self._on_device():
+            return _to_host({f"leaf{i}": leaf for i, leaf in enumerate(tree_leaves(state))})
+
+    def import_session(self, arrays: Dict[str, np.ndarray]) -> str:
+        """Restore an exported state, from this server or another (the JAX
+        package's included), into a new session."""
+        template = self._initial_state()
+        n = len(tree_leaves(template))
+        if sorted(arrays) != sorted(f"leaf{i}" for i in range(n)):
+            raise ValueError(
+                f"expected {n} state leaves named leaf0..leaf{n - 1}; got {sorted(arrays)[:5]}..."
+            )
+        state = state_from_leaves([arrays[f"leaf{i}"] for i in range(n)], template)
+        return self._add_session(state)
+
+    # -- inference ----------------------------------------------------------
+    def _validate_inputs(self, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        missing = [k for k in self._example if k not in arrays]
+        if missing:
+            raise ValueError(f"missing inputs: {missing}")
+        inputs = {}
+        for k, spec in self._example.items():
+            a = np.asarray(arrays[k])
+            if tuple(a.shape) != tuple(spec.shape):
+                raise ValueError(f"input {k!r}: expected shape {tuple(spec.shape)}, got {a.shape}")
+            inputs[k] = a.astype(_NUMPY_DTYPES[spec.dtype], copy=False)
+        return inputs
+
+    def _collect_result(self, outs) -> Dict[str, np.ndarray]:
+        """The served outputs of a run on the host, with one
+        synchronisation for all of them (a leading lane axis kept)."""
+        device = {k: outs[k] for k in _OUTPUT_KEYS}
+        vs = outs["vehicle_state"]
+        for f in _VEHICLE_KEYS:
+            device[f"vehicle_{f}"] = getattr(vs, f)
+        for k, v in (outs.get("tags") or {}).items():
+            device[f"tag_{k}"] = v
+        return _to_host(device)
+
+    def _record_latency(self, seconds: float) -> None:
+        with self._lock:
+            self._infer_seconds.append(seconds)
+            if len(self._infer_seconds) > 1024:
+                del self._infer_seconds[:-1024]
+
+    def _dispatch_lanes(self, requests: list) -> None:
+        """One batched run over the queued requests (each a distinct
+        session).  Lanes beyond len(requests) repeat lane 0; their outputs
+        are discarded.  Called from the _MicroBatcher thread."""
+        with self._lock:
+            live = []
+            for req in requests:
+                state = self.sessions.get(req.sid)
+                if state is None:
+                    req.error = KeyError(req.sid)
+                    req.event.set()
+                else:
+                    live.append((req, state))
+            if not live:
+                return
+            try:
+                pad = self.batch - len(live)
+                lane_states = [s for _, s in live] + [live[0][1]] * pad
+                lane_inputs = [r.inputs for r, _ in live] + [live[0][0].inputs] * pad
+                stacked = {k: np.stack([li[k] for li in lane_inputs]) for k in lane_inputs[0]}
+                new_state, outs = self.run(stack_lanes(lane_states), stacked)
+                host = self._collect_result(outs)
+                for i, (req, _) in enumerate(live):
+                    if req.cancelled:  # the waiter timed out mid-run: the
+                        continue  # session must not silently advance
+                    self.sessions[req.sid] = lane_of(new_state, i)
+                    self.sessions.move_to_end(req.sid)
+                    req.outs = {k: v[i] for k, v in host.items()}
+                self.batcher.record_dispatch(sum(1 for r, _ in live if not r.cancelled))
+            except Exception as e:  # noqa: BLE001 -- surface to every waiter
+                for req, _ in live:
+                    req.error = e
+        for req, _ in live:
+            req.event.set()
+
+    def infer(self, sid: str, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        inputs = self._validate_inputs(arrays)
+        t0 = time.time()
+
+        if self.batcher is not None:
+            req = _BatchRequest(sid, inputs)
+            self.batcher.submit(req)
+            if not req.event.wait(timeout=600):
+                self.batcher.cancel(req)
+                raise TimeoutError("batched dispatch did not complete in 600s")
+            if req.error is not None:
+                raise req.error
+            self._record_latency(time.time() - t0)
+            return req.outs
+
+        with self._lock, self._on_device():
+            if sid not in self.sessions:
+                raise KeyError(sid)
+            new_state, outs = self.run(self.sessions[sid], inputs)
+            self.sessions[sid] = new_state
+            self.sessions.move_to_end(sid)
+            result = self._collect_result(outs)
+        self._record_latency(time.time() - t0)
+        return result
+
+
+def _npz_bytes(arrays: Dict[str, np.ndarray]) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def _npz_load(data: bytes) -> Dict[str, np.ndarray]:
+    with np.load(io.BytesIO(data), allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def make_handler(server: PipelineServer):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _send(self, code: int, body: bytes, ctype: str):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _json(self, code: int, obj) -> None:
+            self._send(code, json.dumps(obj).encode(), "application/json")
+
+        def do_GET(self):
+            path = urlparse(self.path).path
+            server.count_request(f"GET {path}")
+            if path == "/metrics":
+                self._json(200, server.metrics())
+            elif path == "/healthz":
+                self._json(
+                    200,
+                    {
+                        "status": "ok",
+                        "device": server.device.type,
+                        "frames_per_chunk": server.chunk,
+                        "batch": server.batch,
+                        "dp": server.dp,
+                    },
+                )
+            elif path == "/info":
+                cfg = server.cfg
+                self._json(
+                    200,
+                    {
+                        "use_frames": cfg.use_frames,
+                        "enable_tagging": cfg.enable_tagging,
+                        "max_detections": cfg.detector.max_detections,
+                        "max_tracks": cfg.tracker.max_tracks,
+                        "frame_size": [cfg.frame_width, cfg.frame_height],
+                        "artifact_bytes": None,
+                        "sessions": len(server.sessions),
+                        "max_sessions": server.max_sessions,
+                    },
+                )
+            elif path == "/session_state":
+                q = parse_qs(urlparse(self.path).query)
+                try:
+                    out = server.export_session(q["session"][0])
+                    self._send(200, _npz_bytes(out), "application/octet-stream")
+                except KeyError as e:
+                    self._json(404, {"error": f"unknown session {e}"})
+            else:
+                self._json(404, {"error": "not found"})
+
+        def do_POST(self):
+            url = urlparse(self.path)
+            server.count_request(f"POST {url.path}")
+            q = parse_qs(url.query)
+            n = int(self.headers.get("Content-Length") or 0)
+            body = self.rfile.read(n) if n else b""
+            try:
+                if url.path == "/session":
+                    self._json(200, {"session": server.create_session()})
+                elif url.path == "/reset":
+                    server.reset_session(q["session"][0])
+                    self._json(200, {"status": "reset"})
+                elif url.path == "/infer":
+                    out = server.infer(q["session"][0], _npz_load(body))
+                    self._send(200, _npz_bytes(out), "application/octet-stream")
+                elif url.path == "/session_state":
+                    sid = server.import_session(_npz_load(body))
+                    self._json(200, {"session": sid})
+                else:
+                    self._json(404, {"error": "not found"})
+            except KeyError as e:
+                self._json(404, {"error": f"unknown session {e}"})
+            except Exception as e:  # noqa: BLE001 -- surface to the client
+                self._json(400, {"error": str(e)})
+
+        def do_DELETE(self):
+            url = urlparse(self.path)
+            server.count_request(f"DELETE {url.path}")
+            q = parse_qs(url.query)
+            try:
+                if url.path == "/session":
+                    server.delete_session(q["session"][0])
+                    self._json(200, {"status": "deleted"})
+                else:
+                    self._json(404, {"error": "not found"})
+            except KeyError as e:
+                self._json(404, {"error": f"unknown session {e}"})
+
+    return Handler
+
+
+def serve(
+    cfg=None,
+    chunk: int = 64,
+    port: int = 8701,
+    block: bool = True,
+    host: str = "127.0.0.1",
+    max_sessions: int = 64,
+    batch: int = 1,
+    batch_window_ms: float = 5.0,
+    dp: int = 1,
+    device="cuda",
+):
+    """Start the inference server; returns the HTTPServer when non-blocking
+    (``port=0`` takes a free port: ``httpd.server_address``)."""
+    ps = PipelineServer(
+        cfg=cfg,
+        chunk=chunk,
+        max_sessions=max_sessions,
+        batch=batch,
+        batch_window_ms=batch_window_ms,
+        dp=dp,
+        device=device,
+    )
+    httpd = ThreadingHTTPServer((host, port), make_handler(ps))
+    httpd.pipeline_server = ps
+    batched = f", {batch}-session micro-batching" if batch > 1 else ""
+    print(
+        f"Serving the pipeline on {ps.device} ({chunk}-frame chunks{batched}) on "
+        f":{httpd.server_address[1]} (warmup {ps.warmup_seconds:.1f}s)",
+        flush=True,
+    )
+    if block:
+        try:
+            httpd.serve_forever()
+        finally:
+            ps.close()
+    else:
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description="pipeline inference server")
+    parser.add_argument("--port", type=int, default=8701)
+    parser.add_argument("--chunk", type=int, default=64)
+    parser.add_argument("--no-tagging", action="store_true")
+    parser.add_argument(
+        "--host", default="127.0.0.1", help="bind address; 0.0.0.0 only behind an authenticating proxy"
+    )
+    parser.add_argument("--max-sessions", type=int, default=64)
+    parser.add_argument(
+        "--batch",
+        type=int,
+        default=1,
+        help="micro-batch size: coalesce concurrent /infer requests from up to B sessions into one run",
+    )
+    parser.add_argument(
+        "--batch-window-ms", type=float, default=5.0, help="how long a run waits for more sessions to coalesce"
+    )
+    parser.add_argument("--dp", type=int, default=1, help="cards to shard the lanes over (only 1 in this slice)")
+    parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    args = parser.parse_args(argv)
+
+    cfg = DEFAULT_CONFIG.replace(
+        use_frames=False,
+        enable_tagging=not args.no_tagging,
+        emit_candidates=False,
+        emit_trajectories=False,
+    )
+    serve(
+        cfg=cfg,
+        chunk=args.chunk,
+        port=args.port,
+        host=args.host,
+        max_sessions=args.max_sessions,
+        batch=args.batch,
+        batch_window_ms=args.batch_window_ms,
+        dp=args.dp,
+        device=args.device,
+    )
+
+
+if __name__ == "__main__":
+    main()

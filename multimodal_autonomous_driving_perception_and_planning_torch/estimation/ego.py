@@ -9,7 +9,9 @@ frame.  Both versions here keep that: extract once after predict (keeping
 only the prev_* side effects), then again after the update.
 
 `estimator_step` is the entry point: for CUDA tensors it launches kernel K2
-(ops.kalman_kernel), for CPU tensors it runs the plain version.
+(ops.kalman_kernel), for CPU tensors it runs the plain version.  A state
+with a leading lane axis (x (B, 6) and so on) is B filters stepped at once:
+one launch on the card, the plain version lane by lane on the CPU.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from ..config import EstimatorConfig
 from ..ops import kalman_kernel
 from ..ops.kalman import KalmanModel, kalman_predict, kalman_update
-from ..types import KalmanState, VehicleState, vehicle_row, vehicle_state_from_row
+from ..types import KalmanState, VehicleState, map_lanes, vehicle_row, vehicle_state_from_row
 
 
 def extract_state(
@@ -89,14 +91,22 @@ def estimator_step_row(
     cfg: EstimatorConfig,
 ) -> Tuple[KalmanState, torch.Tensor]:
     """`estimator_step` with the vehicle state as one (11,) float32 row in
-    VehicleState field order: on the card, the row kernel K2 writes."""
+    VehicleState field order, (B, 11) with a lane axis: on the card, the
+    row kernel K2 writes."""
     device = ks.x.device
+    lead = tuple(ks.x.shape[:-1])
     measurement = measurement.to(torch.float32)
     has_measurement = torch.as_tensor(has_measurement, dtype=torch.bool, device=device)
+    if has_measurement.shape != lead:
+        has_measurement = has_measurement.expand(lead).contiguous()
     if device.type == "cuda":
         return _estimator_row_fused(ks, model, measurement, has_measurement, cfg)
     if device.type != "cpu":
         raise ValueError(f"estimator_step: unsupported device {device}")
+    if lead:
+        return map_lanes(
+            lambda k, z, h: estimator_step_row(k, model, z, h, cfg), lead[0], ks, measurement, has_measurement
+        )
     new_ks, state = _estimator_step_xla(ks, model, measurement, has_measurement, cfg)
     return new_ks, vehicle_row(state)
 
@@ -137,14 +147,7 @@ def _estimator_row_fused(
     cfg: EstimatorConfig,
 ) -> Tuple[KalmanState, torch.Tensor]:
     """`estimator_step_row` through kernel K2 (CUDA tensors only)."""
-    x, P, row = kalman_kernel.kalman_step(
-        ks, model, measurement, has_measurement, cfg.dt, cfg.speed_heading_hold
-    )
-    state = vehicle_state_from_row(row)
-    new_ks = KalmanState(
-        x=x, P=P, time=state.timestamp, prev_heading=state.heading, prev_speed=state.speed
-    )
-    return new_ks, row
+    return kalman_kernel.kalman_step(ks, model, measurement, has_measurement, cfg.dt, cfg.speed_heading_hold)
 
 
 def _estimator_step_fused(

@@ -75,13 +75,13 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
 
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tracker = ctypes.CDLL(str(BUILD_DIR / "libtracker_step.so"))
-    tracker.madpp_tracker_step.argtypes = [vp] * 18 + [ci, ci, ci, cf, ci, ci, vp]
+    tracker.madpp_tracker_step.argtypes = [vp] * 18 + [ci, ci, ci, ci, cf, ci, ci, vp]
     tracker.madpp_tracker_step.restype = ci
     kalman = ctypes.CDLL(str(BUILD_DIR / "libkalman_step.so"))
-    kalman.madpp_kalman_step.argtypes = [vp] * 10 + [cf, cf, vp]
+    kalman.madpp_kalman_step.argtypes = [vp] * 10 + [ci, cf, cf, vp]
     kalman.madpp_kalman_step.restype = ci
     tagging = ctypes.CDLL(str(BUILD_DIR / "libtagging_step.so"))
-    tagging.madpp_tagging_step.argtypes = [vp] * 23 + [ci] * 7 + [vp]
+    tagging.madpp_tagging_step.argtypes = [vp] * 23 + [ci] * 8 + [vp]
     tagging.madpp_tagging_step.restype = ci
     associate = ctypes.CDLL(str(BUILD_DIR / "libassociate.so"))
     associate.madpp_associate.argtypes = [vp] * 3 + [ci, ci, cf, vp]

@@ -12,19 +12,19 @@
 extern "C" int madpp_tracker_step(
     const void*, const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, const void*, const void*, const void*, const void*,
-    const void*, const void*, const void*, const void*, void*, void*, int, int, int, float,
-    int, int, void*);
+    const void*, const void*, const void*, const void*, void*, void*, int, int, int, int,
+    float, int, int, void*);
 
 extern "C" int madpp_kalman_step(const void*, const void*, const void*, const void*,
                                  const void*, const void*, const void*, const void*,
-                                 const void*, void*, float, float, void*);
+                                 const void*, void*, int, float, float, void*);
 
 extern "C" int madpp_tagging_step(
     const void*, const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, void*, void*, const void*, int, int, int, int, int, int, int,
-    void*);
+    int, void*);
 
 extern "C" int madpp_associate(const void*, const void*, void*, int, int, float, void*);
 
@@ -35,34 +35,35 @@ namespace {
 inline void* ptr(std::uintptr_t p) { return reinterpret_cast<void*>(p); }
 
 int tracker_step(pybind11::args a) {
-  if (a.size() != 25) throw std::invalid_argument("tracker_step takes 25 arguments");
+  if (a.size() != 26) throw std::invalid_argument("tracker_step takes 26 arguments");
   void* p[18];
   for (int i = 0; i < 18; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
   return madpp_tracker_step(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12],
       p[13], p[14], p[15], p[16], p[17], a[18].cast<int>(), a[19].cast<int>(),
-      a[20].cast<int>(), a[21].cast<float>(), a[22].cast<int>(), a[23].cast<int>(),
-      ptr(a[24].cast<std::uintptr_t>()));
+      a[20].cast<int>(), a[21].cast<int>(), a[22].cast<float>(), a[23].cast<int>(),
+      a[24].cast<int>(), ptr(a[25].cast<std::uintptr_t>()));
 }
 
 int kalman_step(pybind11::args a) {
-  if (a.size() != 13) throw std::invalid_argument("kalman_step takes 13 arguments");
+  if (a.size() != 14) throw std::invalid_argument("kalman_step takes 14 arguments");
   void* p[10];
   for (int i = 0; i < 10; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
   return madpp_kalman_step(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9],
-                           a[10].cast<float>(), a[11].cast<float>(), ptr(a[12].cast<std::uintptr_t>()));
+                           a[10].cast<int>(), a[11].cast<float>(), a[12].cast<float>(),
+                           ptr(a[13].cast<std::uintptr_t>()));
 }
 
 int tagging_step(pybind11::args a) {
-  if (a.size() != 31) throw std::invalid_argument("tagging_step takes 31 arguments");
+  if (a.size() != 32) throw std::invalid_argument("tagging_step takes 32 arguments");
   void* p[23];
   for (int i = 0; i < 23; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
-  int n[7];
-  for (int i = 0; i < 7; ++i) n[i] = a[23 + i].cast<int>();
+  int n[8];
+  for (int i = 0; i < 8; ++i) n[i] = a[23 + i].cast<int>();
   return madpp_tagging_step(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9],
                             p[10], p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18],
                             p[19], p[20], p[21], p[22], n[0], n[1], n[2], n[3], n[4], n[5],
-                            n[6], ptr(a[30].cast<std::uintptr_t>()));
+                            n[6], n[7], ptr(a[31].cast<std::uintptr_t>()));
 }
 
 int associate(pybind11::args a) {

@@ -28,7 +28,17 @@
 //    P1, the reported one on another lane at the end; the outputs stored
 //    by the lanes that hold them.
 // The outputs go to one float32 buffer carved as ops/kalman_kernel.py
-// carves it: x at 0, P at 8, the vehicle row at 44.
+// carves it: x, P, the vehicle row, and the time, heading and speed that
+// the next step reads (unbatched: at 0, 8, 44, 56, 60 and 64).
+//
+// Lanes: the grid has B blocks of one warp, and block b runs lane b's step
+// as the unbatched kernel runs it, so each lane's result is bit for bit
+// the one its B = 1 launch gives.  Every per-lane field is (B, ...)
+// contiguous, lane b at b times the field's size a lane; F, Q and R are
+// shared.  A block a lane, and not four lanes' warps a block, because the
+// step's chain of dependent products, not the SMs' issue slots, sets its
+// time: at B <= 132 each lane's warp has an SM to itself, and a block of
+// 32 threads keeps one `__shared__` struct a warp with no indexing.
 //
 // Precision: the state is float32 in memory, as in the plain version, but
 // the algebra runs in double and rounds once on store.  The reported
@@ -48,9 +58,7 @@ namespace {
 // float32 pi, the value the plain version's comparisons and wraps use.
 constexpr double kPi = static_cast<double>(3.14159265358979323846f);
 
-// Offsets of x, P and the vehicle row in the output buffer (16-byte
-// aligned fields, ops/launch.py `buffer_plan`).
-constexpr int kOutX = 0, kOutP = 8, kOutVs = 44;
+__host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~(size_t)3; }
 
 struct KalmanIn {
   const float* x;  // (6,)
@@ -63,6 +71,24 @@ struct KalmanIn {
   const float* Q;  // (6, 6)
   const float* R;  // (4, 4)
 };
+
+// The output fields, each (B, ...) at a multiple of 4 elements
+// (ops/launch.py `buffer_plan`): x (6,), P (6, 6), the vehicle row (11,),
+// and the next step's time, prev_heading and prev_speed ().
+struct KalmanOut {
+  float *x, *P, *vs, *time, *heading, *speed;
+};
+
+KalmanOut carve(float* f, int B) {
+  KalmanOut o;
+  float** fs[] = {&o.x, &o.P, &o.vs, &o.time, &o.heading, &o.speed};
+  const size_t n[] = {6, 36, 11, 1, 1, 1};
+  for (int k = 0; k < 6; ++k) {
+    *fs[k] = f;
+    f += round4(n[k] * B);
+  }
+  return o;
+}
 
 struct Shared {
   double x0[6], P0[36], F[36], Q[36], R[16], z[4];
@@ -106,10 +132,16 @@ __device__ __forceinline__ double a_entry(const Shared& s, int i, int j) {
   return (i == j ? 1.0 : 0.0) - (j < 4 ? s.K[i * 4 + j] : 0.0);
 }
 
-__global__ void __launch_bounds__(32) kalman_step_kernel(KalmanIn in, float* __restrict__ out, float dt_f,
+__global__ void __launch_bounds__(32) kalman_step_kernel(KalmanIn lanes_in, KalmanOut lanes_out, float dt_f,
                                                          float hold_f) {
   __shared__ Shared s;
   const int lane = threadIdx.x;
+  // This block's lane of the batch: per-lane fields advanced by its size.
+  const size_t b = blockIdx.x;
+  KalmanIn in = lanes_in;
+  in.x += 6 * b, in.P += 36 * b, in.time += b, in.prev_heading += b, in.z += 4 * b, in.has_meas += b;
+  const KalmanOut out = {lanes_out.x + 6 * b, lanes_out.P + 36 * b, lanes_out.vs + 11 * b,
+                         lanes_out.time + b, lanes_out.heading + b, lanes_out.speed + b};
   const double dt = dt_f, hold = hold_f;
   // Entries of the 36-entry products: every lane one, lanes 0-3 a second.
   const int e0 = lane, e1 = lane + 32;
@@ -219,9 +251,9 @@ __global__ void __launch_bounds__(32) kalman_step_kernel(KalmanIn in, float* __r
     s.x2[lane] = s.x1[lane];
   }
 
-  float* o_x = out + kOutX;
-  float* o_P = out + kOutP;
-  float* vs = out + kOutVs;
+  float* o_x = out.x;
+  float* o_P = out.P;
+  float* vs = out.vs;
   o_P[e0] = (float)pa;
   if (two) o_P[e1] = (float)pb;
   // The uncertainties' diagonal entries: (0,0), (1,1), (2,2), (3,3).
@@ -234,7 +266,7 @@ __global__ void __launch_bounds__(32) kalman_step_kernel(KalmanIn in, float* __r
   // acceleration, yaw_rate, timestamp, pos_uncertainty, vel_uncertainty.
   if (lane < 6) o_x[lane] = (float)s.x2[lane];
   if (lane < 4) vs[lane] = (float)s.x2[lane];
-  if (lane == 8) vs[8] = time0 + dt_f;
+  if (lane == 8) vs[8] = *out.time = time0 + dt_f;
   if (lane == 9) vs[9] = (float)sqrt(d00 + d11);
   if (lane == 10) vs[10] = (float)sqrt(d22 + d33);
   if (lane == 30) {
@@ -245,8 +277,8 @@ __global__ void __launch_bounds__(32) kalman_step_kernel(KalmanIn in, float* __r
     double hdiff = heading - heading_p;
     if (hdiff > kPi) hdiff -= 2.0 * kPi;
     if (hdiff < -kPi) hdiff += 2.0 * kPi;
-    vs[4] = (float)heading;
-    vs[5] = (float)speed;
+    vs[4] = *out.heading = (float)heading;
+    vs[5] = *out.speed = (float)speed;
     vs[6] = dt > 0.0 ? (float)((speed - s.speed_p) / dt) : 0.0f;
     vs[7] = dt > 0.0 ? (float)(hdiff / dt) : 0.0f;
   }
@@ -256,10 +288,11 @@ __global__ void __launch_bounds__(32) kalman_step_kernel(KalmanIn in, float* __r
 
 extern "C" int madpp_kalman_step(const void* x, const void* P, const void* time, const void* prev_heading,
                                  const void* z, const void* has_meas, const void* F, const void* Q,
-                                 const void* R, void* out, float dt, float hold, void* stream) {
+                                 const void* R, void* out, int B, float dt, float hold, void* stream) {
+  if (B < 1) return (int)cudaErrorInvalidValue;
   KalmanIn in{(const float*)x, (const float*)P, (const float*)time,
               (const float*)prev_heading, (const float*)z, (const bool*)has_meas,
               (const float*)F, (const float*)Q, (const float*)R};
-  kalman_step_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(in, (float*)out, dt, hold);
+  kalman_step_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(in, carve((float*)out, B), dt, hold);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,13 @@
 // Kernel K3: the whole tagging stage for one frame -- scene classifier with
 // its vote ring, maneuver detector over its history ring, per-slot
 // interaction detector with its center ring and risk cascade -- in one
-// thread block.
+// thread block a lane.
+//
+// Lanes: the grid has B blocks, and block b runs lane b's step as the
+// unbatched kernel runs it.  Every per-lane input and output field is
+// (B, ...) contiguous, lane b at b times the field's size a lane
+// (`lane_in`, `lane_out`); the rules' constants are shared.  The unbatched
+// call is B = 1 of the same kernel.
 //
 // Replaces the Pallas TPU kernel in the JAX package's ops/tagging_pallas.py
 // (`_make_kernel`, launched by `make_fused_tagging_step`), in both of its
@@ -48,17 +54,18 @@
 // from device memory instead, and rings that are not 16-byte aligned or
 // not a multiple of 16 bytes take 4-byte copies for what is left.
 //
-// Outputs are carved from one float32 and one int32 buffer, each field at a
-// multiple of 4 elements (16 bytes), in the order of ops/tagging_kernel.py
-// `output_shapes`: floats center ring (T, 2 HI), maneuver history (H, 6),
-// tag_f; ints votes (W), ring lengths (T), counters (3), tag_i.
+// Outputs are carved from one float32 and one int32 buffer, each field
+// (B, ...) at a multiple of 4 elements (16 bytes), in the order of
+// ops/tagging_kernel.py `output_shapes`: floats center ring (T, 2 HI),
+// maneuver history (H, 6), tag_f; ints votes (W), ring lengths (T), the
+// scene, maneuver and frame counters (each a scalar), tag_i.
 //   tag_f: [0, 12) the JAX package's SF row, [12] timestamp,
 //          [13, 26) per-type confidence, then per slot: confidence,
 //          distance, relative speed, TTC (T each);
 //   tag_i: [0, 21) the SI row, [21, 34) per-type presence, then per slot:
 //          type, risk, has-TTC (T each).
 //
-// Limits: T <= 128 (the wrapper checks it).
+// Limits: T <= 128, B >= 1 (the wrapper checks them).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -118,7 +125,7 @@ struct TagIn {
 
 struct TagOut {
   float *icent, *mhist, *tag_f;
-  int *votes, *ilen, *counts, *tag_i;  // counts: scene_count, man_count, frame_count
+  int *votes, *ilen, *scene_count, *man_count, *frame_count, *tag_i;
 };
 
 struct TagDims {
@@ -128,23 +135,47 @@ struct TagDims {
 
 __host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~(size_t)3; }
 
-// The output fields in the buffers, each at a multiple of 4 elements
-// (ops/tagging_kernel.py `output_shapes`).
-TagOut carve(float* f, int* i, const TagDims& dm) {
+// The packed rows' widths (ops/tagging_kernel.py FLOAT_TAGS, INT_TAGS).
+__host__ __device__ inline int tag_f_width(int T) { return kSF + kTypes + 4 * T; }
+__host__ __device__ inline int tag_i_width(int T) { return kSI + kTypes + 3 * T; }
+
+// The output fields in the buffers, each (B, ...) at a multiple of 4
+// elements (ops/tagging_kernel.py `output_shapes`).
+TagOut carve(float* f, int* i, const TagDims& dm, int B) {
   TagOut o;
-  o.icent = f;
-  f += round4((size_t)2 * dm.T * dm.HI);
-  o.mhist = f;
-  f += round4((size_t)6 * dm.H);
-  o.tag_f = f;
-  o.votes = i;
-  i += round4(dm.W);
-  o.ilen = i;
-  i += round4(dm.T);
-  o.counts = i;
-  i += 4;
-  o.tag_i = i;
+  float** fs[] = {&o.icent, &o.mhist, &o.tag_f};
+  const size_t fn[] = {(size_t)2 * dm.T * dm.HI, (size_t)6 * dm.H, (size_t)tag_f_width(dm.T)};
+  for (int k = 0; k < 3; ++k) {
+    *fs[k] = f;
+    f += round4(fn[k] * B);
+  }
+  int** is[] = {&o.votes, &o.ilen, &o.scene_count, &o.man_count, &o.frame_count, &o.tag_i};
+  const size_t ni[] = {(size_t)dm.W, (size_t)dm.T, 1, 1, 1, (size_t)tag_i_width(dm.T)};
+  for (int k = 0; k < 6; ++k) {
+    *is[k] = i;
+    i += round4(ni[k] * B);
+  }
   return o;
+}
+
+// Lane b's inputs and outputs: each per-lane field advanced by b times its
+// size a lane.
+__device__ __forceinline__ TagIn lane_in(TagIn in, size_t b, const TagDims& dm) {
+  const size_t t = b * dm.T, d = b * dm.D;
+  in.dcls += d, in.dconf += d, in.dvalid += d;
+  in.tbox += 4 * t, in.tcls += t, in.tid += t, in.thits += t, in.tvel += 2 * t, in.tvelc += t;
+  in.vrow += 11 * b, in.votes += b * dm.W, in.scene_count += b, in.mhist += 6 * b * dm.H;
+  in.man_count += b, in.icent += 2 * t * dm.HI, in.ilen += t, in.iprev += t, in.frame_count += b;
+  if (in.lrow) in.lrow += 8 * b, in.frow += 6 * b;
+  return in;
+}
+
+__device__ __forceinline__ TagOut lane_out(TagOut out, size_t b, const TagDims& dm) {
+  const size_t t = b * dm.T;
+  out.icent += 2 * t * dm.HI, out.mhist += 6 * b * dm.H, out.tag_f += b * tag_f_width(dm.T);
+  out.votes += b * dm.W, out.ilen += t, out.scene_count += b, out.man_count += b, out.frame_count += b;
+  out.tag_i += b * tag_i_width(dm.T);
+  return out;
 }
 
 // VehicleState field order.
@@ -304,7 +335,7 @@ __device__ void scene_classify(const TagIn& in, const TagOut& out, const TagDims
   const bool use_vote = n_hist >= 2 && max_count > n_hist / 2;
   const int smoothed = use_vote ? winner : road_type;
   for (int s = 0; s < W; ++s) out.votes[s] = s == widx ? smoothed : votes[s];
-  out.counts[0] = count1;
+  *out.scene_count = count1;
 
   int lane_count = 2;
   if (FramesMode) {
@@ -406,7 +437,7 @@ __device__ void maneuver_detect(const TagOut& out, const TagDims& dm, const TagP
   const int turning = have15 ? (use_hist ? turning_hist : turning_inst) : 0;
   const float turn_conf = have15 ? (use_hist ? conf_hist : conf_inst) : 0.5f;
 
-  out.counts[1] = count1;
+  *out.man_count = count1;
   float* sf = out.tag_f;
   int* si = out.tag_i;
   sf[4] = lat_conf;
@@ -422,7 +453,7 @@ __device__ void maneuver_detect(const TagOut& out, const TagDims& dm, const TagP
 
 template <bool FramesMode>
 __global__ void __launch_bounds__(kThreads)
-tagging_step_kernel(TagIn in, TagOut out, TagDims dm, TagParams p) {
+tagging_step_kernel(TagIn lanes_in, TagOut lanes_out, TagDims dm, TagParams p) {
   extern __shared__ __align__(16) float s_dyn[];  // staged: center ring, history ring, votes
   __shared__ int s_conf[kMaxT];
   __shared__ int s_lwidx[kMaxT];  // ring column pair written this frame, -1 for none
@@ -430,6 +461,8 @@ tagging_step_kernel(TagIn in, TagOut out, TagDims dm, TagParams p) {
   __shared__ int s_id[kMaxT], s_cls[kMaxT], s_itype[kMaxT], s_irisk[kMaxT], s_httc[kMaxT];
   __shared__ float s_iconf[kMaxT], s_dist[kMaxT], s_ttc[kMaxT];
 
+  const TagIn in = lane_in(lanes_in, blockIdx.x, dm);
+  const TagOut out = lane_out(lanes_out, blockIdx.x, dm);
   const int T = dm.T, HI = dm.HI, tix = threadIdx.x;
   const int lane = tix & 31, warp = tix >> 5;
   const int n_ring = 2 * T * HI, n_hist = 6 * dm.H;
@@ -574,7 +607,7 @@ tagging_step_kernel(TagIn in, TagOut out, TagDims dm, TagParams p) {
   } else if (warp == kManeuverWarp) {
     if (lane == 0) {
       maneuver_detect(out, dm, p, entry, mhist, count);
-      out.counts[2] = frames + 1;
+      *out.frame_count = frames + 1;
       tf[12] = fmul(__int2float_rn(frames), p.inv_fps);  // timestamp
     }
     const int mwidx = fmod_i(count, dm.H);
@@ -723,14 +756,14 @@ tagging_step_kernel(TagIn in, TagOut out, TagDims dm, TagParams p) {
 }
 
 template <bool FramesMode>
-int launch(const TagIn& in, const TagOut& out, const TagDims& dm, const TagParams& p, size_t smem,
+int launch(const TagIn& in, const TagOut& out, const TagDims& dm, const TagParams& p, int B, size_t smem,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(tagging_step_kernel<FramesMode>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  tagging_step_kernel<FramesMode><<<1, kThreads, smem, stream>>>(in, out, dm, p);
+  tagging_step_kernel<FramesMode><<<B, kThreads, smem, stream>>>(in, out, dm, p);
   return (int)cudaGetLastError();
 }
 
@@ -742,8 +775,8 @@ extern "C" int madpp_tagging_step(
     const void* votes, const void* scene_count, const void* mhist, const void* man_count,
     const void* icent, const void* ilen, const void* iprev, const void* frame_count,
     const void* lrow, const void* frow, void* out_f, void* out_i, const void* host_params,
-    int T, int D, int W, int H, int HI, int min_hits, int frames_mode, void* stream) {
-  if (T < 1 || T > kMaxT || D < 1 || W < 1 || H < 1 || HI < 1) return (int)cudaErrorInvalidValue;
+    int B, int T, int D, int W, int H, int HI, int min_hits, int frames_mode, void* stream) {
+  if (B < 1 || T < 1 || T > kMaxT || D < 1 || W < 1 || H < 1 || HI < 1) return (int)cudaErrorInvalidValue;
   if (frames_mode && (lrow == nullptr || frow == nullptr)) return (int)cudaErrorInvalidValue;
   TagIn in{(const int*)dcls, (const float*)dconf, (const bool*)dvalid, (const float*)tbox,
            (const int*)tcls, (const int*)tid, (const int*)thits, (const float*)tvel,
@@ -752,12 +785,12 @@ extern "C" int madpp_tagging_step(
            (const int*)iprev, (const int*)frame_count, (const float*)lrow, (const float*)frow};
   const size_t staged = sizeof(float) * (round4((size_t)2 * T * HI) + round4((size_t)6 * H) + round4(W));
   const TagDims dm{T, D, W, H, HI, min_hits, staged <= kMaxDynamicSmem ? 1 : 0};
-  const TagOut out = carve((float*)out_f, (int*)out_i, dm);
+  const TagOut out = carve((float*)out_f, (int*)out_i, dm, B);
   TagParams p;
   const float* hp = (const float*)host_params;
   float* pp = reinterpret_cast<float*>(&p);
   for (int i = 0; i < kNumParams; ++i) pp[i] = hp[i];
   const size_t smem = dm.stage ? staged : 0;
-  return frames_mode ? launch<true>(in, out, dm, p, smem, (cudaStream_t)stream)
-                     : launch<false>(in, out, dm, p, smem, (cudaStream_t)stream);
+  return frames_mode ? launch<true>(in, out, dm, p, B, smem, (cudaStream_t)stream)
+                     : launch<false>(in, out, dm, p, B, smem, (cudaStream_t)stream);
 }

@@ -1,5 +1,12 @@
 // Kernel K1: one whole tracker step (IoU, association, lifecycle, confirmed
-// order) for one frame, in one thread block.
+// order) for one frame, in one thread block a lane.
+//
+// Lanes: the grid has B blocks, and block b runs lane b's whole step, as
+// the unbatched kernel runs it.  Every input and output field is (B, ...)
+// contiguous, lane b at b times the field's size a lane (`lane_in`,
+// `lane_out`), so the unbatched call is B = 1 of the same kernel.  The
+// lanes share nothing: the server's sessions and the runner's cameras each
+// take a lane, and all of them advance in one launch a frame.
 //
 // Replaces the Pallas TPU kernel in the JAX package's
 // ops/tracker_pallas.py (`_make_kernel`, launched by `tracker_update_pallas`).
@@ -46,7 +53,7 @@
 // multiple of 4 elements (16 bytes), in the order of ops/tracker_kernel.py
 // `FLOAT_FIELDS` and `INT_FIELDS`.
 //
-// Limits: T <= 128, D <= 64, L >= 1 (the wrapper checks them).
+// Limits: T <= 128, D <= 64, L >= 1, B >= 1 (the wrapper checks them).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,25 +105,44 @@ struct TrackerParams {
 
 __host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~(size_t)3; }
 
-// The output fields in the buffers, each at a multiple of 4 elements:
-// ops/tracker_kernel.py FLOAT_FIELDS (trajectory, bbox, confidence,
-// velocity) and INT_FIELDS (track_id, class_id, age, hits, misses,
-// traj_len, vel_count, match, order, next_id, n_confirmed).
-TrackerOut carve(float* f, int* i, int T, int L) {
+// The output fields in the buffers, each (B, ...) and at a multiple of 4
+// elements: ops/tracker_kernel.py FLOAT_FIELDS (trajectory, bbox,
+// confidence, velocity) and INT_FIELDS (track_id, class_id, age, hits,
+// misses, traj_len, vel_count, match, order, next_id, n_confirmed).
+TrackerOut carve(float* f, int* i, int T, int L, int B) {
   TrackerOut o;
   float** fs[] = {&o.traj, &o.bbox, &o.conf, &o.vel};
   const size_t fn[] = {(size_t)2 * T * L, (size_t)4 * T, (size_t)T, (size_t)2 * T};
   for (int k = 0; k < 4; ++k) {
     *fs[k] = f;
-    f += round4(fn[k]);
+    f += round4(fn[k] * B);
   }
   int** is[] = {&o.track_id, &o.class_id, &o.age, &o.hits, &o.misses, &o.traj_len,
                 &o.vel_count, &o.match, &o.order, &o.next_id, &o.n_conf};
   for (int k = 0; k < 11; ++k) {
     *is[k] = i;
-    i += round4(k < 9 ? (size_t)T : 1);
+    i += round4((k < 9 ? (size_t)T : 1) * B);
   }
   return o;
+}
+
+// Lane b's inputs and outputs: each field advanced by b times its size a lane.
+__device__ __forceinline__ TrackerIn lane_in(TrackerIn in, size_t b, int T, int D, int L) {
+  const size_t t = b * T, d = b * D;
+  in.track_id += t, in.bbox += 4 * t, in.class_id += t, in.conf += t, in.age += t, in.hits += t;
+  in.misses += t, in.traj += 2 * L * t, in.traj_len += t, in.vel += 2 * t, in.vel_count += t;
+  in.next_id += b;
+  in.det_bbox += 4 * d, in.det_class += d, in.det_conf += d, in.det_valid += d;
+  return in;
+}
+
+__device__ __forceinline__ TrackerOut lane_out(TrackerOut out, size_t b, int T, int L) {
+  const size_t t = b * T;
+  out.traj += 2 * L * t, out.bbox += 4 * t, out.conf += t, out.vel += 2 * t;
+  out.track_id += t, out.class_id += t, out.age += t, out.hits += t, out.misses += t;
+  out.traj_len += t, out.vel_count += t, out.match += t, out.order += t;
+  out.next_id += b, out.n_conf += b;
+  return out;
 }
 
 __device__ __forceinline__ float center(float a, float b) {
@@ -161,7 +187,7 @@ __device__ __forceinline__ void stable_rank(const int* key, int T, int* rank, in
 }
 
 __global__ void __launch_bounds__(kThreads)
-tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
+tracker_step_kernel(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p) {
   // [ring (if staged)] [IoU T x (D + 1)] [association keys]
   extern __shared__ __align__(16) float s_dyn[];
   __shared__ float4 s_tb[kMaxT];
@@ -178,6 +204,8 @@ tracker_step_kernel(TrackerIn in, TrackerOut out, TrackerParams p) {
   __shared__ int s_next_id;
 
   const int T = p.T, D = p.D, W = 2 * p.L;
+  const TrackerIn in = lane_in(lanes_in, blockIdx.x, T, D, p.L);
+  const TrackerOut out = lane_out(lanes_out, blockIdx.x, T, p.L);
   const int ld = D + 1;
   const int n_ring = T * W;
   const int tid = threadIdx.x;
@@ -382,16 +410,16 @@ extern "C" int madpp_tracker_step(
     const void* age, const void* hits, const void* misses, const void* traj,
     const void* traj_len, const void* vel, const void* vel_count, const void* next_id,
     const void* det_bbox, const void* det_class, const void* det_conf,
-    const void* det_valid, void* out_f, void* out_i, int T, int D, int L, float iou_threshold,
-    int max_age, int min_hits, void* stream) {
-  if (T < 1 || T > kMaxT || D < 1 || D > kMaxD || L < 1) return (int)cudaErrorInvalidValue;
+    const void* det_valid, void* out_f, void* out_i, int B, int T, int D, int L,
+    float iou_threshold, int max_age, int min_hits, void* stream) {
+  if (B < 1 || T < 1 || T > kMaxT || D < 1 || D > kMaxD || L < 1) return (int)cudaErrorInvalidValue;
   TrackerIn in{(const int*)track_id, (const float*)bbox, (const int*)class_id,
                (const float*)conf, (const int*)age, (const int*)hits,
                (const int*)misses, (const float*)traj, (const int*)traj_len,
                (const float*)vel, (const int*)vel_count, (const int*)next_id,
                (const float*)det_bbox, (const int*)det_class, (const float*)det_conf,
                (const bool*)det_valid};
-  const TrackerOut out = carve((float*)out_f, (int*)out_i, T, L);
+  const TrackerOut out = carve((float*)out_f, (int*)out_i, T, L, B);
   const size_t iou_bytes = sizeof(float) * round4((size_t)T * (size_t)(D + 1));
   const size_t key_bytes = sizeof(unsigned) * 32 * (size_t)((T + 31) / 32) * (size_t)assoc_key_stride(D);
   const size_t ring_bytes = sizeof(float) * round4((size_t)2 * T * L);
@@ -403,6 +431,6 @@ extern "C" int madpp_tracker_step(
     if (err != cudaSuccess) return (int)err;
   }
   TrackerParams p{T, D, L, iou_threshold, max_age, min_hits, stage ? 1 : 0};
-  tracker_step_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(in, out, p);
+  tracker_step_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(in, out, p);
   return (int)cudaGetLastError();
 }

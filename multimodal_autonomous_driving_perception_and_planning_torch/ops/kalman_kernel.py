@@ -16,9 +16,14 @@ stays float32 in memory; the algebra runs in double, which keeps the
 finite-difference acceleration close to the float64 reference.
 
 The wrapper does one thing per call (ops/launch.py): one pass of checks,
-one output buffer carved into x, P and the vehicle row (`output_fields`;
-the kernel carves the same offsets), and the stream without re-entering
-the device context.
+one output buffer carved into x, P, the vehicle row and the next step's
+time, heading and speed (`output_fields`; the kernel carves the same
+offsets), and the stream without re-entering the device context.
+
+Lanes: a state with a leading lane axis, x (B, 6) and so on, goes through
+one launch of B one-warp blocks, each lane's step exactly as its
+unbatched launch computes it; the model's F, Q and R are shared.  An
+unbatched call is the kernel's B = 1.  ``launches`` counts launches.
 """
 
 from __future__ import annotations
@@ -32,18 +37,20 @@ from ..ops.kalman import KalmanModel
 from ..types import VEHICLE_STATE_FIELDS, KalmanState
 from . import launch
 
-# The output fields in the kernel's buffer (kalman_step.cu kOutX, kOutP,
-# kOutVs): x (6,), P (6, 6), the vehicle row (11,).
-OUTPUT_SHAPES = ((6,), (6, 6), (len(VEHICLE_STATE_FIELDS),))
+# The output fields in the kernel's buffer (kalman_step.cu `carve`): x (6,),
+# P (6, 6), the vehicle row (11,), and the time, heading and speed the next
+# step reads as its time, prev_heading and prev_speed ().
+OUTPUT_SHAPES = ((6,), (6, 6), (len(VEHICLE_STATE_FIELDS),), (), (), ())
 
 # Launches of the kernel in this process; only `kalman_step` adds to it.
 launches = 0
 
 
-def output_fields(device) -> tuple:
-    """The kernel's outputs carved from one float32 buffer:
-    ``(buffer, [x, P, vs])``."""
-    return launch.carve(OUTPUT_SHAPES, torch.float32, device)
+def output_fields(device, lead: tuple = ()) -> tuple:
+    """The kernel's outputs carved from one float32 buffer, each behind the
+    lane axis ``lead`` (``()`` or ``(B,)``): ``(buffer, [x, P, vs, time,
+    heading, speed])``."""
+    return launch.carve(tuple(lead + s for s in OUTPUT_SHAPES), torch.float32, device)
 
 
 def kalman_step(
@@ -53,35 +60,38 @@ def kalman_step(
     has_measurement: torch.Tensor,
     dt: float,
     speed_heading_hold: float,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K2 on CUDA tensors.
+) -> Tuple[KalmanState, torch.Tensor]:
+    """Launch K2 on CUDA tensors, with or without a leading lane axis.
 
-    Returns (x (6,), P (6, 6), vs (11,)), ``vs`` holding the reported
+    Returns (new_state, vs), ``vs`` the (..., 11) row of the reported
     VehicleState fields in declaration order.
     """
     global launches
     device = ks.x.device
     if device.type != "cuda":
         raise ValueError(f"kalman_step launches a CUDA kernel; got a tensor on {device}")
+    lead = tuple(ks.x.shape[:-1])
+    if len(lead) > 1 or (lead and lead[0] < 1):
+        raise ValueError(f"kalman_step takes at most one lane axis; got x of shape {tuple(ks.x.shape)}")
     f32 = torch.float32
     ins = (
-        ("x", ks.x, f32, (6,)),
-        ("P", ks.P, f32, (6, 6)),
-        ("time", ks.time, f32, ()),
-        ("prev_heading", ks.prev_heading, f32, ()),
-        ("measurement", measurement, f32, (4,)),
-        ("has_measurement", has_measurement, torch.bool, ()),
+        ("x", ks.x, f32, lead + (6,)),
+        ("P", ks.P, f32, lead + (6, 6)),
+        ("time", ks.time, f32, lead),
+        ("prev_heading", ks.prev_heading, f32, lead),
+        ("measurement", measurement, f32, lead + (4,)),
+        ("has_measurement", has_measurement, torch.bool, lead),
         ("F", model.F, f32, (6, 6)),
         ("Q", model.Q, f32, (6, 6)),
         ("R", model.R, f32, (4, 4)),
     )
     launch.check_inputs("kalman_step", device, ins)
-    buf, (x, P, vs) = output_fields(device)
+    buf, (x, P, vs, time, heading, speed) = output_fields(device, lead)
     ptrs = [t.data_ptr() for _, t, _, _ in ins]
     kernel = build.kernels().kalman_step
-    args = (buf.data_ptr(), float(dt), float(speed_heading_hold))
+    args = (buf.data_ptr(), lead[0] if lead else 1, float(dt), float(speed_heading_hold))
     err = launch.launch(device, lambda stream: kernel(*ptrs, *args, stream))
     if err != 0:
         raise RuntimeError(f"kalman_step: kernel launch failed with CUDA error {err}")
     launches += 1
-    return x, P, vs
+    return KalmanState(x=x, P=P, time=time, prev_heading=heading, prev_speed=speed), vs

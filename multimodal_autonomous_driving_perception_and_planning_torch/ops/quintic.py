@@ -18,6 +18,10 @@ the values the JAX package's planner computes under ``jit``: there XLA
 turns each division by a constant into a multiplication by its rounded
 reciprocal, and contracts the blend polynomial into two fused
 multiply-adds.  A near-tie in cost would otherwise flip the chosen plan.
+
+Every function takes leading lane dimensions on the start state (and on
+the optional references and obstacles), (..., C, N) out: B planners in one
+pass of tensor ops.  The unbatched call runs the same ops on (C, N).
 """
 
 from __future__ import annotations
@@ -120,16 +124,17 @@ def generate_candidates(
     """Generate all candidate trajectories at once.
 
     Args:
-      start_state: (4,) [x, y, heading, velocity].
+      start_state: (..., 4) [x, y, heading, velocity].
       lateral_offsets: (C,) final lateral offsets df.
       target_velocities: (C,) target speeds.
     """
-    x0, y0, heading0, v0 = start_state.unbind(0)
+    # Each start value as (..., 1, 1), against the (C, N) grids.
+    x0, y0, heading0, v0 = start_state[..., None, None].unbind(-3)
     t, alpha, blend = _time_grid(planning_horizon, dt, start_state.device)
 
     # Velocity profile and arc length (s[0]=0; s[i] accumulates v[i]*dt).
-    vel = v0 + (target_velocities[:, None] - v0) * alpha[None, :]  # (C, N)
-    s = (torch.cumsum(vel, dim=1) - vel[:, :1]) * dt  # (C, N)
+    vel = v0 + (target_velocities[:, None] - v0) * alpha[None, :]  # (..., C, N)
+    s = (torch.cumsum(vel, dim=-1) - vel[..., :1]) * dt  # (..., C, N)
 
     # Quintic lateral blend.
     lat = lateral_offsets[:, None] * blend[None, :]  # (C, N)
@@ -139,19 +144,19 @@ def generate_candidates(
     cp, sp = torch.cos(heading0 + math.pi / 2), torch.sin(heading0 + math.pi / 2)
     x = x0 + s * c + lat * cp
     y = y0 + s * sn + lat * sp
-    positions = torch.stack([x, y], dim=-1)  # (C, N, 2)
+    positions = torch.stack([x, y], dim=-1)  # (..., C, N, 2)
 
     # Finite-difference heading; the last waypoint repeats the previous one.
-    dx = x[:, 1:] - x[:, :-1]
-    dy = y[:, 1:] - y[:, :-1]
-    head = torch.atan2(dy, dx)  # (C, N-1)
-    headings = torch.cat([head, head[:, -1:]], dim=1)  # (C, N)
+    dx = x[..., 1:] - x[..., :-1]
+    dy = y[..., 1:] - y[..., :-1]
+    head = torch.atan2(dy, dx)  # (..., C, N-1)
+    headings = torch.cat([head, head[..., -1:]], dim=-1)  # (..., C, N)
 
     # Curvature: dheading / (v dt + 1e-6); zero at the first and last point.
-    dhead = headings[:, 1:] - headings[:, :-1]
-    kappa_mid = dhead[:, :-1] / (vel[:, 1:-1] * dt + 1e-6)  # (C, N-2)
-    zeros = torch.zeros_like(kappa_mid[:, :1])
-    curvatures = torch.cat([zeros, kappa_mid, zeros], dim=1)  # (C, N)
+    dhead = headings[..., 1:] - headings[..., :-1]
+    kappa_mid = dhead[..., :-1] / (vel[..., 1:-1] * dt + 1e-6)  # (..., C, N-2)
+    zeros = torch.zeros_like(kappa_mid[..., :1])
+    curvatures = torch.cat([zeros, kappa_mid, zeros], dim=-1)  # (..., C, N)
 
     return CandidateSet(
         positions=positions,
@@ -171,52 +176,52 @@ def evaluate_costs(
     w_acceleration: float,
     w_curvature: float,
     cruise_velocity: float = 10.0,
-    reference_positions: Optional[torch.Tensor] = None,  # (R, 2)
-    reference_valid: Optional[torch.Tensor] = None,  # (R,) bool
-    obstacles: Optional[torch.Tensor] = None,  # (O, 3) x, y, radius
-    obstacles_valid: Optional[torch.Tensor] = None,  # (O,) bool
+    reference_positions: Optional[torch.Tensor] = None,  # (..., R, 2)
+    reference_valid: Optional[torch.Tensor] = None,  # (..., R) bool
+    obstacles: Optional[torch.Tensor] = None,  # (..., O, 3) x, y, radius
+    obstacles_valid: Optional[torch.Tensor] = None,  # (..., O) bool
 ) -> torch.Tensor:
-    """Total cost per candidate, matching motion_planner.py:206-262."""
-    vel = cand.velocities  # (C, N)
+    """Total cost per candidate, (..., C), matching motion_planner.py:206-262."""
+    vel = cand.velocities  # (..., C, N)
     t = cand.timestamps  # (N,)
 
-    cost = w_velocity * torch.sum((vel - cruise_velocity) ** 2, dim=1)
+    cost = w_velocity * torch.sum((vel - cruise_velocity) ** 2, dim=-1)
 
     dts = t[1:] - t[:-1]  # (N-1,)
     positive = dts > 0
-    accel = (vel[:, 1:] - vel[:, :-1]) / torch.where(positive, dts, 1.0)
+    accel = (vel[..., 1:] - vel[..., :-1]) / torch.where(positive, dts, 1.0)
     accel = torch.where(positive, accel, 0.0)
-    cost = cost + w_acceleration * torch.sum(accel**2, dim=1)
+    cost = cost + w_acceleration * torch.sum(accel**2, dim=-1)
 
-    cost = cost + w_curvature * torch.sum(cand.curvatures**2, dim=1)
+    cost = cost + w_curvature * torch.sum(cand.curvatures**2, dim=-1)
 
     if reference_positions is not None:
-        # (C, N, R) pairwise distances, masked min over reference points.
-        diff = cand.positions[:, :, None, :] - reference_positions[None, None, :, :]
+        # (..., C, N, R) pairwise distances, masked min over reference points.
+        diff = cand.positions[..., :, :, None, :] - reference_positions[..., None, None, :, :]
         dist = torch.linalg.vector_norm(diff, dim=-1)
         if reference_valid is not None:
-            dist = torch.where(reference_valid[None, None, :], dist, math.inf)
-        min_dist = dist.amin(dim=-1)  # (C, N)
-        lat_cost = torch.sum(min_dist**2, dim=1)
+            dist = torch.where(reference_valid[..., None, None, :], dist, math.inf)
+        min_dist = dist.amin(dim=-1)  # (..., C, N)
+        lat_cost = torch.sum(min_dist**2, dim=-1)
         # With no valid reference point the reference skips the term.
         if reference_valid is not None:
-            lat_cost = torch.where(reference_valid.any(), lat_cost, 0.0)
+            lat_cost = torch.where(reference_valid.any(dim=-1, keepdim=True), lat_cost, 0.0)
         cost = cost + w_lateral * lat_cost
 
     if obstacles is not None:
-        ox = obstacles[:, 0][None, None, :]  # (1, 1, O)
-        oy = obstacles[:, 1][None, None, :]
-        orad = obstacles[:, 2][None, None, :]
-        dx = cand.positions[:, :, None, 0] - ox
-        dy = cand.positions[:, :, None, 1] - oy
-        dist = torch.sqrt(dx**2 + dy**2)  # (C, N, O)
+        ox = obstacles[..., None, None, :, 0]  # (..., 1, 1, O)
+        oy = obstacles[..., None, None, :, 1]
+        orad = obstacles[..., None, None, :, 2]
+        dx = cand.positions[..., :, :, None, 0] - ox
+        dy = cand.positions[..., :, :, None, 1] - oy
+        dist = torch.sqrt(dx**2 + dy**2)  # (..., C, N, O)
         hard = torch.where(dist < orad * 2, 1000.0 * (orad * 2 - dist), 0.0)
         soft = torch.where(
             (dist >= orad * 2) & (dist < orad * 4), 10.0 / (dist - orad + 0.1), 0.0
         )
         pen = hard + soft
         if obstacles_valid is not None:
-            pen = torch.where(obstacles_valid[None, None, :], pen, 0.0)
-        cost = cost + torch.sum(pen, dim=(1, 2))
+            pen = torch.where(obstacles_valid[..., None, None, :], pen, 0.0)
+        cost = cost + torch.sum(pen, dim=(-2, -1))
 
     return cost

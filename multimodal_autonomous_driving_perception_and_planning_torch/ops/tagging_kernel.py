@@ -21,6 +21,11 @@ without re-entering the device context.  It reads nothing back from the
 device and allocates nothing that depends on the data, so a CUDA graph can
 capture it; the state's counters and the frame's timestamp are written on
 the device.
+
+Lanes: a state, table and detections with a leading lane axis go through
+one launch of B blocks, each running its lane's step as an unbatched
+launch would; the state and rows come back (B, ...).  An unbatched call is
+the kernel's B = 1.  ``launches`` counts launches, not lanes.
 """
 
 from __future__ import annotations
@@ -96,35 +101,35 @@ launches = 0
 # The new state's fields and the packed rows, in the order the kernel carves
 # its two buffers (tagging_step.cu `carve`).
 FLOAT_FIELDS = ("int_centers", "man_history", "tag_f")
-INT_FIELDS = ("scene_votes", "int_len", "counts", "tag_i")
+INT_FIELDS = ("scene_votes", "int_len", "scene_count", "man_count", "frame_count", "tag_i")
 
 
 @functools.lru_cache(maxsize=None)
-def output_shapes(T: int, W: int, H: int, HI: int) -> tuple:
-    """The shapes of FLOAT_FIELDS and of INT_FIELDS; ``counts`` holds the
-    scene, maneuver and frame counters."""
-    return (
-        ((T, 2 * HI), (H, 6), (row_width(FLOAT_TAGS, T),)),
-        ((W,), (T,), (3,), (row_width(INT_TAGS, T),)),
-    )
+def output_shapes(T: int, W: int, H: int, HI: int, lead: tuple = ()) -> tuple:
+    """The shapes of FLOAT_FIELDS and of INT_FIELDS, each behind the lane
+    axis ``lead`` (``()`` or ``(B,)``)."""
+    f = ((T, 2 * HI), (H, 6), (row_width(FLOAT_TAGS, T),))
+    i = ((W,), (T,), (), (), (), (row_width(INT_TAGS, T),))
+    return tuple(lead + s for s in f), tuple(lead + s for s in i)
 
 
-def output_fields(T: int, W: int, H: int, HI: int, device) -> tuple:
+def output_fields(T: int, W: int, H: int, HI: int, device, lead: tuple = ()) -> tuple:
     """The kernel's outputs carved from one float32 and one int32 buffer:
     ``(float buffer, int buffer, {field: tensor})``."""
-    f_shapes, i_shapes = output_shapes(T, W, H, HI)
+    f_shapes, i_shapes = output_shapes(T, W, H, HI, lead)
     fbuf, f = launch.carve(f_shapes, torch.float32, device)
     ibuf, i = launch.carve(i_shapes, torch.int32, device)
     return fbuf, ibuf, dict(zip(FLOAT_FIELDS + INT_FIELDS, f + i))
 
 
 def tagging_step(rules, state: TaggingState, dets, table, vrow, lane_row=None, feat_row=None):
-    """Launch K3 on CUDA tensors.
+    """Launch K3 on CUDA tensors, with or without a leading lane axis.
 
     ``rules`` is a tagging.rules.TaggingRules; ``vrow`` the (11,) float32
     vehicle-state row in VehicleState field order.  ``lane_row`` (8,) and
     ``feat_row`` (6,) select frames mode: the left and right lane fits and
-    the two found flags, and the six scene features, as float32.
+    the two found flags, and the six scene features, as float32.  With a
+    lane axis each of these is (B, ...).
 
     Returns ``(new_state, tag_f, tag_i)``, as the plain version does.
     """
@@ -132,67 +137,68 @@ def tagging_step(rules, state: TaggingState, dets, table, vrow, lane_row=None, f
     device = table.track_id.device
     if device.type != "cuda":
         raise ValueError(f"tagging_step launches a CUDA kernel; got a tensor on {device}")
-    T = table.track_id.shape[0]
-    D = dets.class_id.shape[0]
+    lead = tuple(table.track_id.shape[:-1])
+    T = table.track_id.shape[-1]
+    D = dets.class_id.shape[-1]
     W, H, HI = rules.window, rules.history, rules.interaction_history
     if T != rules.max_tracks:
         raise ValueError(f"tagging_step: the table has {T} slots, the rules {rules.max_tracks}")
-    if not (1 <= T <= MAX_TRACKS and D >= 1 and W >= 1 and H >= 1 and HI >= 1):
+    if not (len(lead) <= 1 and (not lead or lead[0] >= 1) and 1 <= T <= MAX_TRACKS and D >= 1 and W >= 1
+            and H >= 1 and HI >= 1):
         raise ValueError(
-            f"tagging_step takes 1..{MAX_TRACKS} track slots, at least one "
-            f"detection and non-empty rings; got T={T}, D={D}, W={W}, H={H}, HI={HI}"
+            f"tagging_step takes at most one lane axis, 1..{MAX_TRACKS} track slots, at least one "
+            f"detection and non-empty rings; got lanes {lead}, T={T}, D={D}, W={W}, H={H}, HI={HI}"
         )
     frames_mode = lane_row is not None
     if frames_mode != (feat_row is not None):
         raise ValueError("tagging_step: lane_row and feat_row come together or not at all")
     i32, f32 = torch.int32, torch.float32
     ins = (
-        ("det_class_id", dets.class_id, i32, (D,)),
-        ("det_confidence", dets.confidence, f32, (D,)),
-        ("det_valid", dets.valid, torch.bool, (D,)),
-        ("bbox", table.bbox, f32, (T, 4)),
-        ("class_id", table.class_id, i32, (T,)),
-        ("track_id", table.track_id, i32, (T,)),
-        ("hits", table.hits, i32, (T,)),
-        ("velocity", table.velocity, f32, (T, 2)),
-        ("vel_count", table.vel_count, i32, (T,)),
-        ("vehicle_row", vrow, f32, (11,)),
-        ("scene_votes", state.scene_votes, i32, (W,)),
-        ("scene_count", state.scene_count, i32, ()),
-        ("man_history", state.man_history, f32, (H, 6)),
-        ("man_count", state.man_count, i32, ()),
-        ("int_centers", state.int_centers, f32, (T, 2 * HI)),
-        ("int_len", state.int_len, i32, (T,)),
-        ("int_track_id", state.int_track_id, i32, (T,)),
-        ("frame_count", state.frame_count, i32, ()),
+        ("det_class_id", dets.class_id, i32, lead + (D,)),
+        ("det_confidence", dets.confidence, f32, lead + (D,)),
+        ("det_valid", dets.valid, torch.bool, lead + (D,)),
+        ("bbox", table.bbox, f32, lead + (T, 4)),
+        ("class_id", table.class_id, i32, lead + (T,)),
+        ("track_id", table.track_id, i32, lead + (T,)),
+        ("hits", table.hits, i32, lead + (T,)),
+        ("velocity", table.velocity, f32, lead + (T, 2)),
+        ("vel_count", table.vel_count, i32, lead + (T,)),
+        ("vehicle_row", vrow, f32, lead + (11,)),
+        ("scene_votes", state.scene_votes, i32, lead + (W,)),
+        ("scene_count", state.scene_count, i32, lead),
+        ("man_history", state.man_history, f32, lead + (H, 6)),
+        ("man_count", state.man_count, i32, lead),
+        ("int_centers", state.int_centers, f32, lead + (T, 2 * HI)),
+        ("int_len", state.int_len, i32, lead + (T,)),
+        ("int_track_id", state.int_track_id, i32, lead + (T,)),
+        ("frame_count", state.frame_count, i32, lead),
     )
     if frames_mode:
-        ins += (("lane_row", lane_row, f32, (8,)), ("feat_row", feat_row, f32, (6,)))
+        ins += (("lane_row", lane_row, f32, lead + (8,)), ("feat_row", feat_row, f32, lead + (6,)))
     launch.check_inputs("tagging_step", device, ins)
     params = rules.params
     if params.dtype.name != "float32" or params.shape != (len(PARAM_NAMES),) or not params.flags.c_contiguous:
         raise ValueError(f"tagging_step: rules.params must be ({len(PARAM_NAMES)},) float32")
 
-    fbuf, ibuf, out = output_fields(T, W, H, HI, device)
+    fbuf, ibuf, out = output_fields(T, W, H, HI, device, lead)
     ptrs = [t.data_ptr() for _, t, _, _ in ins]
     if not frames_mode:
         ptrs += [0, 0]
     kernel = build.kernels().tagging_step
-    args = (fbuf.data_ptr(), ibuf.data_ptr(), params.ctypes.data, T, D, W, H, HI, int(rules.min_hits),
-            int(frames_mode))
+    args = (fbuf.data_ptr(), ibuf.data_ptr(), params.ctypes.data, lead[0] if lead else 1, T, D, W, H, HI,
+            int(rules.min_hits), int(frames_mode))
     err = launch.launch(device, lambda stream: kernel(*ptrs, *args, stream))
     if err != 0:
         raise RuntimeError(f"tagging_step: kernel launch failed with CUDA error {err}")
     launches += 1
-    counts = out["counts"]
     new_state = TaggingState(
         scene_votes=out["scene_votes"],
-        scene_count=counts[0],
+        scene_count=out["scene_count"],
         man_history=out["man_history"],
-        man_count=counts[1],
+        man_count=out["man_count"],
         int_centers=out["int_centers"],
         int_len=out["int_len"],
         int_track_id=table.track_id,
-        frame_count=counts[2],
+        frame_count=out["frame_count"],
     )
     return new_state, out["tag_f"], out["tag_i"]

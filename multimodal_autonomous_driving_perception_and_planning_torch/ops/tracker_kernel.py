@@ -18,6 +18,12 @@ and one int32 buffer, `output_fields`), 18 pointers to the binding, and the
 stream without re-entering the device context.  It reads nothing back from
 the device and allocates nothing that depends on the data, so a CUDA graph
 can capture it.
+
+Lanes: a table and detections with a leading lane axis, (B, T, ...) and
+(B, D, ...), go through one launch of B blocks, each running its lane's
+step as an unbatched launch would; the outputs come back (B, ...).  An
+unbatched call is the kernel's B = 1.  ``launches`` counts launches, not
+lanes.
 """
 
 from __future__ import annotations
@@ -47,64 +53,70 @@ launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def output_shapes(T: int, L: int) -> tuple:
+def output_shapes(T: int, L: int, lead: tuple = ()) -> tuple:
     """The shapes of FLOAT_FIELDS and of INT_FIELDS at T slots and a ring of
-    L points."""
+    L points, each behind the lane axis ``lead`` (``()`` or ``(B,)``)."""
     per_slot = {"trajectory": (T, 2 * L), "bbox": (T, 4), "velocity": (T, 2), "next_id": (), "n_confirmed": ()}
-    return (tuple(per_slot.get(k, (T,)) for k in FLOAT_FIELDS), tuple(per_slot.get(k, (T,)) for k in INT_FIELDS))
+    return (
+        tuple(lead + per_slot.get(k, (T,)) for k in FLOAT_FIELDS),
+        tuple(lead + per_slot.get(k, (T,)) for k in INT_FIELDS),
+    )
 
 
-def output_fields(T: int, L: int, device) -> tuple:
+def output_fields(T: int, L: int, device, lead: tuple = ()) -> tuple:
     """The kernel's outputs carved from one float32 and one int32 buffer:
     ``(float buffer, int buffer, {field: tensor})``."""
-    f_shapes, i_shapes = output_shapes(T, L)
+    f_shapes, i_shapes = output_shapes(T, L, lead)
     fbuf, f = launch.carve(f_shapes, torch.float32, device)
     ibuf, i = launch.carve(i_shapes, torch.int32, device)
     return fbuf, ibuf, dict(zip(FLOAT_FIELDS + INT_FIELDS, f + i))
 
 
 def tracker_step(table: TrackTable, dets: Detections, cfg: TrackerConfig, min_hits: int):
-    """Launch K1 on CUDA tensors.
+    """Launch K1 on CUDA tensors, with or without a leading lane axis.
 
     Returns (new_table, match, order, n_confirmed), the same as the plain
-    `tracker_update` + `confirmed_order`.
+    `tracker_update` + `confirmed_order` (lane by lane).
     """
     global launches
     device = table.track_id.device
     if device.type != "cuda":
         raise ValueError(f"tracker_step launches a CUDA kernel; got a tensor on {device}")
-    T = table.track_id.shape[0]
-    D = dets.bbox.shape[0]
-    L = table.trajectory.shape[1] // 2
-    if not (1 <= T <= MAX_TRACKS and 1 <= D <= MAX_DETECTIONS and L >= 1):
+    lead = tuple(table.track_id.shape[:-1])
+    B = lead[0] if lead else 1
+    T = table.track_id.shape[-1]
+    D = dets.bbox.shape[-2]
+    L = table.trajectory.shape[-1] // 2
+    if not (len(lead) <= 1 and B >= 1 and 1 <= T <= MAX_TRACKS and 1 <= D <= MAX_DETECTIONS and L >= 1):
         raise ValueError(
-            f"tracker_step takes 1..{MAX_TRACKS} slots and 1..{MAX_DETECTIONS} "
-            f"detections; got T={T}, D={D}, L={L}"
+            f"tracker_step takes at most one lane axis, 1..{MAX_TRACKS} slots and "
+            f"1..{MAX_DETECTIONS} detections; got lanes {lead}, T={T}, D={D}, L={L}"
         )
     i32, f32 = torch.int32, torch.float32
     ins = (
-        ("track_id", table.track_id, i32, (T,)),
-        ("bbox", table.bbox, f32, (T, 4)),
-        ("class_id", table.class_id, i32, (T,)),
-        ("confidence", table.confidence, f32, (T,)),
-        ("age", table.age, i32, (T,)),
-        ("hits", table.hits, i32, (T,)),
-        ("misses", table.misses, i32, (T,)),
-        ("trajectory", table.trajectory, f32, (T, 2 * L)),
-        ("traj_len", table.traj_len, i32, (T,)),
-        ("velocity", table.velocity, f32, (T, 2)),
-        ("vel_count", table.vel_count, i32, (T,)),
-        ("next_id", table.next_id, i32, ()),
-        ("det_bbox", dets.bbox, f32, (D, 4)),
-        ("det_class_id", dets.class_id, i32, (D,)),
-        ("det_confidence", dets.confidence, f32, (D,)),
-        ("det_valid", dets.valid, torch.bool, (D,)),
+        ("track_id", table.track_id, i32, lead + (T,)),
+        ("bbox", table.bbox, f32, lead + (T, 4)),
+        ("class_id", table.class_id, i32, lead + (T,)),
+        ("confidence", table.confidence, f32, lead + (T,)),
+        ("age", table.age, i32, lead + (T,)),
+        ("hits", table.hits, i32, lead + (T,)),
+        ("misses", table.misses, i32, lead + (T,)),
+        ("trajectory", table.trajectory, f32, lead + (T, 2 * L)),
+        ("traj_len", table.traj_len, i32, lead + (T,)),
+        ("velocity", table.velocity, f32, lead + (T, 2)),
+        ("vel_count", table.vel_count, i32, lead + (T,)),
+        ("next_id", table.next_id, i32, lead),
+        ("det_bbox", dets.bbox, f32, lead + (D, 4)),
+        ("det_class_id", dets.class_id, i32, lead + (D,)),
+        ("det_confidence", dets.confidence, f32, lead + (D,)),
+        ("det_valid", dets.valid, torch.bool, lead + (D,)),
     )
     launch.check_inputs("tracker_step", device, ins)
-    fbuf, ibuf, out = output_fields(T, L, device)
+    fbuf, ibuf, out = output_fields(T, L, device, lead)
     ptrs = [t.data_ptr() for _, t, _, _ in ins]
     kernel = build.kernels().tracker_step
-    args = (fbuf.data_ptr(), ibuf.data_ptr(), T, D, L, float(cfg.iou_threshold), int(cfg.max_age), int(min_hits))
+    args = (fbuf.data_ptr(), ibuf.data_ptr(), B, T, D, L, float(cfg.iou_threshold), int(cfg.max_age),
+            int(min_hits))
     err = launch.launch(device, lambda stream: kernel(*ptrs, *args, stream))
     if err != 0:
         raise RuntimeError(f"tracker_step: kernel launch failed with CUDA error {err}")

@@ -11,6 +11,15 @@ buffers, so that no frame waits for the host but for the Canny
 hysteresis's convergence reads.  The tags travel as K3's two packed rows a
 frame and the lane observation as two rows, unpacked once, after the loop.
 
+Lanes: `make_batched_sequence_runner` runs B independent streams (the
+server's sessions, the multi-camera runner's cameras) through the same
+frame step with a leading lane axis on the state and the inputs: the
+counterpart of ``jax.vmap(make_sequence_runner(...))``.  Kernels K1, K2 and
+K3 take the lane axis, one launch a frame for all lanes; the planner's
+tensor ops take it as a leading dimension.  The unbatched runner and
+`make_pipeline_step` run that frame step with no lane axis, which is B = 1
+of the same kernels.
+
 Entry points run on the card unless the caller asks for ``device="cpu"``,
 where each kernel's plain version runs instead.
 """
@@ -38,6 +47,8 @@ from .types import (
     TaggingState,
     TrackTable,
     VehicleState,
+    map_lanes,
+    tree_leaves,
     vehicle_state_from_row,
 )
 from .utils.convert import kalman_model_from_numpy
@@ -77,9 +88,9 @@ _LANE_B = ("left_found", "right_found", "has_offset")
 
 
 def _pack_lane_obs(obs: LaneObservation):
-    """The observation as a (9,) float32 row and a (3,) bool row."""
-    f = torch.cat([getattr(obs, k).reshape(-1) for k, _ in _LANE_F])
-    return f, torch.stack([getattr(obs, k) for k in _LANE_B])
+    """The observation as a (..., 9) float32 row and a (..., 3) bool row."""
+    f = torch.cat([getattr(obs, k).reshape(*obs.offset_px.shape, n) for k, n in _LANE_F], dim=-1)
+    return f, torch.stack([getattr(obs, k) for k in _LANE_B], dim=-1)
 
 
 def _unpack_lane_obs(f: torch.Tensor, b: torch.Tensor) -> LaneObservation:
@@ -98,7 +109,8 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
     ``rows`` the packed rows of the frame: K3's ``tag_f``/``tag_i`` with
     tagging and the lane observation's ``lane_f``/``lane_b`` with lanes.
     ``out`` holds no "tags" and no "lane_obs", and the vehicle state as
-    K2's (11,) row."""
+    K2's (11,) row.  State, inputs and outputs carry the same leading lane
+    axis, (B, ...), or none."""
     model = kalman_model_from_numpy(
         *make_constant_accel_model(
             cfg.estimator.dt,
@@ -108,17 +120,34 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
         ),
         device=dev,
     )
-    measured = torch.ones((), dtype=torch.bool, device=dev)
     tagging_step = make_packed_tagging_step(cfg) if cfg.enable_tagging else None
     lane_step = make_lane_step(cfg, dev) if cfg.use_frames else None
+    # Per lane count: the default has-measurement flags and the lane indices.
+    per_lanes: Dict[tuple, Any] = {}
+
+    def lanes_of(lead: tuple):
+        if lead not in per_lanes:
+            per_lanes[lead] = (
+                torch.ones(lead, dtype=torch.bool, device=dev),
+                torch.arange(lead[0], device=dev) if lead else None,
+            )
+        return per_lanes[lead]
 
     def step(state: PipelineState, inputs: Dict[str, Any]):
         dets = inputs["detections"]
+        lead = tuple(state.frame_idx.shape)
+        measured, lane_idx = lanes_of(lead)
         rows = {}
 
-        # Lanes and scene features, from the camera frame.
+        # Lanes and scene features, from the camera frame.  The lane step
+        # reads the Canny hysteresis's flag on the host, so with a lane
+        # axis it runs once a lane (K1-K3 still run once for all lanes);
+        # batching it belongs with its CUDA graph (ROADMAP items 5a, 7b).
         if lane_step is not None and "frame" in inputs:
-            lanes, lane_obs, frame_feats = lane_step(state.lanes, inputs["frame"])
+            if lead:
+                lanes, lane_obs, frame_feats = map_lanes(lane_step, lead[0], state.lanes, inputs["frame"])
+            else:
+                lanes, lane_obs, frame_feats = lane_step(state.lanes, inputs["frame"])
             rows["lane_f"], rows["lane_b"] = _pack_lane_obs(lane_obs)
         else:
             lanes, lane_obs, frame_feats = state.lanes, None, None
@@ -139,7 +168,7 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
         vstate = vehicle_state_from_row(vrow)
 
         # Planning.
-        current = torch.stack([vstate.x, vstate.y, vstate.heading, vstate.speed])
+        current = torch.stack([vstate.x, vstate.y, vstate.heading, vstate.speed], dim=-1)
         pr = plan(
             current,
             cfg.planner,
@@ -148,7 +177,13 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
             obstacles=inputs.get("obstacles"),
             obstacles_valid=inputs.get("obstacles_valid"),
         )
-        best = pr.best.view(1)
+        if lead:
+            best_positions = pr.positions[lane_idx, pr.best]
+            best_velocities = pr.velocities[lane_idx, pr.best]
+        else:
+            best = pr.best.view(1)
+            best_positions = pr.positions.index_select(0, best)[0]
+            best_velocities = pr.velocities.index_select(0, best)[0]
 
         # Tagging: kernel K3 on the card, in frames mode with lanes.
         if tagging_step is not None:
@@ -181,8 +216,8 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
             "vehicle_state": vrow,
             "plan_costs": pr.costs,
             "plan_best": pr.best,
-            "plan_best_positions": pr.positions.index_select(0, best)[0],
-            "plan_best_velocities": pr.velocities.index_select(0, best)[0],
+            "plan_best_positions": best_positions,
+            "plan_best_velocities": best_velocities,
         }
         if cfg.emit_trajectories:
             out["track_trajectory"] = table.trajectory
@@ -191,7 +226,7 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
             out["plan_order"] = pr.order
             out["plan_positions"] = pr.positions
             out["plan_velocities"] = pr.velocities
-            out["plan_lateral_offsets"] = pr.lateral_offsets
+            out["plan_lateral_offsets"] = pr.lateral_offsets.expand(pr.costs.shape)  # the grid, a lane each
         return new_state, out, rows
 
     return step
@@ -262,16 +297,35 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
     Returns ``(final_state, outs)``, ``outs`` holding the step's outputs
     with a leading time axis.
     """
-    dev = resolve_device(device)
+    return _make_runner(cfg, resolve_device(device), lanes=False)
+
+
+def make_batched_sequence_runner(cfg: PipelineConfig, device="cuda"):
+    """Build a runner over B independent streams at once: the counterpart of
+    ``jax.vmap(make_sequence_runner(cfg))``.
+
+    The state carries a leading lane axis on every leaf (`types.stack_lanes`
+    of B states), and every input a leading (B, F) pair of axes, as
+    `make_sequence_runner`'s inputs with a lane axis in front.  Each frame
+    launches K1, K2 and K3 once for all B lanes.  Returns
+    ``(final_state, outs)``, ``outs`` with leading (B, F) axes; lane b's
+    outputs are those of `make_sequence_runner` on lane b's state and
+    inputs (bit for bit in the kernels' outputs, the planner's floats
+    within rounding of its batched reductions).
+    """
+    return _make_runner(cfg, resolve_device(device), lanes=True)
+
+
+def _make_runner(cfg: PipelineConfig, dev: torch.device, lanes: bool):
     step = _make_frame_step(cfg, dev)
 
     def as_input(k, v):
-        if k != "frame":
-            return torch.as_tensor(v, dtype=_INPUT_DTYPES[k]).to(dev).contiguous()
-        v = torch.as_tensor(v)
-        if v.dtype not in _FRAME_DTYPES:
+        v = torch.as_tensor(v) if k == "frame" else torch.as_tensor(v, dtype=_INPUT_DTYPES[k])
+        if k == "frame" and v.dtype not in _FRAME_DTYPES:
             raise TypeError(f"frames are uint8 or int32, not {v.dtype}")
-        return v.to(dev).contiguous()
+        v = v.to(dev)
+        # Frame-major on the device, so that each frame's slice is contiguous.
+        return (v.transpose(0, 1) if lanes else v).contiguous()
 
     def run(state: PipelineState, inputs: Dict[str, Any]):
         unknown = set(inputs) - set(_INPUT_DTYPES)
@@ -286,6 +340,16 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
             raise ValueError(
                 f"the state is on {state.tracks.track_id.device}, the runner on {dev}"
             )
+        lead = tuple(state.frame_idx.shape)
+        if lanes:
+            shapes = {tuple(torch.as_tensor(leaf).shape[:1]) for leaf in tree_leaves(state)}
+            if len(lead) != 1 or shapes != {lead}:
+                raise ValueError("the batched runner takes a state with one leading lane axis on every leaf")
+            bad = {k: tuple(v.shape[:1]) for k, v in inputs.items() if tuple(v.shape[:1]) != lead}
+            if bad:
+                raise ValueError(f"inputs need a leading lane axis of {lead[0]}; got {bad}")
+        elif lead:
+            raise ValueError("make_sequence_runner takes an unbatched state; use make_batched_sequence_runner")
         xs = {k: as_input(k, v) for k, v in inputs.items()}
         num_frames = xs["bbox"].shape[0]
 
@@ -302,17 +366,17 @@ def make_sequence_runner(cfg: PipelineConfig, device="cuda"):
             out.update(rows)
             if not bufs:
                 bufs = {
-                    k: torch.empty((num_frames, *v.shape), dtype=v.dtype, device=dev)
+                    k: torch.empty((*lead, num_frames, *v.shape[len(lead):]), dtype=v.dtype, device=dev)
                     for k, v in out.items()
                 }
             for k, v in out.items():
-                bufs[k][f].copy_(v)
+                (bufs[k][:, f] if lanes else bufs[k][f]).copy_(v)
 
         outs: Dict[str, Any] = dict(bufs)
         vs = outs.pop("vehicle_state", None)
         if vs is not None:
             outs["vehicle_state"] = VehicleState(
-                *(vs[:, i].contiguous() for i in range(len(VEHICLE_STATE_FIELDS)))
+                *(vs[..., i].contiguous() for i in range(len(VEHICLE_STATE_FIELDS)))
             )
         _unpack_rows(outs, cfg.tracker.max_tracks)
         return state, outs

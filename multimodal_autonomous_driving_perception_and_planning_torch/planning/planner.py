@@ -25,7 +25,9 @@ def plan(
     obstacles: Optional[torch.Tensor] = None,
     obstacles_valid: Optional[torch.Tensor] = None,
 ) -> PlanResult:
-    """Plan from (x, y, heading, velocity) on ``current_state``'s device."""
+    """Plan from (x, y, heading, velocity) on ``current_state``'s device;
+    ``current_state`` (..., 4) with leading lane dimensions plans each lane
+    (the optional references and obstacles then carry them too)."""
     lat, tv = candidate_grid(
         cfg.num_samples, cfg.lateral_range, tuple(cfg.target_velocities), current_state.device
     )
@@ -44,7 +46,7 @@ def plan(
         obstacles=obstacles,
         obstacles_valid=obstacles_valid,
     )
-    order = torch.sort(costs, stable=True).indices.to(torch.int32)
+    order = torch.sort(costs, dim=-1, stable=True).indices.to(torch.int32)
     return PlanResult(
         positions=cand.positions,
         headings=cand.headings,
@@ -54,6 +56,6 @@ def plan(
         costs=costs,
         lateral_offsets=cand.lateral_offsets,
         target_velocities=cand.target_velocities,
-        best=order[0],
+        best=order[..., 0],
         order=order,
     )

@@ -51,6 +51,7 @@ from ..types import (
     TaggingState,
     VEHICLE_STATE_FIELDS,
     TrackTable,
+    map_lanes,
     vehicle_row,
 )
 
@@ -624,7 +625,9 @@ def make_packed_tagging_step(cfg: PipelineConfig):
 
     CUDA tensors go through kernel K3, CPU tensors through the plain
     version.  ``lane_obs`` and ``frame_feats`` come together (frames mode)
-    or not at all (detections mode)."""
+    or not at all (detections mode).  Inputs with a leading lane axis are B
+    taggers stepped at once: one launch on the card, the plain version lane
+    by lane on the CPU."""
     rules = TaggingRules.from_config(cfg)
 
     def step(state, dets, table, vrow, lane_obs=None, frame_feats=None):
@@ -641,8 +644,9 @@ def make_packed_tagging_step(cfg: PipelineConfig):
                     [
                         lane_obs.left_fit.float(),
                         lane_obs.right_fit.float(),
-                        torch.stack([lane_obs.left_found, lane_obs.right_found]).float(),
-                    ]
+                        torch.stack([lane_obs.left_found, lane_obs.right_found], dim=-1).float(),
+                    ],
+                    dim=-1,
                 )
                 feat_row = torch.stack(
                     [
@@ -651,13 +655,16 @@ def make_packed_tagging_step(cfg: PipelineConfig):
                             "center_edge_density", "num_long_lines", "avg_line_length",
                             "green_ratio", "brightness", "laplacian_var",
                         )
-                    ]
+                    ],
+                    dim=-1,
                 )
             return tagging_kernel.tagging_step(
                 rules, state, dets, table, vrow, lane_row, feat_row
             )
         if device.type != "cpu":
             raise ValueError(f"tagging step: unsupported device {device}")
+        if table.track_id.dim() > 1:
+            return map_lanes(step, table.track_id.shape[0], state, dets, table, vrow, lane_obs, frame_feats)
         return tagging_step_plain(rules, state, dets, table, vrow, lane_obs, frame_feats)
 
     return step

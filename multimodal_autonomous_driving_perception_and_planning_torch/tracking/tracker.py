@@ -21,7 +21,9 @@ Parity notes (each maps to a reference behavior):
 
 `tracker_update_with_order` is the entry point the pipeline calls: for
 CUDA tensors it launches kernel K1 (ops.tracker_kernel), for CPU tensors it
-runs the plain version below.
+runs the plain version below.  A table and detections with a leading lane
+axis are B trackers stepped at once: one launch on the card, the plain
+version lane by lane on the CPU.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..config import TrackerConfig
 from ..ops import tracker_kernel
 from ..ops.association import _greedy_associate_plain
 from ..ops.geometry import pairwise_iou
-from ..types import Detections, TrackTable
+from ..types import Detections, TrackTable, map_lanes
 
 _I32_MAX = torch.iinfo(torch.int32).max
 
@@ -91,6 +93,10 @@ def tracker_update_with_order(
         return tracker_kernel.tracker_step(table, dets, cfg, min_hits)
     if device.type != "cpu":
         raise ValueError(f"tracker_update_with_order: unsupported device {device}")
+    if table.track_id.dim() > 1:
+        return map_lanes(
+            lambda t, d: tracker_update_with_order(t, d, cfg, min_hits), table.track_id.shape[0], table, dets
+        )
     new_table, match = tracker_update(table, dets, cfg)
     order, n_confirmed = confirmed_order(new_table, min_hits)
     return new_table, match, order, n_confirmed

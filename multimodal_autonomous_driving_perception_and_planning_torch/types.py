@@ -145,13 +145,15 @@ VEHICLE_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(VehicleState))
 
 
 def vehicle_row(vstate: VehicleState) -> torch.Tensor:
-    """The state as one (11,) float32 row in field order (a new tensor)."""
-    return torch.stack([torch.as_tensor(getattr(vstate, n), dtype=torch.float32) for n in VEHICLE_STATE_FIELDS])
+    """The state as one (..., 11) float32 row in field order (a new tensor)."""
+    return torch.stack(
+        [torch.as_tensor(getattr(vstate, n), dtype=torch.float32) for n in VEHICLE_STATE_FIELDS], dim=-1
+    )
 
 
 def vehicle_state_from_row(row: torch.Tensor) -> VehicleState:
-    """The state whose fields are views of the entries of an (11,) row."""
-    return VehicleState(*row.unbind(0))
+    """The state whose fields are views of the entries of an (..., 11) row."""
+    return VehicleState(*row.unbind(-1))
 
 
 @_frozen
@@ -255,3 +257,68 @@ class PipelineState:
     lanes: LaneState
     tagging: TaggingState
     frame_idx: Any  # () int32
+
+
+# --- trees of tensors --------------------------------------------------------
+# The tables above nest as the JAX package's registered dataclasses do, so
+# their leaves in field order, depth first, are `jax.tree_util.tree_leaves`'
+# order: a state flattened here and one flattened there line up leaf by leaf.
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a table (or of a table of tables) in field order,
+    depth first: the JAX package's leaf order."""
+    if dataclasses.is_dataclass(tree):
+        return [leaf for f in dataclasses.fields(tree) for leaf in tree_leaves(getattr(tree, f.name))]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """A table shaped like ``template`` whose tensors are ``leaves``, in
+    `tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if dataclasses.is_dataclass(node):
+            return type(node)(**{f.name: build(getattr(node, f.name)) for f in dataclasses.fields(node)})
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template has")
+    return out
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the corresponding tensors of tables shaped alike (or of
+    dicts, tuples or lists of them)."""
+    first = trees[0]
+    if dataclasses.is_dataclass(first):
+        return type(first)(
+            **{f.name: tree_map(fn, *(getattr(t, f.name) for t in trees)) for f in dataclasses.fields(first)}
+        )
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(tree_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)
+
+
+def stack_lanes(trees):
+    """Tables shaped alike stacked on a new leading lane axis, one
+    `torch.stack` a leaf."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def lane_of(tree, i: int):
+    """Lane ``i`` of a table with a leading lane axis, as views."""
+    return tree_map(lambda leaf: leaf[i], tree)
+
+
+def map_lanes(fn, lanes: int, *args):
+    """``fn`` on each of ``lanes`` lanes of its arguments (tables with a
+    leading lane axis; None passes through), the results stacked: how the
+    plain versions take a lane axis on the CPU."""
+    return stack_lanes(
+        [fn(*(None if a is None else lane_of(a, b) for a in args)) for b in range(lanes)]
+    )

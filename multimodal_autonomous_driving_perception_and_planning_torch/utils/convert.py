@@ -5,7 +5,10 @@ numpy and tensors.
 `YOLOv8`.  `state_from_numpy` takes any tree with the
 `PipelineState` field names, as attributes (the JAX package's state with
 numpy leaves) or as dict keys (what `state_to_numpy` returns), so a run can
-be started in one package and resumed in the other.
+be started in one package and resumed in the other.  `state_from_leaves`
+takes a state's leaves in the JAX package's order (``jax.tree_util.
+tree_leaves``, `types.tree_leaves` here), the form in which the servers
+export a session and the checkpoints hold a state.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.kalman import KalmanModel
-from ..types import KalmanState, LaneState, PipelineState, TaggingState, TrackTable
+from ..types import KalmanState, LaneState, PipelineState, TaggingState, TrackTable, tree_leaves, tree_unflatten
 
 _NESTED = {
     "tracks": TrackTable,
@@ -59,6 +62,23 @@ def state_to_numpy(state: Any) -> Dict[str, Any]:
         )
         for f in dataclasses.fields(state)
     }
+
+
+def state_from_leaves(leaves, template):
+    """A state shaped like ``template`` (on its device, in its dtypes) from
+    its leaves in `types.tree_leaves` order, numpy arrays or tensors.
+    Raises ValueError when the count or a shape differs from the
+    template's."""
+    t_leaves = tree_leaves(template)
+    if len(leaves) != len(t_leaves):
+        raise ValueError(f"expected {len(t_leaves)} state leaves, got {len(leaves)}")
+    out = []
+    for i, (a, t) in enumerate(zip(leaves, t_leaves)):
+        a = a if isinstance(a, torch.Tensor) else torch.tensor(np.asarray(a))
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"leaf{i}: expected shape {tuple(t.shape)}, got {tuple(a.shape)}")
+        out.append(a.to(device=t.device, dtype=t.dtype))
+    return tree_unflatten(template, out)
 
 
 def kalman_model_from_numpy(F, H, Q, R, device) -> KalmanModel:

@@ -162,3 +162,35 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     with pytest.raises(TypeError, match="expected torch.float32"):
         nms_kernel.nms_keep(torch.zeros((2, 8, 4), device=device), torch.zeros((2, 8), dtype=torch.float64,
                                                                                 device=device), 0.45)
+
+
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_lane_kernels_match_per_lane_launches(device, B):
+    """K1, K2 and K3 at B lanes a launch, each lane on its own stream: every
+    lane bit for bit its B = 1 launch, and its plain version's result (K1
+    exact, K2 and K3 within their bounds); at B = 8 also rings of 63 slots
+    and K3 in frames mode at (128, 64)."""
+    cases = chip_smoke.check_lane_kernels(device, lane_counts=(B,), steps={B: 4})
+    names = ["churn_64x16", "ego_streams", "detections_64x16", "frames_64x16"]
+    if B == 8:
+        names += ["odd_ring_63x16", "odd_ring_63x16", "frames_128x64"]
+    assert [c["case"] for c in cases] == names and all(c["B"] == B for c in cases)
+    torch.cuda.synchronize()
+
+
+def test_batched_and_multicamera_paths_match_unbatched_card_runs(device):
+    """8 lanes over 60 frames: the batched tagging path and the multi-camera
+    main path each equal to their lanes' unbatched card runs, one launch of
+    each kernel a frame for all lanes."""
+    streams = chip_smoke.lane_streams(8, 60)
+    batched = chip_smoke.check_batched_path(device, streams)
+    assert batched["launches"]["tracker_step"] == batched["launches"]["tagging_step"] == 60
+    cams = chip_smoke.check_multicamera_path(device, streams)
+    assert cams["launches"]["kalman_step"] == 60 and cams["launches"]["tagging_step"] == 0
+
+
+def test_serve_path_and_kalman_bank_on_card(device):
+    served = chip_smoke.check_serve_path(device)
+    assert served["loadgen"]["completed_requests"] == 32 and served["device"] == "cuda"
+    bank = chip_smoke.check_kalman_bank(device)
+    assert bank["frames"] == 300 and bank["agents"] == 64

@@ -4,7 +4,7 @@ the wrappers carve (ops/launch.py `carve`, `tracker_kernel.output_fields`,
 one-pass input checks.
 
 The kernels carve the same buffers by the same rule (tracker_step.cu and
-tagging_step.cu `carve`, kalman_step.cu kOutX, kOutP, kOutVs): fields in order, each starting at a multiple
+tagging_step.cu and kalman_step.cu `carve`): fields in order, each starting at a multiple
 of 4 elements, so that each ring starts 16-byte aligned and the kernels can
 store it with 16-byte vector stores.  These tests hold the Python side to
 that rule with an independent offset count; the card's runs in
@@ -78,14 +78,15 @@ def test_tagging_output_fields(T, W, H, HI):
 
 
 def test_kalman_output_fields():
-    """K2's one float32 buffer: x (6,), P (6, 6) and the vehicle row (11,)
-    at the offsets the kernel writes (0, 8 and 44 floats), each 16-byte
-    aligned and contiguous, none overlapping."""
+    """K2's one float32 buffer: x (6,), P (6, 6), the vehicle row (11,) and
+    the next step's time, heading and speed at the offsets the kernel
+    writes (0, 8, 44, 56, 60 and 64 floats), each 16-byte aligned and
+    contiguous, none overlapping."""
     buf, fields = kalman_kernel.output_fields("cpu")
-    names = ("x", "P", "vs")
+    names = ("x", "P", "vs", "time", "heading", "speed")
     _check_fields(buf, names, kalman_kernel.OUTPUT_SHAPES, dict(zip(names, fields)), torch.float32)
-    assert [(t.data_ptr() - buf.data_ptr()) // 4 for t in fields] == [0, 8, 44]
-    assert buf.numel() == 56
+    assert [(t.data_ptr() - buf.data_ptr()) // 4 for t in fields] == [0, 8, 44, 56, 60, 64]
+    assert buf.numel() == 68
 
 
 def test_carved_fields_are_independent():
