@@ -84,7 +84,21 @@ Phases, each printing one JSON line:
      one launch of K1-K3 a frame of each batched run; then one served
      chunk against the runner;
  19. the per-agent Kalman bank over 300 frames x 64 agents against the CPU;
- 20. times: each kernel and its plain version by CUDA events at its path's
+ 20. the BLIP captioner (`blip_model`): the full-width BlipConfig() with
+     seeded weights on a 480x640 road frame, the card against the CPU:
+     `preprocess_bgr`, the vision states, the cross K/V and the
+     teacher-forced logits over one fixed buffer within a fraction of
+     their scale, the greedy and beam-3 decodes of the scene prompt at 8
+     new tokens (a token may differ only after a decision within the
+     measured gap);
+ 21. the VLM path (`vlm_path`): the frames path on the card over 30 road
+     frames, then `VLMTagger(backend="torch")` on the card over them with
+     the runner's ego state and confirmed tracks, from an HF-named ``.npz``
+     of the seeded weights and a synthetic ``vocab.txt``, at the default
+     budgets (75 and 50) with num_beams=3: the backend loads and makes all
+     6 captions (3 captioned frames x 2 prompts), 27 cache hits, no stub
+     caption;
+ 22. times: each kernel and its plain version by CUDA events at its path's
      shapes, beside the kernel's bound; the launch floor (`floor_ms`, a
      one-element add's device time) and where K1's to K5's time goes
      (`split`: each wrapper's host split, each kernel on inputs that take
@@ -92,8 +106,11 @@ Phases, each printing one JSON line:
      takes); the frames/s of the main, tagging and frames paths, timed in
      turns; the lane step's device time by stage (`lane_split`); the YOLO
      detection chunk by stage and the YOLO path's frames/s in both dtypes;
-     then (`lane_times`) K1-K3 at B = 1, 8 and 64 beside their bounds, and
-     the tagging path's lane-frames/s at B = 1, 8 and 64, in turns.
+     the BLIP vision forward and a greedy and a beam-3 caption of each VLM
+     prompt at its budget, beside their FLOPs and float32 bounds, with the
+     card's busy share over one beam-3 caption (`blip`); then
+     (`lane_times`) K1-K3 at B = 1, 8 and 64 beside their bounds, and the
+     tagging path's lane-frames/s at B = 1, 8 and 64, in turns.
 Then the script's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Without a card it exits 1 at once.
@@ -2822,6 +2839,457 @@ def measure_batched_paths(device, lane_counts=(BATCHED_LANES, 64), rounds: int =
     return result
 
 
+# ---------------------------------------------------------------------------
+# BLIP: the captioner (models/blip.py) and the VLM tagger's torch backend
+# ---------------------------------------------------------------------------
+
+BLIP_SHORT_NEW = 8  # new tokens of the card-against-CPU decodes: seconds a decode on the CPU
+# The card against the CPU (cuBLAS and the CPU's BLAS sum in other orders),
+# each side from its own preprocessed frame: the largest gap over the
+# largest value of the vision states, the cross K/V and the teacher-forced
+# logits.
+BLIP_REL = 1e-4
+PREPROCESS_ATOL = 1e-5  # the normalized pixels: the card's antialiased bicubic against the CPU's
+VLM_FRAMES = 30
+VLM_CACHE_INTERVAL = 10
+# The VLM tagger's prompts and token budgets (tagging/vlm.py `tag_frame`).
+VLM_PROMPTS = {"scene": ("a photo of a driving scene showing", 75), "safety": ("this driving situation is", 50)}
+BERT_SPECIAL_IDS = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[MASK]"}
+
+
+def synthetic_vocab() -> list:
+    """A ``vocab.txt`` in place of bert-base-uncased's, which the repository
+    does not hold: its size and special-token ids, the VLM prompts' words
+    from id 1000, ``tok<i>`` on every other line.  No line holds "error" or
+    "failed", on which `VLMTagger._generate` falls back to the stub."""
+    vocab = [f"tok{i}" for i in range(30522)]
+    for i, token in BERT_SPECIAL_IDS.items():
+        vocab[i] = token
+    words = sorted({w for prompt, _ in VLM_PROMPTS.values() for w in prompt.split()})
+    for j, word in enumerate(words):
+        vocab[1000 + j] = word
+    return vocab
+
+
+def blip_params(cfg) -> dict:
+    """Seeded BLIP weights on the CPU (`blip.init_params`, Flax's
+    initializers)."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.models import blip
+
+    model = blip.BlipForCaptioning(cfg)
+    blip.init_params(model, torch.Generator().manual_seed(0))
+    return model.state_dict()
+
+
+def hf_state_from_port(params: dict, cfg) -> dict:
+    """The inverse of `blip.load_torch_state_dict`: the port's state dict
+    under HuggingFace ``BlipForConditionalGeneration``'s key names, the
+    vision query, key and value fused into one ``qkv`` projection, as numpy
+    arrays."""
+    p = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    sd = {}
+
+    def pair(hf, port):  # a Linear's or a LayerNorm's weight and bias
+        sd[f"{hf}.weight"], sd[f"{hf}.bias"] = p[f"{port}.weight"], p[f"{port}.bias"]
+
+    v = "vision_model"
+    sd[f"{v}.embeddings.class_embedding"] = p["vision.cls_token"]
+    sd[f"{v}.embeddings.position_embedding"] = p["vision.pos_embed"]
+    pair(f"{v}.embeddings.patch_embedding", "vision.patch_embed")
+    for i in range(cfg.vision_layers):
+        hf, pl = f"{v}.encoder.layers.{i}", f"vision.layer{i}"
+        pair(f"{hf}.layer_norm1", f"{pl}.ln1")
+        pair(f"{hf}.layer_norm2", f"{pl}.ln2")
+        for part in ("weight", "bias"):
+            sd[f"{hf}.self_attn.qkv.{part}"] = np.concatenate(
+                [p[f"{pl}.attn.{n}.{part}"] for n in ("query", "key", "value")])
+        pair(f"{hf}.self_attn.projection", f"{pl}.attn.output")
+        pair(f"{hf}.mlp.fc1", f"{pl}.fc1")
+        pair(f"{hf}.mlp.fc2", f"{pl}.fc2")
+    pair(f"{v}.post_layernorm", "vision.post_ln")
+    t = "text_decoder.bert"
+    sd[f"{t}.embeddings.word_embeddings.weight"] = p["text.word_embeddings.weight"]
+    sd[f"{t}.embeddings.position_embeddings.weight"] = p["text.position_embeddings"]
+    pair(f"{t}.embeddings.LayerNorm", "text.emb_ln")
+    for i in range(cfg.text_layers):
+        hf, pl = f"{t}.encoder.layer.{i}", f"text.layer{i}"
+        for block, attn, norm in (("attention", "self_attn", "self_ln"), ("crossattention", "cross_attn", "cross_ln")):
+            for n in ("query", "key", "value"):
+                pair(f"{hf}.{block}.self.{n}", f"{pl}.{attn}.{n}")
+            pair(f"{hf}.{block}.output.dense", f"{pl}.{attn}.output")
+            pair(f"{hf}.{block}.output.LayerNorm", f"{pl}.{norm}")
+        pair(f"{hf}.intermediate.dense", f"{pl}.fc1")
+        pair(f"{hf}.output.dense", f"{pl}.fc2")
+        pair(f"{hf}.output.LayerNorm", f"{pl}.out_ln")
+    c = "text_decoder.cls.predictions"
+    pair(f"{c}.transform.dense", "text.transform")
+    pair(f"{c}.transform.LayerNorm", "text.transform_ln")
+    pair(f"{c}.decoder", "text.decoder")
+    return sd
+
+
+def top_two_margins(logits: np.ndarray) -> np.ndarray:
+    """Each row's largest logit less its second largest (float64)."""
+    s = np.sort(np.asarray(logits, np.float64), axis=-1)
+    return s[..., -1] - s[..., -2]
+
+
+def blip_logp_fn(model, cross_kvs, num_beams: int):
+    """``logp_fn`` for `replay_beam`: the model's log-probabilities at row
+    i - 1 of each running sequence, as the beam caption computes them."""
+    kvs = [tuple(t.expand(num_beams, *t.shape[1:]) for t in kv) for kv in cross_kvs]
+    device = kvs[0][0].device
+
+    @torch.inference_mode()
+    def logp_fn(run_seqs: np.ndarray, i: int) -> np.ndarray:
+        logits = model.decode(torch.as_tensor(run_seqs).to(device), kvs)
+        return torch.log_softmax(logits[:, i - 1].to(torch.float32), dim=-1).cpu().numpy()
+
+    return logp_fn
+
+
+def replay_beam(logp_fn, prompt_ids, prompt_len: int, max_new_tokens: int, num_beams: int, sep_token_id: int,
+                pad_token_id: int = 0) -> dict:
+    """`blip.make_beam_caption_fn`'s search in numpy float32 on the
+    log-probabilities ``logp_fn(run_seqs, i)`` gives ((N, V), row i - 1 of
+    each running sequence): the same sums, divisions and index-ordered
+    top-k, so on the same log-probabilities it makes the same decisions.
+    Returns the best sequence padded after its SEP (``seq``, ``length``),
+    the running sequences and log-probabilities of each step (``inputs``,
+    ``logps``; step t decodes position ``first + t``) and each step's
+    smallest margin (``margins``): the least gap between two scores whose
+    order can change what the search returns: which candidates within the
+    first N are hits (they finish), which non-hits run on (while the search
+    goes on), which entries of the merged finished pool are its best and
+    its first N, and the early-stop test.  Scores near ``NEG`` are left
+    out: they stand for beams that cannot win.  A score sums one
+    log-probability a step, so where another run's log-probabilities
+    stand ``eps_t`` off these at step t, a decision of step t can turn only
+    if its margin is within ``2 * sum(eps_0 ... eps_t)`` (`beam_bounds`)."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.models.blip import NEG as NEG_
+
+    N, K, NEG = num_beams, 2 * num_beams, np.float32(NEG_)
+    L = len(prompt_ids) + max_new_tokens
+    buf = np.zeros(L, np.int32)
+    buf[: len(prompt_ids)] = prompt_ids
+    run_seqs, run_scores = np.tile(buf, (N, 1)), np.full(N, NEG, np.float32)
+    run_scores[0] = 0.0
+    fin_seqs, fin_scores, fin_mask = run_seqs.copy(), np.full(N, NEG, np.float32), np.zeros(N, bool)
+    unsat, max_len_total, top_rank = True, prompt_len + max_new_tokens, np.arange(K) < N
+    inputs, logps, margins = [], [], []
+
+    def order(x):  # descending, ties by index: torch.sort(stable=True) and lax.top_k
+        return np.argsort(-x, kind="stable")
+
+    def gap(hi, lo):  # the margin of hi over lo, or None where either cannot win
+        return float(hi) - float(lo) if hi > NEG / 2 and lo > NEG / 2 else None
+
+    for i in range(max(1, prompt_len), min(L, max_len_total)):
+        inputs.append(run_seqs.copy())
+        logp = logp_fn(run_seqs, i)
+        logps.append(logp)
+        V = logp.shape[1]
+        cand = (run_scores[:, None] + logp).reshape(N * V)
+        ranked = order(cand)
+        s = cand[ranked[: K + 1]]  # the K candidates and the first left out
+        s_hits = (ranked[: K + 1] % V == sep_token_id) | (i + 1 >= max_len_total)
+        idx = ranked[:K]
+        vals, tok = cand[idx], (idx % V).astype(np.int32)
+        seqs = run_seqs[idx // V]
+        seqs[:, i] = tok
+        hits = (tok == sep_token_id) | (i + 1 >= max_len_total)
+        run_cand = vals + hits.astype(np.float32) * NEG
+        keep = order(run_cand)[:N]
+        gen_len = np.float32(i + 1 - prompt_len)
+        did_finish = hits & top_rank
+        pen = np.where(did_finish & unsat, vals / gen_len, NEG).astype(np.float32)
+        merged = np.concatenate([fin_scores, pen])
+        ranked = order(merged)
+        m = merged[ranked[: N + 1]]
+        step_gaps = [gap(m[0], m[1]), gap(m[N - 1], m[N])]
+        if unsat and s_hits[: N + 1].any():
+            step_gaps.append(gap(s[N - 1], s[N]))
+        best = ranked[:N]
+        fin_seqs = np.concatenate([fin_seqs, seqs])[best]
+        fin_scores = merged[best]
+        fin_mask = np.concatenate([fin_mask, did_finish])[best]
+        run_seqs, run_scores = seqs[keep], run_cand[keep]
+        best_possible = run_scores[0] / gen_len
+        worst_finished = fin_scores.min() if fin_mask.all() else NEG
+        early = gap(best_possible, worst_finished)
+        step_gaps.append(None if early is None else abs(early))
+        unsat = unsat and bool(best_possible > worst_finished)
+        done = not (unsat and not hits.all())
+        running = np.flatnonzero(~s_hits)
+        if not done and len(running) > N:
+            step_gaps.append(gap(s[running[N - 1]], s[running[N]]))
+        margins.append(min([g for g in step_gaps if g is not None], default=math.inf))
+        if done:
+            break
+    seq = fin_seqs[0]
+    ends = np.flatnonzero((seq == sep_token_id) & (np.arange(L) >= prompt_len))
+    length = int(ends[0]) if len(ends) else min(max_len_total, L)
+    seq = np.where(np.arange(L) <= length, seq, pad_token_id).astype(np.int32)
+    return {"seq": seq, "length": length, "first": max(1, prompt_len), "inputs": inputs, "logps": logps,
+            "margins": margins}
+
+
+def beam_bounds(replay: dict, logp_fn) -> np.ndarray:
+    """Each step's bound for `replay_beam`'s margins against another run
+    (``logp_fn`` of another device or package on the same running
+    sequences): twice the summed largest log-probability gaps so far."""
+    eps = [float(np.abs(logp_fn(seqs, replay["first"] + t).astype(np.float64) - logp).max())
+           for t, (seqs, logp) in enumerate(zip(replay["inputs"], replay["logps"]))]
+    return 2 * np.cumsum(eps)
+
+
+def check_blip_model(device, frame: np.ndarray, params: dict, cfg=None) -> dict:
+    """The BLIP captioner at full width (`BlipConfig()`, ``params`` from
+    `blip_params`) on the card against the same module on the CPU, each
+    from its own `preprocess_bgr` of ``frame``: the normalized pixels
+    within PREPROCESS_ATOL; the vision states, the cross K/V and the
+    teacher-forced logits over one fixed buffer within BLIP_REL of their
+    scale; the greedy and beam-3 decodes of the scene prompt at
+    BLIP_SHORT_NEW new tokens.  A decoded token may differ only after a
+    decision whose margin on the CPU (the top-two logit gap for the greedy
+    decode, `replay_beam`'s margins for the beam) stands within the gap it
+    could take from the measured logit gap; any other difference fails."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.models import blip
+    from multimodal_autonomous_driving_perception_and_planning_torch.tagging.vlm import prompt_buffer
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.tokenizer import WordPieceTokenizer
+
+    cfg = cfg or blip.BlipConfig()
+    new_tokens = BLIP_SHORT_NEW
+    models = {side: blip.model_from_state_dict(params, cfg, dev) for side, dev in (("cpu", "cpu"), ("card", device))}
+    frame_t = torch.as_tensor(frame)
+    px = {"cpu": blip.preprocess_bgr(frame_t, cfg.image_size),
+          "card": blip.preprocess_bgr(frame_t.to(device), cfg.image_size)}
+    pre_gap = float((px["card"].cpu() - px["cpu"]).abs().max())
+    if not pre_gap <= PREPROCESS_ATOL:
+        raise AssertionError(f"BLIP preprocess: the card's pixels stand {pre_gap} from the CPU's")
+    tokenizer = WordPieceTokenizer(synthetic_vocab())
+    prompt, prompt_len = prompt_buffer(tokenizer, VLM_PROMPTS["scene"][0], cfg)
+    ids = np.concatenate([prompt[:prompt_len], np.random.default_rng(0).integers(
+        0, cfg.vocab_size, len(prompt) + new_tokens - prompt_len)]).astype(np.int32)[None]
+    out = {}
+    with torch.inference_mode():
+        for side, model in models.items():
+            dev = device if side == "card" else torch.device("cpu")
+            vision = model.vision(px[side])
+            kvs = model.text.cross_kv(vision)
+            logits = model.decode(torch.as_tensor(ids).to(dev), kvs)
+            out[side] = {"vision": vision.cpu(), "kv": [t.cpu() for kv in kvs for t in kv], "logits": logits.cpu(),
+                         "cross_kvs": kvs}
+    torch.cuda.synchronize()
+    rel = {
+        "vision_states": float((out["card"]["vision"] - out["cpu"]["vision"]).abs().max()
+                               / out["cpu"]["vision"].abs().max()),
+        "cross_kv": max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(out["card"]["kv"], out["cpu"]["kv"])),
+        "logits": float((out["card"]["logits"] - out["cpu"]["logits"]).abs().max() / out["cpu"]["logits"].abs().max()),
+    }
+    if not max(rel.values()) <= BLIP_REL:
+        raise AssertionError(f"BLIP model: the card stands {rel} from the CPU (bound {BLIP_REL} of the scale)")
+    gap = float((out["card"]["logits"] - out["cpu"]["logits"]).abs().max())
+
+    decodes = {}
+    for mode in ("greedy", "beam3"):
+        tokens, seconds = {}, {}
+        for side, model in models.items():
+            dev = device if side == "card" else "cpu"
+            if mode == "greedy":
+                _, caption = blip.make_caption_fn(cfg, max_new_tokens=new_tokens, device=dev)
+            else:
+                _, caption = blip.make_beam_caption_fn(cfg, max_new_tokens=new_tokens, num_beams=3, device=dev)
+            t0 = time.perf_counter()
+            seq, length = caption(model, px[side], prompt, prompt_len)
+            tokens[side] = (seq.cpu().numpy(), int(length))
+            seconds[side] = time.perf_counter() - t0
+        if mode == "greedy":
+            with torch.inference_mode():
+                rows = models["cpu"].decode(torch.as_tensor(tokens["cpu"][0])[None], out["cpu"]["cross_kvs"])[0]
+            # Decisions at rows prompt_len - 1 ... the one that wrote the
+            # last decoded token (the SEP, or the budget's last).
+            seq, length = tokens["cpu"]
+            last = length if seq[length] == cfg.sep_token_id else length - 1
+            margins = list(top_two_margins(rows[prompt_len - 1: last].numpy()))
+            differ = np.flatnonzero(tokens["card"][0] != seq)
+            if len(differ):  # the decision that wrote the first differing token
+                margins = margins[: differ[0] - prompt_len + 1][-1:]
+            bound = 2 * gap  # a top-two gap moves by at most twice the logit gap
+        else:
+            replay = replay_beam(blip_logp_fn(models["cpu"], out["cpu"]["cross_kvs"], 3), prompt, prompt_len,
+                                 new_tokens, 3, cfg.sep_token_id, cfg.pad_token_id)
+            if not np.array_equal(replay["seq"], tokens["cpu"][0]):
+                raise AssertionError("BLIP beam: the numpy replay disagrees with the CPU's beam caption")
+            margins = replay["margins"]
+            bound = beam_bounds(replay, blip_logp_fn(models["card"], out["card"]["cross_kvs"], 3))
+        clear = np.asarray(margins) > bound
+        equal = np.array_equal(tokens["card"][0], tokens["cpu"][0]) and tokens["card"][1] == tokens["cpu"][1]
+        if not equal and clear.all():
+            raise AssertionError(f"BLIP {mode}: the card decoded {tokens['card']}, the CPU {tokens['cpu']}, "
+                                 f"and every decision stands clear of the gap (margins {margins}, bounds {bound})")
+        decodes[mode] = {"equal": equal, "length": tokens["card"][1], "tokens": tokens["card"][0].tolist(),
+                         "min_margin": float(min(margins)), "margin_bound": float(np.max(bound)),
+                         "decisions_within_bound": int((~clear).sum()), "seconds": seconds}
+    return {"config": "BlipConfig()" if cfg == blip.BlipConfig() else repr(cfg),
+            "frame": list(frame.shape), "preprocess_max_abs_err": pre_gap, "relative_gaps": rel, "bound": BLIP_REL,
+            "logit_gap": gap, "new_tokens": new_tokens, "prompt_len": prompt_len, **decodes}
+
+
+def vlm_context(outs: dict, f: int):
+    """The VLM tagger's context at frame ``f`` of a runner's outputs: the
+    ego speed and acceleration, and the confirmed tracks with their class
+    names."""
+    from types import SimpleNamespace
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.data.synthetic import CLASS_NAMES
+
+    vs = outs["vehicle_state"]
+    state = SimpleNamespace(speed=float(vs.speed[f]), acceleration=float(vs.acceleration[f]))
+    slots = outs["confirmed_order"][f][: int(outs["num_confirmed"][f])]
+    classes = outs["track_class_id"][f][slots].tolist()
+    return state, [SimpleNamespace(class_name=CLASS_NAMES[c]) for c in classes]
+
+
+def check_vlm_path(device, params: dict, cfg=None) -> dict:
+    """The frames path on the card over VLM_FRAMES road frames, then
+    `VLMTagger(backend="torch")` on the card (``VLMConfig.device`` left
+    ``""``) over the same frames with the runner's context, from an HF-named
+    ``.npz`` archive of ``params`` and the synthetic ``vocab.txt`` beside
+    it, at the default budgets (75 and 50 new tokens) and ``num_beams=3``.
+    The backend must load, produce every caption itself (3 captioned frames
+    x 2 prompts at cache_interval 10), the stub none; the other 27 frames
+    are cache hits."""
+    import tempfile
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.config import VLMConfig
+    from multimodal_autonomous_driving_perception_and_planning_torch.models import blip
+    from multimodal_autonomous_driving_perception_and_planning_torch.tagging.vlm import VLMTagger, _StubBackend
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.weights import save_npz_state_dict
+
+    cfg = cfg or blip.BlipConfig()
+    num_frames = VLM_FRAMES
+    inputs = frames_inputs(num_frames)
+    run_cfg = frames_config()
+    _zero_counts()
+    _, outs = pt.make_sequence_runner(run_cfg, device=device)(pt.initial_state(run_cfg, device=device), inputs)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        archive = str(Path(tmp) / "blip.npz")
+        t0 = time.perf_counter()
+        save_npz_state_dict(archive, hf_state_from_port(params, cfg), format="madpp-blip-v1")
+        Path(tmp, "vocab.txt").write_text("\n".join(synthetic_vocab()) + "\n", encoding="utf-8")
+        archive_s = time.perf_counter() - t0
+        tagger = VLMTagger(VLMConfig(model_name=archive, cache_interval=VLM_CACHE_INTERVAL), backend="torch")
+        backend, stub = tagger._backend, _StubBackend()
+        produced, fell_back = [], []
+        generate, fallback = backend.generate, tagger._fallback.generate
+        backend.generate = lambda *a, **k: produced.append(generate(*a, **k)) or produced[-1]
+        tagger._fallback.generate = lambda *a, **k: fell_back.append(fallback(*a, **k)) or fell_back[-1]
+        stub_texts, seconds = set(), []
+        t0 = time.perf_counter()
+        for f in range(num_frames):
+            state, tracks = vlm_context(outs, f)
+            for prompt, _ in VLM_PROMPTS.values():
+                stub_texts.add(stub.generate(inputs["frame"][f], prompt, {"vehicle_state": state, "tracks": tracks}))
+            t1 = time.perf_counter()
+            tagger.tag_frame(inputs["frame"][f], state, tracks)
+            seconds.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    captioned = len(tagger.tag_history)
+    expected = -(-num_frames // VLM_CACHE_INTERVAL)
+    faults = []
+    if backend.load_error is not None:
+        faults.append(f"load error {backend.load_error}")
+    if str(backend._device) == "cpu" or next(backend._model.parameters()).device.type != "cuda":
+        faults.append(f"the backend ran on {backend._device}")
+    if len(produced) != 2 * expected or captioned != expected:
+        faults.append(f"{len(produced)} captions from the backend over {captioned} captioned frames, "
+                      f"expected {2 * expected} over {expected}")
+    if fell_back:
+        faults.append(f"{len(fell_back)} stub fallbacks")
+    for text in produced:
+        if "error" in text.lower() or "failed" in text.lower() or text in stub_texts or not text:
+            faults.append(f"caption {text[:80]!r}")
+    if faults:
+        raise AssertionError("VLM path: " + "; ".join(faults))
+    return {"frames": num_frames, "captioned_frames": captioned, "cache_hits": num_frames - captioned,
+            "backend_captions": len(produced), "stub_fallbacks": 0, "device": str(backend._device),
+            "launches": launches, "archive_seconds": archive_s, "seconds": total_s,
+            "captioned_frame_seconds": sorted(seconds)[-expected:],
+            "captions": [t[:60] for t in produced[:2]], "tags": tagger.tag_history[-1].get_tags_list()}
+
+
+def measure_blip(device, params: dict, frame: np.ndarray, cfg=None) -> dict:
+    """CUDA-event times of the full-width BLIP on the card: the vision
+    forward, and one greedy and one beam-3 caption of each VLM prompt at its
+    budget (75 and 50 new tokens), each beside its FLOPs (matmuls and the
+    patch conv, counted by PyTorch's FLOP counter over one run: the steps
+    that run are the data's) and its bound at the float32 rate; the decode
+    steps each caption ran; and the card's busy share over one beam-3 scene
+    caption (the kernels' device time in a profiler trace over the call's
+    host time)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.models import blip
+    from multimodal_autonomous_driving_perception_and_planning_torch.tagging.vlm import prompt_buffer
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.tokenizer import WordPieceTokenizer
+
+    cfg = cfg or blip.BlipConfig()
+    model = blip.model_from_state_dict(params, cfg, device)
+    tokenizer = WordPieceTokenizer(synthetic_vocab())
+    px = blip.preprocess_bgr(torch.as_tensor(frame).to(device), cfg.image_size)
+
+    def counted(fn):
+        steps = []
+        decode = model.decode
+        model.decode = lambda *a: steps.append(1) or decode(*a)
+        try:
+            with FlopCounterMode(display=False) as counter:
+                fn()
+        finally:
+            del model.decode
+        return counter.get_total_flops(), len(steps)
+
+    def row(fn, reps, warmup):
+        flops, steps = counted(fn)
+        ms = time_cuda(fn, reps, warmup=warmup)
+        return {"ms": ms, "flops": flops, "bound_ms": flops / PEAK_F32_PER_S * 1e3, "steps": steps}
+
+    with torch.inference_mode():
+        out = {"vision": row(lambda: model.vision(px), 20, 3)}
+    del out["vision"]["steps"]
+    runs = {}
+    for name, (prompt, budget) in VLM_PROMPTS.items():
+        buf, n = prompt_buffer(tokenizer, prompt, cfg)
+        for mode in ("greedy", "beam3"):
+            if mode == "greedy":
+                _, caption = blip.make_caption_fn(cfg, max_new_tokens=budget, device=device)
+            else:
+                _, caption = blip.make_beam_caption_fn(cfg, max_new_tokens=budget, num_beams=3, device=device)
+            runs[f"{mode}_{name}"] = functools.partial(caption, model, px, buf, n)
+            out[f"{mode}_{name}"] = {"new_tokens": budget, "prompt_len": n, "buffer": len(buf) + budget,
+                                     **row(runs[f"{mode}_{name}"], 3, 1)}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs["beam3_scene"]()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    frame_flops = out["beam3_scene"]["flops"] + out["beam3_safety"]["flops"]
+    out["busy_share_beam3_scene"] = {"kernels": len(kernels), "device_us": busy_us, "host_us": wall_us,
+                                     "share": busy_us / wall_us}
+    out["vlm_frame"] = {"flops": frame_flops, "bound_ms": frame_flops / PEAK_F32_PER_S * 1e3,
+                        "ms": out["beam3_scene"]["ms"] + out["beam3_safety"]["ms"]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
@@ -2884,6 +3352,12 @@ def main() -> int:
     emit({"phase": "serve_path", **check_serve_path(device)})
     emit({"phase": "kalman_bank", **check_kalman_bank(device)})
 
+    from multimodal_autonomous_driving_perception_and_planning_torch.models.blip import BlipConfig
+
+    blip_weights = blip_params(BlipConfig())
+    emit({"phase": "blip_model", **check_blip_model(device, road["frame"][0], blip_weights)})
+    emit({"phase": "vlm_path", **check_vlm_path(device, blip_weights)})
+
     t0 = time.perf_counter()
     times = measure_kernels(device, inputs)
     pools = nms_pools_from(yolo_cands)
@@ -2895,10 +3369,12 @@ def main() -> int:
     paths_s = time.perf_counter() - t0 - kernel_s
     emit({"phase": "lane_split", "card": smi, **lane_split})
     yolo_times = measure_yolo(device, params, frames, ego)
+    yolo_s = time.perf_counter() - t0 - kernel_s - paths_s
+    blip_times = measure_blip(device, blip_weights, road["frame"][0])
     emit({"phase": "times", "card": smi, "floor_ms": split.pop("floor_ms"), "kernels": times, "split": split,
-          **paths, "yolo": yolo_times,
-          "seconds": {"kernels": kernel_s, "paths": paths_s,
-                      "yolo": time.perf_counter() - t0 - kernel_s - paths_s}})
+          **paths, "yolo": yolo_times, "blip": blip_times,
+          "seconds": {"kernels": kernel_s, "paths": paths_s, "yolo": yolo_s,
+                      "blip": time.perf_counter() - t0 - kernel_s - paths_s - yolo_s}})
     t0 = time.perf_counter()
     emit({"phase": "lane_times", "card": smi, "kernels": measure_lane_kernels(device, inputs),
           "paths": measure_batched_paths(device), "seconds": time.perf_counter() - t0})

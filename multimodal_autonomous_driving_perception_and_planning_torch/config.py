@@ -155,7 +155,7 @@ class VLMConfig:
     """Vision-language tagger knobs (reference: src/tagging/vlm_tagger.py:88-117)."""
 
     model_name: str = "Salesforce/blip-image-captioning-base"
-    device: str = ""  # "" = auto
+    device: str = ""  # "" = the card (utils.device.resolve_device("cuda")); "cpu" for tests
     # Replicated reference dead knob: vlm_tagger.py:102 stores this and
     # never reads it ("use smaller model for speed" was never implemented
     # upstream).  Kept stored-but-unread deliberately so the config surface

@@ -1,4 +1,5 @@
-"""Rule-based tagging (scene, maneuver, interaction), kernel K3 on the card."""
+"""Rule-based tagging (scene, maneuver, interaction), kernel K3 on the card,
+and the vision-language tagger (BLIP captions -> tags)."""
 
 from .rules import (
     CONDITIONS,
@@ -10,6 +11,7 @@ from .rules import (
     TURNING,
     make_tagging_step,
 )
+from .vlm import VLMTagger, VLMTags
 
 __all__ = [
     "make_tagging_step",
@@ -20,4 +22,6 @@ __all__ = [
     "INTERACTIONS",
     "RISKS",
     "CONDITIONS",
+    "VLMTagger",
+    "VLMTags",
 ]

@@ -1,8 +1,8 @@
-"""Carry pipeline state, the Kalman model and the YOLO weights between
-numpy and tensors.
+"""Carry pipeline state, the Kalman model and the YOLO and BLIP weights
+between numpy and tensors.
 
 `yolo_state_from_flax` carries the Flax YOLOv8's variables into the port's
-`YOLOv8`.  `state_from_numpy` takes any tree with the
+`YOLOv8`, `blip_state_from_flax` the Flax BLIP's into `BlipForCaptioning`.  `state_from_numpy` takes any tree with the
 `PipelineState` field names, as attributes (the JAX package's state with
 numpy leaves) or as dict keys (what `state_to_numpy` returns), so a run can
 be started in one package and resumed in the other.  `state_from_leaves`
@@ -118,4 +118,29 @@ def yolo_state_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
     for collection in ("params", "batch_stats"):
         walk(collection, variables[collection], [])
+    return out
+
+
+def blip_state_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The state dict of the port's `BlipForCaptioning` from the Flax BLIP's
+    variables (``params``, nested dicts of numpy arrays): module paths
+    joined with dots; Dense kernels (in, out) -> Linear weights (out, in),
+    the patch conv HWIO -> OIHW; LayerNorm scale -> weight, Embed embedding
+    -> weight; the class token and the position embeddings keep their
+    shapes.  The port's model loads it with ``strict=True``."""
+    out: Dict[str, torch.Tensor] = {}
+    renamed = {"scale": "weight", "embedding": "weight"}
+
+    def walk(tree, path):
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, path + [name])
+                continue
+            leaf = np.asarray(value, np.float32)
+            if name == "kernel":
+                leaf = leaf.transpose(3, 2, 0, 1) if leaf.ndim == 4 else leaf.T
+                name = "weight"
+            out[".".join(path + [renamed.get(name, name)])] = torch.tensor(np.ascontiguousarray(leaf))
+
+    walk(variables["params"], [])
     return out

@@ -1,5 +1,6 @@
-"""Kernels K1-K5 against their plain versions on a CUDA card, and the paths
-that run them.
+"""Kernels K1-K5 against their plain versions on a CUDA card, the paths
+that run them, and the BLIP captioner (no kernel of its own) on the card
+against the CPU.
 
 The kernels are CUDA C++ for sm_90a and have no CPU mode, so every test
 here needs the card: on a machine without one they skip.  Run them on the
@@ -194,3 +195,17 @@ def test_serve_path_and_kalman_bank_on_card(device):
     assert served["loadgen"]["completed_requests"] == 32 and served["device"] == "cuda"
     bank = chip_smoke.check_kalman_bank(device)
     assert bank["frames"] == 300 and bank["agents"] == 64
+
+
+def test_blip_short_decode_on_card_matches_cpu(device):
+    """chip_smoke's `blip_model` phase: the full-width BLIP with seeded
+    weights on a road frame, the card against the CPU: the pixels, states,
+    cross K/V and logits within bounds, and the greedy and beam-3 decodes
+    at 8 new tokens equal but after a decision within the measured gap."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.data.frames import SyntheticRoadGenerator
+    from multimodal_autonomous_driving_perception_and_planning_torch.models.blip import BlipConfig
+
+    frame = SyntheticRoadGenerator().generate_frames(1)[0]
+    result = chip_smoke.check_blip_model(device, frame, chip_smoke.blip_params(BlipConfig()))
+    for mode in ("greedy", "beam3"):
+        assert result["prompt_len"] <= result[mode]["length"] <= result["prompt_len"] + chip_smoke.BLIP_SHORT_NEW
