@@ -108,7 +108,7 @@ Phases, each printing one JSON line:
      detection chunk by stage and the YOLO path's frames/s in both dtypes;
      the BLIP vision forward and a greedy and a beam-3 caption of each VLM
      prompt at its budget, beside their FLOPs and float32 bounds, with the
-     card's busy share over one beam-3 caption (`blip`); then
+     card's busy share over one beam-3 caption (`blip_times`); then
      (`lane_times`) K1-K3 at B = 1, 8 and 64 beside their bounds, and the
      tagging path's lane-frames/s at B = 1, 8 and 64, in turns.
 Then the script's seconds, a ``{"kernels": [...]}`` line and, last,
@@ -3372,7 +3372,7 @@ def main() -> int:
     yolo_s = time.perf_counter() - t0 - kernel_s - paths_s
     blip_times = measure_blip(device, blip_weights, road["frame"][0])
     emit({"phase": "times", "card": smi, "floor_ms": split.pop("floor_ms"), "kernels": times, "split": split,
-          **paths, "yolo": yolo_times, "blip": blip_times,
+          **paths, "yolo": yolo_times, "blip_times": blip_times,
           "seconds": {"kernels": kernel_s, "paths": paths_s, "yolo": yolo_s,
                       "blip": time.perf_counter() - t0 - kernel_s - paths_s - yolo_s}})
     t0 = time.perf_counter()
