@@ -84,6 +84,25 @@ Phases, each printing one JSON line:
      one launch of K1-K3 a frame of each batched run; then one served
      chunk against the runner;
  19. the per-agent Kalman bank over 300 frames x 64 agents against the CPU;
+ 19a. tables beyond the fast instances (`large_tables`): K1 and K4's
+     general instances at (T, D) = (160, 80), (256, 128) and (1,024, 1,024)
+     against their plain versions, exact (churn, saturated tables, random,
+     tied-rank and full matrices, the key-order corners with ranks whose
+     tie-break keys wrap at these D, IoUs within 2 ulps of the threshold,
+     and, but at 1,024, the staircase); K3's in both modes at T = 160, 256
+     and 1,024 and on the crafted stream at 256; K1 and K3 at 8 lanes at
+     (256, 128); ROADMAP §3's input (the tagging path at max_tracks=160,
+     max_detections=80, 20 frames) card against CPU; one 64-frame YOLO
+     chunk in float32 at max_detections=300, its tables against the plain
+     `nms` and the pipeline against the CPU's;
+ 19b. the host stack (`host_stack`): the tagging path over 40 frames on the
+     card, then `extract_frame` on every frame, the AutoTagger and a
+     TagDatabase round trip against the same chain on the CPU run; the
+     per-frame facades (MultiObjectTracker, VehicleStateEstimator,
+     MotionPlanner, AutoTagger.tag_frame, LaneDetector) on the card against
+     the card's sequence runner, and ObjectDetector(mode="yolo")'s
+     `detect_stream` against `make_yolo_frontend`, with the facades' own
+     launches of K1, K2, K3 and K5 counted;
  20. the BLIP captioner (`blip_model`): the full-width BlipConfig() with
      seeded weights on a 480x640 road frame, the card against the CPU:
      `preprocess_bgr`, the vision states, the cross K/V and the
@@ -110,7 +129,10 @@ Phases, each printing one JSON line:
      prompt at its budget, beside their FLOPs and float32 bounds, with the
      card's busy share over one beam-3 caption (`blip_times`); then
      (`lane_times`) K1-K3 at B = 1, 8 and 64 beside their bounds, and the
-     tagging path's lane-frames/s at B = 1, 8 and 64, in turns.
+     tagging path's lane-frames/s at B = 1, 8 and 64, in turns; then
+     (`large_times`) K1, K3 and K4's general instances at (256, 128) and
+     (1,024, 1,024) by CUDA events and a profiler trace, beside their
+     bounds and plain versions.
 Then the script's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Without a card it exits 1 at once.
@@ -401,17 +423,19 @@ def boundary_arrays(live: int, at_threshold: int):
     return table, dets
 
 
-def near_threshold_arrays(seed: int, thr: float = 0.3, pairs: int = 64):
-    """A (128, 64) tracker step, as numpy arrays like `corner_arrays`:
-    track m and detection m (m < ``pairs``) are boxes of unequal sizes, on
-    a row of their own, whose float32 IoU (as the jitted JAX package
-    computes it, `_iou32`) stands 0, 1 or 2 ulps from float32(thr), either
-    side; where one of the shifts that give it is decided the other way by
-    the union op for op, that shift is taken.  The other tracks lie far
-    from every detection."""
+def near_threshold_arrays(seed: int, thr: float = 0.3, pairs: int = 64, tracks: int = 128, dets: int | None = None):
+    """A (``tracks``, ``dets``) tracker step, (128, 64) by default, as numpy
+    arrays like `corner_arrays`: track m and detection m (m < ``pairs``)
+    are boxes of unequal sizes, on a row of their own, whose float32 IoU
+    (as the jitted JAX package computes it, `_iou32`) stands 0, 1 or 2 ulps
+    from float32(thr), either side; where one of the shifts that give it is
+    decided the other way by the union op for op, that shift is taken.  The
+    other tracks and detections lie far from every box."""
     rng = np.random.default_rng(seed)
     t = np.float32(thr)
-    tb, db = _far_boxes(128, y=90000.0), np.zeros((pairs, 4), np.float32)
+    dets = pairs if dets is None else dets
+    tb = _far_boxes(tracks, y=90000.0)
+    db = np.concatenate([np.zeros((pairs, 4), np.float32), _far_boxes(dets - pairs, y=95000.0)])
     for m in range(pairs):
         want, y0 = m % 5 - 2, np.float32(300.0 * m)
         for _ in range(1000):
@@ -433,11 +457,10 @@ def near_threshold_arrays(seed: int, thr: float = 0.3, pairs: int = 64):
                 break
         else:
             raise AssertionError(f"no pair {want} ulps from {thr} at pair {m}")
-    ids = np.random.default_rng(seed + 1).permutation(128).astype(np.int32) + 1
-    table = {"track_id": ids, "bbox": tb, "hits": np.full(128, 3, np.int32), "next_id": np.int32(129)}
-    dets = {"bbox": db, "class_id": np.zeros(pairs, np.int32),
-            "confidence": np.full(pairs, 0.9, np.float32), "valid": np.ones(pairs, bool)}
-    return table, dets
+    ids = np.random.default_rng(seed + 1).permutation(tracks).astype(np.int32) + 1
+    table = {"track_id": ids, "bbox": tb, "hits": np.full(tracks, 3, np.int32), "next_id": np.int32(tracks + 1)}
+    return table, {"bbox": db, "class_id": np.zeros(dets, np.int32),
+                   "confidence": np.full(dets, 0.9, np.float32), "valid": np.ones(dets, bool)}
 
 
 # Seeds of `near_threshold_arrays`, K1's near-threshold cases.
@@ -1443,13 +1466,14 @@ def check_yolo_tower(device, params: dict, frames):
     }, got
 
 
-def check_yolo_path(device, params: dict, frames, ego, settings: dict, label: str):
+def check_yolo_path(device, params: dict, frames, ego, settings: dict, label: str, cfg=None):
     """The YOLO runner on the card, its counts zeroed just before and read
     after; (b) its detection tables against the plain `nms` run on the CPU
     over the card's own candidates, bit for bit; (c) the CPU pipeline on
     those tables against the card's outputs (`compare_outputs`).  Returns
-    the summary and the card's candidates."""
-    cfg = bench_config()
+    the summary and the card's candidates.  ``cfg`` defaults to
+    `bench_config()`."""
+    cfg = bench_config() if cfg is None else cfg
     _, run = make_yolo_sequence_runner(cfg, batch=YOLO_BATCH, iou_threshold=YOLO_IOU, img_size=YOLO_IMG,
                                        device=device, **settings)
     state = pt.initial_state(cfg, device=device)
@@ -3290,6 +3314,469 @@ def measure_blip(device, params: dict, frame: np.ndarray, cfg=None) -> dict:
     return out
 
 
+
+# Tables beyond the fast instances of K1, K3 and K4 (at most 128 slots and
+# 64 detections), which their general instances take up to 1,024 each.
+LARGE_SHAPES = ((160, 80), (256, 128), (1024, 1024))
+LARGE_LANES = 8
+LARGE_FRAMES = 20  # ROADMAP §3's input: max_tracks=160, max_detections=80
+YOLO_MAX_DET = 300  # the JAX `nms` default (ops/nms.py:73)
+
+
+def large_config(tracks: int, dets: int, enable_tagging: bool = True):
+    """`bench_config` with ``tracks`` slots and ``dets`` detections a frame."""
+    cfg = bench_config(enable_tagging)
+    return cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=tracks),
+                       detector=dataclasses.replace(cfg.detector, max_detections=dets))
+
+
+def check_large_tracker(device) -> list:
+    """K1's general instance against its plain version at LARGE_SHAPES:
+    churn, a saturated table, the key-order corners of `corner_arrays` (IoU
+    at the threshold, +0 IoUs all tied), IoUs within 2 ulps of the
+    threshold, and, but at (1,024, 1,024), the staircase (one pair a
+    round); an odd ring (T L odd) at (161, 80)."""
+    cases = []
+    base = bench_config().tracker
+    for t, d in LARGE_SHAPES:
+        steps = 6 if t >= 1024 else 20
+        churn = pt.TrackerConfig(iou_threshold=0.1, max_age=2, min_hits=3, max_tracks=t)
+        rng = np.random.default_rng(t + d)
+        cases.append(_tracker_case(f"churn_{t}x{d}", churn, lambda s, rng=rng, d=d: random_dets(rng, d, device),
+                                   steps, device))
+        sat = pt.TrackerConfig(iou_threshold=0.3, max_age=30, min_hits=3, max_tracks=t)
+        rng = np.random.default_rng(t + d + 1)
+        cases.append(_tracker_case(f"saturated_{t}x{d}", sat,
+                                   lambda s, rng=rng, d=d: random_dets(rng, d, device, p_valid=1.0), steps, device))
+        cfg = dataclasses.replace(base, max_tracks=t)
+        for name, zero_iou, thr, matched in (("threshold_ties", False, 0.3, min(t, (d + 1) // 2)),
+                                             ("zero_iou_ties", True, 0.0, min(t, d))):
+            table, dets = table_on(*corner_arrays(t, d, zero_iou), device)
+            case_cfg = dataclasses.replace(cfg, iou_threshold=thr)
+            cases.append(_tracker_case(f"{name}_{t}x{d}", case_cfg, lambda s, dets=dets: dets, 2, device,
+                                       table=table))
+            if cases[-1]["max_matched"] != matched:
+                raise AssertionError(f"K1 {name}_{t}x{d}: {cases[-1]['max_matched']} matches, expected {matched}")
+        pairs = min(d, 256)
+        table, dets = table_on(*near_threshold_arrays(t + d, pairs=pairs, tracks=t, dets=d), device)
+        cases.append(_tracker_case(f"near_threshold_{t}x{d}", cfg, lambda s, dets=dets: dets, 1, device,
+                                   table=table))
+        if t < 1024:
+            table, dets = ladder_boxes(t, d, 0.25, device)
+            cases.append(_tracker_case(f"staircase_{t}x{d}", cfg, lambda s, dets=dets: dets, 2, device,
+                                       table=table))
+            if cases[-1]["max_matched"] != d:
+                raise AssertionError(f"K1 staircase_{t}x{d}: the ladder did not match all {d} detections")
+    odd = pt.TrackerConfig(iou_threshold=0.1, max_age=2, max_tracks=161, trajectory_length=5)
+    rng = np.random.default_rng(161)
+    cases.append(_tracker_case("odd_ring_161x80", odd, lambda s: random_dets(rng, 80, device), 20, device))
+    return cases
+
+
+def check_large_association(device, trials: int = 4) -> list:
+    """K4's general instance against its plain version at LARGE_SHAPES:
+    random and tied ranks, full matrices, the key-order corners (ranks at
+    int32's ends whose tie-break keys wrap at these D, -0 and +0, the
+    threshold, NaN), and, but at (1,024, 1,024), the staircase."""
+    cases = []
+
+    def compare(name, iou, rank, thr):
+        iou_t, rank_t = torch.tensor(iou, device=device), torch.tensor(rank, device=device)
+        got = association_kernel.greedy_associate(iou_t, rank_t, thr)
+        want = _greedy_associate_plain(iou_t, rank_t, thr)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 {name}: differs from the plain version in {int((got != want).sum())} rows")
+        return int((want >= 0).sum())
+
+    for t, d in LARGE_SHAPES:
+        rng = np.random.default_rng(t * 7 + d)
+        cases.append({"case": f"random_{t}x{d}", "matched": [
+            compare(f"random {t}x{d} {i}", *random_association(rng, t, d), float(rng.choice([0.0, 0.3, 0.5])))
+            for i in range(trials)]})
+        cases.append({"case": f"tied_ranks_{t}x{d}", "matched": [
+            compare(f"tied {t}x{d} {i}", *random_association(rng, t, d, tied=True), 0.3) for i in range(trials)]})
+        cases.append({"case": f"full_{t}x{d}", "matched": [
+            compare(f"full {t}x{d} {i}", *full_association(rng, t, d), 0.3) for i in range(trials)]})
+        cases.append({"case": f"key_corners_{t}x{d}", "matched": [
+            compare(f"key corners {t}x{d} thr {thr} {i}", *key_corner_association(rng, t, d, thr), thr)
+            for thr in KEY_CORNER_THRESHOLDS for i in range(trials)]})
+        cases.append({"case": f"key_corners_few_{t}x{d}", "matched": [
+            compare(f"few corners {t}x{d} keep {keep}", *key_corner_association(rng, t, d, 0.3, keep=keep), 0.3)
+            for keep in (24, 40, 4 * t)]})
+        if t < 1024:
+            if compare(f"staircase {t}x{d}", ladder_iou(t, d, 0.25), np.arange(t, dtype=np.int32), 0.3) != d:
+                raise AssertionError(f"K4 staircase_{t}x{d}: the ladder did not match all {d} columns")
+            cases.append({"case": f"staircase_{t}x{d}", "matched": d})
+    return cases
+
+
+def check_large_tagging(device) -> list:
+    """K3's general instance against its plain version at T = 160, 256 and
+    1,024, in detections and frames mode on random streams, and on the
+    crafted stream (every aggregate corner) at T = 256 in both modes."""
+    cfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
+    cases = []
+    for t, d in LARGE_SHAPES:
+        wide = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=t))
+        frames = 12 if t >= 1024 else 30
+        cases.append(_tagging_case(f"detections_{t}x{d}", wide, frames, t, d, False, device))
+        cases.append(_tagging_case(f"frames_{t}x{d}", wide.replace(use_frames=True), frames, t + 1, d, True, device))
+    wide = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=256))
+    for name, c, frames_mode in (("crafted_256x128", wide, False),
+                                 ("crafted_frames_256x128", wide.replace(use_frames=True), True)):
+        cases.append(_tagging_case(name, c, 40, 31, 128, frames_mode, device, crafted_tagging_frame))
+        missed = [k for k, n in cases[-1]["corner_frames"].items() if n == 0]
+        if missed:
+            raise AssertionError(f"K3 {name}: the crafted stream never reached {missed}")
+    return cases
+
+
+def check_large_lanes(device) -> list:
+    """K1 and K3's general instances at LARGE_LANES lanes a launch at
+    (256, 128): each lane bit for bit its B = 1 launch and its plain
+    version's discrete outputs (floats within K3's bounds)."""
+    t, d = 256, 128
+    k1 = pt.TrackerConfig(iou_threshold=0.1, max_age=2, min_hits=3, max_tracks=t)
+    k3 = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
+    k3 = k3.replace(tracker=dataclasses.replace(k3.tracker, max_tracks=t))
+    return [
+        _lane_tracker_case(f"churn_{t}x{d}", k1, LARGE_LANES, 10, d, device, seed=256),
+        _lane_tagging_case(f"detections_{t}x{d}", k3, LARGE_LANES, 10, d, False, device, seed=257),
+        _lane_tagging_case(f"frames_{t}x{d}", k3.replace(use_frames=True), LARGE_LANES, 10, d, True, device,
+                           seed=258),
+    ]
+
+
+def check_large_tagging_path(device) -> dict:
+    """ROADMAP §3's input: the tagging path at max_tracks=160,
+    max_detections=80 over LARGE_FRAMES frames of
+    `simulated_detection_stream(capacity=80)`, the card (K1 and K3's general
+    instances) against the CPU run: discrete outputs and tags exact, floats
+    within MAIN_ATOL; K1, K2 and K3 counted."""
+    cfg = large_config(160, 80)
+    dets = simulated_detection_stream(LARGE_FRAMES, capacity=80)
+    inputs = dict(dets, ego_measurement=ego_motion_stream(LARGE_FRAMES, dt=1.0 / 30.0, seed=0).astype(np.float32))
+    _, want = pt.make_sequence_runner(cfg, device="cpu")(pt.initial_state(cfg, device="cpu"), inputs)
+    run = pt.make_sequence_runner(cfg, device=device)
+    state = pt.initial_state(cfg, device=device)
+    _zero_counts()
+    _, got = run(state, inputs)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    expected = {name: 0 for name in KERNEL_MODULES}
+    expected.update(tracker_step=LARGE_FRAMES, kalman_step=LARGE_FRAMES, tagging_step=LARGE_FRAMES)
+    if launches != expected:
+        raise AssertionError(f"large tagging path: kernel launches {launches}, expected {expected}")
+    errs = compare_outputs("large tagging path", got, want)
+    return {"frames": LARGE_FRAMES, "max_tracks": 160, "max_detections": 80, "launches": launches,
+            "num_confirmed_max": int(got["num_confirmed"].max()), "max_abs_err": errs}
+
+
+def check_large_tables(device, params: dict, frames, ego) -> dict:
+    """The `large_tables` phase: K1, K4 and K3's general instances against
+    their plain versions, at 8 lanes too, ROADMAP §3's tagging path card
+    against CPU, and one 64-frame YOLO chunk in float32 at
+    max_detections=300 (K1's general instance at (64, 300))."""
+    out = {"tracker": check_large_tracker(device), "association": check_large_association(device),
+           "tagging": check_large_tagging(device), "lanes": check_large_lanes(device),
+           "tagging_path": check_large_tagging_path(device)}
+    cfg = bench_config().replace(detector=dataclasses.replace(bench_config().detector, max_detections=YOLO_MAX_DET))
+    out["yolo_max_det_300"], _ = check_yolo_path(device, params, frames[:YOLO_BATCH], ego[:YOLO_BATCH], YOLO_F32,
+                                                 "YOLO chunk at max_detections=300", cfg=cfg)
+    return out
+
+
+def association_rounds(iou: torch.Tensor, rank: torch.Tensor, thr: float) -> int:
+    """The rounds the mutual-max fixpoint takes on this matrix, the last
+    (which accepts nothing) included: the plain version's loop, counted."""
+    T, D = iou.shape
+    key = rank[:, None] * D + torch.arange(D, dtype=torch.int32, device=iou.device)[None, :]
+    big = torch.iinfo(torch.int32).max
+    live = (iou >= thr) & (iou >= 0.0)
+    rounds = 0
+    while True:
+        rounds += 1
+        m = torch.where(live, iou, -1.0)
+        at_row = live & (m == m.amax(dim=1, keepdim=True))
+        at_col = live & (m == m.amax(dim=0, keepdim=True))
+        accept = (at_row & at_col & (key == torch.where(at_row, key, big).amin(dim=1, keepdim=True))
+                  & (key == torch.where(at_col, key, big).amin(dim=0, keepdim=True)))
+        if not bool(accept.any()):
+            return rounds
+        live &= ~accept.any(dim=1, keepdim=True) & ~accept.any(dim=0, keepdim=True)
+
+
+def large_kernel_inputs(device, t: int, d: int) -> dict:
+    """Inputs of K1, K3 and K4's general instances at (t, d): the plain
+    chain's table after 10 random steps (`random_dets`) and the next
+    detections; the tagging state after 10 random frames of the plain
+    version and the next frame; the IoU matrix and ranks of that table."""
+    cfg = pt.TrackerConfig(iou_threshold=0.3, max_age=30, min_hits=3, max_tracks=t)
+    rng = np.random.default_rng(t * d)
+    table = TrackTable.empty(t, cfg.trajectory_length, device)
+    for _ in range(10):
+        table = plain_tracker_step(table, random_dets(rng, d, device), cfg)[0]
+    dets = random_dets(rng, d, device)
+    tcfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
+    tcfg = tcfg.replace(tracker=dataclasses.replace(tcfg.tracker, max_tracks=t))
+    rules = TaggingRules.from_config(tcfg)
+    state = TaggingState.initial(rules.window, rules.history, t, device, interaction_history=rules.interaction_history)
+    for f in range(10):
+        state = tagging_step_plain(rules, state, *random_tagging_frame(rng, f, t, d, device))[0]
+    tag_frame = random_tagging_frame(rng, 10, t, d, device)
+    return {"cfg": cfg, "table": table, "dets": dets, "rules": rules, "state": state, "tag_frame": tag_frame,
+            "association": association_inputs(table, dets)}
+
+
+def measure_large_kernels(device, reps: int = 200) -> dict:
+    """K1, K3 and K4's general instances at (256, 128) and (1,024, 1,024):
+    ms a call by CUDA events over ``reps`` calls (a tenth at 1,024), device
+    ms from a profiler trace, the plain version's ms, and the bound, the
+    bytes and operations counted on the data as `measure_kernels` counts
+    them; the trace names the general instances' kernels."""
+    out = {}
+    for t, d in ((256, 128), (1024, 1024)):
+        n = reps if t < 1024 else reps // 10
+        x = large_kernel_inputs(device, t, d)
+        cfg, table, dets = x["cfg"], x["table"], x["dets"]
+
+        def k1():
+            return tracker_kernel.tracker_step(table, dets, cfg, cfg.min_hits)
+
+        res = k1()
+        iou, rank = x["association"]
+        # Operations as `measure_kernels` counts them, over the rounds this
+        # matrix takes (the plain loop's count): 16 an IoU pair, a row and a
+        # column scan a round; two stable ranks.
+        rounds = association_rounds(iou, rank, cfg.iou_threshold)
+        k1_m = {"bytes": _nbytes(*_table_tensors(table), dets.bbox, dets.class_id, dets.confidence, dets.valid)
+                + _nbytes(*_table_tensors(res[0]), res[1], res[2], res[3]),
+                "operations": t * d * (16 + 2 * rounds) + 2 * t * t, "rounds": rounds}
+        rules, state, (tdets, ttable, vrow) = x["rules"], x["state"], x["tag_frame"]
+
+        def k3():
+            return tagging_kernel.tagging_step(rules, state, tdets, ttable, vrow)
+
+        new_state, tag_f, tag_i = k3()
+        k3_m = {"bytes": tagging_bytes(rules, state, tdets, ttable, new_state, tag_f, tag_i),
+                "operations": tagging_operations(t, d, rules.window, rules.history, rules.interaction_history)}
+
+        def k4():
+            return association_kernel.greedy_associate(iou, rank, cfg.iou_threshold)
+
+        match = k4()
+        k4_m = {"bytes": _nbytes(iou, rank, match), "operations": rounds * (2 * t * d + t), "rounds": rounds}
+        plain = {
+            "tracker_step": lambda: plain_tracker_step(table, dets, cfg),
+            "tagging_step": lambda: tagging_step_plain(rules, state, tdets, ttable, vrow),
+            "associate": lambda: _greedy_associate_plain(iou, rank, cfg.iou_threshold),
+        }
+        launchers = {"tracker_step": (k1, "tracker_step_general"), "tagging_step": (k3, "tagging_step_general"),
+                     "associate": (k4, "associate_general_kernel")}
+        ms = {name: time_cuda(fn, n, warmup=5) for name, (fn, _) in launchers.items()}
+        # One trace a kernel, kept when it saw 80% of the launches: a trace
+        # of 100 general K1 launches dropped 12 of them on an H100.
+        traced = min(n, 100)
+        dev = {name: next(iter(device_times({name: launcher}, reps=traced, min_seen=traced * 4 // 5).values()))
+               for name, launcher in launchers.items()}
+        shape = {}
+        for name, m in (("tracker_step", k1_m), ("tagging_step", k3_m), ("associate", k4_m)):
+            t_bytes = m["bytes"] / PEAK_BYTES_PER_S * 1e3
+            t_ops = m["operations"] / PEAK_F32_PER_S * 1e3
+            bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            shape[name] = {**m, "ms": ms[name], "device_ms": dev[name][0], "profiled_launches": dev[name][1],
+                           "plain_ms": time_cuda(plain[name], 5, warmup=1), "bound_ms": bound, "bound_by": by}
+        out[f"{t}x{d}"] = shape
+    return out
+
+
+
+# The host stack: records, the AutoTagger, the tag database and the
+# reference-named per-frame facades, on the card.
+HOST_FRAMES = 40
+HOST_ROAD_FRAMES = 10
+HOST_YOLO_FRAMES = 8  # one chunk of ObjectDetector's frontend (batch 8)
+HOST_MASKED = {"session_id", "start_time", "end_time", "session_info"}
+
+
+def same_records(a, b, path: str = "", atol: float = MAIN_ATOL) -> None:
+    """Host records, dicts, sequences and arrays equal, floats within
+    ``atol``; the keys of HOST_MASKED (ids and times from
+    ``datetime.now``) skipped."""
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            if f.name not in HOST_MASKED:
+                same_records(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}", atol)
+    elif isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{path}: keys {sorted(set(a) ^ set(b))} differ")
+        for k in a:
+            if k not in HOST_MASKED:
+                same_records(a[k], b[k], f"{path}[{k!r}]", atol)
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: {len(a)} entries against {len(b)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_records(x, y, f"{path}[{i}]", atol)
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{path}: {a.dtype} {a.shape} against {b.dtype} {b.shape}")
+        if a.dtype.kind == "f" and not np.allclose(a, b, rtol=0, atol=atol):
+            raise AssertionError(f"{path}: off by {float(np.abs(a - b).max())}")
+        if a.dtype.kind != "f" and not np.array_equal(a, b):
+            raise AssertionError(f"{path}: differs")
+    elif isinstance(a, float) or isinstance(b, float):
+        if not abs(a - b) <= atol:
+            raise AssertionError(f"{path}: {a} against {b}")
+    elif a != b:
+        raise AssertionError(f"{path}: {a!r} against {b!r}")
+
+
+def host_chain(outs: dict, dets: dict, frames: int, db_path: str) -> dict:
+    """`extract_frame` on every frame, the AutoTagger over the run's tags and
+    a TagDatabase round trip: the records, the tagger and the database's
+    statistics and rows."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.database import TagDatabase
+    from multimodal_autonomous_driving_perception_and_planning_torch.host import extract_frame
+    from multimodal_autonomous_driving_perception_and_planning_torch.tagging import AutoTagger
+
+    records = [extract_frame(outs, dets, f) for f in range(frames)]
+    tagger = AutoTagger(video_path="synthetic", fps=30.0)
+    tagger.ingest_device_tags(outs["tags"], frames)
+    tagger.finalize()
+    db = TagDatabase(db_path)
+    saved = db.save_all_tags(tagger)
+    tags = sorted(tagger.tag_counts)
+    chain = {
+        "records": [(r.detections, r.tracks, r.vehicle_state, r.optimal_trajectory,
+                     [c.cost for c in r.candidate_trajectories], r.tags) for r in records],
+        "statistics": tagger.get_tag_statistics(), "frame_tags": tagger.frame_tags,
+        "search": {t: [f.frame_idx for f in tagger.search_by_tag(t)] for t in tags},
+        "segments": {t: tagger.get_event_segments(t, min_duration=2) for t in tags},
+        "high_risk": [f.frame_idx for f in tagger.get_high_risk_frames()],
+        "saved": saved, "db_statistics": db.get_tag_statistics(),
+        "db_rows": {t: db.search_by_tag(t, limit=1000) for t in tags},
+        "db_high_risk": db.search_high_risk(limit=10_000),
+    }
+    db.close()
+    return chain
+
+
+def check_host_stack(device) -> dict:
+    """The `host_stack` phase on the card.
+    (a) The tagging path over HOST_FRAMES frames, then `extract_frame` on
+    every frame, the AutoTagger and a TagDatabase round trip, against the
+    same chain on the CPU run (`same_records`).
+    (b) The facades one frame at a time on the card (MultiObjectTracker,
+    VehicleStateEstimator, MotionPlanner, AutoTagger.tag_frame, and
+    LaneDetector on road frames) against the card's sequence runner, as
+    tests/test_compat.py holds them: track ids, the ego state and the
+    chosen plan exact, the tags' records within MAIN_ATOL, the lane flags
+    exact and fits by x within LANE_X_ATOL.
+    (c) ObjectDetector(mode="yolo", allow_random_init=True).detect_stream on
+    one chunk against `make_yolo_frontend` with its weights on the card.
+    The kernels' counts are zeroed before (b) and (c) and read after: the
+    facades' own launches of K1-K3 and K5."""
+    import tempfile
+
+    from multimodal_autonomous_driving_perception_and_planning_torch import compat
+    from multimodal_autonomous_driving_perception_and_planning_torch.host import extract_frame
+    from multimodal_autonomous_driving_perception_and_planning_torch.perception.detector import (
+        ObjectDetector,
+        make_yolo_frontend,
+    )
+    from multimodal_autonomous_driving_perception_and_planning_torch.tagging import AutoTagger
+
+    n = HOST_FRAMES
+    inputs = synthetic_inputs(n)
+    dets = {k: inputs[k] for k in ("bbox", "class_id", "confidence", "valid")}
+    # All outputs (the records read the trajectories and the candidates), as
+    # tests/test_host_stack.py and tests/test_compat.py run them.
+    cfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
+    _, want = pt.make_sequence_runner(cfg, device="cpu")(pt.initial_state(cfg, device="cpu"), inputs)
+    _, got = pt.make_sequence_runner(cfg, device=device)(pt.initial_state(cfg, device=device), inputs)
+    with tempfile.TemporaryDirectory() as tmp:
+        chain_card = host_chain(got, dets, n, f"{tmp}/card.db")
+        chain_cpu = host_chain(want, dets, n, f"{tmp}/cpu.db")
+    same_records(chain_card, chain_cpu, "host chain")
+
+    main_cfg = cfg.replace(enable_tagging=False)
+    _, fused = pt.make_sequence_runner(main_cfg, device=device)(pt.initial_state(main_cfg, device=device), inputs)
+    road = frames_inputs(HOST_ROAD_FRAMES)
+    frames_cfg = frames_config()
+    _, road_outs = pt.make_sequence_runner(frames_cfg, device=device)(pt.initial_state(frames_cfg, device=device),
+                                                                      road)
+    base = AutoTagger(video_path="synthetic", fps=30.0)
+    base.ingest_device_tags(got["tags"], n)
+    records = [extract_frame(got, dets, f) for f in range(n)]
+    torch.cuda.synchronize()
+
+    _zero_counts()
+    tracker = compat.MultiObjectTracker(device=device)
+    estimator = compat.VehicleStateEstimator(device=device)
+    planner = compat.MotionPlanner(device=device)
+    tagger = compat.AutoTagger("synthetic", 30.0, cfg=cfg, device=device)
+    lanes = compat.LaneDetector(device=device)
+    vs_fused = {k: getattr(fused["vehicle_state"], k).cpu() for k in ("x", "y", "speed", "heading")}
+    for f in range(n):
+        tracks = tracker.update(records[f].detections)
+        vstate = estimator.step(inputs["ego_measurement"][f])
+        optimal, candidates = planner.plan(vstate)
+        m = int(fused["num_confirmed"][f])
+        want_ids = [int(fused["track_id"][f, s]) for s in fused["confirmed_order"][f][:m].tolist()]
+        if [t.track_id for t in tracks] != want_ids:
+            raise AssertionError(f"host stack: MultiObjectTracker frame {f} ids differ from the fused run")
+        for k, v in vs_fused.items():
+            if getattr(vstate, k) != float(v[f]):
+                raise AssertionError(f"host stack: VehicleStateEstimator frame {f} {k} differs from the fused run")
+        best = int(fused["plan_best"][f])
+        if not np.array_equal(optimal.positions, fused["plan_positions"][f, best].cpu().numpy()):
+            raise AssertionError(f"host stack: MotionPlanner frame {f} plan differs from the fused run")
+        ft = tagger.tag_frame(None, detections=records[f].detections, tracks=records[f].tracks, lanes=None,
+                              vehicle_state=records[f].vehicle_state)
+        if sorted(ft.all_tags) != sorted(base.frame_tags[f].all_tags):
+            raise AssertionError(f"host stack: AutoTagger.tag_frame frame {f} tags differ from the fused run")
+        for part in ("scene", "maneuver"):
+            same_records(getattr(ft, part), getattr(base.frame_tags[f], part), f"tag_frame {f} {part}")
+    lane_found = 0
+    for f in range(HOST_ROAD_FRAMES):
+        found = lanes.detect(road["frame"][f])
+        obs = road_outs["lane_obs"]
+        for side, lane in zip(("left", "right"), found):
+            if (lane is not None) != bool(getattr(obs, f"{side}_found")[f]):
+                raise AssertionError(f"host stack: LaneDetector frame {f} {side} found differs from the fused run")
+            if lane is not None:
+                lane_found += 1
+                fit = getattr(obs, f"{side}_fit")[f].cpu().numpy()
+                h = float(frames_cfg.frame_height)
+                gap = max(abs(np.polyval(lane.polynomial.astype(np.float64), y) - np.polyval(fit.astype(np.float64), y))
+                          for y in (h, 0.8 * h, 0.6 * h))
+                if not gap <= LANE_X_ATOL:
+                    raise AssertionError(f"host stack: LaneDetector frame {f} {side} fit off by {gap} px")
+    detector = ObjectDetector(mode="yolo", allow_random_init=True, device=device)
+    chunk = yolo_inputs(HOST_YOLO_FRAMES)[0]
+    tables = detector.detect_stream(chunk)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _, stream_fn = make_yolo_frontend(detector.cfg, device=device)
+    want_tables = stream_fn(detector.variables, chunk)
+    for k, v in want_tables.items():
+        if not torch.equal(tables[k], v):
+            raise AssertionError(f"host stack: ObjectDetector.detect_stream {k} differs from make_yolo_frontend")
+    expected = {name: 0 for name in KERNEL_MODULES}
+    # K1 a frame in MultiObjectTracker.update, K2 in VehicleStateEstimator.step,
+    # K3 in AutoTagger.tag_frame, K5 once for the YOLO chunk.
+    expected.update(tracker_step=n, kalman_step=n, tagging_step=n, nms_keep=1)
+    if launches != expected:
+        raise AssertionError(f"host stack: the facades' kernel launches {launches}, expected {expected}")
+    return {"frames": n, "road_frames": HOST_ROAD_FRAMES, "launches": launches,
+            "records": len(chain_card["records"]), "tags": len(chain_card["search"]),
+            "db_rows": chain_card["saved"], "high_risk": len(chain_card["high_risk"]),
+            "lanes_found": lane_found, "yolo_detections": int(tables["valid"].sum()),
+            "result": "records, tagger and database equal the CPU chain; facades equal the fused card run"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
@@ -3351,6 +3838,9 @@ def main() -> int:
     emit({"phase": "multicamera_path", **check_multicamera_path(device, streams)})
     emit({"phase": "serve_path", **check_serve_path(device)})
     emit({"phase": "kalman_bank", **check_kalman_bank(device)})
+    emit({"phase": "large_tables", **check_large_tables(device, params, frames, ego),
+          "result": "K1 and K4 exact, K3 discrete exact and floats within bounds, paths equal the CPU runs"})
+    emit({"phase": "host_stack", **check_host_stack(device)})
 
     from multimodal_autonomous_driving_perception_and_planning_torch.models.blip import BlipConfig
 
@@ -3378,6 +3868,9 @@ def main() -> int:
     t0 = time.perf_counter()
     emit({"phase": "lane_times", "card": smi, "kernels": measure_lane_kernels(device, inputs),
           "paths": measure_batched_paths(device), "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({"phase": "large_times", "card": smi, "kernels": measure_large_kernels(device),
+          "seconds": time.perf_counter() - t0})
 
     k3_err = max(v for case in k3 for v in case["max_abs_err"].values())
     sources = {

@@ -115,3 +115,93 @@ def ego_motion_stream(
             vy + rs.normal(0, 0.05),
         )
     return out
+
+
+class IncrementalEgoMotion:
+    """Stateful `ego_motion_stream` producing successive rows in O(n) per
+    call: bit-identical to slicing one monolithic stream, without
+    regenerating it from frame 0 for every chunk."""
+
+    def __init__(self, dt: float = 1.0 / 30.0, seed: int = 0):
+        self.dt = dt
+        self._i = 0
+        self._x = 0.0
+        self._y = 0.0
+        self._rs = np.random.RandomState(seed)
+
+    def take(self, num_frames: int) -> np.ndarray:
+        out = np.zeros((num_frames, 4), np.float64)
+        speed = 10.0
+        for j in range(num_frames):
+            t = self._i * self.dt
+            heading = 0.05 * np.sin(t * 0.5)
+            vx = speed * np.cos(heading)
+            vy = speed * np.sin(heading)
+            self._x += vx * self.dt
+            self._y += vy * self.dt
+            out[j] = (
+                self._x + self._rs.normal(0, 0.1),
+                self._y + self._rs.normal(0, 0.1),
+                vx + self._rs.normal(0, 0.05),
+                vy + self._rs.normal(0, 0.05),
+            )
+            self._i += 1
+        return out
+
+
+def simulated_vehicle_motion_stream(num_frames: int, dt: float = 0.033, seed: int | None = 0):
+    """(measurements, ground_truth) per SimulatedVehicleMotion
+    (vehicle_state.py:260-330): speed 10 + 3 sin(0.2 t), heading
+    0.1 sin(0.3 t) + 0.05 sin(0.7 t), noise sigma (0.5, 0.5, 0.2, 0.2).
+    ``seed=None`` draws from numpy's global generator, as the reference
+    does without a seed."""
+    rs = np.random.RandomState(seed) if seed is not None else np.random.mtrand._rand
+    meas = np.zeros((num_frames, 4), np.float64)
+    truth = np.zeros((num_frames, 4), np.float64)
+    x = y = 0.0
+    time = 0.0
+    for i in range(num_frames):
+        time += dt
+        speed = 10 + 3 * np.sin(time * 0.2)
+        heading = 0.1 * np.sin(time * 0.3) + 0.05 * np.sin(time * 0.7)
+        vx = speed * np.cos(heading)
+        vy = speed * np.sin(heading)
+        x += vx * dt
+        y += vy * dt
+        truth[i] = (x, y, vx, vy)
+        meas[i] = (
+            x + rs.normal(0, 0.5),
+            y + rs.normal(0, 0.5),
+            vx + rs.normal(0, 0.2),
+            vy + rs.normal(0, 0.2),
+        )
+    return meas, truth
+
+
+def generate_agent_trajectories(num_agents: int, num_steps: int, dt: float = 1.0 / 30.0, seed: int | None = 0):
+    """Random-walk agent trajectories, matching
+    SyntheticDataGenerator.generate_agent_trajectories: per agent, start
+    x~U(-20,20), y~U(10,40), heading~U(-0.3,0.3), speed~U(5,15); each step
+    heading += N(0,0.02), speed += N(0,0.1) clipped to [3,20], then
+    Euler-integrate.  ``seed=None`` draws from numpy's global generator.
+
+    Returns dict mapping agent_id -> list of (x, y, vx, vy) tuples.
+    """
+    rs = np.random.RandomState(seed) if seed is not None else np.random.mtrand._rand
+    trajectories = {}
+    for agent_id in range(num_agents):
+        x = rs.uniform(-20, 20)
+        y = rs.uniform(10, 40)
+        heading = rs.uniform(-0.3, 0.3)
+        speed = rs.uniform(5, 15)
+        agent_traj = []
+        for _ in range(num_steps):
+            heading += rs.normal(0, 0.02)
+            speed = np.clip(speed + rs.normal(0, 0.1), 3, 20)
+            vx = speed * np.cos(heading)
+            vy = speed * np.sin(heading)
+            x += vx * dt
+            y += vy * dt
+            agent_traj.append((x, y, vx, vy))
+        trajectories[agent_id] = agent_traj
+    return trajectories

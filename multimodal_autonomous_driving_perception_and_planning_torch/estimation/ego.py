@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..config import EstimatorConfig
@@ -63,6 +64,33 @@ def extract_state(
         vel_uncertainty=torch.sqrt(P[2, 2] + P[3, 3]),
     )
     return state, heading, speed
+
+
+def set_initial_state(
+    ks: KalmanState,
+    x: float,
+    y: float,
+    vx: float = 0.0,
+    vy: float = 0.0,
+    ax: float = 0.0,
+    ay: float = 0.0,
+) -> KalmanState:
+    """Seed the filter at a known state (vehicle_state.py:242-248): sets the
+    6-vector and primes prev_heading/prev_speed from the given velocity, so
+    that the first frame's finite differences are taken against it.  As the
+    JAX package computes them: the heading in float32 from the velocity in
+    float32, the speed as the correctly rounded float32 root of the float32
+    of the double square sum (a root rounded from double is; torch's float32
+    root on the CPU can stand an ulp off).  On the host, then moved."""
+    vel = torch.tensor([vy, vx], dtype=torch.float32)
+    speed = math.sqrt(float(np.float32(vx * vx + vy * vy)))
+    return KalmanState(
+        x=torch.tensor([x, y, vx, vy, ax, ay], dtype=ks.x.dtype).to(ks.x.device),
+        P=ks.P,
+        time=ks.time,
+        prev_heading=torch.atan2(vel[0], vel[1]).to(ks.prev_heading),
+        prev_speed=torch.tensor(speed, dtype=torch.float32).to(ks.prev_speed),
+    )
 
 
 def estimator_step(

@@ -21,7 +21,12 @@
 //    eligible pairs; warp 0 runs the rounds when at most 32 are eligible,
 //    a warp a 32 rows otherwise, with one barrier a round.
 //
-// Limits: T <= 128, D <= 64 (the wrapper checks them).
+// Two instances, chosen by shape: the one above for T <= 128 and D <= 64,
+// and for larger tables, up to 1,024 rows and 1,024 columns, a block of
+// 1,024 threads that reads the matrix from device memory in each round
+// that needs it, with only the row and column bests in shared memory
+// (association.cuh `greedy_associate_general`).  The wrapper checks the
+// limits.
 
 #include <cuda_runtime.h>
 
@@ -64,11 +69,35 @@ associate_kernel(const float* __restrict__ iou, const int* __restrict__ rank, in
                    s_scratch);
 }
 
+constexpr int kGeneralThreads = 1024;
+
+__global__ void __launch_bounds__(kGeneralThreads)
+associate_general_kernel(const float* __restrict__ iou, const int* __restrict__ rank, int* __restrict__ match,
+                         int T, int D, float thr) {
+  extern __shared__ __align__(16) unsigned long long s_general[];  // [rank (T)] [the rounds' memory]
+  int* s_rank = reinterpret_cast<int*>(s_general);
+  void* s_assoc = s_general + ((T + 1) >> 1);
+  for (int t = threadIdx.x; t < T; t += kGeneralThreads) s_rank[t] = rank[t];
+  __syncthreads();
+  greedy_associate_general([&](int t, int d) { return __ldg(iou + (size_t)t * D + d); }, s_rank, T, D, thr,
+                           s_assoc);
+  const int* m = assoc_general_match(s_assoc, T, D);
+  for (int t = threadIdx.x; t < T; t += kGeneralThreads) match[t] = m[t];
+}
+
 }  // namespace
 
 extern "C" int madpp_associate(const void* iou, const void* rank, void* match, int T, int D, float thr,
                                void* stream) {
-  if (T < 1 || T > kMaxT || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
+  if (T < 1 || D < 1 || T > kAssocGeneralMax || D > kAssocGeneralMax) return (int)cudaErrorInvalidValue;
+  if (T > kMaxT || D > kMaxD) {
+    const size_t smem = 8 * (size_t)((T + 1) / 2) + assoc_general_smem(T, D);
+    const cudaError_t err = allow_dynamic_smem<associate_general_kernel>(smem);
+    if (err != cudaSuccess) return (int)err;
+    associate_general_kernel<<<1, kGeneralThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)iou, (const int*)rank, (int*)match, T, D, thr);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(unsigned) * 32 * (size_t)((T + 31) / 32) * (size_t)assoc_key_stride(D);
   associate_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>((const float*)iou, (const int*)rank,
                                                                (int*)match, T, D, thr);

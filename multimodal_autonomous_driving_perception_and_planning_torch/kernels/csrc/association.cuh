@@ -346,3 +346,115 @@ __device__ inline void greedy_associate(const float* iou, int ld, unsigned* keys
                     col_done);
   }
 }
+
+// --- The general instance: tables beyond T <= 128, D <= 64 ------------------
+//
+// Up to kAssocGeneralMax rows and columns, on one whole block.  The fast
+// rounds above keep the key matrix and their column bests in shared memory
+// and hold column masks of two words; at T = D = 1,024 the float32 matrix
+// alone is 4 MB.  So the general rounds keep no matrix: `iou(t, d)` gives
+// an entry where the caller keeps it (K4: device memory; K1: computed from
+// the boxes in shared memory), and shared memory holds, a row, its best
+// live entry as one 64-bit key (IoU key << 32 | ~tie-break key, as the
+// dense rounds order them), and, a column, its best live row's key and
+// that row.  A round accepts every live row whose best is its column's
+// best (rows of equal key all take the column, as the plain version's do),
+// then recomputes only the bests that the round made stale: a row's when
+// its column was taken (a warp a row, lanes over the columns), a column's
+// when its row was matched (a thread a column, over the rows).  A best
+// that is still live stays the best, since rounds only remove rows and
+// columns.  Two barriers a round; the first round computes every best.
+// Correct first: a round of the first kind reads the whole matrix.
+constexpr int kAssocGeneralMax = 1024;
+
+// Bytes of shared memory the general rounds take for T rows and D columns:
+// row bests and column bests (8 bytes each), then the matches (T), the
+// taken columns (D) and the column bests' rows (D), 4 bytes each.
+__host__ __device__ inline size_t assoc_general_smem(int T, int D) {
+  return 8 * (size_t)(T + D) + 4 * ((size_t)T + 2 * (size_t)D);
+}
+
+__device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = w > v ? w : v;
+  }
+  return v;
+}
+
+// The general fixpoint, with the contract of `greedy_associate` for T, D
+// up to kAssocGeneralMax: `iou(t, d)` is the entry (-1 for invalid pairs),
+// `rank` the T row ranks in shared memory, `smem` the shared memory of
+// `assoc_general_smem(T, D)` bytes, 8-byte aligned.  Called by all threads
+// of the block; the caller syncs after writing `rank` and what `iou`
+// reads.  Writes the matches to `smem`'s int array returned by
+// `assoc_general_match(smem, T, D)` and the taken columns (1 or 0) to
+// `assoc_general_taken`; the block is synced when it returns.
+__device__ __forceinline__ int* assoc_general_match(void* smem, int T, int D) {
+  return reinterpret_cast<int*>(static_cast<unsigned long long*>(smem) + T + D);
+}
+__device__ __forceinline__ int* assoc_general_taken(void* smem, int T, int D) {
+  return assoc_general_match(smem, T, D) + T;
+}
+
+template <class Iou>
+__device__ void greedy_associate_general(Iou iou, const int* rank, int T, int D, float thr, void* smem) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  unsigned long long* rowbest = static_cast<unsigned long long*>(smem);
+  unsigned long long* colbest = rowbest + T;
+  int* match = assoc_general_match(smem, T, D);
+  int* taken = match + T;
+  int* colrow = taken + D;
+  for (int t = tid; t < T; t += nthreads) match[t] = -1;
+  for (int d = tid; d < D; d += nthreads) taken[d] = 0;
+  __syncthreads();
+  for (bool first = true;; first = false) {
+    // Row bests, a warp a row: the stale ones (all in the first round).
+    for (int t = warp; t < T; t += nwarps) {
+      const unsigned base = (unsigned)rank[t] * (unsigned)D + 0x80000000u;  // the tie-break key's base
+      const unsigned long long b = rowbest[t];
+      if (!first && !(match[t] < 0 && b != 0ull && taken[~(unsigned)b - base])) continue;
+      unsigned long long best = 0ull;
+      for (int d = lane; d < D; d += 32) {
+        if (taken[d]) continue;
+        const unsigned k = assoc_key(iou(t, d), thr);
+        const unsigned long long e = k ? ((unsigned long long)k << 32) | ~(base + (unsigned)d) : 0ull;
+        best = e > best ? e : best;
+      }
+      best = warp_max_u64(best);
+      if (lane == 0) rowbest[t] = best;
+    }
+    // Column bests, a thread a column: the stale ones.
+    for (int d = tid; d < D; d += nthreads) {
+      if (!first && !(!taken[d] && colbest[d] != 0ull && match[colrow[d]] >= 0)) continue;
+      unsigned long long best = 0ull;
+      int arg = 0;
+#pragma unroll 4
+      for (int t = 0; t < T; ++t) {
+        if (match[t] >= 0) continue;
+        const unsigned k = assoc_key(iou(t, d), thr);
+        const unsigned long long e =
+            k ? ((unsigned long long)k << 32) | ~((unsigned)rank[t] * (unsigned)D + 0x80000000u + (unsigned)d) : 0ull;
+        if (e > best) best = e, arg = t;
+      }
+      colbest[d] = best;
+      colrow[d] = arg;
+    }
+    __syncthreads();
+    // Accept every live row whose best is its column's best.
+    bool took = false;
+    for (int t = tid; t < T; t += nthreads) {
+      const unsigned long long b = rowbest[t];
+      if (match[t] >= 0 || b == 0ull) continue;
+      const int d = (int)(~(unsigned)b - ((unsigned)rank[t] * (unsigned)D + 0x80000000u));
+      if (colbest[d] == b) {
+        match[t] = d;
+        taken[d] = 1;
+        took = true;
+      }
+    }
+    if (!__syncthreads_or(took)) break;
+  }
+}

@@ -1,9 +1,25 @@
-// Block-wide helpers of the one-block kernels K1 (tracker_step.cu) and K3
-// (tagging_step.cu): asynchronous staging of their rings into shared
-// memory.
+// Block-wide helpers of the one-block kernels K1 (tracker_step.cu), K3
+// (tagging_step.cu) and K4 (associate.cu): asynchronous staging of their
+// rings into shared memory, and their launchers' shared memory limit.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+// Let `Kernel` take `bytes` of dynamic shared memory in a launch.  Without
+// the attribute a launch may take 48 KB less the kernel's static shared
+// memory (a launch above that fails with cudaErrorInvalidValue), so the
+// attribute is raised only beyond that: the kernel's static size is read
+// once.
+template <auto Kernel>
+inline cudaError_t allow_dynamic_smem(size_t bytes) {
+  static const size_t static_bytes = [] {
+    cudaFuncAttributes a{};
+    return cudaFuncGetAttributes(&a, Kernel) == cudaSuccess ? a.sharedSizeBytes : (size_t)48 * 1024;
+  }();
+  if (bytes + static_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
 
 // Asynchronous copies from device to shared memory (`cp.async`).
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

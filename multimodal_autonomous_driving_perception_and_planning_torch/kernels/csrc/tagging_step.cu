@@ -65,7 +65,9 @@
 //   tag_i: [0, 21) the SI row, [21, 34) per-type presence, then per slot:
 //          type, risk, has-TTC (T each).
 //
-// Limits: T <= 128, B >= 1 (the wrapper checks them).
+// Two instances, chosen by shape: the one described above for T <= 128,
+// and a general one for T up to 1,024 (below, before the launcher).  Any
+// D, B >= 1.  The wrapper checks the limits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -451,6 +453,105 @@ __device__ void maneuver_detect(const TagOut& out, const TagDims& dm, const TagP
   si[5] = turning;
 }
 
+// A slot's fields, loaded by its thread.
+struct SlotIn {
+  int id, cls, hits, velc, iprev, ilen;
+  float b0, b1, b2, b3, vel_y;
+};
+
+// The per-slot results that the aggregates read, in shared memory.
+struct SlotArrays {
+  int *conf, *lwidx, *id, *cls, *itype, *irisk, *httc;
+  float *cx, *cy, *iconf, *dist, *ttc;
+};
+
+// Slot t's distance, TTC, center ring, cut-in drift and cascade: its
+// outputs written, its results to `sa`.  `icent` is the center ring before
+// this frame, staged or in device memory.
+__device__ __forceinline__ void slot_tags(int t, const SlotIn& s, float speed, const float* icent, const TagDims& dm,
+                                          const TagParams& p, const TagOut& out, const SlotArrays& sa) {
+  const int T = dm.T, HI = dm.HI;
+  const int id = s.id, cls = s.cls, hits = s.hits, velc = s.velc, iprev = s.iprev, ilen = s.ilen;
+  const float b0 = s.b0, b1 = s.b1, b2 = s.b2, b3 = s.b3, vel_y = s.vel_y;
+  float* tf = out.tag_f;
+  int* ti = out.tag_i;
+  const bool conf = id > 0 && hits >= dm.min_hits;
+
+  const float box_h = fsub(b3, b1);
+  const float base_d = fma_d(fma_d(-b3, p.inv_frame_height, 1.0f), 50.0f, 5.0f);
+  const float size_f = fdiv(100.0f, fadd(box_h, 10.0f));
+  const float dist =
+      box_h <= 0.0f ? 50.0f : fminf(fmaxf(fmul(fadd(base_d, size_f), 0.5f), 2.0f), 100.0f);
+  const float rel = velc > 0 ? fsub(speed, vel_y) : 0.0f;
+  const bool ttc_ok = rel > 0.1f;
+  const float ttc = ttc_ok ? fdiv(dist, rel) : INFINITY;
+  const bool has_ttc = ttc_ok && ttc > 0.0f;
+
+  // Center ring: a slot claimed by a new id starts afresh.
+  const int lens = iprev == id ? ilen : 0;
+  const int lwidx = fmod_i(lens, HI);
+  const int hist_len = conf ? lens + 1 : lens;
+  const float cx = fmul(fadd(b0, b2), 0.5f);
+  const float cy = fmul(fadd(b1, b3), 0.5f);
+  const int oldest = hist_len < HI ? 0 : fmod_i(hist_len, HI);
+  const int newest = fmod_i(hist_len - 1, HI);
+  const float* ring = icent + (size_t)t * 2 * HI;
+  const float start_x = (conf && oldest == lwidx) ? cx : ring[2 * oldest];
+  const float end_x = (conf && newest == lwidx) ? cx : ring[2 * newest];
+  const bool cut_drift = fabsf(fsub(end_x, p.half_width)) < fabsf(fsub(start_x, p.half_width));
+
+  const bool near_miss = dist < p.near_miss_distance;
+  const bool ped_close = cls == kPed && dist < p.pedestrian_danger_distance;
+  const bool ped_center = fabsf(fsub(cx, p.half_width)) < p.quarter_width;
+  const bool cyc_near = cls == kCyc && dist < 15.0f;
+  const bool is_veh = cls == kCar || cls == kTruck || cls == kBus;
+  const bool in_front = cx > p.quarter_width && cx < p.three_quarter_width;
+  const bool following = is_veh && in_front && dist > p.following_distance_min &&
+                         dist < p.following_distance_max;
+  const bool cut_in = is_veh && hist_len >= 10 && cut_drift && dist < p.cut_in_distance;
+
+  // Priority: near miss > pedestrian > cyclist > following > cut-in.
+  int itype = -1, irisk = 0;
+  float iconf = 0.0f;
+  if (conf) {
+    if (near_miss) {
+      itype = kNearMiss, iconf = 0.9f, irisk = 3;
+    } else if (ped_close && ped_center) {
+      itype = kPedCrossing, iconf = 0.8f, irisk = dist < 8.0f ? 2 : 1;
+    } else if (ped_close) {
+      itype = kPedWaiting, iconf = 0.6f, irisk = 0;
+    } else if (cyc_near) {
+      itype = kCycNearby, iconf = 0.7f, irisk = dist < 8.0f ? 1 : 0;
+    } else if (following) {
+      itype = kFollowing, iconf = 0.75f;
+      irisk = (has_ttc && ttc < p.ttc_warning) ? 2 : (dist < 10.0f ? 1 : 0);
+    } else if (cut_in) {
+      itype = kCutIn, iconf = 0.7f, irisk = 1;
+    }
+  }
+
+  out.ilen[t] = hist_len;
+  tf[kSF + kTypes + t] = iconf;
+  tf[kSF + kTypes + T + t] = dist;
+  tf[kSF + kTypes + 2 * T + t] = rel;
+  tf[kSF + kTypes + 3 * T + t] = has_ttc ? ttc : 0.0f;
+  ti[kSI + kTypes + t] = itype;
+  ti[kSI + kTypes + T + t] = irisk;
+  ti[kSI + kTypes + 2 * T + t] = has_ttc;
+  sa.conf[t] = conf;
+  sa.lwidx[t] = conf ? lwidx : -1;
+  sa.cx[t] = cx;
+  sa.cy[t] = cy;
+  sa.id[t] = id;
+  sa.cls[t] = cls;
+  sa.itype[t] = itype;
+  sa.irisk[t] = irisk;
+  sa.httc[t] = has_ttc;
+  sa.iconf[t] = iconf;
+  sa.dist[t] = dist;
+  sa.ttc[t] = ttc;
+}
+
 template <bool FramesMode>
 __global__ void __launch_bounds__(kThreads)
 tagging_step_kernel(TagIn lanes_in, TagOut lanes_out, TagDims dm, TagParams p) {
@@ -526,82 +627,8 @@ tagging_step_kernel(TagIn lanes_in, TagOut lanes_out, TagDims dm, TagParams p) {
 
   // --- B. per slot, beside the scene and the maneuver warps -----------------
   if (tix < T) {
-    const int t = tix;
-    const bool conf = id > 0 && hits >= dm.min_hits;
-
-    const float box_h = fsub(b3, b1);
-    const float base_d = fma_d(fma_d(-b3, p.inv_frame_height, 1.0f), 50.0f, 5.0f);
-    const float size_f = fdiv(100.0f, fadd(box_h, 10.0f));
-    const float dist =
-        box_h <= 0.0f ? 50.0f : fminf(fmaxf(fmul(fadd(base_d, size_f), 0.5f), 2.0f), 100.0f);
-    const float rel = velc > 0 ? fsub(speed, vel_y) : 0.0f;
-    const bool ttc_ok = rel > 0.1f;
-    const float ttc = ttc_ok ? fdiv(dist, rel) : INFINITY;
-    const bool has_ttc = ttc_ok && ttc > 0.0f;
-
-    // Center ring: a slot claimed by a new id starts afresh.
-    const int lens = iprev == id ? ilen : 0;
-    const int lwidx = fmod_i(lens, HI);
-    const int hist_len = conf ? lens + 1 : lens;
-    const float cx = fmul(fadd(b0, b2), 0.5f);
-    const float cy = fmul(fadd(b1, b3), 0.5f);
-    const int oldest = hist_len < HI ? 0 : fmod_i(hist_len, HI);
-    const int newest = fmod_i(hist_len - 1, HI);
-    const float* ring = icent + (size_t)t * 2 * HI;
-    const float start_x = (conf && oldest == lwidx) ? cx : ring[2 * oldest];
-    const float end_x = (conf && newest == lwidx) ? cx : ring[2 * newest];
-    const bool cut_drift = fabsf(fsub(end_x, p.half_width)) < fabsf(fsub(start_x, p.half_width));
-
-    const bool near_miss = dist < p.near_miss_distance;
-    const bool ped_close = cls == kPed && dist < p.pedestrian_danger_distance;
-    const bool ped_center = fabsf(fsub(cx, p.half_width)) < p.quarter_width;
-    const bool cyc_near = cls == kCyc && dist < 15.0f;
-    const bool is_veh = cls == kCar || cls == kTruck || cls == kBus;
-    const bool in_front = cx > p.quarter_width && cx < p.three_quarter_width;
-    const bool following = is_veh && in_front && dist > p.following_distance_min &&
-                           dist < p.following_distance_max;
-    const bool cut_in = is_veh && hist_len >= 10 && cut_drift && dist < p.cut_in_distance;
-
-    // Priority: near miss > pedestrian > cyclist > following > cut-in.
-    int itype = -1, irisk = 0;
-    float iconf = 0.0f;
-    if (conf) {
-      if (near_miss) {
-        itype = kNearMiss, iconf = 0.9f, irisk = 3;
-      } else if (ped_close && ped_center) {
-        itype = kPedCrossing, iconf = 0.8f, irisk = dist < 8.0f ? 2 : 1;
-      } else if (ped_close) {
-        itype = kPedWaiting, iconf = 0.6f, irisk = 0;
-      } else if (cyc_near) {
-        itype = kCycNearby, iconf = 0.7f, irisk = dist < 8.0f ? 1 : 0;
-      } else if (following) {
-        itype = kFollowing, iconf = 0.75f;
-        irisk = (has_ttc && ttc < p.ttc_warning) ? 2 : (dist < 10.0f ? 1 : 0);
-      } else if (cut_in) {
-        itype = kCutIn, iconf = 0.7f, irisk = 1;
-      }
-    }
-
-    out.ilen[t] = hist_len;
-    tf[kSF + kTypes + t] = iconf;
-    tf[kSF + kTypes + T + t] = dist;
-    tf[kSF + kTypes + 2 * T + t] = rel;
-    tf[kSF + kTypes + 3 * T + t] = has_ttc ? ttc : 0.0f;
-    ti[kSI + kTypes + t] = itype;
-    ti[kSI + kTypes + T + t] = irisk;
-    ti[kSI + kTypes + 2 * T + t] = has_ttc;
-    s_conf[t] = conf;
-    s_lwidx[t] = conf ? lwidx : -1;
-    s_cx[t] = cx;
-    s_cy[t] = cy;
-    s_id[t] = id;
-    s_cls[t] = cls;
-    s_itype[t] = itype;
-    s_irisk[t] = irisk;
-    s_httc[t] = has_ttc;
-    s_iconf[t] = iconf;
-    s_dist[t] = dist;
-    s_ttc[t] = ttc;
+    slot_tags(tix, SlotIn{id, cls, hits, velc, iprev, ilen, b0, b1, b2, b3, vel_y}, speed, icent, dm, p, out,
+              SlotArrays{s_conf, s_lwidx, s_id, s_cls, s_itype, s_irisk, s_httc, s_cx, s_cy, s_iconf, s_dist, s_ttc});
   } else if (warp == kSceneWarp) {
     scene_classify<FramesMode>(in, out, dm, p, speed, votes, dr, frow, lrow, count);
   } else if (warp == kManeuverWarp) {
@@ -755,14 +782,180 @@ tagging_step_kernel(TagIn lanes_in, TagOut lanes_out, TagDims dm, TagParams p) {
   }
 }
 
+// --- The general instance: T up to 1,024 ------------------------------------
+//
+// One block of 1,024 threads a lane.  Thread t runs slot t (`slot_tags`, as
+// above), so every warp may hold slots: the scene classifier and the
+// maneuver detector run after the slots, on warps 0 and 1, beside the
+// aggregates on warps 2-5, each looping over the slots a lane at a time
+// where the instance above holds T / 32 of them in registers, and the
+// center ring goes out from warps 6-31.  The slots' results sit in dynamic
+// shared memory sized by T (12 arrays, 48 KB at 1,024), and the rings are
+// read from device memory.  Same arithmetic, same keys, same outputs.
+constexpr int kGeneralThreads = 1024;
+constexpr int kGeneralMaxT = kGeneralThreads;
+
+template <bool FramesMode>
+__global__ void __launch_bounds__(kGeneralThreads)
+tagging_step_general(TagIn lanes_in, TagOut lanes_out, TagDims dm, TagParams p) {
+  extern __shared__ __align__(16) int s_gen[];
+  const int T = dm.T, HI = dm.HI, tix = threadIdx.x;
+  const int lane = tix & 31, warp = tix >> 5;
+  int* si_ = s_gen;
+  float* sf_ = reinterpret_cast<float*>(s_gen + 7 * T);
+  const SlotArrays sa{si_, si_ + T, si_ + 2 * T, si_ + 3 * T, si_ + 4 * T, si_ + 5 * T, si_ + 6 * T,
+                      sf_, sf_ + T, sf_ + 2 * T, sf_ + 3 * T, sf_ + 4 * T};
+  const TagIn in = lane_in(lanes_in, blockIdx.x, dm);
+  const TagOut out = lane_out(lanes_out, blockIdx.x, dm);
+  float* tf = out.tag_f;
+  int* ti = out.tag_i;
+  const float speed = in.vrow[kSpeed];
+
+  // --- per slot --------------------------------------------------------------
+  if (tix < T) {
+    const int t = tix;
+    const SlotIn s{in.tid[t], in.tcls[t], in.thits[t], in.tvelc[t], in.iprev[t], in.ilen[t],
+                   in.tbox[t * 4], in.tbox[t * 4 + 1], in.tbox[t * 4 + 2], in.tbox[t * 4 + 3], in.tvel[t * 2 + 1]};
+    slot_tags(t, s, speed, in.icent, dm, p, out, sa);
+  }
+  __syncthreads();
+
+  // --- scene, maneuver, aggregates, the center ring out ----------------------
+  if (warp == 0) {
+    DetRegs dr;
+#pragma unroll
+    for (int c = 0; c < kDetRegs; ++c) {
+      const int d = 32 * c + lane;
+      dr.valid[c] = d < dm.D && in.dvalid[d];
+      dr.cls[c] = d < dm.D ? in.dcls[d] : 0;
+      dr.conf[c] = d < dm.D ? in.dconf[d] : 0.0f;
+    }
+    float frow[6], lrow[8];
+    if (FramesMode) {
+      for (int k = 0; k < 6; ++k) frow[k] = in.frow[k];
+      for (int k = 0; k < 8; ++k) lrow[k] = in.lrow[k];
+    }
+    scene_classify<FramesMode>(in, out, dm, p, speed, in.votes, dr, frow, lrow, *in.scene_count);
+  } else if (warp == 1) {
+    const int fields[6] = {kSpeed, kHeading, kAccel, kYaw, kX, kY};
+    float entry[6];
+    for (int k = 0; k < 6; ++k) entry[k] = in.vrow[fields[k]];
+    const int count = *in.man_count, frames = *in.frame_count;
+    if (lane == 0) {
+      maneuver_detect(out, dm, p, entry, in.mhist, count);
+      *out.frame_count = frames + 1;
+      tf[12] = fmul(__int2float_rn(frames), p.inv_fps);  // timestamp
+    }
+    const int mwidx = fmod_i(count, dm.H);
+    for (int i = lane; i < 6 * dm.H; i += 32) {
+      const int r = i / 6;
+      out.mhist[i] = r == mwidx ? entry[i - r * 6] : in.mhist[i];
+    }
+  } else if (warp < 4) {
+    // Presence and last-wins confidence of the types [7 w, 7 w + 7), w =
+    // warp - 2: the first slot holding the highest id.
+    for (int kk = 0; kk < 7; ++kk) {
+      const int k = 7 * (warp - 2) + kk;
+      int best_id = -1, best_slot = kI32Max;
+      bool present = false;
+      for (int t = lane; t < T; t += 32) {
+        if (sa.itype[t] != k) continue;
+        present |= sa.iconf[t] > 0.5f;
+        if (sa.id[t] > best_id) {
+          best_id = sa.id[t];
+          best_slot = t;
+        }
+      }
+      const int top = __reduce_max_sync(kFull, best_id);
+      const int slot = __reduce_min_sync(kFull, best_id == top ? best_slot : kI32Max);
+      present = __any_sync(kFull, present);
+      if (lane == 0 && k < kTypes) {
+        tf[kSF + k] = top >= 0 ? sa.iconf[slot] : 0.0f;
+        ti[kSI + k] = present;
+      }
+    }
+  } else if (warp == 4) {
+    int n_conf = 0, peds = 0, cycs = 0, vehs = 0;
+    unsigned dmin = kInfBits, tmin = kInfBits;
+    for (int t = lane; t < T; t += 32) {
+      if (!sa.conf[t]) continue;
+      const int c = sa.cls[t];
+      n_conf += 1;
+      peds += c == kPed;
+      cycs += c == kCyc;
+      vehs += c == kCar || c == kTruck || c == kBus || c == kMoto;
+      dmin = min(dmin, __float_as_uint(sa.dist[t]));
+      if (sa.httc[t]) tmin = min(tmin, __float_as_uint(sa.ttc[t]));
+    }
+    n_conf = __reduce_add_sync(kFull, n_conf);
+    peds = __reduce_add_sync(kFull, peds);
+    cycs = __reduce_add_sync(kFull, cycs);
+    vehs = __reduce_add_sync(kFull, vehs);
+    dmin = __reduce_min_sync(kFull, dmin);
+    tmin = __reduce_min_sync(kFull, tmin);
+    if (lane == 0) {
+      tf[10] = dmin < kInfBits ? __uint_as_float(dmin) : 0.0f;
+      tf[11] = tmin < kInfBits ? __uint_as_float(tmin) : 0.0f;
+      ti[8] = n_conf;
+      ti[9] = peds;
+      ti[10] = cycs;
+      ti[11] = vehs;
+      ti[20] = tmin < kInfBits;
+    }
+  } else if (warp == 5) {
+    // Primary interaction: the best (risk rank desc, confidence asc, id
+    // asc, slot asc).
+    int rank = -1, max_risk = 0, best_id = kI32Max, best_slot = kI32Max;
+    unsigned conf_bits = ~0u, tmin = kInfBits;
+    for (int t = lane; t < T; t += 32) {
+      if (sa.conf[t] && sa.httc[t]) tmin = min(tmin, __float_as_uint(sa.ttc[t]));
+      if (sa.itype[t] < 0) continue;
+      max_risk = max(max_risk, sa.irisk[t]);
+      const int r = risk_rank(sa.irisk[t]);
+      const unsigned c = __float_as_uint(sa.iconf[t]);
+      const int i = sa.id[t];
+      if (r > rank || (r == rank && (c < conf_bits || (c == conf_bits && i < best_id)))) {
+        rank = r;
+        conf_bits = c;
+        best_id = i;
+        best_slot = t;
+      }
+    }
+    const int top_rank = __reduce_max_sync(kFull, rank);
+    const unsigned top_conf = __reduce_min_sync(kFull, rank == top_rank ? conf_bits : ~0u);
+    const bool tied = rank == top_rank && conf_bits == top_conf;
+    const int top_id = __reduce_min_sync(kFull, tied ? best_id : kI32Max);
+    const int slot = __reduce_min_sync(kFull, tied && best_id == top_id ? best_slot : kI32Max);
+    max_risk = __reduce_max_sync(kFull, max_risk);
+    tmin = __reduce_min_sync(kFull, tmin);
+    if (lane == 0) {
+      const bool any_int = top_rank >= 0;
+      const bool critical = tmin < kInfBits && __uint_as_float(tmin) < p.ttc_critical;
+      ti[6] = any_int ? sa.itype[slot] : -1;
+      ti[7] = any_int ? (critical ? 3 : max_risk) : 0;
+    }
+  } else {
+    // The center ring, each confirmed slot's center at its write index.
+    const int ring_w = 2 * HI, n_ring = T * ring_w;
+    for (int i = tix - 6 * 32; i < n_ring; i += kGeneralThreads - 6 * 32) {
+      const int t = i / ring_w, c = i - t * ring_w;
+      out.icent[i] = sa.lwidx[t] == (c >> 1) ? ((c & 1) ? sa.cy[t] : sa.cx[t]) : in.icent[i];
+    }
+  }
+}
+
 template <bool FramesMode>
 int launch(const TagIn& in, const TagOut& out, const TagDims& dm, const TagParams& p, int B, size_t smem,
            cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(tagging_step_kernel<FramesMode>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (dm.T > kMaxT) {
+    const size_t gsmem = 12 * sizeof(int) * (size_t)dm.T;
+    const cudaError_t err = allow_dynamic_smem<tagging_step_general<FramesMode>>(gsmem);
     if (err != cudaSuccess) return (int)err;
+    tagging_step_general<FramesMode><<<B, kGeneralThreads, gsmem, stream>>>(in, out, dm, p);
+    return (int)cudaGetLastError();
   }
+  const cudaError_t err = allow_dynamic_smem<tagging_step_kernel<FramesMode>>(smem);
+  if (err != cudaSuccess) return (int)err;
   tagging_step_kernel<FramesMode><<<B, kThreads, smem, stream>>>(in, out, dm, p);
   return (int)cudaGetLastError();
 }
@@ -776,7 +969,7 @@ extern "C" int madpp_tagging_step(
     const void* icent, const void* ilen, const void* iprev, const void* frame_count,
     const void* lrow, const void* frow, void* out_f, void* out_i, const void* host_params,
     int B, int T, int D, int W, int H, int HI, int min_hits, int frames_mode, void* stream) {
-  if (B < 1 || T < 1 || T > kMaxT || D < 1 || W < 1 || H < 1 || HI < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || T < 1 || T > kGeneralMaxT || D < 1 || W < 1 || H < 1 || HI < 1) return (int)cudaErrorInvalidValue;
   if (frames_mode && (lrow == nullptr || frow == nullptr)) return (int)cudaErrorInvalidValue;
   TagIn in{(const int*)dcls, (const float*)dconf, (const bool*)dvalid, (const float*)tbox,
            (const int*)tcls, (const int*)tid, (const int*)thits, (const float*)tvel,

@@ -24,8 +24,12 @@ import torch
 from ..kernels import build
 from . import launch
 
-MAX_ROWS = 128
-MAX_COLS = 64
+# The kernel's instance whose times PERF.md tracks takes at most 128 rows
+# and 64 columns; its general instance (one block of 1,024 threads that
+# reads the matrix from device memory in each round that needs it)
+# MAX_ROWS and MAX_COLS.  Its launcher picks one by shape.
+MAX_ROWS = 1024
+MAX_COLS = 1024
 
 # Launches of the kernel in this process; only `greedy_associate` adds to it.
 launches = 0
@@ -33,7 +37,7 @@ launches = 0
 
 def greedy_associate(iou: torch.Tensor, row_rank: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Launch K4 on CUDA tensors: iou (T, D) float32, row_rank (T,) int32,
-    T <= 128 and D <= 64.  Returns match (T,) int32."""
+    T <= 1,024 and D <= 1,024.  Returns match (T,) int32."""
     global launches
     device = iou.device
     if device.type != "cuda":

@@ -146,8 +146,59 @@ _XLA_SIN_180 = (
     0.06975647062063217, 0.05233604833483696, 0.034899450838565826,
     0.017452457919716835,
 )
+# The same of jnp.arange(90, dtype=float32) * (pi / 90), the grid of
+# tests/test_config_sweep.py's frames case.
+_XLA_COS_90 = (
+    1.0, 0.9993908405303955, 0.9975640773773193, 0.9945219159126282, 0.9902680516242981,
+    0.9848077297210693, 0.9781476259231567, 0.9702957272529602, 0.9612616896629333,
+    0.9510565400123596, 0.9396926164627075, 0.9271838665008545, 0.9135454297065735,
+    0.8987940549850464, 0.882947564125061, 0.8660253882408142, 0.8480480909347534,
+    0.829037606716156, 0.80901700258255, 0.7880107760429382, 0.7660444378852844,
+    0.7431448101997375, 0.7193397879600525, 0.6946583986282349, 0.6691305637359619,
+    0.6427876353263855, 0.6156615018844604, 0.5877853035926819, 0.5591928958892822,
+    0.5299192667007446, 0.4999999701976776, 0.46947160363197327, 0.4383711516857147,
+    0.4067366123199463, 0.3746066391468048, 0.3420201539993286, 0.30901697278022766,
+    0.2756373882293701, 0.24192190170288086, 0.2079116553068161, 0.17364822328090668,
+    0.13917310535907745, 0.10452841967344284, 0.06975650787353516, 0.03489949554204941,
+    -4.371138828673793e-08, -0.03489946201443672, -0.06975647807121277,
+    -0.10452850908041, -0.13917307555675507, -0.1736481934785843, -0.2079116255044937,
+    -0.24192187190055847, -0.27563735842704773, -0.3090169429779053,
+    -0.3420201241970062, -0.3746066093444824, -0.4067365825176239, -0.43837112188339233,
+    -0.4694715738296509, -0.5000000596046448, -0.5299193263053894, -0.5591928362846375,
+    -0.5877851843833923, -0.6156614422798157, -0.6427876353263855, -0.6691306829452515,
+    -0.6946582794189453, -0.7193397283554077, -0.7431448101997375, -0.7660444378852844,
+    -0.7880107760429382, -0.8090170621871948, -0.8290374875068665, -0.8480480313301086,
+    -0.8660253882408142, -0.882947564125061, -0.8987940549850464, -0.9135454893112183,
+    -0.9271838068962097, -0.9396926164627075, -0.9510564804077148, -0.9612616896629333,
+    -0.9702957272529602, -0.9781476259231567, -0.9848077297210693, -0.9902680516242981,
+    -0.9945219159126282, -0.9975640773773193, -0.9993908405303955,
+)
+_XLA_SIN_90 = (
+    0.0, 0.03489949554204941, 0.06975647062063217, 0.10452846437692642,
+    0.13917310535907745, 0.1736481785774231, 0.20791170001029968, 0.24192190170288086,
+    0.27563735842704773, 0.30901700258255005, 0.3420201241970062, 0.3746066093444824,
+    0.4067366421222687, 0.4383711516857147, 0.4694715738296509, 0.5, 0.5299192667007446,
+    0.5591928958892822, 0.5877852439880371, 0.6156615018844604, 0.6427875757217407,
+    0.6691306233406067, 0.6946583986282349, 0.7193397879600525, 0.7431448698043823,
+    0.7660444378852844, 0.7880107164382935, 0.80901700258255, 0.8290375471115112,
+    0.8480480909347534, 0.866025447845459, 0.882947564125061, 0.8987940549850464,
+    0.9135454893112183, 0.9271838665008545, 0.9396926164627075, 0.9510565400123596,
+    0.9612616896629333, 0.9702957272529602, 0.9781476259231567, 0.9848077297210693,
+    0.9902680516242981, 0.9945219159126282, 0.9975640773773193, 0.9993908405303955, 1.0,
+    0.9993908405303955, 0.9975640773773193, 0.9945219159126282, 0.9902680516242981,
+    0.9848077297210693, 0.9781476259231567, 0.9702957272529602, 0.9612616896629333,
+    0.9510565400123596, 0.9396926164627075, 0.9271838665008545, 0.9135454893112183,
+    0.8987940549850464, 0.882947564125061, 0.8660253882408142, 0.8480480313301086,
+    0.829037606716156, 0.80901700258255, 0.7880107760429382, 0.7660444378852844,
+    0.7431448101997375, 0.719339907169342, 0.6946584582328796, 0.6691306233406067,
+    0.6427876353263855, 0.6156614422798157, 0.5877851843833923, 0.5591930150985718,
+    0.5299193263053894, 0.5000000596046448, 0.4694715738296509, 0.43837112188339233,
+    0.4067365825176239, 0.3746066987514496, 0.3420202136039734, 0.30901703238487244,
+    0.27563735842704773, 0.24192185699939728, 0.20791161060333252, 0.17364829778671265,
+    0.13917317986488342, 0.10452849417924881, 0.06975647062063217, 0.034899450838565826,
+)
 # fmt: on
-_XLA_TRIG = {180: (_XLA_COS_180, _XLA_SIN_180)}
+_XLA_TRIG = {90: (_XLA_COS_90, _XLA_SIN_90), 180: (_XLA_COS_180, _XLA_SIN_180)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,8 +207,8 @@ def theta_tables(num_thetas: int, device: torch.device) -> tuple[torch.Tensor, t
     a device)."""
     if num_thetas not in _XLA_TRIG:
         raise NotImplementedError(
-            f"num_thetas={num_thetas}: only XLA's tables for {sorted(_XLA_TRIG)} thetas are carried "
-            "(ROADMAP.md queue 1, item 7a: carry the tables of another grid)"
+            f"num_thetas={num_thetas}: XLA's tables are carried for {sorted(_XLA_TRIG)} thetas only; "
+            "carry another grid's as ops/hough.py carries these"
         )
     cos_t, sin_t = _XLA_TRIG[num_thetas]
     return (torch.tensor(cos_t, dtype=torch.float32, device=device),

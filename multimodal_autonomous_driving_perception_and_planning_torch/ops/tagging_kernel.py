@@ -38,7 +38,10 @@ from ..kernels import build
 from ..types import TaggingState
 from . import launch
 
-MAX_TRACKS = 128  # one thread a track slot
+# One thread a track slot: the kernel's instance whose times PERF.md tracks
+# takes at most 128 slots, its general instance MAX_TRACKS; its launcher
+# picks one by shape.
+MAX_TRACKS = 1024
 
 # --- the packed output rows --------------------------------------------------
 # The first 12 floats and 21 ints are the JAX package's SF and SI rows

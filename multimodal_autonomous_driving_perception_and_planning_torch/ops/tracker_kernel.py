@@ -17,7 +17,9 @@ pass of checks, two allocations (the outputs are carved from one float32
 and one int32 buffer, `output_fields`), 18 pointers to the binding, and the
 stream without re-entering the device context.  It reads nothing back from
 the device and allocates nothing that depends on the data, so a CUDA graph
-can capture it.
+can capture it.  Larger tables, up to 1,024 slots and 1,024 detections,
+take the kernel's general instance (one block of 1,024 threads a lane, the
+IoU computed where the association needs it); its time is in PERF.md.
 
 Lanes: a table and detections with a leading lane axis, (B, T, ...) and
 (B, D, ...), go through one launch of B blocks, each running its lane's
@@ -37,8 +39,11 @@ from ..kernels import build
 from ..types import Detections, TrackTable
 from . import launch
 
-MAX_TRACKS = 128
-MAX_DETECTIONS = 64
+# The kernel has two instances: the one whose times PERF.md tracks, for
+# tables of at most 128 slots and 64 detections, and a general one up to
+# MAX_TRACKS and MAX_DETECTIONS; its launcher picks one by shape.
+MAX_TRACKS = 1024
+MAX_DETECTIONS = 1024
 
 # The output fields, in the order the kernel carves its two buffers
 # (tracker_step.cu `carve`).
@@ -119,7 +124,7 @@ def tracker_step(table: TrackTable, dets: Detections, cfg: TrackerConfig, min_hi
             int(min_hits))
     err = launch.launch(device, lambda stream: kernel(*ptrs, *args, stream))
     if err != 0:
-        raise RuntimeError(f"tracker_step: kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"tracker_step: kernel launch failed with CUDA error {err} (B={B}, T={T}, D={D}, L={L})")
     launches += 1
     new_table = TrackTable(**{k: out[k] for k in TrackTable.__dataclass_fields__})
     return new_table, out["match"], out["order"], out["n_confirmed"]

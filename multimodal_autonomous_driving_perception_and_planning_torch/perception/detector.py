@@ -5,19 +5,21 @@ Detection maps a batch of frames to a (T, D, ...) detection stream on the
 device, in chunks of ``batch`` frames (the conv tower, decode, and NMS with
 kernel K5 once a chunk); the frame loop of `pipeline.make_sequence_runner`
 then consumes the tables without leaving the device.  Port of the JAX
-package's perception/detector.py runners; its ``ObjectDetector`` needs the
-host-side detection records and comes with them (ROADMAP.md queue 1,
-item 13).
+package's perception/detector.py, with the reference-named per-frame
+``ObjectDetector`` over the host records (host.py).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from ..config import PipelineConfig
-from ..models.yolov8 import make_yolo_detector
+from ..config import DEFAULT_CONFIG, PipelineConfig
+from ..data.synthetic import simulated_detection_stream, simulated_detections_for_frame
+from ..host import CLASS_COLORS, CLASS_NAMES, HostDetection, to_numpy
+from ..models.yolov8 import infer_variant_from_state_dict, load_torch_state_dict, make_yolo_detector
 from ..pipeline import make_sequence_runner
 from ..utils.device import resolve_device
 
@@ -127,3 +129,173 @@ def make_yolo_sequence_runner(
         return final, outs
 
     return init_fn, run
+
+
+def draw_detections(frame: np.ndarray, detections, show_labels: bool = True, show_confidence: bool = True) -> np.ndarray:
+    """Boxes and labels of ``detections`` drawn on a copy of ``frame`` with
+    cv2, as the reference's detector.draw_detections (detector.py:171-222)
+    and the JAX package's viz.draw.draw_detections draw them."""
+    import cv2
+
+    font = cv2.FONT_HERSHEY_SIMPLEX
+    out = frame.copy()
+    for det in detections:
+        x1, y1, x2, y2 = (int(v) for v in det.bbox)
+        color = CLASS_COLORS.get(det.class_id, (255, 255, 255))
+        cv2.rectangle(out, (x1, y1), (x2, y2), color, 2)
+        if show_labels:
+            label = det.class_name
+            if show_confidence:
+                label += f" {det.confidence:.2f}"
+            (lw, lh), _ = cv2.getTextSize(label, font, 0.5, 1)
+            cv2.rectangle(out, (x1, y1 - lh - 10), (x1 + lw + 5, y1), color, -1)
+            cv2.putText(out, label, (x1 + 2, y1 - 5), font, 0.5, (0, 0, 0), 1)
+    return out
+
+
+class ObjectDetector:
+    """Host-facing detector with the reference's constructor/API surface
+    (detector.py:29-226), on the card unless built with ``device="cpu"``.
+
+    ``detect(frame)`` returns a list of HostDetection; ``detect_stream``
+    returns the (T, D, ...) detection tables the pipeline consumes, on the
+    detector's device.  YOLO mode runs the conv tower and NMS with kernel
+    K5 once a chunk (`make_yolo_frontend`).
+    """
+
+    # Reference class attributes (detector.py:39-60).
+    CLASSES = {i: n for i, n in enumerate(CLASS_NAMES)}
+    CLASS_COLORS = dict(CLASS_COLORS)
+
+    def __init__(
+        self,
+        mode: str = "simulated",
+        model_path: Optional[str] = None,
+        cfg: Optional[PipelineConfig] = None,
+        rng_seed: int = 0,
+        img_size: int = 640,
+        allow_random_init: bool = False,
+        device="cuda",
+    ):
+        self.cfg = cfg or DEFAULT_CONFIG
+        self.device = resolve_device(device)
+        self.mode = mode
+        self.frame_count = 0
+        self.variables = None
+        self.variant = None
+        self._img_size = img_size
+        self._stream_fn = None
+        self._frame_fn = None
+
+        if mode == "yolo":
+            loaded, variant = (None, "n")
+            if model_path:
+                loaded, variant = self._try_load_weights(model_path)
+            if loaded is None and not allow_random_init:
+                # Reference contract (detector.py:77-84 and PARITY.md's
+                # "weightless YOLO -> simulated"): without usable weights the
+                # detector degrades to the seeded simulator; it must never
+                # emit a random-init network's boxes as detections.
+                print(f"Could not load YOLO weights ({model_path!r}); falling back to simulated mode.")
+                self.mode = "simulated"
+                return
+            self.variant = variant
+            init_fn, self._stream_fn = make_yolo_frontend(
+                self.cfg, variant=variant, img_size=img_size, device=self.device
+            )
+            self.variables = (
+                {k: v.to(self.device) for k, v in loaded.items()}
+                if loaded is not None
+                else init_fn(torch.Generator().manual_seed(rng_seed))
+            )
+
+    def _try_load_weights(self, model_path: str):
+        """Accepts a portable ``.npz`` archive (tools/export_weights.py) or
+        a torch state_dict checkpoint of ultralytics keys.  Returns
+        (state dict or None, variant); the variant comes from the archive's
+        metadata when present, else from the tensor shapes, so that an
+        un-hinted yolov8s/m export never builds the wrong architecture."""
+        try:
+            if model_path.endswith(".npz"):
+                from ..utils.weights import load_npz_state_dict
+
+                sd, meta = load_npz_state_dict(model_path)
+            else:
+                sd = torch.load(model_path, map_location="cpu", weights_only=True)
+                if isinstance(sd, dict) and "state_dict" in sd:
+                    sd = sd["state_dict"]
+                meta = {}
+            variant = meta.get("variant") or infer_variant_from_state_dict(sd)
+            return load_torch_state_dict(sd, variant=variant), variant
+        except Exception as e:  # surfaced: a silent fallback hid shape bugs
+            print(f"YOLO weight load failed ({model_path}): {e!r}")
+            return None, "n"
+
+    # -- per-frame host API (reference detector.py:86-101) -----------------
+    def detect(self, frame: np.ndarray):
+        self.frame_count += 1
+        if self.mode == "yolo" and self.variables is not None:
+            if self._frame_fn is None:
+                # A batch of one for the per-frame API: the streaming
+                # frontend pads to its batch (8), which would run 8 frames
+                # of conv work a single-frame call.
+                _, self._frame_fn = make_yolo_frontend(
+                    self.cfg, variant=self.variant, img_size=self._img_size, batch=1, device=self.device
+                )
+            out = self._frame_fn(self.variables, torch.as_tensor(np.asarray(frame))[None])
+            out = {k: to_numpy(v[0]) for k, v in out.items()}
+        else:
+            boxes, cls, confs = simulated_detections_for_frame(self.frame_count, frame.shape[0], frame.shape[1])
+            d = self.cfg.detector.max_detections
+            out = {
+                "bbox": np.zeros((d, 4), np.float32),
+                "class_id": np.zeros((d,), np.int32),
+                "confidence": np.zeros((d,), np.float32),
+                "valid": np.zeros((d,), bool),
+            }
+            n = min(len(boxes), d)
+            out["bbox"][:n] = boxes[:n]
+            out["class_id"][:n] = cls[:n]
+            out["confidence"][:n] = confs[:n]
+            out["valid"][:n] = True
+        return [
+            HostDetection(
+                bbox=tuple(out["bbox"][j].tolist()),
+                class_id=int(out["class_id"][j]),
+                class_name=CLASS_NAMES[int(out["class_id"][j])],
+                confidence=float(out["confidence"][j]),
+            )
+            for j in np.flatnonzero(out["valid"])
+        ]
+
+    # -- batch device API ---------------------------------------------------
+    def detect_stream(self, frames) -> Dict[str, torch.Tensor]:
+        """(T, H, W, 3) frames -> (T, D, ...) detection tables on the
+        detector's device."""
+        if self.mode == "yolo" and self.variables is not None:
+            out = self._stream_fn(self.variables, frames)
+            self.frame_count += int(frames.shape[0])
+            return out
+        t = int(frames.shape[0])
+        stream = simulated_detection_stream(
+            t,
+            height=self.cfg.frame_height,
+            width=self.cfg.frame_width,
+            capacity=self.cfg.detector.max_detections,
+            start_frame_count=self.frame_count + 1,
+        )
+        self.frame_count += t
+        return {k: torch.from_numpy(v).to(self.device) for k, v in stream.items()}
+
+    def draw_detections(
+        self,
+        frame: np.ndarray,
+        detections,
+        show_labels: bool = True,
+        show_confidence: bool = True,
+    ) -> np.ndarray:
+        """Reference detector.py:171-222."""
+        return draw_detections(frame, detections, show_labels, show_confidence)
+
+    def reset(self) -> None:
+        self.frame_count = 0

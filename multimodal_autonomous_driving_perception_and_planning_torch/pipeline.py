@@ -32,6 +32,7 @@ import torch
 
 from .config import PipelineConfig
 from .estimation.ego import estimator_step_row
+from .ops import tracker_kernel
 from .ops.kalman import make_constant_accel_model
 from .perception.lanes import make_lane_step
 from .planning.planner import plan
@@ -104,6 +105,24 @@ def _unpack_lane_obs(f: torch.Tensor, b: torch.Tensor) -> LaneObservation:
     return LaneObservation(**{k: v.contiguous() for k, v in fields.items()})
 
 
+def check_card_limits(cfg: PipelineConfig, dev: torch.device) -> None:
+    """Refuse, when a runner, server or facade is built for the card, a
+    configuration whose tables kernels K1 and K3 do not take: more than
+    1,024 track slots or detections a frame.  The CPU takes any size."""
+    if dev.type != "cuda":
+        return
+    limits = (
+        ("tracker.max_tracks", cfg.tracker.max_tracks, tracker_kernel.MAX_TRACKS, "track slots"),
+        ("detector.max_detections", cfg.detector.max_detections, tracker_kernel.MAX_DETECTIONS, "detections"),
+    )
+    for field, value, limit, what in limits:
+        if value > limit:
+            raise ValueError(
+                f"{field} = {value}: the card's kernels take at most {limit} {what}; "
+                f"lower {field} or run on device='cpu'"
+            )
+
+
 def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
     """The frame step: ``(state, inputs) -> (state', out, rows)``, with
     ``rows`` the packed rows of the frame: K3's ``tag_f``/``tag_i`` with
@@ -111,6 +130,7 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
     ``out`` holds no "tags" and no "lane_obs", and the vehicle state as
     K2's (11,) row.  State, inputs and outputs carry the same leading lane
     axis, (B, ...), or none."""
+    check_card_limits(cfg, dev)
     model = kalman_model_from_numpy(
         *make_constant_accel_model(
             cfg.estimator.dt,

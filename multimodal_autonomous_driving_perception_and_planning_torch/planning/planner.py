@@ -8,13 +8,27 @@ stable sort over the costs, so the sorted list matches
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..config import PlannerConfig
 from ..ops.quintic import candidate_grid, evaluate_costs, generate_candidates
 from ..types import PlanResult
+
+
+def make_reference_path(waypoints, capacity: int, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad an (R, 2) reference path into the fixed-capacity buffer the cost
+    takes (mirrors set_reference_path, motion_planner.py:93-124: only the
+    positions matter to the cost, :224-231).  Returns ``(buf (capacity, 2)
+    float32, valid (capacity,) bool)`` on ``device``."""
+    wp = torch.as_tensor(waypoints, dtype=torch.float32).reshape(-1, 2)
+    n = wp.shape[0]
+    if n > capacity:
+        raise ValueError(f"reference path has {n} points, capacity {capacity}")
+    buf = torch.zeros((capacity, 2), dtype=torch.float32)
+    buf[:n] = wp
+    return buf.to(device), (torch.arange(capacity) < n).to(device)
 
 
 def plan(
@@ -59,3 +73,12 @@ def plan(
         best=order[..., 0],
         order=order,
     )
+
+
+def trajectory_type(lateral_offset: float) -> str:
+    """Host-side label mirroring motion_planner.py:288-294."""
+    if abs(lateral_offset) < 0.5:
+        return "lane_keep"
+    if lateral_offset < 0:
+        return "lane_change_left"
+    return "lane_change_right"

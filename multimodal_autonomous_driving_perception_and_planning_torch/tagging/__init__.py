@@ -1,6 +1,8 @@
 """Rule-based tagging (scene, maneuver, interaction), kernel K3 on the card,
-and the vision-language tagger (BLIP captions -> tags)."""
+the host-side aggregation (`AutoTagger`), and the vision-language tagger
+(BLIP captions -> tags)."""
 
+from .auto_tagger import AutoTagger
 from .rules import (
     CONDITIONS,
     INTERACTIONS,
@@ -14,6 +16,7 @@ from .rules import (
 from .vlm import VLMTagger, VLMTags
 
 __all__ = [
+    "AutoTagger",
     "make_tagging_step",
     "ROAD_TYPES",
     "LATERAL",

@@ -1,6 +1,7 @@
-"""Kernels K1-K5 against their plain versions on a CUDA card, the paths
-that run them, and the BLIP captioner (no kernel of its own) on the card
-against the CPU.
+"""Kernels K1-K5 against their plain versions on a CUDA card (K1, K3 and
+K4 beyond 128 slots and 64 detections too), the paths that run them, the
+host stack and its per-frame facades, and the BLIP captioner (no kernel of
+its own) on the card against the CPU.
 
 The kernels are CUDA C++ for sm_90a and have no CPU mode, so every test
 here needs the card: on a machine without one they skip.  Run them on the
@@ -143,16 +144,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
 
     import numpy as np
 
-    dets = chip_smoke.random_dets(np.random.default_rng(0), 65, device)
+    dets = chip_smoke.random_dets(np.random.default_rng(0), 1025, device)
     table = TrackTable.empty(16, 4, device)
-    with pytest.raises(ValueError, match="1..64 detections"):
+    with pytest.raises(ValueError, match="1..1024 detections"):
         tracker_kernel.tracker_step(table, dets, TrackerConfig(), 3)
+    with pytest.raises(ValueError, match="1..1024 slots"):
+        tracker_kernel.tracker_step(TrackTable.empty(1025, 4, device), dets, TrackerConfig(), 3)
 
     from multimodal_autonomous_driving_perception_and_planning_torch.ops import association_kernel
 
-    iou = torch.zeros((129, 4), device=device)
-    with pytest.raises(ValueError, match="1..128 rows"):
-        association_kernel.greedy_associate(iou, torch.zeros(129, dtype=torch.int32, device=device), 0.3)
+    iou = torch.zeros((1025, 4), device=device)
+    with pytest.raises(ValueError, match="1..1024 rows"):
+        association_kernel.greedy_associate(iou, torch.zeros(1025, dtype=torch.int32, device=device), 0.3)
     with pytest.raises(TypeError, match="expected torch.int32"):
         association_kernel.greedy_associate(iou[:4], torch.zeros(4, dtype=torch.int64, device=device), 0.3)
 
@@ -163,6 +166,56 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     with pytest.raises(TypeError, match="expected torch.float32"):
         nms_kernel.nms_keep(torch.zeros((2, 8, 4), device=device), torch.zeros((2, 8), dtype=torch.float64,
                                                                                 device=device), 0.45)
+
+
+def test_first_launch_near_the_default_shared_memory_limit(device):
+    """In a fresh process, the first launch of K1 at (64, 32) with a
+    50-point ring (the facade's default table: 43 KB of dynamic shared
+    memory beside 12 KB of static arrays) and of K3 at T = 128 with rings of
+    42 centers (43 KB beside 6 KB): each needs the kernel's dynamic limit
+    raised although it asks for less than 48 KB, which no earlier launch
+    has done here.  Both equal their plain versions."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import dataclasses, numpy as np, torch, chip_smoke as cs\n"
+        "import multimodal_autonomous_driving_perception_and_planning_torch as pt\n"
+        "dev = torch.device('cuda')\n"
+        "rng = np.random.default_rng(0)\n"
+        "cs._tracker_case('first_64x32', pt.TrackerConfig(max_tracks=64), lambda s: cs.random_dets(rng, 32, dev), 3, dev)\n"
+        "cfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)\n"
+        "cfg = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=128),\n"
+        "                  tagging=dataclasses.replace(cfg.tagging, interaction_history=42))\n"
+        "cs._tagging_case('first_128x64', cfg, 3, 1, 64, False, dev)\n"
+        "torch.cuda.synchronize()\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=Path(chip_smoke.__file__).parent, timeout=300)
+
+
+def test_large_tables_match_plain(device):
+    """K1, K3 and K4's general instances, beyond 128 slots and 64
+    detections, against their plain versions (chip_smoke's `large_tables`
+    cases but the YOLO chunk), and ROADMAP §3's tagging path on the card
+    against the CPU."""
+    tracker = chip_smoke.check_large_tracker(device)
+    assert {c["case"] for c in tracker} >= {"churn_1024x1024", "near_threshold_256x128", "staircase_160x80"}
+    assert len(chip_smoke.check_large_association(device, trials=2)) == 17
+    assert len(chip_smoke.check_large_tagging(device)) == 8
+    assert len(chip_smoke.check_large_lanes(device)) == 3
+    path = chip_smoke.check_large_tagging_path(device)
+    assert path["launches"]["tracker_step"] == chip_smoke.LARGE_FRAMES
+
+
+def test_host_stack_on_card(device):
+    """chip_smoke's `host_stack` phase: the records, AutoTagger and
+    TagDatabase of a card run equal the CPU chain's, and the facades on the
+    card equal the card's runner, each launching its kernel."""
+    result = chip_smoke.check_host_stack(device)
+    n = chip_smoke.HOST_FRAMES
+    assert result["launches"] == {"tracker_step": n, "kalman_step": n, "tagging_step": n, "associate": 0,
+                                  "nms_keep": 1}
 
 
 @pytest.mark.parametrize("B", [1, 8, 64])

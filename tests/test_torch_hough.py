@@ -61,8 +61,8 @@ def _assert_lines_match(got, want, exact_floats):
             np.testing.assert_array_equal(a, b, err_msg=f)
 
 
-def _theta_grid():
-    return jnp.arange(180, dtype=jnp.float32) * (jnp.pi / 180)
+def _theta_grid(num_thetas=180):
+    return jnp.arange(num_thetas, dtype=jnp.float32) * (jnp.pi / num_thetas)
 
 
 def test_xla_trig_tables_regenerate():
@@ -80,9 +80,21 @@ def test_xla_trig_tables_regenerate():
     assert (exact != cos_j).any()
 
 
+def test_xla_trig_tables_regenerate_90():
+    """The 90-theta tables (tests/test_config_sweep.py's frames case) are
+    XLA's cos and sin of that grid, jitted as `hough_segments` computes
+    them."""
+    cos_j, sin_j = (np.asarray(jax.jit(f)(_theta_grid(90))) for f in (jnp.cos, jnp.sin))
+    cos_t, sin_t = (t.numpy() for t in ht.theta_tables(90, torch.device("cpu")))
+    np.testing.assert_array_equal(cos_t, cos_j)
+    np.testing.assert_array_equal(sin_t, sin_j)
+
+
 def test_other_theta_grids_refused():
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        ht.hough_segments(torch.zeros((60, 80), dtype=torch.bool), 5, 10.0, num_thetas=90)
+    """A grid whose tables are not carried (60 thetas) is refused, the
+    message naming the grids carried."""
+    with pytest.raises(NotImplementedError, match=r"carried for \[90, 180\] thetas only"):
+        ht.hough_segments(torch.zeros((60, 80), dtype=torch.bool), 5, 10.0, num_thetas=60)
 
 
 @pytest.mark.parametrize(

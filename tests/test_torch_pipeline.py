@@ -188,10 +188,10 @@ def test_other_configurations_refused():
         cfg = pt.DEFAULT_CONFIG.replace(enable_tagging=tagging)
         pt.make_sequence_runner(cfg, device="cpu")
         pt.make_pipeline_step(cfg, device="cpu")
-        odd = cfg.replace(lanes=dataclasses.replace(cfg.lanes, num_thetas=90))
-        with pytest.raises(NotImplementedError, match="item 7a"):
+        odd = cfg.replace(lanes=dataclasses.replace(cfg.lanes, num_thetas=60))
+        with pytest.raises(NotImplementedError, match=r"carried for \[90, 180\] thetas only"):
             pt.make_sequence_runner(odd, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 7a"):
+        with pytest.raises(NotImplementedError, match=r"carried for \[90, 180\] thetas only"):
             pt.make_pipeline_step(odd, device="cpu")
     pt.make_sequence_runner(pt.DEFAULT_CONFIG.replace(use_frames=False), device="cpu")
 

@@ -18,12 +18,15 @@ from multimodal_autonomous_driving_perception_and_planning_torch.config import (
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.ops import quintic as quintic_t
 from multimodal_autonomous_driving_perception_and_planning_torch.planning.planner import (
+    make_reference_path as make_reference_path_t,
     plan as plan_t,
+    trajectory_type as trajectory_type_t,
 )
 from multimodal_autonomous_driving_perception_and_planning_tpu.config import PlannerConfig
 from multimodal_autonomous_driving_perception_and_planning_tpu.planning.planner import (
     make_reference_path,
     plan,
+    trajectory_type,
 )
 
 ATOL = 1e-4
@@ -116,15 +119,31 @@ def test_plan_reference_path_matches_jax(n_valid):
     """A reference path, and one with no valid point (the term is skipped)."""
     cfg = PlannerConfig()
     state = (0.0, 0.0, 0.0, 10.0)
-    buf, valid = make_reference_path([(float(i), 1.0) for i in range(20)], cfg.max_reference_points)
-    valid = np.asarray(valid) & (np.arange(cfg.max_reference_points) < n_valid)
-    pr_j = _plan_jax(state, reference_positions=buf, reference_valid=jnp.asarray(valid))
-    pr_t = plan_t(
-        torch.tensor(state), PlannerConfigT(),
-        reference_positions=torch.from_numpy(np.array(buf)),
-        reference_valid=torch.from_numpy(valid),
-    )
+    buf, valid = make_reference_path_t([(float(i), 1.0) for i in range(20)], cfg.max_reference_points)
+    valid = valid & (torch.arange(cfg.max_reference_points) < n_valid)
+    pr_j = _plan_jax(state, reference_positions=jnp.asarray(buf.numpy()), reference_valid=jnp.asarray(valid.numpy()))
+    pr_t = plan_t(torch.tensor(state), PlannerConfigT(), reference_positions=buf, reference_valid=valid)
     _assert_plans_match(pr_t, pr_j, cost_rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", [20, 3, 0])
+def test_make_reference_path_matches_jax(n):
+    """The port's padded reference buffer equals the JAX package's, and both
+    refuse a path longer than the capacity."""
+    cap = PlannerConfig().max_reference_points
+    pts = [(float(i) * 1.5, 1.0 - i) for i in range(n)]
+    buf_t, valid_t = make_reference_path_t(pts, cap)
+    buf_j, valid_j = make_reference_path(pts if n else np.zeros((0, 2)), cap)
+    assert buf_t.dtype == torch.float32 and valid_t.dtype == torch.bool
+    np.testing.assert_array_equal(buf_t.numpy(), np.asarray(buf_j))
+    np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
+    with pytest.raises(ValueError, match="capacity"):
+        make_reference_path_t([(0.0, 0.0)] * (cap + 1), cap)
+
+
+@pytest.mark.parametrize("offset", [0.0, 0.49, -0.5, 0.5, -3.0, 3.0])
+def test_trajectory_type_matches_jax(offset):
+    assert trajectory_type_t(offset) == trajectory_type(offset)
 
 
 def test_best_is_first_min_on_ties():

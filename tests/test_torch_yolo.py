@@ -279,8 +279,8 @@ def test_yolo_runner_refuses_without_card_and_frames_mode(monkeypatch):
     without a card."""
     cfg = pt.DEFAULT_CONFIG.replace(use_frames=False)
     make_yolo_sequence_runner(pt.DEFAULT_CONFIG, device="cpu")
-    odd = pt.DEFAULT_CONFIG.replace(lanes=dataclasses.replace(pt.DEFAULT_CONFIG.lanes, num_thetas=90))
-    with pytest.raises(NotImplementedError, match="item 7a"):
+    odd = pt.DEFAULT_CONFIG.replace(lanes=dataclasses.replace(pt.DEFAULT_CONFIG.lanes, num_thetas=60))
+    with pytest.raises(NotImplementedError, match=r"carried for \[90, 180\] thetas only"):
         make_yolo_sequence_runner(odd, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
