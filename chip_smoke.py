@@ -103,6 +103,30 @@ Phases, each printing one JSON line:
      the card's sequence runner, and ObjectDetector(mode="yolo")'s
      `detect_stream` against `make_yolo_frontend`, with the facades' own
      launches of K1, K2, K3 and K5 counted;
+ 19c. the device detection stream (`device_detections`):
+     `device_detection_stream` of 300 frames at capacity 16 made on the card,
+     its deterministic part against the CPU's on the card's draws, a chunk
+     from counter 101 against the slice of the whole stream, and the
+     tagging path's runner on the card's tables against the same runner on
+     their host copies, every output exact;
+ 19d. the stream runtime (`stream_path`): `NativeFrameSource` (synthetic,
+     640x480, 300 frames, 128 slots) into `run_stream` (64-frame chunks,
+     the last padded to 320; pinned double buffers copied on a side
+     stream) over the frames path with the serving outputs, against the
+     card's monolithic runner on the same frames (discrete outputs exact,
+     floats within the budget), and again with 16 slots and 4 producer
+     threads; then the overlapped stream and the serial loop of
+     benchmarks/suite.py:888-905 in turns: frames/s and ``decode_s``;
+ 19e. the demo (`demo_path`): `apps.demo.run_demo` over 300 synthetic
+     frames in DEFAULT_CONFIG with the Kalman bank, its host records
+     against `extract_frame` of the card's runner, ``--yolo`` on 2 frames
+     with seeded weights from an ``.npz`` (K5 once), the multi-camera demo
+     over 4 cameras x 30 frames; with renders and videos where cv2 imports
+     (decided by an import check before the phase), else the demo's device
+     half (`run_device`); device and render-loop frames/s;
+ 19f. the web dashboard (`webview_path`): `build_dashboard_data(120)` in
+     30-frame chunks against one 120-frame chunk, tags and states equal,
+     each chunk's run and render seconds;
  20. the BLIP captioner (`blip_model`): the full-width BlipConfig() with
      seeded weights on a 480x640 road frame, the card against the CPU:
      `preprocess_bgr`, the vision states, the cross K/V and the
@@ -140,9 +164,11 @@ Any failure raises and exits non-zero.  Without a card it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import subprocess
@@ -208,6 +234,7 @@ from multimodal_autonomous_driving_perception_and_planning_torch.types import (
     VEHICLE_STATE_FIELDS,
     TrackTable,
     VehicleState,
+    tree_map,
     vehicle_state_from_row,
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.utils.convert import (
@@ -1430,6 +1457,22 @@ def yolo_params(device) -> dict:
     return init_fn(torch.Generator().manual_seed(0))
 
 
+def ultralytics_state_from_port(params: dict) -> dict:
+    """yolov8 weights of the port under ultralytics' key names, as numpy
+    arrays (the inverse of `yolov8.load_torch_state_dict`): what
+    tools/export_weights.py writes into an ``.npz``, so that
+    ``ObjectDetector(mode="yolo", model_path=...)`` loads seeded weights."""
+    layer_of = {base: layer for layer, base in yolov8._ULTRA_LAYER_TO_PORT.items()}
+    out = {}
+    for key, value in params.items():
+        base, *rest = key.split(".")
+        if base == "head":
+            rest = rest[0].split("_") + rest[1:]  # cv2_0_1 -> cv2.0.1
+        rest = [p for part in rest for p in (["m", part[1:]] if part[:1] == "m" and part[1:].isdigit() else [part])]
+        out[".".join(["model", str(layer_of[base]), *rest])] = value.detach().cpu().numpy()
+    return out
+
+
 def relative_gaps(got, want) -> list:
     """Each scale's box and class logits: the largest gap over the largest
     logit."""
@@ -1689,25 +1732,51 @@ def time_cuda(fn, reps: int, warmup: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def traced_device_us(run, kernel_names, reps: int, warm: bool = True, tries: int = 3,
-                     min_seen: int | None = None) -> dict:
+# The tracer loses the first records of a trace once the process has
+# traced before: on an H100, none in a fresh process, then 6 to 65 of the
+# first 100 of a kernel's trace, and more than 256 right after a trace of
+# the frames path's 169,000 records.  So every trace opens with fillers,
+# launches of a kernel that no measured path launches, and its records are
+# read past them; a trace that shows none of its fillers may have lost
+# measured records too, and is taken again with eight times as many.
+FILLERS = 256
+FILLER_TRIES = 3  # 256, 2,048, then 16,384 fillers
+FILLER = "spin_kernel"  # `torch.cuda._sleep`'s kernel
+
+
+def card_trace(body):
+    """``body()`` under a profiler trace of the card (``PROFILED``) that
+    opens with fillers, finished before the body runs.  Returns the body's
+    value and the card's records without the fillers, from the first trace
+    that shows at least one of its fillers."""
+    fillers = FILLERS
+    for _ in range(FILLER_TRIES):
+        with torch.profiler.profile(activities=PROFILED) as prof:
+            for _ in range(fillers):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            value = body()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        records = [e for e in on_device if FILLER not in e.name]
+        if len(records) < len(on_device):
+            return value, records
+        print(f"# a trace shows none of its {fillers} fillers", file=sys.stderr)
+        fillers *= 8
+    raise AssertionError(f"{FILLER_TRIES} traces each show none of their fillers ({FILLER})")
+
+
+def traced_device_us(run, kernel_names, reps: int, tries: int = 3, min_seen: int | None = None) -> dict:
     """Device microseconds of each launch of each kernel in
     ``kernel_names`` (a part of its name in the trace; "" takes every
-    kernel) while ``run()`` launches each ``reps`` times, from one profiler
-    trace of the card.  A trace can miss the first kernel after it starts,
-    so with ``warm`` a small copy goes first, and a kernel may show one
-    launch short.  The tracer also drops a few records now and then (3 of
+    kernel) while ``run()`` launches each ``reps`` times, from one
+    `card_trace` of the card.  A kernel may show one launch short.  The
+    tracer also drops a few records now and then past the fillers (3 of
     100 once, on an H100), so a trace that shows fewer is taken again, up
     to ``tries`` traces in all; with ``min_seen``, a trace that shows at
     least that many launches of each kernel is kept."""
     for attempt in range(tries):
-        with torch.profiler.profile(activities=PROFILED) as prof:
-            if warm:
-                torch.ones(1, device="cuda").add_(1)
-                torch.cuda.synchronize()
-            run()
-            torch.cuda.synchronize()
-        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        _, on_device = card_trace(run)
         times = {k: [e.time_range.elapsed_us() for e in on_device if k in e.name] for k in kernel_names}
         least = reps - 1 if min_seen is None else min_seen
         short = {k: len(t) for k, t in times.items() if not least <= len(t) <= reps}
@@ -1743,7 +1812,7 @@ def launch_floor_ms(reps: int = 100) -> float:
         for _ in range(reps):
             x.add_(1)
 
-    times = traced_device_us(run, {""}, reps, warm=False)[""]
+    times = traced_device_us(run, {""}, reps)[""]
     return sum(times) / len(times) / 1e3
 
 
@@ -2162,9 +2231,8 @@ def measure_paths(device, inputs: dict, rounds: int = 2, profiled_frames: int = 
     # (kernels, copies) a frame.
     result = {}
     for name in configs:
-        with torch.profiler.profile(activities=PROFILED) as prof:
-            wall_us = timed(name, head=True) * 1e6
-        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall_s, on_device = card_trace(lambda: timed(name, head=True))
+        wall_us = wall_s * 1e6
         busy_us = sum(e.time_range.elapsed_us() for e in on_device)
         result[name] = {
             "frames": NUM_FRAMES, "seconds": times[name], "frames_per_s": NUM_FRAMES / min(times[name]),
@@ -2181,11 +2249,7 @@ def stage_device_us(fn, reps: int) -> tuple[float, float]:
     call."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=PROFILED) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    _, on_device = card_trace(lambda: [fn() for _ in range(reps)])
     return sum(e.time_range.elapsed_us() for e in on_device) / reps, len(on_device) / reps
 
 
@@ -2376,9 +2440,8 @@ def measure_yolo(device, params: dict, frames, ego, rounds: int = 2, reps: int =
         for name in ("float32", "bfloat16", "bfloat16", "float32"):
             times[name].append(timed(name))
     for name in settings:
-        with torch.profiler.profile(activities=PROFILED) as prof:
-            wall_us = timed(name, profiled_frames) * 1e6
-        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall_s, on_device = card_trace(lambda: timed(name, profiled_frames))
+        wall_us = wall_s * 1e6
         busy_us = sum(e.time_range.elapsed_us() for e in on_device)
         result["path"][name] = {
             "frames": len(frames), "seconds": times[name], "frames_per_s": len(frames) / min(times[name]),
@@ -2849,9 +2912,8 @@ def measure_batched_paths(device, lane_counts=(BATCHED_LANES, 64), rounds: int =
             times[B].append(timed(B))
     result = {}
     for B in order:
-        with torch.profiler.profile(activities=PROFILED) as prof:
-            wall_us = timed(B, profiled_frames) * 1e6
-        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall_s, on_device = card_trace(lambda: timed(B, profiled_frames))
+        wall_us = wall_s * 1e6
         busy_us = sum(e.time_range.elapsed_us() for e in on_device)
         result[f"B{B}"] = {
             "lanes": B, "frames": NUM_FRAMES, "seconds": times[B],
@@ -3298,13 +3360,13 @@ def measure_blip(device, params: dict, frame: np.ndarray, cfg=None) -> dict:
             out[f"{mode}_{name}"] = {"new_tokens": budget, "prompt_len": n, "buffer": len(buf) + budget,
                                      **row(runs[f"{mode}_{name}"], 3, 1)}
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=PROFILED) as prof:
-        torch.cuda.synchronize()
+    def beam3_scene() -> float:
         t0 = time.perf_counter()
         runs["beam3_scene"]()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return (time.perf_counter() - t0) * 1e6
+
+    wall_us, kernels = card_trace(beam3_scene)
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     frame_flops = out["beam3_scene"]["flops"] + out["beam3_safety"]["flops"]
     out["busy_share_beam3_scene"] = {"kernels": len(kernels), "device_us": busy_us, "host_us": wall_us,
@@ -3633,6 +3695,23 @@ def same_records(a, b, path: str = "", atol: float = MAIN_ATOL) -> None:
         raise AssertionError(f"{path}: {a!r} against {b!r}")
 
 
+def float_gap(a, b) -> float:
+    """The largest gap between the floats of two host records of one shape
+    (0.0 where they are equal bit for bit)."""
+    if dataclasses.is_dataclass(a):
+        return max([float_gap(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)
+                    if f.name not in HOST_MASKED], default=0.0)
+    if isinstance(a, dict):
+        return max([float_gap(a[k], b[k]) for k in a if k not in HOST_MASKED], default=0.0)
+    if isinstance(a, (list, tuple)):
+        return max([float_gap(x, y) for x, y in zip(a, b)], default=0.0)
+    if isinstance(a, np.ndarray) and a.dtype.kind == "f" and a.size:
+        return float(np.abs(a.astype(np.float64) - b).max())
+    if isinstance(a, float):
+        return abs(a - b)
+    return 0.0
+
+
 def host_chain(outs: dict, dets: dict, frames: int, db_path: str) -> dict:
     """`extract_frame` on every frame, the AutoTagger over the run's tags and
     a TagDatabase round trip: the records, the tagger and the database's
@@ -3777,6 +3856,389 @@ def check_host_stack(device) -> dict:
             "result": "records, tagger and database equal the CPU chain; facades equal the fused card run"}
 
 
+# --- the stream runtime, the device detection stream, the demo and the webview ---
+STREAM_FRAMES, STREAM_CHUNK = 300, 64  # benchmarks/suite.py:855-915's stream; the last chunk padded to 320
+STREAM_SLOTS, SMALL_RING_SLOTS, SMALL_RING_THREADS, SMALL_RING_FRAMES = 128, 16, 4, 160  # 3 chunks, the last padded
+# The feed probe: 6 chunks of 64 frames, each read behind a ~0.1 s sleep
+# (2e8 cycles at up to 1.98 GHz) on the compute stream.
+PROBE_CHUNKS, PROBE_SLEEP_CYCLES = 6, 200_000_000
+WEBVIEW_FRAMES, WEBVIEW_CHUNK = 120, 30
+MULTICAM_CAMERAS, MULTICAM_FRAMES = 4, 30
+
+
+def _expect(label: str, launches: dict, **counts) -> None:
+    expected = {name: 0 for name in KERNEL_MODULES}
+    expected.update(counts)
+    if launches != expected:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
+
+
+def check_device_detections(device) -> dict:
+    """`device_detection_stream` of 300 frames at capacity 16 on the card:
+    its deterministic part on the card equals the CPU's on the card's
+    draws; a chunk from ``start_frame_count=101`` equals that slice of the
+    whole stream; and the tagging path's runner fed the card's tables (in
+    uncopied) equals the same runner fed their host copies, every output
+    exact, the kernels' counts zeroed just before the card-table run."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.data import synthetic
+
+    n, cap = NUM_FRAMES, 16
+    stream = synthetic.device_detection_stream(n, capacity=cap, device=device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()  # a second call, past the first call's set-up of the generator's kernels
+    again = synthetic.device_detection_stream(n, capacity=cap, device=device)
+    end.record()
+    torch.cuda.synchronize()
+    if any(not torch.equal(again[k], v) for k, v in stream.items()):
+        raise AssertionError("device detections: two calls with one seed differ")
+    if any(v.device.type != torch.device(device).type for v in stream.values()):
+        raise AssertionError("device detections: the stream is not on the device asked for")
+    draws = synthetic.device_detection_draws(cap, 0, device)
+    counters = torch.arange(1, n + 1, device=device)
+    rows = {k: v.index_select(0, counters % synthetic.DEVICE_STREAM_PERIOD) for k, v in draws.items()}
+    card = synthetic._detections_from_draws(counters, **rows)
+    cpu = synthetic._detections_from_draws(counters.cpu(), **{k: v.cpu() for k, v in rows.items()})
+    for k, v in cpu.items():
+        if not (torch.equal(card[k].cpu(), v) and torch.equal(stream[k].cpu(), v)):
+            raise AssertionError(f"device detections: {k} on the card differs from the CPU's on the same draws")
+    chunk = synthetic.device_detection_stream(64, capacity=cap, start_frame_count=101, device=device)
+    for k, v in chunk.items():
+        if not torch.equal(v, stream[k][100:164]):
+            raise AssertionError(f"device detections: the chunk from 101 differs in {k} from the whole stream")
+    valid = stream["valid"].sum(1)
+    if not (int(valid.min()) >= 3 and int(valid.max()) <= 7):
+        raise AssertionError("device detections: a frame outside 3-7 boxes")
+
+    cfg = bench_config(True)
+    ego = ego_motion_stream(n, dt=1.0 / 30.0, seed=0).astype(np.float32)
+    run = pt.make_sequence_runner(cfg, device=device)
+    _, from_host = run(pt.initial_state(cfg, device=device),
+                       dict({k: v.cpu().numpy() for k, v in stream.items()}, ego_measurement=ego))
+    torch.cuda.synchronize()
+    _zero_counts()
+    _, from_card = run(pt.initial_state(cfg, device=device), dict(stream, ego_measurement=ego))
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _expect("device detections", launches, tracker_step=n, kalman_step=n, tagging_step=n)
+    for k in MAIN_DISCRETE + MAIN_FLOAT:
+        if not torch.equal(from_card[k], from_host[k]):
+            raise AssertionError(f"device detections: {k} differs between the card's tables and their host copy")
+    for k, v in from_host["tags"].items():
+        if not torch.equal(from_card["tags"][k], v):
+            raise AssertionError(f"device detections: tag {k} differs between the card's tables and their host copy")
+    return {"frames": n, "capacity": cap, "stream_ms": start.elapsed_time(end), "launches": launches,
+            "boxes": int(valid.sum()), "births": int(from_card["track_id"].max()),
+            "result": "deterministic part equal to the CPU's on the card's draws; the chunk from 101 equal to the "
+                      "slice; the runner on the card's tables equal to the runner on their host copies"}
+
+
+def stream_reference(device, cfg, frames):
+    """The card's monolithic runner over the stream's frames, with the
+    stream's detections and ego rows."""
+    dets = simulated_detection_stream(frames.shape[0])
+    ego = ego_motion_stream(frames.shape[0], dt=1.0 / 30.0, seed=0).astype(np.float32)
+    _, outs = pt.make_sequence_runner(cfg, device=device)(pt.initial_state(cfg, device=device),
+                                                          dict(dets, ego_measurement=ego, frame=frames))
+    return outs
+
+
+def compare_stream(label: str, got: dict, want: dict) -> dict:
+    """A stream's host outputs against the card's monolithic run: discrete
+    outputs, tags and lane flags exact, floats within MAIN_ATOL.  Returns
+    the worst float gap and whether every output was bit-identical."""
+    for k in MAIN_DISCRETE:
+        if not torch.equal(got[k], want[k].cpu()):
+            raise AssertionError(f"{label}: {k} differs from the monolithic run")
+    floats = [(k, got[k], want[k]) for k in MAIN_FLOAT]
+    floats += [(f"vehicle_state.{f}", getattr(got["vehicle_state"], f), getattr(want["vehicle_state"], f))
+               for f in VEHICLE_STATE_FIELDS]
+    for k, b in want["tags"].items():
+        if b.is_floating_point():
+            floats.append((f"tags.{k}", got["tags"][k], b))
+        elif not torch.equal(got["tags"][k], b.cpu()):
+            raise AssertionError(f"{label}: tag {k} differs from the monolithic run")
+    for k in LANE_FIELDS:
+        a, b = getattr(got["lane_obs"], k), getattr(want["lane_obs"], k)
+        if a.is_floating_point():
+            floats.append((f"lane_obs.{k}", a, b))
+        elif not torch.equal(a, b.cpu()):
+            raise AssertionError(f"{label}: lane {k} differs from the monolithic run")
+    gap = max(float((a - b.cpu()).abs().max()) for _, a, b in floats)
+    if not gap <= MAIN_ATOL:
+        raise AssertionError(f"{label}: floats {gap} from the monolithic run")
+    exact = all(torch.equal(a, b.cpu()) for _, a, b in floats)
+    return {"max_abs_err": gap, "bit_identical": exact}
+
+
+def feed_race_probe(device, feed_cls=None) -> dict:
+    """`runtime.stream.FrameFeed`'s two waits under a consumer that never
+    waits on the host: each chunk's device buffer is read by a copy queued
+    on the compute stream behind `torch.cuda._sleep`, and the ring is full
+    before the first drain, so the host runs chunks ahead of the card.
+    Without the wait on the H2D copy's event, the drain of chunk k+2
+    overwrites the pinned buffer before chunk k's copy reads it; without the
+    side stream's wait on the consumer's event, chunk k+2's copy overwrites
+    the device buffer before chunk k is read.  Either way a chunk read on
+    the card differs from the ring's bytes.  ``feed_cls`` defaults to
+    `FrameFeed`.  Returns the chunks that differ."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.runtime import NativeFrameSource
+    from multimodal_autonomous_driving_perception_and_planning_torch.runtime.stream import FrameFeed
+
+    feed_cls = feed_cls or FrameFeed
+    chunk, chunks = STREAM_CHUNK, PROBE_CHUNKS
+    total = chunk * chunks
+
+    def source():
+        src = NativeFrameSource(width=640, height=480, slots=total, num_frames=total)
+        deadline = time.perf_counter() + 60.0
+        while src.produced < total:
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"feed probe: the ring produced {src.produced} of {total} frames")
+            time.sleep(0.01)
+        return src
+
+    with source() as src:
+        want = torch.from_numpy(src.next_batch(total))
+    seen = torch.empty(want.shape, dtype=torch.uint8, device=device)
+    with source() as src:
+        feed = feed_cls(src, chunk, device)
+        for k in range(chunks):
+            feed.fill(k, chunk)
+            buf = feed.frames(k)
+            torch.cuda._sleep(PROBE_SLEEP_CYCLES)
+            seen[k * chunk : (k + 1) * chunk].copy_(buf)
+            feed.release(k)
+        torch.cuda.synchronize()
+    seen = seen.cpu()
+    differ = [k for k in range(chunks) if not torch.equal(seen[k * chunk : (k + 1) * chunk],
+                                                          want[k * chunk : (k + 1) * chunk])]
+    return {"chunks": chunks, "sleep_cycles": PROBE_SLEEP_CYCLES, "chunks_differing": differ}
+
+
+def check_stream_path(device, measure: bool = True) -> dict:
+    """The stream runtime on the card: `NativeFrameSource` (synthetic, 640x480,
+    300 frames, 128 slots) into `run_stream` (64-frame chunks, the last
+    padded to 320) over the frames path with the serving outputs, against
+    the card's monolithic runner on the same 300 frames; then a ring of 16
+    slots (fewer than a chunk) with 4 producer threads over the first 160
+    frames (3 chunks), whose drains wait on the producers; then
+    `feed_race_probe`, which holds the pinned double buffer's two waits.
+    The counts are zeroed just before the first stream and read after it:
+    K1-K3 once a frame, padded frames included.  With ``measure``, the
+    overlapped stream
+    and the serial loop of benchmarks/suite.py:888-905 (drain a chunk, run
+    it, read ``plan_best`` back, then drain the next) in turns."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.runtime import NativeFrameSource
+    from multimodal_autonomous_driving_perception_and_planning_torch.runtime.stream import _chunk_inputs, run_stream
+
+    cfg = frames_config()
+    w, h, total, chunk = cfg.frame_width, cfg.frame_height, STREAM_FRAMES, STREAM_CHUNK
+    padded = -(-total // chunk) * chunk
+    runner = pt.make_sequence_runner(cfg, device=device)
+
+    def source(slots=STREAM_SLOTS, threads=0):
+        return NativeFrameSource(width=w, height=h, slots=slots, num_frames=total, threads=threads)
+
+    with source() as src:
+        frames = src.next_batch(total)
+    want = stream_reference(device, cfg, frames)
+    torch.cuda.synchronize()
+    _zero_counts()
+    with source() as src:
+        outs, stats = run_stream(cfg, src, total, chunk=chunk, runner=runner, device=device)
+    launches = _read_counts()
+    _expect("stream path", launches, tracker_step=padded, kalman_step=padded, tagging_step=padded)
+    if stats["frames"] != total or outs["track_id"].shape[0] != total or outs["track_id"].device.type != "cpu":
+        raise AssertionError(f"stream path: {stats['frames']} frames, outputs {tuple(outs['track_id'].shape)}")
+    gaps = compare_stream("stream path", outs, want)
+    with source(SMALL_RING_SLOTS, SMALL_RING_THREADS) as src:
+        small, small_stats = run_stream(cfg, src, SMALL_RING_FRAMES, chunk=chunk, runner=runner, device=device)
+    # The outputs are causal: the first 160 frames of the whole run are a
+    # 160-frame run's.
+    small_gaps = compare_stream(f"stream path, {SMALL_RING_SLOTS} slots and {SMALL_RING_THREADS} threads", small,
+                                tree_map(lambda x: x[:SMALL_RING_FRAMES], want))
+    probe = feed_race_probe(device)
+    if probe["chunks_differing"]:
+        raise AssertionError(f"stream path: the feed probe's chunks {probe['chunks_differing']} differ from the ring's")
+    summary = {"frames": total, "chunk": chunk, "slots": STREAM_SLOTS, "launches": launches, **gaps,
+               "fps": stats["fps"], "decode_s": stats["decode_s"], "wall_s": stats["wall_s"],
+               "small_ring": {"frames": SMALL_RING_FRAMES, "slots": SMALL_RING_SLOTS, "threads": SMALL_RING_THREADS,
+                              **small_gaps, "fps": small_stats["fps"], "decode_s": small_stats["decode_s"]},
+               "feed_probe": probe,
+               "lanes_found": int(outs["lane_obs"].left_found.sum())}
+    if not measure:
+        return summary
+
+    def overlapped():
+        with source() as src:
+            t0 = time.perf_counter()
+            _, st = run_stream(cfg, src, total, chunk=chunk, collect_host=False, runner=runner, device=device)
+            return time.perf_counter() - t0, st["decode_s"]
+
+    def serial():
+        state = pt.initial_state(cfg, device=device)
+        decode = 0.0
+        with source() as src:
+            t0 = time.perf_counter()
+            start = 0
+            while start < total:
+                t1 = time.perf_counter()
+                batch = src.next_batch(chunk)
+                decode += time.perf_counter() - t1
+                if batch.shape[0] == 0:
+                    break
+                _, inputs = _chunk_inputs(cfg, torch.from_numpy(batch), start, 1.0 / 30.0)
+                state, o = runner(state, inputs)
+                o["plan_best"].cpu()  # a readback before the next drain
+                start += batch.shape[0]
+            return time.perf_counter() - t0, decode
+
+    turns = [("serial", serial()), ("overlapped", overlapped()), ("overlapped", overlapped()), ("serial", serial())]
+    best = {kind: min(s for k, (s, _) in turns if k == kind) for kind in ("overlapped", "serial")}
+    summary["times"] = {
+        "turns": [{"kind": k, "seconds": s, "decode_s": d} for k, (s, d) in turns],
+        "overlapped_fps": total / best["overlapped"], "serial_fps": total / best["serial"],
+        "overlap_speedup": best["serial"] / best["overlapped"],
+    }
+    return summary
+
+
+def demo_npz_weights(path: str) -> str:
+    """Seeded yolov8n weights as an ``.npz`` of ultralytics keys."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.weights import save_npz_state_dict
+
+    save_npz_state_dict(path, ultralytics_state_from_port(yolo_params("cpu")), variant="n")
+    return path
+
+
+def check_demo_path(device, renders: bool) -> dict:
+    """The demo on the card (`apps.demo`): `run_demo` over 300 synthetic
+    frames in DEFAULT_CONFIG with the Kalman bank; its host records against
+    `extract_frame` of the card's runner on the same inputs (every frame,
+    floats within MAIN_ATOL, and whether all are exact); ``--yolo`` on 2
+    frames at 640 with seeded weights from an ``.npz`` (the detector runs
+    and launches K5); the multi-camera demo over 4 cameras x 30 frames.
+    With ``renders`` (cv2 imports on this machine) the whole demo runs, its
+    renders written to a video in a temporary directory; otherwise its
+    device half (`apps.demo.run_device`, which `run_demo` calls).  Each
+    run's counts are zeroed just before it and read after."""
+    import tempfile
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.apps import demo
+    from multimodal_autonomous_driving_perception_and_planning_torch.host import extract_frame
+    from multimodal_autonomous_driving_perception_and_planning_torch.perception.detector import ObjectDetector
+
+    n = NUM_FRAMES
+    cfg = pt.DEFAULT_CONFIG
+    out = {"renders": "run" if renders else "not run: no cv2 on this machine"}
+    # The demos write their videos into the working directory, as the JAX demos do.
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        common = dict(synthetic=True, display=False, use_frames=True, enable_tagging=True, device=device)
+        _zero_counts()
+        if renders:
+            result = demo.run_demo(num_frames=n, smooth_tracks=True, save_video=True, **common)
+            records = result["records"]
+            import cv2
+
+            cap = cv2.VideoCapture("output_demo.mp4")
+            in_file = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+            cap.release()
+            if not result["frames_written"] == in_file == n:
+                raise AssertionError(f"demo: {result['frames_written']} frames written, {in_file} in the file")
+            out.update(device_fps=result["device_fps"], render_fps=result["render_fps"], device_s=result["device_s"],
+                       render_s=result["render_s"], records_s=result["records_s"], build_s=result["build_s"],
+                       warm_s=result["warm_s"], frames_written=in_file)
+        else:
+            run = demo.run_device(cfg, demo._synthetic_frames(cfg, n, 0, True), n, device=device, smooth_tracks=True)
+            records = run.records
+            out.update(device_fps=run.device_fps, device_s=run.device_s, records_s=run.records_s,
+                       build_s=run.build_s, warm_s=run.warm_s)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        k = n + demo.WARM_FRAMES
+        _expect("demo", launches, tracker_step=k, kalman_step=k, tagging_step=k)
+        frames = demo._synthetic_frames(cfg, n, 0, True)
+        _, inputs = demo._build_inputs(frames, n, 1.0 / 30.0, True, cfg)
+        _, ref = pt.make_sequence_runner(cfg, device=device)(pt.initial_state(cfg, device=device), inputs)
+        dets = {key: inputs[key] for key in ("bbox", "class_id", "confidence", "valid")}
+        want = [extract_frame(ref, dets, f) for f in range(n)]
+        same_records(records, want, "demo records")
+        out.update(frames=n, launches=launches, records_max_abs_err=float_gap(records, want),
+                   tracks=sum(len(r.tracks) for r in records), lanes_found=sum(r.lane_left is not None for r in records))
+
+        npz = demo_npz_weights(f"{tmp}/yolov8n_seeded.npz")
+        _zero_counts()
+        if renders:
+            yolo_run = demo.run_demo(num_frames=2, yolo=True, weights=npz, yolo_img_size=640, **common)
+            yolo, yolo_s = yolo_run["records"], yolo_run["device_s"]
+        else:
+            detector = ObjectDetector(mode="yolo", model_path=npz, cfg=cfg, img_size=640, device=device)
+            yolo_run = demo.run_device(cfg, demo._synthetic_frames(cfg, 2, 0, True), 2, device=device,
+                                       detector=detector)
+            yolo, yolo_s = yolo_run.records, yolo_run.device_s
+        torch.cuda.synchronize()
+        yolo_launches = _read_counts()
+        _expect("demo --yolo", yolo_launches, tracker_step=4, kalman_step=4, tagging_step=4, nms_keep=1)
+        out["yolo"] = {"frames": 2, "launches": yolo_launches, "detections": sum(len(r.detections) for r in yolo),
+                       "device_s": yolo_s}
+
+        _zero_counts()
+        if renders:
+            multi = demo.run_multicamera_demo(num_cameras=MULTICAM_CAMERAS, num_frames=MULTICAM_FRAMES, display=False,
+                                              save_video=True, device=device)
+            fleet, written, multi_s = multi["fleet_counts"], multi["frames_written"], multi["device_s"]
+            confirmed = [sum(len(multi["records"][c][f].tracks) for c in range(MULTICAM_CAMERAS))
+                         for f in range(MULTICAM_FRAMES)]
+            if written != MULTICAM_FRAMES:
+                raise AssertionError(f"multi-camera demo: {written} frames written")
+        else:
+            cfg_m = cfg.replace(use_frames=False)
+            multi = demo.run_multicamera_device(cfg_m, MULTICAM_CAMERAS, MULTICAM_FRAMES, device)
+            fleet, written, multi_s = multi.fleet_counts, 0, multi.device_s
+            confirmed = [sum(int(o["num_confirmed"][f]) for o in multi.outs_per_cam) for f in range(MULTICAM_FRAMES)]
+        torch.cuda.synchronize()
+        multi_launches = _read_counts()
+        m = MULTICAM_FRAMES
+        _expect("multi-camera demo", multi_launches, tracker_step=m, kalman_step=m, tagging_step=m)
+        if confirmed != fleet.tolist():
+            raise AssertionError("multi-camera demo: the fleet counts differ from the cameras' confirmed tracks")
+        out["multicamera"] = {"cameras": MULTICAM_CAMERAS, "frames": m, "launches": multi_launches,
+                              "frames_written": written, "fleet_last": int(fleet[-1]), "device_s": multi_s}
+    return out
+
+
+def check_webview_path(device, renders: bool) -> dict:
+    """The web dashboard's data on the card (`apps.webview`):
+    `build_dashboard_data(num_frames=120)`, whose `process_into` runs
+    30-frame chunks and, with ``renders`` (cv2 on this machine), renders
+    and encodes each frame as a JPEG, against one 120-frame chunk: tags and
+    states equal.  The counts are zeroed just before the chunked build and
+    read after.  Returns each chunk's run and render seconds."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.apps import webview
+
+    n = WEBVIEW_FRAMES
+    _zero_counts()
+    t0 = time.perf_counter()
+    prog = webview.build_dashboard_data(num_frames=n, device=device)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _expect("webview", launches, tracker_step=n, kalman_step=n, tagging_step=n)
+    mono = webview.DashboardData(total=n)
+    webview.process_into(mono, n, chunk=n, device=device)
+    if [ft.all_tags for ft in prog.frame_tags] != [ft.all_tags for ft in mono.frame_tags]:
+        raise AssertionError("webview: the chunked build's tags differ from one chunk's")
+    if prog.states != mono.states:
+        raise AssertionError("webview: the chunked build's states differ from one chunk's")
+    if len(prog.frames_jpeg) != n or not all(j[:2] == b"\xff\xd8" or not renders for j in prog.frames_jpeg):
+        raise AssertionError("webview: a frame is not a JPEG")
+    return {"frames": n, "chunk": WEBVIEW_CHUNK, "launches": launches, "seconds": seconds,
+            "renders": "run" if renders else "not run: no cv2 on this machine",
+            "chunk_seconds": prog.chunk_seconds, "one_chunk_seconds": mono.chunk_seconds,
+            "jpeg_bytes": sum(len(j) for j in prog.frames_jpeg) // n,
+            "tags": len(prog.tagger.tag_counts), "result": "tags and states equal to one 120-frame chunk's"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
@@ -3871,6 +4333,19 @@ def main() -> int:
     t0 = time.perf_counter()
     emit({"phase": "large_times", "card": smi, "kernels": measure_large_kernels(device),
           "seconds": time.perf_counter() - t0})
+
+    # The apps' phases run after every timed phase, so that their ring
+    # threads, pinned buffers and renders leave the timed phases' process as
+    # it was.  Renders run where cv2 imports: decided here, before the
+    # phases, by an import check and not by a failure.
+    renders = importlib.util.find_spec("cv2") is not None
+    for name, check in (("device_detections", lambda: check_device_detections(device)),
+                        ("stream_path", lambda: check_stream_path(device)),
+                        ("demo_path", lambda: check_demo_path(device, renders)),
+                        ("webview_path", lambda: check_webview_path(device, renders))):
+        t0 = time.perf_counter()
+        result = check()
+        emit({"phase": name, "card": smi, **result, "phase_seconds": time.perf_counter() - t0})
 
     k3_err = max(v for case in k3 for v in case["max_abs_err"].values())
     sources = {

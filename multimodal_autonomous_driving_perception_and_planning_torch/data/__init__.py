@@ -1,11 +1,12 @@
-"""Synthetic inputs, in numpy only: detection, ego and vehicle-motion
-streams and agent trajectories (`synthetic`), and road-scene camera frames
-(`frames`, drawn without cv2).  The JAX package's exports, but for
-`device_detection_stream`, which draws from `jax.random` and comes with the
-stream runtime that calls it (ROADMAP item 13b)."""
+"""Synthetic inputs: detection, ego and vehicle-motion streams and agent
+trajectories in numpy, detections made on the device (`synthetic`), and
+road-scene camera frames (`frames`, drawn without cv2); the video loader
+(`video`, cv2 on the host) is imported from its module.  The JAX package's
+exports."""
 
 from .frames import SyntheticRoadGenerator
 from .synthetic import (
+    device_detection_stream,
     ego_motion_stream,
     generate_agent_trajectories,
     simulated_detection_stream,
@@ -17,5 +18,6 @@ __all__ = [
     "simulated_detection_stream",
     "ego_motion_stream",
     "simulated_vehicle_motion_stream",
+    "device_detection_stream",
     "generate_agent_trajectories",
 ]

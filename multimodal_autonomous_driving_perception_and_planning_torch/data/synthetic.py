@@ -1,4 +1,4 @@
-"""Synthetic parity fixtures, in numpy only.
+"""Synthetic parity fixtures, and simulated detections made on the device.
 
 Host-side generators that are bit-exact with the reference's seeded numpy
 semantics (src/perception/detector.py:125-169,
@@ -6,12 +6,16 @@ data/loaders/video_loader.py:166-205).  They draw from a private
 ``np.random.RandomState`` in place of numpy's global generator:
 ``RandomState(seed)`` starts the same MT19937 stream as
 ``np.random.seed(seed)``, so the draws are the same, and the generators are
-safe to call from several threads.
+safe to call from several threads.  `device_detection_stream` makes its
+tables on the device from ``torch.Generator`` draws instead.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..utils.device import resolve_device
 
 # Class-sampling weights from detector.py:159-160.
 CLASS_WEIGHTS = (0.6, 0.15, 0.1, 0.05, 0.03, 0.05, 0.01, 0.01)
@@ -205,3 +209,95 @@ def generate_agent_trajectories(num_agents: int, num_steps: int, dt: float = 1.0
             agent_traj.append((x, y, vx, vy))
         trajectories[agent_id] = agent_traj
     return trajectories
+
+
+# The period of the device stream's keys: JAX folds ``frame_count % 1000``
+# into its key, as the reference reseeds numpy with it (detector.py:134).
+DEVICE_STREAM_PERIOD = 1000
+
+
+def _detections_from_draws(frame_count, num, df, jx, jy, cls, conf, height: int = 480, width: int = 640):
+    """The deterministic part of `device_detection_stream`: the tables of
+    frames ``frame_count`` (F,) from their draws, the JAX package's
+    arithmetic step by step in float32.
+
+    ``num`` (F,) int boxes a frame; ``df`` (F, D) float32 distance factors;
+    ``jx``, ``jy`` (F, D) int jitters; ``cls`` (F, D) int classes; ``conf``
+    (F, D) float32 confidences.  Returns bbox (F, D, 4) float32, class_id
+    (F, D) int32, confidence (F, D) float32 and valid (F, D) bool."""
+    dev = df.device
+    i = torch.arange(df.shape[-1], dtype=torch.int32, device=dev)
+    base_w = torch.floor(80 * df + 40)
+    base_h = torch.floor(60 * df + 30)
+    t = frame_count.to(torch.float32)[:, None] * 0.02
+    x_base = torch.remainder(i * 150 + torch.floor(50 * torch.sin(t + i)), width - base_w)
+    y_base = torch.floor(height * 0.4 + height * 0.4 * df)
+    x1 = torch.clamp_min(x_base + jx.to(torch.int32), 0.0)
+    y1 = torch.clamp_min(y_base + jy.to(torch.int32), 0.0)
+    x2 = torch.clamp_max(x1 + base_w, float(width))
+    y2 = torch.clamp_max(y1 + base_h, float(height))
+    return {
+        "bbox": torch.stack([x1, y1, x2, y2], dim=-1).to(torch.float32),
+        "class_id": cls.to(torch.int32),
+        "confidence": conf.to(torch.float32),
+        "valid": i < num.to(torch.int32)[:, None],
+    }
+
+
+def device_detection_draws(capacity: int = 16, seed: int = 0, device="cuda"):
+    """The draws of every key of `device_detection_stream`: row k holds the
+    draws of the frames whose counter is k modulo DEVICE_STREAM_PERIOD,
+    drawn at once on ``device`` by a ``torch.Generator`` seeded with
+    ``seed``.  The ranges are JAX's: ``num`` in [3, 8), ``df`` uniform in
+    [0.3, 1), ``jx`` in [-10, 10), ``jy`` in [-5, 5), ``cls`` by
+    CLASS_WEIGHTS, ``conf`` uniform in [0.75, 0.98).  Returns a dict of
+    (1000,) and (1000, capacity) tensors."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (DEVICE_STREAM_PERIOD, capacity)
+
+    def uniform(lo: float, hi: float):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    weights = torch.tensor(CLASS_WEIGHTS, dtype=torch.float32, device=dev)
+    return {
+        "num": torch.randint(3, 8, (DEVICE_STREAM_PERIOD,), generator=g, device=dev, dtype=torch.int32),
+        "df": uniform(0.3, 1.0),
+        "jx": torch.randint(-10, 10, shape, generator=g, device=dev, dtype=torch.int32),
+        "jy": torch.randint(-5, 5, shape, generator=g, device=dev, dtype=torch.int32),
+        "cls": torch.multinomial(weights, DEVICE_STREAM_PERIOD * capacity, replacement=True, generator=g)
+        .view(shape)
+        .to(torch.int32),
+        "conf": uniform(0.75, 0.98),
+    }
+
+
+def device_detection_stream(
+    num_frames: int,
+    height: int = 480,
+    width: int = 640,
+    capacity: int = 16,
+    seed: int = 0,
+    start_frame_count: int = 1,
+    device="cuda",
+):
+    """Simulated detections made on the device, keyed by the frame counter.
+
+    The JAX package draws each frame from ``fold_in(PRNGKey(seed),
+    frame_count % 1000)``; here the draws of the 1,000 keys come from one
+    ``torch.Generator`` seeded with ``seed`` on the device
+    (`device_detection_draws`), and frame ``c`` takes row ``c % 1000``.  So
+    the stream is a pure function of ``(seed, frame_count)`` with period
+    1,000: a chunk that starts at ``start_frame_count=s`` equals the same
+    slice of one whole stream.  Threefry's bits cannot be reproduced, so
+    the draws follow JAX's distribution, not its values; the tables follow
+    from the draws by JAX's arithmetic (`_detections_from_draws`).
+
+    Returns a dict of (F, D, ...) tensors on ``device``: bbox, class_id,
+    confidence, valid."""
+    draws = device_detection_draws(capacity, seed, device)
+    dev = draws["df"].device
+    counters = torch.arange(start_frame_count, start_frame_count + num_frames, device=dev)
+    rows = torch.remainder(counters, DEVICE_STREAM_PERIOD)
+    picked = {k: v.index_select(0, rows) for k, v in draws.items()}
+    return _detections_from_draws(counters, height=height, width=width, **picked)

@@ -22,6 +22,7 @@ from ..host import CLASS_COLORS, CLASS_NAMES, HostDetection, to_numpy
 from ..models.yolov8 import infer_variant_from_state_dict, load_torch_state_dict, make_yolo_detector
 from ..pipeline import make_sequence_runner
 from ..utils.device import resolve_device
+from ..viz.draw import draw_detections
 
 TABLE_KEYS = ("bbox", "class_id", "confidence", "valid")
 
@@ -129,28 +130,6 @@ def make_yolo_sequence_runner(
         return final, outs
 
     return init_fn, run
-
-
-def draw_detections(frame: np.ndarray, detections, show_labels: bool = True, show_confidence: bool = True) -> np.ndarray:
-    """Boxes and labels of ``detections`` drawn on a copy of ``frame`` with
-    cv2, as the reference's detector.draw_detections (detector.py:171-222)
-    and the JAX package's viz.draw.draw_detections draw them."""
-    import cv2
-
-    font = cv2.FONT_HERSHEY_SIMPLEX
-    out = frame.copy()
-    for det in detections:
-        x1, y1, x2, y2 = (int(v) for v in det.bbox)
-        color = CLASS_COLORS.get(det.class_id, (255, 255, 255))
-        cv2.rectangle(out, (x1, y1), (x2, y2), color, 2)
-        if show_labels:
-            label = det.class_name
-            if show_confidence:
-                label += f" {det.confidence:.2f}"
-            (lw, lh), _ = cv2.getTextSize(label, font, 0.5, 1)
-            cv2.rectangle(out, (x1, y1 - lh - 10), (x1 + lw + 5, y1), color, -1)
-            cv2.putText(out, label, (x1 + 2, y1 - 5), font, 0.5, (0, 0, 0), 1)
-    return out
 
 
 class ObjectDetector:

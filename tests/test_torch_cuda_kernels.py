@@ -262,3 +262,45 @@ def test_blip_short_decode_on_card_matches_cpu(device):
     result = chip_smoke.check_blip_model(device, frame, chip_smoke.blip_params(BlipConfig()))
     for mode in ("greedy", "beam3"):
         assert result["prompt_len"] <= result[mode]["length"] <= result["prompt_len"] + chip_smoke.BLIP_SHORT_NEW
+
+
+def test_stream_path_pinned_double_buffer(device):
+    """chip_smoke's `stream_path` without its timings: the native ring
+    drained into two pinned host buffers, each copied to the card on a side
+    stream, into `run_stream` over the frames path, against the card's
+    monolithic runner; then a ring of 16 slots with 4 producer threads
+    (drains that wait on the producers), and the feed probe."""
+    result = chip_smoke.check_stream_path(device, measure=False)
+    padded = 320
+    assert result["launches"] == {"tracker_step": padded, "kalman_step": padded, "tagging_step": padded,
+                                  "associate": 0, "nms_keep": 0}
+    assert result["max_abs_err"] <= chip_smoke.MAIN_ATOL and result["small_ring"]["max_abs_err"] <= chip_smoke.MAIN_ATOL
+    assert result["feed_probe"]["chunks_differing"] == []
+
+
+def test_frame_feed_reuses_no_buffer_early(device):
+    """The pinned double buffer under a consumer that never waits on the
+    host (the runner's host reads would hide a race): a host buffer drained
+    into before its copy completes, or a device buffer copied into before
+    its chunk is read, makes a chunk read on the card differ from the
+    ring's bytes."""
+    probe = chip_smoke.feed_race_probe(device)
+    assert probe["chunks"] == chip_smoke.PROBE_CHUNKS and probe["chunks_differing"] == []
+
+
+def test_device_detection_stream_on_card(device):
+    result = chip_smoke.check_device_detections(device)
+    assert result["launches"]["tracker_step"] == 300 and result["boxes"] > 900
+
+
+def test_demo_and_webview_on_card(device):
+    """chip_smoke's `demo_path` (the demo over 300 frames, --yolo with seeded
+    weights, the multi-camera demo) and `webview_path`, renders included
+    where cv2 imports."""
+    import importlib.util
+
+    renders = importlib.util.find_spec("cv2") is not None
+    demo = chip_smoke.check_demo_path(device, renders)
+    assert demo["yolo"]["launches"]["nms_keep"] == 1 and demo["multicamera"]["launches"]["tracker_step"] == 30
+    web = chip_smoke.check_webview_path(device, renders)
+    assert web["launches"]["tagging_step"] == 120 and len(web["chunk_seconds"]) == 4

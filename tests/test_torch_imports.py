@@ -40,3 +40,55 @@ def test_frames_generator_needs_no_cv2():
     assert "cv2" not in {m.split(".")[0] for m in _imported_modules(PORT / "data" / "frames.py")}
     jax_frames = ROOT / "multimodal_autonomous_driving_perception_and_planning_tpu" / "data" / "frames.py"
     assert "cv2" in set(_imported_modules(jax_frames))
+
+
+NO_CV2_MODULES = (
+    "multimodal_autonomous_driving_perception_and_planning_torch",
+    "multimodal_autonomous_driving_perception_and_planning_torch.host",
+    "multimodal_autonomous_driving_perception_and_planning_torch.data",
+    "multimodal_autonomous_driving_perception_and_planning_torch.data.video",
+    "multimodal_autonomous_driving_perception_and_planning_torch.runtime",
+    "multimodal_autonomous_driving_perception_and_planning_torch.runtime.stream",
+    "multimodal_autonomous_driving_perception_and_planning_torch.viz",
+    "multimodal_autonomous_driving_perception_and_planning_torch.perception.detector",
+    "multimodal_autonomous_driving_perception_and_planning_torch.apps.demo",
+    "multimodal_autonomous_driving_perception_and_planning_torch.apps.webview",
+    "multimodal_autonomous_driving_perception_and_planning_torch.apps.dashboard",
+)
+
+
+def test_port_imports_without_cv2():
+    """With cv2 unimportable (``sys.modules["cv2"] = None``), every module of
+    the port imports: the renderers, the video loader and the apps import
+    cv2 only when they draw or decode.  A fresh interpreter, so that no
+    module is already loaded."""
+    import subprocess
+    import sys
+
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['cv2'] = None\n"
+        f"for name in {NO_CV2_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "assert sys.modules['cv2'] is None\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')]\n"
+        "print('ok')\n"
+    )
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0 and done.stdout.strip() == "ok", done.stderr
+
+
+def test_renderers_import_cv2_inside_functions():
+    """The port's renderers, video loader and apps name cv2 in no top-level
+    import (the JAX renderers import it at the top)."""
+    for rel in ("viz/draw.py", "viz/bev.py", "viz/overlays.py", "data/video.py", "apps/demo.py", "apps/webview.py"):
+        tree = ast.parse((PORT / rel).read_text())
+        top = [alias.name for node in tree.body if isinstance(node, ast.Import) for alias in node.names]
+        assert "cv2" not in top, rel
+        assert "cv2" in set(_imported_modules(PORT / rel)), rel  # they do use it
+
+
+def test_frame_ring_is_the_ports_own_copy():
+    src = PORT / "runtime" / "frame_ring.cpp"
+    assert src.is_file() and not src.is_symlink()
+    assert "ring_next_batch" in src.read_text()
