@@ -79,10 +79,11 @@ Phases, each printing one JSON line:
      cameras in the main path's configuration, each camera against its
      own card run, the fleet count against the sum over cameras;
  18. the serve path: the port's server (`apps.serve`, --batch 8, 64-frame
-     chunks) on the card under ``tools/serve_loadgen.py --sessions 8
-     --chunks 4`` in a subprocess, whose JSON line it prints: no error,
-     one launch of K1-K3 a frame of each batched run; then one served
-     chunk against the runner;
+     chunks, serving from the artifact it exports at startup, /info's
+     ``artifact_bytes`` > 0) on the card under ``tools/serve_loadgen.py
+     --sessions 8 --chunks 4`` in a subprocess, whose JSON line it prints:
+     no error, one launch of K1-K3 a frame of each batched run; then one
+     served chunk against the runner;
  19. the per-agent Kalman bank over 300 frames x 64 agents against the CPU;
  19a. tables beyond the fast instances (`large_tables`): K1 and K4's
      general instances at (T, D) = (160, 80), (256, 128) and (1,024, 1,024)
@@ -105,7 +106,8 @@ Phases, each printing one JSON line:
      launches of K1, K2, K3 and K5 counted;
  19c. the device detection stream (`device_detections`):
      `device_detection_stream` of 300 frames at capacity 16 made on the card,
-     its deterministic part against the CPU's on the card's draws, a chunk
+     its deterministic part against the CPU's on the card's draws over
+     counters 1 to 1,000,000 (the float64 sine's x_base too), a chunk
      from counter 101 against the slice of the whole stream, and the
      tagging path's runner on the card's tables against the same runner on
      their host copies, every output exact;
@@ -127,6 +129,20 @@ Phases, each printing one JSON line:
  19f. the web dashboard (`webview_path`): `build_dashboard_data(120)` in
      30-frame chunks against one 120-frame chunk, tags and states equal,
      each chunk's run and render seconds;
+ 19g. the serialized runner (`export_path`): the madpp ops against their
+     wrappers on the path's inputs and each one's host microseconds a call
+     beside its wrapper's, in turns; then `export_sequence_runner` on the
+     card for the server's configuration at batch 1 and 8 and the main
+     path's at batch 1 (64-frame chunks), each program holding its madpp
+     ops, saved to a file; a fresh process (this script with
+     ``--run-artifacts DIR``) loads each, runs 300 frames of the synthetic
+     stream (8 streams at batch 8) in 64-frame chunks, the last padded to
+     320, the state carried across chunks, against the eager runner on
+     the same chunks: every output and the final state bit for bit, one
+     launch of K1, K2 (and K3) a frame, a 63-frame chunk refused; the
+     artifact's bytes, export and load seconds, both runners' frames/s
+     in turns, and each one's host time for a chunk by function
+     (cProfile);
  20. the BLIP captioner (`blip_model`): the full-width BlipConfig() with
      seeded weights on a 480x640 road frame, the card against the CPU:
      `preprocess_bgr`, the vision states, the cross K/V and the
@@ -2715,7 +2731,8 @@ SERVED_KEYS = ("track_id", "track_bbox", "track_class_id", "track_confidence", "
 
 def check_serve_path(device) -> dict:
     """The port's server (`apps.serve`) on the card with --batch 8 and
-    64-frame chunks, driven by ``tools/serve_loadgen.py --sessions 8
+    64-frame chunks, serving from the artifact it exports at startup
+    (/info's ``artifact_bytes`` > 0), driven by ``tools/serve_loadgen.py --sessions 8
     --chunks 4`` in a subprocess, the counts zeroed just before and read
     after: no error, and one launch of K1, K2 and K3 a frame of each
     batched run.  Then one session's chunk over HTTP against the unbatched
@@ -2729,6 +2746,10 @@ def check_serve_path(device) -> dict:
     ps = httpd.pipeline_server
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
     try:
+        with urllib.request.urlopen(f"{url}/info", timeout=60) as r:
+            artifact_bytes = json.loads(r.read())["artifact_bytes"]
+        if not (isinstance(artifact_bytes, int) and artifact_bytes > 0):
+            raise AssertionError(f"serve path: /info gives artifact_bytes {artifact_bytes}")
         runs0 = ps.batcher.stats()["dispatches"]
         _zero_counts()
         proc = subprocess.run(
@@ -2772,6 +2793,8 @@ def check_serve_path(device) -> dict:
                 "loadgen": {k: loadgen[k] for k in ("value", "unit", "completed_requests", "request_latency_ms",
                                                      "warmup_seconds")},
                 "server_metrics": loadgen["server_metrics"], "session_check": {"planner_max_abs_gap": gap},
+                "artifact": {"bytes": artifact_bytes, "export_s": ps.export_seconds, "load_s": ps.load_seconds,
+                             "warmup_s": ps.warmup_seconds},
                 "device": ps.device.type}
     finally:
         httpd.shutdown()
@@ -3863,6 +3886,7 @@ STREAM_SLOTS, SMALL_RING_SLOTS, SMALL_RING_THREADS, SMALL_RING_FRAMES = 128, 16,
 # (2e8 cycles at up to 1.98 GHz) on the compute stream.
 PROBE_CHUNKS, PROBE_SLEEP_CYCLES = 6, 200_000_000
 WEBVIEW_FRAMES, WEBVIEW_CHUNK = 120, 30
+SCAN_COUNTERS = 1_000_000  # the device detections' counters held card against CPU
 MULTICAM_CAMERAS, MULTICAM_FRAMES = 4, 30
 
 
@@ -3894,13 +3918,18 @@ def check_device_detections(device) -> dict:
     if any(v.device.type != torch.device(device).type for v in stream.values()):
         raise AssertionError("device detections: the stream is not on the device asked for")
     draws = synthetic.device_detection_draws(cap, 0, device)
-    counters = torch.arange(1, n + 1, device=device)
+    # Counters 1 to 1,000,000 x 16 slots: the angles over which the float64
+    # sine (`synthetic._wave`) gives XLA's floor on the CPU
+    # (tests/test_torch_device_detections.py); the card's tables there must
+    # equal the CPU's, x_base and all.
+    counters = torch.arange(1, SCAN_COUNTERS + 1, device=device)
     rows = {k: v.index_select(0, counters % synthetic.DEVICE_STREAM_PERIOD) for k, v in draws.items()}
     card = synthetic._detections_from_draws(counters, **rows)
     cpu = synthetic._detections_from_draws(counters.cpu(), **{k: v.cpu() for k, v in rows.items()})
     for k, v in cpu.items():
-        if not (torch.equal(card[k].cpu(), v) and torch.equal(stream[k].cpu(), v)):
+        if not (torch.equal(card[k].cpu(), v) and torch.equal(stream[k].cpu(), v[:n])):
             raise AssertionError(f"device detections: {k} on the card differs from the CPU's on the same draws")
+    del card, cpu, rows
     chunk = synthetic.device_detection_stream(64, capacity=cap, start_frame_count=101, device=device)
     for k, v in chunk.items():
         if not torch.equal(v, stream[k][100:164]):
@@ -3927,9 +3956,10 @@ def check_device_detections(device) -> dict:
         if not torch.equal(from_card["tags"][k], v):
             raise AssertionError(f"device detections: tag {k} differs between the card's tables and their host copy")
     return {"frames": n, "capacity": cap, "stream_ms": start.elapsed_time(end), "launches": launches,
-            "boxes": int(valid.sum()), "births": int(from_card["track_id"].max()),
-            "result": "deterministic part equal to the CPU's on the card's draws; the chunk from 101 equal to the "
-                      "slice; the runner on the card's tables equal to the runner on their host copies"}
+            "boxes": int(valid.sum()), "births": int(from_card["track_id"].max()), "scanned_counters": SCAN_COUNTERS,
+            "result": "deterministic part equal to the CPU's on the card's draws over counters 1 to "
+                      f"{SCAN_COUNTERS:,} x {cap} slots; the chunk from 101 equal to the slice; the runner on the "
+                      "card's tables equal to the runner on their host copies"}
 
 
 def stream_reference(device, cfg, frames):
@@ -4239,10 +4269,218 @@ def check_webview_path(device, renders: bool) -> dict:
             "tags": len(prog.tagger.tag_counts), "result": "tags and states equal to one 120-frame chunk's"}
 
 
-def main() -> int:
+EXPORT_CHUNK, EXPORT_FRAMES, EXPORT_PADDED = 64, NUM_FRAMES, 320  # the server's chunk; 300 frames padded to 5 chunks
+# (label, tagging, lanes): the server's configuration at batch 1 and at
+# its --batch, and the main path's.
+EXPORT_CASES = (("tagging_b1", True, 1), (f"tagging_b{BATCHED_LANES}", True, BATCHED_LANES), ("main_b1", False, 1))
+EXPORT_ROUNDS = 2  # eager, exported, exported, eager: twice
+
+
+def _op_routes(device, inputs: dict) -> dict:
+    """K1-K3 at the paths' states (`tracker_state`, `kalman_state`,
+    `tagging_state`): for each, a call of its wrapper and of the same
+    function through its madpp op (ops/library.py)."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import library
+
+    cfg = bench_config(True)
+    table, dets = tracker_state(device, inputs)
+    ks, model, z, has = kalman_state(device, inputs)
+    rules, tstate, tdets, ttable, vrow = tagging_state(device, inputs)
+    op_tagging = library.make_packed_tagging_step(cfg)
+    est, trk = cfg.estimator, cfg.tracker
+    return {
+        "tracker_step": (lambda: tracker_kernel.tracker_step(table, dets, trk, trk.min_hits),
+                         lambda: library.tracker_update_with_order(table, dets, trk, trk.min_hits)),
+        "kalman_step": (lambda: kalman_kernel.kalman_step(ks, model, z, has, est.dt, est.speed_heading_hold),
+                        lambda: library.estimator_step_row(ks, model, z, has, est)),
+        "tagging_step": (lambda: tagging_kernel.tagging_step(rules, tstate, tdets, ttable, vrow),
+                         lambda: op_tagging(tstate, tdets, ttable, vrow)),
+    }
+
+
+def host_us(fn, reps: int = 2000) -> float:
+    """Microseconds a call on the host clock over ``reps`` calls, no
+    synchronise inside (the wrappers' host time sets the paths' rate)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def check_madpp_ops(device, inputs: dict) -> dict:
+    """Each madpp op on the card against its wrapper on the same inputs,
+    every output bit for bit, and both routes' host microseconds a call,
+    in turns (wrapper, op, op, wrapper)."""
+    out = {}
+    for name, (wrapper, op) in _op_routes(device, inputs).items():
+        want, got = _tensors(wrapper()), _tensors(op())
+        torch.cuda.synchronize()
+        if len(got) != len(want) or any(a.dtype != b.dtype or not torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"export path: madpp.{name} differs from its wrapper on the same inputs")
+        w1, o1, o2, w2 = host_us(wrapper), host_us(op), host_us(op), host_us(wrapper)
+        out[name] = {"wrapper_host_us": [w1, w2], "op_host_us": [o1, o2]}
+    return out
+
+
+def _padded_chunks(streams: list, lanes: int) -> list:
+    """The streams' 300 frames padded to 320 with the last frame, in
+    64-frame chunks, with a lane axis when ``lanes > 1``."""
+    def pad(a):
+        return np.concatenate([a, np.repeat(a[-1:], EXPORT_PADDED - a.shape[0], axis=0)])
+
+    whole = [{k: pad(v) for k, v in s.items()} for s in streams]
+    chunks = []
+    for c in range(0, EXPORT_PADDED, EXPORT_CHUNK):
+        parts = [{k: v[c : c + EXPORT_CHUNK] for k, v in w.items()} for w in whole]
+        chunks.append(_stack_streams(parts) if lanes > 1 else parts[0])
+    return chunks
+
+
+def _flat_outputs(outs: dict) -> dict:
+    flat = {}
+    for k, v in outs.items():
+        if k == "tags":
+            flat.update({f"tags.{t}": x for t, x in v.items()})
+        elif k == "vehicle_state":
+            flat.update({f"vehicle_state.{f}": getattr(v, f) for f in VEHICLE_STATE_FIELDS})
+        else:
+            flat[k] = v
+    return flat
+
+
+def _same_leaves(label: str, got: dict, want: dict) -> None:
+    """Every leaf bit for bit; a float that differs names its leaf and gap."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: outputs {sorted(set(got) ^ set(want))} on one side only")
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            gap = float((g.double() - w.double()).abs().max()) if g.shape == w.shape else None
+            raise AssertionError(f"{label}: {k} differs from the eager runner's ({g.dtype} against {w.dtype}, "
+                                 f"max gap {gap})")
+
+
+def run_artifacts(directory: str, device="cuda") -> dict:
+    """In a fresh process: load each artifact of `check_export_path` from
+    ``directory`` and hold it against the eager runner on the card."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.types import stack_lanes, tree_leaves
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.export import (
+        deserialize_runner,
+        load_exported,
+    )
+
+    device = torch.device(device)
+    results = {}
+    for label, tagging, lanes in EXPORT_CASES:
+        cfg = bench_config(tagging)
+        t0 = time.perf_counter()
+        exported = deserialize_runner(load_exported(str(Path(directory) / f"{label}.pt2")), cfg, EXPORT_CHUNK,
+                                      batch=lanes)
+        load_s = time.perf_counter() - t0
+        eager = (pt.make_batched_sequence_runner if lanes > 1 else pt.make_sequence_runner)(cfg, device=device)
+        chunks = _padded_chunks(lane_streams(lanes, EXPORT_FRAMES), lanes)
+
+        def initial():
+            state = pt.initial_state(cfg, device=device)
+            return stack_lanes([state] * lanes) if lanes > 1 else state
+
+        def chained(run):
+            state, outs = initial(), []
+            for chunk in chunks:
+                state, out = run(state, chunk)
+                outs.append(out)
+            torch.cuda.synchronize()
+            return state, outs
+
+        chained(eager)  # the first frames of each runner in this process
+        chained(exported)
+        _zero_counts()
+        x_state, x_outs = chained(exported)
+        launches = _read_counts()
+        e_state, e_outs = chained(eager)
+        steps = len(chunks) * EXPORT_CHUNK
+        _expect(f"export path {label}", launches, tracker_step=steps, kalman_step=steps,
+                **({"tagging_step": steps} if tagging else {}))
+        for c, (g, w) in enumerate(zip(x_outs, e_outs)):
+            _same_leaves(f"export path {label} chunk {c}", _flat_outputs(g), _flat_outputs(w))
+        _same_leaves(f"export path {label} final state", dict(enumerate(tree_leaves(x_state))),
+                     dict(enumerate(tree_leaves(e_state))))
+        short = {k: v[:, :-1] if lanes > 1 else v[:-1] for k, v in chunks[0].items()}
+        try:
+            exported(initial(), short)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"export path {label}: a {EXPORT_CHUNK - 1}-frame chunk was not refused")
+
+        seconds = {"eager": [], "exported": []}
+        for _ in range(EXPORT_ROUNDS):
+            for name, run in (("eager", eager), ("exported", exported), ("exported", exported), ("eager", eager)):
+                t0 = time.perf_counter()
+                chained(run)
+                seconds[name].append(time.perf_counter() - t0)
+        # Where a chunk's host time goes, by function (cProfile's own time;
+        # the profiler slows every Python call).
+        split = {name: host_split(lambda run=run: run(initial(), chunks[0]), reps=3, top=10)
+                 for name, run in (("eager", eager), ("exported", exported))}
+        results[label] = {
+            "lanes": lanes, "frames": steps, "load_s": load_s, "launches": launches, "seconds": seconds,
+            "chunk_host_split": split,
+            "frames_per_s": {k: [steps / t for t in v] for k, v in seconds.items()},
+            "host_us_per_frame": {k: [t / steps * 1e6 for t in v] for k, v in seconds.items()},
+        }
+    return results
+
+
+def check_export_path(device, inputs: dict) -> dict:
+    """The serialized runner (`utils.export`) on the card; see phase 19g."""
+    import tempfile
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.export import (
+        export_sequence_runner,
+        load_program,
+        save_exported,
+    )
+
+    ops = check_madpp_ops(device, inputs)
+    cases = {}
+    with tempfile.TemporaryDirectory() as directory:
+        for label, tagging, lanes in EXPORT_CASES:
+            t0 = time.perf_counter()
+            data = export_sequence_runner(bench_config(tagging), EXPORT_CHUNK, platforms=(device.type,), batch=lanes)
+            export_s = time.perf_counter() - t0
+            program, meta = load_program(data)
+            held = sorted({str(n.target) for n in program.graph.nodes if str(n.target).startswith("madpp.")})
+            want = sorted(f"madpp.{k}.default" for k in ("tracker_step", "kalman_step")
+                          + (("tagging_step",) if tagging else ()))
+            if held != want:
+                raise AssertionError(f"export path {label}: the program holds {held}, expected {want}")
+            save_exported(str(Path(directory) / f"{label}.pt2"), data)
+            cases[label] = {"bytes": len(data), "export_s": export_s, "ops": held, "device": meta["device"]}
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--run-artifacts", directory],
+                              capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"export path: the fresh process exited {proc.returncode}: {proc.stderr[-3000:]}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    for label in cases:
+        cases[label].update(loaded[label])
+    return {"ops": ops, "cases": cases, "chunk": EXPORT_CHUNK,
+            "result": "every output and the final state bit for bit the eager runner's; one launch of each kernel "
+                      "a frame; a short chunk refused"}
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
         return 1
+    if argv[:1] == ["--run-artifacts"]:  # export_path's fresh process
+        print(json.dumps(run_artifacts(argv[1])), flush=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -4342,7 +4580,8 @@ def main() -> int:
     for name, check in (("device_detections", lambda: check_device_detections(device)),
                         ("stream_path", lambda: check_stream_path(device)),
                         ("demo_path", lambda: check_demo_path(device, renders)),
-                        ("webview_path", lambda: check_webview_path(device, renders))):
+                        ("webview_path", lambda: check_webview_path(device, renders)),
+                        ("export_path", lambda: check_export_path(device, inputs))):
         t0 = time.perf_counter()
         result = check()
         emit({"phase": name, "card": smi, **result, "phase_seconds": time.perf_counter() - t0})
@@ -4376,4 +4615,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -34,17 +34,23 @@ sessions is bounded: at ``max_sessions`` the least recently used one is
 evicted.  The server binds 127.0.0.1 by default; /session is
 unauthenticated.
 
+The server runs a serialized artifact of the runner, as the JAX package's
+does: unless it is given the bytes (``artifact=``), it exports the frame
+step at startup (`utils.export.export_sequence_runner`, a ``torch.export``
+program that reaches kernels K1-K3 through the ``madpp`` custom ops),
+loads it back (`utils.export.deserialize_runner`) and serves every
+request from it.  /info reports the artifact's size.
+
 Micro-batching (``--batch B``): concurrent /infer requests against
-different sessions coalesce into one run of the batched runner
-(`pipeline.make_batched_sequence_runner`) over up to B lanes, after a
-short collection window.  Each frame of that run launches kernels K1, K2
-and K3 once for all B lanes.  Unused lanes repeat lane 0 and are
-discarded.  Two queued chunks of the same session never share a run: they
+different sessions coalesce into one run of the artifact's batched runner
+(the results of `pipeline.make_batched_sequence_runner`) over up to B
+lanes, after a short collection window.  Each frame of that run launches
+kernels K1, K2 and K3 once for all B lanes.  Unused lanes repeat lane 0
+and are discarded.  Two queued chunks of the same session never share a run: they
 chain in arrival order.  The runner runs on the card unless the server is
 made with ``device="cpu"``.
 
-Not in this slice: a serialized artifact of the runner (``artifact_bytes``
-is null; ROADMAP item 11) and ``--dp`` across cards (ROADMAP item 10b).
+Not in this slice: ``--dp`` across cards (ROADMAP item 10b).
 """
 
 from __future__ import annotations
@@ -63,11 +69,11 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG
-from ..pipeline import initial_state, make_batched_sequence_runner, make_sequence_runner
+from ..pipeline import initial_state
 from ..types import lane_of, stack_lanes, tree_leaves
 from ..utils.convert import state_from_leaves
 from ..utils.device import resolve_device
-from ..utils.export import example_sequence_inputs
+from ..utils.export import deserialize_runner, example_sequence_inputs, export_sequence_runner
 
 # Per-frame outputs returned to clients: tracks, ego state, plan, tags.
 _OUTPUT_KEYS = (
@@ -203,12 +209,13 @@ class _MicroBatcher:
 
 
 class PipelineServer:
-    """Owns the runner, the sessions and the device lock."""
+    """Owns the artifact's runner, the sessions and the device lock."""
 
     def __init__(
         self,
         cfg=None,
         chunk: int = 64,
+        artifact: Optional[bytes] = None,
         max_sessions: int = 64,
         batch: int = 1,
         batch_window_ms: float = 5.0,
@@ -233,7 +240,14 @@ class PipelineServer:
                 "this server drives one card"
             )
         self.device = resolve_device(device)
-        self.run = (make_batched_sequence_runner if self.batch > 1 else make_sequence_runner)(cfg, self.device)
+        t0 = time.time()
+        if artifact is None:
+            artifact = export_sequence_runner(cfg, self.chunk, platforms=(self.device.type,), batch=self.batch)
+        self.export_seconds = time.time() - t0
+        self.artifact_bytes = len(artifact)
+        t0 = time.time()
+        self.run = deserialize_runner(artifact, cfg, self.chunk, batch=self.batch)
+        self.load_seconds = time.time() - t0
         self._initial_state = lambda: initial_state(self.cfg, self.device)
         # Requests are per-session chunks: the specs stay unbatched even on
         # a batched server (lanes stack at dispatch).
@@ -487,7 +501,7 @@ def make_handler(server: PipelineServer):
                         "max_detections": cfg.detector.max_detections,
                         "max_tracks": cfg.tracker.max_tracks,
                         "frame_size": [cfg.frame_width, cfg.frame_height],
-                        "artifact_bytes": None,
+                        "artifact_bytes": server.artifact_bytes,
                         "sessions": len(server.sessions),
                         "max_sessions": server.max_sessions,
                     },
@@ -548,6 +562,7 @@ def serve(
     chunk: int = 64,
     port: int = 8701,
     block: bool = True,
+    artifact: Optional[bytes] = None,
     host: str = "127.0.0.1",
     max_sessions: int = 64,
     batch: int = 1,
@@ -560,6 +575,7 @@ def serve(
     ps = PipelineServer(
         cfg=cfg,
         chunk=chunk,
+        artifact=artifact,
         max_sessions=max_sessions,
         batch=batch,
         batch_window_ms=batch_window_ms,
@@ -570,8 +586,9 @@ def serve(
     httpd.pipeline_server = ps
     batched = f", {batch}-session micro-batching" if batch > 1 else ""
     print(
-        f"Serving the pipeline on {ps.device} ({chunk}-frame chunks{batched}) on "
-        f":{httpd.server_address[1]} (warmup {ps.warmup_seconds:.1f}s)",
+        f"Serving the pipeline artifact ({ps.artifact_bytes} bytes) on {ps.device} ({chunk}-frame "
+        f"chunks{batched}) on :{httpd.server_address[1]} (export {ps.export_seconds:.1f}s, "
+        f"load {ps.load_seconds:.1f}s, warmup {ps.warmup_seconds:.1f}s)",
         flush=True,
     )
     if block:

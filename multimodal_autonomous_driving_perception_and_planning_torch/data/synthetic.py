@@ -216,6 +216,18 @@ def generate_agent_trajectories(num_agents: int, num_steps: int, dt: float = 1.0
 DEVICE_STREAM_PERIOD = 1000
 
 
+def _wave(angle: torch.Tensor) -> torch.Tensor:
+    """``floor(50 sin(angle))`` of float32 angles, as the JAX package's
+    float32 arithmetic gives it.  Neither XLA's float32 sine nor PyTorch's
+    is correctly rounded, and they differ: at 2031.04f (counter 100,802,
+    slot 15) XLA gives 0.99999994 and PyTorch's CPU sine 1.0, which moves
+    the floor from 49 to 50.  The sine in float64, rounded to float32,
+    gives XLA's floor at every angle of counters 1 to 1,000,000 x 16
+    slots (tests/test_torch_device_detections.py), on the CPU and on the
+    card alike."""
+    return torch.floor(50 * torch.sin(angle.double()).float())
+
+
 def _detections_from_draws(frame_count, num, df, jx, jy, cls, conf, height: int = 480, width: int = 640):
     """The deterministic part of `device_detection_stream`: the tables of
     frames ``frame_count`` (F,) from their draws, the JAX package's
@@ -230,7 +242,7 @@ def _detections_from_draws(frame_count, num, df, jx, jy, cls, conf, height: int 
     base_w = torch.floor(80 * df + 40)
     base_h = torch.floor(60 * df + 30)
     t = frame_count.to(torch.float32)[:, None] * 0.02
-    x_base = torch.remainder(i * 150 + torch.floor(50 * torch.sin(t + i)), width - base_w)
+    x_base = torch.remainder(i * 150 + _wave(t + i), width - base_w)
     y_base = torch.floor(height * 0.4 + height * 0.4 * df)
     x1 = torch.clamp_min(x_base + jx.to(torch.int32), 0.0)
     y1 = torch.clamp_min(y_base + jy.to(torch.int32), 0.0)

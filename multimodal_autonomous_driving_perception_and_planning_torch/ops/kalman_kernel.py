@@ -17,7 +17,7 @@ finite-difference acceleration close to the float64 reference.
 
 The wrapper does one thing per call (ops/launch.py): one pass of checks,
 one output buffer carved into x, P, the vehicle row and the next step's
-time, heading and speed (`output_fields`; the kernel carves the same
+time, heading and speed (`unpack`; the kernel carves the same
 offsets), and the stream without re-entering the device context.
 
 Lanes: a state with a leading lane axis, x (B, 6) and so on, goes through
@@ -28,6 +28,7 @@ unbatched call is the kernel's B = 1.  ``launches`` counts launches.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -46,11 +47,16 @@ OUTPUT_SHAPES = ((6,), (6, 6), (len(VEHICLE_STATE_FIELDS),), (), (), ())
 launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def output_shapes(lead: tuple = ()) -> tuple:
+    """OUTPUT_SHAPES behind the lane axis ``lead`` (``()`` or ``(B,)``)."""
+    return tuple(lead + s for s in OUTPUT_SHAPES)
+
+
 def output_fields(device, lead: tuple = ()) -> tuple:
     """The kernel's outputs carved from one float32 buffer, each behind the
-    lane axis ``lead`` (``()`` or ``(B,)``): ``(buffer, [x, P, vs, time,
-    heading, speed])``."""
-    return launch.carve(tuple(lead + s for s in OUTPUT_SHAPES), torch.float32, device)
+    lane axis ``lead``: ``(buffer, [x, P, vs, time, heading, speed])``."""
+    return launch.carve(output_shapes(lead), torch.float32, device)
 
 
 def kalman_step(
@@ -66,6 +72,22 @@ def kalman_step(
     Returns (new_state, vs), ``vs`` the (..., 11) row of the reported
     VehicleState fields in declaration order.
     """
+    buf = kalman_buffer(ks, model, measurement, has_measurement, dt, speed_heading_hold)
+    return unpack(buf, tuple(ks.x.shape[:-1]))
+
+
+def kalman_buffer(
+    ks: KalmanState,
+    model: KalmanModel,
+    measurement: torch.Tensor,
+    has_measurement: torch.Tensor,
+    dt: float,
+    speed_heading_hold: float,
+) -> torch.Tensor:
+    """Launch K2 and return its output buffer; `unpack` carves the fields
+    from it.  The CUDA implementation of the ``madpp.kalman_step`` op
+    (ops/library.py).  The kernel reads neither ``ks.prev_speed`` nor
+    ``model.H`` (its measurement model is fixed)."""
     global launches
     device = ks.x.device
     if device.type != "cuda":
@@ -86,7 +108,7 @@ def kalman_step(
         ("R", model.R, f32, (4, 4)),
     )
     launch.check_inputs("kalman_step", device, ins)
-    buf, (x, P, vs, time, heading, speed) = output_fields(device, lead)
+    buf = launch.buffer(output_shapes(lead), f32, device)
     ptrs = [t.data_ptr() for _, t, _, _ in ins]
     kernel = build.kernels().kalman_step
     args = (buf.data_ptr(), lead[0] if lead else 1, float(dt), float(speed_heading_hold))
@@ -94,4 +116,11 @@ def kalman_step(
     if err != 0:
         raise RuntimeError(f"kalman_step: kernel launch failed with CUDA error {err}")
     launches += 1
+    return buf
+
+
+def unpack(buf: torch.Tensor, lead: tuple = ()) -> Tuple[KalmanState, torch.Tensor]:
+    """The fields of K2's buffer behind the lane axis ``lead``, as views:
+    (new_state, vs)."""
+    x, P, vs, time, heading, speed = launch.split(buf, output_shapes(lead))
     return KalmanState(x=x, P=P, time=time, prev_heading=heading, prev_speed=speed), vs

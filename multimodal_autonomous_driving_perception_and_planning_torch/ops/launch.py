@@ -56,13 +56,41 @@ def buffer_plan(shapes: tuple) -> tuple:
     return sum(sizes), tuple(sizes), tuple(pieces)
 
 
+def buffer_length(shapes) -> int:
+    """`buffer_plan`'s total, uncached, so that it takes symbolic sizes (a
+    fake implementation's under dynamic shapes)."""
+    return sum((math.prod(shape) + 3) // 4 * 4 for shape in shapes)
+
+
+def split(buf: torch.Tensor, shapes: tuple) -> list:
+    """The fields of ``shapes`` in ``buf``, laid out by `buffer_plan`, as
+    contiguous views (one `split_with_sizes` and a `view` a field, which
+    ``torch.export`` traces)."""
+    _, sizes, pieces = buffer_plan(shapes)
+    parts = torch.split_with_sizes(buf, sizes)
+    return [parts[k] if len(shape) == 1 else parts[k].view(shape) for k, shape in pieces]
+
+
+def buffer(shapes: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """One uninitialised buffer of ``dtype`` on ``device`` for the fields
+    of ``shapes``, laid out by `buffer_plan`."""
+    return torch.empty(buffer_plan(shapes)[0], dtype=dtype, device=device)
+
+
 def carve(shapes: tuple, dtype: torch.dtype, device) -> tuple:
     """One buffer of ``dtype`` on ``device`` and its fields as contiguous
     tensors of ``shapes``, laid out by `buffer_plan`: ``(buffer, fields)``."""
-    total, sizes, pieces = buffer_plan(shapes)
-    buf = torch.empty(total, dtype=dtype, device=device)
-    parts = torch.split_with_sizes(buf, sizes)
-    return buf, [parts[k] if len(shape) == 1 else parts[k].view(shape) for k, shape in pieces]
+    buf = buffer(shapes, dtype, device)
+    return buf, split(buf, shapes)
+
+
+def pack(values, shapes: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """``values`` (tensors of ``shapes``) copied into one zeroed buffer laid
+    out by `buffer_plan`: the buffer a kernel would have written."""
+    buf = torch.zeros(buffer_plan(shapes)[0], dtype=dtype, device=device)
+    for field, value in zip(split(buf, shapes), values):
+        field.copy_(value)
+    return buf
 
 
 def launch(device: torch.device, call):

@@ -16,7 +16,7 @@ device by its chain of dependent phases (tagging_step.cu says what the
 kernel does about it), and on the host by this wrapper, whose time a call
 sets the rate of the tagging path.  So the wrapper does one pass of checks,
 two allocations (the new state and the packed rows are carved from one
-float32 and one int32 buffer, `output_fields`), and takes the stream
+float32 and one int32 buffer, `unpack`), and takes the stream
 without re-entering the device context.  It reads nothing back from the
 device and allocates nothing that depends on the data, so a CUDA graph can
 capture it; the state's counters and the frame's timestamp are written on
@@ -136,6 +136,14 @@ def tagging_step(rules, state: TaggingState, dets, table, vrow, lane_row=None, f
 
     Returns ``(new_state, tag_f, tag_i)``, as the plain version does.
     """
+    fbuf, ibuf = tagging_buffers(rules, state, dets, table, vrow, lane_row, feat_row)
+    return unpack(fbuf, ibuf, rules, table)
+
+
+def tagging_buffers(rules, state: TaggingState, dets, table, vrow, lane_row=None, feat_row=None):
+    """Launch K3 and return its two output buffers, ``(float32, int32)``;
+    `unpack` carves the fields from them.  The CUDA implementation of the
+    ``madpp.tagging_step`` op (ops/library.py)."""
     global launches
     device = table.track_id.device
     if device.type != "cuda":
@@ -183,7 +191,9 @@ def tagging_step(rules, state: TaggingState, dets, table, vrow, lane_row=None, f
     if params.dtype.name != "float32" or params.shape != (len(PARAM_NAMES),) or not params.flags.c_contiguous:
         raise ValueError(f"tagging_step: rules.params must be ({len(PARAM_NAMES)},) float32")
 
-    fbuf, ibuf, out = output_fields(T, W, H, HI, device, lead)
+    f_shapes, i_shapes = output_shapes(T, W, H, HI, lead)
+    fbuf = launch.buffer(f_shapes, f32, device)
+    ibuf = launch.buffer(i_shapes, i32, device)
     ptrs = [t.data_ptr() for _, t, _, _ in ins]
     if not frames_mode:
         ptrs += [0, 0]
@@ -194,6 +204,18 @@ def tagging_step(rules, state: TaggingState, dets, table, vrow, lane_row=None, f
     if err != 0:
         raise RuntimeError(f"tagging_step: kernel launch failed with CUDA error {err}")
     launches += 1
+    return fbuf, ibuf
+
+
+def unpack(fbuf: torch.Tensor, ibuf: torch.Tensor, rules, table):
+    """The fields of K3's two buffers for a step over ``table``, as views:
+    ``(new_state, tag_f, tag_i)``; the new state's ``int_track_id`` is the
+    table's ``track_id``."""
+    lead = tuple(table.track_id.shape[:-1])
+    f_shapes, i_shapes = output_shapes(
+        table.track_id.shape[-1], rules.window, rules.history, rules.interaction_history, lead
+    )
+    out = dict(zip(FLOAT_FIELDS + INT_FIELDS, launch.split(fbuf, f_shapes) + launch.split(ibuf, i_shapes)))
     new_state = TaggingState(
         scene_votes=out["scene_votes"],
         scene_count=out["scene_count"],

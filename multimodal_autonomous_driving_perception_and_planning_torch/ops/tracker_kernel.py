@@ -14,7 +14,7 @@ dependent phases (tracker_step.cu says what the kernel does about it), and
 on the host by this wrapper, whose time a call sets the rate of a path that
 launches one step a frame.  So the wrapper does one thing per call: one
 pass of checks, two allocations (the outputs are carved from one float32
-and one int32 buffer, `output_fields`), 18 pointers to the binding, and the
+and one int32 buffer, `unpack`), 18 pointers to the binding, and the
 stream without re-entering the device context.  It reads nothing back from
 the device and allocates nothing that depends on the data, so a CUDA graph
 can capture it.  Larger tables, up to 1,024 slots and 1,024 detections,
@@ -83,6 +83,14 @@ def tracker_step(table: TrackTable, dets: Detections, cfg: TrackerConfig, min_hi
     Returns (new_table, match, order, n_confirmed), the same as the plain
     `tracker_update` + `confirmed_order` (lane by lane).
     """
+    fbuf, ibuf = tracker_buffers(table, dets, cfg.iou_threshold, cfg.max_age, min_hits)
+    return unpack(fbuf, ibuf, table)
+
+
+def tracker_buffers(table: TrackTable, dets: Detections, iou_threshold: float, max_age: int, min_hits: int):
+    """Launch K1 and return its two output buffers, ``(float32, int32)``;
+    `unpack` carves the fields from them.  The CUDA implementation of the
+    ``madpp.tracker_step`` op (ops/library.py)."""
     global launches
     device = table.track_id.device
     if device.type != "cuda":
@@ -117,14 +125,24 @@ def tracker_step(table: TrackTable, dets: Detections, cfg: TrackerConfig, min_hi
         ("det_valid", dets.valid, torch.bool, lead + (D,)),
     )
     launch.check_inputs("tracker_step", device, ins)
-    fbuf, ibuf, out = output_fields(T, L, device, lead)
+    f_shapes, i_shapes = output_shapes(T, L, lead)
+    fbuf = launch.buffer(f_shapes, f32, device)
+    ibuf = launch.buffer(i_shapes, i32, device)
     ptrs = [t.data_ptr() for _, t, _, _ in ins]
     kernel = build.kernels().tracker_step
-    args = (fbuf.data_ptr(), ibuf.data_ptr(), B, T, D, L, float(cfg.iou_threshold), int(cfg.max_age),
-            int(min_hits))
+    args = (fbuf.data_ptr(), ibuf.data_ptr(), B, T, D, L, float(iou_threshold), int(max_age), int(min_hits))
     err = launch.launch(device, lambda stream: kernel(*ptrs, *args, stream))
     if err != 0:
         raise RuntimeError(f"tracker_step: kernel launch failed with CUDA error {err} (B={B}, T={T}, D={D}, L={L})")
     launches += 1
+    return fbuf, ibuf
+
+
+def unpack(fbuf: torch.Tensor, ibuf: torch.Tensor, table: TrackTable):
+    """The fields of K1's two buffers for a step of ``table``, as views:
+    (new_table, match, order, n_confirmed)."""
+    lead = tuple(table.track_id.shape[:-1])
+    f_shapes, i_shapes = output_shapes(table.track_id.shape[-1], table.trajectory.shape[-1] // 2, lead)
+    out = dict(zip(FLOAT_FIELDS + INT_FIELDS, launch.split(fbuf, f_shapes) + launch.split(ibuf, i_shapes)))
     new_table = TrackTable(**{k: out[k] for k in TrackTable.__dataclass_fields__})
     return new_table, out["match"], out["order"], out["n_confirmed"]

@@ -32,7 +32,7 @@ import torch
 
 from .config import PipelineConfig
 from .estimation.ego import estimator_step_row
-from .ops import tracker_kernel
+from .ops import library, tracker_kernel
 from .ops.kalman import make_constant_accel_model
 from .perception.lanes import make_lane_step
 from .planning.planner import plan
@@ -123,14 +123,23 @@ def check_card_limits(cfg: PipelineConfig, dev: torch.device) -> None:
             )
 
 
-def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
+def _make_frame_step(cfg: PipelineConfig, dev: torch.device, ops: bool = False):
     """The frame step: ``(state, inputs) -> (state', out, rows)``, with
     ``rows`` the packed rows of the frame: K3's ``tag_f``/``tag_i`` with
     tagging and the lane observation's ``lane_f``/``lane_b`` with lanes.
     ``out`` holds no "tags" and no "lane_obs", and the vehicle state as
     K2's (11,) row.  State, inputs and outputs carry the same leading lane
-    axis, (B, ...), or none."""
+    axis, (B, ...), or none.
+
+    With ``ops``, K1-K3 go through the ``madpp`` custom ops
+    (ops/library.py), as in the program that utils/export.py traces;
+    without, through their wrappers, or their plain versions on the CPU."""
     check_card_limits(cfg, dev)
+    if ops:
+        track, estimate = library.tracker_update_with_order, library.estimator_step_row
+        make_tagging = library.make_packed_tagging_step
+    else:
+        track, estimate, make_tagging = tracker_update_with_order, estimator_step_row, make_packed_tagging_step
     model = kalman_model_from_numpy(
         *make_constant_accel_model(
             cfg.estimator.dt,
@@ -140,7 +149,7 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
         ),
         device=dev,
     )
-    tagging_step = make_packed_tagging_step(cfg) if cfg.enable_tagging else None
+    tagging_step = make_tagging(cfg) if cfg.enable_tagging else None
     lane_step = make_lane_step(cfg, dev) if cfg.use_frames else None
     # Per lane count: the default has-measurement flags and the lane indices.
     per_lanes: Dict[tuple, Any] = {}
@@ -173,12 +182,10 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device):
             lanes, lane_obs, frame_feats = state.lanes, None, None
 
         # Tracking: kernel K1 on the card, the confirmed order included.
-        table, match, order, n_confirmed = tracker_update_with_order(
-            state.tracks, dets, cfg.tracker, cfg.tracker.min_hits
-        )
+        table, match, order, n_confirmed = track(state.tracks, dets, cfg.tracker, cfg.tracker.min_hits)
 
         # Ego estimation: kernel K2 on the card, the state as its one row.
-        kalman, vrow = estimator_step_row(
+        kalman, vrow = estimate(
             state.kalman,
             model,
             inputs["ego_measurement"],
@@ -336,8 +343,12 @@ def make_batched_sequence_runner(cfg: PipelineConfig, device="cuda"):
     return _make_runner(cfg, resolve_device(device), lanes=True)
 
 
-def _make_runner(cfg: PipelineConfig, dev: torch.device, lanes: bool):
-    step = _make_frame_step(cfg, dev)
+def _make_runner(cfg: PipelineConfig, dev: torch.device, lanes: bool, step=None):
+    """The sequence runner over ``step``, the frame step of
+    `_make_frame_step` (built here when None) or another with its contract
+    (utils/export.py's loaded program)."""
+    if step is None:
+        step = _make_frame_step(cfg, dev)
 
     def as_input(k, v):
         v = torch.as_tensor(v) if k == "frame" else torch.as_tensor(v, dtype=_INPUT_DTYPES[k])

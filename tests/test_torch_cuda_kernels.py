@@ -304,3 +304,38 @@ def test_demo_and_webview_on_card(device):
     assert demo["yolo"]["launches"]["nms_keep"] == 1 and demo["multicamera"]["launches"]["tracker_step"] == 30
     web = chip_smoke.check_webview_path(device, renders)
     assert web["launches"]["tagging_step"] == 120 and len(web["chunk_seconds"]) == 4
+
+
+def test_madpp_ops_equal_their_wrappers(device):
+    """Each madpp op (ops/library.py) on the card against its wrapper on the
+    same inputs at the paths' states, every output bit for bit."""
+    result = chip_smoke.check_madpp_ops(device, chip_smoke.synthetic_inputs())
+    assert sorted(result) == ["kalman_step", "tagging_step", "tracker_step"]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["tracker_step", "kalman_step", "tagging_step"])
+def test_madpp_op_raises_when_its_kernel_cannot_build(device, monkeypatch, name):
+    """No fallback: with the kernels' build failing, the op on CUDA tensors
+    raises and never runs the plain version."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.kernels import build
+
+    wrapper, op = chip_smoke._op_routes(device, chip_smoke.synthetic_inputs())[name]
+
+    def no_build():
+        raise RuntimeError("the kernels did not build")
+
+    monkeypatch.setattr(build, "kernels", no_build)
+    with pytest.raises(RuntimeError, match="did not build"):
+        op()
+
+
+def test_export_path_on_card(device):
+    """The serialized runner on the card (chip_smoke's `export_path`): the
+    programs hold the madpp ops, and loaded in a fresh process they run
+    300 frames bit for bit the eager runner's at batch 1 and 8, one launch
+    of each kernel a frame."""
+    result = chip_smoke.check_export_path(device, chip_smoke.synthetic_inputs())
+    assert sorted(result["cases"]) == sorted(label for label, _, _ in chip_smoke.EXPORT_CASES)
+    for case in result["cases"].values():
+        assert case["bytes"] > 0 and case["device"] == "cuda"

@@ -74,21 +74,34 @@ def test_deterministic_part_on_jax_draws_is_bit_exact(seed, start, n, hw):
         assert got[k].numpy().dtype == np.asarray(v).dtype, k
 
 
-def test_sin_ulp_moves_a_floor_at_counter_100802():
-    """ROADMAP §3: at frame counter 100,802 (and 100,852) the angle of slot
-    15 (14) is t + i = 2031.04f; the float32 sine is 0.99999996 exactly,
-    which XLA rounds to 0.99999994 and PyTorch's CPU sine to 1.0, so
-    floor(50 sin) is 49 in JAX and 50 here and x1 moves by one pixel.  The
-    counters a run reaches first (1 to 100,000) are clear of it."""
+def test_sin_in_float64_matches_jax_at_counter_100802():
+    """At frame counter 100,802 (and 100,852) the angle of slot 15 (14) is
+    t + i = 2031.04f, where XLA's float32 sine gives 0.99999994 and
+    PyTorch's CPU sine 1.0, which moved floor(50 sin) from JAX's 49 to 50
+    and x1 by a pixel.  The port takes the sine in float64 and rounds it
+    to float32, so its tables equal JAX's there."""
     angle = np.float32(np.float32(100802) * np.float32(0.02)) + np.float32(15)
     assert float(angle) == 2031.0399169921875
     assert float(jnp.sin(jnp.float32(angle))) == np.float32(0.99999994)
     assert float(torch.sin(torch.tensor(angle))) == 1.0
+    assert float(syn_t._wave(torch.tensor([angle]))[0]) == 49.0
     got, want = tables_from_jax_draws(0, 100802, 51)
-    diff = np.argwhere(got["bbox"].numpy() != np.asarray(want["bbox"]))
-    assert sorted({(int(f), int(s)) for f, s, _ in diff}) == [(0, 15), (50, 14)]
-    assert {int(c) for _, _, c in diff} == {0, 2}  # x1 and x2 only
-    assert np.abs(got["bbox"].numpy() - np.asarray(want["bbox"])).max() == 1.0
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), err_msg=k)
+
+
+def test_wave_floor_matches_xla_over_a_million_counters():
+    """floor(50 sin(t + i)) at counters 1 to 1,000,000 x 16 slots, the
+    angles made in float32 by numpy as both packages make them: the port's
+    `_wave` against JAX's jitted CPU float32 arithmetic, 0 differences
+    (PyTorch's float32 sine moves the floor at some of them, counter
+    100,802's slot 15 among them)."""
+    counters = np.arange(1, 1_000_001, dtype=np.int64)
+    angle = (counters.astype(np.float32) * np.float32(0.02))[:, None] + np.arange(CAP, dtype=np.float32)
+    want = np.asarray(jax.jit(lambda a: jnp.floor(50 * jnp.sin(a)))(angle))
+    got = syn_t._wave(torch.from_numpy(angle)).numpy()
+    assert got.dtype == want.dtype == np.float32
+    assert int((got != want).sum()) == 0
 
 
 @pytest.fixture(scope="module")

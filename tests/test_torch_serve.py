@@ -39,6 +39,7 @@ from multimodal_autonomous_driving_perception_and_planning_torch.apps.serve impo
     _npz_load,
     serve,
 )
+from multimodal_autonomous_driving_perception_and_planning_torch.utils.export import export_sequence_runner
 from multimodal_autonomous_driving_perception_and_planning_tpu.data.synthetic import (
     ego_motion_stream,
     simulated_detection_stream,
@@ -71,6 +72,22 @@ def _chunk_arrays(start, n=CHUNK, seed=0):
 def _session_chunks(seed, n_chunks, n=CHUNK):
     # Built on one thread: the synthetic streams draw from numpy's global RNG.
     return [_chunk_arrays(c * n, n, seed=seed) for c in range(n_chunks)]
+
+
+@pytest.fixture(scope="module")
+def artifact():
+    """``artifact(batch)``: one exported artifact a lane count, shared by
+    the file's servers; the servers of
+    `test_serve_sessions_and_chunk_chaining` and
+    `test_given_artifact_serves_as_an_exported_one` export their own."""
+    made = {}
+
+    def get(batch):
+        if batch not in made:
+            made[batch] = export_sequence_runner(CFG, CHUNK, platforms=("cpu",), batch=batch)
+        return made[batch]
+
+    return get
 
 
 @pytest.fixture(scope="module")
@@ -164,7 +181,8 @@ def test_serve_sessions_and_chunk_chaining(jax_run):
         assert health == {"status": "ok", "device": "cpu", "frames_per_chunk": CHUNK, "batch": 1, "dp": 1}
         with urllib.request.urlopen(f"{base}/info", timeout=60) as r:
             info = json.loads(r.read())
-        assert info["artifact_bytes"] is None and info["use_frames"] is False
+        assert info["artifact_bytes"] == httpd.pipeline_server.artifact_bytes > 0
+        assert info["use_frames"] is False
         assert info["max_detections"] == CFG.detector.max_detections
         assert info["frame_size"] == [CFG.frame_width, CFG.frame_height]
 
@@ -199,8 +217,23 @@ def test_serve_sessions_and_chunk_chaining(jax_run):
         httpd.pipeline_server.close()
 
 
-def test_session_lru_eviction_and_delete():
-    ps = PipelineServer(cfg=CFG, chunk=CHUNK, max_sessions=3, device="cpu")
+def test_given_artifact_serves_as_an_exported_one(jax_run, artifact):
+    """A server given artifact bytes serves what a server that exported its
+    own at startup serves, chunk for chunk, and both serve JAX's outputs."""
+    own = PipelineServer(cfg=CFG, chunk=CHUNK, device="cpu")
+    given = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(1), device="cpu")
+    assert own.artifact_bytes > 0 and given.artifact_bytes == len(artifact(1))
+    chunks = _session_chunks(5, 2)
+    sid_own, sid_given = own.create_session(), given.create_session()
+    _, want = _jax_chain(jax_run, chunks)
+    for c, arrays in enumerate(chunks):
+        got = given.infer(sid_given, arrays)
+        _assert_equal(got, own.infer(sid_own, arrays), f"chunk {c}")
+        _assert_matches_jax(got, want[c], f"chunk {c}")
+
+
+def test_session_lru_eviction_and_delete(artifact):
+    ps = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(1), max_sessions=3, device="cpu")
     sids = [ps.create_session() for _ in range(3)]
     assert len(ps.sessions) == 3
     ps.reset_session(sids[0])  # s1 becomes the least recently used
@@ -214,8 +247,8 @@ def test_session_lru_eviction_and_delete():
         ps.delete_session(s_new)
 
 
-def test_session_export_import_continues_exactly(jax_run):
-    ps = PipelineServer(cfg=CFG, chunk=CHUNK, max_sessions=4, device="cpu")
+def test_session_export_import_continues_exactly(jax_run, artifact):
+    ps = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(1), max_sessions=4, device="cpu")
     sid = ps.create_session()
     chunks = _session_chunks(0, 2)
     ps.infer(sid, chunks[0])
@@ -237,7 +270,7 @@ def test_session_export_import_continues_exactly(jax_run):
     assert ps.metrics()["requests"] == {"GET /healthz": 1}
 
 
-def test_carry_crosses_between_jax_and_the_port(jax_run):
+def test_carry_crosses_between_jax_and_the_port(jax_run, artifact):
     """A JAX state exported as leaf0..leafN (jax.tree_util.tree_leaves
     order) imports into the port's server and continues as JAX does; the
     port's exported carry continues in JAX the same way."""
@@ -246,7 +279,7 @@ def test_carry_crosses_between_jax_and_the_port(jax_run):
     mid_j = pj.initial_state(_config(pj))
     mid_j, _ = jax_run(mid_j, {k: jnp.asarray(v) for k, v in chunks[0].items()})
 
-    ps = PipelineServer(cfg=CFG, chunk=CHUNK, device="cpu")
+    ps = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(1), device="cpu")
     carry = {f"leaf{i}": np.asarray(leaf) for i, leaf in enumerate(jax.tree_util.tree_leaves(mid_j))}
     sid = ps.import_session(_npz_load(_npz_bytes(carry)))
     _assert_matches_jax(ps.infer(sid, chunks[1]), want[1], "JAX carry in the port")
@@ -262,15 +295,15 @@ def test_carry_crosses_between_jax_and_the_port(jax_run):
     _assert_matches_jax(ps.infer(sid, chunks[2]), ref[0], "port continues")
 
 
-def test_microbatched_server_matches_jax_and_coalesces(jax_run):
+def test_microbatched_server_matches_jax_and_coalesces(jax_run, artifact):
     """--batch 3 with 3 sessions x 2 chained chunks: each lane equals the
     JAX runner and the port's unbatched server; concurrent requests
     coalesce into fewer runs than requests."""
     seeds = (0, 7, 11)
     chunks = {s: _session_chunks(s, 2) for s in seeds}
-    ref = PipelineServer(cfg=CFG, chunk=CHUNK, max_sessions=4, batch=1, device="cpu")
+    ref = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(1), max_sessions=4, batch=1, device="cpu")
     # A generous window: the first chunks of all three must land in one run.
-    ps = PipelineServer(cfg=CFG, chunk=CHUNK, max_sessions=4, batch=3, batch_window_ms=500.0, device="cpu")
+    ps = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(3), max_sessions=4, batch=3, batch_window_ms=500.0, device="cpu")
     try:
         expected = {}
         for s in seeds:
@@ -293,11 +326,11 @@ def test_microbatched_server_matches_jax_and_coalesces(jax_run):
         ps.close()
 
 
-def test_batched_partial_fill_and_padding(jax_run):
+def test_batched_partial_fill_and_padding(jax_run, artifact):
     """One request on a batch-4 server (lanes padded with lane 0) gives
     exactly the unbatched result, and JAX's."""
-    ref = PipelineServer(cfg=CFG, chunk=CHUNK, max_sessions=2, batch=1, device="cpu")
-    ps = PipelineServer(cfg=CFG, chunk=CHUNK, max_sessions=2, batch=4, batch_window_ms=1.0, device="cpu")
+    ref = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(1), max_sessions=2, batch=1, device="cpu")
+    ps = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(4), max_sessions=2, batch=4, batch_window_ms=1.0, device="cpu")
     try:
         chunk = _chunk_arrays(0)
         expected = ref.infer(ref.create_session(), chunk)
@@ -309,9 +342,9 @@ def test_batched_partial_fill_and_padding(jax_run):
         ps.close()
 
 
-def test_batched_timeout_cancel_never_advances_session(jax_run):
-    ref = PipelineServer(cfg=CFG, chunk=CHUNK, max_sessions=2, batch=1, device="cpu")
-    ps = PipelineServer(cfg=CFG, chunk=CHUNK, max_sessions=2, batch=2, batch_window_ms=1000.0, device="cpu")
+def test_batched_timeout_cancel_never_advances_session(jax_run, artifact):
+    ref = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(1), max_sessions=2, batch=1, device="cpu")
+    ps = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(2), max_sessions=2, batch=2, batch_window_ms=1000.0, device="cpu")
     try:
         chunk0 = _chunk_arrays(0)
         expected = ref.infer(ref.create_session(), chunk0)
@@ -328,12 +361,12 @@ def test_batched_timeout_cancel_never_advances_session(jax_run):
         ps.close()
 
 
-def test_microbatch_stress_chaining_under_jitter(jax_run):
+def test_microbatch_stress_chaining_under_jitter(jax_run, artifact):
     """6 sessions x 4 chained chunks with jittered arrivals on a batch-4
     server: every chunk of every session as the JAX runner chains it."""
     n_sessions, n_chunks = 6, 4
     chunks = {s: _session_chunks(s, n_chunks) for s in range(n_sessions)}
-    ps = PipelineServer(cfg=CFG, chunk=CHUNK, max_sessions=n_sessions, batch=4, batch_window_ms=5.0, device="cpu")
+    ps = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(4), max_sessions=n_sessions, batch=4, batch_window_ms=5.0, device="cpu")
     switch = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)  # interleave the client and dispatcher threads finely
     try:
@@ -351,7 +384,7 @@ def test_microbatch_stress_chaining_under_jitter(jax_run):
         ps.close()
 
 
-def test_serve_loadgen_end_to_end():
+def test_serve_loadgen_end_to_end(artifact):
     """tools/serve_loadgen.py drives the port's batched server over HTTP
     and reports a clean JSON line, coalescing seen in the server's metrics."""
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
@@ -359,7 +392,7 @@ def test_serve_loadgen_end_to_end():
         import serve_loadgen
     finally:
         sys.path.pop(0)
-    httpd = serve(cfg=CFG, chunk=CHUNK, port=0, block=False, batch=2, batch_window_ms=100.0, device="cpu")
+    httpd = serve(cfg=CFG, chunk=CHUNK, artifact=artifact(2), port=0, block=False, batch=2, batch_window_ms=100.0, device="cpu")
     try:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
