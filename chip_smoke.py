@@ -142,7 +142,28 @@ Phases, each printing one JSON line:
      launch of K1, K2 (and K3) a frame, a 63-frame chunk refused; the
      artifact's bytes, export and load seconds, both runners' frames/s
      in turns, and each one's host time for a chunk by function
-     (cProfile);
+     (cProfile); then the frames mode (DEFAULT_CONFIG at 640x480, tagging
+     on) exported on the card at batch 1, loaded in the same fresh
+     process and held bit for bit to the eager frames runner over 128
+     road frames, one launch of K1-K3 a frame, with both runners' Canny
+     hysteresis rounds and host reads a frame (the reads counted by
+     ``torch.cuda.set_sync_debug_mode``); and the tagging configuration
+     exported for ``("cuda", "cpu")`` by this script with
+     ``--export-cpu DIR`` in a process that sees no card, loaded on the
+     card there and held to the card-exported artifact (discrete outputs
+     bit for bit, floats within 1e-4, whether bit for bit said), K1-K3
+     launched;
+ 19h. across ranks (`cross_card`): two ranks (parallel/distributed.py
+     `spawn`) share the one card over gloo with CUDA tensors: the camera
+     mesh (4 cameras, 2 a rank, 300 frames, tagging off and on) each
+     rank's cameras against their lanes of the one-card batched runner,
+     the fleet count the sum; the dp server (dp=2, --batch 4) against the
+     batch-4 server on two sessions of two chained chunks; the
+     tensor-parallel yolov8n (data=1, model=2) at 640 in float32 against
+     the unsharded detector, K5 launched; the full-width BLIP sharded over
+     model=2, its greedy 8 tokens against the unsharded model's; then the
+     camera mesh once more on one rank over NCCL, its outputs gathered
+     (``full_tensor``).  Each case's seconds and launches;
  20. the BLIP captioner (`blip_model`): the full-width BlipConfig() with
      seeded weights on a 480x640 road frame, the card against the CPU:
      `preprocess_bgr`, the vision states, the cross K/V and the
@@ -187,6 +208,7 @@ import functools
 import importlib.util
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2761,7 +2783,8 @@ def check_serve_path(device) -> dict:
         launches = _read_counts()
         runs = ps.batcher.stats()["dispatches"] - runs0
         if proc.returncode != 0:
-            raise AssertionError(f"serve path: the load generator exited {proc.returncode}: {proc.stderr[-2000:]}")
+            raise AssertionError(f"serve path: the load generator exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
         loadgen = json.loads(proc.stdout.strip().splitlines()[-1])
         print(json.dumps(loadgen), flush=True)
         if loadgen["errors"] or loadgen["completed_requests"] != SERVE_SESSIONS * SERVE_CHUNKS:
@@ -4274,6 +4297,207 @@ EXPORT_CHUNK, EXPORT_FRAMES, EXPORT_PADDED = 64, NUM_FRAMES, 320  # the server's
 # its --batch, and the main path's.
 EXPORT_CASES = (("tagging_b1", True, 1), (f"tagging_b{BATCHED_LANES}", True, BATCHED_LANES), ("main_b1", False, 1))
 EXPORT_ROUNDS = 2  # eager, exported, exported, eager: twice
+EXPORT_FRAMES_MODE = 128  # road frames through the frames-mode artifact: two chunks
+# Floats of the CPU-exported artifact loaded on the card against the
+# card-exported one (PARITY.md's budget).
+MULTI_PLATFORM_ATOL = 1e-4
+
+
+def export_cpu(directory: str) -> dict:
+    """``--export-cpu DIR``, in a process that sees no card: the tagging
+    configuration exported for ``("cuda", "cpu")`` on the CPU."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.export import (
+        export_sequence_runner,
+        save_exported,
+    )
+
+    if torch.cuda.is_available():
+        raise AssertionError("--export-cpu: this process sees a card; run it with CUDA_VISIBLE_DEVICES=")
+    t0 = time.perf_counter()
+    data = export_sequence_runner(bench_config(True), EXPORT_CHUNK, platforms=("cuda", "cpu"))
+    save_exported(str(Path(directory) / "multi_b1.pt2"), data)
+    return {"bytes": len(data), "export_s": time.perf_counter() - t0}
+
+
+def host_reads(fn):
+    """``fn()``'s value and the synchronizing CUDA calls (host reads) it
+    makes, each by the file of the Python line that made it, as
+    ``torch.cuda.set_sync_debug_mode``'s warnings give them."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            value = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return value, [Path(w.filename).name for w in caught if "synchronizing" in str(w.message)]
+
+
+class CannyRounds(torch.nn.Module):
+    """`ops.image.canny_rounds` as a module to export (the thresholds are
+    inputs): exported, its hysteresis runs under a while_loop."""
+
+    def forward(self, gray, low, high):
+        from multimodal_autonomous_driving_perception_and_planning_torch.ops import image as image_ops
+
+        return image_ops.canny_rounds(gray, low, high)
+
+
+def hysteresis_rounds(device, frames) -> dict:
+    """Both Canny passes of the lane step on each frame, eager (blocks,
+    host reads) and exported (the blocks under a while_loop): their maps
+    equal, their rounds and reads a frame."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import image as image_ops
+
+    out = {"eager_rounds": 0, "eager_reads": 0, "traced_rounds": 0, "traced_reads": 0}
+    exported = {}
+    for frame in frames:
+        st = lane_stage_inputs(device, torch.as_tensor(frame, device=device))
+        small = image_ops.downsample2_u8(st["gray"])
+        for gray, low, high in ((st["blurred"], st["low"], st["high"]), (small, 50.0, 150.0)):
+            args = (gray, torch.as_tensor(low, dtype=torch.float32, device=device),
+                    torch.as_tensor(high, dtype=torch.float32, device=device))
+            if gray.shape not in exported:
+                exported[gray.shape] = torch.export.export(CannyRounds(), args, strict=False).module()
+            e, er, ereads = image_ops.canny_rounds(gray, low, high)
+            t, tr, treads = exported[gray.shape](*args)
+            if not torch.equal(e, t) or int(tr) != er:
+                raise AssertionError("export path frames: the exported hysteresis differs from the eager blocks")
+            out["eager_rounds"] += er
+            out["eager_reads"] += ereads
+            out["traced_rounds"] += int(tr)
+            out["traced_reads"] += int(treads)
+    return {k: v / len(frames) for k, v in out.items()}
+
+
+def run_frames_artifact(directory: str, device) -> dict:
+    """The frames-mode artifact against the eager frames runner over
+    `EXPORT_FRAMES_MODE` road frames in 64-frame chunks, bit for bit; the
+    launches of the artifact's run; and, from the same two runs, each
+    one's seconds and host reads a frame, those of its hysteresis (made in
+    ops/image.py by the eager blocks, in the while_loop's own file by the
+    artifact's loops) and the eager hysteresis rounds and blocks.  The
+    traced form's rounds stay on the card (the program does not return
+    them); `hysteresis_rounds` holds them to the eager ones call by call."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import image as image_ops
+    from multimodal_autonomous_driving_perception_and_planning_torch.types import tree_leaves
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.export import (
+        deserialize_runner,
+        load_exported,
+    )
+
+    cfg = frames_config()
+    t0 = time.perf_counter()
+    exported = deserialize_runner(load_exported(str(Path(directory) / "frames_b1.pt2")), cfg, EXPORT_CHUNK)
+    load_s = time.perf_counter() - t0
+    eager = pt.make_sequence_runner(cfg, device=device)
+    road = frames_inputs(EXPORT_FRAMES_MODE)
+    chunks = [{k: v[c : c + EXPORT_CHUNK] for k, v in road.items()}
+              for c in range(0, EXPORT_FRAMES_MODE, EXPORT_CHUNK)]
+    n = EXPORT_FRAMES_MODE
+
+    def chained(run):
+        t0 = time.perf_counter()
+        state, outs = pt.initial_state(cfg, device=device), []
+        for chunk in chunks:
+            state, out = run(state, chunk)
+            outs.append(out)
+        torch.cuda.synchronize()
+        return state, outs, time.perf_counter() - t0
+
+    _zero_counts()
+    (x_state, x_outs, x_s), x_reads = host_reads(lambda: chained(exported))
+    launches = _read_counts()
+    _expect("export path frames", launches, tracker_step=n, kalman_step=n, tagging_step=n)
+    plain, eager_rounds = image_ops.canny_rounds, [0, 0, 0]
+
+    def counted(*args, **kw):
+        edges, rounds, blocks = plain(*args, **kw)
+        eager_rounds[0] += rounds
+        eager_rounds[1] += blocks
+        eager_rounds[2] += blocks > 1
+        return edges, rounds, blocks
+
+    image_ops.canny_rounds = counted
+    try:
+        (e_state, e_outs, e_s), e_reads = host_reads(lambda: chained(eager))
+    finally:
+        image_ops.canny_rounds = plain
+    for c, (g, w) in enumerate(zip(x_outs, e_outs)):
+        g, w = _flat_outputs(g), _flat_outputs(w)
+        for part in (g, w):
+            lane = part.pop("lane_obs")
+            part.update({f"lane_obs.{f}": getattr(lane, f) for f in LANE_FIELDS})
+        _same_leaves(f"export path frames chunk {c}", g, w)
+    _same_leaves("export path frames final state", dict(enumerate(tree_leaves(x_state))),
+                 dict(enumerate(tree_leaves(e_state))))
+    # torch's while_loop reads its first condition twice when the loop
+    # runs: a call past its first block reads once more than the blocks.
+    hysteresis = {"eager_rounds": eager_rounds[0] / n, "eager_blocks": eager_rounds[1] / n,
+                  "eager_calls_past_one_block": eager_rounds[2] / n,
+                  "eager_reads": e_reads.count("image.py") / n, "exported_reads": x_reads.count("while_loop.py") / n}
+    return {"frames": n, "load_s": load_s, "launches": launches, "seconds": {"eager": e_s, "exported": x_s},
+            "host_reads_per_frame": {"eager": len(e_reads) / n, "exported": len(x_reads) / n},
+            "hysteresis_per_frame": hysteresis,
+            "result": "every output and the final state bit for bit the eager frames runner's; one launch of "
+                      "K1-K3 a frame"}
+
+
+def run_multi_platform_artifact(directory: str, device) -> dict:
+    """The CPU-exported ``("cuda", "cpu")`` artifact loaded on the card
+    against the card-exported one of the same configuration over 300
+    frames: discrete outputs bit for bit, floats within
+    `MULTI_PLATFORM_ATOL`, both runs launching K1-K3 a frame."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.types import tree_leaves
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.export import (
+        deserialize_runner,
+        load_exported,
+        load_program,
+    )
+
+    cfg = bench_config(True)
+    data = load_exported(str(Path(directory) / "multi_b1.pt2"))
+    _, meta = load_program(data)
+    t0 = time.perf_counter()
+    multi = deserialize_runner(data, cfg, EXPORT_CHUNK)  # a multi-platform artifact loads on the card
+    load_s = time.perf_counter() - t0
+    card = deserialize_runner(load_exported(str(Path(directory) / "tagging_b1.pt2")), cfg, EXPORT_CHUNK)
+    chunks = _padded_chunks(lane_streams(1, EXPORT_FRAMES), 1)
+
+    def chained(run):
+        state, outs = pt.initial_state(cfg, device=device), []
+        for chunk in chunks:
+            state, out = run(state, chunk)
+            outs.append(_flat_outputs(out))
+        torch.cuda.synchronize()
+        return state, outs
+
+    chained(multi)
+    _zero_counts()
+    m_state, m_outs = chained(multi)
+    launches = _read_counts()
+    steps = len(chunks) * EXPORT_CHUNK
+    _expect("export path multi-platform", launches, tracker_step=steps, kalman_step=steps, tagging_step=steps)
+    c_state, c_outs = chained(card)
+    gap, floats_bitwise = 0.0, True
+    pairs = [(f"chunk {c} {k}", g[k], w[k]) for c, (g, w) in enumerate(zip(m_outs, c_outs)) for k in w]
+    pairs += [(f"state leaf {i}", a, b) for i, (a, b) in enumerate(zip(tree_leaves(m_state), tree_leaves(c_state)))]
+    for label, a, b in pairs:
+        if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+            raise AssertionError(f"export path multi-platform: {label} is {a.dtype} {tuple(a.shape)} on {a.device}")
+        if a.is_floating_point():
+            err = float((a - b).abs().max()) if a.numel() else 0.0
+            gap, floats_bitwise = max(gap, err), floats_bitwise and torch.equal(a, b)
+            if not err <= MULTI_PLATFORM_ATOL:
+                raise AssertionError(f"export path multi-platform: {label} off by {err}")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"export path multi-platform: {label} differs from the card-exported artifact")
+    return {"platforms": meta["platforms"], "exported_on": meta["exported_on"], "load_s": load_s,
+            "frames": steps, "launches": launches, "float_max_abs_gap": gap, "floats_bit_for_bit": floats_bitwise,
+            "result": f"discrete outputs bit for bit the card-exported artifact's, floats within "
+                      f"{MULTI_PLATFORM_ATOL}"}
 
 
 def _op_routes(device, inputs: dict) -> dict:
@@ -4281,6 +4505,7 @@ def _op_routes(device, inputs: dict) -> dict:
     `tagging_state`): for each, a call of its wrapper and of the same
     function through its madpp op (ops/library.py)."""
     from multimodal_autonomous_driving_perception_and_planning_torch.ops import library
+    from multimodal_autonomous_driving_perception_and_planning_torch.tagging.rules import frames_from_rows
 
     cfg = bench_config(True)
     table, dets = tracker_state(device, inputs)
@@ -4288,6 +4513,8 @@ def _op_routes(device, inputs: dict) -> dict:
     rules, tstate, tdets, ttable, vrow = tagging_state(device, inputs)
     op_tagging = library.make_packed_tagging_step(cfg)
     est, trk = cfg.estimator, cfg.tracker
+    lane_row, feat_row = frames_rows_of(device)
+    lane_obs, feats = frames_from_rows(lane_row, feat_row)
     return {
         "tracker_step": (lambda: tracker_kernel.tracker_step(table, dets, trk, trk.min_hits),
                          lambda: library.tracker_update_with_order(table, dets, trk, trk.min_hits)),
@@ -4295,7 +4522,19 @@ def _op_routes(device, inputs: dict) -> dict:
                         lambda: library.estimator_step_row(ks, model, z, has, est)),
         "tagging_step": (lambda: tagging_kernel.tagging_step(rules, tstate, tdets, ttable, vrow),
                          lambda: op_tagging(tstate, tdets, ttable, vrow)),
+        "tagging_step_frames": (
+            lambda: tagging_kernel.tagging_step(rules, tstate, tdets, ttable, vrow, lane_row, feat_row),
+            lambda: op_tagging(tstate, tdets, ttable, vrow, lane_obs, feats)),
     }
+
+
+def frames_rows_of(device):
+    """A lane row (both lanes found) and a scene-feature row of K3's frames
+    mode, seeded: what `tagging.rules.frames_rows` makes of a frame."""
+    gen = torch.Generator().manual_seed(3)
+    lane_row = torch.cat([torch.randn(6, generator=gen), torch.ones(2)])
+    feat_row = torch.rand(6, generator=gen) * torch.tensor([0.1, 8.0, 200.0, 0.2, 120.0, 300.0])
+    return lane_row.to(device), feat_row.to(device)
 
 
 def host_us(fn, reps: int = 2000) -> float:
@@ -4313,9 +4552,10 @@ def host_us(fn, reps: int = 2000) -> float:
 
 
 def check_madpp_ops(device, inputs: dict) -> dict:
-    """Each madpp op on the card against its wrapper on the same inputs,
-    every output bit for bit, and both routes' host microseconds a call,
-    in turns (wrapper, op, op, wrapper)."""
+    """Each madpp op on the card against its wrapper on the same inputs
+    (``madpp.tagging_step`` in both of K3's modes), every output bit for
+    bit, and both routes' host microseconds a call, in turns (wrapper, op,
+    op, wrapper)."""
     out = {}
     for name, (wrapper, op) in _op_routes(device, inputs).items():
         want, got = _tensors(wrapper()), _tensors(op())
@@ -4434,6 +4674,8 @@ def run_artifacts(directory: str, device="cuda") -> dict:
             "frames_per_s": {k: [steps / t for t in v] for k, v in seconds.items()},
             "host_us_per_frame": {k: [t / steps * 1e6 for t in v] for k, v in seconds.items()},
         }
+    results["frames_b1"] = run_frames_artifact(directory, device)
+    results["multi_b1"] = run_multi_platform_artifact(directory, device)
     return results
 
 
@@ -4462,19 +4704,347 @@ def check_export_path(device, inputs: dict) -> dict:
                 raise AssertionError(f"export path {label}: the program holds {held}, expected {want}")
             save_exported(str(Path(directory) / f"{label}.pt2"), data)
             cases[label] = {"bytes": len(data), "export_s": export_s, "ops": held, "device": meta["device"]}
+        # The export on the CPU runs in a process with no card, meanwhile.
+        t_cpu = time.perf_counter()
+        cpu = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--export-cpu", directory],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                               env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        try:
+            cases["frames_b1"] = export_frames_artifact(device, directory)
+            out, err = cpu.communicate(timeout=600)
+        finally:
+            if cpu.poll() is None:
+                cpu.kill()
+                cpu.communicate()
+        if cpu.returncode != 0:
+            raise AssertionError(f"export path: the CPU export exited {cpu.returncode}: {err[-3000:]}")
+        cases["multi_b1"] = {**json.loads(out.strip().splitlines()[-1]), "process_s": time.perf_counter() - t_cpu}
+        t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--run-artifacts", directory],
                               capture_output=True, text=True, timeout=600)
+        fresh_s = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"export path: the fresh process exited {proc.returncode}: {proc.stderr[-3000:]}")
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     for label in cases:
         cases[label].update(loaded[label])
-    return {"ops": ops, "cases": cases, "chunk": EXPORT_CHUNK,
-            "result": "every output and the final state bit for bit the eager runner's; one launch of each kernel "
-                      "a frame; a short chunk refused"}
+    return {"ops": ops, "cases": cases, "chunk": EXPORT_CHUNK, "fresh_process_s": fresh_s,
+            "result": "every output and the final state bit for bit the eager runner's, in frames mode too; one "
+                      "launch of each kernel a frame; a short chunk refused; the CPU-exported artifact on the "
+                      "card within the bar"}
+
+
+def export_frames_artifact(device, directory: str) -> dict:
+    """`DEFAULT_CONFIG` (frames mode) exported at batch 1 into
+    ``directory``: the program holds K1-K3's ops and Canny's two
+    while_loops."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.export import (
+        export_sequence_runner,
+        load_program,
+        save_exported,
+    )
+
+    t0 = time.perf_counter()
+    data = export_sequence_runner(frames_config(), EXPORT_CHUNK, platforms=(device.type,))
+    export_s = time.perf_counter() - t0
+    program, _ = load_program(data)
+    held = sorted({str(n.target) for n in program.graph.nodes if str(n.target).startswith("madpp.")})
+    loops = sum(n.op == "call_function" and "while_loop" in str(n.target) for n in program.graph.nodes)
+    if held != sorted(f"madpp.{k}.default" for k in ("tracker_step", "kalman_step", "tagging_step")):
+        raise AssertionError(f"export path frames: the program holds {held}")
+    if loops != 2:
+        raise AssertionError(f"export path frames: the program holds {loops} while_loops, expected 2 (Canny)")
+    save_exported(str(Path(directory) / "frames_b1.pt2"), data)
+    return {"bytes": len(data), "export_s": export_s, "ops": held, "while_loops": loops}
+
+
+# --- across ranks: two ranks on the one card (gloo), then one over NCCL ----
+
+CROSS_CAMERAS = 4  # 2 a rank
+CROSS_SERVE_CHUNK, CROSS_SERVE_SEEDS = 3, (0, 7)  # tests/test_serve.py's dp case
+CROSS_YOLO_FRAMES, CROSS_YOLO_MAX_DET, CROSS_YOLO_ATOL = 2, 32, 1e-3
+CROSS_BLIP_TOKENS = 8
+CROSS_BLIP_LOGITS_RTOL = 1e-3  # of the logits' largest magnitude; a misplaced column moves them by about that whole
+CROSS_TIMEOUT = 600.0
+
+
+def _serve_chunk(cfg, start: int, n: int, seed: int) -> dict:
+    """tests/test_serve.py `_chunk_arrays`: frames start..start+n of a
+    session's stream."""
+    dets = simulated_detection_stream(n, height=cfg.frame_height, width=cfg.frame_width,
+                                      capacity=cfg.detector.max_detections, start_frame_count=start + 1)
+    ego = ego_motion_stream(start + n, dt=1.0 / 30.0, seed=seed)[start:]
+    return {**dets, "ego_measurement": ego.astype(np.float32)}
+
+
+def cross_camera_mesh(device, tagging: bool) -> dict:
+    """The camera mesh over the group's ranks, `CROSS_CAMERAS` cameras of
+    300 frames: each rank's cameras against their lanes of the one-card
+    batched runner (the planner's floats at MAIN_ATOL, the rest bit for
+    bit), the fleet count the sum over cameras; gathered and compared
+    whole where the backend takes functional collectives (NCCL)."""
+    import torch.distributed as dist
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.parallel.mesh import (
+        gather_cameras,
+        make_camera_mesh,
+        make_multicamera_runner,
+        stack_states,
+    )
+    from multimodal_autonomous_driving_perception_and_planning_torch.types import lane_of, tree_map
+
+    cfg = bench_config(tagging)
+    inputs = _stack_streams(lane_streams(CROSS_CAMERAS))
+    frames = inputs["bbox"].shape[1]
+    mesh = make_camera_mesh(device=device)
+    runner = make_multicamera_runner(cfg, mesh)
+    runner(stack_states(cfg, CROSS_CAMERAS, device=device), inputs)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, outs, fleet = runner(stack_states(cfg, CROSS_CAMERAS, device=device), inputs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    label = f"cross_card camera mesh (tagging {tagging}, {mesh.size} ranks)"
+    _expect(label, launches, tracker_step=frames, kalman_step=frames, **({"tagging_step": frames} if tagging else {}))
+    _, ref = pt.make_batched_sequence_runner(cfg, device=device)(stack_states(cfg, CROSS_CAMERAS, device=device),
+                                                                 inputs)
+    n, rank = mesh.size, dist.get_rank()
+    lo = rank * CROSS_CAMERAS // n
+    local = tree_map(lambda t: t.to_local() if hasattr(t, "to_local") else t, outs)
+    gap = max(compare_lane(label, local, c, lane_of(ref, lo + c)) for c in range(CROSS_CAMERAS // n))
+    fleet = fleet["fleet_confirmed_per_frame"]
+    if not torch.equal(fleet, ref["num_confirmed"].sum(0, dtype=torch.int32)):
+        raise AssertionError(f"{label}: the fleet count is not the sum of the cameras' own counts")
+    gathered = dist.get_backend() == "nccl"
+    if gathered:
+        whole = gather_cameras(outs)
+        gap = max(gap, max(compare_lane(label, whole, c, lane_of(ref, c)) for c in range(CROSS_CAMERAS)))
+    return {"backend": dist.get_backend(), "ranks": n, "cameras": CROSS_CAMERAS, "frames": frames,
+            "tagging": tagging, "launches": launches, "seconds": seconds, "planner_max_abs_gap": gap,
+            "fleet_confirmed_last": int(fleet[-1]), "gathered_whole": gathered}
+
+
+def cross_dp_server(device) -> dict:
+    """The dp server over the group's ranks at --batch 4: rank 0 drives two
+    sessions of two chained chunks each, concurrently, and holds every
+    served output to the batch-4 server's (floats within 1e-6, the rest
+    bit for bit); the other ranks serve their lanes until rank 0 closes."""
+    import threading
+
+    import torch.distributed as dist
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.apps.serve import PipelineServer
+
+    cfg = bench_config(False)
+    n, rank = CROSS_SERVE_CHUNK, dist.get_rank()
+    chunks = {s: [_serve_chunk(cfg, 0, n, s), _serve_chunk(cfg, n, n, s)] for s in CROSS_SERVE_SEEDS}
+    expected = {}
+    if rank == 0:
+        ref = PipelineServer(cfg=cfg, chunk=n, max_sessions=2, batch=4, batch_window_ms=1.0, device=device)
+        try:
+            for s in CROSS_SERVE_SEEDS:
+                sid = ref.create_session()
+                expected[s] = [ref.infer(sid, c) for c in chunks[s]]
+        finally:
+            ref.close()
+    t0 = time.perf_counter()
+    ps = PipelineServer(cfg=cfg, chunk=n, max_sessions=2, batch=4, batch_window_ms=100.0, dp=dist.get_world_size(),
+                        device=device)
+    start_s = time.perf_counter() - t0
+    _zero_counts()
+    if rank != 0:
+        ps.serve_worker()
+        return {"rank": rank, "launches": _read_counts(), "start_s": start_s}
+    got, errors = {s: [None, None] for s in CROSS_SERVE_SEEDS}, []
+    sids = {s: ps.create_session() for s in CROSS_SERVE_SEEDS}
+
+    def drive(seed):
+        try:
+            for c in range(2):
+                got[seed][c] = ps.infer(sids[seed], chunks[seed][c])
+        except Exception as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=drive, args=(s,)) for s in CROSS_SERVE_SEEDS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=CROSS_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        batching = ps.metrics()["batching"]
+    finally:
+        ps.close()
+    launches = _read_counts()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"cross_card dp server: {errors or 'a session did not finish'}")
+    for s in CROSS_SERVE_SEEDS:
+        for c in range(2):
+            exp, act = expected[s][c], got[s][c]
+            if sorted(exp) != sorted(act):
+                raise AssertionError(f"cross_card dp server: seed {s} chunk {c} serves other keys")
+            for k, e in exp.items():
+                ok = (np.allclose(act[k], e, rtol=0, atol=1e-6) if e.dtype.kind == "f"
+                      else np.array_equal(act[k], e))
+                if not ok:
+                    raise AssertionError(f"cross_card dp server: seed {s} chunk {c} {k} differs from the batch server")
+    return {"rank": 0, "dp": batching["dp"], "batch": batching["batch"], "dispatches": batching["dispatches"],
+            "lanes_served": batching["lanes_served"], "launches": launches, "seconds": seconds, "start_s": start_s}
+
+
+def cross_tp_yolo(device) -> dict:
+    """yolov8n at 640 in float32 over a (data=1, model=ranks) mesh against
+    the unsharded detector on the same seeded weights and frames: the
+    tables' floats within `CROSS_YOLO_ATOL`, the rest equal, K5 launched."""
+    import torch.distributed as dist
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.parallel.tp import (
+        make_sharded_yolo_detector,
+        make_tp_mesh,
+    )
+
+    frames, _ = yolo_inputs(CROSS_YOLO_FRAMES)
+    kw = dict(img_size=YOLO_IMG, max_det=CROSS_YOLO_MAX_DET, **YOLO_F32)
+    mesh = make_tp_mesh(n_data=1, n_model=dist.get_world_size(), device=device)
+    init_fn, detect = make_sharded_yolo_detector(mesh, **kw)
+    variables = init_fn(torch.Generator().manual_seed(0))
+    init_raw, detect_raw = yolov8.make_yolo_detector(device=device, **kw)
+    want = detect_raw(init_raw(torch.Generator().manual_seed(0)), frames)
+    detect(variables, frames)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = detect(variables, frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    if launches["nms_keep"] < 1:
+        raise AssertionError(f"cross_card tensor-parallel YOLO: K5 was not launched ({launches})")
+    gaps = {}
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"cross_card tensor-parallel YOLO: {k} is {g.dtype} {tuple(g.shape)}")
+        if w.is_floating_point():
+            gaps[k] = float((g - w).abs().max())
+            if not gaps[k] <= CROSS_YOLO_ATOL:
+                raise AssertionError(f"cross_card tensor-parallel YOLO: {k} off by {gaps[k]}")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"cross_card tensor-parallel YOLO: {k} differs from the unsharded detector")
+    return {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "frames": CROSS_YOLO_FRAMES, "launches": launches,
+            "seconds": seconds, "max_abs_gap": gaps, "valid": int(got["valid"].sum())}
+
+
+def _blip_prompt_logits(model, px, prompt) -> torch.Tensor:
+    """The decoder's logits at every position of the prompt buffer: the
+    first decode step's, before any argmax."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.models import blip
+
+    with torch.inference_mode(), blip._float32_matmuls():
+        return model.decode(prompt.to(px.device)[None], model.encode_cross(px))[0]
+
+
+def cross_tp_blip(device, cfg=None) -> dict:
+    """The full-width BlipConfig() sharded over (data=1, model=ranks): its
+    greedy decode of `CROSS_BLIP_TOKENS` tokens equal to the unsharded
+    model's on the same seeded weights and frame, and its first step's
+    logits at every prompt position within `CROSS_BLIP_LOGITS_RTOL` of the
+    unsharded model's largest logit (the seeded weights repeat one token,
+    so the tokens alone hardly depend on the hidden states)."""
+    import torch.distributed as dist
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.models import blip
+    from multimodal_autonomous_driving_perception_and_planning_torch.parallel.tp import (
+        make_tp_mesh,
+        shard_blip_variables,
+    )
+
+    cfg = cfg or blip.BlipConfig()
+    init_fn, caption = blip.make_caption_fn(cfg, max_new_tokens=CROSS_BLIP_TOKENS, device=device)
+    params = init_fn(torch.Generator().manual_seed(0), prompt_capacity=4)
+    frame = np.random.default_rng(0).integers(0, 255, (480, 640, 3)).astype(np.uint8)
+    px = blip.preprocess_bgr(torch.as_tensor(frame, device=device), cfg.image_size)
+    prompt = torch.tensor([cfg.bos_token_id, 2000, 3000, 0], dtype=torch.int32)
+    want_ids, want_len = caption(params, px, prompt, 3)
+    want_logits = _blip_prompt_logits(blip.model_from_state_dict(params, cfg), px, prompt)
+    mesh = make_tp_mesh(n_data=1, n_model=dist.get_world_size(), device=device)
+    model = shard_blip_variables(params, mesh, cfg=cfg)
+    t0 = time.perf_counter()
+    got_ids, got_len = caption(model, px, prompt, 3)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not torch.equal(got_ids, want_ids) or int(got_len) != int(want_len):
+        raise AssertionError(f"cross_card BLIP: sharded tokens {got_ids.tolist()} against {want_ids.tolist()}")
+    got_logits = _blip_prompt_logits(model, px, prompt)
+    scale = float(want_logits.abs().max())
+    logits_gap = float((got_logits - want_logits).abs().max())
+    if got_logits.shape != want_logits.shape or not logits_gap <= CROSS_BLIP_LOGITS_RTOL * max(scale, 1.0):
+        raise AssertionError(f"cross_card BLIP: the sharded first-step logits are off by {logits_gap} "
+                             f"(largest logit {scale})")
+    sharded = sum(isinstance(m, torch.nn.Linear) and m.weight.shape[0] < m.out_features for m in model.modules())
+    return {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "new_tokens": CROSS_BLIP_TOKENS,
+            "tokens": got_ids.tolist(), "length": int(got_len), "sharded_linears": sharded, "seconds": seconds,
+            "logits_shape": list(got_logits.shape), "logits_max_abs": scale, "logits_max_abs_gap": logits_gap}
+
+
+def _cross_card_rank(device, directory: str) -> dict:
+    """One rank of `check_cross_card`'s gloo group: every case in turn;
+    then the group ends and rank 0 runs the camera mesh again as the one
+    rank of an NCCL group."""
+    import torch.distributed as dist
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.parallel.distributed import init_ranks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.kernels()
+    out = {}
+    for name, case in (("camera_mesh", lambda: [cross_camera_mesh(device, t) for t in (False, True)]),
+                       ("dp_server", lambda: cross_dp_server(device)),
+                       ("tp_yolo", lambda: cross_tp_yolo(device)),
+                       ("tp_blip", lambda: cross_tp_blip(device))):
+        t0 = time.perf_counter()
+        out[name] = case()
+        out[f"{name}_s"] = time.perf_counter() - t0
+    rank = dist.get_rank()
+    dist.destroy_process_group()
+    if rank == 0:
+        t0 = time.perf_counter()
+        init_ranks(device, backend="nccl", init_method="file://" + str(Path(directory) / "nccl-rendezvous"),
+                   rank=0, world_size=1, timeout=CROSS_TIMEOUT)
+        out["nccl_world_1"] = cross_camera_mesh(device, True)
+        out["nccl_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_cross_card(device) -> dict:
+    """Phase 19h: two ranks on the one card over gloo with CUDA tensors
+    (NCCL refuses two ranks on one card), then one rank over NCCL.  Not a
+    run across cards: the machine has one."""
+    import tempfile
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.parallel.distributed import spawn
+
+    device = pt.utils.device.resolve_device(device)
+    with tempfile.TemporaryDirectory() as directory:
+        t0 = time.perf_counter()
+        ranks = spawn(_cross_card_rank, 2, directory, directory, backend="gloo", devices=[device, device],
+                      timeout=CROSS_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+    nccl, nccl_s = ranks[0].pop("nccl_world_1"), ranks[0].pop("nccl_s")
+    return {"gloo_ranks_on_one_card": ranks, "ranks_s": ranks_s, "nccl_world_1": nccl, "nccl_s": nccl_s,
+            "result": "each rank's cameras equal their lanes of the batched runner, the fleet the sum; the dp "
+                      "server answers as the batch server; the tensor-parallel YOLO within 1e-3 of the unsharded "
+                      "with K5 launched; the sharded BLIP's tokens equal; the NCCL rank's gathered cameras equal"}
 
 
 def main(argv) -> int:
+    if argv[:1] == ["--export-cpu"]:  # export_path's process without a card
+        print(json.dumps(export_cpu(argv[1])), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
         return 1
@@ -4581,7 +5151,8 @@ def main(argv) -> int:
                         ("stream_path", lambda: check_stream_path(device)),
                         ("demo_path", lambda: check_demo_path(device, renders)),
                         ("webview_path", lambda: check_webview_path(device, renders)),
-                        ("export_path", lambda: check_export_path(device, inputs))):
+                        ("export_path", lambda: check_export_path(device, inputs)),
+                        ("cross_card", lambda: check_cross_card(device))):
         t0 = time.perf_counter()
         result = check()
         emit({"phase": name, "card": smi, **result, "phase_seconds": time.perf_counter() - t0})

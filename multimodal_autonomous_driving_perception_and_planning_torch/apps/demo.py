@@ -378,10 +378,16 @@ class MulticamRun:
 
 def run_multicamera_device(cfg, num_cameras: int, num_frames: int, device="cuda") -> MulticamRun:
     """C distinct synthetic feeds through the camera runner
-    (`parallel.mesh`): one card, the camera axis the lane axis of kernels
-    K1, K2 and K3 (one launch a frame for all cameras)."""
+    (`parallel.mesh`): the camera axis the lane axis of kernels K1, K2 and
+    K3 (one launch a frame for a rank's cameras).  Under a process group
+    of ranks (parallel/distributed.py) whose count divides C, the cameras
+    spread over every rank and every rank gets every camera's outputs back
+    (the JAX package takes the largest device count that divides C; a
+    camera mesh here spans every rank or one).  Otherwise, one card."""
+    import torch.distributed as dist
+
     from ..data.synthetic import ego_motion_stream, simulated_detection_stream
-    from ..parallel.mesh import make_camera_mesh, make_multicamera_runner, stack_states
+    from ..parallel.mesh import gather_cameras, make_camera_mesh, make_multicamera_runner, stack_states
     from ..types import lane_of
 
     dev = resolve_device(device)
@@ -395,15 +401,15 @@ def run_multicamera_device(cfg, num_cameras: int, num_frames: int, device="cuda"
     ]
     dets = {k: np.stack([d[k] for d in per_cam]) for k in per_cam[0]}
     ego = np.stack([ego_motion_stream(T, dt=1.0 / 30.0, seed=c) for c in range(C)]).astype(np.float32)
-    # One card: the JAX package counts its devices and takes the largest
-    # that divides C; a mesh of more than one card is ROADMAP item 10b.
-    n_dev = 1
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    n_dev = ranks if C % ranks == 0 else 1
     runner = make_multicamera_runner(cfg, make_camera_mesh(n_dev, device=dev))
     states = stack_states(cfg, C, device=dev)
     t0 = time.perf_counter()
     _, outs, fleet = runner(states, dict(dets, ego_measurement=ego))
     fleet_counts = fleet["fleet_confirmed_per_frame"].cpu().numpy()  # waits for the card
     device_s = time.perf_counter() - t0
+    outs = gather_cameras(outs)
     return MulticamRun([lane_of(outs, c) for c in range(C)], [{k: v[c] for k, v in dets.items()} for c in range(C)],
                        fleet_counts, n_dev, device_s)
 

@@ -50,7 +50,19 @@ and are discarded.  Two queued chunks of the same session never share a run: the
 chain in arrival order.  The runner runs on the card unless the server is
 made with ``device="cpu"``.
 
-Not in this slice: ``--dp`` across cards (ROADMAP item 10b).
+Scale-out (``--dp D``, ``--batch`` a multiple of D): the lanes of each
+run are spread over D ranks, one process a card (parallel/distributed.py),
+each running the artifact's program of B/D lanes
+(`utils.export.deserialize_runner` with ``dp``).  Rank 0 keeps the whole
+HTTP contract, the sessions and the batcher; for each coalesced run it
+scatters each rank's lanes (their states and chunks, packed into one byte
+buffer a rank), runs its own, and gathers the new states and the served
+outputs back.  The other ranks loop in `PipelineServer.serve_worker`.
+Lanes need no collective but that transport, and a dp server answers as
+the batch server does.  Start the ranks with ``torchrun``::
+
+    python -m torch.distributed.run --nproc-per-node 2 -m \
+        multimodal_autonomous_driving_perception_and_planning_torch.apps.serve --batch 8 --dp 2
 """
 
 from __future__ import annotations
@@ -67,10 +79,12 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import DEFAULT_CONFIG
+from ..parallel.distributed import byte_specs, pack_bytes, packed_size, unpack_bytes
 from ..pipeline import initial_state
-from ..types import lane_of, stack_lanes, tree_leaves
+from ..types import lane_of, stack_lanes, tree_leaves, tree_unflatten
 from ..utils.convert import state_from_leaves
 from ..utils.device import resolve_device
 from ..utils.export import deserialize_runner, example_sequence_inputs, export_sequence_runner
@@ -104,6 +118,89 @@ def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         host[k].copy_(v, non_blocking=True)
     torch.cuda.current_stream(next(iter(tensors.values())).device).synchronize()
     return {k: v.numpy() for k, v in host.items()}
+
+
+def _served(outs) -> Dict[str, torch.Tensor]:
+    """The outputs a run serves, by wire name, on the device."""
+    device = {k: outs[k] for k in _OUTPUT_KEYS}
+    vs = outs["vehicle_state"]
+    for f in _VEHICLE_KEYS:
+        device[f"vehicle_{f}"] = getattr(vs, f)
+    for k, v in (outs.get("tags") or {}).items():
+        device[f"tag_{k}"] = v
+    return device
+
+
+_STOP, _RUN = 0, 1
+
+
+class _RankLanes:
+    """A dp server's lanes over its ranks: rank 0 scatters each rank's
+    share of a run (states and chunks, one byte buffer a rank), every rank
+    runs its share with the artifact's program, and rank 0 gathers the new
+    states and the served outputs back.  One ``broadcast`` of a command
+    precedes each run, so that the other ranks know whether to run or to
+    stop.  Every collective is issued by one thread a rank at a time."""
+
+    def __init__(self, server: "PipelineServer", zeros: Dict[str, np.ndarray]):
+        self.server, self.dp, self.rank = server, server.dp, server.rank
+        self.local = server.batch // server.dp
+        self.device = server.device
+        self.in_keys = sorted(zeros)
+        # The share of one rank, and the warm-up run that sizes the outputs.
+        state = stack_lanes([server._initial_state()] * self.local)
+        inputs = {k: torch.as_tensor(np.stack([zeros[k]] * self.local)).to(self.device) for k in self.in_keys}
+        self.template, self.n_state = state, len(tree_leaves(state))
+        self.in_specs = byte_specs(tree_leaves(state) + [inputs[k] for k in self.in_keys])
+        new_state, served = self._run_local(state, inputs)
+        self.out_keys = sorted(served)
+        self.out_specs = byte_specs(tree_leaves(new_state) + [served[k] for k in self.out_keys])
+
+    def _run_local(self, state, inputs):
+        """This rank's lanes through the artifact's runner."""
+        new_state, outs = self.server.run.local(state, inputs)
+        return new_state, _served(outs)
+
+    def _command(self, cmd: int = _STOP) -> int:
+        """Rank 0's ``cmd``, broadcast; the other ranks' argument is unused."""
+        c = torch.full((1,), cmd, dtype=torch.int64, device=self.device)
+        dist.broadcast(c, src=0)
+        return int(c.item())
+
+    def _exchange(self, parts=None):
+        """Scatter the rank buffers from rank 0, run this rank's share,
+        gather the results to rank 0; returns them there (one buffer a
+        rank), None elsewhere."""
+        mine = torch.empty(packed_size(self.in_specs), dtype=torch.uint8, device=self.device)
+        dist.scatter(mine, parts, src=0)
+        leaves = unpack_bytes(mine, self.in_specs)
+        state = tree_unflatten(self.template, leaves[: self.n_state])
+        inputs = dict(zip(self.in_keys, leaves[self.n_state :]))
+        new_state, served = self._run_local(state, inputs)
+        out = pack_bytes(tree_leaves(new_state) + [served[k] for k in self.out_keys])
+        gathered = [torch.empty_like(out) for _ in range(self.dp)] if self.rank == 0 else None
+        dist.gather(out, gathered, dst=0)
+        return gathered
+
+    def run_shard(self) -> bool:
+        """One command on ranks 1..dp-1: run a share, or stop (False)."""
+        if self._command() == _STOP:
+            return False
+        self._exchange()
+        return True
+
+    def stop(self) -> None:
+        self._command(_STOP)
+
+    def run_all(self, state, inputs: Dict[str, np.ndarray]):
+        """Rank 0: the whole batch's run over the ranks: ``(new_state,
+        served)``, each with the batch's lane axis, on rank 0's device."""
+        self._command(_RUN)
+        whole = tree_leaves(state) + [torch.as_tensor(inputs[k]).to(self.device) for k in self.in_keys]
+        parts = [pack_bytes([t[r * self.local : (r + 1) * self.local] for t in whole]) for r in range(self.dp)]
+        per_rank = [unpack_bytes(buf, self.out_specs) for buf in self._exchange(parts)]
+        merged = [torch.cat(col) for col in zip(*per_rank)]
+        return tree_unflatten(self.template, merged[: self.n_state]), dict(zip(self.out_keys, merged[self.n_state :]))
 
 
 class _BatchRequest:
@@ -234,19 +331,21 @@ class PipelineServer:
         self.dp = int(dp)
         if self.dp < 1:
             raise ValueError(f"dp must be >= 1, got {dp}")
-        if self.dp > 1:
-            raise ValueError(
-                f"dp={dp}: sharding the lane axis over cards needs torch.distributed (ROADMAP item 10b); "
-                "this server drives one card"
-            )
+        if self.dp > 1 and self.batch % self.dp != 0:
+            raise ValueError(f"batch={batch} must be a multiple of dp={dp}")
         self.device = resolve_device(device)
+        self.rank = dist.get_rank() if self.dp > 1 and dist.is_initialized() else 0
         t0 = time.time()
         if artifact is None:
-            artifact = export_sequence_runner(cfg, self.chunk, platforms=(self.device.type,), batch=self.batch)
+            artifact = export_sequence_runner(
+                cfg, self.chunk, platforms=(self.device.type,), batch=self.batch, dp=self.dp
+            )
         self.export_seconds = time.time() - t0
         self.artifact_bytes = len(artifact)
         t0 = time.time()
-        self.run = deserialize_runner(artifact, cfg, self.chunk, batch=self.batch)
+        # With dp > 1 the runner refuses a context without dp ranks.
+        self.run = deserialize_runner(artifact, cfg, self.chunk, batch=self.batch, dp=self.dp,
+                                      device=str(self.device))
         self.load_seconds = time.time() - t0
         self._initial_state = lambda: initial_state(self.cfg, self.device)
         # Requests are per-session chunks: the specs stay unbatched even on
@@ -260,15 +359,18 @@ class PipelineServer:
         t0 = time.time()
         zeros = {k: np.zeros(spec.shape, _NUMPY_DTYPES[spec.dtype]) for k, spec in self._example.items()}
         with self._on_device():
-            if self.batch > 1:
+            if self.dp > 1:
+                self._lanes = _RankLanes(self, zeros)
+            elif self.batch > 1:
                 state = stack_lanes([self._initial_state()] * self.batch)
                 _, outs = self.run(state, {k: np.stack([v] * self.batch) for k, v in zeros.items()})
+                _to_host({"plan_best": outs["plan_best"]})
             else:
                 _, outs = self.run(self._initial_state(), zeros)
-            _to_host({"plan_best": outs["plan_best"]})
+                _to_host({"plan_best": outs["plan_best"]})
         self.warmup_seconds = time.time() - t0
         self.batcher: Optional[_MicroBatcher] = (
-            _MicroBatcher(self, window_s=batch_window_ms / 1e3) if self.batch > 1 else None
+            _MicroBatcher(self, window_s=batch_window_ms / 1e3) if self.batch > 1 and self.rank == 0 else None
         )
         self.started_at = time.time()
         self.request_counts: Dict[str, int] = {}
@@ -279,8 +381,23 @@ class PipelineServer:
         return torch.cuda.device(self.device) if self.device.type == "cuda" else contextlib.nullcontext()
 
     def close(self) -> None:
+        """Stop the batcher and, on rank 0 of a dp server, the other ranks'
+        `serve_worker` loops."""
         if self.batcher is not None:
             self.batcher.close()
+            self.batcher = None
+            if self.dp > 1:
+                with self._on_device():
+                    self._lanes.stop()
+
+    def serve_worker(self) -> None:
+        """Ranks 1..dp-1 of a dp server: run this rank's lanes of each run
+        rank 0 dispatches, until rank 0 closes."""
+        if self.dp == 1 or self.rank == 0:
+            raise RuntimeError("serve_worker runs on ranks 1..dp-1 of a dp server")
+        with self._on_device():
+            while self._lanes.run_shard():
+                pass
 
     # -- session management -------------------------------------------------
     def _add_session(self, state) -> str:
@@ -374,13 +491,7 @@ class PipelineServer:
     def _collect_result(self, outs) -> Dict[str, np.ndarray]:
         """The served outputs of a run on the host, with one
         synchronisation for all of them (a leading lane axis kept)."""
-        device = {k: outs[k] for k in _OUTPUT_KEYS}
-        vs = outs["vehicle_state"]
-        for f in _VEHICLE_KEYS:
-            device[f"vehicle_{f}"] = getattr(vs, f)
-        for k, v in (outs.get("tags") or {}).items():
-            device[f"tag_{k}"] = v
-        return _to_host(device)
+        return _to_host(_served(outs))
 
     def _record_latency(self, seconds: float) -> None:
         with self._lock:
@@ -408,8 +519,12 @@ class PipelineServer:
                 lane_states = [s for _, s in live] + [live[0][1]] * pad
                 lane_inputs = [r.inputs for r, _ in live] + [live[0][0].inputs] * pad
                 stacked = {k: np.stack([li[k] for li in lane_inputs]) for k in lane_inputs[0]}
-                new_state, outs = self.run(stack_lanes(lane_states), stacked)
-                host = self._collect_result(outs)
+                if self.dp > 1:
+                    new_state, served = self._lanes.run_all(stack_lanes(lane_states), stacked)
+                    host = _to_host(served)
+                else:
+                    new_state, outs = self.run(stack_lanes(lane_states), stacked)
+                    host = self._collect_result(outs)
                 for i, (req, _) in enumerate(live):
                     if req.cancelled:  # the waiter timed out mid-run: the
                         continue  # session must not silently advance
@@ -458,6 +573,15 @@ def _npz_bytes(arrays: Dict[str, np.ndarray]) -> bytes:
 def _npz_load(data: bytes) -> Dict[str, np.ndarray]:
     with np.load(io.BytesIO(data), allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    """The stdlib threading server with a listen backlog for many clients
+    at once: each request opens a connection, and the default backlog of 5
+    made the kernel reset connections when 8 sessions posted together
+    (``tools/serve_loadgen.py --sessions 8``)."""
+
+    request_queue_size = 128
 
 
 def make_handler(server: PipelineServer):
@@ -571,7 +695,9 @@ def serve(
     device="cuda",
 ):
     """Start the inference server; returns the HTTPServer when non-blocking
-    (``port=0`` takes a free port: ``httpd.server_address``)."""
+    (``port=0`` takes a free port: ``httpd.server_address``).  With ``dp >
+    1`` every rank of the process group calls this: rank 0 serves HTTP,
+    the other ranks run their lanes until rank 0 closes, and return None."""
     ps = PipelineServer(
         cfg=cfg,
         chunk=chunk,
@@ -582,9 +708,14 @@ def serve(
         dp=dp,
         device=device,
     )
-    httpd = ThreadingHTTPServer((host, port), make_handler(ps))
+    if ps.rank != 0:
+        ps.serve_worker()
+        return None
+    httpd = _HTTPServer((host, port), make_handler(ps))
     httpd.pipeline_server = ps
     batched = f", {batch}-session micro-batching" if batch > 1 else ""
+    if dp > 1:
+        batched += f", lanes over {dp} ranks"
     print(
         f"Serving the pipeline artifact ({ps.artifact_bytes} bytes) on {ps.device} ({chunk}-frame "
         f"chunks{batched}) on :{httpd.server_address[1]} (export {ps.export_seconds:.1f}s, "
@@ -621,7 +752,11 @@ def main(argv=None):
     parser.add_argument(
         "--batch-window-ms", type=float, default=5.0, help="how long a run waits for more sessions to coalesce"
     )
-    parser.add_argument("--dp", type=int, default=1, help="cards to shard the lanes over (only 1 in this slice)")
+    parser.add_argument(
+        "--dp", type=int, default=1,
+        help="ranks to spread each run's lanes over, one card a rank (start them with torchrun; "
+        "--batch a multiple of --dp)",
+    )
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
 
@@ -631,6 +766,18 @@ def main(argv=None):
         emit_candidates=False,
         emit_trajectories=False,
     )
+    device = args.device
+    if args.dp > 1:
+        import os
+
+        from ..parallel.distributed import init_ranks
+
+        if int(os.environ.get("WORLD_SIZE", "1")) != args.dp:
+            parser.error(
+                f"--dp {args.dp} runs {args.dp} ranks: start them with "
+                f"python -m torch.distributed.run --nproc-per-node {args.dp} -m {__spec__.name} --dp {args.dp} ..."
+            )
+        device = str(init_ranks(args.device))
     serve(
         cfg=cfg,
         chunk=args.chunk,
@@ -640,7 +787,7 @@ def main(argv=None):
         batch=args.batch,
         batch_window_ms=args.batch_window_ms,
         dp=args.dp,
-        device=args.device,
+        device=device,
     )
 
 

@@ -444,7 +444,9 @@ def make_yolo_detector(
 
     ``compute_dtype`` defaults to bfloat16; parameters and the decode / NMS
     tail stay float32.  ``pre_topk`` bounds the NMS candidate pool (top-K by
-    score out of the 8400 anchors at 640).
+    score out of the 8400 anchors at 640).  ``detect_fn.model`` is the
+    `YOLOv8` it runs the parameters through (parallel/tp.py hooks its
+    layers).
     """
     dev = resolve_device(device)
     model = YOLOv8(num_classes=num_classes, variant=variant, dtype=compute_dtype)
@@ -467,6 +469,7 @@ def make_yolo_detector(
             tables = {k: v[0] for k, v in tables.items()}
         return (tables, cands) if return_candidates else tables
 
+    detect_fn.model = model
     return init_fn, detect_fn
 
 

@@ -116,7 +116,38 @@ def canny_rounds(gray: torch.Tensor, low, high, hysteresis_iters: int = 64):
     ``while_loop`` does.  A round after the fixpoint changes nothing, so
     the rounds run in blocks of `HYSTERESIS_BLOCK` and the flag is read
     once a block: the result is the JAX one, with one host read a block.
+
+    Under ``torch.export`` (utils/export.py) the same blocks run in
+    `hysteresis_traced`, a ``while_loop`` the trace keeps, and ``rounds``
+    and ``reads`` are int32 tensors: the same map bit for bit.  There
+    ``reads`` counts the blocks, the eager path's reads; the loop itself
+    reads once more when it runs past the first block.
     """
+    strong, weak = _canny_masks(gray, low, high)
+    # The 8-neighbour dilation is a 3x3 max pool.  The JAX package rolls,
+    # which wraps at the border; only border pixels see the wrap, and
+    # ``weak`` is zero there.
+    weak_f = weak.to(torch.float32)
+    s = strong.to(torch.float32)
+    if torch.compiler.is_exporting():
+        s, rounds = hysteresis_traced(s, weak_f, hysteresis_iters)
+        return s > 0, rounds, (rounds + HYSTERESIS_BLOCK - 1) // HYSTERESIS_BLOCK
+    rounds = syncs = 0
+    while rounds < hysteresis_iters:
+        before = s
+        for _ in range(min(HYSTERESIS_BLOCK, hysteresis_iters - rounds)):
+            s = _grow(s, weak_f)
+            rounds += 1
+        syncs += 1
+        if torch.equal(s, before):
+            break
+    return s > 0, rounds, syncs
+
+
+def _canny_masks(gray: torch.Tensor, low, high):
+    """The strong and weak edge masks: the L1 gradient magnitude after
+    sector non-maximum suppression, above ``high`` and ``low``, zero on the
+    one-pixel border."""
     dx, dy = sobel3(gray)
     adx, ady = dx.abs(), dy.abs()
     mag = adx + ady
@@ -132,24 +163,44 @@ def canny_rounds(gray: torch.Tensor, low, high, hysteresis_iters: int = 64):
     h, w = gray.shape
     interior = torch.zeros((h, w), dtype=torch.bool, device=gray.device)
     interior[1 : h - 1, 1 : w - 1] = True
-    strong = keep & (mag > high) & interior
-    weak = keep & (mag > low) & interior
+    return keep & (mag > high) & interior, keep & (mag > low) & interior
 
-    # The 8-neighbour dilation is a 3x3 max pool.  The JAX package rolls,
-    # which wraps at the border; only border pixels see the wrap, and
-    # ``weak`` is zero there.
-    weak_f = weak.to(torch.float32)
-    s = strong.to(torch.float32)
-    rounds = syncs = 0
-    while rounds < hysteresis_iters:
+
+def _grow(s: torch.Tensor, weak_f: torch.Tensor) -> torch.Tensor:
+    """One hysteresis round: the 8-neighbour dilation of ``s`` within the
+    weak mask, joined with ``s``."""
+    return torch.maximum(F.max_pool2d(s[None, None], 3, 1, 1)[0, 0] * weak_f, s)
+
+
+def hysteresis_traced(s: torch.Tensor, weak_f: torch.Tensor, iters: int):
+    """`canny_rounds`' hysteresis as ``torch.export`` traces it, from the
+    strong map ``s`` and the weak mask ``weak_f`` (float32 0/1): the blocks
+    of `HYSTERESIS_BLOCK` rounds under ``torch._higher_order_ops.while_loop``
+    (the counterpart of the JAX package's ``lax.while_loop``), which
+    carries ``(s, changed, rounds)``.  The first block runs before the loop,
+    so the loop reads its flag once a block, as the eager blocks do, but
+    for one read: torch's eager ``while_loop`` reads its first condition
+    twice when the loop runs.  A round past ``iters`` leaves ``s`` as it
+    is.  Returns ``(s, rounds)``,
+    ``rounds`` an int32 tensor, the eager path's count."""
+    from torch._higher_order_ops import while_loop
+
+    def block(s, rounds):
         before = s
-        for _ in range(min(HYSTERESIS_BLOCK, hysteresis_iters - rounds)):
-            s = torch.maximum(F.max_pool2d(s[None, None], 3, 1, 1)[0, 0] * weak_f, s)
-            rounds += 1
-        syncs += 1
-        if torch.equal(s, before):
-            break
-    return s > 0, rounds, syncs
+        for k in range(HYSTERESIS_BLOCK):
+            s = torch.where(rounds + k < iters, _grow(s, weak_f), s)
+        return s, (s != before).any(), torch.clamp(rounds + HYSTERESIS_BLOCK, max=iters)
+
+    rounds = torch.zeros((), dtype=torch.int32, device=s.device)
+    if iters <= 0:
+        return s, rounds
+    s, changed, rounds = block(s, rounds)
+    s, _, rounds = while_loop(
+        lambda s, changed, rounds: changed & (rounds < iters),
+        lambda s, changed, rounds: block(s, rounds),
+        (s, changed, rounds),
+    )
+    return s, rounds
 
 
 def laplacian_variance(gray: torch.Tensor) -> torch.Tensor:

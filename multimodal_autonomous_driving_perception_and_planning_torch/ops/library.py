@@ -5,7 +5,7 @@ The ops, in the ``madpp`` namespace:
 
   ``madpp.tracker_step``  K1, ops/tracker_kernel.py `tracker_buffers`
   ``madpp.kalman_step``   K2, ops/kalman_kernel.py `kalman_buffer`
-  ``madpp.tagging_step``  K3 in detections mode, ops/tagging_kernel.py
+  ``madpp.tagging_step``  K3 in either mode, ops/tagging_kernel.py
                           `tagging_buffers`
 
 Each takes the leaves of its tables (`types.tree_leaves` order) and its
@@ -28,15 +28,17 @@ the ops: the frame step of an exported program calls these
 (`pipeline._make_frame_step` with ``ops=True``).  The eager runners call
 the wrappers directly, as a custom op's dispatch costs host time a call.
 
-Frames-mode tagging (the lane and scene rows) has no op yet: no exported
-program reaches it (ROADMAP item 11, the frames-mode artifact).
+K3's frames mode takes two more tensors, the lane row and the scene
+feature row (tagging/rules.py `frames_rows`), as optional arguments of
+``madpp.tagging_step``: given, the op runs frames mode, absent, detections
+mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +46,7 @@ from torch import Tensor
 
 from ..config import EstimatorConfig, TrackerConfig
 from ..estimation import ego
-from ..tagging.rules import TaggingRules, tagging_step_plain
+from ..tagging.rules import TaggingRules, frames_from_rows, frames_rows, tagging_step_plain
 from ..tracking import tracker
 from ..types import Detections, KalmanState, TaggingState, TrackTable, map_lanes, tree_leaves
 from . import kalman_kernel, launch, tagging_kernel, tracker_kernel
@@ -189,12 +191,13 @@ def tagging_step(
     vehicle_row: Tensor,
     scene_votes: Tensor, scene_count: Tensor, man_history: Tensor, man_count: Tensor, int_centers: Tensor,
     int_len: Tensor, int_track_id: Tensor, frame_count: Tensor,
-    params: List[float], min_hits: int,
+    params: List[float], min_hits: int, lane_row: Optional[Tensor] = None, feat_row: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
-    """One tagging step in detections mode: K3's float32 and int32 output
-    buffers (the new state and the packed tag rows).  ``params`` are the
-    rules' float32 constants (`TaggingRules.params`).  On the CPU, the
-    plain version."""
+    """One tagging step: K3's float32 and int32 output buffers (the new
+    state and the packed tag rows).  ``params`` are the rules' float32
+    constants (`TaggingRules.params`).  ``lane_row`` (..., 8) and
+    ``feat_row`` (..., 6) select frames mode.  On the CPU, the plain
+    version."""
     rules = _tagging_rules(params, scene_votes, man_history, int_centers, min_hits)
     dets = Detections(det_bbox, det_class_id, det_confidence, det_valid)
     table = TrackTable(track_id, bbox, class_id, confidence, age, hits, misses, trajectory, traj_len, velocity,
@@ -202,9 +205,10 @@ def tagging_step(
     state = TaggingState(scene_votes, scene_count, man_history, man_count, int_centers, int_len, int_track_id,
                          frame_count)
     lead = _lead(track_id, 1)
+    frames = () if lane_row is None else frames_from_rows(lane_row, feat_row)
     step = functools.partial(tagging_step_plain, rules)
-    new_state, tag_f, tag_i = (map_lanes(step, lead[0], state, dets, table, vehicle_row) if lead
-                               else step(state, dets, table, vehicle_row))
+    new_state, tag_f, tag_i = (map_lanes(step, lead[0], state, dets, table, vehicle_row, *frames) if lead
+                               else step(state, dets, table, vehicle_row, *frames))
     out = {**{f.name: getattr(new_state, f.name) for f in dataclasses.fields(TaggingState)},
            "tag_f": tag_f, "tag_i": tag_i}
     f_shapes, i_shapes = tagging_kernel.output_shapes(
@@ -216,20 +220,32 @@ def tagging_step(
     )
 
 
+_N_TAGGING_TENSORS = _N_DETS + _N_TABLE + 1 + len(dataclasses.fields(TaggingState))
+
+
+def _tagging_args(args):
+    """``(tensors, params, min_hits, lane_row, feat_row)`` of the op's
+    arguments as the dispatcher passes them (positionally, the trailing
+    optional rows left out when absent)."""
+    n = _N_TAGGING_TENSORS
+    lane_row, feat_row = (*args[n + 2 :], None, None)[:2]
+    return args[:n], args[n], args[n + 1], lane_row, feat_row
+
+
 @tagging_step.register_kernel("cuda")
 def _tagging_step_cuda(*args):
-    *tensors, params, min_hits = args
+    tensors, params, min_hits, lane_row, feat_row = _tagging_args(args)
     dets = Detections(*tensors[:_N_DETS])
     table = TrackTable(*tensors[_N_DETS : _N_DETS + _N_TABLE])
     vrow = tensors[_N_DETS + _N_TABLE]
     state = TaggingState(*tensors[_N_DETS + _N_TABLE + 1 :])
     rules = _tagging_rules(params, state.scene_votes, state.man_history, state.int_centers, min_hits)
-    return tagging_kernel.tagging_buffers(rules, state, dets, table, vrow)
+    return tagging_kernel.tagging_buffers(rules, state, dets, table, vrow, lane_row, feat_row)
 
 
 @tagging_step.register_fake
 def _tagging_step_fake(*args):
-    *tensors, params, min_hits = args
+    tensors = _tagging_args(args)[0]
     track_id = tensors[_N_DETS]
     scene_votes, _, man_history, _, int_centers = tensors[_N_DETS + _N_TABLE + 1 : _N_DETS + _N_TABLE + 6]
     shapes = tagging_kernel.output_shapes.__wrapped__(
@@ -241,19 +257,19 @@ def _tagging_step_fake(*args):
 
 def make_packed_tagging_step(cfg):
     """tagging/rules.py `make_packed_tagging_step` through the
-    ``madpp.tagging_step`` op, detections mode only:
-    ``step(state, dets, table, vrow) -> (state', tag_f, tag_i)``."""
+    ``madpp.tagging_step`` op, in either mode:
+    ``step(state, dets, table, vrow, lane_obs=None, frame_feats=None) ->
+    (state', tag_f, tag_i)``."""
     rules = TaggingRules.from_config(cfg)
     params = rules.params.tolist()
 
     def step(state, dets, table, vrow, lane_obs=None, frame_feats=None):
-        if lane_obs is not None or frame_feats is not None:
-            raise NotImplementedError(
-                "madpp.tagging_step runs K3 in detections mode; frames-mode tagging in an exported program "
-                "waits for the frames-mode artifact (ROADMAP item 11)"
-            )
+        if (lane_obs is None) != (frame_feats is None):
+            raise ValueError("lane_obs and frame_feats come together (frames mode) or not at all (detections mode)")
+        lane_row, feat_row = frames_rows(lane_obs, frame_feats)
         fbuf, ibuf = torch.ops.madpp.tagging_step(
-            *tree_leaves(dets), *tree_leaves(table), vrow, *tree_leaves(state), params, int(rules.min_hits)
+            *tree_leaves(dets), *tree_leaves(table), vrow, *tree_leaves(state), params, int(rules.min_hits),
+            lane_row, feat_row,
         )
         return tagging_kernel.unpack(fbuf, ibuf, rules, table)
 

@@ -92,11 +92,15 @@ def _time_grid(
     planning_horizon: float, dt: float, device: torch.device
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(t, 1 - e^{-t}, blend) on ``device``, built once per grid and device
-    so that a frame copies nothing from the host."""
+    so that a frame copies nothing from the host.  All three are computed
+    on the CPU and then copied: a constant computed on the card (its own
+    ``exp``) would differ by ulps from the CPU's, and a program exported on
+    the CPU (utils/export.py) carries the CPU's."""
     n = int(planning_horizon / dt) + 1
     t_np = linspace_f32(0.0, planning_horizon, n)
-    t = torch.from_numpy(t_np).to(device)
-    alpha = 1.0 - torch.exp(-t)
+    t_cpu = torch.from_numpy(t_np)
+    t = t_cpu.to(device)
+    alpha = (1.0 - torch.exp(-t_cpu)).to(device)
     blend = torch.from_numpy(quintic_blend(t_np, planning_horizon)).to(device)
     return t, alpha, blend
 

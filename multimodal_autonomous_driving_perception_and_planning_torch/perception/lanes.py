@@ -193,7 +193,11 @@ def make_lane_step(cfg: PipelineConfig, device="cuda"):
     """Build ``lane_step(state, frame) -> (state', obs, feats)`` for
     (H, W, 3) BGR frames on ``device`` (the card unless the caller asks for
     ``"cpu"``): the lane fits with their EMA, the LaneObservation, and the
-    scene features."""
+    scene features.
+
+    ``torch.export`` traces the step: its only data-dependent host read,
+    the Canny hysteresis's flag in both passes, runs under a
+    ``while_loop`` there (ops/image.py `canny_rounds`)."""
     device = resolve_device(device)
     h, w = cfg.frame_height, cfg.frame_width
     lc = cfg.lanes

@@ -615,6 +615,38 @@ def tagging_step_plain(
     return new_state, tag_f, tag_i
 
 
+# The scene features in the order of K3's feature row.
+FEATURE_KEYS = (
+    "center_edge_density", "num_long_lines", "avg_line_length", "green_ratio", "brightness", "laplacian_var",
+)
+
+
+def frames_rows(lane_obs: Optional[LaneObservation], frame_feats: Optional[Dict]):
+    """Frames mode's inputs as K3 takes them: the (..., 8) float32 lane row
+    (left fit, right fit, the two found flags) and the (..., 6) float32
+    feature row (`FEATURE_KEYS`); ``(None, None)`` in detections mode."""
+    if lane_obs is None:
+        return None, None
+    found = torch.stack([lane_obs.left_found, lane_obs.right_found], dim=-1).float()
+    lane_row = torch.cat([lane_obs.left_fit.float(), lane_obs.right_fit.float(), found], dim=-1)
+    return lane_row, torch.stack([frame_feats[k].float() for k in FEATURE_KEYS], dim=-1)
+
+
+def frames_from_rows(lane_row: torch.Tensor, feat_row: torch.Tensor):
+    """`frames_rows` undone for the plain version: ``(lane_obs,
+    frame_feats)`` with what the rules read (the fits and found flags; the
+    observation's other fields are zeros).  The plain version's tags equal
+    those from the original observation bit for bit: the rules compare the
+    line count, an integer, only with an integer bound."""
+    zero = torch.zeros_like(lane_row[..., 0])
+    lane_obs = LaneObservation(
+        left_fit=lane_row[..., 0:3], right_fit=lane_row[..., 3:6],
+        left_found=lane_row[..., 6] != 0, right_found=lane_row[..., 7] != 0,
+        left_confidence=zero, right_confidence=zero, offset_px=zero, has_offset=torch.zeros_like(zero, dtype=torch.bool),
+    )
+    return lane_obs, {k: feat_row[..., i] for i, k in enumerate(FEATURE_KEYS)}
+
+
 # --- the entry point --------------------------------------------------------
 
 
@@ -638,26 +670,7 @@ def make_packed_tagging_step(cfg: PipelineConfig):
             )
         device = table.track_id.device
         if device.type == "cuda":
-            lane_row = feat_row = None
-            if lane_obs is not None:
-                lane_row = torch.cat(
-                    [
-                        lane_obs.left_fit.float(),
-                        lane_obs.right_fit.float(),
-                        torch.stack([lane_obs.left_found, lane_obs.right_found], dim=-1).float(),
-                    ],
-                    dim=-1,
-                )
-                feat_row = torch.stack(
-                    [
-                        frame_feats[k].float()
-                        for k in (
-                            "center_edge_density", "num_long_lines", "avg_line_length",
-                            "green_ratio", "brightness", "laplacian_var",
-                        )
-                    ],
-                    dim=-1,
-                )
+            lane_row, feat_row = frames_rows(lane_obs, frame_feats)
             return tagging_kernel.tagging_step(
                 rules, state, dets, table, vrow, lane_row, feat_row
             )

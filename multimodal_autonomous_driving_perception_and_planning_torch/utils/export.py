@@ -24,24 +24,40 @@ then the step's outputs (K3's packed tag rows among them) in sorted key
 order.  The artifact carries those names, its frame count, lane count and
 device beside the program.
 
-Not exported yet: frames mode (the lane step reads the Canny hysteresis's
-flag on the host; a frames-mode program waits for a fixed round count,
-ROADMAP items 5a and 11), a program for several platforms at once (ROADMAP
-item 11) and lanes sharded over cards (``dp``, ROADMAP item 10b).
+Frames mode exports too: the lane step's Canny hysteresis, its one
+data-dependent host read, runs under a ``while_loop`` in the traced step
+(ops/image.py `hysteresis_traced`), so the program reads the flag once a
+block of rounds, as the eager step does.
+
+Platforms: an artifact for ``("cuda",)`` is exported on the card, one for
+``("cpu",)`` on the CPU.  One for ``("cuda", "cpu")`` is exported on the
+CPU and loads on either: the ``madpp`` ops dispatch on their tensors'
+device, so the same program launches K1-K3 on the card and runs their
+plain versions on the CPU, and `deserialize_runner` moves the program's
+constants and its baked-in devices to the card with
+``torch.export.passes.move_to_device_pass``.  The traced step holds no
+branch on the device: its only device-dependent code is inside the ops.
+So an artifact for the card can be made on a host without one.
+
+Lanes over ranks (``dp``): an artifact of ``batch`` B lanes and ``dp`` D
+holds the program of B/D lanes and records D.  Loaded in a process group
+of D ranks (parallel/distributed.py), each rank runs its B/D lanes on its
+own device, with no collective; `lane_sharding` is the sessions mesh.
 """
 
 from __future__ import annotations
 
 import io
 import json
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import PipelineConfig
 from ..ops import library  # noqa: F401 -- registers the madpp ops a loaded program calls
-from ..pipeline import _make_frame_step, _make_runner, initial_state
-from ..types import Detections, stack_lanes, tree_leaves, tree_unflatten
+from ..pipeline import _make_frame_step, _make_runner, check_card_limits, initial_state
+from ..types import Detections, stack_lanes, tree_leaves, tree_map, tree_unflatten
 from .device import resolve_device
 
 # The artifact's description of its program, saved beside it.
@@ -71,44 +87,51 @@ def example_sequence_inputs(cfg: PipelineConfig, num_frames: int) -> Dict[str, T
     return inputs
 
 
-def _refuse_unexportable(cfg: PipelineConfig, dp: int) -> None:
-    if dp > 1:
-        raise NotImplementedError(
-            f"dp={dp}: sharding the lane axis over cards needs torch.distributed (ROADMAP item 10b)"
-        )
+_PLATFORMS = ("cuda", "cpu")
+
+
+def _check_platforms(platforms) -> Tuple[str, ...]:
+    platforms = tuple(platforms)
+    if not platforms or len(set(platforms)) != len(platforms) or not set(platforms) <= set(_PLATFORMS):
+        raise ValueError(f"platforms={platforms}: the port exports for 'cuda', 'cpu' or both, each once")
+    return platforms
+
+
+def _lanes_per_rank(batch: int, dp: int) -> int:
     if dp < 1:
         raise ValueError(f"dp must be >= 1, got {dp}")
-    if cfg.use_frames:
-        raise NotImplementedError(
-            "use_frames: the lane step reads the Canny hysteresis's flag on the host, so a frames-mode "
-            "program waits for a fixed round count (ROADMAP items 5a and 11, the frames-mode artifact)"
-        )
+    if batch % dp != 0:
+        raise ValueError(f"batch={batch} must be a multiple of dp={dp}")
+    return batch // dp
 
 
 def _frame_inputs(frame: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A frame of `example_sequence_inputs`' keys as the frame step's inputs."""
     dets = Detections(frame["bbox"], frame["class_id"], frame["confidence"], frame["valid"])
-    return {"detections": dets, "ego_measurement": frame["ego_measurement"]}
+    inputs = {"detections": dets, "ego_measurement": frame["ego_measurement"]}
+    if "frame" in frame:
+        inputs["frame"] = frame["frame"]
+    return inputs
 
 
-def _flat_runner(cfg: PipelineConfig, num_frames: int, device="cuda", batch: int = 1):
+def _flat_runner(cfg: PipelineConfig, num_frames: int, device="cuda", batch: int = 1, lanes: bool = False):
     """``(module, example_leaves, in_keys, out_keys)`` for the frame step:
     ``module(*leaves)`` takes and returns the flat leaf lists of the module
     docstring, ``example_leaves`` are zeros of its inputs on ``device``.
 
-    ``batch > 1`` gives the step a leading lane axis: one program advances
-    ``batch`` independent states at once, K1-K3 one launch a frame for
-    all lanes (the serving tier's micro-batching, apps/serve.py).
-    ``num_frames`` is the chunk the runner takes; the step sees one frame.
+    ``lanes`` (or ``batch > 1``) gives the step a leading lane axis of
+    ``batch``: one program advances ``batch`` independent states at once,
+    K1-K3 one launch a frame for all lanes (the serving tier's
+    micro-batching, apps/serve.py).  ``num_frames`` is the chunk the runner
+    takes; the step sees one frame.
     """
-    _refuse_unexportable(cfg, 1)
     dev = resolve_device(device)
     step = _make_frame_step(cfg, dev, ops=True)
     specs = example_sequence_inputs(cfg, num_frames)
     in_keys = tuple(sorted(specs))
     state = initial_state(cfg, dev)
     frame = {k: torch.zeros(specs[k].shape[1:], dtype=specs[k].dtype, device=dev) for k in in_keys}
-    if batch > 1:
+    if lanes or batch > 1:
         state = stack_lanes([state] * batch)
         frame = {k: torch.stack([v] * batch) for k, v in frame.items()}
     n_state = len(tree_leaves(state))
@@ -141,26 +164,27 @@ def export_sequence_runner(
     """Serialize the ``num_frames``-frame sequence runner: the frame step's
     ``torch.export`` program and its description, as bytes.
 
-    ``platforms`` is ``("cuda",)`` (K1-K3 are the kernels; needs the card)
-    or ``("cpu",)`` (their plain versions).  ``batch > 1`` exports the step
-    with a lane axis of ``batch``.  Frames mode, several platforms and
-    ``dp > 1`` raise `NotImplementedError` naming their ROADMAP items.
+    ``platforms`` is ``("cuda",)`` (exported on the card: K1-K3 are the
+    kernels), ``("cpu",)`` (their plain versions) or both, in either order
+    (exported on the CPU, loadable on either; needs no card).  ``batch >
+    1`` exports the step with a lane axis.  ``dp > 1`` (``batch % dp ==
+    0``, else `ValueError`) exports the program of ``batch / dp`` lanes,
+    each rank's share; making it needs no process group.
     """
-    platforms = tuple(platforms)
-    if len(platforms) > 1:
-        raise NotImplementedError(
-            f"platforms={platforms}: one artifact for several platforms is not ported (ROADMAP item 11, "
-            "the multi-platform artifact); export one per platform"
-        )
-    if platforms not in (("cuda",), ("cpu",)):
-        raise ValueError(f"platforms={platforms}: the port exports for ('cuda',) or ('cpu',)")
-    _refuse_unexportable(cfg, dp)
-    module, leaves, in_keys, out_keys = _flat_runner(cfg, num_frames, platforms[0], batch)
+    platforms = _check_platforms(platforms)
+    local = _lanes_per_rank(batch, dp)
+    if "cuda" in platforms:
+        check_card_limits(cfg, torch.device("cuda"))
+    on = platforms[0] if len(platforms) == 1 else "cpu"
+    module, leaves, in_keys, out_keys = _flat_runner(cfg, num_frames, on, local, lanes=batch > 1)
     program = torch.export.export(module, tuple(leaves), strict=False)
     meta = {
         "num_frames": int(num_frames),
         "batch": int(batch),
-        "device": platforms[0],
+        "dp": int(dp),
+        "device": on,
+        "exported_on": str(leaves[0].device),
+        "platforms": list(platforms),
         "inputs": list(in_keys),
         "outputs": list(out_keys),
         "state_leaves": len(leaves) - len(in_keys),
@@ -179,24 +203,82 @@ def load_program(data: bytes):
     return program, json.loads(extra[_META])
 
 
-def deserialize_runner(data: bytes, cfg: PipelineConfig, num_frames: int, batch: int = 1, dp: int = 1):
+def lane_sharding(dp: int, device="cuda"):
+    """``(mesh, shard_for)`` sharding the leading session-lane axis over the
+    ``dp`` ranks of the process group: ``mesh`` a one-axis
+    ``("sessions",)`` `DeviceMesh`, ``shard_for(tensor)`` this rank's share
+    of a ``(B, ...)`` tensor as a ``DTensor`` placed ``Shard(0)`` on it
+    (the counterpart of the JAX package's ``NamedSharding``; no
+    communication).  ``device`` is this rank's.  Raises `ValueError` when
+    ``dp`` is not the number of ranks (a process without a group has
+    one rank and no mesh)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from ..parallel.distributed import rank_mesh
+
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    if dp != ranks or not dist.is_initialized():
+        raise ValueError(
+            f"lane_sharding: dp={dp} over the {ranks} rank(s) of this process"
+            + ("" if dist.is_initialized() else " (no torch.distributed process group is initialized)")
+            + "; dp must equal the number of ranks"
+        )
+    dev = resolve_device(device)
+    mesh = rank_mesh((dp,), ("sessions",), dev, what="lane_sharding")
+    rank = mesh.get_local_rank()
+
+    def shard_for(leaf) -> DTensor:
+        leaf = torch.as_tensor(leaf)
+        if leaf.shape[0] % dp:
+            raise ValueError(f"a lane axis of {leaf.shape[0]} does not split over dp={dp} ranks")
+        return DTensor.from_local(leaf.tensor_split(dp)[rank].to(dev), mesh, [Shard(0)], run_check=False)
+
+    return mesh, shard_for
+
+
+def deserialize_runner(data: bytes, cfg: PipelineConfig, num_frames: int, batch: int = 1, dp: int = 1,
+                       device: Optional[str] = None):
     """bytes -> ``run(state, inputs) -> (state', outputs)``, the results of
     `make_sequence_runner` (``batch`` 1) or `make_batched_sequence_runner`
-    (``batch`` > 1) on the artifact's device.
+    (``batch`` > 1).
 
-    ``cfg``, ``num_frames`` and ``batch`` are those of the exporting call:
-    ``run`` refuses inputs other than `example_sequence_inputs`' keys and
-    chunks of another length, and the program's guards refuse other
-    shapes.
+    ``cfg``, ``num_frames``, ``batch`` and ``dp`` are those of the
+    exporting call: ``run`` refuses inputs other than
+    `example_sequence_inputs`' keys and chunks of another length, and the
+    program's guards refuse other shapes.
+
+    ``device`` is where the program runs: by default the artifact's own
+    device, and the card for an artifact of several platforms (the rule
+    for entry points); the program moves there when it was exported
+    elsewhere.
+
+    ``dp > 1`` needs a process group of ``dp`` ranks (a single-rank
+    context is refused, as the JAX package's dp artifact refuses one
+    device).  Every rank calls ``run`` with the whole ``batch`` lanes, as
+    arrays or as ``DTensor``s sharded by `lane_sharding`, runs its own
+    ``batch / dp`` lanes on its device, and returns its lanes of the
+    results as ``DTensor``s placed ``Shard(0)`` on the sessions mesh
+    (``.full_tensor()`` gathers one).  ``run.local(state, inputs)`` runs
+    this rank's lanes given as plain tensors and returns plain tensors.
     """
-    _refuse_unexportable(cfg, dp)
     program, meta = load_program(data)
-    if (meta["num_frames"], meta["batch"]) != (num_frames, batch):
+    local = _lanes_per_rank(batch, dp)
+    if (meta["num_frames"], meta["batch"], meta.get("dp", 1)) != (num_frames, batch, dp):
         raise ValueError(
-            f"the artifact runs {meta['num_frames']}-frame chunks at batch {meta['batch']}; "
-            f"asked for {num_frames} at batch {batch}"
+            f"the artifact runs {meta['num_frames']}-frame chunks at batch {meta['batch']} over dp "
+            f"{meta.get('dp', 1)}; asked for {num_frames} at batch {batch} over dp {dp}"
         )
-    dev = resolve_device(meta["device"])
+    platforms = meta.get("platforms", [meta["device"]])
+    dev = resolve_device(device or ("cuda" if len(platforms) > 1 else meta["device"]))
+    if dev.type not in platforms:
+        raise ValueError(f"the artifact was exported for {platforms}; asked to run on {dev}")
+    if dev.type == "cuda":
+        check_card_limits(cfg, dev)
+    if torch.device(meta.get("exported_on", meta["device"])) != dev:
+        from torch.export.passes import move_to_device_pass
+
+        program = move_to_device_pass(program, str(dev))
+    sharding = lane_sharding(dp, dev) if dp > 1 else None
     module = program.module()
     in_keys, out_keys, n_state = meta["inputs"], meta["outputs"], meta["state_leaves"]
 
@@ -204,6 +286,9 @@ def deserialize_runner(data: bytes, cfg: PipelineConfig, num_frames: int, batch:
         dets = inputs["detections"]
         values = {"bbox": dets.bbox, "class_id": dets.class_id, "confidence": dets.confidence,
                   "valid": dets.valid, "ego_measurement": inputs["ego_measurement"]}
+        if "frame" in inputs:
+            # The program takes int32 frames; uint8 ones convert on the device.
+            values["frame"] = inputs["frame"].to(torch.int32)
         leaves = module(*tree_leaves(state), *(values[k] for k in in_keys))
         return tree_unflatten(state, leaves[:n_state]), dict(zip(out_keys, leaves[n_state:])), {}
 
@@ -218,7 +303,25 @@ def deserialize_runner(data: bytes, cfg: PipelineConfig, num_frames: int, batch:
             raise ValueError(f"the artifact runs {num_frames}-frame chunks; got {frames} frames")
         return runner(state, inputs)
 
-    return run
+    if sharding is None:
+        return run
+    mesh, shard_for = sharding
+
+    def run_lanes(state, inputs):
+        """This rank's ``local`` lanes of the whole batch, run, as DTensors."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        def mine(x):
+            x = x if isinstance(x, DTensor) else shard_for(x)
+            return x.to_local().to(dev)
+
+        new_state, outs = run(tree_map(mine, state), {k: mine(v) for k, v in inputs.items()})
+        return tree_map(lambda t: DTensor.from_local(t, mesh, [Shard(0)], run_check=False), (new_state, outs))
+
+    # ``local`` runs this rank's lanes alone, tensors in and out (the dp
+    # server's ranks, which hold only their own lanes).
+    run_lanes.mesh, run_lanes.lanes_per_rank, run_lanes.local = mesh, local, run
+    return run_lanes
 
 
 def save_exported(path: str, data: bytes) -> None:

@@ -308,9 +308,10 @@ def test_demo_and_webview_on_card(device):
 
 def test_madpp_ops_equal_their_wrappers(device):
     """Each madpp op (ops/library.py) on the card against its wrapper on the
-    same inputs at the paths' states, every output bit for bit."""
+    same inputs at the paths' states, ``madpp.tagging_step`` in both of
+    K3's modes, every output bit for bit."""
     result = chip_smoke.check_madpp_ops(device, chip_smoke.synthetic_inputs())
-    assert sorted(result) == ["kalman_step", "tagging_step", "tracker_step"]
+    assert sorted(result) == ["kalman_step", "tagging_step", "tagging_step_frames", "tracker_step"]
     torch.cuda.synchronize()
 
 
@@ -336,6 +337,55 @@ def test_export_path_on_card(device):
     300 frames bit for bit the eager runner's at batch 1 and 8, one launch
     of each kernel a frame."""
     result = chip_smoke.check_export_path(device, chip_smoke.synthetic_inputs())
-    assert sorted(result["cases"]) == sorted(label for label, _, _ in chip_smoke.EXPORT_CASES)
-    for case in result["cases"].values():
-        assert case["bytes"] > 0 and case["device"] == "cuda"
+    labels = [label for label, _, _ in chip_smoke.EXPORT_CASES]
+    assert sorted(result["cases"]) == sorted(labels + ["frames_b1", "multi_b1"])
+    for label in labels:
+        assert result["cases"][label]["bytes"] > 0 and result["cases"][label]["device"] == "cuda"
+    frames = result["cases"]["frames_b1"]
+    assert frames["while_loops"] == 2 and frames["launches"]["tagging_step"] == chip_smoke.EXPORT_FRAMES_MODE
+    h = frames["hysteresis_per_frame"]
+    assert h["eager_reads"] == h["eager_blocks"]
+    assert h["exported_reads"] == h["eager_blocks"] + h["eager_calls_past_one_block"]
+    multi = result["cases"]["multi_b1"]
+    assert multi["exported_on"] == "cpu" and multi["float_max_abs_gap"] <= chip_smoke.MULTI_PLATFORM_ATOL
+
+
+def test_frames_mode_tagging_op_on_card(device):
+    """``madpp.tagging_step`` with its lane and feature rows (K3's frames
+    mode) on the card against the wrapper on the same inputs, bit for
+    bit, with and without a lane axis."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import library, tagging_kernel
+    from multimodal_autonomous_driving_perception_and_planning_torch.tagging.rules import frames_from_rows
+    from multimodal_autonomous_driving_perception_and_planning_torch.types import stack_lanes
+
+    rules, state, dets, table, vrow = chip_smoke.tagging_state(device, chip_smoke.synthetic_inputs())
+    gen = torch.Generator().manual_seed(3)
+    lane_row = torch.cat([torch.randn(6, generator=gen), torch.tensor([1.0, 0.0])]).to(device)
+    feat_row = (torch.rand(6, generator=gen) * torch.tensor([0.1, 8.0, 200.0, 0.2, 120.0, 300.0])).to(device)
+    step = library.make_packed_tagging_step(chip_smoke.bench_config(True))
+    for lanes in (None, 3):
+        args = (state, dets, table, vrow, lane_row, feat_row)
+        if lanes is not None:
+            args = tuple(stack_lanes([a] * lanes) for a in args)
+        lane_obs, feats = frames_from_rows(args[4], args[5])
+        want = tagging_kernel.tagging_step(rules, *args)
+        got = step(*args[:4], lane_obs, feats)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(chip_smoke._tensors(got), chip_smoke._tensors(want)))
+
+
+def test_traced_hysteresis_on_card(device):
+    """The Canny hysteresis's while_loop form on the card: the eager
+    blocks' maps and rounds on road frames."""
+    result = chip_smoke.hysteresis_rounds(device, chip_smoke.frames_inputs(4)["frame"])
+    assert result["traced_rounds"] == result["eager_rounds"] > 0
+
+
+def test_cross_card_on_one_card(device):
+    """chip_smoke's `cross_card`: two gloo ranks sharing the card (camera
+    mesh, dp server, tensor-parallel YOLO and BLIP), then one NCCL rank."""
+    result = chip_smoke.check_cross_card(device)
+    ranks = result["gloo_ranks_on_one_card"]
+    assert len(ranks) == 2 and ranks[0]["dp_server"]["dp"] == 2
+    assert ranks[0]["tp_yolo"]["launches"]["nms_keep"] >= 1
+    assert result["nccl_world_1"]["gathered_whole"]

@@ -7,8 +7,13 @@ The counterpart of tests/test_utils.py's round trip: JAX's
 same 20 frames, every leaf of the final state and the outputs equal,
 discrete leaves bit for bit and floats within atol 1e-4 (PARITY.md).  The
 port's artifact against its eager runner bit for bit at batch 1 and 4, a
-load in a fresh process, the refusals, and `torch.library.opcheck` on
-each op.
+load in a fresh process, the dp, multi-platform and frames-mode exports
+and what is still refused, and `torch.library.opcheck` on each op.  Then
+frames mode at 120x160 against JAX's frames-mode artifact and the eager
+runner at batch 1 and 2, the multi-platform artifact against the CPU one,
+an artifact for the card made without one (tests/test_utils.py's
+cross-host case), K3's frames mode through its op, and the Canny
+hysteresis exported against its eager blocks.
 """
 
 import dataclasses
@@ -23,7 +28,9 @@ import pytest
 import torch
 
 import multimodal_autonomous_driving_perception_and_planning_torch as pt
+import multimodal_autonomous_driving_perception_and_planning_tpu as pj
 from multimodal_autonomous_driving_perception_and_planning_torch.estimation.ego import estimator_step_row
+from multimodal_autonomous_driving_perception_and_planning_torch.ops import image as it
 from multimodal_autonomous_driving_perception_and_planning_torch.ops import library
 from multimodal_autonomous_driving_perception_and_planning_torch.ops.kalman import (
     KalmanModel,
@@ -53,6 +60,18 @@ from multimodal_autonomous_driving_perception_and_planning_tpu.data.synthetic im
 ROOT = Path(__file__).resolve().parent.parent
 FRAMES = 20
 ATOL = 1e-4
+
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread, as tests/test_torch_yolo.py pins: the suite
+    runs several workers on the same cores, and torch's default of one
+    thread a core in each made the frames-mode steps wait on one another."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _config(pkg):
@@ -242,22 +261,35 @@ def test_runner_refuses_other_inputs(artifacts, case):
             run(state, dict(_stream(), has_measurement=np.ones(FRAMES, bool)))
 
 
+# The cases keep the ids they had when each of them was refused.
 @pytest.mark.parametrize(
-    "kwargs,error,match",
-    [
-        ({"dp": 2}, NotImplementedError, "ROADMAP item 10b"),
-        ({"platforms": ("cuda", "cpu")}, NotImplementedError, "ROADMAP item 11"),
-        ({"platforms": ("tpu",)}, ValueError, "'cuda',"),
-        ({"use_frames": True}, NotImplementedError, "ROADMAP items 5a and 11"),
-    ],
+    "case",
+    ["dp", "platforms", "tpu", "use_frames"],
+    ids=["kwargs0-NotImplementedError-ROADMAP item 10b", "kwargs1-NotImplementedError-ROADMAP item 11",
+         "kwargs2-ValueError-'cuda',", "kwargs3-NotImplementedError-ROADMAP items 5a and 11"],
 )
-def test_export_refuses_what_is_not_ported(kwargs, error, match):
-    cfg = CFG.replace(use_frames=True) if kwargs.pop("use_frames", False) else CFG
-    with pytest.raises(error, match=match):
-        ex.export_sequence_runner(cfg, 4, **{"platforms": ("cpu",), **kwargs})
-    if "dp" in kwargs or cfg.use_frames:
-        with pytest.raises(error, match=match):
-            ex.deserialize_runner(b"", cfg, 4, **kwargs)
+def test_export_refuses_what_is_not_ported(case, frames_artifacts):
+    """What export once refused and now makes, and what it still refuses:
+    ``dp=2`` exports the program of batch / dp lanes (a batch that does not
+    split raises) and its runner refuses a context without dp ranks;
+    ``("cuda", "cpu")`` exports on the CPU; a TPU target raises; frames
+    mode exports with the frame among its inputs."""
+    if case == "dp":
+        with pytest.raises(ValueError, match="multiple of dp=2"):
+            ex.export_sequence_runner(CFG, 4, platforms=("cpu",), dp=2)
+        data = ex.export_sequence_runner(CFG, 4, platforms=("cpu",), batch=2, dp=2)
+        assert (ex.load_program(data)[1]["dp"], ex.load_program(data)[1]["batch"]) == (2, 2)
+        with pytest.raises(ValueError, match="dp=2 over the 1 rank.*no torch.distributed process group"):
+            ex.deserialize_runner(data, CFG, 4, batch=2, dp=2, device="cpu")
+    elif case == "platforms":
+        _, meta = ex.load_program(ex.export_sequence_runner(CFG, 4, platforms=("cuda", "cpu")))
+        assert (meta["platforms"], meta["exported_on"]) == (["cuda", "cpu"], "cpu")
+    elif case == "tpu":
+        with pytest.raises(ValueError, match="'cuda', 'cpu' or both"):
+            ex.export_sequence_runner(CFG, 4, platforms=("tpu",))
+    else:
+        _, meta = ex.load_program(frames_artifacts(1)[0])
+        assert "frame" in meta["inputs"] and {"lane_f", "lane_b"} <= set(meta["outputs"])
 
 
 def test_cuda_export_needs_the_card():
@@ -352,3 +384,229 @@ def test_cuda_implementation_never_runs_the_plain_version(op_inputs, name):
                  "tagging_step": library._tagging_step_cuda}[name]
     with pytest.raises(ValueError, match="launches a CUDA kernel"):
         cuda_impl(*op_inputs(None)[name])
+
+
+# --- frames mode, several platforms, the traced hysteresis --------------------
+
+FRAMES_H, FRAMES_W, FRAMES_N = 120, 160, 8
+
+
+def _frames_config(pkg):
+    return pkg.DEFAULT_CONFIG.replace(use_frames=True, enable_tagging=True, frame_height=FRAMES_H,
+                                      frame_width=FRAMES_W)
+
+
+def _road_stream(lane=0):
+    """A 120x160 road clip (the dashes' phase shifted a lane) with its
+    detections and ego stream; the frames as uint8."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.data.frames import SyntheticRoadGenerator
+
+    frames = SyntheticRoadGenerator(width=FRAMES_W, height=FRAMES_H).generate_frames(FRAMES_N + 3 * lane)[3 * lane :]
+    return {**_stream(FRAMES_N, start=1 + 7 * lane, seed=lane), "frame": frames}
+
+
+@pytest.fixture(scope="module")
+def frames_artifacts():
+    """``frames_artifacts(batch)``: the port's frames-mode CPU artifact and
+    its loaded runner, made once a lane count (a frames-mode export and a
+    load take about 15 and 5 s here)."""
+    made = {}
+
+    def get(batch):
+        if batch not in made:
+            data = ex.export_sequence_runner(_frames_config(pt), FRAMES_N, platforms=("cpu",), batch=batch)
+            made[batch] = data, ex.deserialize_runner(data, _frames_config(pt), FRAMES_N, batch=batch)
+        return made[batch]
+
+    return get
+
+
+def test_frames_mode_artifact_matches_jax(frames_artifacts):
+    """JAX's frames-mode `export_sequence_runner` and the port's at 120x160
+    over 8 frames: every leaf of the final state and the outputs, discrete
+    bit for bit, floats within ATOL."""
+    from multimodal_autonomous_driving_perception_and_planning_tpu import initial_state as jax_initial_state
+    from multimodal_autonomous_driving_perception_and_planning_tpu.utils import export as jex
+
+    cfg_j, cfg_t = _frames_config(pj), _frames_config(pt)
+    inputs = _road_stream()
+    run_j = jex.deserialize_runner(jex.export_sequence_runner(cfg_j, FRAMES_N, platforms=("cpu",)), cfg_j, FRAMES_N)
+    want = jax.tree_util.tree_flatten_with_path(
+        run_j(jax_initial_state(cfg_j), {k: jnp.asarray(v.astype(np.int32) if k == "frame" else v)
+                                         for k, v in inputs.items()})
+    )[0]
+    run_t = frames_artifacts(1)[1]
+    got = _leaves(run_t(pt.initial_state(cfg_t, device="cpu"), inputs))
+    assert len(got) == len(want) > 50
+    assert any(p.startswith("/1/lane_obs") for p, _ in got)
+    values = {}
+    for (path, a), (_, b) in zip(got, want):
+        a, b = a.numpy(), np.asarray(b)
+        values[path] = (a, b)
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        if b.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=0, atol=ATOL, err_msg=path)
+        elif path != "/1/plan_order":
+            np.testing.assert_array_equal(a, b, err_msg=path)
+    (order_t, order_j), costs_j = values["/1/plan_order"], values["/1/plan_costs"][1]
+    np.testing.assert_allclose(np.take_along_axis(costs_j, order_t, axis=1),
+                               np.take_along_axis(costs_j, order_j, axis=1), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_frames_mode_artifact_equals_the_eager_runner(frames_artifacts, batch):
+    """The frames-mode program looped over 8 road frames (uint8, as the
+    eager runner takes them) gives the eager frames runner's state and
+    outputs bit for bit, unbatched and with 2 lanes of their own clips; it
+    reaches K1-K3 only through the madpp ops and runs the Canny
+    hysteresis as two while_loops."""
+    cfg = _frames_config(pt)
+    data, run = frames_artifacts(batch)
+    if batch == 1:
+        eager = pt.make_sequence_runner(cfg, device="cpu")
+        state, inputs = pt.initial_state(cfg, device="cpu"), _road_stream()
+    else:
+        eager = pt.make_batched_sequence_runner(cfg, device="cpu")
+        state = stack_lanes([pt.initial_state(cfg, device="cpu")] * batch)
+        streams = [_road_stream(b) for b in range(batch)]
+        inputs = {k: np.stack([s[k] for s in streams]) for k in streams[0]}
+    _assert_bit_equal(run(state, inputs), eager(state, inputs))
+    program, _ = ex.load_program(data)
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert {t for t in targets if t.startswith("madpp.")} == {
+        "madpp.tracker_step.default", "madpp.kalman_step.default", "madpp.tagging_step.default"
+    }
+    assert sum("while_loop" in t for t in targets) == 2 * batch  # each lane's two Canny passes
+
+
+def test_multi_platform_artifact_equals_the_cpu_artifact(artifacts):
+    """``("cuda", "cpu")`` exports on the CPU; loaded with ``device="cpu"``
+    it runs the madpp ops' plain versions and gives the CPU artifact's
+    results bit for bit; loaded with the default device it asks for the
+    card, refused here."""
+    data = ex.export_sequence_runner(CFG, FRAMES, platforms=("cpu", "cuda"))
+    program, meta = ex.load_program(data)
+    assert (meta["platforms"], meta["device"]) == (["cpu", "cuda"], "cpu")
+    assert {str(n.target) for n in program.graph.nodes if str(n.target).startswith("madpp.")} == {
+        "madpp.tracker_step.default", "madpp.kalman_step.default", "madpp.tagging_step.default"
+    }
+    inputs, state = _stream(), pt.initial_state(CFG, device="cpu")
+    got = ex.deserialize_runner(data, CFG, FRAMES, device="cpu")(state, inputs)
+    _assert_bit_equal(got, ex.deserialize_runner(artifacts(1), CFG, FRAMES)(state, inputs))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ex.deserialize_runner(data, CFG, FRAMES)
+
+
+def test_artifact_for_the_card_made_without_one():
+    """tests/test_utils.py's cross-host case: an artifact for the card made
+    on a host without one is a real program (over 10 kB), and so is one
+    with the lanes spread over 4 ranks (each rank's program has one lane
+    of the 4) made with no process group."""
+    data = ex.export_sequence_runner(CFG, 4, platforms=("cuda", "cpu"))
+    assert isinstance(data, (bytes, bytearray)) and len(data) > 10_000
+    sharded = ex.export_sequence_runner(CFG, 4, platforms=("cuda", "cpu"), batch=4, dp=4)
+    program, meta = ex.load_program(sharded)
+    assert (meta["batch"], meta["dp"], meta["platforms"]) == (4, 4, ["cuda", "cpu"])
+    first = next(n for n in program.graph.nodes if n.op == "placeholder" and n.name.startswith("leaves"))
+    assert first.meta["val"].shape[0] == 1  # one lane a rank
+
+
+def _frames_op_args(op_inputs, lanes):
+    """`op_inputs`' tagging arguments with a lane row and a feature row."""
+    args = op_inputs(lanes)["tagging_step"]
+    lead = () if lanes is None else (lanes,)
+    rng = np.random.default_rng(3)
+    lane_row = torch.as_tensor(np.concatenate([rng.normal(size=lead + (6,)), rng.integers(0, 2, lead + (2,))], -1),
+                               dtype=torch.float32)
+    feat_row = torch.as_tensor(np.abs(rng.normal(size=lead + (6,))) * [0.1, 8, 200, 0.2, 120, 300], dtype=torch.float32)
+    return (*args, lane_row, feat_row)
+
+
+@pytest.mark.parametrize("lanes", [None, 3])
+def test_frames_mode_tagging_op_passes_opcheck(op_inputs, lanes):
+    """`torch.library.opcheck` on ``madpp.tagging_step`` with its two
+    frames-mode rows."""
+    torch.library.opcheck(torch.ops.madpp.tagging_step.default, _frames_op_args(op_inputs, lanes))
+
+
+def test_frames_mode_op_route_equals_the_dispatcher(op_inputs):
+    """Frames-mode tagging through the op (the rows rebuilt into the
+    observation and features the plain version reads) against the plain
+    route on the original observation and features, bit for bit."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.tagging.rules import frames_from_rows
+
+    cfg = CFG.replace(tracker=dataclasses.replace(CFG.tracker, max_tracks=16))
+    a = _frames_op_args(op_inputs, None)
+    dets, table, state = Detections(*a[:4]), TrackTable(*a[4:16]), TaggingState(*a[17:25])
+    lane_obs, feats = frames_from_rows(a[27], a[28])
+    feats = {**feats, "num_long_lines": feats["num_long_lines"].round().to(torch.int32)}
+    got = library.make_packed_tagging_step(cfg)(state, dets, table, a[16], lane_obs, feats)
+    want = make_packed_tagging_step(cfg)(state, dets, table, a[16], lane_obs, feats)
+    _assert_bit_equal(got, want)
+    _, tag_f, tag_i = library.make_packed_tagging_step(cfg)(state, dets, table, a[16])  # detections mode
+    assert not (torch.equal(tag_f, got[1]) and torch.equal(tag_i, got[2]))
+
+
+def _spiral_image(size=96, width=4):
+    """A square spiral corridor of weak contrast (60) from a strong block
+    (200) at its outer end: hysteresis grows along its walls a pixel a
+    round, for hundreds of rounds."""
+    img = np.zeros((size, size), np.int32)
+    lo, hi = 6, size - 6
+    while hi - lo > 2 * width + 4:
+        img[lo : lo + width, lo:hi] = 60
+        img[lo:hi, hi - width : hi] = 60
+        img[hi - width : hi, lo + 2 * width : hi] = 60
+        img[lo + 2 * width : hi, lo + 2 * width : lo + 3 * width] = 60
+        lo, hi = lo + 2 * width, hi - 2 * width
+    img[6 : 6 + width, 6:14] = 200
+    return img
+
+
+class _CannyRounds(torch.nn.Module):
+    """`canny_rounds` as a module to export: the thresholds are inputs."""
+
+    def __init__(self, iters):
+        super().__init__()
+        self.iters = iters
+
+    def forward(self, gray, low, high):
+        return it.canny_rounds(gray, low, high, self.iters)
+
+
+@pytest.mark.parametrize("iters", [64, 1000])
+@pytest.mark.parametrize("image", ["road", "spiral"])
+def test_traced_hysteresis_equals_canny_rounds(image, iters):
+    """`canny_rounds` exported (its blocks under a while_loop,
+    `hysteresis_traced`) against its eager blocks: the same map and the
+    same rounds and reads, on the lane step's two Canny passes over road
+    frames and on a spiral that runs to the cap of 64 rounds and, with a
+    cap of 1,000, to its fixpoint far past it."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.data.frames import SyntheticRoadGenerator
+
+    if image == "spiral":
+        cases = [(torch.as_tensor(_spiral_image()), 100.0, 400.0)]
+    else:
+        cases = []
+        for frame in SyntheticRoadGenerator(width=FRAMES_W, height=FRAMES_H).generate_frames(3):
+            gray = it.bgr_to_gray_u8(torch.as_tensor(frame))
+            blurred = it.gaussian_blur5_u8(gray)
+            med = it.median_u8(blurred)
+            low = torch.floor(torch.clamp(torch.tensor(0.7) * med, min=0.0))
+            high = torch.floor(torch.clamp(torch.tensor(1.3) * med, max=255.0))
+            cases += [(blurred, low, high), (it.downsample2_u8(gray), 50.0, 150.0)]
+    exported, rounds = {}, []
+    for gray, low, high in cases:
+        args = (gray, torch.as_tensor(low, dtype=torch.float32), torch.as_tensor(high, dtype=torch.float32))
+        if gray.shape not in exported:
+            program = torch.export.export(_CannyRounds(iters), args, strict=False)
+            assert sum("while_loop" in str(n.target) for n in program.graph.nodes if n.op == "call_function") == 1
+            exported[gray.shape] = program.module()
+        want, want_rounds, want_reads = it.canny_rounds(gray, low, high, iters)
+        got, got_rounds, got_reads = exported[gray.shape](*args)
+        assert torch.equal(got, want)
+        assert (int(got_rounds), int(got_reads)) == (want_rounds, want_reads)
+        rounds.append(want_rounds)
+    if image == "spiral":
+        assert rounds[0] == 64 if iters == 64 else 64 < rounds[0] < 1000

@@ -34,6 +34,18 @@ _DISCRETE = ("track_id", "track_hits", "track_misses", "confirmed_order", "num_c
 _FLOAT = ("track_bbox", "track_velocity", "plan_costs", "plan_best_positions")
 
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread, as tests/test_torch_yolo.py pins: the suite
+    runs several workers on the same cores, and torch's default of one
+    thread a core in each made the frames-mode steps wait on one another."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _camera_stream(cam, num_frames):
     dets = simulated_detection_stream(num_frames, start_frame_count=1 + 7 * cam)
     ego = ego_motion_stream(num_frames, seed=cam)
@@ -132,9 +144,12 @@ def test_multicamera_frames_mode_full_stack():
 
 
 def test_a_mesh_of_more_than_one_card_is_refused():
-    """Cameras over several cards is ROADMAP item 10b: it raises, and never
-    runs on one card instead."""
-    with pytest.raises(NotImplementedError, match="10b"):
+    """A camera mesh of more than one rank needs a process group of that
+    many ranks (tests/test_torch_parallel.py runs one): without one it
+    raises, naming the group, and never runs on one device instead.  One
+    device needs no group."""
+    with pytest.raises(RuntimeError, match="process group"):
         make_camera_mesh(2, device="cpu")
     mesh = make_camera_mesh(device="cpu")
     assert mesh.devices == (torch.device("cpu"),) and mesh.axis_names == ("camera",)
+    assert mesh.device_mesh is None and mesh.size == 1

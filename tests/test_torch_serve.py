@@ -6,7 +6,8 @@ LRU eviction and delete, session export and import (a carry exported from
 a JAX state too, and the port's carry continued by JAX), the micro-batched
 server against JAX lane by lane and against the unbatched server, partial
 fill and padding, timeout-cancel, stress chaining under jitter, the load
-generator end to end, and ``dp > 1`` refused.  The server runs in the
+generator end to end, and the dp server over two gloo ranks (and refused
+without them).  The server runs in the
 serving configuration (detections mode, tagging on) with ``device="cpu"``,
 where the kernels' plain versions run.  Each chunk's outputs are held to
 the jitted JAX `make_sequence_runner` on the same chunks, chained:
@@ -413,11 +414,113 @@ def test_serve_loadgen_end_to_end(artifact):
 
 
 def test_dp_above_one_is_refused():
-    """Sharding the lanes over cards is ROADMAP item 10b: dp > 1 raises."""
-    with pytest.raises(ValueError, match="10b"):
+    """A dp server needs a process group of dp ranks (test_dp_server_*
+    runs one): without one, dp > 1 raises, naming the group; a batch that
+    does not split over dp and a batch of 0 raise at construction."""
+    with pytest.raises(ValueError, match="dp=2 over the 1 rank.*no torch.distributed process group"):
         PipelineServer(cfg=CFG, chunk=CHUNK, batch=4, dp=2, device="cpu")
+    with pytest.raises(ValueError, match="multiple of dp=2"):
+        PipelineServer(cfg=CFG, chunk=CHUNK, batch=3, dp=2, device="cpu")
     with pytest.raises(ValueError):
         PipelineServer(cfg=CFG, chunk=CHUNK, batch=0, device="cpu")
+
+
+def test_dp_server_matches_jax_and_the_unbatched_server(jax_run, artifact, tmp_path):
+    """tests/test_serve.py's dp case: a dp=2, batch=4 server over two gloo
+    ranks, two sessions driven concurrently for two chained chunks each,
+    so that lanes of states gathered from both ranks feed the next run:
+    every served output equals the unbatched server's bit for bit and
+    JAX's runner (discrete bit for bit, floats within ATOL), each
+    session's state JAX's, and the run spans both ranks."""
+    import test_torch_ranks as ranks
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.parallel.distributed import spawn
+
+    seeds = (0, 7)
+    chunks = {s: _session_chunks(s, 2) for s in seeds}
+    got = spawn(ranks.dp_server_rank, 2, str(tmp_path), CFG, CHUNK, 4, chunks, backend="gloo",
+                threads=1, timeout=ranks.RANK_TIMEOUT)
+    assert got[1] is None
+    got = got[0]
+    assert not got["errors"] and not got["alive"], got["errors"]
+    ref = PipelineServer(cfg=CFG, chunk=CHUNK, artifact=artifact(1), max_sessions=2, batch=1, device="cpu")
+    for s in seeds:
+        rsid = ref.create_session()
+        state_j, want = _jax_chain(jax_run, chunks[s])
+        for c in range(2):
+            _assert_equal(got["got"][s][c], ref.infer(rsid, chunks[s][c]), f"seed {s} chunk {c} unbatched")
+            _assert_matches_jax(got["got"][s][c], want[c], f"seed {s} chunk {c}")
+        _assert_state_matches_jax(got["states"][s], state_j, f"seed {s} state")
+    m = got["batching"]
+    assert (m["dp"], m["batch"], m["lanes_served"]) == (2, 4, 4) and m["dispatches"] >= 2
+
+
+def test_dp_artifact_runs_each_ranks_lanes(tmp_path):
+    """A dp=2, batch=4 artifact: each of two ranks runs its 2 lanes of the
+    whole batch and returns them as DTensors, whose gathered whole equals
+    the batch-4 artifact's run bit for bit; in one process (a single-rank
+    context) it is refused."""
+    import test_torch_ranks as ranks
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.parallel.distributed import spawn
+    from multimodal_autonomous_driving_perception_and_planning_torch.types import stack_lanes, tree_leaves
+
+    data = export_sequence_runner(CFG, CHUNK, platforms=("cpu",), batch=4, dp=2)
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.export import deserialize_runner
+
+    with pytest.raises(ValueError, match="process group"):
+        deserialize_runner(data, CFG, CHUNK, batch=4, dp=2, device="cpu")
+    streams = [_chunk_arrays(0, seed=s) for s in (0, 3, 5, 7)]
+    inputs = {k: np.stack([st[k] for st in streams]) for k in streams[0]}
+    state = stack_lanes([pt.initial_state(CFG, device="cpu")] * 4)
+    leaves = [t.numpy() for t in tree_leaves(state)]
+    got = spawn(ranks.dp_runner_rank, 2, str(tmp_path), data, CFG, CHUNK, 4, leaves, inputs, backend="gloo",
+                threads=1, timeout=ranks.RANK_TIMEOUT)
+    batch4 = export_sequence_runner(CFG, CHUNK, platforms=("cpu",), batch=4)
+    want_state, want = deserialize_runner(batch4, CFG, CHUNK, batch=4)(state, inputs)
+    for rank, r in enumerate(got):
+        assert r["lanes_per_rank"] == 2
+        np.testing.assert_array_equal(r["local_track_id"], want["track_id"][2 * rank : 2 * rank + 2].numpy())
+        whole_state, whole = r["whole"]
+        for a, b in zip(tree_leaves(whole_state), tree_leaves(want_state)):
+            np.testing.assert_array_equal(a, b.numpy())
+        for k in ("track_id", "plan_costs", "num_confirmed"):
+            np.testing.assert_array_equal(whole[k], want[k].numpy(), err_msg=k)
+        for k, v in want["tags"].items():
+            np.testing.assert_array_equal(whole["tags"][k], v.numpy(), err_msg=k)
+
+
+def test_many_clients_connect_at_once(artifact):
+    """128 clients open their connections at once, three times: every
+    request is answered within 10 s.  Each request is a connection, and the stdlib server's
+    default listen backlog of 5 made the kernel drop or reset the
+    overflow (the load generator's 8 sessions saw a reset on the card)."""
+    httpd = serve(cfg=CFG, chunk=CHUNK, artifact=artifact(1), port=0, block=False, device="cpu")
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/healthz"
+    try:
+        for _ in range(3):
+            n, errors = 128, []
+            barrier = threading.Barrier(n)
+
+            def get():
+                try:
+                    barrier.wait(timeout=30)
+                    with urllib.request.urlopen(url, timeout=10) as r:
+                        assert json.loads(r.read())["status"] == "ok"
+                except Exception as e:  # noqa: BLE001
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=get) for _ in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            assert not any(t.is_alive() for t in threads)
+            assert not errors, errors[:3]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.pipeline_server.close()
 
 
 def test_server_runs_on_the_card_by_default():
