@@ -86,16 +86,15 @@ Phases, each printing one JSON line:
      served chunk against the runner;
  19. the per-agent Kalman bank over 300 frames x 64 agents against the CPU;
  19a. tables beyond the fast instances (`large_tables`): K1 and K4's
-     general instances at (T, D) = (160, 80), (256, 128) and (1,024, 1,024)
-     against their plain versions, exact (churn, saturated tables, random,
-     tied-rank and full matrices, the key-order corners with ranks whose
-     tie-break keys wrap at these D, IoUs within 2 ulps of the threshold,
-     and, but at 1,024, the staircase); K3's in both modes at T = 160, 256
-     and 1,024 and on the crafted stream at 256; K1 and K3 at 8 lanes at
-     (256, 128); ROADMAP §3's input (the tagging path at max_tracks=160,
-     max_detections=80, 20 frames) card against CPU; one 64-frame YOLO
-     chunk in float32 at max_detections=300, its tables against the plain
-     `nms` and the pipeline against the CPU's;
+     general instances (a thread block cluster a lane) at (T, D) = (64,
+     300), (160, 80), (256, 128) and (1,024, 1,024) against their plain
+     versions, exact (churn, saturated tables, random, tied-rank and full
+     matrices, the key-order corners with ranks whose tie-break keys wrap
+     at these D, IoUs within 2 ulps of the threshold, and the staircase,
+     1,025 rounds at 1,024), and at every (T, D) of 65, 129, 300 and 1,024
+     (the edges of the cluster partition); K3's in both modes at T = 160,
+     256 and 1,024 and on the crafted stream at 256; K1 at 8 lanes at
+     (256, 128), (64, 300) and (1,024, 1,024), K3 at (256, 128);
  19b. the host stack (`host_stack`): the tagging path over 40 frames on the
      card, then `extract_frame` on every frame, the AutoTagger and a
      TagDatabase round trip against the same chain on the CPU run; the
@@ -191,9 +190,15 @@ Phases, each printing one JSON line:
      card's busy share over one beam-3 caption (`blip_times`); then
      (`lane_times`) K1-K3 at B = 1, 8 and 64 beside their bounds, and the
      tagging path's lane-frames/s at B = 1, 8 and 64, in turns; then
-     (`large_times`) K1, K3 and K4's general instances at (256, 128) and
-     (1,024, 1,024) by CUDA events and a profiler trace, beside their
-     bounds and plain versions.
+     (`large_times`) K1 and K4's general instances at (64, 300), (160, 80),
+     (256, 128) and (1,024, 1,024), K3's at the last three, by CUDA events
+     and a profiler trace, beside their bounds, plain versions, cluster
+     sizes and rounds, and K4 on the staircase, a round's device time
+     (`round_cost`); then (`large_paths`) the YOLO path at
+     max_detections=300 (float32, score 0.05, 300 frames in 5 chunks of
+     64: K1 at (64, 300) every frame) and ROADMAP §3's tagging path (160
+     slots, 80 detections, 300 frames), each against its CPU run, timed in
+     turns, with its busy share and K1's device us a launch.
 Then the script's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Without a card it exits 1 at once.
@@ -1591,10 +1596,12 @@ def check_yolo_path(device, params: dict, frames, ego, settings: dict, label: st
     errs = compare_outputs(label, outs, want)
     valid = tables["valid"]
     ids = outs["track_id"]
+    per_frame = valid.sum(dim=1)
     return {
         "frames": len(frames), "settings": {k: str(v) for k, v in settings.items()}, "launches": launches,
         "nms_kept": int(want_nms.valid.sum()),
         "frames_with_detections": int(valid.any(dim=1).sum()), "detections": int(valid.sum()),
+        "valid_per_frame": {"mean": float(per_frame.double().mean()), "max": int(per_frame.max())},
         "track_births": int(torch.unique(ids[ids > 0]).numel()),
         "num_confirmed_last": int(outs["num_confirmed"][-1]), "max_abs_err": errs,
     }, cands
@@ -3426,9 +3433,22 @@ def measure_blip(device, params: dict, frame: np.ndarray, cfg=None) -> dict:
 # Tables beyond the fast instances of K1, K3 and K4 (at most 128 slots and
 # 64 detections), which their general instances take up to 1,024 each.
 LARGE_SHAPES = ((160, 80), (256, 128), (1024, 1024))
+# K1 and K4's general instances also at the YOLO path's table at the JAX
+# `nms` default (64 slots, 300 detections).
+GENERAL_SHAPES = ((64, 300),) + LARGE_SHAPES
+# Rows and columns either side of the cluster partition's edges
+# (association.cuh `assoc_plan`: 32-line slices, 2 to 16 blocks).
+PARTITION_SIZES = (65, 129, 300, 1024)
 LARGE_LANES = 8
-LARGE_FRAMES = 20  # ROADMAP §3's input: max_tracks=160, max_detections=80
+LARGE_FRAMES = NUM_FRAMES  # ROADMAP §3's input: max_tracks=160, max_detections=80
 YOLO_MAX_DET = 300  # the JAX `nms` default (ops/nms.py:73)
+
+
+def stair_step(t: int, d: int) -> float:
+    """The staircase's step at (t, d): 1/4, and 1/32 at 1,024 x 1,024, where
+    every (k, k) pair must stand above 0.3 for the 1,025 rounds (both exact
+    in float32 for `ladder_iou`)."""
+    return 1.0 / 32.0 if max(t, d) >= 1024 else 0.25
 
 
 def large_config(tracks: int, dets: int, enable_tagging: bool = True):
@@ -3439,14 +3459,14 @@ def large_config(tracks: int, dets: int, enable_tagging: bool = True):
 
 
 def check_large_tracker(device) -> list:
-    """K1's general instance against its plain version at LARGE_SHAPES:
+    """K1's general instance against its plain version at GENERAL_SHAPES:
     churn, a saturated table, the key-order corners of `corner_arrays` (IoU
     at the threshold, +0 IoUs all tied), IoUs within 2 ulps of the
-    threshold, and, but at (1,024, 1,024), the staircase (one pair a
-    round); an odd ring (T L odd) at (161, 80)."""
+    threshold, and the staircase (one pair a round; min(t, d) + 1 rounds,
+    1,025 at (1,024, 1,024)); an odd ring (T L odd) at (161, 80)."""
     cases = []
     base = bench_config().tracker
-    for t, d in LARGE_SHAPES:
+    for t, d in GENERAL_SHAPES:
         steps = 6 if t >= 1024 else 20
         churn = pt.TrackerConfig(iou_threshold=0.1, max_age=2, min_hits=3, max_tracks=t)
         rng = np.random.default_rng(t + d)
@@ -3465,27 +3485,52 @@ def check_large_tracker(device) -> list:
                                        table=table))
             if cases[-1]["max_matched"] != matched:
                 raise AssertionError(f"K1 {name}_{t}x{d}: {cases[-1]['max_matched']} matches, expected {matched}")
-        pairs = min(d, 256)
+        pairs = min(t, d, 256)
         table, dets = table_on(*near_threshold_arrays(t + d, pairs=pairs, tracks=t, dets=d), device)
         cases.append(_tracker_case(f"near_threshold_{t}x{d}", cfg, lambda s, dets=dets: dets, 1, device,
                                    table=table))
-        if t < 1024:
-            table, dets = ladder_boxes(t, d, 0.25, device)
-            cases.append(_tracker_case(f"staircase_{t}x{d}", cfg, lambda s, dets=dets: dets, 2, device,
-                                       table=table))
-            if cases[-1]["max_matched"] != d:
-                raise AssertionError(f"K1 staircase_{t}x{d}: the ladder did not match all {d} detections")
+        table, dets = ladder_boxes(t, d, stair_step(t, d), device)
+        cases.append(_tracker_case(f"staircase_{t}x{d}", cfg, lambda s, dets=dets: dets, 1 if t >= 1024 else 2,
+                                   device, table=table))
+        if cases[-1]["max_matched"] != min(t, d):
+            raise AssertionError(f"K1 staircase_{t}x{d}: the ladder did not match all {min(t, d)} pairs")
     odd = pt.TrackerConfig(iou_threshold=0.1, max_age=2, max_tracks=161, trajectory_length=5)
     rng = np.random.default_rng(161)
     cases.append(_tracker_case("odd_ring_161x80", odd, lambda s: random_dets(rng, 80, device), 20, device))
     return cases
 
 
+def check_partition_edges(device, sizes=PARTITION_SIZES) -> list:
+    """K1 and K4's general instances at every (T, D) of ``sizes``, either
+    side of the cluster partition's 32-line slices and of its cluster
+    sizes: K1 over 3 churning steps, K4 on a random and a tied-rank
+    matrix, each bit for bit its plain version."""
+    cases = []
+    for t in sizes:
+        for d in sizes:
+            cfg = pt.TrackerConfig(iou_threshold=0.1, max_age=2, min_hits=2, max_tracks=t)
+            rng = np.random.default_rng(7 * t + d)
+            k1 = _tracker_case(f"churn_{t}x{d}", cfg, lambda s: random_dets(rng, d, device), 3, device)
+            matched = []
+            for tied in (False, True):
+                iou, rank = random_association(rng, t, d, tied=tied)
+                iou_t, rank_t = torch.tensor(iou, device=device), torch.tensor(rank, device=device)
+                got = association_kernel.greedy_associate(iou_t, rank_t, 0.3)
+                want = _greedy_associate_plain(iou_t, rank_t, 0.3)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K4 {t}x{d} tied={tied}: differs in {int((got != want).sum())} rows")
+                matched.append(int((want >= 0).sum()))
+            cases.append({"T": t, "D": d, "k1_cluster": tracker_kernel.cluster_size(t, d, cfg.trajectory_length),
+                          "k4_cluster": association_kernel.cluster_size(t, d), "k1_max_matched": k1["max_matched"],
+                          "k4_matched": matched})
+    return cases
+
+
 def check_large_association(device, trials: int = 4) -> list:
-    """K4's general instance against its plain version at LARGE_SHAPES:
+    """K4's general instance against its plain version at GENERAL_SHAPES:
     random and tied ranks, full matrices, the key-order corners (ranks at
     int32's ends whose tie-break keys wrap at these D, -0 and +0, the
-    threshold, NaN), and, but at (1,024, 1,024), the staircase."""
+    threshold, NaN), and the staircase (1,025 rounds at (1,024, 1,024))."""
     cases = []
 
     def compare(name, iou, rank, thr):
@@ -3496,7 +3541,7 @@ def check_large_association(device, trials: int = 4) -> list:
             raise AssertionError(f"K4 {name}: differs from the plain version in {int((got != want).sum())} rows")
         return int((want >= 0).sum())
 
-    for t, d in LARGE_SHAPES:
+    for t, d in GENERAL_SHAPES:
         rng = np.random.default_rng(t * 7 + d)
         cases.append({"case": f"random_{t}x{d}", "matched": [
             compare(f"random {t}x{d} {i}", *random_association(rng, t, d), float(rng.choice([0.0, 0.3, 0.5])))
@@ -3511,10 +3556,10 @@ def check_large_association(device, trials: int = 4) -> list:
         cases.append({"case": f"key_corners_few_{t}x{d}", "matched": [
             compare(f"few corners {t}x{d} keep {keep}", *key_corner_association(rng, t, d, 0.3, keep=keep), 0.3)
             for keep in (24, 40, 4 * t)]})
-        if t < 1024:
-            if compare(f"staircase {t}x{d}", ladder_iou(t, d, 0.25), np.arange(t, dtype=np.int32), 0.3) != d:
-                raise AssertionError(f"K4 staircase_{t}x{d}: the ladder did not match all {d} columns")
-            cases.append({"case": f"staircase_{t}x{d}", "matched": d})
+        stairs = ladder_iou(t, d, stair_step(t, d))
+        if compare(f"staircase {t}x{d}", stairs, np.arange(t, dtype=np.int32), 0.3) != min(t, d):
+            raise AssertionError(f"K4 staircase_{t}x{d}: the ladder did not match all {min(t, d)} pairs")
+        cases.append({"case": f"staircase_{t}x{d}", "matched": min(t, d)})
     return cases
 
 
@@ -3541,8 +3586,9 @@ def check_large_tagging(device) -> list:
 
 def check_large_lanes(device) -> list:
     """K1 and K3's general instances at LARGE_LANES lanes a launch at
-    (256, 128): each lane bit for bit its B = 1 launch and its plain
-    version's discrete outputs (floats within K3's bounds)."""
+    (256, 128), and K1's at (64, 300) and (1,024, 1,024) (a cluster a lane,
+    16 blocks at 1,024): each lane bit for bit its B = 1 launch and its
+    plain version's discrete outputs (floats within K3's bounds)."""
     t, d = 256, 128
     k1 = pt.TrackerConfig(iou_threshold=0.1, max_age=2, min_hits=3, max_tracks=t)
     k3 = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
@@ -3552,18 +3598,27 @@ def check_large_lanes(device) -> list:
         _lane_tagging_case(f"detections_{t}x{d}", k3, LARGE_LANES, 10, d, False, device, seed=257),
         _lane_tagging_case(f"frames_{t}x{d}", k3.replace(use_frames=True), LARGE_LANES, 10, d, True, device,
                            seed=258),
+        _lane_tracker_case("churn_64x300", dataclasses.replace(k1, max_tracks=64), LARGE_LANES, 6, 300, device,
+                           seed=64),
+        _lane_tracker_case("churn_1024x1024", dataclasses.replace(k1, max_tracks=1024), LARGE_LANES, 2, 1024,
+                           device, seed=1024),
     ]
 
 
-def check_large_tagging_path(device) -> dict:
+def large_tagging_inputs(frames: int = LARGE_FRAMES) -> dict:
+    """ROADMAP §3's input: `simulated_detection_stream(capacity=80)` and the
+    ego stream, ``frames`` frames."""
+    dets = simulated_detection_stream(frames, capacity=80)
+    return dict(dets, ego_measurement=ego_motion_stream(frames, dt=1.0 / 30.0, seed=0).astype(np.float32))
+
+
+def check_large_tagging_path(device, frames: int = LARGE_FRAMES) -> dict:
     """ROADMAP §3's input: the tagging path at max_tracks=160,
-    max_detections=80 over LARGE_FRAMES frames of
-    `simulated_detection_stream(capacity=80)`, the card (K1 and K3's general
-    instances) against the CPU run: discrete outputs and tags exact, floats
-    within MAIN_ATOL; K1, K2 and K3 counted."""
+    max_detections=80 over ``frames`` frames of `large_tagging_inputs`, the
+    card (K1 and K3's general instances) against the CPU run: discrete
+    outputs and tags exact, floats within MAIN_ATOL; K1, K2 and K3 counted."""
     cfg = large_config(160, 80)
-    dets = simulated_detection_stream(LARGE_FRAMES, capacity=80)
-    inputs = dict(dets, ego_measurement=ego_motion_stream(LARGE_FRAMES, dt=1.0 / 30.0, seed=0).astype(np.float32))
+    inputs = large_tagging_inputs(frames)
     _, want = pt.make_sequence_runner(cfg, device="cpu")(pt.initial_state(cfg, device="cpu"), inputs)
     run = pt.make_sequence_runner(cfg, device=device)
     state = pt.initial_state(cfg, device=device)
@@ -3572,26 +3627,23 @@ def check_large_tagging_path(device) -> dict:
     torch.cuda.synchronize()
     launches = _read_counts()
     expected = {name: 0 for name in KERNEL_MODULES}
-    expected.update(tracker_step=LARGE_FRAMES, kalman_step=LARGE_FRAMES, tagging_step=LARGE_FRAMES)
+    expected.update(tracker_step=frames, kalman_step=frames, tagging_step=frames)
     if launches != expected:
         raise AssertionError(f"large tagging path: kernel launches {launches}, expected {expected}")
     errs = compare_outputs("large tagging path", got, want)
-    return {"frames": LARGE_FRAMES, "max_tracks": 160, "max_detections": 80, "launches": launches,
+    valid = torch.as_tensor(inputs["valid"])
+    return {"frames": frames, "max_tracks": 160, "max_detections": 80, "launches": launches,
+            "valid_per_frame": {"mean": float(valid.sum(1).double().mean()), "max": int(valid.sum(1).max())},
             "num_confirmed_max": int(got["num_confirmed"].max()), "max_abs_err": errs}
 
 
-def check_large_tables(device, params: dict, frames, ego) -> dict:
+def check_large_tables(device) -> dict:
     """The `large_tables` phase: K1, K4 and K3's general instances against
-    their plain versions, at 8 lanes too, ROADMAP §3's tagging path card
-    against CPU, and one 64-frame YOLO chunk in float32 at
-    max_detections=300 (K1's general instance at (64, 300))."""
-    out = {"tracker": check_large_tracker(device), "association": check_large_association(device),
-           "tagging": check_large_tagging(device), "lanes": check_large_lanes(device),
-           "tagging_path": check_large_tagging_path(device)}
-    cfg = bench_config().replace(detector=dataclasses.replace(bench_config().detector, max_detections=YOLO_MAX_DET))
-    out["yolo_max_det_300"], _ = check_yolo_path(device, params, frames[:YOLO_BATCH], ego[:YOLO_BATCH], YOLO_F32,
-                                                 "YOLO chunk at max_detections=300", cfg=cfg)
-    return out
+    their plain versions, at the partition's edges, and at 8 lanes.  The
+    paths that launch them run in `large_paths`."""
+    return {"tracker": check_large_tracker(device), "association": check_large_association(device),
+            "partition_edges": check_partition_edges(device), "tagging": check_large_tagging(device),
+            "lanes": check_large_lanes(device)}
 
 
 def association_rounds(iou: torch.Tensor, rank: torch.Tensor, thr: float) -> int:
@@ -3637,13 +3689,15 @@ def large_kernel_inputs(device, t: int, d: int) -> dict:
 
 
 def measure_large_kernels(device, reps: int = 200) -> dict:
-    """K1, K3 and K4's general instances at (256, 128) and (1,024, 1,024):
-    ms a call by CUDA events over ``reps`` calls (a tenth at 1,024), device
-    ms from a profiler trace, the plain version's ms, and the bound, the
-    bytes and operations counted on the data as `measure_kernels` counts
-    them; the trace names the general instances' kernels."""
+    """K1 and K4's general instances at GENERAL_SHAPES, K3's at
+    LARGE_SHAPES: ms a call by CUDA events over ``reps`` calls (a tenth at
+    1,024), device ms from a profiler trace, the plain version's ms, and
+    the bound, the bytes and operations counted on the data as
+    `measure_kernels` counts them; with the thread block cluster each
+    launch takes and the association's rounds.  The trace names the
+    general instances' kernels."""
     out = {}
-    for t, d in ((256, 128), (1024, 1024)):
+    for t, d in GENERAL_SHAPES:
         n = reps if t < 1024 else reps // 10
         x = large_kernel_inputs(device, t, d)
         cfg, table, dets = x["cfg"], x["table"], x["dets"]
@@ -3659,28 +3713,33 @@ def measure_large_kernels(device, reps: int = 200) -> dict:
         rounds = association_rounds(iou, rank, cfg.iou_threshold)
         k1_m = {"bytes": _nbytes(*_table_tensors(table), dets.bbox, dets.class_id, dets.confidence, dets.valid)
                 + _nbytes(*_table_tensors(res[0]), res[1], res[2], res[3]),
-                "operations": t * d * (16 + 2 * rounds) + 2 * t * t, "rounds": rounds}
-        rules, state, (tdets, ttable, vrow) = x["rules"], x["state"], x["tag_frame"]
-
-        def k3():
-            return tagging_kernel.tagging_step(rules, state, tdets, ttable, vrow)
-
-        new_state, tag_f, tag_i = k3()
-        k3_m = {"bytes": tagging_bytes(rules, state, tdets, ttable, new_state, tag_f, tag_i),
-                "operations": tagging_operations(t, d, rules.window, rules.history, rules.interaction_history)}
+                "operations": t * d * (16 + 2 * rounds) + 2 * t * t, "rounds": rounds,
+                "cluster": tracker_kernel.cluster_size(t, d, cfg.trajectory_length)}
 
         def k4():
             return association_kernel.greedy_associate(iou, rank, cfg.iou_threshold)
 
         match = k4()
-        k4_m = {"bytes": _nbytes(iou, rank, match), "operations": rounds * (2 * t * d + t), "rounds": rounds}
+        k4_m = {"bytes": _nbytes(iou, rank, match), "operations": rounds * (2 * t * d + t), "rounds": rounds,
+                "cluster": association_kernel.cluster_size(t, d)}
         plain = {
             "tracker_step": lambda: plain_tracker_step(table, dets, cfg),
-            "tagging_step": lambda: tagging_step_plain(rules, state, tdets, ttable, vrow),
             "associate": lambda: _greedy_associate_plain(iou, rank, cfg.iou_threshold),
         }
-        launchers = {"tracker_step": (k1, "tracker_step_general"), "tagging_step": (k3, "tagging_step_general"),
-                     "associate": (k4, "associate_general_kernel")}
+        launchers = {"tracker_step": (k1, "tracker_step_general"), "associate": (k4, "associate_general_kernel")}
+        counted = {"tracker_step": k1_m, "associate": k4_m}
+        if (t, d) in LARGE_SHAPES:
+            rules, state, (tdets, ttable, vrow) = x["rules"], x["state"], x["tag_frame"]
+
+            def k3():
+                return tagging_kernel.tagging_step(rules, state, tdets, ttable, vrow)
+
+            new_state, tag_f, tag_i = k3()
+            counted["tagging_step"] = {
+                "bytes": tagging_bytes(rules, state, tdets, ttable, new_state, tag_f, tag_i),
+                "operations": tagging_operations(t, d, rules.window, rules.history, rules.interaction_history)}
+            plain["tagging_step"] = lambda: tagging_step_plain(rules, state, tdets, ttable, vrow)
+            launchers["tagging_step"] = (k3, "tagging_step_general")
         ms = {name: time_cuda(fn, n, warmup=5) for name, (fn, _) in launchers.items()}
         # One trace a kernel, kept when it saw 80% of the launches: a trace
         # of 100 general K1 launches dropped 12 of them on an H100.
@@ -3688,13 +3747,106 @@ def measure_large_kernels(device, reps: int = 200) -> dict:
         dev = {name: next(iter(device_times({name: launcher}, reps=traced, min_seen=traced * 4 // 5).values()))
                for name, launcher in launchers.items()}
         shape = {}
-        for name, m in (("tracker_step", k1_m), ("tagging_step", k3_m), ("associate", k4_m)):
+        for name, m in counted.items():
             t_bytes = m["bytes"] / PEAK_BYTES_PER_S * 1e3
             t_ops = m["operations"] / PEAK_F32_PER_S * 1e3
             bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
             shape[name] = {**m, "ms": ms[name], "device_ms": dev[name][0], "profiled_launches": dev[name][1],
                            "plain_ms": time_cuda(plain[name], 5, warmup=1), "bound_ms": bound, "bound_by": by}
         out[f"{t}x{d}"] = shape
+    return out
+
+
+def measure_round_cost(device, reps: int = 10) -> dict:
+    """K4's general instance on the staircase (one pair a round, every live
+    line stale in each) at (256, 128) and (1,024, 1,024), beside the
+    3-round matrix of `large_kernel_inputs` at (256, 128): device ms from
+    a profiler trace, the rounds, and the device us a round the staircase
+    adds over the 3-round matrix at (256, 128)."""
+    x = large_kernel_inputs(device, 256, 128)
+    iou3, rank3 = x["association"]
+    thr = x["cfg"].iou_threshold
+    cases = {"large_256x128": (iou3, rank3)}
+    for t, d in ((256, 128), (1024, 1024)):
+        cases[f"staircase_{t}x{d}"] = (torch.tensor(ladder_iou(t, d, stair_step(t, d)), device=device),
+                                      torch.arange(t, dtype=torch.int32, device=device))
+    out = {}
+    for name, (iou, rank) in cases.items():
+        ms, seen = device_times({name: (lambda iou=iou, rank=rank: association_kernel.greedy_associate(
+            iou, rank, thr), "associate_general_kernel")}, reps=reps, min_seen=reps * 4 // 5)[name]
+        out[name] = {"rounds": association_rounds(iou, rank, thr), "device_ms": ms, "profiled_launches": seen}
+    a, b = out["large_256x128"], out["staircase_256x128"]
+    out["us_a_round_256x128"] = (b["device_ms"] - a["device_ms"]) * 1e3 / (b["rounds"] - a["rounds"])
+    return out
+
+
+def _path_trace(run, kernel: str) -> dict:
+    """One profiler trace of ``run()``: the wall time, the device's busy
+    share, and ``kernel``'s launches and mean device microseconds."""
+    wall_s, on_device = card_trace(run)
+    busy_us = sum(e.time_range.elapsed_us() for e in on_device)
+    k = [e.time_range.elapsed_us() for e in on_device if kernel in e.name]
+    return {"wall_us": wall_s * 1e6, "device_busy_us": busy_us, "busy_share": busy_us / (wall_s * 1e6),
+            "device_items": len(on_device), f"{kernel}_launches": len(k),
+            f"{kernel}_device_us": sum(k) / len(k) if k else None}
+
+
+def measure_large_paths(device, params: dict, frames, ego, rounds: int = 2, profiled_frames: int = 100) -> dict:
+    """The `large_paths` phase, the two full-width paths that launch K1's
+    general instance on every frame, each held to its CPU run and timed:
+    (a) the YOLO path at max_detections=YOLO_MAX_DET (the JAX `nms`
+    default): yolov8n at 640 in float32 at score 0.05 over the 300 seeded
+    480x640 frames in 5 chunks of 64, K5 and K1 at (64, 300), K2 and the
+    planner (`check_yolo_path`); (b) ROADMAP §3's tagging path at
+    max_tracks=160, max_detections=80 over LARGE_FRAMES frames, K1 and K3
+    at T = 160 and K2 (`check_large_tagging_path`).  Then each path's
+    frames/s on the host clock around runs that end in a synchronise, in
+    turns (yolo, tagging, tagging, yolo) after a warm run of each, the
+    best counting; and one profiler trace of each over its first
+    ``profiled_frames`` frames: the busy share and K1's device us a
+    launch."""
+    yolo_cfg = bench_config().replace(detector=dataclasses.replace(bench_config().detector,
+                                                                   max_detections=YOLO_MAX_DET))
+    out = {}
+    out["yolo_max_det_300"], _ = check_yolo_path(device, params, frames, ego, YOLO_F32,
+                                                 "YOLO path at max_detections=300", cfg=yolo_cfg)
+    out["tagging_160x80"] = check_large_tagging_path(device)
+    _, yolo_run = make_yolo_sequence_runner(yolo_cfg, batch=YOLO_BATCH, iou_threshold=YOLO_IOU, img_size=YOLO_IMG,
+                                            device=device, **YOLO_F32)
+    tag_cfg = large_config(160, 80)
+    tag_run = pt.make_sequence_runner(tag_cfg, device=device)
+    tag_inputs = {k: torch.as_tensor(v).to(device) for k, v in large_tagging_inputs().items()}
+
+    def timed(name, n=None):
+        if name == "yolo_max_det_300":
+            state = pt.initial_state(yolo_cfg, device=device)
+            n = n or len(frames)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yolo_run(params, state, frames[:n], ego[:n])
+        else:
+            state = pt.initial_state(tag_cfg, device=device)
+            x = tag_inputs if n is None else {k: v[:n] for k, v in tag_inputs.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tag_run(state, x)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    names = ("yolo_max_det_300", "tagging_160x80")
+    for name in names:
+        timed(name)
+    times = {name: [] for name in names}
+    for _ in range(rounds):
+        for name in names + names[::-1]:
+            times[name].append(timed(name))
+    for name in names:
+        n = out[name]["frames"]
+        out[name].update(seconds=times[name], frames_per_s=n / min(times[name]),
+                         profiled={"frames": profiled_frames,
+                                   **_path_trace(lambda: timed(name, profiled_frames), "tracker_step_general")})
+    out["clusters"] = {"k1_64x300": tracker_kernel.cluster_size(64, YOLO_MAX_DET, yolo_cfg.tracker.trajectory_length),
+                       "k1_160x80": tracker_kernel.cluster_size(160, 80, tag_cfg.tracker.trajectory_length)}
     return out
 
 
@@ -5108,8 +5260,8 @@ def main(argv) -> int:
     emit({"phase": "multicamera_path", **check_multicamera_path(device, streams)})
     emit({"phase": "serve_path", **check_serve_path(device)})
     emit({"phase": "kalman_bank", **check_kalman_bank(device)})
-    emit({"phase": "large_tables", **check_large_tables(device, params, frames, ego),
-          "result": "K1 and K4 exact, K3 discrete exact and floats within bounds, paths equal the CPU runs"})
+    emit({"phase": "large_tables", **check_large_tables(device),
+          "result": "K1 and K4 exact, K3 discrete exact and floats within bounds"})
     emit({"phase": "host_stack", **check_host_stack(device)})
 
     from multimodal_autonomous_driving_perception_and_planning_torch.models.blip import BlipConfig
@@ -5139,8 +5291,12 @@ def main(argv) -> int:
     emit({"phase": "lane_times", "card": smi, "kernels": measure_lane_kernels(device, inputs),
           "paths": measure_batched_paths(device), "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    emit({"phase": "large_times", "card": smi, "kernels": measure_large_kernels(device),
+    large_times = measure_large_kernels(device)
+    emit({"phase": "large_times", "card": smi, "kernels": large_times, "round_cost": measure_round_cost(device),
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({"phase": "large_paths", "card": smi, **measure_large_paths(device, params, frames, ego),
+          "result": "both paths equal their CPU runs", "seconds": time.perf_counter() - t0})
 
     # The apps' phases run after every timed phase, so that their ring
     # threads, pinned buffers and renders leave the timed phases' process as
@@ -5179,6 +5335,8 @@ def main(argv) -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None,
         })
+        if name in ("tracker_step", "associate"):  # their general instances (large_times)
+            kernels[-1]["general_device_ms"] = {shape: k[name]["device_ms"] for shape, k in large_times.items()}
     emit({"phase": "total", "seconds": time.perf_counter() - _START})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

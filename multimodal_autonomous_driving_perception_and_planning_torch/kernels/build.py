@@ -7,7 +7,10 @@ started together, builds a library with a plain C interface each, and ctypes
 binds them.  Either way the result exposes ``tracker_step`` (K1),
 ``kalman_step`` (K2), ``tagging_step`` (K3), ``associate`` (K4) and
 ``nms_keep`` (K5), which take pointers and the stream as integers and
-return the CUDA error code of the launch.
+return the CUDA error code of the launch, and K1's and K4's plan queries
+``tracker_scratch``, ``tracker_cluster``, ``associate_scratch`` and
+``associate_cluster`` (their general instances' key scratch in 32-bit
+words and their thread block clusters, from the shape alone).
 
 The output goes to ``kernels/build/`` inside the package (listed in
 .gitignore).  Kernels are built for Hopper only (``sm_90a``).  No source
@@ -73,10 +76,14 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
             raise subprocess.CalledProcessError(proc.returncode, cmd)
         os.replace(tmp, target)
 
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     tracker = ctypes.CDLL(str(BUILD_DIR / "libtracker_step.so"))
-    tracker.madpp_tracker_step.argtypes = [vp] * 18 + [ci, ci, ci, ci, cf, ci, ci, vp]
+    tracker.madpp_tracker_step.argtypes = [vp] * 19 + [ci, ci, ci, ci, cf, ci, ci, vp]
     tracker.madpp_tracker_step.restype = ci
+    tracker.madpp_tracker_scratch.argtypes = [ci, ci, ci]
+    tracker.madpp_tracker_scratch.restype = cl
+    tracker.madpp_tracker_cluster.argtypes = [ci, ci, ci]
+    tracker.madpp_tracker_cluster.restype = ci
     kalman = ctypes.CDLL(str(BUILD_DIR / "libkalman_step.so"))
     kalman.madpp_kalman_step.argtypes = [vp] * 10 + [ci, cf, cf, vp]
     kalman.madpp_kalman_step.restype = ci
@@ -84,8 +91,12 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
     tagging.madpp_tagging_step.argtypes = [vp] * 23 + [ci] * 8 + [vp]
     tagging.madpp_tagging_step.restype = ci
     associate = ctypes.CDLL(str(BUILD_DIR / "libassociate.so"))
-    associate.madpp_associate.argtypes = [vp] * 3 + [ci, ci, cf, vp]
+    associate.madpp_associate.argtypes = [vp] * 3 + [ci, ci, cf, vp, vp]
     associate.madpp_associate.restype = ci
+    associate.madpp_associate_scratch.argtypes = [ci, ci]
+    associate.madpp_associate_scratch.restype = cl
+    associate.madpp_associate_cluster.argtypes = [ci, ci]
+    associate.madpp_associate_cluster.restype = ci
     nms = ctypes.CDLL(str(BUILD_DIR / "libnms_keep.so"))
     nms.madpp_nms_keep.argtypes = [vp] * 3 + [ci, ci, cf, vp]
     nms.madpp_nms_keep.restype = ci
@@ -94,5 +105,9 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
         kalman_step=kalman.madpp_kalman_step,
         tagging_step=tagging.madpp_tagging_step,
         associate=associate.madpp_associate,
+        tracker_scratch=tracker.madpp_tracker_scratch,
+        tracker_cluster=tracker.madpp_tracker_cluster,
+        associate_scratch=associate.madpp_associate_scratch,
+        associate_cluster=associate.madpp_associate_cluster,
         nms_keep=nms.madpp_nms_keep,
     )

@@ -47,6 +47,7 @@
 // Either way the loop ends with the first round that takes nothing.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "block.cuh"
@@ -347,114 +348,314 @@ __device__ inline void greedy_associate(const float* iou, int ld, unsigned* keys
   }
 }
 
+
 // --- The general instance: tables beyond T <= 128, D <= 64 ------------------
 //
-// Up to kAssocGeneralMax rows and columns, on one whole block.  The fast
-// rounds above keep the key matrix and their column bests in shared memory
-// and hold column masks of two words; at T = D = 1,024 the float32 matrix
-// alone is 4 MB.  So the general rounds keep no matrix: `iou(t, d)` gives
-// an entry where the caller keeps it (K4: device memory; K1: computed from
-// the boxes in shared memory), and shared memory holds, a row, its best
-// live entry as one 64-bit key (IoU key << 32 | ~tie-break key, as the
-// dense rounds order them), and, a column, its best live row's key and
-// that row.  A round accepts every live row whose best is its column's
-// best (rows of equal key all take the column, as the plain version's do),
-// then recomputes only the bests that the round made stale: a row's when
-// its column was taken (a warp a row, lanes over the columns), a column's
-// when its row was matched (a thread a column, over the rows).  A best
-// that is still live stays the best, since rounds only remove rows and
-// columns.  Two barriers a round; the first round computes every best.
-// Correct first: a round of the first kind reads the whole matrix.
+// Up to kAssocGeneralMax rows and columns, on a thread block cluster of C
+// blocks of 1,024 threads a lane (`assoc_plan`).  What held the one-block
+// version back: the whole table on one SM, every round computing
+// IoUs or rereading the float matrix, column bests as a chain of T
+// dependent steps a thread.  The design:
+//  - Partition.  Block r of the cluster owns rows [r R, r R + R) and
+//    columns [r K, r K + K), R and K multiples of 32 (`AssocPlan::rows`,
+//    `cols`).  It keeps the keys of its rows (its row lines, a row's D
+//    keys in a row) and of its columns (its column lines, a column's T
+//    keys in a row), each the 32-bit `assoc_key`, staged once a launch
+//    (K1: `stage_general_keys`, K4: `stage_rows`, `stage_cols`): every key
+//    is computed twice, by its row's owner and by its column's owner, so no block ever needs another's keys, and
+//    no round divides or reads a float.  The lines live in the block's
+//    shared memory where they fit (the launchers' plans, `keys_in_smem`),
+//    else in a device scratch the wrapper allocates (4 MB of keys, 8 MB
+//    with both layouts, at 1,024 x 1,024), which the rounds read from L2.
+//  - Bests.  A warp a line for both kinds: lanes read the line 16 bytes at
+//    a time, mask taken columns (row lines) or matched rows (column lines)
+//    with bits every block holds, and a warp reduction gives the line's
+//    best 64-bit key (IoU key << 32 | ~tie-break key, as the rounds above
+//    order them) and, for a column, the row that holds it.  That replaces
+//    the serial column chain.  After the first round only the stale bests
+//    are recomputed: a row's when its best column was taken, a column's
+//    when its best row was matched (a best that is still live stays the
+//    best: rounds only remove rows and columns).
+//  - Exchange, through distributed shared memory, with no cluster barrier
+//    in the rounds.  Each line's warp pushes the line's best (recomputed,
+//    or carried over) to every block of the cluster, lane c to block c,
+//    with `st.async`, which counts its bytes on an mbarrier of the
+//    receiving block; each block expects every row's and every column's
+//    best, 8 (T + D) bytes a round, and waits on its own mbarrier alone.
+//    Then every block decides the whole round itself: a live row is
+//    accepted when its best is its column's best (rows of equal key all
+//    take the column, as the plain version's do), so every block holds the
+//    same matched-row and taken-column bits, and the loop ends at the first
+//    round that accepts nothing, on every block alike.  The received bests
+//    and the mbarriers are double-buffered by round parity: a block pushes
+//    into a half again two rounds later, only after it has received the
+//    next round's bests from every block, which each sent after it had
+//    read that half.  One cluster barrier a launch, before the first push,
+//    makes the mbarriers' initialisation visible; a cluster barrier a
+//    round (arrive with release, wait with acquire) was the slower design
+//    on the card.
+// A staircase (one pair a round) makes every live line stale each round:
+// at 1,024 x 1,024 its 1,025 rounds read about 2 G keys in all.
 constexpr int kAssocGeneralMax = 1024;
+constexpr int kAssocClusterThreads = 1024;
+constexpr int kAssocClusterMax = 16;  // above 8 needs cudaFuncAttributeNonPortableClusterSizeAllowed
+constexpr int kAssocBitWords = kAssocGeneralMax / 32;
+// The dynamic shared memory a block may take on an H100 (227 KB).
+constexpr size_t kAssocSmemLimit = 232448;
 
-// Bytes of shared memory the general rounds take for T rows and D columns:
-// row bests and column bests (8 bytes each), then the matches (T), the
-// taken columns (D) and the column bests' rows (D), 4 bytes each.
-__host__ __device__ inline size_t assoc_general_smem(int T, int D) {
-  return 8 * (size_t)(T + D) + 4 * ((size_t)T + 2 * (size_t)D);
+// The partition of a (T, D) table over a cluster: C blocks, each owning
+// `rows` rows and `cols` columns (the last ones fewer or none), its row
+// lines `rstride` words apart and its column lines `cstride` (16-byte
+// rows, zero past D and T).  C is the power of two nearest above
+// (T + D) / 64, at most 16: 4 at (160, 80), 8 at (64, 300) and (256,
+// 128), 16 at (1,024, 1,024).  More blocks take fewer lines each, in the
+// staging and in each round, which was faster on the card up to 8 blocks
+// at (256, 128).
+struct AssocPlan {
+  int cluster, rows, cols, rstride, cstride;
+};
+
+__host__ __device__ inline AssocPlan assoc_plan(int T, int D) {
+  const int want = (T + D + 63) / 64;
+  int c = 1;
+  while (c < want && c < kAssocClusterMax) c <<= 1;
+  AssocPlan p;
+  p.cluster = c;
+  p.rows = 32 * (((T + 31) / 32 + c - 1) / c);
+  p.cols = 32 * (((D + 31) / 32 + c - 1) / c);
+  p.rstride = (D + 3) & ~3;
+  p.cstride = (T + 3) & ~3;
+  return p;
 }
+
+// Words of one block's key lines (its row lines, then its column lines).
+__host__ __device__ inline size_t assoc_key_words(const AssocPlan& p) {
+  return (size_t)p.rows * p.rstride + (size_t)p.cols * p.cstride;
+}
+
+// Shared memory of the rounds, a block: the key lines where they live there,
+// the bests of its rows and columns (8 bytes each), every row's and every
+// column's best received, by round parity (2 x 8 bytes each), the two
+// mbarriers, every row's rank, the column bests' rows and its rows'
+// matches (4 bytes each), and the matched-row and taken-column bits (32
+// words each).
+__host__ __device__ inline size_t assoc_shared_bytes(const AssocPlan& p, bool keys_in_smem) {
+  return (keys_in_smem ? 4 * assoc_key_words(p) : 0) + 12 * (size_t)(p.rows + p.cols) +
+         16 * (size_t)(p.cstride + p.rstride) + 16 + 4 * (size_t)p.cstride + 4 * 2 * kAssocBitWords;
+}
+
+struct AssocShared {
+  unsigned* keys;                         // this block's lines, or null (device scratch)
+  unsigned long long *rowbest, *colbest;  // this block's rows' and columns' bests
+  unsigned long long *allrow, *allcol;    // [2][cstride], [2][rstride]: every best received, by parity
+  unsigned long long* mbar;               // [2]: the bytes of each parity's bests
+  int* rank;                              // every row's rank (cstride)
+  int* colrow;                            // the row of each of this block's column bests
+  int* match;                             // this block's rows' matches (-1 unmatched)
+  unsigned *matched, *taken;              // every row matched, every column taken: bits
+};
+
+// `assoc_shared_bytes` of 16-byte aligned shared memory, carved.
+__device__ inline AssocShared assoc_carve(void* base, const AssocPlan& p, bool keys_in_smem) {
+  AssocShared s;
+  char* c = static_cast<char*>(base);
+  s.keys = keys_in_smem ? reinterpret_cast<unsigned*>(c) : nullptr;
+  c += keys_in_smem ? 4 * assoc_key_words(p) : 0;
+  s.rowbest = reinterpret_cast<unsigned long long*>(c);
+  s.colbest = s.rowbest + p.rows;
+  s.allrow = s.colbest + p.cols;
+  s.allcol = s.allrow + 2 * p.cstride;
+  s.mbar = s.allcol + 2 * p.rstride;
+  s.rank = reinterpret_cast<int*>(s.mbar + 2);
+  s.colrow = s.rank + p.cstride;
+  s.match = s.colrow + p.cols;
+  s.matched = reinterpret_cast<unsigned*>(s.match + p.rows);
+  s.taken = s.matched + kAssocBitWords;
+  return s;
+}
+
+// The first row and the count of rows (columns) block `r` owns.
+__device__ __forceinline__ int2 assoc_span(int r, int per, int n) {
+  const int lo = min(r * per, n);
+  return make_int2(lo, min(per, n - lo));
+}
+
+__device__ __forceinline__ bool bit_of(const unsigned* bits, unsigned i) { return (bits[i >> 5] >> (i & 31)) & 1u; }
 
 __device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = w > v ? w : v;
+  // Two 32-bit reductions (`redux.sync`): the high words' maximum, then the
+  // low words' among the lanes at it (five 64-bit shuffle steps were the
+  // longest chain of a round).
+  const unsigned hi = __reduce_max_sync(0xffffffffu, (unsigned)(v >> 32));
+  const unsigned lo = __reduce_max_sync(0xffffffffu, (unsigned)(v >> 32) == hi ? (unsigned)v : 0u);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// The 32-bit shared::cluster address of `p` in block `rank`'s shared memory.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, unsigned rank) {
+  unsigned a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// Stores `v` at `addr` in a block of the cluster and counts its 8 bytes on
+// that block's mbarrier at `mbar` (both shared::cluster addresses).
+__device__ __forceinline__ void st_async_b64(unsigned addr, unsigned long long v, unsigned mbar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];" ::"r"(addr), "l"(v),
+               "r"(mbar)
+               : "memory");
+}
+
+// Clears the bits and the matches, initialises the mbarriers and arrives on
+// the cluster barrier that `cluster_associate` waits on before its first
+// push.  Called by every thread of every block of the cluster; the caller
+// writes s.rank[t] for t < T (the words past T are read, but only beside
+// keys of 0), syncs the block before `cluster_associate`, and runs no other
+// cluster barrier in between.
+__device__ inline void assoc_init(const AssocShared& s, const AssocPlan& p) {
+  for (int i = threadIdx.x; i < 2 * kAssocBitWords; i += blockDim.x) s.matched[i] = 0u;
+  for (int i = threadIdx.x; i < p.rows; i += blockDim.x) s.match[i] = -1;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(s.mbar)) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(s.mbar + 1)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  return v;
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 }
 
-// The general fixpoint, with the contract of `greedy_associate` for T, D
-// up to kAssocGeneralMax: `iou(t, d)` is the entry (-1 for invalid pairs),
-// `rank` the T row ranks in shared memory, `smem` the shared memory of
-// `assoc_general_smem(T, D)` bytes, 8-byte aligned.  Called by all threads
-// of the block; the caller syncs after writing `rank` and what `iou`
-// reads.  Writes the matches to `smem`'s int array returned by
-// `assoc_general_match(smem, T, D)` and the taken columns (1 or 0) to
-// `assoc_general_taken`; the block is synced when it returns.
-__device__ __forceinline__ int* assoc_general_match(void* smem, int T, int D) {
-  return reinterpret_cast<int*>(static_cast<unsigned long long*>(smem) + T + D);
-}
-__device__ __forceinline__ int* assoc_general_taken(void* smem, int T, int D) {
-  return assoc_general_match(smem, T, D) + T;
+// One entry of a line as a 64-bit key (0 unless eligible and live).
+__device__ __forceinline__ unsigned long long line_entry(unsigned k, bool live, unsigned tie) {
+  return (live && k) ? ((unsigned long long)k << 32) | ~tie : 0ull;
 }
 
-template <class Iou>
-__device__ void greedy_associate_general(Iou iou, const int* rank, int T, int D, float thr, void* smem) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
-  unsigned long long* rowbest = static_cast<unsigned long long*>(smem);
-  unsigned long long* colbest = rowbest + T;
-  int* match = assoc_general_match(smem, T, D);
-  int* taken = match + T;
-  int* colrow = taken + D;
-  for (int t = tid; t < T; t += nthreads) match[t] = -1;
-  for (int d = tid; d < D; d += nthreads) taken[d] = 0;
-  __syncthreads();
-  for (bool first = true;; first = false) {
-    // Row bests, a warp a row: the stale ones (all in the first round).
-    for (int t = warp; t < T; t += nwarps) {
-      const unsigned base = (unsigned)rank[t] * (unsigned)D + 0x80000000u;  // the tie-break key's base
-      const unsigned long long b = rowbest[t];
-      if (!first && !(match[t] < 0 && b != 0ull && taken[~(unsigned)b - base])) continue;
-      unsigned long long best = 0ull;
-      for (int d = lane; d < D; d += 32) {
-        if (taken[d]) continue;
-        const unsigned k = assoc_key(iou(t, d), thr);
-        const unsigned long long e = k ? ((unsigned long long)k << 32) | ~(base + (unsigned)d) : 0ull;
-        best = e > best ? e : best;
-      }
-      best = warp_max_u64(best);
-      if (lane == 0) rowbest[t] = best;
-    }
-    // Column bests, a thread a column: the stale ones.
-    for (int d = tid; d < D; d += nthreads) {
-      if (!first && !(!taken[d] && colbest[d] != 0ull && match[colrow[d]] >= 0)) continue;
-      unsigned long long best = 0ull;
-      int arg = 0;
+// The best live entry of a row line, on a warp: `base` is the row's
+// tie-break base (rank * D + 2^31), column d's tie-break key base + d.
+__device__ inline unsigned long long row_line_best(const unsigned* line, int n4, const unsigned* taken,
+                                                   unsigned base) {
+  const uint4* l4 = reinterpret_cast<const uint4*>(line);
+  unsigned long long best = 0ull;
 #pragma unroll 4
-      for (int t = 0; t < T; ++t) {
-        if (match[t] >= 0) continue;
-        const unsigned k = assoc_key(iou(t, d), thr);
-        const unsigned long long e =
-            k ? ((unsigned long long)k << 32) | ~((unsigned)rank[t] * (unsigned)D + 0x80000000u + (unsigned)d) : 0ull;
-        if (e > best) best = e, arg = t;
+  for (int q = threadIdx.x & 31; q < n4; q += 32) {
+    const uint4 k = l4[q];
+    const unsigned live = ~(taken[q >> 3] >> ((4 * q) & 31));
+    const unsigned d = base + 4u * q;
+    unsigned long long e0 = line_entry(k.x, live & 1u, d), e1 = line_entry(k.y, live & 2u, d + 1u);
+    unsigned long long e2 = line_entry(k.z, live & 4u, d + 2u), e3 = line_entry(k.w, live & 8u, d + 3u);
+    e0 = e1 > e0 ? e1 : e0;
+    e2 = e3 > e2 ? e3 : e2;
+    e0 = e2 > e0 ? e2 : e0;
+    best = e0 > best ? e0 : best;
+  }
+  return warp_max_u64(best);
+}
+
+// The best live entry of column line d, on a warp, and its row (`*arg`):
+// row t's tie-break key is rank[t] * D + d + 2^31 (`dcol` = d + 2^31).
+__device__ inline unsigned long long col_line_best(const unsigned* line, int n4, const unsigned* matched,
+                                                   const int* rank, unsigned D, unsigned dcol, int* arg) {
+  const uint4* l4 = reinterpret_cast<const uint4*>(line);
+  const int4* r4 = reinterpret_cast<const int4*>(rank);
+  unsigned long long best = 0ull;
+  int at = 0;
+#pragma unroll 2
+  for (int q = threadIdx.x & 31; q < n4; q += 32) {
+    const uint4 k = l4[q];
+    const int4 r = r4[q];
+    const unsigned live = ~(matched[q >> 3] >> ((4 * q) & 31));
+    const unsigned long long e0 = line_entry(k.x, live & 1u, (unsigned)r.x * D + dcol);
+    const unsigned long long e1 = line_entry(k.y, live & 2u, (unsigned)r.y * D + dcol);
+    const unsigned long long e2 = line_entry(k.z, live & 4u, (unsigned)r.z * D + dcol);
+    const unsigned long long e3 = line_entry(k.w, live & 8u, (unsigned)r.w * D + dcol);
+    if (e0 > best) best = e0, at = 4 * q;
+    if (e1 > best) best = e1, at = 4 * q + 1;
+    if (e2 > best) best = e2, at = 4 * q + 2;
+    if (e3 > best) best = e3, at = 4 * q + 3;
+  }
+  const unsigned long long m = warp_max_u64(best);
+  *arg = __reduce_min_sync(0xffffffffu, best == m ? (unsigned)at : 0xffffffffu);
+  return m;
+}
+
+// The fixpoint on the cluster, with the contract of `greedy_associate` for
+// T, D up to kAssocGeneralMax.  Called by every thread of every block of
+// the cluster (kAssocClusterThreads each, a thread a row), after
+// `assoc_init`, the lines staged and a block sync; `rowkeys` and `colkeys`
+// are this block's lines (`s.keys` or its part of the device scratch).
+// With `staged`, the caller has also written the first round's bests
+// (s.rowbest, s.colbest and s.colrow: each line's best with every row live
+// and every column untaken), which the first round pushes as they are.  On
+// return s.match holds this block's rows' matches and s.matched, s.taken
+// every row's and column's state, alike on every block; every push to this
+// block has landed.  Returns the rounds taken, the last (which accepts
+// nothing) included.
+__device__ inline int cluster_associate(const AssocShared& s, const unsigned* rowkeys, const unsigned* colkeys,
+                                        const AssocPlan& p, int T, int D, bool staged = false) {
+  const unsigned C = (unsigned)p.cluster;
+  unsigned me;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(me));
+  const int2 rows = assoc_span((int)me, p.rows, T), cols = assoc_span((int)me, p.cols, D);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int rn4 = p.rstride >> 2, cn4 = p.cstride >> 2;
+  const unsigned tie_base = tid < T ? (unsigned)s.rank[tid] * (unsigned)D + 0x80000000u : 0u;  // row tid's
+  const unsigned bytes = 8u * (unsigned)(T + D);
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");  // every block's mbarriers are ready
+  int rounds = 0;
+  for (int par = 0;; par ^= 1) {
+    const bool first = rounds++ == 0, fresh = first && !staged;
+    unsigned long long* allrow = s.allrow + par * p.cstride;
+    unsigned long long* allcol = s.allcol + par * p.rstride;
+    const unsigned mbar = smem_addr(s.mbar + par);
+    if (tid == 0) asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mbar), "r"(bytes) : "memory");
+    // Row bests, a warp a row: the stale ones recomputed (all in the first
+    // round), the others carried over; pushed to every block.
+    for (int i = warp; i < rows.y; i += nwarps) {
+      const int t = rows.x + i;
+      const unsigned base = (unsigned)s.rank[t] * (unsigned)D + 0x80000000u;
+      unsigned long long best = s.rowbest[i];
+      if (fresh || (!first && !bit_of(s.matched, t) && best != 0ull && bit_of(s.taken, ~(unsigned)best - base))) {
+        best = row_line_best(rowkeys + (size_t)i * p.rstride, rn4, s.taken, base);
+        if (lane == 0) s.rowbest[i] = best;
       }
-      colbest[d] = best;
-      colrow[d] = arg;
+      if ((unsigned)lane < C) st_async_b64(cluster_addr(allrow + t, lane), best, cluster_addr(s.mbar + par, lane));
     }
-    __syncthreads();
-    // Accept every live row whose best is its column's best.
+    // Column bests, a warp a column, likewise.
+    for (int j = warp; j < cols.y; j += nwarps) {
+      const int d = cols.x + j;
+      unsigned long long best = s.colbest[j];
+      if (fresh || (!first && !bit_of(s.taken, d) && best != 0ull && bit_of(s.matched, s.colrow[j]))) {
+        int arg;
+        best = col_line_best(colkeys + (size_t)j * p.cstride, cn4, s.matched, s.rank, (unsigned)D,
+                             (unsigned)d + 0x80000000u, &arg);
+        if (lane == 0) s.colbest[j] = best, s.colrow[j] = arg;
+      }
+      if ((unsigned)lane < C) st_async_b64(cluster_addr(allcol + d, lane), best, cluster_addr(s.mbar + par, lane));
+    }
+    // Every row's and column's best of this round, from every block.
+    const unsigned parity = (unsigned)((rounds - 1) >> 1) & 1u;
+    unsigned ok;
+    do {
+      asm volatile(
+          "{ .reg .pred p; mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+          : "=r"(ok)
+          : "r"(mbar), "r"(parity)
+          : "memory");
+    } while (!ok);
+    // Accept every live row whose best is its column's best; every block
+    // decides the same.
     bool took = false;
-    for (int t = tid; t < T; t += nthreads) {
-      const unsigned long long b = rowbest[t];
-      if (match[t] >= 0 || b == 0ull) continue;
-      const int d = (int)(~(unsigned)b - ((unsigned)rank[t] * (unsigned)D + 0x80000000u));
-      if (colbest[d] == b) {
-        match[t] = d;
-        taken[d] = 1;
-        took = true;
+    if (tid < T) {
+      const unsigned long long b = allrow[tid];
+      if (b != 0ull && !bit_of(s.matched, tid)) {
+        const unsigned d = ~(unsigned)b - tie_base;
+        if (allcol[d] == b) {
+          took = true;
+          atomicOr(s.taken + (d >> 5), 1u << (d & 31));
+          if (tid >= rows.x && tid < rows.x + rows.y) s.match[tid - rows.x] = (int)d;
+        }
       }
     }
-    if (!__syncthreads_or(took)) break;
+    const unsigned acc = __ballot_sync(0xffffffffu, took);
+    if (lane == 0 && acc != 0u) s.matched[warp] |= acc;
+    if (!__syncthreads_or(took)) return rounds;
   }
 }

@@ -12,8 +12,10 @@
 extern "C" int madpp_tracker_step(
     const void*, const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, const void*, const void*, const void*, const void*,
-    const void*, const void*, const void*, const void*, void*, void*, int, int, int, int,
+    const void*, const void*, const void*, const void*, void*, void*, void*, int, int, int, int,
     float, int, int, void*);
+extern "C" long long madpp_tracker_scratch(int, int, int);
+extern "C" int madpp_tracker_cluster(int, int, int);
 
 extern "C" int madpp_kalman_step(const void*, const void*, const void*, const void*,
                                  const void*, const void*, const void*, const void*,
@@ -26,7 +28,9 @@ extern "C" int madpp_tagging_step(
     const void*, const void*, void*, void*, const void*, int, int, int, int, int, int, int,
     int, void*);
 
-extern "C" int madpp_associate(const void*, const void*, void*, int, int, float, void*);
+extern "C" int madpp_associate(const void*, const void*, void*, int, int, float, void*, void*);
+extern "C" long long madpp_associate_scratch(int, int);
+extern "C" int madpp_associate_cluster(int, int);
 
 extern "C" int madpp_nms_keep(const void*, const void*, void*, int, int, float, void*);
 
@@ -35,14 +39,14 @@ namespace {
 inline void* ptr(std::uintptr_t p) { return reinterpret_cast<void*>(p); }
 
 int tracker_step(pybind11::args a) {
-  if (a.size() != 26) throw std::invalid_argument("tracker_step takes 26 arguments");
-  void* p[18];
-  for (int i = 0; i < 18; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
+  if (a.size() != 27) throw std::invalid_argument("tracker_step takes 27 arguments");
+  void* p[19];
+  for (int i = 0; i < 19; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
   return madpp_tracker_step(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12],
-      p[13], p[14], p[15], p[16], p[17], a[18].cast<int>(), a[19].cast<int>(),
-      a[20].cast<int>(), a[21].cast<int>(), a[22].cast<float>(), a[23].cast<int>(),
-      a[24].cast<int>(), ptr(a[25].cast<std::uintptr_t>()));
+      p[13], p[14], p[15], p[16], p[17], p[18], a[19].cast<int>(), a[20].cast<int>(),
+      a[21].cast<int>(), a[22].cast<int>(), a[23].cast<float>(), a[24].cast<int>(),
+      a[25].cast<int>(), ptr(a[26].cast<std::uintptr_t>()));
 }
 
 int kalman_step(pybind11::args a) {
@@ -67,10 +71,10 @@ int tagging_step(pybind11::args a) {
 }
 
 int associate(pybind11::args a) {
-  if (a.size() != 7) throw std::invalid_argument("associate takes 7 arguments");
+  if (a.size() != 8) throw std::invalid_argument("associate takes 8 arguments");
   return madpp_associate(ptr(a[0].cast<std::uintptr_t>()), ptr(a[1].cast<std::uintptr_t>()),
                          ptr(a[2].cast<std::uintptr_t>()), a[3].cast<int>(), a[4].cast<int>(),
-                         a[5].cast<float>(), ptr(a[6].cast<std::uintptr_t>()));
+                         a[5].cast<float>(), ptr(a[6].cast<std::uintptr_t>()), ptr(a[7].cast<std::uintptr_t>()));
 }
 
 int nms_keep(pybind11::args a) {
@@ -87,5 +91,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("kalman_step", &kalman_step, "Launch kernel K2; returns the CUDA error code.");
   m.def("tagging_step", &tagging_step, "Launch kernel K3; returns the CUDA error code.");
   m.def("associate", &associate, "Launch kernel K4; returns the CUDA error code.");
+  m.def("tracker_scratch", &madpp_tracker_scratch, "K1's key scratch words a lane at (T, D, L); -1 outside its limits.");
+  m.def("tracker_cluster", &madpp_tracker_cluster, "K1's blocks a lane at (T, D, L); -1 outside its limits.");
+  m.def("associate_scratch", &madpp_associate_scratch, "K4's key scratch words at (T, D); -1 outside its limits.");
+  m.def("associate_cluster", &madpp_associate_cluster, "K4's blocks at (T, D); -1 outside its limits.");
   m.def("nms_keep", &nms_keep, "Launch kernel K5; returns the CUDA error code.");
 }

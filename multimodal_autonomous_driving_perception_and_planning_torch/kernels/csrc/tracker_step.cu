@@ -54,9 +54,12 @@
 // `FLOAT_FIELDS` and `INT_FIELDS`.
 //
 // Two instances, chosen by shape: the one described above for T <= 128 and
-// D <= 64, and a general one for T and D up to 1,024 (below, before the
-// launcher).  L >= 1, B >= 1.  The wrapper checks the limits.
+// D <= 64, and a general one for T and D up to 1,024, a thread block
+// cluster a lane (below, before the launcher).  L >= 1, B >= 1.  The
+// wrapper checks the limits and allocates the general instance's key
+// scratch where the shape needs it (`madpp_tracker_scratch`).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -437,147 +440,331 @@ tracker_step_kernel(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p) {
 
 // --- The general instance: T and D up to 1,024 -----------------------------
 //
-// One block of 1,024 threads a lane, thread t holding slot t and loading
-// detection t.  What the instance above keeps in static arrays sized 128
-// and 64, and in two-word masks, is here sized by T and D in dynamic shared
-// memory and held as ceil(n / 32) words; the association runs the general
-// rounds (association.cuh `greedy_associate_general`), which compute each
-// IoU from the boxes when a round needs it, so no matrix is stored; the
-// ranks count over all T keys on each slot's thread; births find the r-th
-// unmatched detection by a prefix count over the mask's words; the ring
-// is copied from device memory (at T = 1,024 and L = 50 it is 410 KB).
-// Same arithmetic, same outputs, bit for bit.
-constexpr int kGeneralThreads = 1024;
-constexpr int kGeneralMax = kGeneralThreads;  // T and D
-static_assert(kGeneralMax <= kAssocGeneralMax, "the general rounds take the general tables");
+// A thread block cluster a lane (association.cuh `assoc_plan`: C blocks of
+// 1,024 threads; the grid is B clusters), block r owning the slots and
+// detections of its part of the association's partition and, for
+// everything after it, its slots.  What held the one-block version back:
+// the whole step on one SM of 132, an IoU recomputed, with its
+// division, whenever a round touched an entry, column bests as a chain of T
+// steps, both stable ranks counted over all T keys on each slot's thread
+// (about 1 M shared-memory reads each at T = 1,024), and the 410 KB ring
+// copy on that one SM.  Each block here:
+//  - loads every slot's id and box and every detection, and its slots'
+//    other fields into the registers of the slot's thread, and starts
+//    copying its slots' ring rows into shared memory (`cp.async`, 16 bytes
+//    where aligned, 4 for the rest) where they fit;
+//  - ranks every slot by id itself (`id_rank`), a bitonic sort of
+//    (key, slot) pairs, a thread a pair (`sort_pairs`): 55 exchange steps at
+//    T = 1,024, 15 of them through shared memory, the rest shuffles;
+//  - stages the IoU keys of its slots and of its detections once, with the
+//    first round's bests of those lines in the same pass
+//    (`stage_general_keys`; `pair_iou`'s division only where the boxes
+//    overlap), then runs the cluster rounds (association.cuh
+//    `cluster_associate`);
+//  - writes its slots' ring rows out as they were, then each of its slots'
+//    update, birth and death (`slot_update`, as in the instance above; the
+//    free, valid and wanted masks are every block's);
+// each slot's confirmed key and each warp's confirmed bits go to block 0
+// (distributed shared memory stores), which after one cluster barrier
+// sorts the pairs for the confirmed order and writes the counters.  Same
+// arithmetic, same outputs, bit for bit.
+constexpr int kGeneralThreads = kAssocClusterThreads;
+constexpr int kGeneralMax = kAssocGeneralMax;  // T and D
 
-// Dynamic shared memory of the general instance: boxes of the slots and of
-// the detections (16 bytes each), the association's rounds, then ids,
-// keys, ranks (T each), classes and confidences (D each).
-__host__ __device__ inline size_t general_smem(int T, int D) {
-  return 16 * (size_t)(T + D) + assoc_general_smem(T, D) + 4 * (3 * (size_t)T + 2 * (size_t)D);
+// A lane's launch plan at (T, D, L): the association's partition, whether
+// its key lines and the block's ring rows fit in shared memory, and the
+// block's bytes of it.
+struct GeneralPlan {
+  AssocPlan assoc;
+  int keys_in_smem, stage_ring;
+  size_t smem;
+};
+
+// Shared memory a block takes besides the rounds' and the ring's: every
+// slot's box, id and confirmed key, every detection's box, class and
+// confidence, the sort's exchange buffer (1,024 pairs), and the valid,
+// free, wanted and confirmed bits and the next id.
+__host__ __device__ inline size_t general_fixed_smem(int T, int D) {
+  return 16 * (size_t)(T + D) + 8 * (size_t)1024 + 8 * (size_t)(T + D) + 4 * (4 * kAssocBitWords + 4);
 }
 
-// Stable ascending rank of key[0..T) on thread t, over all T keys.
-__device__ __forceinline__ int stable_rank_of(const int* key, int T, int t) {
-  const int kt = key[t];
-  int r = 0;
-  for (int j = 0; j < T; ++j) r += key[j] < kt || (key[j] == kt && j < t);
-  return r;
+__host__ __device__ inline GeneralPlan general_plan(int T, int D, int L) {
+  GeneralPlan g;
+  g.assoc = assoc_plan(T, D);
+  const size_t fixed = general_fixed_smem(T, D);
+  g.keys_in_smem = fixed + assoc_shared_bytes(g.assoc, true) <= kAssocSmemLimit;
+  const size_t base = fixed + assoc_shared_bytes(g.assoc, g.keys_in_smem);
+  const size_t ring = 4 * round4((size_t)g.assoc.rows * 2 * L);
+  g.stage_ring = base + ring <= kAssocSmemLimit;
+  g.smem = base + (g.stage_ring ? ring : 0);
+  return g;
+}
+
+// One step of a bitonic sort: this thread's value `v` against its
+// partner's `o` (thread i ^ j), in a run of k sorted up where i & k is 0.
+__device__ __forceinline__ unsigned long long bitonic_step(unsigned long long v, unsigned long long o, int i, int j,
+                                                           int k) {
+  return (((i & j) == 0) == ((i & k) == 0)) ? (o < v ? o : v) : (o > v ? o : v);
+}
+
+// Sorts one 64-bit value a thread over threads 0 .. n - 1 ascending (n a
+// power of two from 32 up to the block's 1,024 threads), bitonically:
+// exchanges between threads under 32 apart by shuffles, unrolled, the
+// others through `buf` (a value a thread) between two block barriers.
+// Warps from n on only meet the barriers.  Returns the value at this
+// thread's place (threads below n).  Called by every thread of the block.
+// (The steps as one runtime loop, each a branch, or on all 32 warps at
+// any n, were several times slower on the card.)
+__device__ inline unsigned long long sort_pairs(unsigned long long v, int n, unsigned long long* buf) {
+  const int i = threadIdx.x;
+  const bool in = i < n;  // whole warps: n is a multiple of 32
+  if (in) {
+#pragma unroll
+    for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+      for (int j = k >> 1; j > 0; j >>= 1) v = bitonic_step(v, __shfl_xor_sync(0xffffffffu, v, j), i, j, k);
+    }
+  }
+  for (int k = 64; k <= n; k <<= 1) {
+    for (int j = k >> 1; j >= 32; j >>= 1) {
+      if (in) buf[i] = v;
+      __syncthreads();
+      if (in) v = bitonic_step(v, buf[i ^ j], i, j, k);
+      __syncthreads();
+    }
+    if (in) {
+#pragma unroll
+      for (int j = 16; j > 0; j >>= 1) v = bitonic_step(v, __shfl_xor_sync(0xffffffffu, v, j), i, j, k);
+    }
+  }
+  return v;
+}
+
+// Slot t's sort pair: its key in signed order, then t (ties by slot).
+__device__ __forceinline__ unsigned long long rank_pair(int key, int t) {
+  return ((unsigned long long)((unsigned)key ^ 0x80000000u) << 32) | (unsigned)t;
+}
+
+// The sort's size for n pairs: a power of two, at least a warp.
+__device__ __forceinline__ int sort_size(int n) {
+  int p = 32;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// The key of slot box `a` and detection box `b`, bit for bit
+// assoc_key(pair_iou(a, b), thr): boxes that do not overlap have IoU +0
+// (`zero_key`) and skip the division.
+__device__ __forceinline__ unsigned general_iou_key(float4 a, float4 b, float thr, unsigned zero_key) {
+  const float iw = __fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x));
+  const float ih = __fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y));
+  return (iw > 0.0f && ih > 0.0f) ? assoc_key(pair_iou(a, b), thr) : zero_key;
+}
+
+// This block's key lines (association.cuh): a warp a line, its lanes over
+// the line's entries, the slots' and detections' boxes from shared memory,
+// and in the same pass the first round's bests of the lines (every row
+// live, every column untaken), as `cluster_associate` would compute them.
+// Keys of a dead slot or an invalid detection are 0.
+__device__ inline void stage_general_keys(const float4* s_tb, const float4* s_db, const int* s_id,
+                                          const unsigned* s_valid, const AssocShared& s, unsigned* rowkeys,
+                                          unsigned* colkeys, const AssocPlan& a, int T, int D, int2 rows, int2 cols,
+                                          float thr) {
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const unsigned zero_key = assoc_key(0.0f, thr);
+  for (int l = threadIdx.x >> 5; l < rows.y + cols.y; l += nwarps) {
+    unsigned long long best = 0ull;
+    if (l < rows.y) {
+      const int t = rows.x + l;
+      const float4 tb = s_tb[t];
+      const bool alive = s_id[t] > 0;
+      const unsigned base = (unsigned)s.rank[t] * (unsigned)D + 0x80000000u;
+      unsigned* line = rowkeys + (size_t)l * a.rstride;
+      for (int d = lane; d < a.rstride; d += 32) {
+        const unsigned k =
+            (d < D && alive && bit_of(s_valid, d)) ? general_iou_key(tb, s_db[d], thr, zero_key) : 0u;
+        line[d] = k;
+        const unsigned long long e = line_entry(k, true, base + (unsigned)d);
+        best = e > best ? e : best;
+      }
+      best = warp_max_u64(best);
+      if (lane == 0) s.rowbest[l] = best;
+    } else {
+      const int j = l - rows.y, d = cols.x + j;
+      const float4 db = s_db[d];
+      const bool valid = bit_of(s_valid, d);
+      const unsigned dcol = (unsigned)d + 0x80000000u;
+      unsigned* line = colkeys + (size_t)j * a.cstride;
+      int at = 0;
+      for (int t = lane; t < a.cstride; t += 32) {
+        const unsigned k =
+            (t < T && valid && s_id[t] > 0) ? general_iou_key(s_tb[t], db, thr, zero_key) : 0u;
+        line[t] = k;
+        const unsigned long long e = line_entry(k, true, (unsigned)s.rank[t] * (unsigned)D + dcol);
+        if (e > best) best = e, at = t;
+      }
+      const unsigned long long m = warp_max_u64(best);
+      const unsigned arg = __reduce_min_sync(0xffffffffu, best == m ? (unsigned)at : 0xffffffffu);
+      if (lane == 0) s.colbest[j] = m, s.colrow[j] = (int)arg;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kGeneralThreads)
-tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p) {
+tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, GeneralPlan g,
+                     unsigned* __restrict__ scratch) {
   extern __shared__ __align__(16) float4 s_gen[];
-  __shared__ unsigned s_valid_bits[kGeneralMax / 32], s_want_bits[kGeneralMax / 32];
-  __shared__ unsigned s_free_bits[kGeneralMax / 32], s_conf_bits[kGeneralMax / 32];
-  __shared__ int s_next_id;
-
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const AssocPlan& a = g.assoc;
+  const int me = (int)cluster.block_rank(), lane_b = blockIdx.x / a.cluster;
   const int T = p.T, D = p.D, W = 2 * p.L;
-  const TrackerIn in = lane_in(lanes_in, blockIdx.x, T, D, p.L);
-  const TrackerOut out = lane_out(lanes_out, blockIdx.x, T, p.L);
-  float4* s_tb = s_gen;
+  const TrackerIn in = lane_in(lanes_in, lane_b, T, D, p.L);
+  const TrackerOut out = lane_out(lanes_out, lane_b, T, p.L);
+  // [the rounds'] [ring rows (if staged)] [slot boxes] [detection boxes]
+  // [sort buffer] [ids] [confirmed keys] [classes] [confidences] [bits] [next id]
+  const AssocShared s = assoc_carve(s_gen, a, g.keys_in_smem);
+  char* c = reinterpret_cast<char*>(s_gen) + assoc_shared_bytes(a, g.keys_in_smem);
+  float* s_ring = reinterpret_cast<float*>(c);
+  c += g.stage_ring ? 4 * round4((size_t)a.rows * W) : 0;
+  float4* s_tb = reinterpret_cast<float4*>(c);
   float4* s_db = s_tb + T;
-  void* s_assoc = s_db + D;
-  int* s_id = reinterpret_cast<int*>(static_cast<char*>(s_assoc) + assoc_general_smem(T, D));
-  int* s_key = s_id + T;
-  int* s_rank = s_key + T;
-  int* s_dcls = s_rank + T;
+  unsigned long long* s_sort = reinterpret_cast<unsigned long long*>(s_db + D);
+  int* s_id = reinterpret_cast<int*>(s_sort + 1024);
+  int* s_ckey = s_id + T;
+  int* s_dcls = s_ckey + T;
   float* s_dconf = reinterpret_cast<float*>(s_dcls + D);
+  unsigned* s_valid = reinterpret_cast<unsigned*>(s_dconf + D);
+  unsigned* s_free = s_valid + kAssocBitWords;
+  unsigned* s_want = s_free + kAssocBitWords;
+  unsigned* s_conf = s_want + kAssocBitWords;
+  int* s_next_id = reinterpret_cast<int*>(s_conf + kAssocBitWords);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int2 rows = assoc_span(me, a.rows, T), cols = assoc_span(me, a.cols, D);
+  unsigned* rowkeys = scratch ? scratch + ((size_t)lane_b * a.cluster + me) * assoc_key_words(a) : s.keys;
+  unsigned* colkeys = rowkeys + (size_t)a.rows * a.rstride;
 
-  // --- loads: slot tid and detection tid --------------------------------------
-  Slot s{0, 0, 0, 0, 0, 0, 0, 0.0f, 0.0f, 0.0f};
-  const bool slot = tid < T;
-  if (slot) {
-    const int t = tid;
-    s = Slot{in.track_id[t], in.class_id[t], in.age[t], in.hits[t], in.misses[t], in.vel_count[t],
-             in.traj_len[t], in.conf[t], in.vel[2 * t], in.vel[2 * t + 1]};
-    s_tb[t] = make_float4(in.bbox[4 * t], in.bbox[4 * t + 1], in.bbox[4 * t + 2], in.bbox[4 * t + 3]);
-    s_id[t] = s.id0;
-    s_key[t] = s.id0 > 0 ? s.id0 : kI32Max;
+  // --- loads: every slot's id and box, every detection, this block's slots ---
+  if (g.stage_ring) stage_async(s_ring, in.traj + (size_t)rows.x * W, rows.y * W);
+  int id0 = 0;
+  if (tid < T) {
+    id0 = in.track_id[tid];
+    s_id[tid] = id0;
+    s_tb[tid] = make_float4(in.bbox[4 * tid], in.bbox[4 * tid + 1], in.bbox[4 * tid + 2], in.bbox[4 * tid + 3]);
   }
-  const unsigned fb = __ballot_sync(0xffffffffu, slot && s.id0 == 0);
+  const unsigned fb = __ballot_sync(0xffffffffu, tid < T && id0 == 0);
   bool valid = false;
   if (tid < D) {
-    const int d = tid;
-    valid = in.det_valid[d];
-    s_db[d] = make_float4(in.det_bbox[4 * d], in.det_bbox[4 * d + 1], in.det_bbox[4 * d + 2],
-                          in.det_bbox[4 * d + 3]);
-    s_dcls[d] = in.det_class[d];
-    s_dconf[d] = in.det_conf[d];
+    valid = in.det_valid[tid];
+    s_db[tid] = make_float4(in.det_bbox[4 * tid], in.det_bbox[4 * tid + 1], in.det_bbox[4 * tid + 2],
+                            in.det_bbox[4 * tid + 3]);
+    s_dcls[tid] = in.det_class[tid];
+    s_dconf[tid] = in.det_conf[tid];
   }
   const unsigned vb = __ballot_sync(0xffffffffu, valid);
-  if (lane == 0) s_free_bits[warp] = fb, s_valid_bits[warp] = vb;
-  if (tid == 0) s_next_id = *in.next_id;
+  if (lane == 0) s_free[warp] = fb, s_valid[warp] = vb;
+  const bool mine = tid < rows.y;
+  const int t_mine = rows.x + tid;
+  Slot sl{0, 0, 0, 0, 0, 0, 0, 0.0f, 0.0f, 0.0f};
+  if (mine) {
+    const int t = t_mine;
+    sl = Slot{in.track_id[t], in.class_id[t], in.age[t], in.hits[t], in.misses[t], in.vel_count[t],
+              in.traj_len[t], in.conf[t], in.vel[2 * t], in.vel[2 * t + 1]};
+  }
+  if (tid == 0) *s_next_id = *in.next_id;
+  assoc_init(s, a);
   __syncthreads();
 
-  // --- the id rank, then the association over IoUs computed as needed ---------
-  if (slot) s_rank[tid] = stable_rank_of(s_key, T, tid);
+  // --- the id rank: every slot's, dead slots last, ties by slot -------------
+  const unsigned long long ranked =
+      sort_pairs(tid < T ? rank_pair(id0 > 0 ? id0 : kI32Max, tid) : ~0ull, sort_size(T), s_sort);
+  if (tid < T) s.rank[(unsigned)ranked] = tid;
   __syncthreads();
-  greedy_associate_general(
-      [&](int t, int d) {
-        const float v = pair_iou(s_tb[t], s_db[d]);
-        return (s_id[t] > 0 && ((s_valid_bits[d >> 5] >> (d & 31)) & 1u)) ? v : -1.0f;
-      },
-      s_rank, T, D, p.iou_threshold, s_assoc);
-  const int* s_match = assoc_general_match(s_assoc, T, D);
-  const int* s_taken = assoc_general_taken(s_assoc, T, D);
 
-  // --- the ring out as it was; this frame's writes follow after a barrier -----
-  const int n_ring = T * W;
+  // --- the keys of this block's slots and detections, then the rounds -------
+  stage_general_keys(s_tb, s_db, s_id, s_valid, s, rowkeys, colkeys, a, T, D, rows, cols, p.iou_threshold);
+  __syncthreads();
+  cluster_associate(s, rowkeys, colkeys, a, T, D, true);
+
+  // --- this block's ring rows out as they were; this frame's writes follow ---
+  if (g.stage_ring) cp_async_wait_all();
+  __syncthreads();
+  const float* src = g.stage_ring ? s_ring : in.traj + (size_t)rows.x * W;
+  float* dst = out.traj + (size_t)rows.x * W;
+  const int n_ring = rows.y * W;
   int done = 0;
-  if (aligned16(out.traj) && aligned16(in.traj)) {
+  if (aligned16(dst) && aligned16(src)) {
     const int n4 = n_ring >> 2;
     for (int i = tid; i < n4; i += kGeneralThreads)
-      reinterpret_cast<float4*>(out.traj)[i] = reinterpret_cast<const float4*>(in.traj)[i];
+      reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
     done = n4 << 2;
   }
-  for (int i = done + tid; i < n_ring; i += kGeneralThreads) out.traj[i] = in.traj[i];
-  const unsigned wb = __ballot_sync(0xffffffffu, valid && !s_taken[tid < D ? tid : 0]);
-  if (lane == 0) s_want_bits[warp] = wb;
+  for (int i = done + tid; i < n_ring; i += kGeneralThreads) dst[i] = src[i];
+  if (tid < kAssocBitWords) s_want[tid] = s_valid[tid] & ~s.taken[tid];
   __syncthreads();
 
   // --- births: the k-th unmatched valid detection takes the k-th free slot ----
   int n_free = 0, n_want = 0;
-  for (int w = 0; w < kGeneralMax / 32; ++w) n_free += __popc(s_free_bits[w]), n_want += __popc(s_want_bits[w]);
+  for (int w = 0; w < kAssocBitWords; ++w) n_free += __popc(s_free[w]), n_want += __popc(s_want[w]);
   const int n_birth = min(n_free, n_want);
-  const int next_id = s_next_id;
+  const int next_id = *s_next_id;
   bool confirmed = false;
-  if (slot) {
+  if (mine) {
     // The r-th set bit of the wanted mask, by a prefix count over its words.
     auto nth_want = [&](int r) {
       int w = 0;
-      for (; r >= __popc(s_want_bits[w]); ++w) r -= __popc(s_want_bits[w]);
-      unsigned bits = s_want_bits[w];
+      for (; r >= __popc(s_want[w]); ++w) r -= __popc(s_want[w]);
+      unsigned bits = s_want[w];
       for (int k = 0; k < r; ++k) bits &= bits - 1u;
       return 32 * w + __ffs(bits) - 1;
     };
-    confirmed = slot_update(tid, s, s_tb[tid], s_match[tid], s_free_bits, n_birth, next_id, nth_want, s_db,
-                            s_dcls, s_dconf, s_key, out, p);
+    confirmed = slot_update(t_mine, sl, s_tb[t_mine], s.match[tid], s_free, n_birth, next_id, nth_want, s_db,
+                            s_dcls, s_dconf, cluster.map_shared_rank(s_ckey, 0), out, p);
   }
+  // Each slot's confirmed key went to block 0 (`slot_update`), and each
+  // warp's confirmed bits go there too.
   const unsigned cb = __ballot_sync(0xffffffffu, confirmed);
-  if (lane == 0) s_conf_bits[warp] = cb;
-  __syncthreads();
+  if (lane == 0 && 32 * warp < rows.y) cluster.map_shared_rank(s_conf, 0)[(rows.x >> 5) + warp] = cb;
+  cluster.sync();  // block 0 holds every slot's confirmed key and bit
+  if (me != 0) return;
 
-  // --- confirmed order: stable by (id, slot), unconfirmed slots last ----------
-  if (slot) out.order[stable_rank_of(s_key, T, tid)] = tid;
-  if (tid == 0) {
-    int n = 0;
-    for (int w = 0; w < kGeneralMax / 32; ++w) n += __popc(s_conf_bits[w]);
-    *out.n_conf = n;
-    *out.next_id = next_id + n_birth;
+  // --- confirmed order: stable by (id, slot), unconfirmed slots last ---------
+  const unsigned long long sorted = sort_pairs(tid < T ? rank_pair(s_ckey[tid], tid) : ~0ull, sort_size(T), s_sort);
+  if (tid < T) out.order[tid] = (int)(unsigned)sorted;
+  if (warp == 0) {
+    const int n_conf = __reduce_add_sync(0xffffffffu, 32 * lane < T ? __popc(s_conf[lane]) : 0);
+    if (lane == 0) {
+      *out.n_conf = n_conf;
+      *out.next_id = next_id + n_birth;
+    }
   }
 }
 
 }  // namespace
+
+// Words of device scratch a lane of the launch at (T, D, L) needs for the
+// association's keys (0: they fit in shared memory, or the small instance
+// runs), or -1 outside the limits.
+extern "C" long long madpp_tracker_scratch(int T, int D, int L) {
+  if (T < 1 || T > kGeneralMax || D < 1 || D > kGeneralMax || L < 1) return -1;
+  if (T <= kMaxT && D <= kMaxD) return 0;
+  const GeneralPlan g = general_plan(T, D, L);
+  return g.keys_in_smem ? 0 : (long long)(assoc_key_words(g.assoc) * g.assoc.cluster);
+}
+
+// The blocks a lane of the launch at (T, D, L) takes (its cluster; 1 for
+// the small instance), or -1 outside the limits.
+extern "C" int madpp_tracker_cluster(int T, int D, int L) {
+  if (T < 1 || T > kGeneralMax || D < 1 || D > kGeneralMax || L < 1) return -1;
+  return (T <= kMaxT && D <= kMaxD) ? 1 : assoc_plan(T, D).cluster;
+}
 
 extern "C" int madpp_tracker_step(
     const void* track_id, const void* bbox, const void* class_id, const void* conf,
     const void* age, const void* hits, const void* misses, const void* traj,
     const void* traj_len, const void* vel, const void* vel_count, const void* next_id,
     const void* det_bbox, const void* det_class, const void* det_conf,
-    const void* det_valid, void* out_f, void* out_i, int B, int T, int D, int L,
+    const void* det_valid, void* out_f, void* out_i, void* scratch, int B, int T, int D, int L,
     float iou_threshold, int max_age, int min_hits, void* stream) {
   if (B < 1 || T < 1 || T > kGeneralMax || D < 1 || D > kGeneralMax || L < 1) return (int)cudaErrorInvalidValue;
   TrackerIn in{(const int*)track_id, (const float*)bbox, (const int*)class_id,
@@ -588,11 +775,28 @@ extern "C" int madpp_tracker_step(
                (const bool*)det_valid};
   const TrackerOut out = carve((float*)out_f, (int*)out_i, T, L, B);
   if (T > kMaxT || D > kMaxD) {
-    const size_t smem = general_smem(T, D);
-    const cudaError_t err = allow_dynamic_smem<tracker_step_general>(smem);
+    const GeneralPlan g = general_plan(T, D, L);
+    if (!g.keys_in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+    cudaError_t err = allow_dynamic_smem<tracker_step_general>(g.smem);
+    if (err == cudaSuccess && g.assoc.cluster > 8)
+      err = cudaFuncSetAttribute(tracker_step_general, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
     const TrackerParams p{T, D, L, iou_threshold, max_age, min_hits, 0};
-    tracker_step_general<<<B, kGeneralThreads, smem, (cudaStream_t)stream>>>(in, out, p);
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = (unsigned)g.assoc.cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3((unsigned)B * (unsigned)g.assoc.cluster);
+    cfg.blockDim = dim3(kGeneralThreads);
+    cfg.dynamicSmemBytes = g.smem;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, tracker_step_general, in, out, p, g,
+                             g.keys_in_smem ? (unsigned*)nullptr : (unsigned*)scratch);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
   const size_t iou_bytes = sizeof(float) * round4((size_t)T * (size_t)(D + 1));

@@ -14,22 +14,43 @@ kernel runs every round of the fixpoint inside one launch, on one warp
 memory, where the plain version synchronises with the host once a
 round.  The wrapper does one pass of checks (ops/launch.py),
 one allocation and the launch on the current stream without re-entering
-the device context.
+the device context.  Tables beyond 128 rows or 64 columns take the
+kernel's general instance, a thread block cluster of up to 16 blocks
+whose key lines live in shared memory where they fit; where they do not
+(1,024 x 1,024: 8 MB of keys), the wrapper allocates them a device
+scratch, by shape alone (`scratch_words`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..kernels import build
 from . import launch
 
-# The kernel's instance whose times PERF.md tracks takes at most 128 rows
-# and 64 columns; its general instance (one block of 1,024 threads that
-# reads the matrix from device memory in each round that needs it)
-# MAX_ROWS and MAX_COLS.  Its launcher picks one by shape.
+# The kernel's small instance takes at most 128 rows and 64 columns; its
+# general instance (a thread block cluster a matrix) MAX_ROWS and
+# MAX_COLS.  Its launcher picks one by shape.
 MAX_ROWS = 1024
 MAX_COLS = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def scratch_words(T: int, D: int) -> int:
+    """32-bit words of device scratch the launch at (T, D) takes for its
+    keys: 0 where they fit in the cluster's shared memory (the launcher's
+    own rule, asked of the built library)."""
+    return int(build.kernels().associate_scratch(T, D))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_size(T: int, D: int) -> int:
+    """The blocks of the thread block cluster the launch at (T, D) takes (1:
+    the small instance's single block)."""
+    return int(build.kernels().associate_cluster(T, D))
+
 
 # Launches of the kernel in this process; only `greedy_associate` adds to it.
 launches = 0
@@ -54,7 +75,10 @@ def greedy_associate(iou: torch.Tensor, row_rank: torch.Tensor, iou_threshold: f
     )
     match = torch.empty((T,), dtype=torch.int32, device=device)
     kernel = build.kernels().associate
-    args = (iou.data_ptr(), row_rank.data_ptr(), match.data_ptr(), T, D, float(iou_threshold))
+    words = scratch_words(T, D)
+    scratch = torch.empty((words,), dtype=torch.int32, device=device) if words else None
+    args = (iou.data_ptr(), row_rank.data_ptr(), match.data_ptr(), T, D, float(iou_threshold),
+            scratch.data_ptr() if words else 0)
     err = launch.launch(device, lambda stream: kernel(*args, stream))
     if err != 0:
         raise RuntimeError(f"greedy_associate: kernel launch failed with CUDA error {err}")

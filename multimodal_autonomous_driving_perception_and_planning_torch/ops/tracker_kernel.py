@@ -14,12 +14,15 @@ dependent phases (tracker_step.cu says what the kernel does about it), and
 on the host by this wrapper, whose time a call sets the rate of a path that
 launches one step a frame.  So the wrapper does one thing per call: one
 pass of checks, two allocations (the outputs are carved from one float32
-and one int32 buffer, `unpack`), 18 pointers to the binding, and the
+and one int32 buffer, `unpack`), 19 pointers to the binding, and the
 stream without re-entering the device context.  It reads nothing back from
 the device and allocates nothing that depends on the data, so a CUDA graph
 can capture it.  Larger tables, up to 1,024 slots and 1,024 detections,
-take the kernel's general instance (one block of 1,024 threads a lane, the
-IoU computed where the association needs it); its time is in PERF.md.
+take the kernel's general instance (a thread block cluster of up to 16
+blocks a lane, tracker_step.cu); where its association's keys do not fit
+in the cluster's shared memory (1,024 x 1,024), the wrapper allocates them
+a device scratch a lane, by shape alone (`scratch_words`).  Its times are
+in PERF.md.
 
 Lanes: a table and detections with a leading lane axis, (B, T, ...) and
 (B, D, ...), go through one launch of B blocks, each running its lane's
@@ -55,6 +58,21 @@ INT_FIELDS = (
 
 # Launches of the kernel in this process; only `tracker_step` adds to it.
 launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def scratch_words(T: int, D: int, L: int) -> int:
+    """32-bit words of device scratch a lane of the launch at (T, D, L)
+    takes for its association's keys: 0 where they fit in the cluster's
+    shared memory (the launcher's own rule, asked of the built library)."""
+    return int(build.kernels().tracker_scratch(T, D, L))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_size(T: int, D: int, L: int) -> int:
+    """The blocks a lane of the launch at (T, D, L) takes: its thread block
+    cluster (1: the small instance's single block)."""
+    return int(build.kernels().tracker_cluster(T, D, L))
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,9 +146,12 @@ def tracker_buffers(table: TrackTable, dets: Detections, iou_threshold: float, m
     f_shapes, i_shapes = output_shapes(T, L, lead)
     fbuf = launch.buffer(f_shapes, f32, device)
     ibuf = launch.buffer(i_shapes, i32, device)
+    words = scratch_words(T, D, L)
+    scratch = torch.empty((B * words,), dtype=i32, device=device) if words else None
     ptrs = [t.data_ptr() for _, t, _, _ in ins]
     kernel = build.kernels().tracker_step
-    args = (fbuf.data_ptr(), ibuf.data_ptr(), B, T, D, L, float(iou_threshold), int(max_age), int(min_hits))
+    args = (fbuf.data_ptr(), ibuf.data_ptr(), scratch.data_ptr() if words else 0, B, T, D, L,
+            float(iou_threshold), int(max_age), int(min_hits))
     err = launch.launch(device, lambda stream: kernel(*ptrs, *args, stream))
     if err != 0:
         raise RuntimeError(f"tracker_step: kernel launch failed with CUDA error {err} (B={B}, T={T}, D={D}, L={L})")

@@ -15,20 +15,24 @@ import torch
 from ..config import PlannerConfig
 from ..ops.quintic import candidate_grid, evaluate_costs, generate_candidates
 from ..types import PlanResult
+from ..utils.device import resolve_device
 
 
-def make_reference_path(waypoints, capacity: int, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+def make_reference_path(waypoints, capacity: int, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Pad an (R, 2) reference path into the fixed-capacity buffer the cost
     takes (mirrors set_reference_path, motion_planner.py:93-124: only the
     positions matter to the cost, :224-231).  Returns ``(buf (capacity, 2)
-    float32, valid (capacity,) bool)`` on ``device``."""
+    float32, valid (capacity,) bool)`` on ``device``: the card unless the
+    caller asks for the CPU (`utils.device.resolve_device`, which refuses
+    ``cuda`` on a machine without a card)."""
     wp = torch.as_tensor(waypoints, dtype=torch.float32).reshape(-1, 2)
     n = wp.shape[0]
     if n > capacity:
         raise ValueError(f"reference path has {n} points, capacity {capacity}")
+    dev = resolve_device(device)
     buf = torch.zeros((capacity, 2), dtype=torch.float32)
     buf[:n] = wp
-    return buf.to(device), (torch.arange(capacity) < n).to(device)
+    return buf.to(dev), (torch.arange(capacity) < n).to(dev)
 
 
 def plan(

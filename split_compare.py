@@ -119,13 +119,14 @@ def dense_fork(smoke, device, inputs) -> dict:
     iou, rank = smoke.association_inputs(table, dets)
     thr = cfg.iou_threshold
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = _fork_library(smoke, "associate.cu", "ASSOC_SPARSE_MAX=0", "madpp_associate", [vp] * 3 + [ci, ci, cf, vp])
+    lib = _fork_library(smoke, "associate.cu", "ASSOC_SPARSE_MAX=0", "madpp_associate",
+                        [vp] * 3 + [ci, ci, cf, vp, vp])
     match = torch.empty(iou.shape[0], dtype=torch.int32, device=device)
     T, D = iou.shape
 
     def dense():
         stream = torch.cuda.current_stream(device).cuda_stream
-        if lib(iou.data_ptr(), rank.data_ptr(), match.data_ptr(), T, D, thr, stream) != 0:
+        if lib(iou.data_ptr(), rank.data_ptr(), match.data_ptr(), T, D, thr, None, stream) != 0:
             raise RuntimeError("the dense-only K4 failed to launch")
 
     def sparse():

@@ -9,6 +9,8 @@ card with ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 This file imports no JAX: the card's machine has none.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -197,15 +199,54 @@ def test_first_launch_near_the_default_shared_memory_limit(device):
 def test_large_tables_match_plain(device):
     """K1, K3 and K4's general instances, beyond 128 slots and 64
     detections, against their plain versions (chip_smoke's `large_tables`
-    cases but the YOLO chunk), and ROADMAP §3's tagging path on the card
-    against the CPU."""
+    but the partition's edges): K1 and K4 at (64, 300), (160, 80), (256,
+    128) and (1,024, 1,024), the staircase at each (1,025 rounds at
+    1,024), and K1 at 8 lanes, each lane equal to its B = 1 launch."""
     tracker = chip_smoke.check_large_tracker(device)
-    assert {c["case"] for c in tracker} >= {"churn_1024x1024", "near_threshold_256x128", "staircase_160x80"}
-    assert len(chip_smoke.check_large_association(device, trials=2)) == 17
+    assert {c["case"] for c in tracker} >= {"churn_1024x1024", "near_threshold_256x128", "staircase_160x80",
+                                            "staircase_1024x1024", "churn_64x300"}
+    assert next(c for c in tracker if c["case"] == "staircase_1024x1024")["max_matched"] == 1024
+    association = chip_smoke.check_large_association(device, trials=2)
+    assert len(association) == 24
+    assert {"case": "staircase_1024x1024", "matched": 1024} in association
     assert len(chip_smoke.check_large_tagging(device)) == 8
-    assert len(chip_smoke.check_large_lanes(device)) == 3
-    path = chip_smoke.check_large_tagging_path(device)
-    assert path["launches"]["tracker_step"] == chip_smoke.LARGE_FRAMES
+    lanes = chip_smoke.check_large_lanes(device)
+    assert [c["case"] for c in lanes if c["case"].startswith("churn")] == ["churn_256x128", "churn_64x300", "churn_1024x1024"]
+
+
+def test_general_instances_at_partition_edges(device):
+    """K1 and K4's general instances at every (T, D) of 65, 129, 300 and
+    1,024 (slices of 32 rows and columns, clusters of 4 to 16 blocks, the
+    last block's part short or empty), bit for bit their plain versions."""
+    cases = chip_smoke.check_partition_edges(device)
+    assert len(cases) == 16
+    assert {c["k4_cluster"] for c in cases} == {4, 8, 16}
+
+
+def test_large_paths_on_card(device):
+    """ROADMAP §3's tagging path (160 slots, 80 detections, 300 frames) and
+    the YOLO path at max_detections=300 (64 slots against 300 detections,
+    300 frames) on the card against their CPU runs, each launching K1's
+    general instance every frame."""
+    tagging = chip_smoke.check_large_tagging_path(device)
+    assert tagging["launches"]["tracker_step"] == tagging["launches"]["tagging_step"] == chip_smoke.LARGE_FRAMES
+    frames, ego = chip_smoke.yolo_inputs()
+    cfg = chip_smoke.bench_config()
+    cfg = cfg.replace(detector=dataclasses.replace(cfg.detector, max_detections=chip_smoke.YOLO_MAX_DET))
+    result, _ = chip_smoke.check_yolo_path(device, chip_smoke.yolo_params(device), frames, ego, chip_smoke.YOLO_F32,
+                                           "YOLO path at max_detections=300", cfg=cfg)
+    assert result["launches"]["tracker_step"] == 300 and result["launches"]["nms_keep"] == 5
+    assert result["valid_per_frame"]["max"] > 128
+
+
+def test_reference_path_on_the_card_by_default(device):
+    """`make_reference_path` puts its buffers on the card unless asked for
+    the CPU."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.planning import make_reference_path
+
+    buf, valid = make_reference_path([(0.0, 1.0), (2.0, 3.0)], 8)
+    assert buf.device.type == valid.device.type == "cuda"
+    assert buf[:2].tolist() == [[0.0, 1.0], [2.0, 3.0]] and valid.tolist() == [True] * 2 + [False] * 6
 
 
 def test_host_stack_on_card(device):

@@ -12,6 +12,7 @@ holds the kernels to these plain versions on the card.
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -123,3 +124,131 @@ def test_plain_association_matches_jax_at_large_tables(shape):
         assert got.dtype == want.dtype == np.int32
         np.testing.assert_array_equal(got, want, err_msg=f"case {i}")
         assert (got >= 0).any()
+
+
+_MASK32 = 0xFFFFFFFF
+MODEL_PARTS = (1, 2, 8, 16)
+MODEL_CASES = ("random", "tied_ranks", "full", "key_corners_thr0", "key_corners_thr0.3")
+
+
+def _split(n: int, parts: int) -> list:
+    """The kernel's partition (`assoc_plan`): each block owns 32 ceil(ceil(n
+    / 32) / parts) consecutive lines, the last ones fewer or none."""
+    per = 32 * -(-(-(-n // 32)) // parts)
+    return [(min(p * per, n), min((p + 1) * per, n)) for p in range(parts)]
+
+
+def cluster_rounds_model(iou: torch.Tensor, rank: torch.Tensor, thr: float, parts: int) -> torch.Tensor:
+    """The cluster schedule of association.cuh's general instance in plain
+    torch.  Each entry is the kernel's 64-bit key, (IoU key << 32) | ~(rank
+    * D + d + 2^31) in 32-bit arithmetic that wraps, the IoU key its bits
+    with the sign cleared, plus one (0: not eligible), so -0 ties +0 and NaN
+    never enters.  Each round every part recomputes the stale bests of its
+    rows (over the columns not taken) and of its columns (over the rows not
+    matched, keeping the row that holds it), carries the others over, and
+    the exchange hands every part every row's and column's best; each part
+    then accepts every live row whose best is its column's best, and the
+    loop ends at the first round that accepts nothing."""
+    T, D = iou.shape
+    eligible = (iou >= thr) & (iou >= 0.0)
+    key = torch.where(eligible, (iou.view(torch.int32).to(torch.int64) & 0x7FFFFFFF) + 1, 0)
+    base = (rank.to(torch.int64) * D + 2**31) & _MASK32  # each row's tie-break base
+    tie = (base[:, None] + torch.arange(D, dtype=torch.int64)[None, :]) & _MASK32
+    entry = torch.where(key != 0, (key << 32) | (~tie & _MASK32), 0)  # int64: every key < 2^63
+    rows, cols = _split(T, parts), _split(D, parts)
+    matched = torch.zeros(T, dtype=torch.bool)
+    taken = torch.zeros(D, dtype=torch.bool)
+    rowbest = torch.zeros(T, dtype=torch.int64)
+    colbest = torch.zeros(D, dtype=torch.int64)
+    colrow = torch.zeros(D, dtype=torch.int64)
+    match = torch.full((T,), -1, dtype=torch.int32)
+
+    def column_of(best, b):  # the column of a row's best key
+        return ((~best & _MASK32) - b) & _MASK32
+
+    first = True
+    while True:
+        for (r0, r1), (c0, c1) in zip(rows, cols):
+            rb, cb = rowbest[r0:r1], colbest[c0:c1]
+            stale = ~matched[r0:r1] & (rb != 0)
+            stale &= taken[column_of(rb, base[r0:r1]).clamp(max=D - 1)]
+            stale |= first
+            if stale.any():
+                live = torch.where(taken[None, :], 0, entry[r0:r1][stale])
+                rowbest[r0:r1][stale] = live.amax(dim=1)
+            stale = ~taken[c0:c1] & (cb != 0) & matched[colrow[c0:c1]]
+            stale |= first
+            if stale.any():
+                live = torch.where(matched[:, None], 0, entry[:, c0:c1][:, stale])
+                best, arg = live.max(dim=0)
+                colbest[c0:c1][stale] = best
+                colrow[c0:c1][stale] = arg
+        first = False
+        # The exchange hands every part every row's and column's best, so
+        # each part makes this same decision.
+        d = column_of(rowbest, base)
+        ok = ~matched & (rowbest != 0)
+        accept = ok & (colbest[torch.where(ok, d, 0)] == rowbest)
+        if not accept.any():
+            return match
+        match[accept] = d[accept].to(torch.int32)
+        matched |= accept
+        taken[d[accept]] = True
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the model's small tensor ops: under xdist the
+    default, a thread a core in every worker, made each case several times
+    slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _model_cases(t: int, d: int) -> dict:
+    """`test_plain_association_matches_jax_at_large_tables`'s matrices at
+    (t, d), drawn in its order, each with JAX's XLA fixpoint and the plain
+    version's matches."""
+    rng = np.random.default_rng(t * 7 + d)
+    drawn = [
+        (*chip_smoke.random_association(rng, t, d), 0.3),
+        (*chip_smoke.random_association(rng, t, d, tied=True), 0.3),
+        (*chip_smoke.full_association(rng, t, d), 0.3),
+    ] + [(*chip_smoke.key_corner_association(rng, t, d, thr), thr) for thr in chip_smoke.KEY_CORNER_THRESHOLDS]
+    return {
+        kind: (iou, rank, thr,
+               np.asarray(jax_greedy_associate(jnp.asarray(iou), jnp.asarray(rank), thr, backend="cpu")),
+               _greedy_associate_plain(torch.tensor(iou), torch.tensor(rank), thr).numpy())
+        for kind, (iou, rank, thr) in zip(MODEL_CASES, drawn)
+    }
+
+
+@pytest.mark.parametrize("parts", MODEL_PARTS)
+@pytest.mark.parametrize("kind", MODEL_CASES)
+@pytest.mark.parametrize("shape", chip_smoke.LARGE_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_cluster_round_model_matches_plain_and_jax(shape, kind, parts, one_thread):
+    """The cluster schedule over ``parts`` blocks equals the plain version
+    and JAX's fixpoint, bit for bit, on the matrices of
+    `test_plain_association_matches_jax_at_large_tables`: random, tied
+    ranks, full, and the key-order corners (-0 and +0, the threshold, NaN,
+    tied IoUs, ranks at int32's ends whose rank * D + d wraps)."""
+    iou, rank, thr, want, plain = _model_cases(*shape)[kind]
+    got = cluster_rounds_model(torch.tensor(iou), torch.tensor(rank), thr, parts).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, plain)
+    assert (got >= 0).any()
+
+
+@pytest.mark.parametrize("parts", MODEL_PARTS)
+def test_cluster_round_model_on_the_staircase(parts, one_thread):
+    """The staircase at (160, 80): one pair a round, 81 rounds, every live
+    line stale in each, against the plain version and JAX's fixpoint."""
+    iou, rank = chip_smoke.ladder_iou(160, 80, 0.25), np.arange(160, dtype=np.int32)
+    want = np.asarray(jax_greedy_associate(jnp.asarray(iou), jnp.asarray(rank), 0.3, backend="cpu"))
+    got = cluster_rounds_model(torch.tensor(iou), torch.tensor(rank), 0.3, parts).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _greedy_associate_plain(torch.tensor(iou), torch.tensor(rank), 0.3).numpy())
+    np.testing.assert_array_equal(got, np.arange(160) * (np.arange(160) < 80) - (np.arange(160) >= 80))

@@ -119,7 +119,7 @@ def test_plan_reference_path_matches_jax(n_valid):
     """A reference path, and one with no valid point (the term is skipped)."""
     cfg = PlannerConfig()
     state = (0.0, 0.0, 0.0, 10.0)
-    buf, valid = make_reference_path_t([(float(i), 1.0) for i in range(20)], cfg.max_reference_points)
+    buf, valid = make_reference_path_t([(float(i), 1.0) for i in range(20)], cfg.max_reference_points, device="cpu")
     valid = valid & (torch.arange(cfg.max_reference_points) < n_valid)
     pr_j = _plan_jax(state, reference_positions=jnp.asarray(buf.numpy()), reference_valid=jnp.asarray(valid.numpy()))
     pr_t = plan_t(torch.tensor(state), PlannerConfigT(), reference_positions=buf, reference_valid=valid)
@@ -132,13 +132,28 @@ def test_make_reference_path_matches_jax(n):
     refuse a path longer than the capacity."""
     cap = PlannerConfig().max_reference_points
     pts = [(float(i) * 1.5, 1.0 - i) for i in range(n)]
-    buf_t, valid_t = make_reference_path_t(pts, cap)
+    buf_t, valid_t = make_reference_path_t(pts, cap, device="cpu")
     buf_j, valid_j = make_reference_path(pts if n else np.zeros((0, 2)), cap)
     assert buf_t.dtype == torch.float32 and valid_t.dtype == torch.bool
     np.testing.assert_array_equal(buf_t.numpy(), np.asarray(buf_j))
     np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
     with pytest.raises(ValueError, match="capacity"):
         make_reference_path_t([(0.0, 0.0)] * (cap + 1), cap)
+
+
+def test_make_reference_path_runs_on_the_card_by_default(monkeypatch):
+    """`make_reference_path` puts its buffers on the card unless the caller
+    asks for the CPU: without a card the default and ``"cuda"`` refuse with
+    `resolve_device`'s error, never falling back to the CPU; ``"cpu"``
+    builds."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for args in ((), ("cuda",)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_reference_path_t([(0.0, 1.0)], 8, *args)
+    with pytest.raises(ValueError, match="unsupported device"):
+        make_reference_path_t([(0.0, 1.0)], 8, "meta")
+    buf, valid = make_reference_path_t([(0.0, 1.0)], 8, device="cpu")
+    assert buf.device.type == valid.device.type == "cpu" and int(valid.sum()) == 1
 
 
 @pytest.mark.parametrize("offset", [0.0, 0.49, -0.5, 0.5, -3.0, 3.0])
