@@ -68,6 +68,12 @@ Phases, each printing one JSON line:
      ``use_frames=True`` in bf16, against the frames runner on its own
      tables, and its lanes and frame-decided tags against the frames
      path's;
+ 14a. the float32 tower under torch's default TF32 flags
+     (`yolo_default_flags`): a fresh process (this script with
+     ``--yolo-default-flags``), which leaves the flags as torch sets them,
+     runs yolov8n's float32 tower on 4 frames on the card against the
+     CPU, head logits within 1e-4 of each output's scale, and finds the
+     flags unchanged after the forward;
  15. the lane axis: K1, K2 and K3 at B = 1, 8 and 64 lanes a launch, each
      lane on its own random stream, against each lane's B = 1 launch (bit
      for bit) and plain version (`lane_kernels`; at B = 8 also rings of 63
@@ -93,8 +99,11 @@ Phases, each printing one JSON line:
      at these D, IoUs within 2 ulps of the threshold, and the staircase,
      1,025 rounds at 1,024), and at every (T, D) of 65, 129, 300 and 1,024
      (the edges of the cluster partition); K3's in both modes at T = 160,
-     256 and 1,024 and on the crafted stream at 256; K1 at 8 lanes at
-     (256, 128), (64, 300) and (1,024, 1,024), K3 at (256, 128);
+     256 and 1,024 and on the crafted stream at 256, and at T = 129, 255,
+     256, 257, 511, 513, 993 and 1,024 (the edges of its warps and of its
+     cluster), every tag and the state bit for bit, with rings of 29
+     centers (at 1 and 3 lanes) and of 500; K1 at 8 lanes at (256, 128),
+     (64, 300) and (1,024, 1,024), K3 at (256, 128);
  19b. the host stack (`host_stack`): the tagging path over 40 frames on the
      card, then `extract_frame` on every frame, the AutoTagger and a
      TagDatabase round trip against the same chain on the CPU run; the
@@ -129,7 +138,8 @@ Phases, each printing one JSON line:
      30-frame chunks against one 120-frame chunk, tags and states equal,
      each chunk's run and render seconds;
  19g. the serialized runner (`export_path`): the madpp ops against their
-     wrappers on the path's inputs and each one's host microseconds a call
+     wrappers on the path's inputs (K3's also at 160 slots, its general
+     instance) and each one's host microseconds a call
      beside its wrapper's, in turns; then `export_sequence_runner` on the
      card for the server's configuration at batch 1 and 8 and the main
      path's at batch 1 (64-frame chunks), each program holding its madpp
@@ -191,7 +201,8 @@ Phases, each printing one JSON line:
      (`lane_times`) K1-K3 at B = 1, 8 and 64 beside their bounds, and the
      tagging path's lane-frames/s at B = 1, 8 and 64, in turns; then
      (`large_times`) K1 and K4's general instances at (64, 300), (160, 80),
-     (256, 128) and (1,024, 1,024), K3's at the last three, by CUDA events
+     (256, 128) and (1,024, 1,024), K3's at the last three in both modes
+     and its small instance at (128, 64) as the yardstick, by CUDA events
      and a profiler trace, beside their bounds, plain versions, cluster
      sizes and rounds, and K4 on the staircase, a round's device time
      (`round_cost`); then (`large_paths`) the YOLO path at
@@ -283,6 +294,7 @@ from multimodal_autonomous_driving_perception_and_planning_torch.types import (
 from multimodal_autonomous_driving_perception_and_planning_torch.utils.convert import (
     kalman_model_from_numpy,
 )
+from multimodal_autonomous_driving_perception_and_planning_torch.utils.device import float32_matmuls
 
 PKG = "multimodal_autonomous_driving_perception_and_planning_torch"
 JAX_PKG = "multimodal_autonomous_driving_perception_and_planning_tpu"
@@ -890,10 +902,17 @@ def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def _tagging_case(name, cfg, frames, seed, d_cap, frames_mode, device, frame_fn=random_tagging_frame) -> dict:
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two float32 tensors equal bit for bit (so +0 is not -0)."""
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _tagging_case(name, cfg, frames, seed, d_cap, frames_mode, device, frame_fn=random_tagging_frame,
+                  exact: bool = False) -> dict:
     """Step K3 and the plain version side by side, each threading its own
-    state: discrete tags and state equal, floats within their bounds.
-    Counts the frames that reached each of `aggregate_corners`."""
+    state: discrete tags and state equal, floats within their bounds, or,
+    with ``exact``, every float bit for bit.  Counts the frames that
+    reached each of `aggregate_corners`."""
     rules = TaggingRules.from_config(cfg)
     step = make_packed_tagging_step(cfg)  # CUDA tensors: kernel K3
     T = rules.max_tracks
@@ -920,7 +939,7 @@ def _tagging_case(name, cfg, frames, seed, d_cap, frames_mode, device, frame_fn=
             if b.is_floating_point():
                 err = _max_abs(a, b)
                 worst[k] = max(worst.get(k, 0.0), err)
-                if not err <= K3_ATOL:
+                if not err <= K3_ATOL or exact and not _bits_equal(a, b):
                     raise AssertionError(f"K3 {name} frame {f}: {k} off by {err}")
             elif not torch.equal(a, b):
                 raise AssertionError(f"K3 {name} frame {f}: {k} {a.tolist()} vs plain {b.tolist()}")
@@ -931,7 +950,7 @@ def _tagging_case(name, cfg, frames, seed, d_cap, frames_mode, device, frame_fn=
             if b.is_floating_point():
                 err = _max_abs(a, b)
                 worst[f"state.{fld}"] = max(worst.get(f"state.{fld}", 0.0), err)
-                if not err <= K3_STATE_ATOL:
+                if not err <= K3_STATE_ATOL or exact and not _bits_equal(a, b):
                     raise AssertionError(f"K3 {name} frame {f}: state {fld} off by {err}")
             elif not torch.equal(a, b):
                 raise AssertionError(f"K3 {name} frame {f}: state {fld} differs from the plain version")
@@ -939,7 +958,7 @@ def _tagging_case(name, cfg, frames, seed, d_cap, frames_mode, device, frame_fn=
             seen[k].add(int(want[k]))
         for k, hit in aggregate_corners(want, table, s_plain.int_len, rules.interaction_history).items():
             corners[k] += hit
-    return {"case": name, "T": T, "D": d_cap, "frames": frames, "max_abs_err": worst,
+    return {"case": name, "T": T, "D": d_cap, "frames": frames, "max_abs_err": worst, "bitwise": exact,
             "distinct": {k: sorted(v) for k, v in seen.items()}, "corner_frames": corners}
 
 
@@ -1550,6 +1569,47 @@ def check_yolo_tower(device, params: dict, frames):
         "decoded_max_abs_err": {k: _max_abs(cg[k], cw[k]) for k in ("boxes", "scores")},
         "class_agreement": float((cg["classes"] == cw["classes"]).double().mean()),
     }, got
+
+
+YOLO_DEFAULT_FLAGS_FRAMES = 4
+
+
+def yolo_default_flags(device="cuda", frames: int = YOLO_DEFAULT_FLAGS_FRAMES) -> dict:
+    """In a fresh process, with torch's default TF32 flags (cuDNN's on,
+    cuBLAS's off): yolov8n's float32 tower on the first ``frames`` seeded
+    frames at YOLO_IMG on the card against the CPU, head logits within
+    F32_LOGIT_REL of each output's scale (`relative_gaps`), and the flags
+    as the process left them after the forward."""
+    device = torch.device(device)
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    if before != (False, True):
+        raise AssertionError(f"YOLO default flags: the process starts with TF32 flags {before}, not torch's defaults")
+    params = yolo_params(device)
+    chunk = yolo_inputs(frames)[0]
+    got = head_outputs(params, chunk, device, torch.float32)
+    torch.cuda.synchronize()
+    after = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    want = head_outputs({k: v.cpu() for k, v in params.items()}, chunk, torch.device("cpu"), torch.float32)
+    gaps = relative_gaps(got, want)
+    if not max(gaps) <= F32_LOGIT_REL:
+        raise AssertionError(f"YOLO default flags: the card's float32 head logits stand {gaps} from the CPU's")
+    if after != before:
+        raise AssertionError(f"YOLO default flags: the forward left the TF32 flags at {after}, not {before}")
+    return {"frames": frames, "relative_gaps": gaps, "bound": F32_LOGIT_REL, "flags_before": before,
+            "flags_after": after, "device": torch.cuda.get_device_name(device)}
+
+
+def check_yolo_default_flags() -> dict:
+    """The `yolo_default_flags` phase: `yolo_default_flags` in a fresh
+    process (``python3 chip_smoke.py --yolo-default-flags``), as a user's
+    process runs the float32 tower: this one has turned TF32 off for
+    itself."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--yolo-default-flags"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"YOLO default flags: the fresh process exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return {**json.loads(proc.stdout.strip().splitlines()[-1]), "process_s": time.perf_counter() - t0}
 
 
 def check_yolo_path(device, params: dict, frames, ego, settings: dict, label: str, cfg=None):
@@ -3439,6 +3499,12 @@ GENERAL_SHAPES = ((64, 300),) + LARGE_SHAPES
 # Rows and columns either side of the cluster partition's edges
 # (association.cuh `assoc_plan`: 32-line slices, 2 to 16 blocks).
 PARTITION_SIZES = (65, 129, 300, 1024)
+# K3's slots either side of a warp's edge and of its cluster's (tagging_step.cu
+# `tag_plan`: blocks of at most 128 slots, the warps split evenly; 2 blocks
+# to 256, 3 at 257, 4 at 511, 5 at 513, 8 from 897 to 1,024; a warp short
+# at 129, 255, 257, 511, 513 and 993).
+TAG_PARTITION_SIZES = (129, 255, 256, 257, 511, 513, 993, 1024)
+K3_YARDSTICK = (128, 64)  # K3's small instance at its most slots
 LARGE_LANES = 8
 LARGE_FRAMES = NUM_FRAMES  # ROADMAP §3's input: max_tracks=160, max_detections=80
 YOLO_MAX_DET = 300  # the JAX `nms` default (ops/nms.py:73)
@@ -3564,23 +3630,51 @@ def check_large_association(device, trials: int = 4) -> list:
 
 
 def check_large_tagging(device) -> list:
-    """K3's general instance against its plain version at T = 160, 256 and
-    1,024, in detections and frames mode on random streams, and on the
-    crafted stream (every aggregate corner) at T = 256 in both modes."""
+    """K3's general instance against its plain version, every tag and the
+    state bit for bit, at T = 160, 256 and 1,024, in detections and frames
+    mode on random streams, and on the crafted stream (every aggregate
+    corner) at T = 256 in both modes."""
     cfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
     cases = []
     for t, d in LARGE_SHAPES:
         wide = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=t))
         frames = 12 if t >= 1024 else 30
-        cases.append(_tagging_case(f"detections_{t}x{d}", wide, frames, t, d, False, device))
-        cases.append(_tagging_case(f"frames_{t}x{d}", wide.replace(use_frames=True), frames, t + 1, d, True, device))
+        cases.append(_tagging_case(f"detections_{t}x{d}", wide, frames, t, d, False, device, exact=True))
+        cases.append(_tagging_case(f"frames_{t}x{d}", wide.replace(use_frames=True), frames, t + 1, d, True, device,
+                                   exact=True))
     wide = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=256))
     for name, c, frames_mode in (("crafted_256x128", wide, False),
                                  ("crafted_frames_256x128", wide.replace(use_frames=True), True)):
-        cases.append(_tagging_case(name, c, 40, 31, 128, frames_mode, device, crafted_tagging_frame))
+        cases.append(_tagging_case(name, c, 40, 31, 128, frames_mode, device, crafted_tagging_frame, exact=True))
         missed = [k for k, n in cases[-1]["corner_frames"].items() if n == 0]
         if missed:
             raise AssertionError(f"K3 {name}: the crafted stream never reached {missed}")
+    return cases
+
+
+def check_tagging_partition_edges(device, sizes=TAG_PARTITION_SIZES, frames: int = 4) -> list:
+    """K3's general instance either side of its warps' and its cluster's
+    edges (tagging_step.cu `tag_plan`): each T of ``sizes`` in detections
+    and frames mode over ``frames`` random frames, every tag and the state
+    bit for bit its plain version's; then its rings off the fast path, at
+    T = 255 with 29 centers a slot (a warp's rows not a multiple of 16
+    bytes), 3 lanes of it (lane 1 off 16-byte alignment), and 160 slots of
+    500 centers (too large for shared memory)."""
+    cfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
+    cases = []
+    for t in sizes:
+        wide = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=t))
+        for mode, c in (("detections", wide), ("frames", wide.replace(use_frames=True))):
+            case = _tagging_case(f"{mode}_{t}x80", c, frames, 3 * t + (mode == "frames"), 80, mode == "frames",
+                                 device, exact=True)
+            cases.append({**case, "cluster": tagging_kernel.cluster_size(t, 80)})
+    odd = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=255),
+                      tagging=dataclasses.replace(cfg.tagging, interaction_history=29))
+    long = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=160),
+                       tagging=dataclasses.replace(cfg.tagging, interaction_history=500))
+    cases.append(_tagging_case("odd_ring_255x80", odd, 12, 255, 80, False, device, crafted_tagging_frame, exact=True))
+    cases.append(_lane_tagging_case("odd_ring_255x80_3_lanes", odd, 3, 4, 80, False, device, seed=2550))
+    cases.append(_tagging_case("long_ring_160x80", long, 12, 160, 80, False, device, exact=True))
     return cases
 
 
@@ -3639,10 +3733,13 @@ def check_large_tagging_path(device, frames: int = LARGE_FRAMES) -> dict:
 
 def check_large_tables(device) -> dict:
     """The `large_tables` phase: K1, K4 and K3's general instances against
-    their plain versions, at the partition's edges, and at 8 lanes.  The
+    their plain versions, at their partitions' edges, and at 8 lanes.  The
     paths that launch them run in `large_paths`."""
+    t0 = time.perf_counter()
+    edges = check_tagging_partition_edges(device)
     return {"tracker": check_large_tracker(device), "association": check_large_association(device),
             "partition_edges": check_partition_edges(device), "tagging": check_large_tagging(device),
+            "tagging_partition_edges": edges, "tagging_partition_edges_s": time.perf_counter() - t0,
             "lanes": check_large_lanes(device)}
 
 
@@ -3669,33 +3766,27 @@ def association_rounds(iou: torch.Tensor, rank: torch.Tensor, thr: float) -> int
 def large_kernel_inputs(device, t: int, d: int) -> dict:
     """Inputs of K1, K3 and K4's general instances at (t, d): the plain
     chain's table after 10 random steps (`random_dets`) and the next
-    detections; the tagging state after 10 random frames of the plain
-    version and the next frame; the IoU matrix and ranks of that table."""
+    detections; `tagging_kernel_inputs`; the IoU matrix and ranks of that
+    table."""
     cfg = pt.TrackerConfig(iou_threshold=0.3, max_age=30, min_hits=3, max_tracks=t)
     rng = np.random.default_rng(t * d)
     table = TrackTable.empty(t, cfg.trajectory_length, device)
     for _ in range(10):
         table = plain_tracker_step(table, random_dets(rng, d, device), cfg)[0]
     dets = random_dets(rng, d, device)
-    tcfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
-    tcfg = tcfg.replace(tracker=dataclasses.replace(tcfg.tracker, max_tracks=t))
-    rules = TaggingRules.from_config(tcfg)
-    state = TaggingState.initial(rules.window, rules.history, t, device, interaction_history=rules.interaction_history)
-    for f in range(10):
-        state = tagging_step_plain(rules, state, *random_tagging_frame(rng, f, t, d, device))[0]
-    tag_frame = random_tagging_frame(rng, 10, t, d, device)
-    return {"cfg": cfg, "table": table, "dets": dets, "rules": rules, "state": state, "tag_frame": tag_frame,
+    return {"cfg": cfg, "table": table, "dets": dets, **tagging_kernel_inputs(device, t, d, rng),
             "association": association_inputs(table, dets)}
 
 
 def measure_large_kernels(device, reps: int = 200) -> dict:
     """K1 and K4's general instances at GENERAL_SHAPES, K3's at
-    LARGE_SHAPES: ms a call by CUDA events over ``reps`` calls (a tenth at
-    1,024), device ms from a profiler trace, the plain version's ms, and
-    the bound, the bytes and operations counted on the data as
-    `measure_kernels` counts them; with the thread block cluster each
-    launch takes and the association's rounds.  The trace names the
-    general instances' kernels."""
+    LARGE_SHAPES in both modes (``tagging_step``, ``tagging_step_frames``)
+    and, as its yardstick, K3's small instance at K3_YARDSTICK: ms a call
+    by CUDA events over ``reps`` calls (a tenth at 1,024), device ms from
+    a profiler trace, the plain version's ms, and the bound, the bytes and
+    operations counted on the data as `measure_kernels` counts them; with
+    the thread block cluster each launch takes and the association's
+    rounds.  The trace names each instance's kernel."""
     out = {}
     for t, d in GENERAL_SHAPES:
         n = reps if t < 1024 else reps // 10
@@ -3729,32 +3820,75 @@ def measure_large_kernels(device, reps: int = 200) -> dict:
         launchers = {"tracker_step": (k1, "tracker_step_general"), "associate": (k4, "associate_general_kernel")}
         counted = {"tracker_step": k1_m, "associate": k4_m}
         if (t, d) in LARGE_SHAPES:
-            rules, state, (tdets, ttable, vrow) = x["rules"], x["state"], x["tag_frame"]
-
-            def k3():
-                return tagging_kernel.tagging_step(rules, state, tdets, ttable, vrow)
-
-            new_state, tag_f, tag_i = k3()
-            counted["tagging_step"] = {
-                "bytes": tagging_bytes(rules, state, tdets, ttable, new_state, tag_f, tag_i),
-                "operations": tagging_operations(t, d, rules.window, rules.history, rules.interaction_history)}
-            plain["tagging_step"] = lambda: tagging_step_plain(rules, state, tdets, ttable, vrow)
-            launchers["tagging_step"] = (k3, "tagging_step_general")
+            k3_timings(x, launchers, counted, plain, "tagging_step_cluster")
         ms = {name: time_cuda(fn, n, warmup=5) for name, (fn, _) in launchers.items()}
         # One trace a kernel, kept when it saw 80% of the launches: a trace
         # of 100 general K1 launches dropped 12 of them on an H100.
         traced = min(n, 100)
         dev = {name: next(iter(device_times({name: launcher}, reps=traced, min_seen=traced * 4 // 5).values()))
                for name, launcher in launchers.items()}
-        shape = {}
-        for name, m in counted.items():
-            t_bytes = m["bytes"] / PEAK_BYTES_PER_S * 1e3
-            t_ops = m["operations"] / PEAK_F32_PER_S * 1e3
-            bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-            shape[name] = {**m, "ms": ms[name], "device_ms": dev[name][0], "profiled_launches": dev[name][1],
-                           "plain_ms": time_cuda(plain[name], 5, warmup=1), "bound_ms": bound, "bound_by": by}
-        out[f"{t}x{d}"] = shape
+        out[f"{t}x{d}"] = {name: _timed(m, ms[name], dev[name], time_cuda(plain[name], 5, warmup=1))
+                           for name, m in counted.items()}
+    # The yardstick of K3's general instance: its small instance at T = 128,
+    # both modes, timed as above.
+    t, d = K3_YARDSTICK
+    launchers, counted, plain = {}, {}, {}
+    k3_timings(tagging_kernel_inputs(device, t, d, np.random.default_rng(t * d)), launchers, counted, plain,
+               "tagging_step_kernel")
+    dev = {name: next(iter(device_times({name: launcher}, reps=100, min_seen=80).values()))
+           for name, launcher in launchers.items()}
+    out[f"{t}x{d}"] = {name: _timed(m, time_cuda(launchers[name][0], reps, warmup=5), dev[name],
+                                    time_cuda(plain[name], 5, warmup=1))
+                       for name, m in counted.items()}
     return out
+
+
+def _timed(counted: dict, ms: float, dev: tuple, plain_ms: float) -> dict:
+    """A `measure_large_kernels` entry: the counts, the times and the bound."""
+    t_bytes = counted["bytes"] / PEAK_BYTES_PER_S * 1e3
+    t_ops = counted["operations"] / PEAK_F32_PER_S * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return {**counted, "ms": ms, "device_ms": dev[0], "profiled_launches": dev[1], "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by}
+
+
+def tagging_kernel_inputs(device, t: int, d: int, rng) -> dict:
+    """K3's inputs at (t, d): the tagging state after 10 random frames of
+    the plain version, the next frame, and a lane and a feature row."""
+    tcfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
+    tcfg = tcfg.replace(tracker=dataclasses.replace(tcfg.tracker, max_tracks=t))
+    rules = TaggingRules.from_config(tcfg)
+    state = TaggingState.initial(rules.window, rules.history, t, device, interaction_history=rules.interaction_history)
+    for f in range(10):
+        state = tagging_step_plain(rules, state, *random_tagging_frame(rng, f, t, d, device))[0]
+    return {"rules": rules, "state": state, "tag_frame": random_tagging_frame(rng, 10, t, d, device),
+            "rows": frames_rows_of(device)}
+
+
+def k3_timings(x: dict, launchers: dict, counted: dict, plain: dict, kernel: str) -> None:
+    """K3 on `tagging_kernel_inputs` ``x``, in detections mode
+    (``tagging_step``) and frames mode (``tagging_step_frames``): into
+    ``launchers`` each mode's wrapper call and the kernel's name in a
+    trace, into ``plain`` its plain version, into ``counted`` its bytes and
+    operations on this data (`tagging_bytes`, the rows' 56 bytes more in
+    frames mode) and the thread block cluster a lane it takes."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.tagging.rules import frames_from_rows
+
+    rules, state, (tdets, ttable, vrow) = x["rules"], x["state"], x["tag_frame"]
+    lane_row, feat_row = x["rows"]
+    lane_obs, feats = frames_from_rows(lane_row, feat_row)
+    t, d = ttable.track_id.shape[-1], tdets.class_id.shape[-1]
+    ops = tagging_operations(t, d, rules.window, rules.history, rules.interaction_history)
+    for name, rows, extra in (("tagging_step", (), 0), ("tagging_step_frames", (lane_row, feat_row), 56)):
+        def k3(rows=rows):
+            return tagging_kernel.tagging_step(rules, state, tdets, ttable, vrow, *rows)
+
+        new_state, tag_f, tag_i = k3()
+        counted[name] = {"bytes": tagging_bytes(rules, state, tdets, ttable, new_state, tag_f, tag_i) + extra,
+                         "operations": ops, "cluster": tagging_kernel.cluster_size(t, d)}
+        launchers[name] = (k3, kernel)
+    plain["tagging_step"] = lambda: tagging_step_plain(rules, state, tdets, ttable, vrow)
+    plain["tagging_step_frames"] = lambda: tagging_step_plain(rules, state, tdets, ttable, vrow, lane_obs, feats)
 
 
 def measure_round_cost(device, reps: int = 10) -> dict:
@@ -4654,8 +4788,9 @@ def run_multi_platform_artifact(directory: str, device) -> dict:
 
 def _op_routes(device, inputs: dict) -> dict:
     """K1-K3 at the paths' states (`tracker_state`, `kalman_state`,
-    `tagging_state`): for each, a call of its wrapper and of the same
-    function through its madpp op (ops/library.py)."""
+    `tagging_state`), and K3 at 160 slots (its general instance): for
+    each, a call of its wrapper and of the same function through its madpp
+    op (ops/library.py)."""
     from multimodal_autonomous_driving_perception_and_planning_torch.ops import library
     from multimodal_autonomous_driving_perception_and_planning_torch.tagging.rules import frames_from_rows
 
@@ -4664,6 +4799,8 @@ def _op_routes(device, inputs: dict) -> dict:
     ks, model, z, has = kalman_state(device, inputs)
     rules, tstate, tdets, ttable, vrow = tagging_state(device, inputs)
     op_tagging = library.make_packed_tagging_step(cfg)
+    big = tagging_kernel_inputs(device, 160, 80, np.random.default_rng(160))
+    op_tagging_160 = library.make_packed_tagging_step(large_config(160, 80))
     est, trk = cfg.estimator, cfg.tracker
     lane_row, feat_row = frames_rows_of(device)
     lane_obs, feats = frames_from_rows(lane_row, feat_row)
@@ -4677,6 +4814,10 @@ def _op_routes(device, inputs: dict) -> dict:
         "tagging_step_frames": (
             lambda: tagging_kernel.tagging_step(rules, tstate, tdets, ttable, vrow, lane_row, feat_row),
             lambda: op_tagging(tstate, tdets, ttable, vrow, lane_obs, feats)),
+        # K3's general instance through the op: ROADMAP §3's 160 slots.
+        "tagging_step_160": (
+            lambda: tagging_kernel.tagging_step(big["rules"], big["state"], *big["tag_frame"]),
+            lambda: op_tagging_160(big["state"], *big["tag_frame"])),
     }
 
 
@@ -4705,9 +4846,9 @@ def host_us(fn, reps: int = 2000) -> float:
 
 def check_madpp_ops(device, inputs: dict) -> dict:
     """Each madpp op on the card against its wrapper on the same inputs
-    (``madpp.tagging_step`` in both of K3's modes), every output bit for
-    bit, and both routes' host microseconds a call, in turns (wrapper, op,
-    op, wrapper)."""
+    (``madpp.tagging_step`` in both of K3's modes, and at 160 slots), every
+    output bit for bit, and both routes' host microseconds a call, in turns
+    (wrapper, op, op, wrapper)."""
     out = {}
     for name, (wrapper, op) in _op_routes(device, inputs).items():
         want, got = _tensors(wrapper()), _tensors(op())
@@ -5095,7 +5236,7 @@ def _blip_prompt_logits(model, px, prompt) -> torch.Tensor:
     first decode step's, before any argmax."""
     from multimodal_autonomous_driving_perception_and_planning_torch.models import blip
 
-    with torch.inference_mode(), blip._float32_matmuls():
+    with torch.inference_mode(), float32_matmuls():
         return model.decode(prompt.to(px.device)[None], model.encode_cross(px))[0]
 
 
@@ -5203,6 +5344,9 @@ def main(argv) -> int:
     if argv[:1] == ["--run-artifacts"]:  # export_path's fresh process
         print(json.dumps(run_artifacts(argv[1])), flush=True)
         return 0
+    if argv[:1] == ["--yolo-default-flags"]:  # yolo_default_flags' fresh process
+        print(json.dumps(yolo_default_flags()), flush=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -5251,6 +5395,8 @@ def main(argv) -> int:
     emit({"phase": "yolo_path_bf16", "head_vs_float32": {"relative_gaps": bf16_gaps, "bound": BF16_LOGIT_REL},
           **yolo_bf16})
     emit({"phase": "yolo_with_frames", **check_yolo_frames(device, params, road, frames_out)})
+    emit({"phase": "yolo_default_flags", **check_yolo_default_flags(),
+          "result": "float32 tower within the bar under torch's default TF32 flags, the flags left as they were"})
     del frames_out
 
     emit({"phase": "lane_kernels", "cases": check_lane_kernels(device),
@@ -5335,8 +5481,10 @@ def main(argv) -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None,
         })
-        if name in ("tracker_step", "associate"):  # their general instances (large_times)
-            kernels[-1]["general_device_ms"] = {shape: k[name]["device_ms"] for shape, k in large_times.items()}
+        if name in ("tracker_step", "associate", "tagging_step"):  # their general instances (large_times)
+            kernels[-1]["general_device_ms"] = {
+                shape + mode: k[name + mode]["device_ms"] for shape, k in large_times.items()
+                for mode in ("", "_frames") if name + mode in k and shape != "{}x{}".format(*K3_YARDSTICK)}
     emit({"phase": "total", "seconds": time.perf_counter() - _START})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -7,10 +7,11 @@ started together, builds a library with a plain C interface each, and ctypes
 binds them.  Either way the result exposes ``tracker_step`` (K1),
 ``kalman_step`` (K2), ``tagging_step`` (K3), ``associate`` (K4) and
 ``nms_keep`` (K5), which take pointers and the stream as integers and
-return the CUDA error code of the launch, and K1's and K4's plan queries
-``tracker_scratch``, ``tracker_cluster``, ``associate_scratch`` and
-``associate_cluster`` (their general instances' key scratch in 32-bit
-words and their thread block clusters, from the shape alone).
+return the CUDA error code of the launch, and the plan queries of the
+general instances, from the shape alone: ``tracker_scratch``,
+``tracker_cluster``, ``tagging_cluster``, ``associate_scratch`` and
+``associate_cluster`` (K1's and K4's key scratch in 32-bit words, and K1's,
+K3's and K4's thread block clusters).
 
 The output goes to ``kernels/build/`` inside the package (listed in
 .gitignore).  Kernels are built for Hopper only (``sm_90a``).  No source
@@ -90,6 +91,8 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
     tagging = ctypes.CDLL(str(BUILD_DIR / "libtagging_step.so"))
     tagging.madpp_tagging_step.argtypes = [vp] * 23 + [ci] * 8 + [vp]
     tagging.madpp_tagging_step.restype = ci
+    tagging.madpp_tagging_cluster.argtypes = [ci, ci]
+    tagging.madpp_tagging_cluster.restype = ci
     associate = ctypes.CDLL(str(BUILD_DIR / "libassociate.so"))
     associate.madpp_associate.argtypes = [vp] * 3 + [ci, ci, cf, vp, vp]
     associate.madpp_associate.restype = ci
@@ -107,6 +110,7 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
         associate=associate.madpp_associate,
         tracker_scratch=tracker.madpp_tracker_scratch,
         tracker_cluster=tracker.madpp_tracker_cluster,
+        tagging_cluster=tagging.madpp_tagging_cluster,
         associate_scratch=associate.madpp_associate_scratch,
         associate_cluster=associate.madpp_associate_cluster,
         nms_keep=nms.madpp_nms_keep,

@@ -491,13 +491,6 @@ __device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long v)
   return ((unsigned long long)hi << 32) | lo;
 }
 
-// The 32-bit shared::cluster address of `p` in block `rank`'s shared memory.
-__device__ __forceinline__ unsigned cluster_addr(const void* p, unsigned rank) {
-  unsigned a;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
-  return a;
-}
-
 // Stores `v` at `addr` in a block of the cluster and counts its 8 bytes on
 // that block's mbarrier at `mbar` (both shared::cluster addresses).
 __device__ __forceinline__ void st_async_b64(unsigned addr, unsigned long long v, unsigned mbar) {

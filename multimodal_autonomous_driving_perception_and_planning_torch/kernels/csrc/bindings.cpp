@@ -27,6 +27,7 @@ extern "C" int madpp_tagging_step(
     const void*, const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, void*, void*, const void*, int, int, int, int, int, int, int,
     int, void*);
+extern "C" int madpp_tagging_cluster(int, int);
 
 extern "C" int madpp_associate(const void*, const void*, void*, int, int, float, void*, void*);
 extern "C" long long madpp_associate_scratch(int, int);
@@ -93,6 +94,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("associate", &associate, "Launch kernel K4; returns the CUDA error code.");
   m.def("tracker_scratch", &madpp_tracker_scratch, "K1's key scratch words a lane at (T, D, L); -1 outside its limits.");
   m.def("tracker_cluster", &madpp_tracker_cluster, "K1's blocks a lane at (T, D, L); -1 outside its limits.");
+  m.def("tagging_cluster", &madpp_tagging_cluster, "K3's blocks a lane at (T, D); -1 outside its limits.");
   m.def("associate_scratch", &madpp_associate_scratch, "K4's key scratch words at (T, D); -1 outside its limits.");
   m.def("associate_cluster", &madpp_associate_cluster, "K4's blocks at (T, D); -1 outside its limits.");
   m.def("nms_keep", &nms_keep, "Launch kernel K5; returns the CUDA error code.");

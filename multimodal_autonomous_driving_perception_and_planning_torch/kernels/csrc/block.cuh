@@ -1,6 +1,7 @@
-// Block-wide helpers of the one-block kernels K1 (tracker_step.cu), K3
-// (tagging_step.cu) and K4 (associate.cu): asynchronous staging of their
-// rings into shared memory, and their launchers' shared memory limit.
+// Helpers of kernels K1 (tracker_step.cu), K3 (tagging_step.cu) and K4
+// (associate.cu): asynchronous staging of their rings into shared memory,
+// their launchers' shared memory limit, and the address of a word in
+// another block of a thread block cluster.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,17 +42,48 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 __device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // Start copying `n` 4-byte words from global `src` to shared `dst` (16-byte
-// aligned) on the whole block: 16-byte copies where `src` is 16-byte
-// aligned, and 4-byte copies for the tail (n not a multiple of 4) or for
-// all of it otherwise.  Returns at once; see cp_async_wait_all.
-__device__ __forceinline__ void stage_async(void* dst, const void* src, int n) {
+// aligned) on the threads `first`, `first + stride`, ...: 16-byte copies
+// where `src` is 16-byte aligned, and 4-byte copies for the tail (n not a
+// multiple of 4) or for all of it otherwise.  Returns at once; see
+// cp_async_wait_all.
+__device__ __forceinline__ void stage_async_by(void* dst, const void* src, int n, int first, int stride) {
   int done = 0;
   if (aligned16(src)) {
     const int n4 = n >> 2;
-    for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    for (int i = first; i < n4; i += stride)
       cp_async16(static_cast<char*>(dst) + 16 * i, static_cast<const char*>(src) + 16 * i);
     done = n4 << 2;
   }
-  for (int i = done + threadIdx.x; i < n; i += blockDim.x)
+  for (int i = done + first; i < n; i += stride)
     cp_async4(static_cast<char*>(dst) + 4 * i, static_cast<const char*>(src) + 4 * i);
+}
+
+// `stage_async_by` on the whole block.
+__device__ __forceinline__ void stage_async(void* dst, const void* src, int n) {
+  stage_async_by(dst, src, n, threadIdx.x, blockDim.x);
+}
+
+// `n` bytes from global `src` to shared `dst` (16-byte aligned), likewise:
+// 16-byte copies where `src` is 16-byte aligned, 4-byte ones where it is
+// 4-byte aligned, and plain byte copies for what is left.
+__device__ __forceinline__ void stage_bytes_async_by(void* dst, const void* src, int n, int first, int stride) {
+  const char* s = static_cast<const char*>(src);
+  char* d = static_cast<char*>(dst);
+  const int unit = aligned16(src) ? 16 : (reinterpret_cast<uintptr_t>(src) & 3u) == 0 ? 4 : 0;
+  int done = 0;
+  if (unit == 16) {
+    for (int i = first; i < (n >> 4); i += stride) cp_async16(d + 16 * i, s + 16 * i);
+    done = n & ~15;
+  } else if (unit == 4) {
+    for (int i = first; i < (n >> 2); i += stride) cp_async4(d + 4 * i, s + 4 * i);
+    done = n & ~3;
+  }
+  for (int i = done + first; i < n; i += stride) d[i] = s[i];
+}
+
+// The 32-bit shared::cluster address of `p` in block `rank`'s shared memory.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, unsigned rank) {
+  unsigned a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
 }

@@ -66,8 +66,9 @@
 //          type, risk, has-TTC (T each).
 //
 // Two instances, chosen by shape: the one described above for T <= 128,
-// and a general one for T up to 1,024 (below, before the launcher).  Any
-// D, B >= 1.  The wrapper checks the limits.
+// and a general one for T up to 1,024 on a thread block cluster a lane
+// (below, before the launcher).  Any D, B >= 1.  The wrapper checks the
+// limits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -186,6 +187,18 @@ enum { kX = 0, kY = 1, kHeading = 4, kSpeed = 5, kAccel = 6, kYaw = 7 };
 enum { kCar = 0, kTruck = 1, kPed = 2, kCyc = 3, kMoto = 4, kBus = 5, kTLight = 6, kSSign = 7 };
 // Interaction codes (tagging/rules.py INTERACTIONS).
 enum { kFollowing = 1, kCutIn = 4, kPedCrossing = 6, kPedWaiting = 7, kCycNearby = 8, kNearMiss = 9 };
+
+// An interaction's confidence, one constant a type (tagging/rules.py's
+// rule table); 0 for the types that no rule gives.
+__host__ __device__ constexpr float type_conf(int k) {
+  return k == kNearMiss ? 0.9f
+         : k == kPedCrossing ? 0.8f
+         : k == kPedWaiting ? 0.6f
+         : k == kCycNearby ? 0.7f
+         : k == kFollowing ? 0.75f
+         : k == kCutIn ? 0.7f
+         : 0.0f;
+}
 
 // Risk rank in descending string order (the reference's sort quirk).
 __device__ __forceinline__ int risk_rank(int r) {
@@ -465,11 +478,19 @@ struct SlotArrays {
   float *cx, *cy, *iconf, *dist, *ttc;
 };
 
+// A slot's results that the aggregates read, in registers.  `lwidx` is the
+// ring column pair written this frame, -1 for none.
+struct SlotOut {
+  bool conf, httc;
+  int lwidx, id, cls, itype, irisk;
+  float cx, cy, iconf, dist, ttc;
+};
+
 // Slot t's distance, TTC, center ring, cut-in drift and cascade: its
-// outputs written, its results to `sa`.  `icent` is the center ring before
-// this frame, staged or in device memory.
-__device__ __forceinline__ void slot_tags(int t, const SlotIn& s, float speed, const float* icent, const TagDims& dm,
-                                          const TagParams& p, const TagOut& out, const SlotArrays& sa) {
+// outputs written, its results returned.  `ring` is the slot's center ring
+// row before this frame (2 HI floats), staged or in device memory.
+__device__ __forceinline__ SlotOut slot_eval(int t, const SlotIn& s, float speed, const float* ring, const TagDims& dm,
+                                             const TagParams& p, const TagOut& out) {
   const int T = dm.T, HI = dm.HI;
   const int id = s.id, cls = s.cls, hits = s.hits, velc = s.velc, iprev = s.iprev, ilen = s.ilen;
   const float b0 = s.b0, b1 = s.b1, b2 = s.b2, b3 = s.b3, vel_y = s.vel_y;
@@ -495,7 +516,6 @@ __device__ __forceinline__ void slot_tags(int t, const SlotIn& s, float speed, c
   const float cy = fmul(fadd(b1, b3), 0.5f);
   const int oldest = hist_len < HI ? 0 : fmod_i(hist_len, HI);
   const int newest = fmod_i(hist_len - 1, HI);
-  const float* ring = icent + (size_t)t * 2 * HI;
   const float start_x = (conf && oldest == lwidx) ? cx : ring[2 * oldest];
   const float end_x = (conf && newest == lwidx) ? cx : ring[2 * newest];
   const bool cut_drift = fabsf(fsub(end_x, p.half_width)) < fabsf(fsub(start_x, p.half_width));
@@ -515,18 +535,18 @@ __device__ __forceinline__ void slot_tags(int t, const SlotIn& s, float speed, c
   float iconf = 0.0f;
   if (conf) {
     if (near_miss) {
-      itype = kNearMiss, iconf = 0.9f, irisk = 3;
+      itype = kNearMiss, iconf = type_conf(kNearMiss), irisk = 3;
     } else if (ped_close && ped_center) {
-      itype = kPedCrossing, iconf = 0.8f, irisk = dist < 8.0f ? 2 : 1;
+      itype = kPedCrossing, iconf = type_conf(kPedCrossing), irisk = dist < 8.0f ? 2 : 1;
     } else if (ped_close) {
-      itype = kPedWaiting, iconf = 0.6f, irisk = 0;
+      itype = kPedWaiting, iconf = type_conf(kPedWaiting), irisk = 0;
     } else if (cyc_near) {
-      itype = kCycNearby, iconf = 0.7f, irisk = dist < 8.0f ? 1 : 0;
+      itype = kCycNearby, iconf = type_conf(kCycNearby), irisk = dist < 8.0f ? 1 : 0;
     } else if (following) {
-      itype = kFollowing, iconf = 0.75f;
+      itype = kFollowing, iconf = type_conf(kFollowing);
       irisk = (has_ttc && ttc < p.ttc_warning) ? 2 : (dist < 10.0f ? 1 : 0);
     } else if (cut_in) {
-      itype = kCutIn, iconf = 0.7f, irisk = 1;
+      itype = kCutIn, iconf = type_conf(kCutIn), irisk = 1;
     }
   }
 
@@ -538,18 +558,26 @@ __device__ __forceinline__ void slot_tags(int t, const SlotIn& s, float speed, c
   ti[kSI + kTypes + t] = itype;
   ti[kSI + kTypes + T + t] = irisk;
   ti[kSI + kTypes + 2 * T + t] = has_ttc;
-  sa.conf[t] = conf;
-  sa.lwidx[t] = conf ? lwidx : -1;
-  sa.cx[t] = cx;
-  sa.cy[t] = cy;
-  sa.id[t] = id;
-  sa.cls[t] = cls;
-  sa.itype[t] = itype;
-  sa.irisk[t] = irisk;
-  sa.httc[t] = has_ttc;
-  sa.iconf[t] = iconf;
-  sa.dist[t] = dist;
-  sa.ttc[t] = ttc;
+  return SlotOut{conf, has_ttc, conf ? lwidx : -1, id, cls, itype, irisk, cx, cy, iconf, dist, ttc};
+}
+
+// `slot_eval` with the center ring before this frame at `icent` (T rows)
+// and the results to `sa`.
+__device__ __forceinline__ void slot_tags(int t, const SlotIn& s, float speed, const float* icent, const TagDims& dm,
+                                          const TagParams& p, const TagOut& out, const SlotArrays& sa) {
+  const SlotOut o = slot_eval(t, s, speed, icent + (size_t)t * 2 * dm.HI, dm, p, out);
+  sa.conf[t] = o.conf;
+  sa.lwidx[t] = o.lwidx;
+  sa.cx[t] = o.cx;
+  sa.cy[t] = o.cy;
+  sa.id[t] = o.id;
+  sa.cls[t] = o.cls;
+  sa.itype[t] = o.itype;
+  sa.irisk[t] = o.irisk;
+  sa.httc[t] = o.httc;
+  sa.iconf[t] = o.iconf;
+  sa.dist[t] = o.dist;
+  sa.ttc[t] = o.ttc;
 }
 
 template <bool FramesMode>
@@ -782,165 +810,348 @@ tagging_step_kernel(TagIn lanes_in, TagOut lanes_out, TagDims dm, TagParams p) {
   }
 }
 
-// --- The general instance: T up to 1,024 ------------------------------------
+// --- The general instance: T up to 1,024, a thread block cluster a lane ----
 //
-// One block of 1,024 threads a lane.  Thread t runs slot t (`slot_tags`, as
-// above), so every warp may hold slots: the scene classifier and the
-// maneuver detector run after the slots, on warps 0 and 1, beside the
-// aggregates on warps 2-5, each looping over the slots a lane at a time
-// where the instance above holds T / 32 of them in registers, and the
-// center ring goes out from warps 6-31.  The slots' results sit in dynamic
-// shared memory sized by T (12 arrays, 48 KB at 1,024), and the rings are
-// read from device memory.  Same arithmetic, same keys, same outputs.
-constexpr int kGeneralThreads = 1024;
-constexpr int kGeneralMaxT = kGeneralThreads;
+//  - Partition.  A cluster of C blocks a lane (`tag_plan`): block r owns
+//    the slots [r R, r R + R), R a multiple of 32 and at most kBlockSlots
+//    (128), one thread a slot, and the same rows of the center ring; C is
+//    2 up to 256 slots and 8 at 1,024.  Every block has kSideWarps warps
+//    beyond its slots': on block 0 they run the scene classifier, the
+//    maneuver detector and the combination of the aggregates, beside the
+//    slots.  Blocks of 256 slots (C = 1 up to 256, 4 at 1,024) were slower
+//    a launch on an H100 at T = 160, 256 and 1,024.
+//  - One wave of loads.  At entry each slot's thread requests its fields
+//    into registers, each slot warp its 32 rows of the center ring, and on
+//    block 0 the scene warp the detections and the vote ring, the maneuver
+//    warp the history ring, all by `cp.async` into shared memory.  No
+//    barrier of the block: each warp waits for its own copies.  After
+//    that, nothing is read from device memory.
+//  - The ring by the slots' own warps.  A slot reads its two ring entries
+//    and patches its row's two floats at `lwidx` in shared memory, then
+//    its warp writes its rows out as 16-byte stores (4-byte ones where the
+//    ring is not 16-byte aligned or not a multiple of 16 bytes).
+//  - Two-level aggregates.  Each slot warp reduces its 32 slots in
+//    registers with `__reduce_*_sync`: the types present, the counts, the
+//    distance and TTC minima on their bits, the max risk, and the primary
+//    interaction's key (risk rank desc, confidence asc, id asc, slot asc).
+//    A type's confidence is one constant (`type_conf`), so its last-wins
+//    confidence needs no key: it is that constant wherever some slot has
+//    the type.  The warp pushes its record, 3 chunks of 16 bytes, into
+//    block 0's shared memory with `st.async`, which counts the bytes on
+//    block 0's mbarrier, so no barrier of the cluster follows the slots.  Block 0's combine warp
+//    waits on that mbarrier alone, holds a record a lane (at most 32) and
+//    reduces them with the same keys.  Every key is a total order, so no
+//    tag depends on the order of combination.
+// One cluster barrier a launch (arrive relaxed at entry, wait before the
+// first push) makes the mbarrier's initialisation visible to the cluster.
+// Rings that do not fit in shared memory are read from device memory
+// instead, the slots' warps copying their rows device to device before
+// patching them.  Same arithmetic (`slot_eval`, `scene_classify`,
+// `maneuver_detect`), same outputs.
+constexpr int kGeneralMaxT = 1024;
+constexpr int kBlockSlots = 128;  // slots a block at most
+static_assert(kBlockSlots % 32 == 0 && 32 % (kBlockSlots / 32) == 0, "a block takes 1, 2, 4, 8, 16 or 32 warps");
+constexpr int kSideWarps = 3;  // block 0: the scene, the maneuver, the combination
+constexpr int kGeneralThreads = kBlockSlots + 32 * kSideWarps;
+constexpr int kRecordChunks = 3;  // a warp's record
+constexpr int kMaxRecords = kGeneralMaxT / 32;
+
+// C blocks a lane, each owning `rows` slots (the last ones fewer or none):
+// the fewest blocks of at most kBlockSlots slots, the warps split evenly.
+// C * rows / 32, the records, is at most 32: C is at most 32 / (kBlockSlots
+// / 32) and rows / 32 at most kBlockSlots / 32.
+struct TagPlan {
+  int cluster, rows;
+};
+
+__host__ __device__ inline TagPlan tag_plan(int T) {
+  const int warps = (T + 31) / 32, per = kBlockSlots / 32;
+  const int c = (warps + per - 1) / per;
+  return TagPlan{c, 32 * ((warps + c - 1) / c)};
+}
+
+// Byte offsets of a block's shared memory: the records (block 0's), the
+// mbarrier, then, where staged, the block's ring rows, the history ring,
+// the vote ring and the detections' columns.
+struct GenLayout {
+  size_t rec, mbar, ring, mhist, votes, dcls, dconf, dvalid, total;
+};
+
+__host__ __device__ inline GenLayout gen_layout(const TagDims& dm, const TagPlan& g, bool stage) {
+  GenLayout l;
+  size_t o = 0;
+  l.rec = o;
+  o += (size_t)16 * kRecordChunks * kMaxRecords;
+  l.mbar = o;
+  o += 16;
+  const size_t k = stage ? 1 : 0;
+  l.ring = o;
+  o += k * 4 * (size_t)g.rows * 2 * dm.HI;
+  l.mhist = o;
+  o += k * 4 * round4((size_t)6 * dm.H);
+  l.votes = o;
+  o += k * 4 * round4(dm.W);
+  l.dcls = o;
+  o += k * 4 * round4(dm.D);
+  l.dconf = o;
+  o += k * 4 * round4(dm.D);
+  l.dvalid = o;
+  o += k * ((dm.D + 15) & ~(size_t)15);
+  l.total = o;
+  return l;
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier, arrive (relaxed: it orders nothing but the
+// mbarrier's initialisation, which its own fence releases) and wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() { asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait;" ::: "memory"); }
+
+// Stores `v` at `addr` in a block of the cluster and counts its 16 bytes on
+// that block's mbarrier at `mbar` (both shared::cluster addresses).
+__device__ __forceinline__ void st_async_v4(unsigned addr, uint4 v, unsigned mbar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(mbar)
+               : "memory");
+}
+
+// `n` floats from `src` to `dst` on a warp: 16-byte copies where both are
+// 16-byte aligned, 4-byte ones for the tail or for all of it otherwise.
+__device__ __forceinline__ void warp_copy(float* dst, const float* src, int n, int lane) {
+  int done = 0;
+  if (aligned16(dst) && aligned16(src)) {
+    const int n4 = n >> 2;
+#pragma unroll 4
+    for (int i = lane; i < n4; i += 32) reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
+    done = n4 << 2;
+  }
+  for (int i = done + lane; i < n; i += 32) dst[i] = src[i];
+}
+
+// A warp's record of its slots (`o` this lane's slot, `w0` the warp's
+// first slot; lanes past T hold no slot), reduced in registers: returns the
+// 16-byte chunk this lane pushes (lanes 0-2).  Chunk 0: the type bits, the
+// confirmed count and pedestrians, cyclists and vehicles (16 bits each; at
+// most 1,024), the max risk and the primary interaction's type + 1; chunk
+// 1: the distance and TTC minima as bits, the primary's key (its
+// confidence's bits, 3 - its risk rank); chunk 2: its id and slot.  Keys
+// of no slot are all ones.
+__device__ __forceinline__ uint4 warp_record(const SlotOut& o, int w0, int lane) {
+  const bool typed = o.itype >= 0;
+  const unsigned types = __reduce_or_sync(kFull, typed ? 1u << o.itype : 0u);
+  const unsigned n_conf = __reduce_add_sync(kFull, o.conf);
+  const unsigned peds = __reduce_add_sync(kFull, o.conf && o.cls == kPed);
+  const unsigned cycs = __reduce_add_sync(kFull, o.conf && o.cls == kCyc);
+  const unsigned vehs = __reduce_add_sync(
+      kFull, o.conf && (o.cls == kCar || o.cls == kTruck || o.cls == kBus || o.cls == kMoto));
+  const unsigned dmin = __reduce_min_sync(kFull, o.conf ? __float_as_uint(o.dist) : kInfBits);
+  const unsigned tmin = __reduce_min_sync(kFull, o.conf && o.httc ? __float_as_uint(o.ttc) : kInfBits);
+  const unsigned max_risk = __reduce_max_sync(kFull, typed ? (unsigned)o.irisk : 0u);
+  // The primary interaction: confidences are positive, so their bits
+  // order them.
+  const unsigned rkey = typed ? 3u - (unsigned)risk_rank(o.irisk) : ~0u;
+  const unsigned ckey = typed ? __float_as_uint(o.iconf) : ~0u;
+  const unsigned r1 = __reduce_min_sync(kFull, rkey);
+  const unsigned c1 = __reduce_min_sync(kFull, rkey == r1 ? ckey : ~0u);
+  const bool tied = typed && rkey == r1 && ckey == c1;
+  const unsigned id1 = __reduce_min_sync(kFull, tied ? (unsigned)o.id : ~0u);
+  const unsigned won = __ballot_sync(kFull, tied && (unsigned)o.id == id1);
+  const int at = won ? __ffs(won) - 1 : 0;
+  const int itype = __shfl_sync(kFull, o.itype, at);
+  if (lane == 0)
+    return make_uint4(types, n_conf | peds << 16, cycs | vehs << 16, max_risk | (unsigned)(won ? itype + 1 : 0) << 16);
+  if (lane == 1) return make_uint4(dmin, tmin, c1, r1);
+  return make_uint4(id1, won ? (unsigned)(w0 + at) : ~0u, 0u, 0u);
+}
+
+// Block 0's combine warp: the `nrec` records in `rec`, a lane each,
+// reduced with the keys of `warp_record`, and the aggregates written.
+__device__ __forceinline__ void combine_records(const uint4* rec, int nrec, const TagParams& p, const TagOut& out) {
+  const int lane = threadIdx.x & 31;
+  const bool have = lane < nrec;
+  const uint4* r = rec + (size_t)lane * kRecordChunks;
+  const uint4 a = have ? r[0] : make_uint4(0u, 0u, 0u, 0u);
+  const uint4 b = have ? r[1] : make_uint4(kInfBits, kInfBits, ~0u, ~0u);
+  const uint4 c = have ? r[2] : make_uint4(~0u, ~0u, 0u, 0u);
+  const unsigned types = __reduce_or_sync(kFull, a.x);
+  const unsigned n_conf = __reduce_add_sync(kFull, a.y & 0xffffu), peds = __reduce_add_sync(kFull, a.y >> 16);
+  const unsigned cycs = __reduce_add_sync(kFull, a.z & 0xffffu), vehs = __reduce_add_sync(kFull, a.z >> 16);
+  const unsigned max_risk = __reduce_max_sync(kFull, a.w & 0xffffu);
+  const unsigned dmin = __reduce_min_sync(kFull, b.x), tmin = __reduce_min_sync(kFull, b.y);
+  const unsigned r1 = __reduce_min_sync(kFull, b.w);
+  const unsigned c1 = __reduce_min_sync(kFull, b.w == r1 ? b.z : ~0u);
+  const bool tied = b.w == r1 && b.z == c1;
+  const unsigned id1 = __reduce_min_sync(kFull, tied ? c.x : ~0u);
+  const unsigned s1 = __reduce_min_sync(kFull, tied && c.x == id1 ? c.y : ~0u);
+  const unsigned won = __ballot_sync(kFull, tied && c.x == id1 && c.y == s1);
+  const int itype = (int)(__shfl_sync(kFull, a.w, won ? __ffs(won) - 1 : 0) >> 16) - 1;
+  float* tf = out.tag_f;
+  int* ti = out.tag_i;
+  if (lane < kTypes) {  // a type's confidence is its constant; present where that is above 0.5
+    const bool has = (types >> lane) & 1u;
+    tf[kSF + lane] = has ? type_conf(lane) : 0.0f;
+    ti[kSI + lane] = has && type_conf(lane) > 0.5f;
+  }
+  if (lane == 0) {
+    const bool any_int = r1 != ~0u;
+    const bool critical = tmin < kInfBits && __uint_as_float(tmin) < p.ttc_critical;
+    tf[10] = dmin < kInfBits ? __uint_as_float(dmin) : 0.0f;
+    tf[11] = tmin < kInfBits ? __uint_as_float(tmin) : 0.0f;
+    ti[6] = any_int ? itype : -1;
+    ti[7] = any_int ? (critical ? 3 : (int)max_risk) : 0;
+    ti[8] = (int)n_conf;
+    ti[9] = (int)peds;
+    ti[10] = (int)cycs;
+    ti[11] = (int)vehs;
+    ti[20] = tmin < kInfBits;
+  }
+}
 
 template <bool FramesMode>
 __global__ void __launch_bounds__(kGeneralThreads)
-tagging_step_general(TagIn lanes_in, TagOut lanes_out, TagDims dm, TagParams p) {
-  extern __shared__ __align__(16) int s_gen[];
-  const int T = dm.T, HI = dm.HI, tix = threadIdx.x;
-  const int lane = tix & 31, warp = tix >> 5;
-  int* si_ = s_gen;
-  float* sf_ = reinterpret_cast<float*>(s_gen + 7 * T);
-  const SlotArrays sa{si_, si_ + T, si_ + 2 * T, si_ + 3 * T, si_ + 4 * T, si_ + 5 * T, si_ + 6 * T,
-                      sf_, sf_ + T, sf_ + 2 * T, sf_ + 3 * T, sf_ + 4 * T};
-  const TagIn in = lane_in(lanes_in, blockIdx.x, dm);
-  const TagOut out = lane_out(lanes_out, blockIdx.x, dm);
-  float* tf = out.tag_f;
-  int* ti = out.tag_i;
+tagging_step_cluster(TagIn lanes_in, TagOut lanes_out, TagDims dm, TagParams p, TagPlan g) {
+  extern __shared__ __align__(16) unsigned char s_gen[];
+  const unsigned rank = cluster_rank();
+  const TagIn in = lane_in(lanes_in, blockIdx.x / (unsigned)g.cluster, dm);
+  const TagOut out = lane_out(lanes_out, blockIdx.x / (unsigned)g.cluster, dm);
+  const int T = dm.T, ring_w = 2 * dm.HI, tix = threadIdx.x;
+  const int lane = tix & 31, warp = tix >> 5, slot_warps = g.rows >> 5;
+  const GenLayout L = gen_layout(dm, g, dm.stage);
+  uint4* s_rec = reinterpret_cast<uint4*>(s_gen + L.rec);
+  unsigned long long* s_mbar = reinterpret_cast<unsigned long long*>(s_gen + L.mbar);
   const float speed = in.vrow[kSpeed];
 
-  // --- per slot --------------------------------------------------------------
-  if (tix < T) {
-    const int t = tix;
-    const SlotIn s{in.tid[t], in.tcls[t], in.thits[t], in.tvelc[t], in.iprev[t], in.ilen[t],
-                   in.tbox[t * 4], in.tbox[t * 4 + 1], in.tbox[t * 4 + 2], in.tbox[t * 4 + 3], in.tvel[t * 2 + 1]};
-    slot_tags(t, s, speed, in.icent, dm, p, out, sa);
-  }
-  __syncthreads();
-
-  // --- scene, maneuver, aggregates, the center ring out ----------------------
-  if (warp == 0) {
-    DetRegs dr;
-#pragma unroll
-    for (int c = 0; c < kDetRegs; ++c) {
-      const int d = 32 * c + lane;
-      dr.valid[c] = d < dm.D && in.dvalid[d];
-      dr.cls[c] = d < dm.D ? in.dcls[d] : 0;
-      dr.conf[c] = d < dm.D ? in.dconf[d] : 0.0f;
+  if (warp < slot_warps) {
+    // --- a slot a thread: its fields and its warp's ring rows requested ---
+    const int w0 = (int)rank * g.rows + 32 * warp, t = w0 + lane;
+    const int n = min(max(T - w0, 0), 32) * ring_w;  // the warp's ring floats
+    float* s_ring = reinterpret_cast<float*>(s_gen + L.ring) + (size_t)32 * warp * ring_w;
+    const float* ring_in = in.icent + (size_t)w0 * ring_w;
+    if (dm.stage) stage_async_by(s_ring, ring_in, n, lane, 32);
+    SlotIn s{};
+    if (t < T) {
+      s = SlotIn{in.tid[t], in.tcls[t], in.thits[t], in.tvelc[t], in.iprev[t], in.ilen[t],
+                 in.tbox[t * 4], in.tbox[t * 4 + 1], in.tbox[t * 4 + 2], in.tbox[t * 4 + 3], in.tvel[t * 2 + 1]};
     }
+    cluster_arrive_relaxed();
+    if (dm.stage) cp_async_wait_all();
+    __syncwarp();
+    SlotOut o{false, false, -1, 0, 0, -1, 0, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (t < T) {
+      o = slot_eval(t, s, speed, dm.stage ? s_ring + (size_t)lane * ring_w : ring_in + (size_t)lane * ring_w, dm, p,
+                    out);
+      if (dm.stage && o.lwidx >= 0) {
+        s_ring[(size_t)lane * ring_w + 2 * o.lwidx] = o.cx;
+        s_ring[(size_t)lane * ring_w + 2 * o.lwidx + 1] = o.cy;
+      }
+    }
+    __syncwarp();
+    // The warp's ring rows out, this frame's centers patched in.
+    float* ring_out = out.icent + (size_t)w0 * ring_w;
+    warp_copy(ring_out, dm.stage ? s_ring : ring_in, n, lane);
+    if (!dm.stage) {
+      __syncwarp();
+      if (o.lwidx >= 0) {
+        ring_out[(size_t)lane * ring_w + 2 * o.lwidx] = o.cx;
+        ring_out[(size_t)lane * ring_w + 2 * o.lwidx + 1] = o.cy;
+      }
+    }
+    const uint4 chunk = warp_record(o, w0, lane);
+    cluster_wait();  // block 0's mbarrier is initialised
+    if (lane < kRecordChunks) {
+      const uint4* dst = s_rec + ((size_t)rank * slot_warps + warp) * kRecordChunks + lane;
+      st_async_v4(cluster_addr(dst, 0), chunk, cluster_addr(s_mbar, 0));
+    }
+    return;
+  }
+  if (rank != 0) {  // the side warps of blocks 1..C-1 hold no work
+    cluster_arrive_relaxed();
+    return;
+  }
+  float* tf = out.tag_f;
+  if (warp == slot_warps) {
+    // --- the scene classifier and the vote ring ---
+    const int count = *in.scene_count;
     float frow[6], lrow[8];
     if (FramesMode) {
       for (int k = 0; k < 6; ++k) frow[k] = in.frow[k];
       for (int k = 0; k < 8; ++k) lrow[k] = in.lrow[k];
     }
-    scene_classify<FramesMode>(in, out, dm, p, speed, in.votes, dr, frow, lrow, *in.scene_count);
-  } else if (warp == 1) {
+    TagIn sin = in;
+    DetRegs dr;
+    if (dm.stage) {
+      int* s_dcls = reinterpret_cast<int*>(s_gen + L.dcls);
+      float* s_dconf = reinterpret_cast<float*>(s_gen + L.dconf);
+      bool* s_dvalid = reinterpret_cast<bool*>(s_gen + L.dvalid);
+      int* s_votes = reinterpret_cast<int*>(s_gen + L.votes);
+      stage_async_by(s_dcls, in.dcls, dm.D, lane, 32);
+      stage_async_by(s_dconf, in.dconf, dm.D, lane, 32);
+      stage_bytes_async_by(s_dvalid, in.dvalid, dm.D, lane, 32);
+      stage_async_by(s_votes, in.votes, dm.W, lane, 32);
+      sin.dcls = s_dcls, sin.dconf = s_dconf, sin.dvalid = s_dvalid, sin.votes = s_votes;
+    }
+    cluster_arrive_relaxed();
+    if (dm.stage) cp_async_wait_all();
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < kDetRegs; ++c) {
+      const int d = 32 * c + lane;
+      dr.valid[c] = d < dm.D && sin.dvalid[d];
+      dr.cls[c] = d < dm.D ? sin.dcls[d] : 0;
+      dr.conf[c] = d < dm.D ? sin.dconf[d] : 0.0f;
+    }
+    scene_classify<FramesMode>(sin, out, dm, p, speed, sin.votes, dr, frow, lrow, count);
+  } else if (warp == slot_warps + 1) {
+    // --- the maneuver detector and the history ring ---
     const int fields[6] = {kSpeed, kHeading, kAccel, kYaw, kX, kY};
     float entry[6];
     for (int k = 0; k < 6; ++k) entry[k] = in.vrow[fields[k]];
     const int count = *in.man_count, frames = *in.frame_count;
+    const float* mhist = in.mhist;
+    if (dm.stage) {
+      float* s_mhist = reinterpret_cast<float*>(s_gen + L.mhist);
+      stage_async_by(s_mhist, in.mhist, 6 * dm.H, lane, 32);
+      mhist = s_mhist;
+    }
+    cluster_arrive_relaxed();
+    if (dm.stage) cp_async_wait_all();
+    __syncwarp();
     if (lane == 0) {
-      maneuver_detect(out, dm, p, entry, in.mhist, count);
+      maneuver_detect(out, dm, p, entry, mhist, count);
       *out.frame_count = frames + 1;
       tf[12] = fmul(__int2float_rn(frames), p.inv_fps);  // timestamp
     }
     const int mwidx = fmod_i(count, dm.H);
     for (int i = lane; i < 6 * dm.H; i += 32) {
       const int r = i / 6;
-      out.mhist[i] = r == mwidx ? entry[i - r * 6] : in.mhist[i];
-    }
-  } else if (warp < 4) {
-    // Presence and last-wins confidence of the types [7 w, 7 w + 7), w =
-    // warp - 2: the first slot holding the highest id.
-    for (int kk = 0; kk < 7; ++kk) {
-      const int k = 7 * (warp - 2) + kk;
-      int best_id = -1, best_slot = kI32Max;
-      bool present = false;
-      for (int t = lane; t < T; t += 32) {
-        if (sa.itype[t] != k) continue;
-        present |= sa.iconf[t] > 0.5f;
-        if (sa.id[t] > best_id) {
-          best_id = sa.id[t];
-          best_slot = t;
-        }
-      }
-      const int top = __reduce_max_sync(kFull, best_id);
-      const int slot = __reduce_min_sync(kFull, best_id == top ? best_slot : kI32Max);
-      present = __any_sync(kFull, present);
-      if (lane == 0 && k < kTypes) {
-        tf[kSF + k] = top >= 0 ? sa.iconf[slot] : 0.0f;
-        ti[kSI + k] = present;
-      }
-    }
-  } else if (warp == 4) {
-    int n_conf = 0, peds = 0, cycs = 0, vehs = 0;
-    unsigned dmin = kInfBits, tmin = kInfBits;
-    for (int t = lane; t < T; t += 32) {
-      if (!sa.conf[t]) continue;
-      const int c = sa.cls[t];
-      n_conf += 1;
-      peds += c == kPed;
-      cycs += c == kCyc;
-      vehs += c == kCar || c == kTruck || c == kBus || c == kMoto;
-      dmin = min(dmin, __float_as_uint(sa.dist[t]));
-      if (sa.httc[t]) tmin = min(tmin, __float_as_uint(sa.ttc[t]));
-    }
-    n_conf = __reduce_add_sync(kFull, n_conf);
-    peds = __reduce_add_sync(kFull, peds);
-    cycs = __reduce_add_sync(kFull, cycs);
-    vehs = __reduce_add_sync(kFull, vehs);
-    dmin = __reduce_min_sync(kFull, dmin);
-    tmin = __reduce_min_sync(kFull, tmin);
-    if (lane == 0) {
-      tf[10] = dmin < kInfBits ? __uint_as_float(dmin) : 0.0f;
-      tf[11] = tmin < kInfBits ? __uint_as_float(tmin) : 0.0f;
-      ti[8] = n_conf;
-      ti[9] = peds;
-      ti[10] = cycs;
-      ti[11] = vehs;
-      ti[20] = tmin < kInfBits;
-    }
-  } else if (warp == 5) {
-    // Primary interaction: the best (risk rank desc, confidence asc, id
-    // asc, slot asc).
-    int rank = -1, max_risk = 0, best_id = kI32Max, best_slot = kI32Max;
-    unsigned conf_bits = ~0u, tmin = kInfBits;
-    for (int t = lane; t < T; t += 32) {
-      if (sa.conf[t] && sa.httc[t]) tmin = min(tmin, __float_as_uint(sa.ttc[t]));
-      if (sa.itype[t] < 0) continue;
-      max_risk = max(max_risk, sa.irisk[t]);
-      const int r = risk_rank(sa.irisk[t]);
-      const unsigned c = __float_as_uint(sa.iconf[t]);
-      const int i = sa.id[t];
-      if (r > rank || (r == rank && (c < conf_bits || (c == conf_bits && i < best_id)))) {
-        rank = r;
-        conf_bits = c;
-        best_id = i;
-        best_slot = t;
-      }
-    }
-    const int top_rank = __reduce_max_sync(kFull, rank);
-    const unsigned top_conf = __reduce_min_sync(kFull, rank == top_rank ? conf_bits : ~0u);
-    const bool tied = rank == top_rank && conf_bits == top_conf;
-    const int top_id = __reduce_min_sync(kFull, tied ? best_id : kI32Max);
-    const int slot = __reduce_min_sync(kFull, tied && best_id == top_id ? best_slot : kI32Max);
-    max_risk = __reduce_max_sync(kFull, max_risk);
-    tmin = __reduce_min_sync(kFull, tmin);
-    if (lane == 0) {
-      const bool any_int = top_rank >= 0;
-      const bool critical = tmin < kInfBits && __uint_as_float(tmin) < p.ttc_critical;
-      ti[6] = any_int ? sa.itype[slot] : -1;
-      ti[7] = any_int ? (critical ? 3 : max_risk) : 0;
+      out.mhist[i] = r == mwidx ? entry[i - r * 6] : mhist[i];
     }
   } else {
-    // The center ring, each confirmed slot's center at its write index.
-    const int ring_w = 2 * HI, n_ring = T * ring_w;
-    for (int i = tix - 6 * 32; i < n_ring; i += kGeneralThreads - 6 * 32) {
-      const int t = i / ring_w, c = i - t * ring_w;
-      out.icent[i] = sa.lwidx[t] == (c >> 1) ? ((c & 1) ? sa.cy[t] : sa.cx[t]) : in.icent[i];
+    // --- the combination: every slot warp's record, then the aggregates ---
+    const unsigned mbar = smem_addr(s_mbar);
+    const int nrec = g.cluster * slot_warps;
+    if (lane == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(mbar) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mbar),
+                   "r"((unsigned)(16 * kRecordChunks * nrec))
+                   : "memory");
     }
+    cluster_arrive_relaxed();
+    unsigned ok;
+    do {
+      asm volatile(
+          "{ .reg .pred q; mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 q, [%1], %2; selp.u32 %0, 1, 0, q; }"
+          : "=r"(ok)
+          : "r"(mbar), "r"(0u)
+          : "memory");
+    } while (!ok);
+    combine_records(s_rec, nrec, p, out);
   }
 }
 
@@ -948,10 +1159,26 @@ template <bool FramesMode>
 int launch(const TagIn& in, const TagOut& out, const TagDims& dm, const TagParams& p, int B, size_t smem,
            cudaStream_t stream) {
   if (dm.T > kMaxT) {
-    const size_t gsmem = 12 * sizeof(int) * (size_t)dm.T;
-    const cudaError_t err = allow_dynamic_smem<tagging_step_general<FramesMode>>(gsmem);
+    const TagPlan g = tag_plan(dm.T);
+    TagDims gd = dm;
+    gd.stage = gen_layout(dm, g, true).total <= kMaxDynamicSmem ? 1 : 0;
+    const size_t gsmem = gen_layout(gd, g, gd.stage).total;
+    cudaError_t err = allow_dynamic_smem<tagging_step_cluster<FramesMode>>(gsmem);
     if (err != cudaSuccess) return (int)err;
-    tagging_step_general<FramesMode><<<B, kGeneralThreads, gsmem, stream>>>(in, out, dm, p);
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = (unsigned)g.cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3((unsigned)B * (unsigned)g.cluster);
+    cfg.blockDim = dim3((unsigned)(g.rows + 32 * kSideWarps));
+    cfg.dynamicSmemBytes = gsmem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, tagging_step_cluster<FramesMode>, in, out, gd, p, g);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
   const cudaError_t err = allow_dynamic_smem<tagging_step_kernel<FramesMode>>(smem);
@@ -986,4 +1213,11 @@ extern "C" int madpp_tagging_step(
   const size_t smem = dm.stage ? staged : 0;
   return frames_mode ? launch<true>(in, out, dm, p, B, smem, (cudaStream_t)stream)
                      : launch<false>(in, out, dm, p, B, smem, (cudaStream_t)stream);
+}
+
+// The blocks of the thread block cluster a launch at (T, D) takes a lane (1:
+// the small instance's single block); -1 outside the kernel's limits.
+extern "C" int madpp_tagging_cluster(int T, int D) {
+  if (T < 1 || T > kGeneralMaxT || D < 1) return -1;
+  return T > kMaxT ? tag_plan(T).cluster : 1;
 }

@@ -27,7 +27,6 @@ hand-written kernel stands here: the products are `torch.matmul` and
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple
@@ -37,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.device import resolve_device
+from ..utils.device import float32_matmuls, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -300,18 +299,6 @@ IMAGE_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
 IMAGE_STD = np.asarray([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 
-@contextlib.contextmanager
-def _float32_matmuls():
-    """Full float32 products and convolutions (TF32 off) for the block."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
 def _fma(a, b, c) -> np.ndarray:
     """float32 ``a * b + c`` with one rounding, as a fused multiply-add
     gives it (exact in float64 for float32 operands of these sizes)."""
@@ -367,7 +354,7 @@ def preprocess_bgr(frame_bgr, image_size: int) -> torch.Tensor:
     rgb = frame.flip(-1).to(torch.float32) / torch.full((), 255.0, device=dev)
     x = rgb.permute(2, 0, 1)  # (3, H, W)
     h, w = x.shape[1:]
-    with _float32_matmuls():
+    with float32_matmuls():
         if h != image_size:
             x = torch.from_numpy(cubic_resize_weights(h, image_size)).to(dev).T @ x
         if w != image_size:
@@ -461,7 +448,7 @@ def make_caption_fn(cfg: BlipConfig, max_new_tokens: int = 40, device="cuda"):
     def caption_fn(params_or_model, pixel_values, prompt_ids, prompt_len):
         model = _model_of(params_or_model, cfg)
         prompt_len = int(prompt_len)
-        with _float32_matmuls():
+        with float32_matmuls():
             buf = _prompt_buffer(cfg, prompt_ids, max_new_tokens, dev)
             cross_kvs = model.encode_cross(torch.as_tensor(pixel_values, dtype=torch.float32).to(dev))
             for i in range(max(1, prompt_len), min(buf.shape[0], prompt_len + max_new_tokens)):
@@ -512,7 +499,7 @@ def make_beam_caption_fn(cfg: BlipConfig, max_new_tokens: int = 40, num_beams: i
     def caption_fn(params_or_model, pixel_values, prompt_ids, prompt_len):
         model = _model_of(params_or_model, cfg)
         prompt_len = int(prompt_len)
-        with _float32_matmuls():
+        with float32_matmuls():
             prompt_buf = _prompt_buffer(cfg, prompt_ids, max_new_tokens, dev)
             L, V = prompt_buf.shape[0], cfg.vocab_size
             cross_kvs = model.encode_cross(torch.as_tensor(pixel_values, dtype=torch.float32).to(dev))

@@ -32,7 +32,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..ops.nms import nms
-from ..utils.device import resolve_device
+from ..utils.device import float32_matmuls, resolve_device
 
 # depth multiple, width multiple, max-channel cap.
 YOLOV8_VARIANTS = {
@@ -239,6 +239,14 @@ class YOLOv8(nn.Module):
         self.head = DetectHead(num_classes, (ch(256), ch(512), ch(1024)))
 
     def forward(self, x):
+        if self.dtype != torch.float32:
+            return self._forward(x)
+        # float32 is the parity dtype: full float32 convolutions (cuDNN's
+        # default is TF32), the caller's flags restored after.
+        with float32_matmuls():
+            return self._forward(x)
+
+    def _forward(self, x):
         stop = self.stop_after
         x = self.b0(x.to(self.dtype))
         if stop == "b0":

@@ -38,10 +38,17 @@ from ..kernels import build
 from ..types import TaggingState
 from . import launch
 
-# One thread a track slot: the kernel's instance whose times PERF.md tracks
-# takes at most 128 slots, its general instance MAX_TRACKS; its launcher
-# picks one by shape.
+# One thread a track slot: the kernel's small instance takes at most 128
+# slots in one block, its general instance MAX_TRACKS on a thread block
+# cluster a lane (`cluster_size`); its launcher picks one by shape.
 MAX_TRACKS = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_size(T: int, D: int) -> int:
+    """The blocks of the thread block cluster a launch at T slots and D
+    detections takes a lane (1: the small instance's single block)."""
+    return int(build.kernels().tagging_cluster(T, D))
 
 # --- the packed output rows --------------------------------------------------
 # The first 12 floats and 21 ints are the JAX package's SF and SI rows

@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 
@@ -291,8 +292,11 @@ def tree_unflatten(template, leaves):
 
 def tree_map(fn, *trees):
     """``fn`` over the corresponding tensors of tables shaped alike (or of
-    dicts, tuples or lists of them)."""
+    dicts, tuples or lists of them).  A None is an empty subtree, as in
+    `jax.tree_util.tree_map`: it stays None and ``fn`` never sees it."""
     first = trees[0]
+    if first is None:
+        return None
     if dataclasses.is_dataclass(first):
         return type(first)(
             **{f.name: tree_map(fn, *(getattr(t, f.name) for t in trees)) for f in dataclasses.fields(first)}
@@ -302,6 +306,13 @@ def tree_map(fn, *trees):
     if isinstance(first, (tuple, list)):
         return type(first)(tree_map(fn, *parts) for parts in zip(*trees))
     return fn(*trees)
+
+
+def to_numpy(tree):
+    """A table (or a dict, tuple or list of tables) with every tensor copied
+    to the host as a numpy array, every other leaf through `np.asarray` and
+    every None kept: the JAX package's `types.to_numpy`."""
+    return tree_map(lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x), tree)
 
 
 def stack_lanes(trees):

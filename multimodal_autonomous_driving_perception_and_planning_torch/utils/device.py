@@ -1,7 +1,9 @@
 """Where the port's entry points run: the card unless the caller asks for
-the CPU."""
+the CPU; and the float32 arithmetic of their parity math there."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -22,3 +24,17 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+@contextlib.contextmanager
+def float32_matmuls():
+    """Full float32 matrix products and convolutions for the block: TF32 off
+    for cuBLAS and cuDNN (torch's default lets cuDNN's float32 convolutions
+    run in TF32), the caller's two flags restored after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -223,6 +223,29 @@ def test_general_instances_at_partition_edges(device):
     assert {c["k4_cluster"] for c in cases} == {4, 8, 16}
 
 
+def test_tagging_general_instance_at_partition_edges(device):
+    """K3's general instance either side of its warps' and its cluster's
+    edges (T = 129, 255, 256, 257, 511, 513, 993 and 1,024, clusters of 2
+    to 8 blocks), in both modes, and its rings off the fast path (29
+    centers a slot at 1 and 3 lanes, 500 centers): every tag and the state
+    bit for bit its plain version's."""
+    cases = chip_smoke.check_tagging_partition_edges(device)
+    assert len(cases) == 2 * len(chip_smoke.TAG_PARTITION_SIZES) + 3
+    assert {c["cluster"] for c in cases if "cluster" in c} == {2, 3, 4, 5, 8}
+    assert all(c["bitwise"] for c in cases if "bitwise" in c)
+    torch.cuda.synchronize()
+
+
+def test_yolo_float32_tower_under_default_tf32_flags(device):
+    """yolov8n's float32 tower in a fresh process that leaves torch's TF32
+    flags at their defaults (cuDNN's on): on the card within 1e-4 of each
+    head output's scale of the CPU, and the flags as they were after the
+    forward."""
+    result = chip_smoke.check_yolo_default_flags()
+    assert max(result["relative_gaps"]) <= chip_smoke.F32_LOGIT_REL
+    assert result["flags_before"] == result["flags_after"] == [False, True]
+
+
 def test_large_paths_on_card(device):
     """ROADMAP §3's tagging path (160 slots, 80 detections, 300 frames) and
     the YOLO path at max_detections=300 (64 slots against 300 detections,
@@ -350,9 +373,10 @@ def test_demo_and_webview_on_card(device):
 def test_madpp_ops_equal_their_wrappers(device):
     """Each madpp op (ops/library.py) on the card against its wrapper on the
     same inputs at the paths' states, ``madpp.tagging_step`` in both of
-    K3's modes, every output bit for bit."""
+    K3's modes and at 160 slots (its general instance), every output bit
+    for bit."""
     result = chip_smoke.check_madpp_ops(device, chip_smoke.synthetic_inputs())
-    assert sorted(result) == ["kalman_step", "tagging_step", "tagging_step_frames", "tracker_step"]
+    assert sorted(result) == ["kalman_step", "tagging_step", "tagging_step_160", "tagging_step_frames", "tracker_step"]
     torch.cuda.synchronize()
 
 

@@ -13,7 +13,9 @@ holds the kernels to these plain versions on the card.
 
 import dataclasses
 import functools
+from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -252,3 +254,216 @@ def test_cluster_round_model_on_the_staircase(parts, one_thread):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, _greedy_associate_plain(torch.tensor(iou), torch.tensor(rank), 0.3).numpy())
     np.testing.assert_array_equal(got, np.arange(160) * (np.arange(160) < 80) - (np.arange(160) >= 80))
+
+
+# --- K3's general instance: the partitioned aggregates -----------------------
+
+AGG_PARTS = (1, 2, 4, 8)
+AGG_STREAMS = {"random": (chip_smoke.random_tagging_frame, 8), "crafted": (chip_smoke.crafted_tagging_frame, 14)}
+_INF_BITS = 0x7F800000
+_KEY_NONE = (_MASK32, _MASK32, _MASK32, _MASK32)  # the primary's key of no interaction
+# tagging_step.cu `type_conf`: an interaction's confidence, one constant a
+# type (tagging/rules.py's rule table); the types no rule gives have 0.
+TYPE_CONF = {9: 0.9, 6: 0.8, 7: 0.6, 8: 0.7, 1: 0.75, 4: 0.7}
+# The aggregate tags: the SF and SI entries and the per-type rows the slot
+# records feed (everything else of the rows is a slot's own or the scene's
+# and maneuver's).
+AGG_TAGS = ("closest_agent_distance", "min_ttc", "primary_interaction", "overall_risk", "agent_count",
+            "pedestrian_count", "cyclist_count", "vehicle_count", "has_min_ttc", "interaction_confidence",
+            "interaction_present")
+
+
+def _f32_bits(x) -> int:
+    return int(np.float32(x).view(np.uint32))
+
+
+def warp_record(tags: dict, table, min_hits: int, w0: int, T: int) -> dict:
+    """tagging_step.cu `warp_record` over the slots [w0, w0 + 32) (those
+    below T): each aggregate's part from the plain version's per-slot
+    tags, with the kernel's keys: the type bits, and the primary
+    interaction's key (3 - risk rank, confidence bits, id, slot) and its
+    type.  Every typed slot's confidence must be its type's `TYPE_CONF`,
+    which lets the kernel carry no per-type key."""
+    sl = slice(w0, min(w0 + 32, T))
+    conf = ((table.track_id[sl] > 0) & (table.hits[sl] >= min_hits)).tolist()
+    cls, ids = table.class_id[sl].tolist(), table.track_id[sl].tolist()
+    itype, irisk = tags["track_interaction_type"][sl].tolist(), tags["track_interaction_risk"][sl].tolist()
+    iconf = tags["track_interaction_confidence"][sl].numpy()
+    dist, ttc = tags["track_distance"][sl].numpy(), tags["track_ttc"][sl].numpy()
+    httc = tags["track_has_ttc"][sl].tolist()
+    rec = {"types": 0, "n_conf": 0, "peds": 0, "cycs": 0, "vehs": 0, "dmin": _INF_BITS, "tmin": _INF_BITS,
+           "max_risk": 0, "primary": (*_KEY_NONE, -1)}
+    for j, t in enumerate(range(sl.start, sl.stop)):
+        if conf[j]:
+            rec["n_conf"] += 1
+            rec["peds"] += cls[j] == 2
+            rec["cycs"] += cls[j] == 3
+            rec["vehs"] += cls[j] in (0, 1, 4, 5)
+            rec["dmin"] = min(rec["dmin"], _f32_bits(dist[j]))
+            if httc[j]:
+                rec["tmin"] = min(rec["tmin"], _f32_bits(ttc[j]))
+        k = itype[j]
+        if k < 0:
+            continue
+        assert iconf[j] == np.float32(TYPE_CONF[k]), (t, k, iconf[j])
+        rec["types"] |= 1 << k
+        rec["max_risk"] = max(rec["max_risk"], irisk[j])
+        key = (3 - (2, 3, 1, 0)[irisk[j]], _f32_bits(iconf[j]), ids[j], t)
+        rec["primary"] = min(rec["primary"], (*key, k))
+    return rec
+
+
+def combine_records(a: dict, b: dict) -> dict:
+    """Two records as one, with the keys of tagging_step.cu
+    `combine_records`: the type bits' union, sums, minima and maxima, the
+    primary's lowest key."""
+    return {"types": a["types"] | b["types"], "n_conf": a["n_conf"] + b["n_conf"],
+            "peds": a["peds"] + b["peds"], "cycs": a["cycs"] + b["cycs"], "vehs": a["vehs"] + b["vehs"],
+            "dmin": min(a["dmin"], b["dmin"]), "tmin": min(a["tmin"], b["tmin"]),
+            "max_risk": max(a["max_risk"], b["max_risk"]),
+            "primary": min(a["primary"], b["primary"], key=lambda p: p[:4])}
+
+
+def cluster_aggregates_model(tags: dict, table, min_hits: int, ttc_critical: float, T: int, parts: int,
+                             order) -> dict:
+    """K3's general instance's aggregates in plain Python: the slots split
+    over ``parts`` blocks as `tag_plan` splits them (32 ceil(ceil(T / 32) /
+    parts) slots a block), each warp's 32 slots reduced to a record, each
+    block's records combined into a block record, then the block records
+    combined, both levels in the order ``order(n)`` gives (a permutation
+    of range(n)).  Returns the aggregate tags, as the kernel writes them."""
+    per = 32 * -(-(-(-T // 32)) // parts)
+    blocks = []
+    for r in range(parts):
+        recs = [warp_record(tags, table, min_hits, w0, T) for w0 in range(r * per, min((r + 1) * per, T), 32)]
+        if recs:
+            idx = order(len(recs))
+            block = recs[idx[0]]
+            for i in idx[1:]:
+                block = combine_records(block, recs[i])
+            blocks.append(block)
+    idx = order(len(blocks))
+    rec = blocks[idx[0]]
+    for i in idx[1:]:
+        rec = combine_records(rec, blocks[i])
+    any_int = rec["primary"][0] != _MASK32
+    tmin = np.uint32(rec["tmin"]).view(np.float32)
+    critical = rec["tmin"] < _INF_BITS and tmin < np.float32(ttc_critical)
+    return {
+        "closest_agent_distance": np.uint32(rec["dmin"] if rec["dmin"] < _INF_BITS else 0).view(np.float32),
+        "min_ttc": tmin if rec["tmin"] < _INF_BITS else np.float32(0),
+        "primary_interaction": rec["primary"][4] if any_int else -1,
+        "overall_risk": (3 if critical else rec["max_risk"]) if any_int else 0,
+        "agent_count": rec["n_conf"], "pedestrian_count": rec["peds"], "cyclist_count": rec["cycs"],
+        "vehicle_count": rec["vehs"], "has_min_ttc": rec["tmin"] < _INF_BITS,
+        "interaction_confidence": np.array([np.float32(TYPE_CONF.get(k, 0.0) if rec["types"] >> k & 1 else 0.0)
+                                            for k in range(tagging_kernel.NUM_INTERACTIONS)]),
+        "interaction_present": np.array([bool(rec["types"] >> k & 1) and TYPE_CONF.get(k, 0.0) > 0.5
+                                         for k in range(tagging_kernel.NUM_INTERACTIONS)]),
+    }
+
+
+def _jax_frame(dets, table, vrow, lane, feats):
+    """A tagging frame of `chip_smoke`'s streams (CPU tensors) as the JAX
+    package's inputs."""
+    from multimodal_autonomous_driving_perception_and_planning_tpu import types as tj
+
+    def j(x):
+        return jnp.asarray(x.numpy())
+
+    vs = tj.VehicleState(**{f: j(vrow[i]) for i, f in enumerate(chip_smoke.VEHICLE_STATE_FIELDS)})
+    return (tj.Detections(**{f.name: j(getattr(dets, f.name)) for f in dataclasses.fields(dets)}),
+            tj.TrackTable(**{f.name: j(getattr(table, f.name)) for f in dataclasses.fields(table)}),
+            None, None, vs,
+            None if lane is None else tj.LaneObservation(**{f.name: j(getattr(lane, f.name))
+                                                            for f in dataclasses.fields(lane)}),
+            None if feats is None else {k: j(v) for k, v in feats.items()})
+
+
+@functools.lru_cache(maxsize=None)
+def _aggregate_stream(t: int, d: int, stream: str, frames_mode: bool) -> tuple:
+    """A stream of `AGG_STREAMS` at (t, d) through the plain version and
+    the JAX package's tagging step (XLA rules), each threading its own
+    state: per frame the table, the plain version's tags and JAX's."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.tagging.rules import (
+        TaggingRules,
+        make_packed_tagging_step,
+        unpack_tags,
+    )
+    from multimodal_autonomous_driving_perception_and_planning_torch.types import TaggingState
+    from multimodal_autonomous_driving_perception_and_planning_tpu import types as tj
+    from multimodal_autonomous_driving_perception_and_planning_tpu.tagging.rules import make_tagging_step
+
+    cfg_t = _config(pt, t, d).replace(use_frames=frames_mode)
+    cfg_j = _config(pj, t, d).replace(use_frames=frames_mode)
+    rules = TaggingRules.from_config(cfg_t)
+    step_t = make_packed_tagging_step(cfg_t)
+    step_j = jax.jit(make_tagging_step(cfg_j, backend="cpu"))
+    state_t = TaggingState.initial(rules.window, rules.history, t, "cpu", interaction_history=rules.interaction_history)
+    state_j = tj.TaggingState.initial(rules.window, rules.history, t)
+    frame_fn, n = AGG_STREAMS[stream]
+    rng = np.random.default_rng(t + 17 * d + frames_mode)
+    out = []
+    for f in range(n):
+        dets, table, vrow = frame_fn(rng, f, t, d, "cpu")
+        lane, feats = chip_smoke.random_lane_feats(rng, "cpu") if frames_mode else (None, None)
+        state_t, tag_f, tag_i = step_t(state_t, dets, table, vrow, lane, feats)
+        state_j, tags_j = step_j(state_j, *_jax_frame(dets, table, vrow, lane, feats))
+        out.append((table, unpack_tags(tag_f, tag_i, t), {k: np.asarray(tags_j[k]) for k in AGG_TAGS},
+                    chip_smoke.aggregate_corners(unpack_tags(tag_f, tag_i, t), table, state_t.int_len,
+                                                 rules.interaction_history)))
+    return rules, out
+
+
+def _same_bits(got, want, where: str) -> None:
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, where
+    if want.dtype.kind == "f":
+        np.testing.assert_array_equal(got.astype(np.float32).view(np.uint32), want.astype(np.float32).view(np.uint32),
+                                      err_msg=where)
+    else:
+        np.testing.assert_array_equal(got.astype(np.int64), want.astype(np.int64), err_msg=where)
+
+
+@pytest.mark.parametrize("parts", AGG_PARTS)
+@pytest.mark.parametrize("frames_mode", [False, True], ids=["detections", "frames"])
+@pytest.mark.parametrize("stream", sorted(AGG_STREAMS))
+@pytest.mark.parametrize("shape", chip_smoke.LARGE_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_partitioned_aggregates_model_matches_plain_and_jax(shape, stream, frames_mode, parts, one_thread):
+    """K3's general instance's aggregates (tagging_step.cu `warp_record`,
+    `combine_records`) in plain Python, the slots split over ``parts``
+    blocks and the records combined forward, reversed and shuffled at both
+    levels: every aggregate tag bit for bit the plain version's and the JAX
+    package's, on random streams and on the crafted stream (every
+    aggregate corner, which it must reach), in both modes."""
+    t, d = shape
+    rules, frames = _aggregate_stream(t, d, stream, frames_mode)
+    ttc_critical = float(rules.params[list(tagging_kernel.PARAM_NAMES).index("ttc_critical")])
+    shuffle = np.random.default_rng(parts)
+    orders = {"forward": lambda n: list(range(n)), "reversed": lambda n: list(range(n))[::-1],
+              "shuffled": lambda n: shuffle.permutation(n).tolist()}
+    corners = dict.fromkeys(("all_types", "primary_tie", "equal_min_ttc", "ring_wrap"), 0)
+    for f, (table, tags, tags_j, reached) in enumerate(frames):
+        for name, order in orders.items():
+            got = cluster_aggregates_model(tags, table, rules.min_hits, ttc_critical, t, parts, order)
+            for k in AGG_TAGS:
+                _same_bits(got[k], tags[k].numpy(), f"frame {f} {name}: {k} against the plain version")
+                _same_bits(got[k], tags_j[k], f"frame {f} {name}: {k} against JAX")
+        corners = {k: n + reached[k] for k, n in corners.items()}
+    if stream == "crafted":
+        assert corners["all_types"] and corners["primary_tie"] and corners["equal_min_ttc"], corners
+
+
+def test_type_conf_is_the_kernels_table():
+    """`TYPE_CONF`, the model's per-type confidences, is tagging_step.cu's
+    `type_conf` read from the kernel's source: every type a rule gives,
+    its constant, and no other type."""
+    import re
+
+    src = (Path(tagging_kernel.__file__).parent.parent / "kernels" / "csrc" / "tagging_step.cu").read_text()
+    enum = re.search(r"enum \{ (kFollowing = 1[^}]*)\}", src).group(1)
+    codes = {name: int(v) for name, v in re.findall(r"(k\w+) = (\d+)", enum)}
+    body = re.search(r"constexpr float type_conf\(int k\) \{(.*?)\n\}", src, re.S).group(1)
+    table = {codes[name]: float(np.float32(v)) for name, v in re.findall(r"k == (k\w+) \? ([0-9.]+)f", body)}
+    assert table == {k: float(np.float32(v)) for k, v in TYPE_CONF.items()}
+    assert all(v > 0.5 for v in TYPE_CONF.values())  # so a type present is a type some slot has

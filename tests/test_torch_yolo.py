@@ -497,3 +497,31 @@ def test_runner_matches_jax(runner_case, tagging):
         if np.issubdtype(want.dtype, np.floating):
             rtol = TTC_RTOL if k in ("track_ttc", "min_ttc") else 0.0
             _assert_close(f"tags.{k}", outs_t["tags"][k].numpy(), want, ATOL, rtol)
+
+
+@pytest.mark.parametrize("caller", [(True, True), (False, True), (True, False)], ids=["both", "cudnn", "matmul"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+def test_float32_tower_turns_tf32_off_inside_its_forward_only(dtype, caller):
+    """The tower's float32 forward runs with TF32 off for matmuls and cuDNN
+    convolutions (torch's default lets cuDNN's float32 convolutions run in
+    TF32; float32 is the parity dtype), read inside by a hook on the first
+    and the last conv; the caller's flags come back after it; bf16 leaves
+    them as the caller set them."""
+    seen = []
+
+    def hook(module, inputs, out):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+
+    model = yt.YOLOv8(variant="n", dtype=dtype)
+    model.b0.register_forward_hook(hook)
+    model.head.register_forward_hook(hook)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = caller
+        with torch.inference_mode():
+            model(torch.zeros(1, 3, 64, 64))
+        after = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert seen == [(False, False)] * 2 if dtype == torch.float32 else seen == [caller] * 2
+    assert after == caller
