@@ -104,6 +104,30 @@ Phases, each printing one JSON line:
      cluster), every tag and the state bit for bit, with rings of 29
      centers (at 1 and 3 lanes) and of 500; K1 at 8 lanes at (256, 128),
      (64, 300) and (1,024, 1,024), K3 at (256, 128);
+ 19a'. tables and pools beyond 1,024 (`wide_tables`): K1 and K4 at (1,025,
+     64), (2,048, 300), (4,096, 1,024) and (4,096, 4,096) (churn,
+     saturated tables, IoUs at the threshold and +0 IoUs all tied, IoUs
+     within 2 ulps of the threshold, random, tied-rank and full matrices,
+     the key-order corners with ranks whose keys wrap in int32 at these D,
+     and the staircase and all-equal ladders, 4,097 rounds at 4,096 x
+     4,096); K3 at 1,025, 2,048 and 4,096 slots in both modes and on the
+     crafted stream at 4,096; K5's large instance (a mask in a device
+     workspace and a scan) at (64, 1,025), (64, 8,400) and (2, 33,600) on
+     `nms_cases` tiled past 1,024 and a chain across every word, and off
+     16-byte alignment; K1 at 8 lanes at (2,048, 300); each bit for bit
+     its plain version;
+ 19a''. the wide paths (`wide_paths`): (a) `yolo_all_anchors`, yolov8n at
+     640 in float32 at score 0.05 with every anchor in the NMS pool
+     (pre_topk 8,400) and 300 detections, one 64-frame chunk (K5 at (64,
+     8,400), K1 at (64, 300)); (b) `tagging_4096`, the tagging path at
+     4,096 slots and 1,024 random detections a frame at 60% valid over 64
+     frames (K1 at (4,096, 1,024), K3 at 4,096 slots, more than 1,024
+     live); (c) `frames_360`, the frames path on a Hough grid of 360
+     thetas over 64 road frames; each counted, against its CPU run over
+     the frames the CPU finishes in 20 s (at least 8) and its card run
+     with the plain versions over all of them; and the computed
+     Hough tables at 90 and 180 thetas against the carried ones on this
+     host;
  19b. the host stack (`host_stack`): the tagging path over 40 frames on the
      card, then `extract_frame` on every frame, the AutoTagger and a
      TagDatabase round trip against the same chain on the CPU run; the
@@ -201,15 +225,18 @@ Phases, each printing one JSON line:
      (`lane_times`) K1-K3 at B = 1, 8 and 64 beside their bounds, and the
      tagging path's lane-frames/s at B = 1, 8 and 64, in turns; then
      (`large_times`) K1 and K4's general instances at (64, 300), (160, 80),
-     (256, 128) and (1,024, 1,024), K3's at the last three in both modes
-     and its small instance at (128, 64) as the yardstick, by CUDA events
-     and a profiler trace, beside their bounds, plain versions, cluster
-     sizes and rounds, and K4 on the staircase, a round's device time
-     (`round_cost`); then (`large_paths`) the YOLO path at
-     max_detections=300 (float32, score 0.05, 300 frames in 5 chunks of
-     64: K1 at (64, 300) every frame) and ROADMAP §3's tagging path (160
-     slots, 80 detections, 300 frames), each against its CPU run, timed in
-     turns, with its busy share and K1's device us a launch.
+     (256, 128), (1,024, 1,024) and the four wide shapes, K3's at (160,
+     80), (256, 128), (1,024, 1,024) and 1,025, 2,048 and 4,096 slots in
+     both modes and its small instance at (128, 64) as the yardstick, K5's
+     large instance at (64, 8,400) and (2, 33,600), by CUDA events and a
+     profiler trace, beside their bounds, plain versions, cluster sizes and
+     rounds, and K4 on the staircase, a round's device time (`round_cost`);
+     then (`large_paths`) the YOLO path at max_detections=300 (float32,
+     score 0.05, 300 frames in 5 chunks of 64: K1 at (64, 300) every
+     frame) and ROADMAP §3's tagging path (160 slots, 80 detections, 300
+     frames), each against its CPU run, and with the three wide paths
+     timed in turns, with each one's launches, busy share and K1's device
+     us a launch.
 Then the script's seconds, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero.  Without a card it exits 1 at once.
@@ -2392,7 +2419,7 @@ def lane_stage_inputs(device, frame: torch.Tensor) -> dict:
     return st
 
 
-def measure_lane_split(device, frames, reps: int = 20) -> dict:
+def measure_lane_split(device, frames, reps: int = 10, sweep: int = 100) -> dict:
     """The lane step's device time a frame by stage, on the frames path's
     road frames (each stage on the inputs the step gives it on frame 10):
     gray, blur, median and thresholds, the lane Canny with the ROI mask,
@@ -2401,14 +2428,15 @@ def measure_lane_split(device, frames, reps: int = 20) -> dict:
     both, the fit with the EMA, and the scene statistics, with the device
     items (kernels, copies) each puts on the card; and the whole step on
     the same frame, beside the stages' sum.  Also the hysteresis rounds
-    and host reads a frame of both Canny passes over all the frames."""
+    and host reads a frame of both Canny passes over the first ``sweep``
+    frames."""
     from multimodal_autonomous_driving_perception_and_planning_torch.ops import hough, image as image_ops
     from multimodal_autonomous_driving_perception_and_planning_torch.perception import lanes
 
     cfg = frames_config()
     lc = cfg.lanes
     h, w = cfg.frame_height, cfg.frame_width
-    frames_dev = torch.as_tensor(frames).to(device)
+    frames_dev = torch.as_tensor(frames[:sweep]).to(device)
     rounds = reads = 0
     for f in frames_dev:
         st = lane_stage_inputs(device, f)
@@ -3743,6 +3771,418 @@ def check_large_tables(device) -> dict:
             "lanes": check_large_lanes(device)}
 
 
+# --- Tables beyond 1,024 slots or detections, and pools beyond 1,024 ---------
+# The general instances' widths (4,096 slots and detections) and K5's large
+# instance (every anchor of yolov8 at 640, 8,400, and at 1,280, 33,600).
+WIDE_SHAPES = ((1025, 64), (2048, 300), (4096, 1024), (4096, 4096))
+WIDE_TAG_SIZES = (1025, 2048, 4096)
+WIDE_NMS = ((64, 1025), (64, 8400), (2, 33600))
+WIDE_LANES = (8, 2048, 300)  # K1 at 8 lanes a launch
+PLAIN_NMS_IMAGES = 8  # images a plain K5 call on the card: its (B, K, K) bools stay under 10 GB
+YOLO_ANCHORS_640 = 8400  # yolov8's anchors at 640: 80^2 + 40^2 + 20^2
+WIDE_YOLO_SCORE = 0.05
+WIDE_CPU_SECONDS = 20.0  # a path's CPU run stops after the chunk that passes this (at least 8 frames)
+WIDE_CPU_MIN_FRAMES = 8
+WIDE_CHUNK = 4  # frames a CPU chunk of a wide path
+WIDE_TAG_FRAMES = 64  # the tagging_4096 path's card run
+WIDE_FRAMES_FRAMES = 64  # the frames_360 path's
+WIDE_FRAMES_PROFILED = 16  # its frames under the profiler: 1,700 device items a frame
+
+
+def plain_nms_keep(boxes: torch.Tensor, scores: torch.Tensor, thr: float) -> torch.Tensor:
+    """`_nms_keep_plain` on PLAIN_NMS_IMAGES images at a time, its
+    suppression matrix and each round's temporary (B K^2 bytes each, 4.5 GB
+    at (64, 8,400)) kept to a few GB."""
+    n = PLAIN_NMS_IMAGES
+    return torch.cat([_nms_keep_plain(boxes[i:i + n], scores[i:i + n], thr) for i in range(0, scores.shape[0], n)])
+
+
+def wide_stair_step(t: int, d: int) -> float:
+    """`stair_step` at the wide shapes: 1/128, so that every (k, k) pair of
+    `ladder_arrays` and `ladder_iou` stands above 0.3 at 4,096 x 4,096
+    (exact in float32)."""
+    return 1.0 / 128.0 if max(t, d) > 1024 else stair_step(t, d)
+
+
+def check_wide_tracker(device) -> list:
+    """K1's general instance against its plain version at WIDE_SHAPES: churn
+    and saturated tables, IoUs at the threshold and +0 IoUs all tied (ranks
+    by a permuted id), IoUs within 2 ulps of the threshold, and the
+    staircase and all-equal ladders (one pair a round: min(t, d) + 1
+    rounds, 4,097 at 4,096 x 4,096), every output bit for bit."""
+    cases = []
+    base = bench_config().tracker
+    for t, d in WIDE_SHAPES:
+        steps = 2 if t * d > 4096 * 1024 else 4
+        churn = pt.TrackerConfig(iou_threshold=0.1, max_age=2, min_hits=3, max_tracks=t)
+        rng = np.random.default_rng(t + d)
+        cases.append(_tracker_case(f"churn_{t}x{d}", churn, lambda s, rng=rng, d=d: random_dets(rng, d, device),
+                                   steps, device))
+        sat = pt.TrackerConfig(iou_threshold=0.3, max_age=30, min_hits=3, max_tracks=t)
+        rng = np.random.default_rng(t + d + 1)
+        cases.append(_tracker_case(f"saturated_{t}x{d}", sat,
+                                   lambda s, rng=rng, d=d: random_dets(rng, d, device, p_valid=1.0), steps, device))
+        cfg = dataclasses.replace(base, max_tracks=t)
+        for name, zero_iou, thr, matched in (("threshold_ties", False, 0.3, min(t, (d + 1) // 2)),
+                                             ("zero_iou_ties", True, 0.0, min(t, d))):
+            table, dets = table_on(*corner_arrays(t, d, zero_iou), device)
+            cases.append(_tracker_case(f"{name}_{t}x{d}", dataclasses.replace(cfg, iou_threshold=thr),
+                                       lambda s, dets=dets: dets, 1, device, table=table))
+            if cases[-1]["max_matched"] != matched:
+                raise AssertionError(f"K1 {name}_{t}x{d}: {cases[-1]['max_matched']} matches, expected {matched}")
+        table, dets = table_on(*near_threshold_arrays(t + d, pairs=min(t, d, 256), tracks=t, dets=d), device)
+        cases.append(_tracker_case(f"near_threshold_{t}x{d}", cfg, lambda s, dets=dets: dets, 1, device,
+                                   table=table))
+        for name, step in (("staircase", wide_stair_step(t, d)), ("all_equal", 0.0)):
+            table, dets = ladder_boxes(t, d, step, device)
+            cases.append(_tracker_case(f"{name}_{t}x{d}", cfg, lambda s, dets=dets: dets, 1, device, table=table))
+            if cases[-1]["max_matched"] != min(t, d):
+                raise AssertionError(f"K1 {name}_{t}x{d}: the ladder did not match all {min(t, d)} pairs")
+        cases[-1]["cluster"] = tracker_kernel.cluster_size(t, d, cfg.trajectory_length)
+    return cases
+
+
+def check_wide_association(device) -> list:
+    """K4's general instance against its plain version at WIDE_SHAPES:
+    random and tied ranks, full matrices, the key-order corners (ranks at
+    int32's ends whose tie-break keys rank * D + column wrap at these D, -0
+    and +0, the threshold, NaN), and the staircase and all-equal ladders
+    (4,097 rounds at 4,096 x 4,096), bit for bit."""
+    cases = []
+
+    def compare(name, iou, rank, thr):
+        iou_t, rank_t = torch.tensor(iou, device=device), torch.tensor(rank, device=device)
+        got = association_kernel.greedy_associate(iou_t, rank_t, thr)
+        want = _greedy_associate_plain(iou_t, rank_t, thr)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 {name}: differs from the plain version in {int((got != want).sum())} rows")
+        return int((want >= 0).sum())
+
+    for t, d in WIDE_SHAPES:
+        rng = np.random.default_rng(t * 7 + d)
+        cases.append({"case": f"random_{t}x{d}", "matched": [
+            compare(f"random {t}x{d} {i}", *random_association(rng, t, d), thr) for i, thr in enumerate((0.0, 0.3))]})
+        cases.append({"case": f"tied_ranks_{t}x{d}",
+                      "matched": compare(f"tied {t}x{d}", *random_association(rng, t, d, tied=True), 0.3)})
+        cases.append({"case": f"full_{t}x{d}", "matched": compare(f"full {t}x{d}", *full_association(rng, t, d), 0.3)})
+        cases.append({"case": f"key_corners_{t}x{d}", "matched": [
+            compare(f"key corners {t}x{d} thr {thr}", *key_corner_association(rng, t, d, thr), thr)
+            for thr in KEY_CORNER_THRESHOLDS]})
+        for name, step in (("staircase", wide_stair_step(t, d)), ("all_equal", 0.0)):
+            if compare(f"{name} {t}x{d}", ladder_iou(t, d, step), np.arange(t, dtype=np.int32), 0.3) != min(t, d):
+                raise AssertionError(f"K4 {name}_{t}x{d}: the ladder did not match all {min(t, d)} pairs")
+            cases.append({"case": f"{name}_{t}x{d}", "matched": min(t, d)})
+        cases[-1]["cluster"] = association_kernel.cluster_size(t, d)
+    return cases
+
+
+def check_wide_tagging(device, frames: int = 4) -> list:
+    """K3's general instance at WIDE_TAG_SIZES slots (clusters of 5, 8 and 16
+    blocks of up to 256 slots) in detections and frames mode over random
+    frames of 1,024 detections, and on the crafted stream at 4,096 (every
+    aggregate corner, 128 warp records), every tag and the state bit for
+    bit its plain version's."""
+    cfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True)
+    cases = []
+    for t in WIDE_TAG_SIZES:
+        wide = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=t))
+        for mode, c in (("detections", wide), ("frames", wide.replace(use_frames=True))):
+            case = _tagging_case(f"{mode}_{t}x1024", c, frames, 5 * t + (mode == "frames"), 1024, mode == "frames",
+                                 device, exact=True)
+            cases.append({**case, "cluster": tagging_kernel.cluster_size(t, 1024)})
+    wide = cfg.replace(tracker=dataclasses.replace(cfg.tracker, max_tracks=4096))
+    cases.append(_tagging_case("crafted_4096x128", wide, 40, 41, 128, False, device, crafted_tagging_frame,
+                               exact=True))
+    missed = [k for k, n in cases[-1]["corner_frames"].items() if n == 0]
+    if missed:
+        raise AssertionError(f"K3 crafted_4096x128: the crafted stream never reached {missed}")
+    return cases
+
+
+def scale_nms_case(case: NmsCase, b: int, k: int) -> NmsCase:
+    """``case`` at (b, k): its pools tiled along the candidates to k (every
+    copy a twin of the first, so kept boxes suppress their twins across
+    many words) and its images repeated to b."""
+    boxes, scores = np.asarray(case.boxes, np.float32), np.asarray(case.scores, np.float32)
+    reps = -(-k // boxes.shape[1])
+    boxes = np.tile(boxes, (1, reps, 1))[:, :k]
+    scores = np.tile(scores, (1, reps))[:, :k]
+    pick = np.arange(b) % boxes.shape[0]
+    return NmsCase(np.ascontiguousarray(boxes[pick]), np.ascontiguousarray(scores[pick]), case.thr)
+
+
+def sparse_chain(k: int, n: int = 24) -> NmsCase:
+    """`_chain`'s ``n`` links spread over ``k`` candidates, every k // n-th,
+    the others disjoint: each link suppresses one in a word far after its
+    own, the chain across every word (n rounds of the plain fixpoint, where
+    `_chain` at this K would take thousands)."""
+    boxes = _far_boxes(k)
+    x = np.arange(n) * 5.0
+    boxes[np.arange(n) * (k // n)] = np.stack([x, np.zeros(n), x + 10.0, np.full(n, 10.0)], 1)
+    return NmsCase(boxes[None], _descending(k)[None], 0.3, kept=k - n // 2)
+
+
+def wide_nms_cases(b: int, k: int) -> dict:
+    """K5's cases at (b, k): at (64, 1,025) every case of `nms_cases` scaled
+    (`scale_nms_case`); beyond, those whose plain fixpoint takes few rounds
+    there (IoUs within 2 ulps of the threshold, the thresholds' corners,
+    class-offset pools at class 79, degenerate boxes, NaN and inf
+    coordinates, dead entries between live ones) scaled, and a chain across
+    every word (`sparse_chain`); and tie-quantized random pools."""
+    base = nms_cases()
+    names = list(base) if k <= 1100 else [
+        "near_threshold_0.45", "thr_negative", "thr_above_one", "class_offset_79", "degenerate_boxes",
+        "nan_inf_coords", "dead_between_live"]
+    cases = {f"{name}_{b}x{k}": scale_nms_case(base[name], b, k) for name in names}
+    rng = np.random.default_rng(b * 31 + k)
+    cases[f"random_{b}x{k}"] = NmsCase(*_pools(rng, b, k), 0.45)
+    cases[f"sparse_chain_{b}x{k}"] = scale_nms_case(sparse_chain(k), b, k)
+    return cases
+
+
+def check_wide_nms(device) -> list:
+    """K5's large instance against its plain version at WIDE_NMS, exact,
+    over `wide_nms_cases`, and on boxes off 16-byte alignment."""
+    cases = []
+    for b, k in WIDE_NMS:
+        for name, case in wide_nms_cases(b, k).items():
+            bx = torch.tensor(case.boxes, device=device)
+            sc = torch.tensor(case.scores, device=device)
+            got = nms_kernel.nms_keep(bx, sc, case.thr)
+            want = plain_nms_keep(bx, sc, case.thr)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 {name}: differs from the plain version in {int((got != want).sum())} places")
+            cases.append({"case": name, "thr": case.thr, "kept": int(want.sum())})
+    case = wide_nms_cases(8, 2048)["random_8x2048"]
+    flat = torch.empty(case.boxes.size + 1, device=device)
+    bx = flat[1:].view(case.boxes.shape)
+    bx.copy_(torch.tensor(case.boxes, device=device))
+    sc = torch.tensor(case.scores, device=device)
+    if not torch.equal(nms_kernel.nms_keep(bx, sc, case.thr), plain_nms_keep(bx, sc, case.thr)):
+        raise AssertionError("K5's large instance differs from the plain version on boxes off 16-byte alignment")
+    cases.append({"case": "misaligned_8x2048"})
+    return cases
+
+
+def check_wide_tables(device) -> dict:
+    """The `wide_tables` phase: K1, K4 and K3's general instances beyond
+    1,024 slots and detections, K5's large instance beyond 1,024
+    candidates, and K1 at 8 lanes at (2,048, 300), each against its plain
+    version on the card."""
+    seconds = {}
+    out = {}
+    for name, check in (("tracker", check_wide_tracker), ("association", check_wide_association),
+                        ("tagging", check_wide_tagging), ("nms", check_wide_nms)):
+        t0 = time.perf_counter()
+        out[name] = check(device)
+        seconds[name] = time.perf_counter() - t0
+    lanes, t, d = WIDE_LANES
+    k1 = pt.TrackerConfig(iou_threshold=0.1, max_age=2, min_hits=3, max_tracks=t)
+    out["lanes"] = [_lane_tracker_case(f"churn_{t}x{d}", k1, lanes, 3, d, device, seed=t)]
+    return {**out, "seconds": seconds}
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """The kernels' wrappers replaced by their plain versions, which run on
+    the card's tensors as they run on the CPU's: the yardstick of a wide
+    path's frames beyond its CPU run.  Nothing launches a kernel inside."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.estimation import ego
+    from multimodal_autonomous_driving_perception_and_planning_torch.tagging.rules import frames_from_rows
+
+    def tracker(table, dets, cfg, min_hits):
+        new_table, match = tracker_update(table, dets, cfg)
+        return (new_table, match, *confirmed_order(new_table, min_hits))
+
+    def tagging(rules, state, dets, table, vrow, lane_row=None, feat_row=None):
+        rows = () if lane_row is None else frames_from_rows(lane_row, feat_row)
+        return tagging_step_plain(rules, state, dets, table, vrow, *rows)
+
+    def kalman(ks, model, z, has, dt, hold):
+        cfg = dataclasses.replace(pt.DEFAULT_CONFIG.estimator, dt=dt, speed_heading_hold=hold)
+        new_ks, state = _estimator_step_xla(ks, model, z, has, cfg)
+        return new_ks, ego.vehicle_row(state)
+
+    saved = (tracker_kernel.tracker_step, tagging_kernel.tagging_step, kalman_kernel.kalman_step,
+             nms_kernel.nms_keep)
+    tracker_kernel.tracker_step, tagging_kernel.tagging_step = tracker, tagging
+    kalman_kernel.kalman_step, nms_kernel.nms_keep = kalman, plain_nms_keep
+    try:
+        yield
+    finally:
+        (tracker_kernel.tracker_step, tagging_kernel.tagging_step, kalman_kernel.kalman_step,
+         nms_kernel.nms_keep) = saved
+
+
+def cpu_prefix_run(cfg, inputs: dict, frames: int, chunk: int = WIDE_CHUNK) -> tuple:
+    """The CPU runner over the first frames of ``inputs``, ``chunk`` at a
+    time from its own state, until WIDE_CPU_SECONDS have passed, at least
+    WIDE_CPU_MIN_FRAMES and at most ``frames``: ``(outputs, frames run,
+    seconds)``."""
+    run = pt.make_sequence_runner(cfg, device="cpu")
+    state = pt.initial_state(cfg, device="cpu")
+    chunks, n, t0 = [], 0, time.perf_counter()
+    while n < frames and (n < WIDE_CPU_MIN_FRAMES or time.perf_counter() - t0 < WIDE_CPU_SECONDS):
+        m = min(chunk, frames - n)
+        state, outs = run(state, {k: v[n:n + m] for k, v in inputs.items()})
+        chunks.append(outs)
+        n += m
+    return tree_map(lambda *xs: torch.cat(xs), *chunks), n, time.perf_counter() - t0
+
+
+def _first(outs: dict, n: int) -> dict:
+    """A run's outputs over its first ``n`` frames, on the CPU."""
+    return tree_map(lambda x: x[:n].cpu(), outs)
+
+
+def _counted_run(label: str, run, expected: dict):
+    """``run()`` on the card with the kernels' counts zeroed just before and
+    read just after, held to ``expected`` (every other kernel 0)."""
+    want = {name: 0 for name in KERNEL_MODULES}
+    want.update(expected)
+    _zero_counts()
+    out = run()
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {want}")
+    return out, launches
+
+
+def wide_yolo_config():
+    """The YOLO path at the JAX `nms` default of 300 detections."""
+    cfg = bench_config()
+    return cfg.replace(detector=dataclasses.replace(cfg.detector, max_detections=YOLO_MAX_DET))
+
+
+def wide_yolo_runner(device):
+    """`yolo_all_anchors`: yolov8n at 640 in float32 at score 0.05 with every
+    anchor in the NMS pool (pre_topk 8,400) and 300 detections a frame."""
+    return make_yolo_sequence_runner(wide_yolo_config(), batch=YOLO_BATCH, iou_threshold=YOLO_IOU,
+                                     img_size=YOLO_IMG, device=device, pre_topk=YOLO_ANCHORS_640, **YOLO_F32)[1]
+
+
+def check_yolo_all_anchors(device, params: dict, frames, ego) -> dict:
+    """Path (a): `wide_yolo_runner` over one 64-frame chunk, counted (K5 at
+    (64, 8,400) once, K1 at (64, 300) and K2 a frame); its detection tables
+    against the plain `nms` on its own candidates, on the CPU over the first
+    frames it finishes in WIDE_CPU_SECONDS (at least 8, a frame at a time)
+    and on the card (`plain_on_card`) over all 64; the CPU pipeline on its
+    tables against its outputs."""
+    cfg = wide_yolo_config()
+    run = wide_yolo_runner(device)
+    frames, ego = frames[:YOLO_BATCH], ego[:YOLO_BATCH]
+    state = pt.initial_state(cfg, device=device)
+    (_, outs), launches = _counted_run("yolo_all_anchors", lambda: run(params, state, frames, ego,
+                                                                       keep_candidates=True),
+                                       dict(tracker_step=len(frames), kalman_step=len(frames), nms_keep=1))
+    tables, cands = outs.pop("detections"), outs.pop("candidates")
+    pool = (cands["scores"] > YOLO_F32["score_threshold"]).sum(dim=1)  # live candidates of each frame's pool
+    kw = (YOLO_IOU, YOLO_F32["score_threshold"], cfg.detector.max_detections, YOLO_ANCHORS_640)
+    with plain_on_card():
+        want_card = yolov8.tables_from_candidates(cands, *kw)
+    for k, want in want_card.items():
+        if not torch.equal(tables[k], want):
+            raise AssertionError(f"yolo_all_anchors: the card's {k} table differs from the plain nms on the card")
+    t0, n = time.perf_counter(), 0
+    while n < len(frames) and (n < WIDE_CPU_MIN_FRAMES or time.perf_counter() - t0 < WIDE_CPU_SECONDS):
+        one = {k: v[n:n + 1].cpu() if isinstance(v, torch.Tensor) else v for k, v in cands.items()}
+        for k, want in yolov8.tables_from_candidates(one, *kw).items():
+            if not torch.equal(tables[k][n:n + 1].cpu(), want):
+                raise AssertionError(f"yolo_all_anchors frame {n}: the {k} table differs from the plain nms on the CPU")
+        n += 1
+    cpu_nms_s = time.perf_counter() - t0
+    inputs = {k: v.cpu() for k, v in tables.items()}
+    inputs["ego_measurement"] = ego
+    _, want = pt.make_sequence_runner(cfg, device="cpu")(pt.initial_state(cfg, device="cpu"), inputs)
+    errs = compare_outputs("yolo_all_anchors", outs, want)
+    per_frame = tables["valid"].sum(dim=1)
+    return {"frames": len(frames), "pool": YOLO_ANCHORS_640, "max_detections": cfg.detector.max_detections,
+            "launches": launches, "cpu_nms_frames": n, "cpu_nms_seconds": cpu_nms_s, "card_plain_nms_frames":
+            len(frames), "valid_per_frame": {"mean": float(per_frame.double().mean()), "max": int(per_frame.max())},
+            "pool_live": {"mean": float(pool.double().mean()), "min": int(pool.min())}, "max_abs_err": errs}
+
+
+def wide_tagging_inputs(frames: int = WIDE_TAG_FRAMES, d_cap: int = 1024) -> dict:
+    """Path (b)'s stream: `random_dets` tables of 1,024 detections at 60%
+    valid a frame (seeded), and the ego stream."""
+    rng = np.random.default_rng(4096)
+    dets = [random_dets(rng, d_cap, "cpu") for _ in range(frames)]
+    out = {k: torch.stack([getattr(x, k) for x in dets]) for k in ("bbox", "class_id", "confidence", "valid")}
+    out["ego_measurement"] = torch.as_tensor(ego_motion_stream(frames, dt=1.0 / 30.0, seed=0).astype(np.float32))
+    return out
+
+
+def wide_frames_config():
+    """Path (c): the frames path (`frames_config`) on a Hough grid of 360
+    thetas."""
+    cfg = frames_config()
+    return cfg.replace(lanes=dataclasses.replace(cfg.lanes, num_thetas=360))
+
+
+def check_wide_runner_path(device, label: str, cfg, inputs: dict, frames: int, lanes: bool = False) -> dict:
+    """A wide path through `make_sequence_runner` on the card, counted (K1,
+    K2 and K3 a frame), against the CPU runner over the frames it finishes
+    in WIDE_CPU_SECONDS (`cpu_prefix_run`), and against the runner on the
+    card with the kernels' plain versions (`plain_on_card`) over all
+    ``frames``: discrete outputs and tags exact, floats within MAIN_ATOL
+    (`compare_outputs`; with ``lanes`` the lane observations too)."""
+    run = pt.make_sequence_runner(cfg, device=device)
+    state = pt.initial_state(cfg, device=device)
+    (_, got), launches = _counted_run(label, lambda: run(state, inputs),
+                                      dict(tracker_step=frames, kalman_step=frames, tagging_step=frames))
+    want, n, cpu_s = cpu_prefix_run(cfg, inputs, frames)
+    errs = {"cpu": compare_outputs(f"{label} against the CPU", _first(got, n), want)}
+    if lanes:
+        errs["cpu_lanes"] = compare_lane_obs(label, _first(got, n)["lane_obs"], want["lane_obs"])
+    with plain_on_card():
+        _, plain = pt.make_sequence_runner(cfg, device=device)(pt.initial_state(cfg, device=device), inputs)
+    errs["card_plain"] = compare_outputs(f"{label} against the plain versions on the card", got, _first(plain, frames))
+    if lanes:
+        errs["card_plain_lanes"] = compare_lane_obs(label, got["lane_obs"], _first(plain, frames)["lane_obs"])
+    live = (got["track_id"] > 0).sum(dim=1)
+    return {"frames": frames, "max_tracks": cfg.tracker.max_tracks, "max_detections": cfg.detector.max_detections,
+            "launches": launches, "cpu_frames": n, "cpu_seconds": cpu_s, "card_plain_frames": frames,
+            "live_slots": {"mean": float(live.double().mean()), "max": int(live.max())},
+            "num_confirmed_max": int(got["num_confirmed"].max()), "max_abs_err": errs}
+
+
+def check_theta_tables() -> dict:
+    """On this host: the Hough tables `sincosf` computes at 90 and 180
+    thetas equal the carried ones (XLA's, regenerated by
+    tests/test_torch_hough.py), bit for bit."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import hough
+
+    for n, carried in hough.CARRIED_TABLES.items():
+        for got, want in zip(hough.theta_tables(n, torch.device("cpu")), carried):
+            if not np.array_equal(got.numpy().view(np.uint32), np.asarray(want, np.float32).view(np.uint32)):
+                raise AssertionError(f"the computed {n}-theta tables differ from the carried ones on this host")
+    return {"grids": sorted(hough.CARRIED_TABLES), "result": "equal to the carried tables"}
+
+
+def check_wide_paths(device, params: dict, frames, ego) -> dict:
+    """The `wide_paths` phase, the three paths at the new widths: (a)
+    `yolo_all_anchors`, (b) `tagging_4096` (the tagging path at 4,096 slots
+    and 1,024 detections a frame), (c) `frames_360`, each held to its CPU
+    run and to its card run with the plain versions; and the Hough tables
+    on this host."""
+    out = {"theta_tables": check_theta_tables()}
+    t0 = time.perf_counter()
+    out["yolo_all_anchors"] = check_yolo_all_anchors(device, params, frames, ego)
+    seconds = {"yolo_all_anchors": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out["tagging_4096"] = check_wide_runner_path(device, "tagging_4096", large_config(4096, 1024),
+                                                 wide_tagging_inputs(), WIDE_TAG_FRAMES)
+    if out["tagging_4096"]["live_slots"]["max"] <= 1024:
+        raise AssertionError(f"tagging_4096: at most {out['tagging_4096']['live_slots']['max']} slots live")
+    seconds["tagging_4096"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["frames_360"] = check_wide_runner_path(device, "frames_360", wide_frames_config(),
+                                               frames_inputs(WIDE_FRAMES_FRAMES), WIDE_FRAMES_FRAMES, lanes=True)
+    seconds["frames_360"] = time.perf_counter() - t0
+    return {**out, "seconds": seconds}
+
+
 def association_rounds(iou: torch.Tensor, rank: torch.Tensor, thr: float) -> int:
     """The rounds the mutual-max fixpoint takes on this matrix, the last
     (which accepts nothing) included: the plain version's loop, counted."""
@@ -3779,8 +4219,9 @@ def large_kernel_inputs(device, t: int, d: int) -> dict:
 
 
 def measure_large_kernels(device, reps: int = 200) -> dict:
-    """K1 and K4's general instances at GENERAL_SHAPES, K3's at
-    LARGE_SHAPES in both modes (``tagging_step``, ``tagging_step_frames``)
+    """K1 and K4's general instances at GENERAL_SHAPES and WIDE_SHAPES,
+    K3's at LARGE_SHAPES and at WIDE_TAG_SIZES slots (the first three
+    WIDE_SHAPES) in both modes (``tagging_step``, ``tagging_step_frames``)
     and, as its yardstick, K3's small instance at K3_YARDSTICK: ms a call
     by CUDA events over ``reps`` calls (a tenth at 1,024), device ms from
     a profiler trace, the plain version's ms, and the bound, the bytes and
@@ -3788,7 +4229,7 @@ def measure_large_kernels(device, reps: int = 200) -> dict:
     the thread block cluster each launch takes and the association's
     rounds.  The trace names each instance's kernel."""
     out = {}
-    for t, d in GENERAL_SHAPES:
+    for t, d in GENERAL_SHAPES + WIDE_SHAPES:
         n = reps if t < 1024 else reps // 10
         x = large_kernel_inputs(device, t, d)
         cfg, table, dets = x["cfg"], x["table"], x["dets"]
@@ -3819,7 +4260,7 @@ def measure_large_kernels(device, reps: int = 200) -> dict:
         }
         launchers = {"tracker_step": (k1, "tracker_step_general"), "associate": (k4, "associate_general_kernel")}
         counted = {"tracker_step": k1_m, "associate": k4_m}
-        if (t, d) in LARGE_SHAPES:
+        if (t, d) in LARGE_SHAPES or (t in WIDE_TAG_SIZES and (t, d) != WIDE_SHAPES[-1]):
             k3_timings(x, launchers, counted, plain, "tagging_step_cluster")
         ms = {name: time_cuda(fn, n, warmup=5) for name, (fn, _) in launchers.items()}
         # One trace a kernel, kept when it saw 80% of the launches: a trace
@@ -3914,6 +4355,45 @@ def measure_round_cost(device, reps: int = 10) -> dict:
     return out
 
 
+def measure_wide_nms(device, params: dict) -> dict:
+    """K5's large instance (the mask and the scan) at (64, 8,400), the pools
+    of `yolo_all_anchors`' chunk (every anchor of the first 64 float32
+    frames, as `nms` builds them), and at (2, 33,600), tie-quantized random
+    pools: ms a call by CUDA events, device ms (both kernels, from a
+    profiler trace), the plain version's ms, and the bound, counted on the
+    data as `measure_nms_kernel` counts it."""
+    cands = yolo_chunk_candidates(device, params)
+    scores, _, _, boxes = nms_prefilter(cands["boxes"], cands["scores"], cands["classes"],
+                                        YOLO_F32["score_threshold"], YOLO_ANCHORS_640)
+    b, k = WIDE_NMS[-1]
+    rand_boxes, rand_scores = _pools(np.random.default_rng(b * k), b, k)
+    pools = {"64x8400": (boxes, scores),
+             f"{b}x{k}": (torch.tensor(rand_boxes, device=device), torch.tensor(rand_scores, device=device))}
+    out = {}
+    for name, (bx, sc) in pools.items():
+        def launch(bx=bx, sc=sc):
+            return nms_kernel.nms_keep(bx, sc, YOLO_IOU)
+
+        keep = launch()
+        if not torch.equal(keep, plain_nms_keep(bx, sc, YOLO_IOU)):
+            raise AssertionError(f"K5 {name}: the large instance differs from the plain version")
+        alive = (sc > 0).sum(dim=1).long()
+        m = {"ms": time_cuda(launch, 20, warmup=3),
+             "plain_ms": time_cuda(lambda bx=bx, sc=sc: plain_nms_keep(bx, sc, YOLO_IOU), 1, warmup=1),
+             "bytes": _nbytes(bx, sc, keep),
+             "operations": int(16 * (alive * (alive - 1) // 2).sum() + math.ceil(sc.shape[1] / 32) * keep.sum()),
+             "shape": list(sc.shape), "kept": int(keep.sum()),
+             "workspace_bytes": 4 * sum(nms_kernel.workspace_words(*sc.shape))}
+        times = traced_device_us(lambda launch=launch: [launch() for _ in range(20)],
+                                 {"nms_mask_kernel", "nms_scan_kernel"}, 20)
+        m["device_ms"] = sum(sum(t) / len(t) for t in times.values()) / 1e3
+        m["device_ms_by_kernel"] = {k: sum(t) / len(t) / 1e3 for k, t in times.items()}
+        t_bytes = m["bytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = m["operations"] / PEAK_F32_PER_S * 1e3
+        m["bound_ms"], m["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        out[name] = {"nms_keep": m}
+    return out
+
 def _path_trace(run, kernel: str) -> dict:
     """One profiler trace of ``run()``: the wall time, the device's busy
     share, and ``kernel``'s launches and mean device microseconds."""
@@ -3926,48 +4406,68 @@ def _path_trace(run, kernel: str) -> dict:
 
 
 def measure_large_paths(device, params: dict, frames, ego, rounds: int = 2, profiled_frames: int = 100) -> dict:
-    """The `large_paths` phase, the two full-width paths that launch K1's
-    general instance on every frame, each held to its CPU run and timed:
-    (a) the YOLO path at max_detections=YOLO_MAX_DET (the JAX `nms`
-    default): yolov8n at 640 in float32 at score 0.05 over the 300 seeded
-    480x640 frames in 5 chunks of 64, K5 and K1 at (64, 300), K2 and the
-    planner (`check_yolo_path`); (b) ROADMAP §3's tagging path at
-    max_tracks=160, max_detections=80 over LARGE_FRAMES frames, K1 and K3
-    at T = 160 and K2 (`check_large_tagging_path`).  Then each path's
-    frames/s on the host clock around runs that end in a synchronise, in
-    turns (yolo, tagging, tagging, yolo) after a warm run of each, the
-    best counting; and one profiler trace of each over its first
-    ``profiled_frames`` frames: the busy share and K1's device us a
-    launch."""
-    yolo_cfg = bench_config().replace(detector=dataclasses.replace(bench_config().detector,
-                                                                   max_detections=YOLO_MAX_DET))
+    """The `large_paths` phase: the two full-width paths that launch K1's
+    general instance on every frame up to 1,024 lines, each held to its CPU
+    run, and all five large-table paths timed.  (a) the YOLO path at
+    max_detections=YOLO_MAX_DET (the JAX `nms` default): yolov8n at 640 in
+    float32 at score 0.05 over the 300 seeded 480x640 frames in 5 chunks of
+    64, K5 and K1 at (64, 300), K2 and the planner (`check_yolo_path`); (b)
+    ROADMAP §3's tagging path at max_tracks=160, max_detections=80 over
+    LARGE_FRAMES frames, K1 and K3 at T = 160 and K2
+    (`check_large_tagging_path`).  The `wide_paths` phase holds the three
+    wider ones to their CPU runs: `yolo_all_anchors` (one 64-frame chunk,
+    K5 at (64, 8,400)), `tagging_4096` (WIDE_TAG_FRAMES frames, K1 at
+    (4,096, 1,024), K3 at T = 4,096) and `frames_360` (WIDE_FRAMES_FRAMES
+    road frames).  Then each path's frames/s on the host clock around runs
+    that end in a synchronise, in turns (forward, then backward) after a
+    warm run of each, the best of 2 ``rounds`` of two counting; its
+    launches in one run, counted; and one profiler trace of each over its
+    first ``profiled_frames`` frames (at most its run): the busy share and
+    its K1 instance's device us a launch."""
+    yolo_cfg = wide_yolo_config()
     out = {}
     out["yolo_max_det_300"], _ = check_yolo_path(device, params, frames, ego, YOLO_F32,
                                                  "YOLO path at max_detections=300", cfg=yolo_cfg)
     out["tagging_160x80"] = check_large_tagging_path(device)
     _, yolo_run = make_yolo_sequence_runner(yolo_cfg, batch=YOLO_BATCH, iou_threshold=YOLO_IOU, img_size=YOLO_IMG,
                                             device=device, **YOLO_F32)
+    anchors_run = wide_yolo_runner(device)
     tag_cfg = large_config(160, 80)
-    tag_run = pt.make_sequence_runner(tag_cfg, device=device)
-    tag_inputs = {k: torch.as_tensor(v).to(device) for k, v in large_tagging_inputs().items()}
+    wide_cfg = large_config(4096, 1024)
+    road_cfg = wide_frames_config()
+    on_card = {k: torch.as_tensor(v).to(device) for k, v in large_tagging_inputs().items()}
+    wide_inputs = {k: v.to(device) for k, v in wide_tagging_inputs().items()}
+    road_inputs = {k: torch.as_tensor(v).to(device) for k, v in frames_inputs(WIDE_FRAMES_FRAMES).items()}
+    runners = {  # name: (config, run(state, n), frames, K1's kernel in a trace)
+        "yolo_max_det_300": (yolo_cfg, lambda s, n: yolo_run(params, s, frames[:n], ego[:n]), len(frames),
+                             "tracker_step_general"),
+        "tagging_160x80": (tag_cfg, pt.make_sequence_runner(tag_cfg, device=device), LARGE_FRAMES,
+                           "tracker_step_general"),
+        "yolo_all_anchors": (yolo_cfg, lambda s, n: anchors_run(params, s, frames[:n], ego[:n]), YOLO_BATCH,
+                             "tracker_step_general"),
+        "tagging_4096": (wide_cfg, pt.make_sequence_runner(wide_cfg, device=device), WIDE_TAG_FRAMES,
+                         "tracker_step_general"),
+        "frames_360": (road_cfg, pt.make_sequence_runner(road_cfg, device=device), WIDE_FRAMES_FRAMES,
+                       "tracker_step_kernel"),
+    }
+    inputs = {"tagging_160x80": on_card, "tagging_4096": wide_inputs, "frames_360": road_inputs}
+
+    def call(name, n):
+        cfg, run, _, _ = runners[name]
+        state = pt.initial_state(cfg, device=device)
+        if name in inputs:
+            return run(state, {k: v[:n] for k, v in inputs[name].items()})
+        return run(state, n)
 
     def timed(name, n=None):
-        if name == "yolo_max_det_300":
-            state = pt.initial_state(yolo_cfg, device=device)
-            n = n or len(frames)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            yolo_run(params, state, frames[:n], ego[:n])
-        else:
-            state = pt.initial_state(tag_cfg, device=device)
-            x = tag_inputs if n is None else {k: v[:n] for k, v in tag_inputs.items()}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tag_run(state, x)
+        n = n or runners[name][2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(name, n)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    names = ("yolo_max_det_300", "tagging_160x80")
+    names = tuple(runners)
     for name in names:
         timed(name)
     times = {name: [] for name in names}
@@ -3975,14 +4475,19 @@ def measure_large_paths(device, params: dict, frames, ego, rounds: int = 2, prof
         for name in names + names[::-1]:
             times[name].append(timed(name))
     for name in names:
-        n = out[name]["frames"]
-        out[name].update(seconds=times[name], frames_per_s=n / min(times[name]),
-                         profiled={"frames": profiled_frames,
-                                   **_path_trace(lambda: timed(name, profiled_frames), "tracker_step_general")})
+        n, kernel = runners[name][2], runners[name][3]
+        _zero_counts()
+        call(name, n)
+        torch.cuda.synchronize()
+        traced = min(n, profiled_frames if name != "frames_360" else WIDE_FRAMES_PROFILED)
+        out.setdefault(name, {}).update(
+            frames=n, seconds=times[name], frames_per_s=n / min(times[name]), launches=_read_counts(),
+            profiled={"frames": traced, **_path_trace(lambda name=name: timed(name, traced), kernel)})
     out["clusters"] = {"k1_64x300": tracker_kernel.cluster_size(64, YOLO_MAX_DET, yolo_cfg.tracker.trajectory_length),
-                       "k1_160x80": tracker_kernel.cluster_size(160, 80, tag_cfg.tracker.trajectory_length)}
+                       "k1_160x80": tracker_kernel.cluster_size(160, 80, tag_cfg.tracker.trajectory_length),
+                       "k1_4096x1024": tracker_kernel.cluster_size(4096, 1024, wide_cfg.tracker.trajectory_length),
+                       "k3_4096": tagging_kernel.cluster_size(4096, 1024)}
     return out
-
 
 
 # The host stack: records, the AutoTagger, the tag database and the
@@ -5408,6 +5913,10 @@ def main(argv) -> int:
     emit({"phase": "kalman_bank", **check_kalman_bank(device)})
     emit({"phase": "large_tables", **check_large_tables(device),
           "result": "K1 and K4 exact, K3 discrete exact and floats within bounds"})
+    emit({"phase": "wide_tables", **check_wide_tables(device),
+          "result": "K1, K3, K4 and K5's wide instances bit for bit their plain versions"})
+    emit({"phase": "wide_paths", **check_wide_paths(device, params, frames, ego),
+          "result": "the three paths equal their CPU runs and their card runs with the plain versions"})
     emit({"phase": "host_stack", **check_host_stack(device)})
 
     from multimodal_autonomous_driving_perception_and_planning_torch.models.blip import BlipConfig
@@ -5438,8 +5947,9 @@ def main(argv) -> int:
           "paths": measure_batched_paths(device), "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     large_times = measure_large_kernels(device)
-    emit({"phase": "large_times", "card": smi, "kernels": large_times, "round_cost": measure_round_cost(device),
-          "seconds": time.perf_counter() - t0})
+    wide_nms = measure_wide_nms(device, params)
+    emit({"phase": "large_times", "card": smi, "kernels": {**large_times, **wide_nms},
+          "round_cost": measure_round_cost(device), "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     emit({"phase": "large_paths", "card": smi, **measure_large_paths(device, params, frames, ego),
           "result": "both paths equal their CPU runs", "seconds": time.perf_counter() - t0})
@@ -5485,6 +5995,8 @@ def main(argv) -> int:
             kernels[-1]["general_device_ms"] = {
                 shape + mode: k[name + mode]["device_ms"] for shape, k in large_times.items()
                 for mode in ("", "_frames") if name + mode in k and shape != "{}x{}".format(*K3_YARDSTICK)}
+        if name == "nms_keep":  # its large instance beyond 1,024 candidates (large_times)
+            kernels[-1]["large_device_ms"] = {shape: k[name]["device_ms"] for shape, k in wide_nms.items()}
     emit({"phase": "total", "seconds": time.perf_counter() - _START})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -187,7 +187,7 @@ class MultiObjectTracker:
     ``update`` call may carry.  The default (32) matches the YOLO
     detector's ``max_det`` (models/yolov8.py), so that a reference-ported
     YOLO pipeline never trips the capacity check; raise it at construction
-    for denser scenes (the card takes up to 1,024 slots and detections).
+    for denser scenes (the card takes up to 4,096 slots and detections).
     """
 
     def __init__(

@@ -6,7 +6,8 @@ compilers in parallel).  Without ninja, one ``nvcc -shared`` per source, all
 started together, builds a library with a plain C interface each, and ctypes
 binds them.  Either way the result exposes ``tracker_step`` (K1),
 ``kalman_step`` (K2), ``tagging_step`` (K3), ``associate`` (K4) and
-``nms_keep`` (K5), which take pointers and the stream as integers and
+``nms_keep`` (K5, and ``nms_keep_large``, its instance beyond 1,024
+candidates), which take pointers and the stream as integers and
 return the CUDA error code of the launch, and the plan queries of the
 general instances, from the shape alone: ``tracker_scratch``,
 ``tracker_cluster``, ``tagging_cluster``, ``associate_scratch`` and
@@ -103,6 +104,8 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
     nms = ctypes.CDLL(str(BUILD_DIR / "libnms_keep.so"))
     nms.madpp_nms_keep.argtypes = [vp] * 3 + [ci, ci, cf, vp]
     nms.madpp_nms_keep.restype = ci
+    nms.madpp_nms_keep_large.argtypes = [vp] * 5 + [ci, ci, cf, vp]
+    nms.madpp_nms_keep_large.restype = ci
     return SimpleNamespace(
         tracker_step=tracker.madpp_tracker_step,
         kalman_step=kalman.madpp_kalman_step,
@@ -114,4 +117,5 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
         associate_scratch=associate.madpp_associate_scratch,
         associate_cluster=associate.madpp_associate_cluster,
         nms_keep=nms.madpp_nms_keep,
+        nms_keep_large=nms.madpp_nms_keep_large,
     )

@@ -22,13 +22,14 @@
 //    a warp a 32 rows otherwise, with one barrier a round.
 //
 // Two instances, chosen by shape: the one above for T <= 128 and D <= 64,
-// and for larger tables, up to 1,024 rows and 1,024 columns, a thread block
+// and for larger tables, up to 4,096 rows and 4,096 columns, a thread block
 // cluster of up to 16 blocks of 1,024 threads (association.cuh, "The
 // general instance"): each block stages the keys of its rows and columns
-// once, in shared memory or, where they do not fit (1,024 x 1,024), in a
-// device scratch the wrapper allocates, and the rounds exchange their bests
-// through distributed shared memory.  Bound at (1,024, 1,024): the 4 MB
-// matrix read once, 1.25 us at 3.35 TB/s; the design reads it once a
+// once, in shared memory or, where they do not fit (1,024 x 1,024 and
+// beyond), in a device scratch the wrapper allocates, and the rounds
+// exchange their bests through distributed shared memory.  Bound at
+// (1,024, 1,024): the 4 MB matrix read once, 1.25 us at 3.35 TB/s, and
+// at (4,096, 4,096) the 64 MB one, 20 us; the design reads it once a
 // launch and then only keys.  The wrapper checks the limits.
 
 #include <cooperative_groups.h>

@@ -351,8 +351,11 @@ __device__ inline void greedy_associate(const float* iou, int ld, unsigned* keys
 
 // --- The general instance: tables beyond T <= 128, D <= 64 ------------------
 //
-// Up to kAssocGeneralMax rows and columns, on a thread block cluster of C
-// blocks of 1,024 threads a lane (`assoc_plan`).  What held the one-block
+// Up to kAssocGeneralMax (4,096) rows and columns, on a thread block
+// cluster of C blocks of 1,024 threads a lane (`assoc_plan`); a block owns
+// at most 256 rows and 256 columns at 4,096 (at most 1,024 at any shape),
+// and loops a thread over every 1,024th row where a round decides every
+// row.  What held the one-block
 // version back: the whole table on one SM, every round computing
 // IoUs or rereading the float matrix, column bests as a chain of T
 // dependent steps a thread.  The design:
@@ -366,7 +369,8 @@ __device__ inline void greedy_associate(const float* iou, int ld, unsigned* keys
 //    no round divides or reads a float.  The lines live in the block's
 //    shared memory where they fit (the launchers' plans, `keys_in_smem`),
 //    else in a device scratch the wrapper allocates (4 MB of keys, 8 MB
-//    with both layouts, at 1,024 x 1,024), which the rounds read from L2.
+//    with both layouts, at 1,024 x 1,024; 128 MB at 4,096 x 4,096, beyond
+//    the 50 MB L2), which the rounds read from L2 or device memory.
 //  - Bests.  A warp a line for both kinds: lanes read the line 16 bytes at
 //    a time, mask taken columns (row lines) or matched rows (column lines)
 //    with bits every block holds, and a warp reduction gives the line's
@@ -395,8 +399,12 @@ __device__ inline void greedy_associate(const float* iou, int ld, unsigned* keys
 //    round (arrive with release, wait with acquire) was the slower design
 //    on the card.
 // A staircase (one pair a round) makes every live line stale each round:
-// at 1,024 x 1,024 its 1,025 rounds read about 2 G keys in all.
-constexpr int kAssocGeneralMax = 1024;
+// at 1,024 x 1,024 its 1,025 rounds read about 2 G keys in all.  The
+// received bests take 16 (T + D) bytes a block, 128 KB at 4,096 x 4,096,
+// and with the ranks and bits the rounds' shared memory 151 KB there
+// (`assoc_shared_bytes`, the keys off-chip): about where one cluster of 16
+// blocks ends.
+constexpr int kAssocGeneralMax = 4096;
 constexpr int kAssocClusterThreads = 1024;
 constexpr int kAssocClusterMax = 16;  // above 8 needs cudaFuncAttributeNonPortableClusterSizeAllowed
 constexpr int kAssocBitWords = kAssocGeneralMax / 32;
@@ -408,9 +416,10 @@ constexpr size_t kAssocSmemLimit = 232448;
 // lines `rstride` words apart and its column lines `cstride` (16-byte
 // rows, zero past D and T).  C is the power of two nearest above
 // (T + D) / 64, at most 16: 4 at (160, 80), 8 at (64, 300) and (256,
-// 128), 16 at (1,024, 1,024).  More blocks take fewer lines each, in the
-// staging and in each round, which was faster on the card up to 8 blocks
-// at (256, 128).
+// 128), 16 from (1,024, 1,024) on.  More blocks take fewer lines each, in
+// the staging and in each round, which was faster on the card up to 8
+// blocks at (256, 128).  A block owns at most 1,024 rows (a thread a row
+// where the caller needs one): 256 at T = 4,096.
 struct AssocPlan {
   int cluster, rows, cols, rstride, cstride;
 };
@@ -438,7 +447,7 @@ __host__ __device__ inline size_t assoc_key_words(const AssocPlan& p) {
 // column's best received, by round parity (2 x 8 bytes each), the two
 // mbarriers, every row's rank, the column bests' rows and its rows'
 // matches (4 bytes each), and the matched-row and taken-column bits (32
-// words each).
+// words each, kAssocBitWords).
 __host__ __device__ inline size_t assoc_shared_bytes(const AssocPlan& p, bool keys_in_smem) {
   return (keys_in_smem ? 4 * assoc_key_words(p) : 0) + 12 * (size_t)(p.rows + p.cols) +
          16 * (size_t)(p.cstride + p.rstride) + 16 + 4 * (size_t)p.cstride + 4 * 2 * kAssocBitWords;
@@ -571,7 +580,7 @@ __device__ inline unsigned long long col_line_best(const unsigned* line, int n4,
 
 // The fixpoint on the cluster, with the contract of `greedy_associate` for
 // T, D up to kAssocGeneralMax.  Called by every thread of every block of
-// the cluster (kAssocClusterThreads each, a thread a row), after
+// the cluster (kAssocClusterThreads each), after
 // `assoc_init`, the lines staged and a block sync; `rowkeys` and `colkeys`
 // are this block's lines (`s.keys` or its part of the device scratch).
 // With `staged`, the caller has also written the first round's bests
@@ -589,7 +598,6 @@ __device__ inline int cluster_associate(const AssocShared& s, const unsigned* ro
   const int2 rows = assoc_span((int)me, p.rows, T), cols = assoc_span((int)me, p.cols, D);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   const int rn4 = p.rstride >> 2, cn4 = p.cstride >> 2;
-  const unsigned tie_base = tid < T ? (unsigned)s.rank[tid] * (unsigned)D + 0x80000000u : 0u;  // row tid's
   const unsigned bytes = 8u * (unsigned)(T + D);
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");  // every block's mbarriers are ready
   int rounds = 0;
@@ -633,22 +641,28 @@ __device__ inline int cluster_associate(const AssocShared& s, const unsigned* ro
           : "r"(mbar), "r"(parity)
           : "memory");
     } while (!ok);
-    // Accept every live row whose best is its column's best; every block
-    // decides the same.
-    bool took = false;
-    if (tid < T) {
-      const unsigned long long b = allrow[tid];
-      if (b != 0ull && !bit_of(s.matched, tid)) {
-        const unsigned d = ~(unsigned)b - tie_base;
-        if (allcol[d] == b) {
-          took = true;
-          atomicOr(s.taken + (d >> 5), 1u << (d & 31));
-          if (tid >= rows.x && tid < rows.x + rows.y) s.match[tid - rows.x] = (int)d;
+    // Accept every live row whose best is its column's best, a thread every
+    // blockDim-th row (a warp the same 32-row word of the bits each pass);
+    // every block decides the same.
+    bool any = false;
+    for (int t0 = 0; t0 < T; t0 += blockDim.x) {
+      const int t = t0 + tid;
+      bool took = false;
+      if (t < T) {
+        const unsigned long long b = allrow[t];
+        if (b != 0ull && !bit_of(s.matched, t)) {
+          const unsigned d = ~(unsigned)b - ((unsigned)s.rank[t] * (unsigned)D + 0x80000000u);
+          if (allcol[d] == b) {
+            took = true;
+            atomicOr(s.taken + (d >> 5), 1u << (d & 31));
+            if (t >= rows.x && t < rows.x + rows.y) s.match[t - rows.x] = (int)d;
+          }
         }
       }
+      const unsigned acc = __ballot_sync(0xffffffffu, took);
+      if (lane == 0 && acc != 0u) s.matched[t >> 5] |= acc;
+      any |= took;
     }
-    const unsigned acc = __ballot_sync(0xffffffffu, took);
-    if (lane == 0 && acc != 0u) s.matched[warp] |= acc;
-    if (!__syncthreads_or(took)) return rounds;
+    if (!__syncthreads_or(any)) return rounds;
   }
 }

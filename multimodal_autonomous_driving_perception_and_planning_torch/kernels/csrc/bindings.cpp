@@ -34,6 +34,7 @@ extern "C" long long madpp_associate_scratch(int, int);
 extern "C" int madpp_associate_cluster(int, int);
 
 extern "C" int madpp_nms_keep(const void*, const void*, void*, int, int, float, void*);
+extern "C" int madpp_nms_keep_large(const void*, const void*, void*, void*, void*, int, int, float, void*);
 
 namespace {
 
@@ -85,6 +86,14 @@ int nms_keep(pybind11::args a) {
                         a[5].cast<float>(), ptr(a[6].cast<std::uintptr_t>()));
 }
 
+int nms_keep_large(pybind11::args a) {
+  if (a.size() != 9) throw std::invalid_argument("nms_keep_large takes 9 arguments");
+  void* p[5];
+  for (int i = 0; i < 5; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
+  return madpp_nms_keep_large(p[0], p[1], p[2], p[3], p[4], a[5].cast<int>(), a[6].cast<int>(), a[7].cast<float>(),
+                              ptr(a[8].cast<std::uintptr_t>()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -98,4 +107,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("associate_scratch", &madpp_associate_scratch, "K4's key scratch words at (T, D); -1 outside its limits.");
   m.def("associate_cluster", &madpp_associate_cluster, "K4's blocks at (T, D); -1 outside its limits.");
   m.def("nms_keep", &nms_keep, "Launch kernel K5; returns the CUDA error code.");
+  m.def("nms_keep_large", &nms_keep_large, "Launch K5's large instance (K > 1,024); returns the CUDA error code.");
 }

@@ -66,7 +66,7 @@
 //          type, risk, has-TTC (T each).
 //
 // Two instances, chosen by shape: the one described above for T <= 128,
-// and a general one for T up to 1,024 on a thread block cluster a lane
+// and a general one for T up to 4,096 on a thread block cluster a lane
 // (below, before the launcher).  Any D, B >= 1.  The wrapper checks the
 // limits.
 
@@ -810,16 +810,18 @@ tagging_step_kernel(TagIn lanes_in, TagOut lanes_out, TagDims dm, TagParams p) {
   }
 }
 
-// --- The general instance: T up to 1,024, a thread block cluster a lane ----
+// --- The general instance: T up to 4,096, a thread block cluster a lane ----
 //
 //  - Partition.  A cluster of C blocks a lane (`tag_plan`): block r owns
 //    the slots [r R, r R + R), R a multiple of 32 and at most kBlockSlots
-//    (128), one thread a slot, and the same rows of the center ring; C is
-//    2 up to 256 slots and 8 at 1,024.  Every block has kSideWarps warps
-//    beyond its slots': on block 0 they run the scene classifier, the
-//    maneuver detector and the combination of the aggregates, beside the
-//    slots.  Blocks of 256 slots (C = 1 up to 256, 4 at 1,024) were slower
-//    a launch on an H100 at T = 160, 256 and 1,024.
+//    (128) up to 1,024 slots, kWideBlockSlots (256) beyond, one thread a
+//    slot, and the same rows of the center ring; C is 2 up to 256 slots, 8
+//    at 1,024 and 16 at 4,096 (a non-portable cluster size).  Every block
+//    has kSideWarps warps beyond its slots': on block 0 they run the scene
+//    classifier, the maneuver detector and the combination of the
+//    aggregates, beside the slots.  Blocks of 256 slots (C = 1 up to 256,
+//    4 at 1,024) were slower a launch on an H100 at T = 160, 256 and
+//    1,024; beyond 1,024 slots they keep the cluster to 16 blocks.
 //  - One wave of loads.  At entry each slot's thread requests its fields
 //    into registers, each slot warp its 32 rows of the center ring, and on
 //    block 0 the scene warp the detections and the vote ring, the maneuver
@@ -839,33 +841,37 @@ tagging_step_kernel(TagIn lanes_in, TagOut lanes_out, TagDims dm, TagParams p) {
 //    the type.  The warp pushes its record, 3 chunks of 16 bytes, into
 //    block 0's shared memory with `st.async`, which counts the bytes on
 //    block 0's mbarrier, so no barrier of the cluster follows the slots.  Block 0's combine warp
-//    waits on that mbarrier alone, holds a record a lane (at most 32) and
-//    reduces them with the same keys.  Every key is a total order, so no
-//    tag depends on the order of combination.
+//    waits on that mbarrier alone, folds records lane, lane + 32, ... (at
+//    most 128, four a lane) into one a lane and reduces those across the
+//    warp, with the same keys both times.  Every key is a total order, so
+//    no tag depends on the order of combination.
 // One cluster barrier a launch (arrive relaxed at entry, wait before the
 // first push) makes the mbarrier's initialisation visible to the cluster.
 // Rings that do not fit in shared memory are read from device memory
 // instead, the slots' warps copying their rows device to device before
 // patching them.  Same arithmetic (`slot_eval`, `scene_classify`,
 // `maneuver_detect`), same outputs.
-constexpr int kGeneralMaxT = 1024;
-constexpr int kBlockSlots = 128;  // slots a block at most
-static_assert(kBlockSlots % 32 == 0 && 32 % (kBlockSlots / 32) == 0, "a block takes 1, 2, 4, 8, 16 or 32 warps");
+constexpr int kGeneralMaxT = 4096;
+constexpr int kBlockSlots = 128;      // slots a block at most, up to kBlockSlotsUpTo slots
+constexpr int kWideBlockSlots = 256;  // beyond: 16 blocks at 4,096
+constexpr int kBlockSlotsUpTo = 1024;
 constexpr int kSideWarps = 3;  // block 0: the scene, the maneuver, the combination
-constexpr int kGeneralThreads = kBlockSlots + 32 * kSideWarps;
+constexpr int kGeneralThreads = kWideBlockSlots + 32 * kSideWarps;  // the most a block takes
 constexpr int kRecordChunks = 3;  // a warp's record
 constexpr int kMaxRecords = kGeneralMaxT / 32;
+constexpr int kClusterMax = 16;  // above 8 needs cudaFuncAttributeNonPortableClusterSizeAllowed
+static_assert((kGeneralMaxT / kWideBlockSlots) <= kClusterMax, "the widest plan fits a cluster");
 
 // C blocks a lane, each owning `rows` slots (the last ones fewer or none):
-// the fewest blocks of at most kBlockSlots slots, the warps split evenly.
-// C * rows / 32, the records, is at most 32: C is at most 32 / (kBlockSlots
-// / 32) and rows / 32 at most kBlockSlots / 32.
+// the fewest blocks of at most kBlockSlots slots (kWideBlockSlots beyond
+// kBlockSlotsUpTo slots), the warps split evenly.  C * rows / 32, the
+// records, is at most kMaxRecords.
 struct TagPlan {
   int cluster, rows;
 };
 
 __host__ __device__ inline TagPlan tag_plan(int T) {
-  const int warps = (T + 31) / 32, per = kBlockSlots / 32;
+  const int warps = (T + 31) / 32, per = (T > kBlockSlotsUpTo ? kWideBlockSlots : kBlockSlots) / 32;
   const int c = (warps + per - 1) / per;
   return TagPlan{c, 32 * ((warps + c - 1) / c)};
 }
@@ -937,7 +943,7 @@ __device__ __forceinline__ void warp_copy(float* dst, const float* src, int n, i
 // first slot; lanes past T hold no slot), reduced in registers: returns the
 // 16-byte chunk this lane pushes (lanes 0-2).  Chunk 0: the type bits, the
 // confirmed count and pedestrians, cyclists and vehicles (16 bits each; at
-// most 1,024), the max risk and the primary interaction's type + 1; chunk
+// most 32 a warp), the max risk and the primary interaction's type + 1; chunk
 // 1: the distance and TTC minima as bits, the primary's key (its
 // confidence's bits, 3 - its risk rank); chunk 2: its id and slot.  Keys
 // of no slot are all ones.
@@ -969,15 +975,28 @@ __device__ __forceinline__ uint4 warp_record(const SlotOut& o, int w0, int lane)
   return make_uint4(id1, won ? (unsigned)(w0 + at) : ~0u, 0u, 0u);
 }
 
-// Block 0's combine warp: the `nrec` records in `rec`, a lane each,
-// reduced with the keys of `warp_record`, and the aggregates written.
+// Block 0's combine warp: the `nrec` records in `rec` (at most
+// kMaxRecords), lane l folding records l, l + 32, ... into one with the
+// keys of `warp_record`, then the lanes' records reduced with the same
+// keys, and the aggregates written.
 __device__ __forceinline__ void combine_records(const uint4* rec, int nrec, const TagParams& p, const TagOut& out) {
   const int lane = threadIdx.x & 31;
-  const bool have = lane < nrec;
-  const uint4* r = rec + (size_t)lane * kRecordChunks;
-  const uint4 a = have ? r[0] : make_uint4(0u, 0u, 0u, 0u);
-  const uint4 b = have ? r[1] : make_uint4(kInfBits, kInfBits, ~0u, ~0u);
-  const uint4 c = have ? r[2] : make_uint4(~0u, ~0u, 0u, 0u);
+  // No record: the identity of each reduction.
+  uint4 a = make_uint4(0u, 0u, 0u, 0u), b = make_uint4(kInfBits, kInfBits, ~0u, ~0u), c = make_uint4(~0u, ~0u, 0u, 0u);
+  for (int k = lane; k < nrec; k += 32) {
+    const uint4* r = rec + (size_t)k * kRecordChunks;
+    const uint4 ra = r[0], rb = r[1], rc = r[2];
+    // Counts are at most 4,096 a record sum, within their 16 bits.
+    a = make_uint4(a.x | ra.x, a.y + ra.y, a.z + ra.z, max(a.w & 0xffffu, ra.w & 0xffffu) | (a.w & 0xffff0000u));
+    const unsigned prim = a.w >> 16;
+    b.x = min(b.x, rb.x);
+    b.y = min(b.y, rb.y);
+    // The primary's key, lowest first: (3 - risk rank, confidence bits, id, slot).
+    const bool lower = rb.w < b.w || (rb.w == b.w && (rb.z < b.z || (rb.z == b.z && (rc.x < c.x ||
+                                                     (rc.x == c.x && rc.y < c.y)))));
+    if (lower) b.z = rb.z, b.w = rb.w, c.x = rc.x, c.y = rc.y;
+    a.w = (a.w & 0xffffu) | ((lower ? ra.w >> 16 : prim) << 16);
+  }
   const unsigned types = __reduce_or_sync(kFull, a.x);
   const unsigned n_conf = __reduce_add_sync(kFull, a.y & 0xffffu), peds = __reduce_add_sync(kFull, a.y >> 16);
   const unsigned cycs = __reduce_add_sync(kFull, a.z & 0xffffu), vehs = __reduce_add_sync(kFull, a.z >> 16);
@@ -1164,6 +1183,8 @@ int launch(const TagIn& in, const TagOut& out, const TagDims& dm, const TagParam
     gd.stage = gen_layout(dm, g, true).total <= kMaxDynamicSmem ? 1 : 0;
     const size_t gsmem = gen_layout(gd, g, gd.stage).total;
     cudaError_t err = allow_dynamic_smem<tagging_step_cluster<FramesMode>>(gsmem);
+    if (err == cudaSuccess && g.cluster > 8)
+      err = cudaFuncSetAttribute(tagging_step_cluster<FramesMode>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg = {};
     cudaLaunchAttribute attr;

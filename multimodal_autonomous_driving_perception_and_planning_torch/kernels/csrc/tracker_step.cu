@@ -54,7 +54,7 @@
 // `FLOAT_FIELDS` and `INT_FIELDS`.
 //
 // Two instances, chosen by shape: the one described above for T <= 128 and
-// D <= 64, and a general one for T and D up to 1,024, a thread block
+// D <= 64, and a general one for T and D up to 4,096, a thread block
 // cluster a lane (below, before the launcher).  L >= 1, B >= 1.  The
 // wrapper checks the limits and allocates the general instance's key
 // scratch where the shape needs it (`madpp_tracker_scratch`).
@@ -182,10 +182,11 @@ struct Slot {
 // Slot t's matched update, birth and death, its outputs written and its
 // confirmed key (id, or INT32_MAX) to `s_key[t]`; returns whether it is
 // confirmed.  A free slot of rank r < n_birth among the free slots
-// (`free_bits`) takes the detection `nth_want(r)`.
-template <class NthWant>
+// (`free_bits`) takes the detection `nth_want(r)`.  `s_db[d]` is detection
+// d's box (shared memory, or `BoxRef`).
+template <class NthWant, class DetBoxes>
 __device__ __forceinline__ bool slot_update(int t, Slot s, float4 tb, int m, const unsigned* free_bits, int n_birth,
-                                            int next_id, NthWant nth_want, const float4* s_db, const int* s_dcls,
+                                            int next_id, NthWant nth_want, DetBoxes s_db, const int* s_dcls,
                                             const float* s_dconf, int* s_key, const TrackerOut& out,
                                             const TrackerParams& p) {
   const int W = 2 * p.L;
@@ -438,24 +439,32 @@ tracker_step_kernel(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p) {
   }
 }
 
-// --- The general instance: T and D up to 1,024 -----------------------------
+// --- The general instance: T and D up to 4,096 -----------------------------
 //
 // A thread block cluster a lane (association.cuh `assoc_plan`: C blocks of
 // 1,024 threads; the grid is B clusters), block r owning the slots and
 // detections of its part of the association's partition and, for
-// everything after it, its slots.  What held the one-block version back:
+// everything after it, its slots (at most 1,024 a block: 256 at T =
+// 4,096).  What held the one-block version back:
 // the whole step on one SM of 132, an IoU recomputed, with its
 // division, whenever a round touched an entry, column bests as a chain of T
 // steps, both stable ranks counted over all T keys on each slot's thread
 // (about 1 M shared-memory reads each at T = 1,024), and the 410 KB ring
 // copy on that one SM.  Each block here:
-//  - loads every slot's id and box and every detection, and its slots'
-//    other fields into the registers of the slot's thread, and starts
-//    copying its slots' ring rows into shared memory (`cp.async`, 16 bytes
-//    where aligned, 4 for the rest) where they fit;
+//  - loads every slot's id (its free and live bits) and every detection's
+//    valid bit, a thread every 1,024th, with every box, class and
+//    confidence into shared memory where they fit (`GeneralPlan::lines`;
+//    beyond, up to 160 KB at 4,096 x 4,096, they are read from device
+//    memory, `BoxRef`), its slots' other fields into the registers of the
+//    slot's thread, and starts copying its slots' ring rows into shared
+//    memory (`cp.async`, 16 bytes where aligned, 4 for the rest) where
+//    they fit;
 //  - ranks every slot by id itself (`id_rank`), a bitonic sort of
-//    (key, slot) pairs, a thread a pair (`sort_pairs`): 55 exchange steps at
-//    T = 1,024, 15 of them through shared memory, the rest shuffles;
+//    (key, slot) pairs: up to 1,024 a thread a pair (`sort_pairs`; 55
+//    exchange steps at T = 1,024, 15 of them through shared memory, the
+//    rest shuffles), beyond that all in shared memory (`sort_smem`, 78
+//    steps at 4,096), in the room of the rounds' received bests, which no
+//    block fills before every block has arrived (`assoc_init`);
 //  - stages the IoU keys of its slots and of its detections once, with the
 //    first round's bests of those lines in the same pass
 //    (`stage_general_keys`; `pair_iou`'s division only where the boxes
@@ -472,26 +481,27 @@ constexpr int kGeneralThreads = kAssocClusterThreads;
 constexpr int kGeneralMax = kAssocGeneralMax;  // T and D
 
 // A lane's launch plan at (T, D, L): the association's partition, whether
-// its key lines and the block's ring rows fit in shared memory, and the
-// block's bytes of it.
+// every slot's and detection's box, class and confidence, its key lines and
+// the block's ring rows fit in shared memory, and the block's bytes of it.
 struct GeneralPlan {
   AssocPlan assoc;
-  int keys_in_smem, stage_ring;
+  int lines_in_smem, keys_in_smem, stage_ring;
   size_t smem;
 };
 
-// Shared memory a block takes besides the rounds' and the ring's: every
-// slot's box, id and confirmed key, every detection's box, class and
-// confidence, the sort's exchange buffer (1,024 pairs), and the valid,
-// free, wanted and confirmed bits and the next id.
-__host__ __device__ inline size_t general_fixed_smem(int T, int D) {
-  return 16 * (size_t)(T + D) + 8 * (size_t)1024 + 8 * (size_t)(T + D) + 4 * (4 * kAssocBitWords + 4);
+// Shared memory a block takes besides the rounds' and the ring's: with
+// `lines`, every slot's box and every detection's box, class and
+// confidence; every slot's confirmed key; the valid, free, live, wanted and
+// confirmed bits and the next id.
+__host__ __device__ inline size_t general_fixed_smem(int T, int D, bool lines) {
+  return (lines ? 16 * (size_t)(T + D) + 8 * (size_t)D : 0) + 4 * (size_t)T + 4 * (5 * (size_t)kAssocBitWords + 4);
 }
 
 __host__ __device__ inline GeneralPlan general_plan(int T, int D, int L) {
   GeneralPlan g;
   g.assoc = assoc_plan(T, D);
-  const size_t fixed = general_fixed_smem(T, D);
+  g.lines_in_smem = general_fixed_smem(T, D, true) + assoc_shared_bytes(g.assoc, false) <= kAssocSmemLimit;
+  const size_t fixed = general_fixed_smem(T, D, g.lines_in_smem);
   g.keys_in_smem = fixed + assoc_shared_bytes(g.assoc, true) <= kAssocSmemLimit;
   const size_t base = fixed + assoc_shared_bytes(g.assoc, g.keys_in_smem);
   const size_t ring = 4 * round4((size_t)g.assoc.rows * 2 * L);
@@ -499,6 +509,16 @@ __host__ __device__ inline GeneralPlan general_plan(int T, int D, int L) {
   g.smem = base + (g.stage_ring ? ring : 0);
   return g;
 }
+
+// Box i of an (n, 4) float32 array: from shared memory where staged, else
+// from device memory as four loads (no alignment assumed).
+struct BoxRef {
+  const float4* s;
+  const float* g;
+  __device__ __forceinline__ float4 operator[](int i) const {
+    return s ? s[i] : make_float4(__ldg(g + 4 * i), __ldg(g + 4 * i + 1), __ldg(g + 4 * i + 2), __ldg(g + 4 * i + 3));
+  }
+};
 
 // One step of a bitonic sort: this thread's value `v` against its
 // partner's `o` (thread i ^ j), in a run of k sorted up where i & k is 0.
@@ -540,6 +560,24 @@ __device__ inline unsigned long long sort_pairs(unsigned long long v, int n, uns
   return v;
 }
 
+// Sorts `buf[0 .. n)` ascending in shared memory (n a power of two beyond
+// the block's threads), bitonically: each step a thread compares and swaps
+// every blockDim-th pair (i, i | j) with bit j of i clear, the run of k
+// sorted up where i & k is 0.  Called by every thread of the block after
+// `buf` is written and synced; synced on return.
+__device__ inline void sort_smem(unsigned long long* buf, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int q = threadIdx.x; q < (n >> 1); q += blockDim.x) {
+        const int a = ((q & ~(j - 1)) << 1) | (q & (j - 1)), b = a | j;
+        const unsigned long long x = buf[a], y = buf[b];
+        if ((x > y) == ((a & k) == 0)) buf[a] = y, buf[b] = x;
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // Slot t's sort pair: its key in signed order, then t (ties by slot).
 __device__ __forceinline__ unsigned long long rank_pair(int key, int t) {
   return ((unsigned long long)((unsigned)key ^ 0x80000000u) << 32) | (unsigned)t;
@@ -562,27 +600,25 @@ __device__ __forceinline__ unsigned general_iou_key(float4 a, float4 b, float th
 }
 
 // This block's key lines (association.cuh): a warp a line, its lanes over
-// the line's entries, the slots' and detections' boxes from shared memory,
-// and in the same pass the first round's bests of the lines (every row
-// live, every column untaken), as `cluster_associate` would compute them.
-// Keys of a dead slot or an invalid detection are 0.
-__device__ inline void stage_general_keys(const float4* s_tb, const float4* s_db, const int* s_id,
-                                          const unsigned* s_valid, const AssocShared& s, unsigned* rowkeys,
-                                          unsigned* colkeys, const AssocPlan& a, int T, int D, int2 rows, int2 cols,
-                                          float thr) {
+// the line's entries, and in the same pass the first round's bests of the
+// lines (every row live, every column untaken), as `cluster_associate`
+// would compute them.  Keys of a slot that is not live or an invalid
+// detection are 0.
+__device__ inline void stage_general_keys(BoxRef tb, BoxRef db, const unsigned* s_live, const unsigned* s_valid,
+                                          const AssocShared& s, unsigned* rowkeys, unsigned* colkeys,
+                                          const AssocPlan& a, int T, int D, int2 rows, int2 cols, float thr) {
   const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const unsigned zero_key = assoc_key(0.0f, thr);
   for (int l = threadIdx.x >> 5; l < rows.y + cols.y; l += nwarps) {
     unsigned long long best = 0ull;
     if (l < rows.y) {
       const int t = rows.x + l;
-      const float4 tb = s_tb[t];
-      const bool alive = s_id[t] > 0;
+      const float4 box = tb[t];
+      const bool alive = bit_of(s_live, t);
       const unsigned base = (unsigned)s.rank[t] * (unsigned)D + 0x80000000u;
       unsigned* line = rowkeys + (size_t)l * a.rstride;
       for (int d = lane; d < a.rstride; d += 32) {
-        const unsigned k =
-            (d < D && alive && bit_of(s_valid, d)) ? general_iou_key(tb, s_db[d], thr, zero_key) : 0u;
+        const unsigned k = (d < D && alive && bit_of(s_valid, d)) ? general_iou_key(box, db[d], thr, zero_key) : 0u;
         line[d] = k;
         const unsigned long long e = line_entry(k, true, base + (unsigned)d);
         best = e > best ? e : best;
@@ -591,14 +627,13 @@ __device__ inline void stage_general_keys(const float4* s_tb, const float4* s_db
       if (lane == 0) s.rowbest[l] = best;
     } else {
       const int j = l - rows.y, d = cols.x + j;
-      const float4 db = s_db[d];
+      const float4 box = db[d];
       const bool valid = bit_of(s_valid, d);
       const unsigned dcol = (unsigned)d + 0x80000000u;
       unsigned* line = colkeys + (size_t)j * a.cstride;
       int at = 0;
       for (int t = lane; t < a.cstride; t += 32) {
-        const unsigned k =
-            (t < T && valid && s_id[t] > 0) ? general_iou_key(s_tb[t], db, thr, zero_key) : 0u;
+        const unsigned k = (t < T && valid && bit_of(s_live, t)) ? general_iou_key(tb[t], box, thr, zero_key) : 0u;
         line[t] = k;
         const unsigned long long e = line_entry(k, true, (unsigned)s.rank[t] * (unsigned)D + dcol);
         if (e > best) best = e, at = t;
@@ -608,6 +643,25 @@ __device__ inline void stage_general_keys(const float4* s_tb, const float4* s_db
       if (lane == 0) s.colbest[j] = m, s.colrow[j] = (int)arg;
     }
   }
+}
+
+// Sorts every slot's pair (`pair(t)` for t < T) ascending and calls
+// `put(p, (unsigned)sorted[p])` for each place p < T: a value a thread in
+// registers up to 1,024 slots (`sort_pairs`), else all in shared memory
+// (`sort_smem`); `buf` holds sort_size(T) pairs.  Called by every thread
+// of the block.
+template <class Pair, class Put>
+__device__ inline void sort_slots(int T, unsigned long long* buf, Pair pair, Put put) {
+  const int tid = threadIdx.x, n = sort_size(T);
+  if (n <= kGeneralThreads) {
+    const unsigned long long v = sort_pairs(tid < T ? pair(tid) : ~0ull, n, buf);
+    if (tid < T) put(tid, (unsigned)v);
+    return;
+  }
+  for (int i = tid; i < n; i += kGeneralThreads) buf[i] = i < T ? pair(i) : ~0ull;
+  __syncthreads();
+  sort_smem(buf, n);
+  for (int i = tid; i < T; i += kGeneralThreads) put(i, (unsigned)buf[i]);
 }
 
 __global__ void __launch_bounds__(kGeneralThreads)
@@ -621,48 +675,66 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
   const int T = p.T, D = p.D, W = 2 * p.L;
   const TrackerIn in = lane_in(lanes_in, lane_b, T, D, p.L);
   const TrackerOut out = lane_out(lanes_out, lane_b, T, p.L);
-  // [the rounds'] [ring rows (if staged)] [slot boxes] [detection boxes]
-  // [sort buffer] [ids] [confirmed keys] [classes] [confidences] [bits] [next id]
+  // [the rounds'] [ring rows (if staged)] [slot boxes, detection boxes,
+  // classes, confidences (if staged)] [confirmed keys] [bits] [next id]
   const AssocShared s = assoc_carve(s_gen, a, g.keys_in_smem);
   char* c = reinterpret_cast<char*>(s_gen) + assoc_shared_bytes(a, g.keys_in_smem);
   float* s_ring = reinterpret_cast<float*>(c);
   c += g.stage_ring ? 4 * round4((size_t)a.rows * W) : 0;
   float4* s_tb = reinterpret_cast<float4*>(c);
   float4* s_db = s_tb + T;
-  unsigned long long* s_sort = reinterpret_cast<unsigned long long*>(s_db + D);
-  int* s_id = reinterpret_cast<int*>(s_sort + 1024);
-  int* s_ckey = s_id + T;
-  int* s_dcls = s_ckey + T;
+  int* s_dcls = reinterpret_cast<int*>(s_db + D);
   float* s_dconf = reinterpret_cast<float*>(s_dcls + D);
-  unsigned* s_valid = reinterpret_cast<unsigned*>(s_dconf + D);
+  c += g.lines_in_smem ? 16 * (size_t)(T + D) + 8 * (size_t)D : 0;
+  int* s_ckey = reinterpret_cast<int*>(c);
+  unsigned* s_valid = reinterpret_cast<unsigned*>(s_ckey + T);
   unsigned* s_free = s_valid + kAssocBitWords;
-  unsigned* s_want = s_free + kAssocBitWords;
+  unsigned* s_live = s_free + kAssocBitWords;
+  unsigned* s_want = s_live + kAssocBitWords;
   unsigned* s_conf = s_want + kAssocBitWords;
   int* s_next_id = reinterpret_cast<int*>(s_conf + kAssocBitWords);
+  // The sort's pairs take the room of the rounds' received bests (16
+  // cstride bytes >= 8 sort_size(T)) before `assoc_init` and after the rounds.
+  unsigned long long* s_sort = s.allrow;
+  const BoxRef tb{g.lines_in_smem ? s_tb : nullptr, in.bbox}, db{g.lines_in_smem ? s_db : nullptr, in.det_bbox};
+  const int* dcls = g.lines_in_smem ? s_dcls : in.det_class;
+  const float* dconf = g.lines_in_smem ? s_dconf : in.det_conf;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tw = (T + 31) >> 5, dw = (D + 31) >> 5;  // words of the slot and detection bits
   const int2 rows = assoc_span(me, a.rows, T), cols = assoc_span(me, a.cols, D);
   unsigned* rowkeys = scratch ? scratch + ((size_t)lane_b * a.cluster + me) * assoc_key_words(a) : s.keys;
   unsigned* colkeys = rowkeys + (size_t)a.rows * a.rstride;
 
-  // --- loads: every slot's id and box, every detection, this block's slots ---
+  // --- loads: every slot's id, every detection, this block's slots ---------
   if (g.stage_ring) stage_async(s_ring, in.traj + (size_t)rows.x * W, rows.y * W);
-  int id0 = 0;
-  if (tid < T) {
-    id0 = in.track_id[tid];
-    s_id[tid] = id0;
-    s_tb[tid] = make_float4(in.bbox[4 * tid], in.bbox[4 * tid + 1], in.bbox[4 * tid + 2], in.bbox[4 * tid + 3]);
+  int id0 = 0;  // slot tid's id (the sort's, up to 1,024 slots)
+  for (int t0 = 0; t0 < T; t0 += kGeneralThreads) {
+    const int t = t0 + tid;
+    int id = 0;
+    if (t < T) {
+      id = in.track_id[t];
+      if (g.lines_in_smem)
+        s_tb[t] = make_float4(in.bbox[4 * t], in.bbox[4 * t + 1], in.bbox[4 * t + 2], in.bbox[4 * t + 3]);
+    }
+    if (t0 == 0) id0 = id;
+    const unsigned fb = __ballot_sync(0xffffffffu, t < T && id == 0), lb = __ballot_sync(0xffffffffu, id > 0);
+    if (lane == 0 && (t >> 5) < tw) s_free[t >> 5] = fb, s_live[t >> 5] = lb;
   }
-  const unsigned fb = __ballot_sync(0xffffffffu, tid < T && id0 == 0);
-  bool valid = false;
-  if (tid < D) {
-    valid = in.det_valid[tid];
-    s_db[tid] = make_float4(in.det_bbox[4 * tid], in.det_bbox[4 * tid + 1], in.det_bbox[4 * tid + 2],
-                            in.det_bbox[4 * tid + 3]);
-    s_dcls[tid] = in.det_class[tid];
-    s_dconf[tid] = in.det_conf[tid];
+  for (int d0 = 0; d0 < D; d0 += kGeneralThreads) {
+    const int d = d0 + tid;
+    bool valid = false;
+    if (d < D) {
+      valid = in.det_valid[d];
+      if (g.lines_in_smem) {
+        s_db[d] = make_float4(in.det_bbox[4 * d], in.det_bbox[4 * d + 1], in.det_bbox[4 * d + 2],
+                              in.det_bbox[4 * d + 3]);
+        s_dcls[d] = in.det_class[d];
+        s_dconf[d] = in.det_conf[d];
+      }
+    }
+    const unsigned vb = __ballot_sync(0xffffffffu, valid);
+    if (lane == 0 && (d >> 5) < dw) s_valid[d >> 5] = vb;
   }
-  const unsigned vb = __ballot_sync(0xffffffffu, valid);
-  if (lane == 0) s_free[warp] = fb, s_valid[warp] = vb;
   const bool mine = tid < rows.y;
   const int t_mine = rows.x + tid;
   Slot sl{0, 0, 0, 0, 0, 0, 0, 0.0f, 0.0f, 0.0f};
@@ -672,17 +744,21 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
               in.traj_len[t], in.conf[t], in.vel[2 * t], in.vel[2 * t + 1]};
   }
   if (tid == 0) *s_next_id = *in.next_id;
-  assoc_init(s, a);
   __syncthreads();
 
   // --- the id rank: every slot's, dead slots last, ties by slot -------------
-  const unsigned long long ranked =
-      sort_pairs(tid < T ? rank_pair(id0 > 0 ? id0 : kI32Max, tid) : ~0ull, sort_size(T), s_sort);
-  if (tid < T) s.rank[(unsigned)ranked] = tid;
+  sort_slots(
+      T, s_sort,
+      [&](int t) {
+        const int id = T <= kGeneralThreads ? id0 : in.track_id[t];
+        return rank_pair(id > 0 ? id : kI32Max, t);
+      },
+      [&](int place, unsigned t) { s.rank[t] = place; });
+  assoc_init(s, a);  // after the sort: no block pushes into s_sort's room before every block has arrived
   __syncthreads();
 
   // --- the keys of this block's slots and detections, then the rounds -------
-  stage_general_keys(s_tb, s_db, s_id, s_valid, s, rowkeys, colkeys, a, T, D, rows, cols, p.iou_threshold);
+  stage_general_keys(tb, db, s_live, s_valid, s, rowkeys, colkeys, a, T, D, rows, cols, p.iou_threshold);
   __syncthreads();
   cluster_associate(s, rowkeys, colkeys, a, T, D, true);
 
@@ -700,12 +776,13 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
     done = n4 << 2;
   }
   for (int i = done + tid; i < n_ring; i += kGeneralThreads) dst[i] = src[i];
-  if (tid < kAssocBitWords) s_want[tid] = s_valid[tid] & ~s.taken[tid];
+  if (tid < dw) s_want[tid] = s_valid[tid] & ~s.taken[tid];
   __syncthreads();
 
   // --- births: the k-th unmatched valid detection takes the k-th free slot ----
   int n_free = 0, n_want = 0;
-  for (int w = 0; w < kAssocBitWords; ++w) n_free += __popc(s_free[w]), n_want += __popc(s_want[w]);
+  for (int w = 0; w < tw; ++w) n_free += __popc(s_free[w]);
+  for (int w = 0; w < dw; ++w) n_want += __popc(s_want[w]);
   const int n_birth = min(n_free, n_want);
   const int next_id = *s_next_id;
   bool confirmed = false;
@@ -718,8 +795,8 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
       for (int k = 0; k < r; ++k) bits &= bits - 1u;
       return 32 * w + __ffs(bits) - 1;
     };
-    confirmed = slot_update(t_mine, sl, s_tb[t_mine], s.match[tid], s_free, n_birth, next_id, nth_want, s_db,
-                            s_dcls, s_dconf, cluster.map_shared_rank(s_ckey, 0), out, p);
+    confirmed = slot_update(t_mine, sl, tb[t_mine], s.match[tid], s_free, n_birth, next_id, nth_want, db, dcls,
+                            dconf, cluster.map_shared_rank(s_ckey, 0), out, p);
   }
   // Each slot's confirmed key went to block 0 (`slot_update`), and each
   // warp's confirmed bits go there too.
@@ -729,10 +806,13 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
   if (me != 0) return;
 
   // --- confirmed order: stable by (id, slot), unconfirmed slots last ---------
-  const unsigned long long sorted = sort_pairs(tid < T ? rank_pair(s_ckey[tid], tid) : ~0ull, sort_size(T), s_sort);
-  if (tid < T) out.order[tid] = (int)(unsigned)sorted;
+  sort_slots(
+      T, s_sort, [&](int t) { return rank_pair(s_ckey[t], t); },
+      [&](int place, unsigned t) { out.order[place] = (int)t; });
   if (warp == 0) {
-    const int n_conf = __reduce_add_sync(0xffffffffu, 32 * lane < T ? __popc(s_conf[lane]) : 0);
+    int n_conf = 0;
+    for (int w = lane; w < tw; w += 32) n_conf += __popc(s_conf[w]);
+    n_conf = __reduce_add_sync(0xffffffffu, n_conf);
     if (lane == 0) {
       *out.n_conf = n_conf;
       *out.next_id = next_id + n_birth;

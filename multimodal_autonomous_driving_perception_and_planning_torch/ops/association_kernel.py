@@ -17,8 +17,8 @@ one allocation and the launch on the current stream without re-entering
 the device context.  Tables beyond 128 rows or 64 columns take the
 kernel's general instance, a thread block cluster of up to 16 blocks
 whose key lines live in shared memory where they fit; where they do not
-(1,024 x 1,024: 8 MB of keys), the wrapper allocates them a device
-scratch, by shape alone (`scratch_words`).
+(1,024 x 1,024: 8 MB of keys; 4,096 x 4,096: 128 MB), the wrapper
+allocates them a device scratch, by shape alone (`scratch_words`).
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ from . import launch
 # The kernel's small instance takes at most 128 rows and 64 columns; its
 # general instance (a thread block cluster a matrix) MAX_ROWS and
 # MAX_COLS.  Its launcher picks one by shape.
-MAX_ROWS = 1024
-MAX_COLS = 1024
+MAX_ROWS = 4096
+MAX_COLS = 4096
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,7 +58,7 @@ launches = 0
 
 def greedy_associate(iou: torch.Tensor, row_rank: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Launch K4 on CUDA tensors: iou (T, D) float32, row_rank (T,) int32,
-    T <= 1,024 and D <= 1,024.  Returns match (T,) int32."""
+    T <= 4,096 and D <= 4,096.  Returns match (T,) int32."""
     global launches
     device = iou.device
     if device.type != "cuda":

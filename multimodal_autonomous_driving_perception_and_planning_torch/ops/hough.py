@@ -16,8 +16,9 @@ transform that stands in for cv2.HoughLinesP:
 The float arithmetic is the JAX package's under ``jit``, where XLA's CPU
 compiler contracts a product-sum ``a*x + b*y`` into ``fma(a, x, b*y)``: the
 port computes ``rho``, the coarse support and the projections that way
-(`fma32`), and carries XLA's float32 ``cos``/``sin`` of the theta grid as
-literals, as neither torch's nor a correctly rounded ``cos`` gives them.
+(`fma32`), and computes XLA's float32 ``cos``/``sin`` of the theta grid as
+XLA's CPU backend does, by glibc's ``cosf``/``sinf`` algorithm (`sincosf`),
+as neither torch's nor a correctly rounded ``cos`` gives them.
 With ``refine=True`` the tight support leans on ``atan2``, ``cos`` and
 ``sin`` of data, where torch and XLA may stand ulps apart.  The JAX
 package's bf16/float32 matmul compaction and one-hot histogram are TPU
@@ -30,6 +31,7 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .geometry import fma32
@@ -46,7 +48,8 @@ class HoughLines(NamedTuple):
 
 # XLA's float32 cos and sin of jnp.arange(180, dtype=float32) * (pi / 180)
 # (the theta grid at LaneConfig.num_thetas = 180), generated once with jnp
-# on the CPU; tests/test_torch_hough.py regenerates them.
+# on the CPU; tests/test_torch_hough.py regenerates them.  They are the
+# check of `sincosf` (`CARRIED_TABLES`), which computes every grid.
 # fmt: off
 _XLA_COS_180 = (
     1.0, 0.9998477101325989, 0.9993908405303955, 0.9986295104026794,
@@ -198,21 +201,73 @@ _XLA_SIN_90 = (
     0.13917317986488342, 0.10452849417924881, 0.06975647062063217, 0.034899450838565826,
 )
 # fmt: on
-_XLA_TRIG = {90: (_XLA_COS_90, _XLA_SIN_90), 180: (_XLA_COS_180, _XLA_SIN_180)}
+CARRIED_TABLES = {90: (_XLA_COS_90, _XLA_SIN_90), 180: (_XLA_COS_180, _XLA_SIN_180)}
+
+# glibc's float32 sine and cosine (sysdeps/ieee754/flt-32: s_sinf.c,
+# s_cosf.c, sincosf.h, sincosf_data.c), which XLA's CPU backend calls for
+# jnp.cos and jnp.sin and constant folding evaluates with: the argument in
+# double, one multiply-subtract by pi/2 (|x| < 120), and double-precision
+# polynomials rounded once to float32.
+_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")  # 2/pi * 2^24
+_HPI = float.fromhex("0x1.921FB54442D18p0")  # pi/2
+_COS_POLY = tuple(float.fromhex(c) for c in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5", "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_SIN_POLY = tuple(float.fromhex(c) for c in ("-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13"))
+
+
+def _abstop12(y: np.ndarray) -> np.ndarray:
+    """The float32's top 12 bits with the sign cleared (glibc's `abstop12`)."""
+    return (y.view(np.uint32) >> 20) & 0x7FF
+
+
+def _sinf_poly(x: np.ndarray, x2: np.ndarray, negate: np.ndarray, odd: np.ndarray) -> np.ndarray:
+    """glibc's `sinf_poly`: the sine polynomial of x where ``odd`` is false,
+    else the cosine polynomial (negated in its second table, ``negate``)."""
+    x3 = x * x2
+    s1 = _SIN_POLY[1] + x2 * _SIN_POLY[2]
+    sin = (x + x3 * _SIN_POLY[0]) + (x3 * x2) * s1
+    c = [np.where(negate, -k, k) for k in _COS_POLY]
+    x4 = x2 * x2
+    c2 = c[3] + x2 * c[4]
+    c1 = c[0] + x2 * c[1]
+    cos = (c1 + x4 * c[2]) + (x4 * x2) * c2
+    return np.where(odd, cos, sin)
+
+
+def sincosf(y: np.ndarray, cosine: bool) -> np.ndarray:
+    """glibc's ``cosf`` (``cosine``) or ``sinf`` of float32 ``y``, |y| < 120,
+    in numpy float64 arithmetic, bit for bit: so on any host, XLA's CPU
+    values."""
+    y = np.asarray(y, dtype=np.float32)
+    top = _abstop12(y)
+    if (top >= _abstop12(np.float32(120.0))).any():
+        raise ValueError("sincosf: |y| < 120 only (glibc's one-step reduction)")
+    x = y.astype(np.float64)
+    small = top < _abstop12(np.float32(float.fromhex("0x1.921FB6p-1")))  # below pi/4, by its top bits
+    tiny = top < _abstop12(np.float32(2.0**-12))
+    n = (np.trunc(x * _HPI_INV).astype(np.int64) + 0x800000) >> 24  # the quadrant
+    r = x - n * _HPI
+    sign = np.array([1.0, -1.0, -1.0, 1.0])[n & 3]
+    reduced = _sinf_poly(r * sign, r * r, (n & 2) != 0, ((n ^ 1) if cosine else n) & 1)
+    near = _sinf_poly(x, x * x, np.zeros(y.shape, bool), np.full(y.shape, cosine))
+    out = np.where(small, np.where(tiny, 1.0 if cosine else x, near), reduced)
+    return out.astype(np.float32)
+
+
+def theta_grid(num_thetas: int) -> np.ndarray:
+    """The JAX package's theta grid, jnp.arange(n, dtype=float32) * (pi / n)
+    in float32."""
+    return np.arange(num_thetas, dtype=np.float32) * np.float32(math.pi / num_thetas)
 
 
 @functools.lru_cache(maxsize=None)
 def theta_tables(num_thetas: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """XLA's float32 (cos, sin) of the theta grid, on ``device`` (made once
-    a device)."""
-    if num_thetas not in _XLA_TRIG:
-        raise NotImplementedError(
-            f"num_thetas={num_thetas}: XLA's tables are carried for {sorted(_XLA_TRIG)} thetas only; "
-            "carry another grid's as ops/hough.py carries these"
-        )
-    cos_t, sin_t = _XLA_TRIG[num_thetas]
-    return (torch.tensor(cos_t, dtype=torch.float32, device=device),
-            torch.tensor(sin_t, dtype=torch.float32, device=device))
+    """XLA's float32 (cos, sin) of the theta grid of any size, on ``device``
+    (made once a device)."""
+    if num_thetas < 1:
+        raise ValueError(f"num_thetas={num_thetas}: the grid needs at least one theta")
+    theta = theta_grid(num_thetas)
+    return (torch.from_numpy(sincosf(theta, True)).to(device), torch.from_numpy(sincosf(theta, False)).to(device))
 
 
 def compact_mask(flat: torch.Tensor, capacity: int):

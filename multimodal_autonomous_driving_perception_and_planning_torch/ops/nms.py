@@ -11,7 +11,8 @@ equal values in index order and ``torch.topk`` promises no order among
 ties, and positive scores do tie.
 
 `nms_keep` is the greedy keep mask: for CUDA tensors it launches kernel K5
-(ops.nms_kernel), one block an image, every K up to 1024; for CPU tensors it
+(ops.nms_kernel), a cluster an image up to K = 1024 and a mask and a scan
+beyond, every K up to `nms_kernel.MAX_K` (33,600); for CPU tensors it
 runs the plain version, `_nms_keep_plain`, the suppression fixpoint of the
 JAX package's ``nms_keep_xla``, which K5 equals bit for bit.
 """
@@ -57,6 +58,36 @@ def nms_keep(iou_boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float
     return _nms_keep_plain(iou_boxes, scores, iou_threshold)
 
 
+# IoU pairs a block of the suppression matrix at most: its temporaries stay
+# near 100 MB each, where at (64, 8,400) the whole matrix's would take tens
+# of GB.
+_BLOCK_PAIRS = 1 << 22
+
+
+def _suppression(iou_boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """``S_ij = (i < j) & (iou_ij > thr)`` over (..., K, 4) boxes, as a
+    (..., K, K) bool, built in blocks of rows.  `pairwise_iou` is computed
+    only for the pairs whose boxes intersect (its ``iw > 0 and ih > 0``,
+    by the same ops): every other pair's IoU is 0, so its entry is ``0 >
+    thr``.  Each pair's IoU is the same however the pairs are gathered."""
+    *lead, k, _ = iou_boxes.shape
+    flat = iou_boxes.reshape(-1, k, 4)
+    n = flat.shape[0]
+    S = torch.full((n, k, k), 0.0 > iou_threshold, dtype=torch.bool, device=iou_boxes.device)
+    rows = max(1, _BLOCK_PAIRS // max(1, k * n))
+    for r0 in range(0, k, rows):
+        a, b = flat[:, r0:r0 + rows, None, :], flat[:, None, :, :]
+        iw = torch.minimum(a[..., 2], b[..., 2]) - torch.maximum(a[..., 0], b[..., 0])
+        ih = torch.minimum(a[..., 3], b[..., 3]) - torch.maximum(a[..., 1], b[..., 1])
+        img, row, col = ((iw > 0) & (ih > 0)).nonzero(as_tuple=True)
+        if img.numel():
+            row = row + r0
+            iou = pairwise_iou(flat[img, row][:, None, :], flat[img, col][:, None, :])[:, 0, 0]
+            S[img, row, col] = iou > iou_threshold
+    idx = torch.arange(k, device=iou_boxes.device)
+    return (S & (idx[:, None] < idx[None, :])).reshape(*lead, k, k)
+
+
 def _nms_keep_plain(iou_boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """The suppression fixpoint (kernel K5's reference), with the contract
     of `nms_keep`: iterate ``keep = alive & not any_i(keep_i & S_ij)`` from
@@ -64,8 +95,7 @@ def _nms_keep_plain(iou_boxes: torch.Tensor, scores: torch.Tensor, iou_threshold
     stops changing (at most K rounds), as ``nms_keep_xla`` does."""
     k = scores.shape[-1]
     alive = scores > 0
-    idx = torch.arange(k, device=scores.device)
-    S = (pairwise_iou(iou_boxes, iou_boxes) > iou_threshold) & (idx[:, None] < idx[None, :])
+    S = _suppression(iou_boxes, iou_threshold)
 
     def f(keep):
         return alive & ~(S & keep[..., :, None]).any(dim=-2)

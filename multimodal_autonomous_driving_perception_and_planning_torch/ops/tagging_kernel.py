@@ -41,7 +41,7 @@ from . import launch
 # One thread a track slot: the kernel's small instance takes at most 128
 # slots in one block, its general instance MAX_TRACKS on a thread block
 # cluster a lane (`cluster_size`); its launcher picks one by shape.
-MAX_TRACKS = 1024
+MAX_TRACKS = 4096
 
 
 @functools.lru_cache(maxsize=None)

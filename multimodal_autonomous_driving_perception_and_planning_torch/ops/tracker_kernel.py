@@ -17,10 +17,10 @@ pass of checks, two allocations (the outputs are carved from one float32
 and one int32 buffer, `unpack`), 19 pointers to the binding, and the
 stream without re-entering the device context.  It reads nothing back from
 the device and allocates nothing that depends on the data, so a CUDA graph
-can capture it.  Larger tables, up to 1,024 slots and 1,024 detections,
+can capture it.  Larger tables, up to 4,096 slots and 4,096 detections,
 take the kernel's general instance (a thread block cluster of up to 16
 blocks a lane, tracker_step.cu); where its association's keys do not fit
-in the cluster's shared memory (1,024 x 1,024), the wrapper allocates them
+in the cluster's shared memory (1,024 x 1,024 and beyond), the wrapper allocates them
 a device scratch a lane, by shape alone (`scratch_words`).  Its times are
 in PERF.md.
 
@@ -45,8 +45,8 @@ from . import launch
 # The kernel has two instances: the one whose times PERF.md tracks, for
 # tables of at most 128 slots and 64 detections, and a general one up to
 # MAX_TRACKS and MAX_DETECTIONS; its launcher picks one by shape.
-MAX_TRACKS = 1024
-MAX_DETECTIONS = 1024
+MAX_TRACKS = 4096
+MAX_DETECTIONS = 4096
 
 # The output fields, in the order the kernel carves its two buffers
 # (tracker_step.cu `carve`).

@@ -90,6 +90,7 @@ def make_yolo_sequence_runner(
     map_to_taxonomy: bool = True,
     img_size: int = 640,
     device="cuda",
+    pre_topk: int = 256,
 ):
     """BASELINE config 3: camera frames in -> YOLO detection -> tracker ->
     ego estimation -> planner (-> tags with ``enable_tagging``) -> outputs.
@@ -102,7 +103,9 @@ def make_yolo_sequence_runner(
     (T, N, ...)) of the run, for checking the NMS stage.
 
     ``compute_dtype`` defaults to bfloat16 (the conv tower); the decode /
-    NMS tail and the pipeline run in float32.  With ``cfg.use_frames`` the
+    NMS tail and the pipeline run in float32.  ``pre_topk`` is the NMS
+    candidate pool (`make_yolo_detector`'s, which the JAX package's runner
+    leaves at its default of 256); 8,400 takes every anchor at 640.  With ``cfg.use_frames`` the
     frames also go into the pipeline: lanes, scene features and
     frames-mode tags.
     """
@@ -115,6 +118,7 @@ def make_yolo_sequence_runner(
         map_to_taxonomy=map_to_taxonomy,
         img_size=img_size,
         compute_dtype=torch.bfloat16 if compute_dtype is None else compute_dtype,
+        pre_topk=pre_topk,
         device=dev,
     )
     run_frames = make_sequence_runner(cfg, device=dev)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import functools
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..config import PipelineConfig
@@ -42,19 +43,23 @@ from ..ops.image import (
 from ..types import LaneObservation, LaneState
 from ..utils.device import resolve_device
 
-# jnp.linspace(0, 1, 8) as float32, the fit's sample grid along a segment
-# (two of its values differ from torch.linspace's).
-_LINSPACE_8 = (0.0, 0.1428571492433548, 0.2857142984867096, 0.4285714626312256,
-               0.5714285969734192, 0.7142857313156128, 0.8571429252624512, 1.0)
-
-
 def _f32(v, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=device)
 
 
+def linspace01(n: int) -> np.ndarray:
+    """jnp.linspace(0, 1, n) in float32, as JAX computes it: iota * (1 / (n
+    - 1)), XLA's reciprocal multiply for its division by the step count,
+    with the end point 1 (torch.linspace rounds some values otherwise)."""
+    if n == 1:
+        return np.zeros(1, np.float32)
+    step = np.float32(1.0) / np.float32(n - 1)
+    return np.append(np.arange(n - 1, dtype=np.float32) * step, np.float32(1.0))
+
+
 @functools.lru_cache(maxsize=None)
-def _linspace_8(device: torch.device) -> torch.Tensor:
-    return _f32(_LINSPACE_8, device)
+def _linspace(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(linspace01(n)).to(device)
 
 
 def _solve3(g: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -119,8 +124,6 @@ def _separate_and_fit(lines, valid, width: int, height: int, min_abs_slope: floa
     """The slope/midpoint split (lane_detector.py:105-134) and each side's
     fit over ``fit_samples`` points along every kept segment, both sides in
     one batched solve.  Returns ((fit, found, conf) left, (...) right)."""
-    if fit_samples != len(_LINSPACE_8):
-        raise NotImplementedError(f"fit_samples={fit_samples}: only jnp.linspace's 8 samples are carried")
     dev = lines.device
     x1, y1, x2, y2 = lines.unbind(-1)
     dx = x2 - x1
@@ -132,7 +135,7 @@ def _separate_and_fit(lines, valid, width: int, height: int, min_abs_slope: floa
     left = usable & (slope < 0) & (mid < cx)
     right = usable & (slope > 0) & (mid > cx)
 
-    t = _linspace_8(torch.device(dev))[None, :]
+    t = _linspace(fit_samples, torch.device(dev))[None, :]
     L, S = lines.shape[0], t.shape[1]
     sx = fma32(dx[:, None].expand(L, S), t.expand(L, S), x1[:, None].expand(L, S)).reshape(-1)
     sy = fma32((y2 - y1)[:, None].expand(L, S), t.expand(L, S), y1[:, None].expand(L, S)).reshape(-1)
@@ -201,7 +204,7 @@ def make_lane_step(cfg: PipelineConfig, device="cuda"):
     device = resolve_device(device)
     h, w = cfg.frame_height, cfg.frame_width
     lc = cfg.lanes
-    theta_tables(lc.num_thetas, device)  # refuses a grid whose tables are not carried
+    theta_tables(lc.num_thetas, device)  # the grid's tables, made when the step is built
     roi = torch.as_tensor(
         trapezoid_roi_mask(h, w, lc.roi_bottom_frac, lc.roi_top_frac, lc.roi_top_y_frac), device=device
     )

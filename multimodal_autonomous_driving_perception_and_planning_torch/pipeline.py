@@ -108,7 +108,7 @@ def _unpack_lane_obs(f: torch.Tensor, b: torch.Tensor) -> LaneObservation:
 def check_card_limits(cfg: PipelineConfig, dev: torch.device) -> None:
     """Refuse, when a runner, server or facade is built for the card, a
     configuration whose tables kernels K1 and K3 do not take: more than
-    1,024 track slots or detections a frame.  The CPU takes any size."""
+    4,096 track slots or detections a frame.  The CPU takes any size."""
     if dev.type != "cuda":
         return
     limits = (

@@ -1,5 +1,6 @@
 """Kernels K1-K5 against their plain versions on a CUDA card (K1, K3 and
-K4 beyond 128 slots and 64 detections too), the paths that run them, the
+K4 beyond 128 slots and 64 detections too, up to 4,096; K5 up to 33,600
+candidates), the paths that run them, the
 host stack and its per-frame facades, and the BLIP captioner (no kernel of
 its own) on the card against the CPU.
 
@@ -146,25 +147,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
 
     import numpy as np
 
-    dets = chip_smoke.random_dets(np.random.default_rng(0), 1025, device)
+    dets = chip_smoke.random_dets(np.random.default_rng(0), 4097, device)
     table = TrackTable.empty(16, 4, device)
-    with pytest.raises(ValueError, match="1..1024 detections"):
+    with pytest.raises(ValueError, match="1..4096 detections"):
         tracker_kernel.tracker_step(table, dets, TrackerConfig(), 3)
-    with pytest.raises(ValueError, match="1..1024 slots"):
-        tracker_kernel.tracker_step(TrackTable.empty(1025, 4, device), dets, TrackerConfig(), 3)
+    with pytest.raises(ValueError, match="1..4096 slots"):
+        tracker_kernel.tracker_step(TrackTable.empty(4097, 4, device), dets, TrackerConfig(), 3)
 
     from multimodal_autonomous_driving_perception_and_planning_torch.ops import association_kernel
 
-    iou = torch.zeros((1025, 4), device=device)
-    with pytest.raises(ValueError, match="1..1024 rows"):
-        association_kernel.greedy_associate(iou, torch.zeros(1025, dtype=torch.int32, device=device), 0.3)
+    iou = torch.zeros((4097, 4), device=device)
+    with pytest.raises(ValueError, match="1..4096 rows"):
+        association_kernel.greedy_associate(iou, torch.zeros(4097, dtype=torch.int32, device=device), 0.3)
     with pytest.raises(TypeError, match="expected torch.int32"):
         association_kernel.greedy_associate(iou[:4], torch.zeros(4, dtype=torch.int64, device=device), 0.3)
 
     from multimodal_autonomous_driving_perception_and_planning_torch.ops import nms_kernel
 
-    with pytest.raises(ValueError, match="1..1024 candidates"):
-        nms_kernel.nms_keep(torch.zeros((2, 1025, 4), device=device), torch.zeros((2, 1025), device=device), 0.45)
+    with pytest.raises(ValueError, match="1..33600 candidates"):
+        nms_kernel.nms_keep(torch.zeros((2, 33601, 4), device=device), torch.zeros((2, 33601), device=device), 0.45)
     with pytest.raises(TypeError, match="expected torch.float32"):
         nms_kernel.nms_keep(torch.zeros((2, 8, 4), device=device), torch.zeros((2, 8), dtype=torch.float64,
                                                                                 device=device), 0.45)
@@ -260,6 +261,35 @@ def test_large_paths_on_card(device):
                                            "YOLO path at max_detections=300", cfg=cfg)
     assert result["launches"]["tracker_step"] == 300 and result["launches"]["nms_keep"] == 5
     assert result["valid_per_frame"]["max"] > 128
+
+
+def test_wide_instances_match_plain(device):
+    """K1 and K4's general instances at (1,025, 64), (2,048, 300), (4,096,
+    1,024) and (4,096, 4,096), the ladders 4,097 rounds long at the last;
+    K3's at 1,025, 2,048 and 4,096 slots in both modes and on the crafted
+    stream; K5's large instance at (64, 1,025), (64, 8,400) and (2,
+    33,600); K1 at 8 lanes at (2,048, 300): each bit for bit its plain
+    version (chip_smoke's `wide_tables`)."""
+    result = chip_smoke.check_wide_tables(device)
+    assert {c["case"] for c in result["tracker"]} >= {"staircase_4096x4096", "all_equal_4096x4096", "churn_2048x300"}
+    assert {"case": "staircase_4096x4096", "matched": 4096} in result["association"]
+    assert {c["cluster"] for c in result["tagging"] if "cluster" in c} == {5, 8, 16}
+    assert any(c["case"] == "sparse_chain_2x33600" for c in result["nms"])
+    torch.cuda.synchronize()
+
+
+def test_wide_paths_on_card(device):
+    """`yolo_all_anchors` (K5 at (64, 8,400)), `tagging_4096` (K1 at (4,096,
+    1,024) and K3 at 4,096 slots a frame, more than 1,024 of them live) and
+    `frames_360` (a Hough grid of 360 thetas) on the card against their CPU
+    runs and their card runs with the plain versions; the Hough tables on
+    this host equal the carried ones."""
+    frames, ego = chip_smoke.yolo_inputs(chip_smoke.YOLO_BATCH)
+    result = chip_smoke.check_wide_paths(device, chip_smoke.yolo_params(device), frames, ego)
+    assert result["yolo_all_anchors"]["launches"]["nms_keep"] == 1
+    assert result["tagging_4096"]["live_slots"]["max"] > 1024
+    assert result["frames_360"]["launches"]["tagging_step"] == chip_smoke.WIDE_FRAMES_FRAMES
+    assert min(r["cpu_frames"] for r in (result["tagging_4096"], result["frames_360"])) >= 8
 
 
 def test_reference_path_on_the_card_by_default(device):

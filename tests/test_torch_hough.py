@@ -6,7 +6,8 @@ must be equal bit for bit, and so must the feature-only segments of the
 scene pass; the refined lane segments lean on ``atan2``, ``cos`` and
 ``sin`` of data, where torch and XLA stand ulps apart, and are held within
 atol 1e-4.  The float arithmetic the port copies from compiled XLA is
-pinned on its own: XLA's ``cos``/``sin`` tables, and the contraction of
+pinned on its own: XLA's ``cos``/``sin`` tables of every theta grid, and
+the contraction of
 ``rho``, the supports and the projections into fused multiply-adds.
 """
 
@@ -90,11 +91,43 @@ def test_xla_trig_tables_regenerate_90():
     np.testing.assert_array_equal(sin_t, sin_j)
 
 
-def test_other_theta_grids_refused():
-    """A grid whose tables are not carried (60 thetas) is refused, the
-    message naming the grids carried."""
-    with pytest.raises(NotImplementedError, match=r"carried for \[90, 180\] thetas only"):
-        ht.hough_segments(torch.zeros((60, 80), dtype=torch.bool), 5, 10.0, num_thetas=60)
+THETA_GRIDS = (1, 2, 3, 45, 60, 90, 120, 180, 360, 720)
+
+
+@pytest.mark.parametrize("num_thetas", THETA_GRIDS)
+def test_theta_tables_match_jax_on_any_grid(num_thetas):
+    """`theta_tables` of any grid equals jitted JAX's ``cos`` and ``sin`` of
+    that grid bit for bit (`sincosf`, glibc's algorithm, which XLA's CPU
+    backend calls), and the grid equals JAX's; at 90 and 180 thetas the
+    computed tables are the carried ones."""
+    grid = np.asarray(_theta_grid(num_thetas))
+    np.testing.assert_array_equal(ht.theta_grid(num_thetas), grid)
+    cos_t, sin_t = (t.numpy() for t in ht.theta_tables(num_thetas, torch.device("cpu")))
+    for got, fn in ((cos_t, jnp.cos), (sin_t, jnp.sin)):
+        want = np.asarray(jax.jit(lambda fn=fn: fn(_theta_grid(num_thetas)))())
+        assert got.dtype == np.float32 and got.shape == (num_thetas,)
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    if num_thetas in ht.CARRIED_TABLES:
+        carried = (np.asarray(v, np.float32) for v in ht.CARRIED_TABLES[num_thetas])
+        for got, want in zip((cos_t, sin_t), carried):
+            np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_sincosf_matches_jax_on_every_grid_to_720_and_beyond_them():
+    """`sincosf` against jitted JAX over every theta grid from 1 to 720
+    thetas (259,560 angles) and 200,000 uniform arguments in [-10, 10]
+    (both quadrant signs, the small-argument branches): bit for bit, where
+    torch's float32 ``cos`` differs on some of them."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([ht.theta_grid(n) for n in range(1, 721)]
+                       + [rng.uniform(-10, 10, 200_000).astype(np.float32),
+                          np.array([0.0, -0.0, 2.0**-13, -(2.0**-13), 0.74, 0.8, 119.0, -119.0], np.float32)])
+    for cosine, fn in ((True, jnp.cos), (False, jnp.sin)):
+        want = np.asarray(jax.jit(fn)(jnp.asarray(x)))
+        np.testing.assert_array_equal(ht.sincosf(x, cosine).view(np.uint32), want.view(np.uint32))
+    assert (torch.cos(torch.from_numpy(x)).numpy() != np.asarray(jax.jit(jnp.cos)(jnp.asarray(x)))).any()
+    with pytest.raises(ValueError, match=r"\|y\| < 120"):
+        ht.sincosf(np.array([120.0], np.float32), True)
 
 
 @pytest.mark.parametrize(
@@ -247,25 +280,29 @@ LANE_KW = dict(vote_threshold=50, min_line_length=50.0, num_thetas=180, max_line
 SCENE_KW = dict(vote_threshold=50, min_line_length=50.0, num_thetas=180, max_lines=32, edge_capacity=1024)
 
 
+@pytest.mark.parametrize("num_thetas", (180, 60, 360))
 @pytest.mark.parametrize("name", EDGE_FRAMES)
-def test_lane_pass_matches_jax(frame_edges, name):
+def test_lane_pass_matches_jax(frame_edges, name, num_thetas):
     """The lane pass (ROI edges, rows 288-479, 2048 pixels, refined
-    segments): votes, valid and both flags bit for bit, segments within
-    atol 1e-4.  The accumulator equals a numpy histogram of compiled
-    JAX's rounded ``rho`` over the port's edge list."""
+    segments), at the default grid of 180 thetas and at 60 and 360: votes,
+    valid and both flags bit for bit, segments within atol 1e-4.  The
+    accumulator equals a numpy histogram of compiled JAX's rounded ``rho``
+    over the port's edge list."""
+    kw = dict(LANE_KW, num_thetas=num_thetas)
     edges = frame_edges[name][0]
-    got = ht.hough_segments(torch.as_tensor(edges), refine=True, **LANE_KW)
-    want = _jax_hough(refine=True, **LANE_KW)(jnp.asarray(edges))
+    got = ht.hough_segments(torch.as_tensor(edges), refine=True, **kw)
+    want = _jax_hough(refine=True, **kw)(jnp.asarray(edges))
     _assert_lines_match(got, want, exact_floats=False)
-    x, y, v, _ = ht.compact_edges(torch.as_tensor(edges), LANE_KW["edge_capacity"], LANE_KW["row_range"])
-    acc = ht.vote(x, y, v, 180, 800)
+    x, y, v, _ = ht.compact_edges(torch.as_tensor(edges), kw["edge_capacity"], kw["row_range"])
+    acc = ht.vote(x, y, v, num_thetas, 800)
     x, y, v = x.numpy(), y.numpy(), v.numpy()
+    grid = _theta_grid(num_thetas)
     rho_j = np.asarray(jax.jit(
-        lambda x, y: jnp.cos(_theta_grid())[:, None] * x[None, :] + jnp.sin(_theta_grid())[:, None] * y[None, :]
+        lambda x, y: jnp.cos(grid)[:, None] * x[None, :] + jnp.sin(grid)[:, None] * y[None, :]
     )(x, y))
     bins = np.round(rho_j).astype(np.int64) + 800
-    hist = np.zeros((180, 1601), np.int64)
-    np.add.at(hist, (np.broadcast_to(np.arange(180)[:, None], bins.shape)[:, v], bins[:, v]), 1)
+    hist = np.zeros((num_thetas, 1601), np.int64)
+    np.add.at(hist, (np.broadcast_to(np.arange(num_thetas)[:, None], bins.shape)[:, v], bins[:, v]), 1)
     np.testing.assert_array_equal(acc.numpy(), hist)
     if name == "road":
         assert got.valid.any() and not bool(got.edges_overflow)
@@ -273,11 +310,13 @@ def test_lane_pass_matches_jax(frame_edges, name):
         assert bool(got.edges_overflow)
 
 
+@pytest.mark.parametrize("num_thetas", (180, 60, 360))
 @pytest.mark.parametrize("name", EDGE_FRAMES)
-def test_scene_pass_matches_jax_bit_for_bit(frame_edges, name):
-    """The scene pass (half resolution, 1024 pixels, feature-only): every
-    field, segments and lengths included, bit for bit."""
-    got, want = _both(frame_edges[name][1], refine=False, **SCENE_KW)
+def test_scene_pass_matches_jax_bit_for_bit(frame_edges, name, num_thetas):
+    """The scene pass (half resolution, 1024 pixels, feature-only), at 180,
+    60 and 360 thetas: every field, segments and lengths included, bit for
+    bit."""
+    got, want = _both(frame_edges[name][1], refine=False, **dict(SCENE_KW, num_thetas=num_thetas))
     _assert_lines_match(got, want, exact_floats=True)
 
 

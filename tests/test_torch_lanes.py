@@ -288,7 +288,7 @@ def test_curvature_gap_follows_its_conditioning():
     w = CFG.frame_width
     roi = torch.as_tensor(trapezoid_roi_mask(H, w, lc.roi_bottom_frac, lc.roi_top_frac, lc.roi_top_y_frac))
     fit_j = jax.jit(lambda seg, v: lj._separate_and_fit(seg, v, w, H, min_abs_slope=lc.min_abs_slope))
-    t8 = np.asarray(lt._LINSPACE_8, np.float64)
+    t8 = lt.linspace01(8).astype(np.float64)
     readings = []
     for frame in SyntheticRoadGenerator(draw_adjacent_dash=True).generate_frames(8):
         blurred = gaussian_blur5_u8(bgr_to_gray_u8(torch.as_tensor(frame)))
@@ -329,3 +329,52 @@ def test_curvature_gap_follows_its_conditioning():
     assert (gap_j <= 1e-3).all() and (kappa > 1e3).all()
     print(f"fits {len(readings)}: cond(G) {cond_g.min():.3g}-{cond_g.max():.3g}, kappa_a {kappa.min():.3g}-"
           f"{kappa.max():.3g}, a port-JAX {gap_j.max():.3g}, port-float64 {gap_64.max():.3g} (relative)")
+
+
+@pytest.mark.parametrize("n", range(1, 65))
+def test_linspace_matches_jnp(n):
+    """The fit's sample grid, `linspace01`, equals jnp.linspace(0, 1, n) in
+    float32 bit for bit, jitted or not, where torch.linspace rounds some
+    values otherwise (at 8 samples, two)."""
+    got = lt.linspace01(n)
+    for want in (np.asarray(jnp.linspace(0.0, 1.0, n)), np.asarray(jax.jit(lambda: jnp.linspace(0.0, 1.0, n))())):
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    if n == 8:
+        assert (torch.linspace(0.0, 1.0, 8).numpy() != got).sum() == 2
+
+
+@pytest.mark.parametrize("fit_samples", (2, 5, 16))
+def test_separate_and_fit_takes_any_sample_count(fit_samples):
+    """`_separate_and_fit` at 2, 5 and 16 samples a segment against JAX's
+    on the lane segments of 8 road frames, at the bars of the 8-sample
+    test (`test_curvature_gap_follows_its_conditioning`): found and the
+    confidences exact, x at rows h, 0.8h and 0.6h within 1e-3 px, b and c
+    within rtol 1e-4."""
+    lc = CFG.lanes
+    w = CFG.frame_width
+    roi = torch.as_tensor(trapezoid_roi_mask(H, w, lc.roi_bottom_frac, lc.roi_top_frac, lc.roi_top_y_frac))
+    fit_j = jax.jit(lambda seg, v: lj._separate_and_fit(seg, v, w, H, min_abs_slope=lc.min_abs_slope,
+                                                        fit_samples=fit_samples))
+    fits = 0
+    for frame in SyntheticRoadGenerator(draw_adjacent_dash=True).generate_frames(8):
+        blurred = gaussian_blur5_u8(bgr_to_gray_u8(torch.as_tensor(frame)))
+        med = median_u8(blurred)
+        low = torch.floor(torch.clamp(torch.tensor(0.7) * med, min=0.0))
+        high = torch.floor(torch.clamp(torch.tensor(1.3) * med, max=255.0))
+        hl = hough_segments(canny(blurred, low, high) & roi, vote_threshold=lc.hough_threshold,
+                            min_line_length=lc.hough_min_line_length, max_lines=lc.max_lines,
+                            edge_capacity=lc.lane_edge_capacity, row_range=(int(H * lc.roi_top_y_frac), H))
+        sides_t = lt._separate_and_fit(hl.segments, hl.valid, w, H, min_abs_slope=lc.min_abs_slope,
+                                       fit_samples=fit_samples)
+        sides_j = fit_j(jnp.asarray(hl.segments.numpy()), jnp.asarray(hl.valid.numpy()))
+        for (fit_t, found_t, conf_t), (fit_jx, found_j, conf_j) in zip(sides_t, sides_j):
+            assert bool(found_t) == bool(found_j) and float(conf_t) == float(conf_j)
+            if not bool(found_t):
+                continue
+            fits += 1
+            a_t, a_j = fit_t.numpy().astype(np.float64), np.asarray(fit_jx, np.float64)
+            for y in ROWS:
+                assert abs(_x_at(a_t, y) - _x_at(a_j, y)) <= X_ATOL, (fit_samples, y)
+            np.testing.assert_allclose(a_t[1:], a_j[1:], rtol=1e-4, atol=0)
+    assert fits >= 12

@@ -2,13 +2,16 @@
 instances (128 track slots, 64 detections) against the JAX package's.
 
 The JAX package runs any table size; the port's kernels K1 and K3 take up
-to 1,024 slots and detections on the card, through a general instance
-beyond the fast one.  Here the port runs its kernels' plain versions
-(``device="cpu"``) against the jitted JAX runner in detections mode with
-tagging on, at max_tracks=160, max_detections=80 (ROADMAP §3's input) and
-at (256, 128): discrete outputs and every discrete tag bit for bit, floats
-within atol 1e-4 (PARITY.md).  `chip_smoke.py`'s `large_tables` phase
-holds the kernels to these plain versions on the card.
+to 4,096 slots and detections on the card, through a general instance
+beyond the fast one, and K5 pools of up to 33,600 candidates.  Here the
+port runs its kernels' plain versions (``device="cpu"``) against the
+jitted JAX runner in detections mode with tagging on, at max_tracks=160,
+max_detections=80 (ROADMAP §3's input), at (256, 128) and at (1,040, 24):
+discrete outputs and every discrete tag bit for bit, floats within atol
+1e-4 (PARITY.md); and the general instances' and K5's large instance's
+schedules, modelled in plain torch, against the plain versions and JAX.
+`chip_smoke.py`'s `large_tables` and `wide_tables` phases hold the kernels
+to these plain versions on the card.
 """
 
 import dataclasses
@@ -27,10 +30,13 @@ import multimodal_autonomous_driving_perception_and_planning_tpu as pj
 from multimodal_autonomous_driving_perception_and_planning_torch.data import synthetic as syn_t
 from multimodal_autonomous_driving_perception_and_planning_torch.ops import (
     association_kernel,
+    nms_kernel,
     tagging_kernel,
     tracker_kernel,
 )
 from multimodal_autonomous_driving_perception_and_planning_torch.ops.association import _greedy_associate_plain
+from multimodal_autonomous_driving_perception_and_planning_torch.ops.geometry import pairwise_iou
+from multimodal_autonomous_driving_perception_and_planning_torch.ops.nms import _nms_keep_plain
 from multimodal_autonomous_driving_perception_and_planning_torch.pipeline import check_card_limits
 from multimodal_autonomous_driving_perception_and_planning_tpu.ops.association import (
     greedy_associate as jax_greedy_associate,
@@ -57,7 +63,8 @@ def _inputs(frames, capacity):
     return dict(dets, ego_measurement=ego)
 
 
-@pytest.mark.parametrize("tracks,dets,frames", [(160, 80, 20), (256, 128, 12)], ids=["160x80", "256x128"])
+@pytest.mark.parametrize("tracks,dets,frames", [(160, 80, 20), (256, 128, 12), (1040, 24, 3)],
+                         ids=["160x80", "256x128", "1040x24"])
 def test_runner_matches_jax_beyond_the_fast_instances(tracks, dets, frames):
     inputs = _inputs(frames, dets)
     cfg_j = _config(pj, tracks, dets)
@@ -87,24 +94,27 @@ def test_runner_matches_jax_beyond_the_fast_instances(tracks, dets, frames):
 
 @pytest.mark.parametrize(
     "field,kw",
-    [("tracker.max_tracks", dict(tracks=1025, dets=16)), ("detector.max_detections", dict(tracks=64, dets=1025))],
+    [("tracker.max_tracks", dict(tracks=4097, dets=16)), ("detector.max_detections", dict(tracks=64, dets=4097))],
 )
 def test_card_runners_refuse_tables_beyond_the_kernels_when_built(field, kw):
     """The card's runners refuse a table the kernels do not take when they
     are built, naming the limit and the config field; at the limit, and on
     the CPU at any size, they build."""
-    with pytest.raises(ValueError, match=rf"{field} = 1025: the card's kernels take at most 1024"):
+    with pytest.raises(ValueError, match=rf"{field} = 4097: the card's kernels take at most 4096"):
         check_card_limits(_config(pt, **kw), torch.device("cuda"))
-    check_card_limits(_config(pt, 1024, 1024), torch.device("cuda"))
+    check_card_limits(_config(pt, 4096, 4096), torch.device("cuda"))
     check_card_limits(_config(pt, **kw), torch.device("cpu"))
 
 
 def test_wrapper_limits_are_the_general_instances():
     """The wrappers take what the kernels' general instances take (the
     kernels' launchers check the same limits), and the card runners'
-    build-time check refuses what they do not."""
-    assert tracker_kernel.MAX_TRACKS == tagging_kernel.MAX_TRACKS == 1024
-    assert tracker_kernel.MAX_DETECTIONS == association_kernel.MAX_ROWS == association_kernel.MAX_COLS == 1024
+    build-time check refuses what they do not; K5 takes every anchor of
+    yolov8 at 1,280."""
+    assert tracker_kernel.MAX_TRACKS == tagging_kernel.MAX_TRACKS == 4096
+    assert tracker_kernel.MAX_DETECTIONS == association_kernel.MAX_ROWS == association_kernel.MAX_COLS == 4096
+    assert nms_kernel.MAX_K == 160**2 + 80**2 + 40**2 == 33_600 and nms_kernel.FAST_MAX_K == 1024
+    assert nms_kernel.workspace_words(64, 8400) == (64 * 8400 * 263, 64 * 263)
 
 
 @pytest.mark.parametrize("shape", chip_smoke.LARGE_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -140,7 +150,8 @@ def _split(n: int, parts: int) -> list:
     return [(min(p * per, n), min((p + 1) * per, n)) for p in range(parts)]
 
 
-def cluster_rounds_model(iou: torch.Tensor, rank: torch.Tensor, thr: float, parts: int) -> torch.Tensor:
+def cluster_rounds_model(iou: torch.Tensor, rank: torch.Tensor, thr: float, parts: int,
+                         threads: int | None = None) -> torch.Tensor:
     """The cluster schedule of association.cuh's general instance in plain
     torch.  Each entry is the kernel's 64-bit key, (IoU key << 32) | ~(rank
     * D + d + 2^31) in 32-bit arithmetic that wraps, the IoU key its bits
@@ -149,8 +160,9 @@ def cluster_rounds_model(iou: torch.Tensor, rank: torch.Tensor, thr: float, part
     rows (over the columns not taken) and of its columns (over the rows not
     matched, keeping the row that holds it), carries the others over, and
     the exchange hands every part every row's and column's best; each part
-    then accepts every live row whose best is its column's best, and the
-    loop ends at the first round that accepts nothing."""
+    then accepts every live row whose best is its column's best, in passes
+    of ``threads`` rows (a thread a row each pass; all rows in one pass by
+    default), and the loop ends at the first round that accepts nothing."""
     T, D = iou.shape
     eligible = (iou >= thr) & (iou >= 0.0)
     key = torch.where(eligible, (iou.view(torch.int32).to(torch.int64) & 0x7FFFFFFF) + 1, 0)
@@ -190,7 +202,10 @@ def cluster_rounds_model(iou: torch.Tensor, rank: torch.Tensor, thr: float, part
         # each part makes this same decision.
         d = column_of(rowbest, base)
         ok = ~matched & (rowbest != 0)
-        accept = ok & (colbest[torch.where(ok, d, 0)] == rowbest)
+        accept = torch.zeros(T, dtype=torch.bool)
+        for t0 in range(0, T, threads or T):
+            t = slice(t0, t0 + (threads or T))
+            accept[t] = ok[t] & (colbest[torch.where(ok[t], d[t], 0)] == rowbest[t])
         if not accept.any():
             return match
         match[accept] = d[accept].to(torch.int32)
@@ -346,6 +361,11 @@ def cluster_aggregates_model(tags: dict, table, min_hits: int, ttc_critical: flo
     rec = blocks[idx[0]]
     for i in idx[1:]:
         rec = combine_records(rec, blocks[i])
+    return _aggregate_tags(rec, ttc_critical)
+
+
+def _aggregate_tags(rec: dict, ttc_critical: float) -> dict:
+    """The aggregate tags of the combined record, as the kernel writes them."""
     any_int = rec["primary"][0] != _MASK32
     tmin = np.uint32(rec["tmin"]).view(np.float32)
     critical = rec["tmin"] < _INF_BITS and tmin < np.float32(ttc_critical)
@@ -467,3 +487,189 @@ def test_type_conf_is_the_kernels_table():
     table = {codes[name]: float(np.float32(v)) for name, v in re.findall(r"k == (k\w+) \? ([0-9.]+)f", body)}
     assert table == {k: float(np.float32(v)) for k, v in TYPE_CONF.items()}
     assert all(v > 0.5 for v in TYPE_CONF.values())  # so a type present is a type some slot has
+
+
+# --- beyond 1,024 lines: the wide partitions, modelled card-free -------------
+
+# (T, D) either side of the 16-block partition's edges: a block owns 96
+# rows at T = 1,025 (the last block one), 128 at 1,537 (13 blocks' worth),
+# 256 at 4,096 (every block full); D = 513 gives blocks of 64 columns.
+WIDE_MODEL_SHAPES = ((1025, 513), (1537, 64), (4096, 160))
+WIDE_MODEL_CASES = ("random", "tied_ranks", "key_corners_thr0.3")
+CLUSTER_THREADS = 1024  # association.cuh kAssocClusterThreads: the rows a pass of the accept
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_model_case(t: int, d: int, kind: str) -> tuple:
+    """A matrix of ``kind`` at (t, d), seeded by the three, with JAX's XLA
+    fixpoint and the plain version's matches."""
+    rng = np.random.default_rng(t * 7 + d + WIDE_MODEL_CASES.index(kind))
+    iou, rank = {"random": lambda: chip_smoke.random_association(rng, t, d),
+                 "tied_ranks": lambda: chip_smoke.random_association(rng, t, d, tied=True),
+                 "key_corners_thr0.3": lambda: chip_smoke.key_corner_association(rng, t, d, 0.3)}[kind]()
+    return (iou, rank, 0.3, np.asarray(jax_greedy_associate(jnp.asarray(iou), jnp.asarray(rank), 0.3, backend="cpu")),
+            _greedy_associate_plain(torch.tensor(iou), torch.tensor(rank), 0.3).numpy())
+
+
+@pytest.mark.parametrize("kind", WIDE_MODEL_CASES)
+@pytest.mark.parametrize("shape", WIDE_MODEL_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_wide_cluster_round_model_matches_plain_and_jax(shape, kind, one_thread):
+    """The cluster schedule at 16 blocks of more than 64 lines each, its
+    accept in passes of 1,024 rows (a thread a row each pass, as
+    association.cuh `cluster_associate` decides beyond 1,024 rows), bit
+    for bit the plain version and JAX's fixpoint on random, tied-rank and
+    key-order-corner matrices (ranks whose rank * D + column wraps in
+    int32).  A copy of the model whose accept runs only its first pass
+    (rows 0-1,023, the one-pass accept of the 1,024-line kernel) fails 7
+    of the 10 cases of this test and the next: every one at 1,537 and
+    4,096 slots and one at 1,025."""
+    t, d = shape
+    assert max(r1 - r0 for r0, r1 in _split(t, 16)) > 64
+    iou, rank, thr, want, plain = _wide_model_case(t, d, kind)
+    got = cluster_rounds_model(torch.tensor(iou), torch.tensor(rank), thr, 16, threads=CLUSTER_THREADS).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, plain)
+    assert (got >= 0).any() and (t < 1100 or (got[CLUSTER_THREADS:] >= 0).any())
+
+
+def test_wide_cluster_round_model_on_the_staircase(one_thread):
+    """The staircase at (1,100, 40), one pair a round, every live line
+    stale each round, over 16 blocks of 96 rows and passes of 1,024 rows:
+    the plain version's and JAX's matches."""
+    iou, rank = chip_smoke.ladder_iou(1100, 40, 0.25), np.arange(1100, dtype=np.int32)
+    want = np.asarray(jax_greedy_associate(jnp.asarray(iou), jnp.asarray(rank), 0.3, backend="cpu"))
+    got = cluster_rounds_model(torch.tensor(iou), torch.tensor(rank), 0.3, 16, threads=CLUSTER_THREADS).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _greedy_associate_plain(torch.tensor(iou), torch.tensor(rank), 0.3).numpy())
+    np.testing.assert_array_equal(got, np.arange(1100) * (np.arange(1100) < 40) - (np.arange(1100) >= 40))
+
+
+def tag_plan(T: int) -> tuple[int, int]:
+    """tagging_step.cu `tag_plan`: (blocks, slots a block), blocks of at
+    most 128 slots up to 1,024 slots and of 256 beyond, the warps split
+    evenly."""
+    warps = -(-T // 32)
+    per = (256 if T > 1024 else 128) // 32
+    c = -(-warps // per)
+    return c, 32 * -(-warps // c)
+
+
+def wide_aggregates_model(tags: dict, table, min_hits: int, ttc_critical: float, T: int, order) -> dict:
+    """K3's general instance beyond 32 warp records in plain Python: every
+    slot warp of every block of `tag_plan` makes its record (records in
+    block-major order, a warp past T the empty record), block 0's combine
+    warp folds records l, l + 32, ... into lane l's in turn, and the lanes'
+    records combine in the order ``order(n)`` gives.  Returns the aggregate
+    tags as `cluster_aggregates_model` does."""
+    blocks, rows = tag_plan(T)
+    recs = [warp_record(tags, table, min_hits, r * rows + w0, T) for r in range(blocks) for w0 in range(0, rows, 32)]
+    lanes = []
+    for lane in range(min(32, len(recs))):
+        rec = recs[lane]
+        for k in range(lane + 32, len(recs), 32):
+            rec = combine_records(rec, recs[k])
+        lanes.append(rec)
+    idx = order(len(lanes))
+    return _aggregate_tags(functools.reduce(combine_records, [lanes[i] for i in idx]), ttc_critical)
+
+
+@pytest.mark.parametrize("frames_mode", [False, True], ids=["detections", "frames"])
+@pytest.mark.parametrize("stream", sorted(AGG_STREAMS))
+def test_wide_plan_aggregates_match_plain_and_jax(stream, frames_mode, one_thread):
+    """K3's 16-block plan of 256 slots a block at T = 4,096 (128 warp
+    records, four a lane of the combine warp): every aggregate tag bit for
+    bit the plain version's and the JAX package's, the lanes' records
+    combined forward, reversed and shuffled, on the random and the crafted
+    streams, in both modes.  A copy whose combine warp takes one record a
+    lane (the first 32, as the 1,024-slot kernel did) fails all four."""
+    t, d = 4096, 80
+    assert tag_plan(t) == (16, 256) and tag_plan(1024) == (8, 128) and tag_plan(1025) == (5, 224)
+    rules, frames = _aggregate_stream(t, d, stream, frames_mode)
+    ttc_critical = float(rules.params[list(tagging_kernel.PARAM_NAMES).index("ttc_critical")])
+    shuffle = np.random.default_rng(t)
+    orders = {"forward": lambda n: list(range(n)), "reversed": lambda n: list(range(n))[::-1],
+              "shuffled": lambda n: shuffle.permutation(n).tolist()}
+    for f, (table, tags, tags_j, _) in enumerate(frames):
+        for name, order in orders.items():
+            got = wide_aggregates_model(tags, table, rules.min_hits, ttc_critical, t, order)
+            for k in AGG_TAGS:
+                _same_bits(got[k], tags[k].numpy(), f"frame {f} {name}: {k} against the plain version")
+                _same_bits(got[k], tags_j[k], f"frame {f} {name}: {k} against JAX")
+
+
+# --- K5's large instance: the mask and the scan, modelled card-free ----------
+
+NMS_MODEL_CASES = ("three_level_next_word", "early_box_every_word", "iou_at_threshold", "iou_above_threshold",
+                   "near_threshold_0.45", "thr_zero_touching", "thr_negative", "thr_above_one", "class_offset_79",
+                   "degenerate_boxes_thr0", "nan_inf_coords", "dead_between_live", "K255_B3")
+
+
+def mask_and_scan_model(boxes: torch.Tensor, scores: torch.Tensor, thr: float) -> torch.Tensor:
+    """nms_keep.cu's large instance in plain torch and numpy, image by
+    image: the mask, word w of row i bit k set where iou(i, 32 w + k) >
+    thr and 32 w + k > i (the port's contracted `pairwise_iou`), and `nz`,
+    the rows with a bit in a word past their own; then the scan, a word at
+    a time: the word's candidates (not removed: dead ones and those past K
+    start removed), their own suppressions solved by the fixpoint keep =
+    cand & ~OR_{b kept} diag_b, and every kept row with a later bit ORed
+    into the later words."""
+    B, K = scores.shape
+    W = -(-K // 32)
+    keep = np.zeros((B, K), bool)
+    idx = torch.arange(K)
+    for b in range(B):
+        S = (pairwise_iou(boxes[b], boxes[b]) > thr) & (idx[None, :] > idx[:, None])
+        bits = np.zeros((32 * W, 32 * W), bool)
+        bits[:K, :K] = S.numpy()
+        mask = np.packbits(bits.reshape(32 * W, W, 32), axis=-1, bitorder="little").view("<u4")[..., 0]
+        later = np.array([mask[i, i // 32 + 1:].any() for i in range(32 * W)])
+        nz = np.packbits(later.reshape(W, 32), axis=-1, bitorder="little").view("<u4")[:, 0]
+        alive = np.zeros(32 * W, bool)
+        alive[:K] = (scores[b] > 0).numpy()
+        removed = ~np.packbits(alive.reshape(W, 32), axis=-1, bitorder="little").view("<u4")[:, 0]
+        for w in range(W):
+            cand = int(~removed[w] & 0xFFFFFFFF)
+            diag = [int(v) for v in mask[32 * w:32 * w + 32, w]]
+            kept = cand
+            while True:
+                hit = 0
+                for lane in range(32):
+                    if kept >> lane & 1:
+                        hit |= diag[lane]
+                nxt = cand & ~hit
+                if nxt == kept:
+                    break
+                kept = nxt
+            keep[b, 32 * w:min(32 * w + 32, K)] = [(kept >> lane) & 1 for lane in range(min(32, K - 32 * w))]
+            for lane in range(32):
+                if (kept & int(nz[w])) >> lane & 1:
+                    removed[w + 1:] |= mask[32 * w + lane, w + 1:]
+    return torch.from_numpy(keep)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_keep(thr):
+    from multimodal_autonomous_driving_perception_and_planning_tpu.ops.nms import nms_keep_xla
+
+    return jax.jit(jax.vmap(lambda b, s: nms_keep_xla(b, s, thr)))
+
+
+@pytest.mark.parametrize("k", (1100, 2500))
+@pytest.mark.parametrize("name", NMS_MODEL_CASES)
+def test_mask_and_scan_model_matches_plain_and_jax(name, k, one_thread):
+    """K5's large instance, modelled (`mask_and_scan_model`), on
+    `chip_smoke.nms_cases`' corners scaled past 1,024 candidates
+    (`chip_smoke.scale_nms_case`: each pool tiled to K, every copy a twin
+    of the first, so kept boxes suppress their twins across many words):
+    bit for bit the plain fixpoint and JAX's XLA fixpoint, jitted.  A copy
+    of the model whose scan keeps every candidate of a word (no in-word
+    fixpoint) fails 20 of these 26 cases; one that ORs a kept row into the
+    next word only fails 24."""
+    case = chip_smoke.nms_cases()[name]
+    case = chip_smoke.scale_nms_case(case, case.scores.shape[0], k)
+    boxes, scores = torch.tensor(case.boxes), torch.tensor(case.scores)
+    got = mask_and_scan_model(boxes, scores, case.thr)
+    plain = _nms_keep_plain(boxes, scores, case.thr)
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(_jax_keep(case.thr)(jnp.asarray(case.boxes),
+                                                                              jnp.asarray(case.scores))))

@@ -182,17 +182,19 @@ def test_optional_inputs_forwarded_and_unknown_keys_raise():
 
 def test_other_configurations_refused():
     """Frames mode (the default configuration) builds, with tagging on or
-    off, and so does detections mode; a Hough theta grid whose XLA tables
-    the port does not carry is refused."""
+    off, and so does detections mode; so does any Hough theta grid (60
+    thetas: the port computes XLA's tables of every grid), and a grid of
+    no theta is refused."""
     for tagging in (False, True):
         cfg = pt.DEFAULT_CONFIG.replace(enable_tagging=tagging)
         pt.make_sequence_runner(cfg, device="cpu")
         pt.make_pipeline_step(cfg, device="cpu")
         odd = cfg.replace(lanes=dataclasses.replace(cfg.lanes, num_thetas=60))
-        with pytest.raises(NotImplementedError, match=r"carried for \[90, 180\] thetas only"):
-            pt.make_sequence_runner(odd, device="cpu")
-        with pytest.raises(NotImplementedError, match=r"carried for \[90, 180\] thetas only"):
-            pt.make_pipeline_step(odd, device="cpu")
+        pt.make_sequence_runner(odd, device="cpu")
+        pt.make_pipeline_step(odd, device="cpu")
+        empty = cfg.replace(lanes=dataclasses.replace(cfg.lanes, num_thetas=0))
+        with pytest.raises(ValueError, match=r"num_thetas=0: the grid needs at least one theta"):
+            pt.make_sequence_runner(empty, device="cpu")
     pt.make_sequence_runner(pt.DEFAULT_CONFIG.replace(use_frames=False), device="cpu")
 
 
