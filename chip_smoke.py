@@ -111,8 +111,9 @@ Phases, each printing one JSON line:
      the key-order corners with ranks whose keys wrap in int32 at these D,
      and the staircase and all-equal ladders, 4,097 rounds at 4,096 x
      4,096); K3 at 1,025, 2,048 and 4,096 slots in both modes and on the
-     crafted stream at 4,096; K5's large instance (a mask in a device
-     workspace and a scan) at (64, 1,025), (64, 8,400) and (2, 33,600) on
+     crafted stream at 4,096; K5's large instance (a mask kernel into a
+     device workspace and a scan kernel by tiles of words) at (64, 1,025),
+     (64, 8,400) and (2, 33,600) on
      `nms_cases` tiled past 1,024 and a chain across every word, and off
      16-byte alignment; K1 at 8 lanes at (2,048, 300); each bit for bit
      its plain version;
@@ -225,12 +226,20 @@ Phases, each printing one JSON line:
      (`lane_times`) K1-K3 at B = 1, 8 and 64 beside their bounds, and the
      tagging path's lane-frames/s at B = 1, 8 and 64, in turns; then
      (`large_times`) K1 and K4's general instances at (64, 300), (160, 80),
-     (256, 128), (1,024, 1,024) and the four wide shapes, K3's at (160,
-     80), (256, 128), (1,024, 1,024) and 1,025, 2,048 and 4,096 slots in
-     both modes and its small instance at (128, 64) as the yardstick, K5's
-     large instance at (64, 8,400) and (2, 33,600), by CUDA events and a
-     profiler trace, beside their bounds, plain versions, cluster sizes and
-     rounds, and K4 on the staircase, a round's device time (`round_cost`);
+     (256, 128), (1,024, 1,024), (1,024, 64) (K1 ranked by one block's
+     sort, beside (1,025, 64) ranked by counting) and the four wide shapes,
+     K3's at (160, 80), (256, 128), (1,024, 1,024) and 1,025, 2,048 and
+     4,096 slots in both modes and its small instance at (128, 64) as the
+     yardstick, K5's large instance at (64, 8,400) and (2, 33,600), by CUDA
+     events and a profiler trace, beside their bounds, plain versions,
+     cluster sizes and rounds, with each instance's device time by kernel
+     (K1's rank and stage kernels against its cluster kernel, K5's mask
+     against its scan), and K4 on the staircase, a round's device time
+     (`round_cost`); and K1's cluster kernel by phase (`k1_phases`: loads,
+     id rank, staging, rounds, ring copy, updates, confirmed order, in
+     clock64() cycles, from tracker_step.cu built with
+     -DMADPP_PHASE_CLOCKS beside the kernels' own build) at (1,024, 64),
+     (1,025, 64) and (4,096, 1,024);
      then (`large_paths`) the YOLO path at max_detections=300 (float32,
      score 0.05, 300 frames in 5 chunks of 64: K1 at (64, 300) every
      frame) and ROADMAP §3's tagging path (160 slots, 80 detections, 300
@@ -4218,8 +4227,70 @@ def large_kernel_inputs(device, t: int, d: int) -> dict:
             "association": association_inputs(table, dets)}
 
 
+SORT_YARDSTICK = (1024, 64)  # K1 ranked by one block's sort, beside WIDE_SHAPES[0] ranked by counting
+K1_STAGED_KERNELS = ("tracker_rank_kernel", "tracker_stage_kernel")  # before the cluster, where keys leave smem
+K1_CLUSTER_KERNEL = "tracker_step_general"
+
+
+def k1_kernels(t: int, d: int, length: int) -> tuple:
+    """The kernels one launch of K1's general instance at (t, d) runs: the
+    cluster kernel, after the rank and stage kernels where the keys leave
+    shared memory (the wrapper then allocates their scratch)."""
+    staged = tracker_kernel.scratch_words(t, d, length) > 0
+    return (K1_STAGED_KERNELS if staged else ()) + (K1_CLUSTER_KERNEL,)
+
+
+def whole_calls(records, names: tuple) -> list:
+    """The calls in a trace's ``records`` of a function that launches the
+    kernels ``names`` in that order, each the list of its records; a call
+    the trace did not show whole is left out."""
+    mine = sorted((e for e in records if any(n in e.name for n in names)), key=lambda e: e.time_range.start)
+    calls, call = [], []
+    for e in mine:
+        if names[0] in e.name and call:
+            calls.append(call)
+            call = []
+        call.append(e)
+    calls.append(call)
+    return [c for c in calls if [next(n for n in names if n in e.name) for e in c] == list(names)]
+
+
+def call_span_us(calls: list):
+    """The mean µs from a call's first kernel's start to its last one's
+    end over ``calls`` (`whole_calls`), None where there are none."""
+    return sum(c[-1].time_range.end - c[0].time_range.start for c in calls) / len(calls) if calls else None
+
+
+HOST_AHEAD_CYCLES_PER_CALL = 400_000  # about 200 us of a device sleep a call: the host's enqueue of one call
+
+
+def kernels_device_ms(run_once, names: tuple, reps: int, tries: int = 3) -> tuple:
+    """Each call of ``run_once`` launches the kernels ``names`` in that
+    order.  From one profiler trace of ``reps`` calls, enqueued behind a
+    device sleep long enough for the host to enqueue them all (so that no
+    gap between a call's kernels is the host's): each kernel's mean device
+    ms, the mean ms from a call's first kernel's start to its last one's
+    end (its device time), and the calls the trace showed whole (at least
+    80%, else traced again)."""
+
+    def body():
+        torch.cuda._sleep(HOST_AHEAD_CYCLES_PER_CALL * reps)
+        for _ in range(reps):
+            run_once()
+
+    for attempt in range(tries):
+        _, records = card_trace(body)
+        whole = whole_calls(records, names)
+        if len(whole) >= reps * 4 // 5:
+            by_kernel = {n: sum(c[i].time_range.elapsed_us() for c in whole) / len(whole) / 1e3
+                         for i, n in enumerate(names)}
+            return by_kernel, call_span_us(whole) / 1e3, len(whole)
+        print(f"# trace {attempt + 1} of {tries} showed {len(whole)} whole calls of {reps}", file=sys.stderr)
+    raise AssertionError(f"the profiler showed fewer than {reps * 4 // 5} whole calls of {names} in {tries} traces")
+
+
 def measure_large_kernels(device, reps: int = 200) -> dict:
-    """K1 and K4's general instances at GENERAL_SHAPES and WIDE_SHAPES,
+    """K1 and K4's general instances at GENERAL_SHAPES, SORT_YARDSTICK and WIDE_SHAPES,
     K3's at LARGE_SHAPES and at WIDE_TAG_SIZES slots (the first three
     WIDE_SHAPES) in both modes (``tagging_step``, ``tagging_step_frames``)
     and, as its yardstick, K3's small instance at K3_YARDSTICK: ms a call
@@ -4229,7 +4300,7 @@ def measure_large_kernels(device, reps: int = 200) -> dict:
     the thread block cluster each launch takes and the association's
     rounds.  The trace names each instance's kernel."""
     out = {}
-    for t, d in GENERAL_SHAPES + WIDE_SHAPES:
+    for t, d in GENERAL_SHAPES + (SORT_YARDSTICK,) + WIDE_SHAPES:
         n = reps if t < 1024 else reps // 10
         x = large_kernel_inputs(device, t, d)
         cfg, table, dets = x["cfg"], x["table"], x["dets"]
@@ -4258,16 +4329,20 @@ def measure_large_kernels(device, reps: int = 200) -> dict:
             "tracker_step": lambda: plain_tracker_step(table, dets, cfg),
             "associate": lambda: _greedy_associate_plain(iou, rank, cfg.iou_threshold),
         }
-        launchers = {"tracker_step": (k1, "tracker_step_general"), "associate": (k4, "associate_general_kernel")}
+        launchers = {"tracker_step": (k1, K1_CLUSTER_KERNEL), "associate": (k4, "associate_general_kernel")}
         counted = {"tracker_step": k1_m, "associate": k4_m}
         if (t, d) in LARGE_SHAPES or (t in WIDE_TAG_SIZES and (t, d) != WIDE_SHAPES[-1]):
             k3_timings(x, launchers, counted, plain, "tagging_step_cluster")
         ms = {name: time_cuda(fn, n, warmup=5) for name, (fn, _) in launchers.items()}
         # One trace a kernel, kept when it saw 80% of the launches: a trace
-        # of 100 general K1 launches dropped 12 of them on an H100.
+        # of 100 general K1 launches dropped 12 of them on an H100.  K1's
+        # device time is its kernels' (rank, stage and cluster) together.
         traced = min(n, 100)
         dev = {name: next(iter(device_times({name: launcher}, reps=traced, min_seen=traced * 4 // 5).values()))
-               for name, launcher in launchers.items()}
+               for name, launcher in launchers.items() if name != "tracker_step"}
+        k1_by, k1_ms, k1_seen = kernels_device_ms(k1, k1_kernels(t, d, cfg.trajectory_length), traced)
+        dev["tracker_step"] = (k1_ms, k1_seen)
+        k1_m["device_ms_by_kernel"] = k1_by
         out[f"{t}x{d}"] = {name: _timed(m, ms[name], dev[name], time_cuda(plain[name], 5, warmup=1))
                            for name, m in counted.items()}
     # The yardstick of K3's general instance: its small instance at T = 128,
@@ -4281,6 +4356,90 @@ def measure_large_kernels(device, reps: int = 200) -> dict:
     out[f"{t}x{d}"] = {name: _timed(m, time_cuda(launchers[name][0], reps, warmup=5), dev[name],
                                     time_cuda(plain[name], 5, warmup=1))
                        for name, m in counted.items()}
+    return out
+
+
+PHASE_SHAPES = (SORT_YARDSTICK, (1025, 64), (4096, 1024))
+PHASES = ("loads", "id_rank", "staging", "rounds", "ring_copy", "updates", "confirmed_order")
+PHASE_LIB = "libtracker_phases.so"
+
+
+def start_phase_build():
+    """Starts nvcc on tracker_step.cu with -DMADPP_PHASE_CLOCKS (the cluster
+    kernel's clock64() reads, tracker_step.cu `PHASE_MARK`) into the build
+    directory, in the background beside the kernels' own build; returns the
+    process and the library's path."""
+    from torch.utils import cpp_extension
+
+    nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = build.BUILD_DIR / PHASE_LIB
+    cmd = [nvcc, *build.NVCC_FLAGS, "-DMADPP_PHASE_CLOCKS", "-shared", "-Xcompiler", "-fPIC", "-o", str(target),
+           str(build.CSRC / "tracker_step.cu")]
+    return subprocess.Popen(cmd), target
+
+
+class _Swapped:
+    """A kernels library with some of its functions swapped; every other
+    name is the library's own."""
+
+    def __init__(self, lib, swap: dict):
+        self._lib, self._swap = lib, swap
+
+    def __getattr__(self, name):
+        return self._swap[name] if name in self._swap else getattr(self._lib, name)
+
+
+@contextlib.contextmanager
+def kernels_with(**swap):
+    """`build.kernels()` with some of its functions swapped (the wrappers
+    call through it), restored on exit."""
+    lib = build.kernels()
+    build._kernels = _Swapped(lib, swap)
+    try:
+        yield
+    finally:
+        build._kernels = lib
+
+
+def measure_phases(device, job, reps: int = 6) -> dict:
+    """The cluster kernel's phases at PHASE_SHAPES, from the phase-clock
+    build (`start_phase_build`) launched through the wrapper: each phase's
+    cycles on the slowest block of the cluster and on block 0, the mean of
+    ``reps`` launches after one, and each phase's share of the slowest
+    block's total."""
+    proc, target = job
+    if proc.wait() != 0:
+        raise RuntimeError(f"the phase-clock build of tracker_step.cu failed ({proc.returncode})")
+    lib = ctypes.CDLL(str(target))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.madpp_tracker_step.argtypes = [vp] * 19 + [ci, ci, ci, ci, cf, ci, ci, vp]
+    lib.madpp_tracker_step.restype = ci
+    lib.madpp_tracker_phases.argtypes = [vp]
+    lib.madpp_tracker_phases.restype = ci
+    marks = (ctypes.c_longlong * (16 * len(PHASES) + 16))()
+    out = {}
+    for t, d in PHASE_SHAPES:
+        x = large_kernel_inputs(device, t, d)
+        cfg, table, dets = x["cfg"], x["table"], x["dets"]
+        runs = []
+        with kernels_with(tracker_step=lib.madpp_tracker_step):
+            for _ in range(reps + 1):
+                tracker_kernel.tracker_step(table, dets, cfg, cfg.min_hits)
+                torch.cuda.synchronize()
+                if lib.madpp_tracker_phases(ctypes.addressof(marks)) != 0:
+                    raise RuntimeError("madpp_tracker_phases failed")
+                c = tracker_kernel.cluster_size(t, d, cfg.trajectory_length)
+                m = np.array(marks[:16 * (len(PHASES) + 1)], dtype=np.int64).reshape(16, -1)[:c]
+                runs.append(np.diff(m, axis=1))
+        cycles = np.mean(runs[1:], axis=0)  # (blocks, phases)
+        slowest = cycles[int(np.argmax(cycles.sum(axis=1)))]
+        out[f"{t}x{d}"] = {
+            "cluster": int(cycles.shape[0]),
+            "cycles_slowest_block": dict(zip(PHASES, slowest.round(1).tolist())),
+            "cycles_block0": dict(zip(PHASES, cycles[0].round(1).tolist())),
+            "share_slowest_block": dict(zip(PHASES, (slowest / slowest.sum()).round(4).tolist())),
+        }
     return out
 
 
@@ -4359,9 +4518,10 @@ def measure_wide_nms(device, params: dict) -> dict:
     """K5's large instance (the mask and the scan) at (64, 8,400), the pools
     of `yolo_all_anchors`' chunk (every anchor of the first 64 float32
     frames, as `nms` builds them), and at (2, 33,600), tie-quantized random
-    pools: ms a call by CUDA events, device ms (both kernels, from a
-    profiler trace), the plain version's ms, and the bound, counted on the
-    data as `measure_nms_kernel` counts it."""
+    pools: ms a call by CUDA events, device ms (from the mask kernel's
+    start to the scan kernel's end, and each kernel's, from a profiler
+    trace, `kernels_device_ms`), the plain version's ms, and the bound,
+    counted on the data as `measure_nms_kernel` counts it."""
     cands = yolo_chunk_candidates(device, params)
     scores, _, _, boxes = nms_prefilter(cands["boxes"], cands["scores"], cands["classes"],
                                         YOLO_F32["score_threshold"], YOLO_ANCHORS_640)
@@ -4384,25 +4544,25 @@ def measure_wide_nms(device, params: dict) -> dict:
              "operations": int(16 * (alive * (alive - 1) // 2).sum() + math.ceil(sc.shape[1] / 32) * keep.sum()),
              "shape": list(sc.shape), "kept": int(keep.sum()),
              "workspace_bytes": 4 * sum(nms_kernel.workspace_words(*sc.shape))}
-        times = traced_device_us(lambda launch=launch: [launch() for _ in range(20)],
-                                 {"nms_mask_kernel", "nms_scan_kernel"}, 20)
-        m["device_ms"] = sum(sum(t) / len(t) for t in times.values()) / 1e3
-        m["device_ms_by_kernel"] = {k: sum(t) / len(t) / 1e3 for k, t in times.items()}
+        m["device_ms_by_kernel"], m["device_ms"], m["profiled_launches"] = kernels_device_ms(
+            launch, ("nms_mask_kernel", "nms_scan_kernel"), 20)
         t_bytes = m["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = m["operations"] / PEAK_F32_PER_S * 1e3
         m["bound_ms"], m["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         out[name] = {"nms_keep": m}
     return out
 
-def _path_trace(run, kernel: str) -> dict:
+def _path_trace(run, k1_names: tuple) -> dict:
     """One profiler trace of ``run()``: the wall time, the device's busy
-    share, and ``kernel``'s launches and mean device microseconds."""
+    share, and K1's launches (the calls of its kernels ``k1_names`` the
+    trace shows whole) and mean device microseconds a launch, from its
+    first kernel's start to its last one's end."""
     wall_s, on_device = card_trace(run)
     busy_us = sum(e.time_range.elapsed_us() for e in on_device)
-    k = [e.time_range.elapsed_us() for e in on_device if kernel in e.name]
+    k1 = whole_calls(on_device, k1_names)
     return {"wall_us": wall_s * 1e6, "device_busy_us": busy_us, "busy_share": busy_us / (wall_s * 1e6),
-            "device_items": len(on_device), f"{kernel}_launches": len(k),
-            f"{kernel}_device_us": sum(k) / len(k) if k else None}
+            "device_items": len(on_device), "k1_kernels": list(k1_names), "k1_launches": len(k1),
+            "k1_device_us": call_span_us(k1)}
 
 
 def measure_large_paths(device, params: dict, frames, ego, rounds: int = 2, profiled_frames: int = 100) -> dict:
@@ -4438,17 +4598,18 @@ def measure_large_paths(device, params: dict, frames, ego, rounds: int = 2, prof
     on_card = {k: torch.as_tensor(v).to(device) for k, v in large_tagging_inputs().items()}
     wide_inputs = {k: v.to(device) for k, v in wide_tagging_inputs().items()}
     road_inputs = {k: torch.as_tensor(v).to(device) for k, v in frames_inputs(WIDE_FRAMES_FRAMES).items()}
-    runners = {  # name: (config, run(state, n), frames, K1's kernel in a trace)
+    length = yolo_cfg.tracker.trajectory_length
+    runners = {  # name: (config, run(state, n), frames, K1's kernels in a trace)
         "yolo_max_det_300": (yolo_cfg, lambda s, n: yolo_run(params, s, frames[:n], ego[:n]), len(frames),
-                             "tracker_step_general"),
+                             k1_kernels(64, YOLO_MAX_DET, length)),
         "tagging_160x80": (tag_cfg, pt.make_sequence_runner(tag_cfg, device=device), LARGE_FRAMES,
-                           "tracker_step_general"),
+                           k1_kernels(160, 80, tag_cfg.tracker.trajectory_length)),
         "yolo_all_anchors": (yolo_cfg, lambda s, n: anchors_run(params, s, frames[:n], ego[:n]), YOLO_BATCH,
-                             "tracker_step_general"),
+                             k1_kernels(64, YOLO_MAX_DET, length)),
         "tagging_4096": (wide_cfg, pt.make_sequence_runner(wide_cfg, device=device), WIDE_TAG_FRAMES,
-                         "tracker_step_general"),
+                         k1_kernels(4096, 1024, wide_cfg.tracker.trajectory_length)),
         "frames_360": (road_cfg, pt.make_sequence_runner(road_cfg, device=device), WIDE_FRAMES_FRAMES,
-                       "tracker_step_kernel"),
+                       ("tracker_step_kernel",)),
     }
     inputs = {"tagging_160x80": on_card, "tagging_4096": wide_inputs, "frames_360": road_inputs}
 
@@ -4475,14 +4636,14 @@ def measure_large_paths(device, params: dict, frames, ego, rounds: int = 2, prof
         for name in names + names[::-1]:
             times[name].append(timed(name))
     for name in names:
-        n, kernel = runners[name][2], runners[name][3]
+        n, k1_names = runners[name][2], runners[name][3]
         _zero_counts()
         call(name, n)
         torch.cuda.synchronize()
         traced = min(n, profiled_frames if name != "frames_360" else WIDE_FRAMES_PROFILED)
         out.setdefault(name, {}).update(
             frames=n, seconds=times[name], frames_per_s=n / min(times[name]), launches=_read_counts(),
-            profiled={"frames": traced, **_path_trace(lambda name=name: timed(name, traced), kernel)})
+            profiled={"frames": traced, **_path_trace(lambda name=name: timed(name, traced), k1_names)})
     out["clusters"] = {"k1_64x300": tracker_kernel.cluster_size(64, YOLO_MAX_DET, yolo_cfg.tracker.trajectory_length),
                        "k1_160x80": tracker_kernel.cluster_size(160, 80, tag_cfg.tracker.trajectory_length),
                        "k1_4096x1024": tracker_kernel.cluster_size(4096, 1024, wide_cfg.tracker.trajectory_length),
@@ -5865,6 +6026,7 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
+    phase_job = start_phase_build()
     lib = build.kernels()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "binding": type(lib).__name__})
 
@@ -5949,7 +6111,8 @@ def main(argv) -> int:
     large_times = measure_large_kernels(device)
     wide_nms = measure_wide_nms(device, params)
     emit({"phase": "large_times", "card": smi, "kernels": {**large_times, **wide_nms},
-          "round_cost": measure_round_cost(device), "seconds": time.perf_counter() - t0})
+          "round_cost": measure_round_cost(device), "k1_phases": measure_phases(device, phase_job),
+          "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     emit({"phase": "large_paths", "card": smi, **measure_large_paths(device, params, frames, ego),
           "result": "both paths equal their CPU runs", "seconds": time.perf_counter() - t0})

@@ -366,7 +366,11 @@ __device__ inline void greedy_associate(const float* iou, int ld, unsigned* keys
 //    keys in a row), each the 32-bit `assoc_key`, staged once a launch
 //    (K1: `stage_general_keys`, K4: `stage_rows`, `stage_cols`): every key
 //    is computed twice, by its row's owner and by its column's owner, so no block ever needs another's keys, and
-//    no round divides or reads a float.  The lines live in the block's
+//    no round divides or reads a float.  Where K1's keys leave shared
+//    memory, kernels before the cluster compute each key once over the
+//    whole card (tracker_step.cu `tracker_stage_kernel`), with each line's
+//    chunk masks, by which the rounds skip chunks with no eligible key
+//    (`LineMasks`).  The lines live in the block's
 //    shared memory where they fit (the launchers' plans, `keys_in_smem`),
 //    else in a device scratch the wrapper allocates (4 MB of keys, 8 MB
 //    with both layouts, at 1,024 x 1,024; 128 MB at 4,096 x 4,096, beyond
@@ -532,27 +536,57 @@ __device__ __forceinline__ unsigned long long line_entry(unsigned k, bool live, 
 
 // The best live entry of a row line, on a warp: `base` is the row's
 // tie-break base (rank * D + 2^31), column d's tie-break key base + d.
+// Entries 4 q .. 4 q + 3 of a row line into `best`: `base` is the row's
+// tie-break base, columns taken in `taken` dead.
+__device__ __forceinline__ void row_quad(const uint4* l4, int q, const unsigned* taken, unsigned base,
+                                         unsigned long long& best) {
+  const uint4 k = l4[q];
+  const unsigned live = ~(taken[q >> 3] >> ((4 * q) & 31));
+  const unsigned d = base + 4u * q;
+  unsigned long long e0 = line_entry(k.x, live & 1u, d), e1 = line_entry(k.y, live & 2u, d + 1u);
+  unsigned long long e2 = line_entry(k.z, live & 4u, d + 2u), e3 = line_entry(k.w, live & 8u, d + 3u);
+  e0 = e1 > e0 ? e1 : e0;
+  e2 = e3 > e2 ? e3 : e2;
+  e0 = e2 > e0 ? e2 : e0;
+  best = e0 > best ? e0 : best;
+}
+
 __device__ inline unsigned long long row_line_best(const unsigned* line, int n4, const unsigned* taken,
                                                    unsigned base) {
   const uint4* l4 = reinterpret_cast<const uint4*>(line);
   unsigned long long best = 0ull;
 #pragma unroll 4
-  for (int q = threadIdx.x & 31; q < n4; q += 32) {
-    const uint4 k = l4[q];
-    const unsigned live = ~(taken[q >> 3] >> ((4 * q) & 31));
-    const unsigned d = base + 4u * q;
-    unsigned long long e0 = line_entry(k.x, live & 1u, d), e1 = line_entry(k.y, live & 2u, d + 1u);
-    unsigned long long e2 = line_entry(k.z, live & 4u, d + 2u), e3 = line_entry(k.w, live & 8u, d + 3u);
-    e0 = e1 > e0 ? e1 : e0;
-    e2 = e3 > e2 ? e3 : e2;
-    e0 = e2 > e0 ? e2 : e0;
-    best = e0 > best ? e0 : best;
-  }
+  for (int q = threadIdx.x & 31; q < n4; q += 32) row_quad(l4, q, taken, base, best);
   return warp_max_u64(best);
 }
 
 // The best live entry of column line d, on a warp, and its row (`*arg`):
 // row t's tie-break key is rank[t] * D + d + 2^31 (`dcol` = d + 2^31).
+// Entries 4 q .. 4 q + 3 of a column line into `best` and its row `at`:
+// rows matched in `matched` dead.
+__device__ __forceinline__ void col_quad(const uint4* l4, const int4* r4, int q, const unsigned* matched, unsigned D,
+                                         unsigned dcol, unsigned long long& best, int& at) {
+  const uint4 k = l4[q];
+  const int4 r = r4[q];
+  const unsigned live = ~(matched[q >> 3] >> ((4 * q) & 31));
+  const unsigned long long e0 = line_entry(k.x, live & 1u, (unsigned)r.x * D + dcol);
+  const unsigned long long e1 = line_entry(k.y, live & 2u, (unsigned)r.y * D + dcol);
+  const unsigned long long e2 = line_entry(k.z, live & 4u, (unsigned)r.z * D + dcol);
+  const unsigned long long e3 = line_entry(k.w, live & 8u, (unsigned)r.w * D + dcol);
+  if (e0 > best) best = e0, at = 4 * q;
+  if (e1 > best) best = e1, at = 4 * q + 1;
+  if (e2 > best) best = e2, at = 4 * q + 2;
+  if (e3 > best) best = e3, at = 4 * q + 3;
+}
+
+// The line's best and, in `arg`, its row: the least lane's among equal
+// bests (entries never tie: their tie-break keys differ).
+__device__ __forceinline__ unsigned long long col_best_of_warp(unsigned long long best, int at, int* arg) {
+  const unsigned long long m = warp_max_u64(best);
+  *arg = __reduce_min_sync(0xffffffffu, best == m ? (unsigned)at : 0xffffffffu);
+  return m;
+}
+
 __device__ inline unsigned long long col_line_best(const unsigned* line, int n4, const unsigned* matched,
                                                    const int* rank, unsigned D, unsigned dcol, int* arg) {
   const uint4* l4 = reinterpret_cast<const uint4*>(line);
@@ -560,22 +594,71 @@ __device__ inline unsigned long long col_line_best(const unsigned* line, int n4,
   unsigned long long best = 0ull;
   int at = 0;
 #pragma unroll 2
-  for (int q = threadIdx.x & 31; q < n4; q += 32) {
-    const uint4 k = l4[q];
-    const int4 r = r4[q];
-    const unsigned live = ~(matched[q >> 3] >> ((4 * q) & 31));
-    const unsigned long long e0 = line_entry(k.x, live & 1u, (unsigned)r.x * D + dcol);
-    const unsigned long long e1 = line_entry(k.y, live & 2u, (unsigned)r.y * D + dcol);
-    const unsigned long long e2 = line_entry(k.z, live & 4u, (unsigned)r.z * D + dcol);
-    const unsigned long long e3 = line_entry(k.w, live & 8u, (unsigned)r.w * D + dcol);
-    if (e0 > best) best = e0, at = 4 * q;
-    if (e1 > best) best = e1, at = 4 * q + 1;
-    if (e2 > best) best = e2, at = 4 * q + 2;
-    if (e3 > best) best = e3, at = 4 * q + 3;
+  for (int q = threadIdx.x & 31; q < n4; q += 32) col_quad(l4, r4, q, matched, D, dcol, best, at);
+  return col_best_of_warp(best, at, arg);
+}
+
+// Chunk masks of a block's key lines, where the stager wrote them (K1's
+// lines staged over the card, tracker_step.cu `tracker_stage_kernel`): bit
+// c of a line's mask words is set when its chunk c (entries 32 c .. 32 c +
+// 31) holds an eligible key.  Row t's words at rows + t rw, column d's at
+// cols + d cw.  A recomputed best reads only the chunks whose bit is set
+// and whose columns (rows) are not all taken (matched): the others hold no
+// live eligible entry, so the best is the same.
+struct LineMasks {
+  const unsigned *rows, *cols;
+  int rw, cw;
+};
+
+// The chunks of one of a line's 32-chunk mask words that a recomputed best
+// reads, as a ballot (lane c: chunk 32 m + c).
+__device__ __forceinline__ unsigned live_chunks(unsigned mask_word, const unsigned* dead_bits, int m) {
+  const int lane = threadIdx.x & 31;
+  return __ballot_sync(0xffffffffu, ((mask_word >> lane) & 1u) && dead_bits[32 * m + lane] != 0xffffffffu);
+}
+
+// The uint4 of a line that this lane reads in a pass over `act`'s chunks,
+// four chunks a pass (lanes 8 q .. 8 q + 7 the q-th set bit's 8 uint4s), or
+// -1; drops the pass's chunks from `act`.
+__device__ __forceinline__ int chunk_quad(unsigned& act, int m) {
+  const int lane = threadIdx.x & 31;
+  const unsigned pos = __fns(act, 0, (lane >> 3) + 1);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) act &= act - 1u;
+  return pos == 0xffffffffu ? -1 : 8 * (32 * m + (int)pos) + (lane & 7);
+}
+
+// `row_line_best` over the chunks `mask` (mw words) marks.
+__device__ inline unsigned long long row_line_best_masked(const unsigned* line, int n4, const unsigned* mask, int mw,
+                                                          const unsigned* taken, unsigned base) {
+  const uint4* l4 = reinterpret_cast<const uint4*>(line);
+  unsigned long long best = 0ull;
+  for (int m = 0; m < mw; ++m) {
+    unsigned act = live_chunks(mask[m], taken, m);
+    while (act != 0u) {
+      const int q = chunk_quad(act, m);
+      if (q >= 0 && q < n4) row_quad(l4, q, taken, base, best);
+    }
   }
-  const unsigned long long m = warp_max_u64(best);
-  *arg = __reduce_min_sync(0xffffffffu, best == m ? (unsigned)at : 0xffffffffu);
-  return m;
+  return warp_max_u64(best);
+}
+
+// `col_line_best` over the chunks `mask` (mw words) marks.
+__device__ inline unsigned long long col_line_best_masked(const unsigned* line, int n4, const unsigned* mask, int mw,
+                                                          const unsigned* matched, const int* rank, unsigned D,
+                                                          unsigned dcol, int* arg) {
+  const uint4* l4 = reinterpret_cast<const uint4*>(line);
+  const int4* r4 = reinterpret_cast<const int4*>(rank);
+  unsigned long long best = 0ull;
+  int at = 0;
+  for (int m = 0; m < mw; ++m) {
+    unsigned act = live_chunks(mask[m], matched, m);
+    while (act != 0u) {
+      const int q = chunk_quad(act, m);
+      if (q >= 0 && q < n4) col_quad(l4, r4, q, matched, D, dcol, best, at);
+    }
+  }
+  return col_best_of_warp(best, at, arg);
 }
 
 // The fixpoint on the cluster, with the contract of `greedy_associate` for
@@ -585,13 +668,16 @@ __device__ inline unsigned long long col_line_best(const unsigned* line, int n4,
 // are this block's lines (`s.keys` or its part of the device scratch).
 // With `staged`, the caller has also written the first round's bests
 // (s.rowbest, s.colbest and s.colrow: each line's best with every row live
-// and every column untaken), which the first round pushes as they are.  On
+// and every column untaken), which the first round pushes as they are.
+// With kMasked, the recomputed bests read only the chunks `masks` marks.  On
 // return s.match holds this block's rows' matches and s.matched, s.taken
 // every row's and column's state, alike on every block; every push to this
 // block has landed.  Returns the rounds taken, the last (which accepts
 // nothing) included.
+template <bool kMasked = false>
 __device__ inline int cluster_associate(const AssocShared& s, const unsigned* rowkeys, const unsigned* colkeys,
-                                        const AssocPlan& p, int T, int D, bool staged = false) {
+                                        const AssocPlan& p, int T, int D, bool staged = false,
+                                        LineMasks masks = LineMasks{}) {
   const unsigned C = (unsigned)p.cluster;
   unsigned me;
   asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(me));
@@ -614,7 +700,11 @@ __device__ inline int cluster_associate(const AssocShared& s, const unsigned* ro
       const unsigned base = (unsigned)s.rank[t] * (unsigned)D + 0x80000000u;
       unsigned long long best = s.rowbest[i];
       if (fresh || (!first && !bit_of(s.matched, t) && best != 0ull && bit_of(s.taken, ~(unsigned)best - base))) {
-        best = row_line_best(rowkeys + (size_t)i * p.rstride, rn4, s.taken, base);
+        if constexpr (kMasked)
+          best = row_line_best_masked(rowkeys + (size_t)i * p.rstride, rn4, masks.rows + (size_t)t * masks.rw,
+                                      masks.rw, s.taken, base);
+        else
+          best = row_line_best(rowkeys + (size_t)i * p.rstride, rn4, s.taken, base);
         if (lane == 0) s.rowbest[i] = best;
       }
       if ((unsigned)lane < C) st_async_b64(cluster_addr(allrow + t, lane), best, cluster_addr(s.mbar + par, lane));
@@ -625,8 +715,12 @@ __device__ inline int cluster_associate(const AssocShared& s, const unsigned* ro
       unsigned long long best = s.colbest[j];
       if (fresh || (!first && !bit_of(s.taken, d) && best != 0ull && bit_of(s.matched, s.colrow[j]))) {
         int arg;
-        best = col_line_best(colkeys + (size_t)j * p.cstride, cn4, s.matched, s.rank, (unsigned)D,
-                             (unsigned)d + 0x80000000u, &arg);
+        if constexpr (kMasked)
+          best = col_line_best_masked(colkeys + (size_t)j * p.cstride, cn4, masks.cols + (size_t)d * masks.cw,
+                                      masks.cw, s.matched, s.rank, (unsigned)D, (unsigned)d + 0x80000000u, &arg);
+        else
+          best = col_line_best(colkeys + (size_t)j * p.cstride, cn4, s.matched, s.rank, (unsigned)D,
+                               (unsigned)d + 0x80000000u, &arg);
         if (lane == 0) s.colbest[j] = best, s.colrow[j] = arg;
       }
       if ((unsigned)lane < C) st_async_b64(cluster_addr(allcol + d, lane), best, cluster_addr(s.mbar + par, lane));

@@ -1,7 +1,7 @@
-// Helpers of kernels K1 (tracker_step.cu), K3 (tagging_step.cu) and K4
-// (associate.cu): asynchronous staging of their rings into shared memory,
-// their launchers' shared memory limit, and the address of a word in
-// another block of a thread block cluster.
+// Helpers of kernels K1 (tracker_step.cu), K3 (tagging_step.cu), K4
+// (associate.cu) and K5 (nms_keep.cu): asynchronous staging into shared
+// memory, their launchers' shared memory limit, and the address of a word
+// in another block of a thread block cluster.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,6 +38,15 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 // Waits for this thread's copies; a __syncthreads() after it makes every
 // thread's copies visible to the block.
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Closes this thread's copies since the last commit into a group; waits
+// until at most N of its groups are pending (the newest ones).
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
@@ -87,3 +96,15 @@ __device__ __forceinline__ unsigned cluster_addr(const void* p, unsigned rank) {
   asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
   return a;
 }
+
+// Programmatic dependent launch: a kernel launched on a stream with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// block of the kernel before it has called `grid_launch_dependents` (or
+// exited), and waits in `grid_dependency_wait` until that kernel has
+// finished and its writes are visible.  Without the attribute both return
+// at once.
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependency_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }

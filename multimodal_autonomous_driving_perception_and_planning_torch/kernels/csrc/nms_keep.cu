@@ -95,6 +95,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block.cuh"
+
 namespace cg = cooperative_groups;
 
 #ifndef NMS_MAX_CLUSTER
@@ -402,133 +404,293 @@ extern "C" int madpp_nms_keep_cluster(int B, int K) {
 }
 
 
+
 // --- The large instance: K > 1,024 ------------------------------------------
 //
-// Two kernels on the stream, with the contract above at any K:
-//  1. Mask (`nms_mask_kernel`).  Word w of row i, bit k: candidate
-//     j = 32 w + k > i has iou(i, j) > thr, as `iou_above` decides it (the
-//     contracted union and the exact __fdiv_rn; boxes that do not overlap
-//     give IoU 0 without the division).  A block takes 32 rows (group g)
-//     and 8 words (256 columns, their boxes in shared memory), a warp a
-//     word, a lane a row; only the words the scan reads, w >= g, are
-//     written.  A warp whose word lies past its rows' own word and holds a
-//     bit sets those rows in `nz` (word g of the image, one atomicOr).
-//  2. Scan (`nms_scan_kernel`), a block an image, in score order a word at
-//     a time as the instance above scans: `removed` (a word a 32
-//     candidates, in shared memory) starts as the dead candidates and those
-//     past K; warp 0 takes word w's candidates, solves the word's own
-//     suppressions from its rows' diagonal words (the fixpoint keep = cand
-//     & ~OR_{b kept} diag_b) and writes their keep bits; then every thread
-//     ORs the kept rows that have a later bit (`nz`) into the later words
-//     it owns (x = tid mod blockDim).  One barrier a word, two when a kept
-//     row has later bits.
-// Workspace (the wrapper's, cached): the mask, B K W words (row i of image
-// b at (b K + i) W), and `nz`, B W words, cleared by the launcher.  Bound
-// at (64, 8,400): 2.26 G IoU pairs of 16 operations, 0.54 ms at 67 TFLOP/s
-// float32, over 565 MB of mask written and read, 0.34 ms at 3.35 TB/s.
+// Two kernels on the stream, with the contract above at any K.  The mask
+// (K W words an image, 8.8 MB at 8,400) no longer fits in shared memory, so
+// it goes to a device workspace the wrapper allocates and caches.  Bound at
+// (64, 8,400): 2.26 G IoU pairs of 16 operations, 0.54 ms at 67 TFLOP/s
+// float32, beside about 283 MB of mask written once and read in part, 85 us
+// at 3.35 TB/s: the mask kernel is bound by its instructions, the scan by
+// its chain of words.
+//
+// Layout.  Only the words the scan reads are stored: row i of row group
+// g = i / 32 keeps words g .. W - 1, in a segment of S_g = 8 ceil((W - g) /
+// 8) words (the tail zero), the 32 rows of a group side by side, the
+// groups in order (`row_base`).  Every segment starts on a 32-byte sector,
+// and an image takes 256 sum_u ceil(u / 8) words, about half of the K W of
+// the wrapper's workspace (image b at b (K W rounded down to 8)).
+//  1. Mask (`nms_mask_kernel`).  A block takes a row group and 64 of its
+//     words (2,048 columns, their boxes and alive bits in shared memory), a
+//     warp 8 of them: lane b is row 32 g + b and stores its 8 words as two
+//     16-byte stores, one whole sector.  The grid covers the upper triangle
+//     of (row group, 64 words) only (`tri_group`); a row group whose rows
+//     are all dead leaves at once, and a word whose candidates are all dead
+//     takes no IoU (the scan reads such words only to OR them into words
+//     already removed).  iou > thr is decided without the division, as the
+//     instance above decides it (header, point 2): inter > union * hi or
+//     inter < union * lo, the exact __fdiv_rn only between the two or where
+//     the threshold or an area lies outside the proof's range.  A warp whose
+//     words past the rows' own hold a bit sets those rows in `nz` (word g of
+//     the image, one atomicOr).
+//  2. Scan (`nms_scan_kernel`), a block an image, by tiles of 8 words (256
+//     rows): each tile's diagonal block (its rows' words inside the tile) is
+//     staged into shared memory two tiles ahead (`cp.async`, double-
+//     buffered), and warp 0 solves the tile's words from shared memory
+//     alone: word w's candidates (not removed) all kept where none
+//     suppresses another (one ballot), else kept in score order, a kept one
+//     at a time removing those it suppresses (each lane alike, from the
+//     staged rows: the fixpoint keep = cand & ~OR_{b kept} diag_b in as
+//     many steps as kept candidates, where iterating it took a warp
+//     reduction for each link of the word's longest chain); then each
+//     kept row's later words inside the tile ORed into their removed bits
+//     by warp reductions, all seven independent.  Then the whole
+//     block ORs the tile's kept rows that have a later bit (`nz`, staged
+//     once) into every word past the tile, a thread a word (at most three:
+//     K <= 49,152), the loads of a row's words side by side and every load
+//     of eight rows in flight.  Two barriers a tile where one word took one
+//     or two before.
 namespace {
 
-constexpr int kMaskRows = 32, kMaskWords = 8;  // a mask block: 32 rows x 8 words
-constexpr int kMaskThreads = kMaskRows * kMaskWords;
-constexpr int kScanThreads = 256;
+constexpr int kMaskWarps = 8;
+constexpr int kMaskThreads = 32 * kMaskWarps;
+constexpr int kChunkWords = 8 * kMaskWarps;  // a mask block's words of each row: a sector a warp
+constexpr int kTileWords = 8;                // a scan tile's words
+constexpr int kTileRows = 32 * kTileWords;
+constexpr int kScanThreads = 512;
+constexpr int kScanOwn = 3;  // words past a tile a scan thread ORs: W <= 1,536 (K <= 49,152)
+
+// sum_{u = 1 .. n} ceil(u / m), for even m.
+__host__ __device__ inline long long ceil_sum(long long n, long long m) {
+  const long long q = n / m, r = n % m;
+  return (q + 1) * (m / 2 * q + r);
+}
+
+// The words an image's mask takes, and the offset of row i's segment in it.
+__host__ __device__ inline size_t image_words(int W) { return 256 * (size_t)ceil_sum(W, 8); }
+
+__device__ __forceinline__ size_t row_base(int i, int W) {
+  const int g = i >> 5;
+  const size_t seg = 8 * (size_t)((W - g + 7) >> 3);
+  return 256 * (size_t)(ceil_sum(W, 8) - ceil_sum(W - g, 8)) + (size_t)(i & 31) * seg;
+}
+
+// The row group and chunk of mask block `L` of an image: blocks go group by
+// group, ceil((W - g) / 64) for group g, so the groups before g take
+// cs(W) - cs(W - g) of them (cs = ceil_sum(., 64)).
+__device__ __forceinline__ int2 tri_group(long long L, int W) {
+  const long long total = ceil_sum(W, kChunkWords);
+  int lo = 0, hi = W - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (total - ceil_sum(W - mid, kChunkWords) <= L) lo = mid;
+    else hi = mid - 1;
+  }
+  return make_int2(lo, (int)(L - (total - ceil_sum(W - lo, kChunkWords))));
+}
 
 __device__ __forceinline__ float4 load_box(const float* bx, int i) {
   return make_float4(__ldg(bx + 4 * i), __ldg(bx + 4 * i + 1), __ldg(bx + 4 * i + 2), __ldg(bx + 4 * i + 3));
 }
 
+// The mask kernel's dynamic shared memory: the chunk's column boxes, their
+// (width, height), alive and area-range bits.
+constexpr size_t kMaskSmem = (16 + 8) * 32 * kChunkWords + 2 * 4 * kChunkWords;
+
 __global__ void __launch_bounds__(kMaskThreads)
-nms_mask_kernel(const float* __restrict__ boxes, unsigned* __restrict__ mask, unsigned* __restrict__ nz, int K,
-                int W, float thr) {
-  __shared__ float4 s_box[kMaskThreads];
-  __shared__ float2 s_wh[kMaskThreads];
-  const int g = blockIdx.y, w0 = blockIdx.x * kMaskWords;
-  if (w0 + kMaskWords - 1 < g) return;  // every word left of the rows' own
-  const size_t img = blockIdx.z;
+nms_mask_kernel(const float* __restrict__ boxes, const float* __restrict__ scores, unsigned* __restrict__ mask,
+                unsigned* __restrict__ nz, int K, int W, size_t img_stride, float thr) {
+  extern __shared__ __align__(16) unsigned char s_mask_smem[];
+  float4* s_box = reinterpret_cast<float4*>(s_mask_smem);
+  float2* s_wh = reinterpret_cast<float2*>(s_box + 32 * kChunkWords);
+  unsigned* s_alive = reinterpret_cast<unsigned*>(s_wh + 32 * kChunkWords);
+  unsigned* s_ok = s_alive + kChunkWords;
+  const size_t img = blockIdx.y;
+  const int2 gc = tri_group(blockIdx.x, W);
+  const int g = gc.x, w0 = g + kChunkWords * gc.y;  // the row group and the chunk's first word
   const float* bx = boxes + img * (size_t)K * 4;
+  const float* sc = scores + img * (size_t)K;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int j = 32 * w0 + tid;  // this thread's column to stage
-  const float4 c = j < K ? load_box(bx, j) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  s_box[tid] = c;
-  s_wh[tid] = make_float2(__fsub_rn(c.z, c.x), __fsub_rn(c.w, c.y));
-  const int i = 32 * g + lane, w = w0 + warp;
+  const int i = 32 * g + lane;  // this lane's row
+  const bool row_alive = i < K && sc[i] > 0.0f;  // NaN is dead
+  if (!__syncthreads_or(row_alive)) return;  // every row of the group dead
+  for (int x = tid; x < 32 * kChunkWords; x += kMaskThreads) {  // word x / 32 of the chunk on warp x / 32 mod 8
+    const int j = 32 * w0 + x;
+    const float4 c = j < K ? load_box(bx, j) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float2 wh = make_float2(__fsub_rn(c.z, c.x), __fsub_rn(c.w, c.y));
+    const float area = __fmul_rn(wh.x, wh.y);
+    s_box[x] = c;
+    s_wh[x] = wh;
+    const unsigned alive = __ballot_sync(kFull, j < K && sc[j] > 0.0f);
+    const unsigned ok = __ballot_sync(kFull, j >= K || (area >= kAreaLo && area <= kAreaHi));
+    if (lane == 0) s_alive[x >> 5] = alive, s_ok[x >> 5] = ok;
+  }
   const float4 a = i < K ? load_box(bx, i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const float area_a = __fmul_rn(__fsub_rn(a.z, a.x), __fsub_rn(a.w, a.y));
-  const bool zero_above = 0.0f > thr;  // iou 0: no overlap, or an empty intersection
+  const bool fast = thr >= kThrLo && thr <= kThrHi;
+  const bool row_ok = area_a >= kAreaLo && area_a <= kAreaHi;
+  const float hi = __fmul_rn(thr, 1.0f + kMargin), lo = __fmul_rn(thr, 1.0f - kMargin);
   __syncthreads();
-  if (w < g || w >= W) return;  // the warp's word: left of the rows' own, or past the last
-  unsigned bits = 0u;
-  if (i < K) {
-#pragma unroll 4
-    for (int k = 0; k < 32; ++k) {
-      const int jj = 32 * w + k;
-      const float4 b = s_box[32 * warp + k];
-      const float iw = __fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x));
-      const float ih = __fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y));
-      const bool above = (iw > 0.0f && ih > 0.0f) ? iou_above(a, area_a, b, s_wh[32 * warp + k], thr) : zero_above;
-      bits |= (above && jj > i && jj < K) ? 1u << k : 0u;
+
+  const int ws = w0 + 8 * warp;  // this warp's sector: words ws .. ws + 7
+  if (ws >= W) return;
+  unsigned bits[8];
+  bool live = false, later = false;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int w = ws + e, x0 = 32 * (w - w0);
+    unsigned b = 0u;
+    if (w < W && s_alive[w - w0] != 0u) {  // warp-uniform
+      live = true;
+      unsigned slow = kFull;
+      if (fast && s_ok[w - w0] == kFull) {  // warp-uniform: the band decides, the division rarely
+        unsigned open = 0u;
+#pragma unroll 8
+        for (int k = 0; k < 32; ++k) {
+          const float4 c = s_box[x0 + k];
+          const float iw = __fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x));
+          const float ih = __fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y));
+          // Here every width is finite, so where the boxes do not overlap
+          // the product is a zero (of either sign), which the comparisons
+          // below decide as they decide the reference's +0.
+          const float inter = __fmul_rn(fmaxf(iw, 0.0f), fmaxf(ih, 0.0f));
+          const float uni = contracted_union(area_a, s_wh[x0 + k], inter);
+          const bool above = inter > __fmul_rn(uni, hi), below = inter < __fmul_rn(uni, lo);
+          b |= above ? 1u << k : 0u;
+          open |= (above || below) ? 0u : 1u << k;
+        }
+        slow = row_ok ? open : kFull;
+      }
+      if (__any_sync(kFull, slow != 0u)) {  // rare: decide with the exact division
+        while (slow != 0u) {
+          const int k = __ffs(slow) - 1;
+          slow &= slow - 1u;
+          const bool above = iou_above(a, area_a, s_box[x0 + k], s_wh[x0 + k], thr);
+          b = above ? b | 1u << k : b & ~(1u << k);
+        }
+      }
+      if (w == g) b &= ~((2u << lane) - 1u);  // only j > i
+      later |= w > g && b != 0u;
     }
-    mask[(img * (size_t)K + i) * (size_t)W + w] = bits;
+    bits[e] = b;
   }
-  const unsigned later = __ballot_sync(0xffffffffu, w > g && bits != 0u);
-  if (lane == 0 && later != 0u) atomicOr(nz + img * (size_t)W + g, later);
+  if (live) {  // warp-uniform; a sector of dead words is never read but to OR it into removed words
+    uint4* dst = reinterpret_cast<uint4*>(mask + img * img_stride + row_base(i, W) + (ws - g));
+    dst[0] = make_uint4(bits[0], bits[1], bits[2], bits[3]);
+    dst[1] = make_uint4(bits[4], bits[5], bits[6], bits[7]);
+  }
+  const unsigned rows = __ballot_sync(kFull, later);
+  if (lane == 0 && rows != 0u) atomicOr(nz + img * (size_t)W + g, rows);
 }
 
 __global__ void __launch_bounds__(kScanThreads)
 nms_scan_kernel(const float* __restrict__ scores, const unsigned* __restrict__ mask, const unsigned* __restrict__ nz,
-                bool* __restrict__ keep, int K, int W) {
-  extern __shared__ unsigned s_removed[];  // W words
-  __shared__ unsigned s_todo[2];
+                bool* __restrict__ keep, int K, int W, size_t img_stride) {
+  extern __shared__ unsigned s_scan_smem[];
+  unsigned* s_removed = s_scan_smem;  // W words
+  unsigned* s_nz = s_scan_smem + W;   // W words: the image's nz
+  __shared__ __align__(16) unsigned s_tile[2][kTileRows * kTileWords];  // row r of the tile: words 8 r ..
+  __shared__ long long s_base[kTileRows];  // the tile's kept rows with a later bit: row_base - own word
+  __shared__ int s_n;
   const size_t img = blockIdx.x;
   const float* sc = scores + img * (size_t)K;
-  const unsigned* rows = mask + img * (size_t)K * (size_t)W;
+  const unsigned* m_img = mask + img * img_stride;
   const unsigned* nz_img = nz + img * (size_t)W;
   bool* out = keep + img * (size_t)K;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int x0 = 32 * warp; x0 < 32 * W; x0 += kScanThreads) {  // word x0 / 32 on warp x0 / 32 mod 8
+  const int NT = (W + kTileWords - 1) / kTileWords;
+  for (int x0 = 32 * warp; x0 < 32 * W; x0 += kScanThreads) {  // removed: the dead and those past K
     const int j = x0 + lane;
-    const unsigned alive = __ballot_sync(0xffffffffu, j < K && sc[j] > 0.0f);  // NaN is dead
+    const unsigned alive = __ballot_sync(kFull, j < K && sc[j] > 0.0f);  // NaN is dead
     if (lane == 0) s_removed[x0 >> 5] = ~alive;
   }
-  __syncthreads();
-  // Warp 0 reads word w's diagonal words and nz one word ahead.
-  unsigned diag = 0u, nzw = 0u;
-  if (warp == 0) {
-    diag = lane < K ? rows[(size_t)lane * W] : 0u;
-    nzw = nz_img[0];
-  }
-  for (int w = 0; w < W; ++w) {
-    if (warp == 0) {
-      const int i = 32 * w + lane;
-      unsigned diag_next = 0u, nz_next = 0u;
-      if (w + 1 < W) {
-        diag_next = i + 32 < K ? rows[(size_t)(i + 32) * W + w + 1] : 0u;
-        nz_next = nz_img[w + 1];
+  for (int x = tid; x < W; x += kScanThreads) s_nz[x] = nz_img[x];
+  // Tile t's diagonal block into s_tile[t & 1]: row 256 t + r's words 8 t ..
+  // 8 t + 7 from its own word on (those before it are never read).  One
+  // commit group a call, empty past the last tile.
+  auto stage = [&](int t) {
+    if (t < NT) {
+      for (int e = tid; e < kTileRows * kTileWords; e += kScanThreads) {
+        const int r = kTileRows * t + (e >> 3), w = kTileWords * t + (e & 7);
+        if (r < K && w < W && w >= (r >> 5)) cp_async4(&s_tile[t & 1][e], m_img + row_base(r, W) + (w - (r >> 5)));
       }
-      const unsigned cand = ~s_removed[w];
-      unsigned kept = cand;
-      if (__ballot_sync(0xffffffffu, ((cand >> lane) & 1u) && (diag & cand) != 0u) != 0u) {
-        for (;;) {
-          const unsigned next = cand & ~__reduce_or_sync(0xffffffffu, (kept >> lane) & 1u ? diag : 0u);
-          if (next == kept) break;
-          kept = next;
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  stage(1);
+  for (int t = 0; t < NT; ++t) {
+    cp_async_wait_group<1>();
+    __syncthreads();  // tile t staged; the last tile's ORs landed
+    if (warp == 0) {
+      const unsigned* tile = s_tile[t & 1];
+      const int w_first = kTileWords * t, nw = min(kTileWords, W - w_first);
+      // Lane v < nw holds the removed bits of the tile's word v, and the nz
+      // of its row group.
+      unsigned rem = lane < nw ? s_removed[w_first + lane] : 0u;
+      const unsigned nzw = lane < nw ? s_nz[w_first + lane] : 0u;
+      int n = 0;
+      for (int u = 0; u < nw; ++u) {
+        const unsigned* rows = tile + 32 * u * kTileWords;  // row 32 (w_first + u) + b at rows + 8 b
+        const unsigned* row = rows + lane * kTileWords;
+        const unsigned diag = row[u];
+        const unsigned cand = ~__shfl_sync(kFull, rem, u);
+        unsigned kept = cand;
+        if (__ballot_sync(kFull, ((cand >> lane) & 1u) && (diag & cand) != 0u) != 0u) {
+          // In score order, a kept candidate at a time, each lane alike:
+          // the first one left is kept and removes those it suppresses.
+          kept = 0u;
+          for (unsigned left = cand; left != 0u;) {
+            const int b = __ffs(left) - 1;
+            kept |= 1u << b;
+            left &= ~(rows[b * kTileWords + u] | (1u << b));
+          }
+        }
+        const int i = 32 * (w_first + u) + lane;
+        const bool mine = (kept >> lane) & 1u;
+        if (i < K) out[i] = mine;
+#pragma unroll
+        for (int v = 1; v < kTileWords; ++v) {  // the kept rows' later words inside the tile, independent
+          const unsigned o = __reduce_or_sync(kFull, (mine && v > u && v < nw) ? row[v] : 0u);
+          rem |= lane == v ? o : 0u;
+        }
+        const unsigned more = kept & __shfl_sync(kFull, nzw, u);  // kept rows with a later bit
+        if ((more >> lane) & 1u)
+          s_base[n + __popc(more & ((1u << lane) - 1u))] = (long long)row_base(i, W) - (w_first + u);
+        n += __popc(more);
+      }
+      if (lane == 0) s_n = n;
+    }
+    __syncthreads();
+    stage(t + 2);  // into the buffer warp 0 has just read
+    const int n = s_n;
+    if (n == 0) continue;
+    // Each thread's words past the tile (at most kScanOwn), every load of a
+    // batch of 8 rows in flight at once.
+    const int x0 = kTileWords * (t + 1) + tid;
+    unsigned v[kScanOwn] = {};
+    for (int q = 0; q < n; q += 8) {
+      unsigned u[8][kScanOwn];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const long long base = q + k < n ? s_base[q + k] : -1;
+#pragma unroll
+        for (int o = 0; o < kScanOwn; ++o) {
+          const int x = x0 + o * kScanThreads;
+          u[k][o] = (base >= 0 && x < W) ? m_img[base + x] : 0u;
         }
       }
-      if (i < K) out[i] = (kept >> lane) & 1u;
-      if (lane == 0) s_todo[w & 1] = kept & nzw;
-      diag = diag_next;
-      nzw = nz_next;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+#pragma unroll
+        for (int o = 0; o < kScanOwn; ++o) v[o] |= u[k][o];
     }
-    __syncthreads();
-    unsigned todo = s_todo[w & 1];
-    if (todo == 0u) continue;
-    for (int x = tid; x < W; x += kScanThreads) {
-      if (x <= w) continue;
-      unsigned v = 0u;
-      for (unsigned m = todo; m != 0u; m &= m - 1u) v |= rows[(size_t)(32 * w + __ffs(m) - 1) * W + x];
-      s_removed[x] |= v;
-    }
-    __syncthreads();
+#pragma unroll
+    for (int o = 0; o < kScanOwn; ++o)
+      if (x0 + o * kScanThreads < W) s_removed[x0 + o * kScanThreads] |= v[o];
   }
+  cp_async_wait_group<0>();
 }
 
 }  // namespace
@@ -537,16 +699,22 @@ extern "C" int madpp_nms_keep_large(const void* boxes, const void* scores, void*
                                     int K, float thr, void* stream) {
   if (B < 1 || K < 1 || B > 65535 || mask == nullptr || nz == nullptr) return (int)cudaErrorInvalidValue;
   const int W = words(K);
-  if (W > 65535 || (size_t)W * sizeof(unsigned) > 48 * 1024) return (int)cudaErrorInvalidValue;
+  // The wrapper's workspace holds K W words an image; an image's mask takes
+  // about half (`image_words`), each image on a sector.
+  const size_t img_stride = ((size_t)K * W) & ~(size_t)7;
+  if (W > kScanOwn * kScanThreads || image_words(W) > img_stride)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(nz, 0, (size_t)B * W * sizeof(unsigned), st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((W + kMaskWords - 1) / kMaskWords), (unsigned)W, (unsigned)B);
-  nms_mask_kernel<<<grid, kMaskThreads, 0, st>>>((const float*)boxes, (unsigned*)mask, (unsigned*)nz, K, W, thr);
+  err = allow_dynamic_smem<nms_mask_kernel>(kMaskSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)ceil_sum(W, kChunkWords), (unsigned)B);
+  nms_mask_kernel<<<grid, kMaskThreads, kMaskSmem, st>>>((const float*)boxes, (const float*)scores, (unsigned*)mask,
+                                                 (unsigned*)nz, K, W, img_stride, thr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  nms_scan_kernel<<<B, kScanThreads, (size_t)W * sizeof(unsigned), st>>>((const float*)scores, (const unsigned*)mask,
-                                                                        (const unsigned*)nz, (bool*)keep, K, W);
+  nms_scan_kernel<<<B, kScanThreads, 2 * (size_t)W * sizeof(unsigned), st>>>(
+      (const float*)scores, (const unsigned*)mask, (const unsigned*)nz, (bool*)keep, K, W, img_stride);
   return (int)cudaGetLastError();
 }
-

@@ -459,24 +459,32 @@ tracker_step_kernel(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p) {
 //    slot's thread, and starts copying its slots' ring rows into shared
 //    memory (`cp.async`, 16 bytes where aligned, 4 for the rest) where
 //    they fit;
-//  - ranks every slot by id itself (`id_rank`), a bitonic sort of
-//    (key, slot) pairs: up to 1,024 a thread a pair (`sort_pairs`; 55
-//    exchange steps at T = 1,024, 15 of them through shared memory, the
-//    rest shuffles), beyond that all in shared memory (`sort_smem`, 78
-//    steps at 4,096), in the room of the rounds' received bests, which no
-//    block fills before every block has arrived (`assoc_init`);
+//  - ranks every slot by id (`id_rank`): up to 1,024 slots by a bitonic
+//    sort of (key, slot) pairs on every block, a thread a pair
+//    (`sort_pairs`; 55 exchange steps at T = 1,024, 15 of them through
+//    shared memory, the rest shuffles); beyond, by counting over the
+//    cluster (`cluster_places`: each block sorts its own at most 256
+//    slots, gathers every block's sorted list through distributed shared
+//    memory and places its slots by binary searches, then hands their
+//    ranks to every block); both in the room of the rounds' received bests,
+//    which no block fills before every block has arrived (`assoc_init`);
 //  - stages the IoU keys of its slots and of its detections once, with the
 //    first round's bests of those lines in the same pass
 //    (`stage_general_keys`; `pair_iou`'s division only where the boxes
 //    overlap), then runs the cluster rounds (association.cuh
-//    `cluster_associate`);
+//    `cluster_associate`).  Where the keys leave shared memory (1,024 x
+//    1,024 and beyond), two kernels before it do the ranks and the keys
+//    over the whole card instead, each key once (`tracker_rank_kernel`,
+//    `tracker_stage_kernel`, below), and the block loads the ranks and its
+//    lines' first bests;
 //  - writes its slots' ring rows out as they were, then each of its slots'
 //    update, birth and death (`slot_update`, as in the instance above; the
 //    free, valid and wanted masks are every block's);
-// each slot's confirmed key and each warp's confirmed bits go to block 0
-// (distributed shared memory stores), which after one cluster barrier
-// sorts the pairs for the confirmed order and writes the counters.  Same
-// arithmetic, same outputs, bit for bit.
+// then the confirmed order: up to 1,024 slots each slot's confirmed key and
+// each warp's confirmed bits go to block 0 (distributed shared memory
+// stores), which after one cluster barrier sorts the pairs and writes the
+// counters; beyond, every block places its own slots (`cluster_places`).
+// Same arithmetic, same outputs, bit for bit.
 constexpr int kGeneralThreads = kAssocClusterThreads;
 constexpr int kGeneralMax = kAssocGeneralMax;  // T and D
 
@@ -502,12 +510,50 @@ __host__ __device__ inline GeneralPlan general_plan(int T, int D, int L) {
   g.assoc = assoc_plan(T, D);
   g.lines_in_smem = general_fixed_smem(T, D, true) + assoc_shared_bytes(g.assoc, false) <= kAssocSmemLimit;
   const size_t fixed = general_fixed_smem(T, D, g.lines_in_smem);
-  g.keys_in_smem = fixed + assoc_shared_bytes(g.assoc, true) <= kAssocSmemLimit;
+  // Beyond 1,024 slots the stage kernels always run (their ranks by
+  // counting over the card), so the keys go to device scratch.
+  g.keys_in_smem = T <= kGeneralThreads && fixed + assoc_shared_bytes(g.assoc, true) <= kAssocSmemLimit;
   const size_t base = fixed + assoc_shared_bytes(g.assoc, g.keys_in_smem);
   const size_t ring = 4 * round4((size_t)g.assoc.rows * 2 * L);
   g.stage_ring = base + ring <= kAssocSmemLimit;
   g.smem = base + (g.stage_ring ? ring : 0);
   return g;
+}
+
+// A lane's device scratch where the keys leave shared memory: every
+// block's key lines (block r's at r assoc_key_words), every slot's id rank
+// and the slot at each rank, every row's and every column's first-round
+// best, and every row's and every column's chunk mask (association.cuh
+// `LineMasks`), all written by the kernels that run before the cluster
+// kernel (`tracker_rank_kernel`, `tracker_stage_kernel`).
+struct LaneScratch {
+  unsigned* keys;
+  int *rank, *by_rank;
+  unsigned long long *rowbest, *colbest;
+  unsigned *rowmask, *colmask;
+  int rw, cw;  // mask words a row, a column
+};
+
+__host__ __device__ inline int mask_words(int n) { return (n + 1023) / 1024; }
+
+__host__ __device__ inline size_t lane_scratch_words(const GeneralPlan& g, int T, int D) {
+  const size_t n = (size_t)g.assoc.cluster * assoc_key_words(g.assoc) + 2 * round4((size_t)T) + 2 * ((size_t)T + D) +
+                   (size_t)T * mask_words(D) + (size_t)D * mask_words(T);
+  return round4(n);
+}
+
+__device__ inline LaneScratch lane_scratch(unsigned* scratch, const GeneralPlan& g, int T, int D, int lane) {
+  LaneScratch l;
+  l.keys = scratch + (size_t)lane * lane_scratch_words(g, T, D);
+  l.rank = reinterpret_cast<int*>(l.keys + (size_t)g.assoc.cluster * assoc_key_words(g.assoc));
+  l.by_rank = l.rank + round4((size_t)T);
+  l.rowbest = reinterpret_cast<unsigned long long*>(l.by_rank + round4((size_t)T));
+  l.colbest = l.rowbest + T;
+  l.rw = mask_words(D);
+  l.cw = mask_words(T);
+  l.rowmask = reinterpret_cast<unsigned*>(l.colbest + D);
+  l.colmask = l.rowmask + (size_t)T * l.rw;
+  return l;
 }
 
 // Box i of an (n, 4) float32 array: from shared memory where staged, else
@@ -558,24 +604,6 @@ __device__ inline unsigned long long sort_pairs(unsigned long long v, int n, uns
     }
   }
   return v;
-}
-
-// Sorts `buf[0 .. n)` ascending in shared memory (n a power of two beyond
-// the block's threads), bitonically: each step a thread compares and swaps
-// every blockDim-th pair (i, i | j) with bit j of i clear, the run of k
-// sorted up where i & k is 0.  Called by every thread of the block after
-// `buf` is written and synced; synced on return.
-__device__ inline void sort_smem(unsigned long long* buf, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int q = threadIdx.x; q < (n >> 1); q += blockDim.x) {
-        const int a = ((q & ~(j - 1)) << 1) | (q & (j - 1)), b = a | j;
-        const unsigned long long x = buf[a], y = buf[b];
-        if ((x > y) == ((a & k) == 0)) buf[a] = y, buf[b] = x;
-      }
-      __syncthreads();
-    }
-  }
 }
 
 // Slot t's sort pair: its key in signed order, then t (ties by slot).
@@ -645,31 +673,305 @@ __device__ inline void stage_general_keys(BoxRef tb, BoxRef db, const unsigned* 
   }
 }
 
-// Sorts every slot's pair (`pair(t)` for t < T) ascending and calls
-// `put(p, (unsigned)sorted[p])` for each place p < T: a value a thread in
-// registers up to 1,024 slots (`sort_pairs`), else all in shared memory
-// (`sort_smem`); `buf` holds sort_size(T) pairs.  Called by every thread
-// of the block.
+// Sorts every slot's pair (`pair(t)` for t < T <= 1,024) ascending, a
+// value a thread in registers (`sort_pairs`), and calls `put(p,
+// (unsigned)sorted[p])` for each place p < T; `buf` holds sort_size(T)
+// pairs.  Called by every thread of the block.
 template <class Pair, class Put>
 __device__ inline void sort_slots(int T, unsigned long long* buf, Pair pair, Put put) {
-  const int tid = threadIdx.x, n = sort_size(T);
-  if (n <= kGeneralThreads) {
-    const unsigned long long v = sort_pairs(tid < T ? pair(tid) : ~0ull, n, buf);
-    if (tid < T) put(tid, (unsigned)v);
-    return;
-  }
-  for (int i = tid; i < n; i += kGeneralThreads) buf[i] = i < T ? pair(i) : ~0ull;
-  __syncthreads();
-  sort_smem(buf, n);
-  for (int i = tid; i < T; i += kGeneralThreads) put(i, (unsigned)buf[i]);
+  const int tid = threadIdx.x;
+  const unsigned long long v = sort_pairs(tid < T ? pair(tid) : ~0ull, sort_size(T), buf);
+  if (tid < T) put(tid, (unsigned)v);
 }
 
+// Beyond 1,024 slots, the confirmed order by counting over the cluster:
+// each block sorts its own slots' (key, slot) pairs (`v`, this thread's
+// slot's pair, or ~0 past the block's slots; at most 256, `sort_pairs`)
+// into a list in shared memory; after a cluster barrier it gathers every
+// block's list through distributed shared memory, and the place of its
+// s-th smallest pair is s plus the pairs below it in every other list,
+// counted by binary searches, a thread four lists (threads 4 s .. 4 s + 3,
+// the searches in lockstep).  Returns, in those threads, (place, slot).
+// `room` is the rounds' received-best room (16 (cstride + rstride) bytes,
+// free after the rounds): the list, then the gathered lists, C a.rows
+// pairs.  Called by every thread of every block; the caller runs a cluster
+// barrier before any block leaves (the gathers read every block's list).
+__device__ inline int2 cluster_places(const AssocPlan& a, unsigned long long v, unsigned long long* room) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int tid = threadIdx.x, n = sort_size(a.rows), me = (int)cluster.block_rank();
+  unsigned long long* list = room;
+  unsigned long long* all = room + n;
+  v = sort_pairs(v, n, list);
+  if (tid < a.rows) list[tid] = v;  // the block's pairs ascending, then ~0 (a.rows <= n)
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  // At most 16 x 256 pairs: four a thread, their loads issued together.
+  unsigned long long got[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int e = tid + u * kGeneralThreads, b = e / a.rows;
+    got[u] = e < a.cluster * a.rows ? *cluster.map_shared_rank(list + (e - b * a.rows), b) : 0ull;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (tid + u * kGeneralThreads < a.cluster * a.rows) all[tid + u * kGeneralThreads] = got[u];
+  __syncthreads();
+  const int sl = tid >> 2, q = tid & 3;
+  const unsigned long long x = sl < a.rows ? list[sl] : ~0ull;
+  int pos[4] = {0, 0, 0, 0};
+  bool use[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) use[u] = q + 4 * u < a.cluster && q + 4 * u != me && x != ~0ull;
+  for (int step = floor_pow2(a.rows); step > 0; step >>= 1) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const unsigned long long* l = all + (size_t)(q + 4 * u) * a.rows;
+      if (use[u] && pos[u] + step <= a.rows && l[pos[u] + step - 1] < x) pos[u] += step;
+    }
+  }
+  int place = pos[0] + pos[1] + pos[2] + pos[3] + (q == 0 ? sl : 0);
+  place += __shfl_xor_sync(0xffffffffu, place, 1);
+  place += __shfl_xor_sync(0xffffffffu, place, 2);
+  return make_int2(place, x == ~0ull ? -1 : (int)(unsigned)x);
+}
+
+// Phase clocks of the cluster kernel, in a build with -DMADPP_PHASE_CLOCKS
+// only: thread 0 of each block of lane 0 stores clock64() at the start and
+// after each phase (loads, id rank with the wait for the stage kernels,
+// staging, rounds, ring copy, updates, confirmed order);
+// `madpp_tracker_phases` copies them out.
+#ifdef MADPP_PHASE_CLOCKS
+constexpr int kPhaseMarks = 8;
+__device__ long long g_phase_clocks[kAssocClusterMax * kPhaseMarks];
+#define PHASE_MARK(k) \
+  if (threadIdx.x == 0 && blockIdx.x < (unsigned)kAssocClusterMax) g_phase_clocks[blockIdx.x * kPhaseMarks + (k)] = clock64()
+#else
+#define PHASE_MARK(k) \
+  do {            \
+  } while (0)
+#endif
+
+// --- Staging over the whole card, where the keys leave shared memory -----
+//
+// At (1,024, 1,024) and beyond the keys live in device scratch, and
+// computing them inside the cluster took the cluster's 16 SMs of 132, each
+// key twice (by its row's owner and its column's).  Two kernels on the same
+// stream before the cluster kernel do that work over the card instead:
+//  - `tracker_rank_kernel`: every slot's id rank by counting (a warp a
+//    slot, its lanes over the ids 16 bytes at a time from shared memory),
+//    its inverse, and the first-round bests and chunk masks cleared;
+//  - `tracker_stage_kernel`: a block a 128 x 64 tile, a warp 32 x 32 keys
+//    (on small tables a 32 x 64 tile, a warp 8 x 32, so that the blocks
+//    fill the card), each key computed once (`general_iou_key`,
+//    `pair_iou`'s division only where the boxes overlap) and written to its
+//    row line, lane by column, and through a shared-memory transpose to its
+//    column line, lane by row.  The first round's bests come out of the
+//    same pass: each line's best within the tile, combined over the
+//    block's warps, then maxed into the scratch's bests by one 64-bit
+//    atomicMax a line and block, packed so that the maximum is the rounds'
+//    own best: a row's (key, then the least column), a column's (key, then
+//    the least id rank); and each line's chunk masks (association.cuh
+//    `LineMasks`) by one atomicOr.
+// The cluster kernel then loads the ranks and the bests and goes straight
+// to the rounds, which read only the chunks the masks mark.  Each kernel
+// may start while the one before it finishes (`launch_after`).
+constexpr int kRankThreads = 1024, kRankSlots = kRankThreads / 32;
+constexpr int kStageThreads = 256, kStageCols = 64;
+
+__global__ void __launch_bounds__(kRankThreads)
+tracker_rank_kernel(const int* __restrict__ track_id, int T, int D, GeneralPlan g, unsigned* __restrict__ scratch) {
+  __shared__ __align__(16) int s_key[kGeneralMax];
+  grid_launch_dependents();  // the stage kernel loads its boxes meanwhile
+  const int lane_b = blockIdx.y;
+  const LaneScratch ls = lane_scratch(scratch, g, T, D, lane_b);
+  const int* id = track_id + (size_t)lane_b * T;
+  const int n4 = (T + 3) >> 2;
+  for (int j = threadIdx.x; j < 4 * n4; j += kRankThreads) {
+    const int v = j < T ? id[j] : 0;
+    s_key[j] = v > 0 ? v : kI32Max;  // dead slots last; the padding past T never counts (j > every t)
+  }
+  // The first-round bests and the chunk masks start empty: the stage kernel
+  // maxes and ORs into them.
+  const int stride = gridDim.x * kRankThreads, first = blockIdx.x * kRankThreads + threadIdx.x;
+  for (int x = first; x < T + D; x += stride) ls.rowbest[x] = 0ull;  // the column bests follow the rows'
+  for (int x = first; x < T * ls.rw + D * ls.cw; x += stride) ls.rowmask[x] = 0u;  // and the column masks
+  __syncthreads();
+  // A warp a slot, its lanes over consecutive 16-byte chunks of the keys.
+  const int t = blockIdx.x * kRankSlots + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  int r = 0;
+  if (t < T) {
+    const int kt = s_key[t];
+#pragma unroll 4
+    for (int c = lane; c < n4; c += 32) {
+      const int4 k = reinterpret_cast<const int4*>(s_key)[c];
+      const int j = 4 * c;
+      r += (k.x < kt) | ((k.x == kt) & (j < t));
+      r += (k.y < kt) | ((k.y == kt) & (j + 1 < t));
+      r += (k.z < kt) | ((k.z == kt) & (j + 2 < t));
+      r += (k.w < kt) | ((k.w == kt) & (j + 3 < t));
+    }
+  }
+  r = __reduce_add_sync(0xffffffffu, r);
+  if (t < T && lane == 0) ls.rank[t] = r, ls.by_rank[r] = t;
+}
+
+// A stage block: 8 warps as 4 row groups of kRows rows by 2 column groups
+// of 32 columns (kRows 32 on large tables, 8 on small ones, where the
+// blocks would be too few for the card).
+template <int kRows>
+__global__ void __launch_bounds__(kStageThreads)
+tracker_stage_kernel(TrackerIn lanes_in, TrackerParams p, GeneralPlan g, unsigned* __restrict__ scratch) {
+  constexpr int kBlockRows = 4 * kRows;
+  __shared__ float4 s_tb[kBlockRows];
+  __shared__ int s_rk[kBlockRows];
+  __shared__ bool s_live[kBlockRows];
+  __shared__ unsigned s_tile[kStageThreads / 32][kRows][33];
+  __shared__ unsigned long long s_rowpart[2][kBlockRows], s_colpart[4][kStageCols];
+  const int T = p.T, D = p.D, lane_b = blockIdx.z;
+  const AssocPlan& a = g.assoc;
+  const TrackerIn in = lane_in(lanes_in, lane_b, T, D, p.L);
+  const LaneScratch ls = lane_scratch(scratch, g, T, D, lane_b);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, rg = warp >> 1, cg = warp & 1;
+  const int t_blk = blockIdx.y * kBlockRows, d_blk = blockIdx.x * kStageCols;
+  grid_launch_dependents();  // the cluster kernel loads its slots meanwhile
+  if (tid < kBlockRows) {
+    const int t = t_blk + tid;
+    const bool in_t = t < T;
+    s_tb[tid] = in_t ? make_float4(in.bbox[4 * t], in.bbox[4 * t + 1], in.bbox[4 * t + 2], in.bbox[4 * t + 3])
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    s_live[tid] = in_t && in.track_id[t] > 0;
+  }
+  const int t0 = t_blk + kRows * rg, d0 = d_blk + 32 * cg, d = d0 + lane;
+  const bool valid = d < D && in.det_valid[d];
+  const float4 db = valid ? make_float4(in.det_bbox[4 * d], in.det_bbox[4 * d + 1], in.det_bbox[4 * d + 2],
+                                        in.det_bbox[4 * d + 3])
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // The warp's rows and 32 columns each lie in one block's lines (the
+  // partition's spans are multiples of 32).
+  const int rown = t0 / a.rows, coln = d0 / a.cols;
+  unsigned* rowline = ls.keys + (size_t)rown * assoc_key_words(a) + (size_t)(t0 - rown * a.rows) * a.rstride;
+  unsigned* colline = ls.keys + (size_t)coln * assoc_key_words(a) + (size_t)a.rows * a.rstride +
+                      (size_t)(d0 - coln * a.cols) * a.cstride;
+  const unsigned zero_key = assoc_key(0.0f, p.iou_threshold);
+  unsigned (*tile)[33] = s_tile[warp];
+  grid_dependency_wait();  // the ranks, and the bests and masks cleared
+  if (tid < kBlockRows) s_rk[tid] = t_blk + tid < T ? ls.rank[t_blk + tid] : 0;
+  __syncthreads();
+  unsigned long long cbest = 0ull;
+#pragma unroll 4
+  for (int i = 0; i < kRows; ++i) {  // lane by column: row t0 + i
+    const int tr = kRows * rg + i;
+    const unsigned k = (valid && s_live[tr]) ? general_iou_key(s_tb[tr], db, p.iou_threshold, zero_key) : 0u;
+    tile[i][lane] = k;
+    if (t0 + i < T && d < a.rstride) rowline[(size_t)i * a.rstride + d] = k;  // zero past D
+    const unsigned long long e = ((unsigned long long)k << 32) | (0xffffffffu - (unsigned)s_rk[tr]);
+    cbest = (k != 0u && e > cbest) ? e : cbest;
+  }
+  __syncwarp();
+  // Lane by row: row t0 + lane % kRows, columns kRows (lane / kRows) .. of
+  // the warp's 32, each column's stores kRows rows side by side.
+  unsigned long long rbest = 0ull;
+  const int r = lane % kRows, c0 = kRows * (lane / kRows), t = t0 + r;
+#pragma unroll 4
+  for (int c = c0; c < c0 + kRows; ++c) {
+    const unsigned k = tile[r][c];
+    if (d0 + c < D && t < a.cstride) colline[(size_t)c * a.cstride + t] = k;  // zero past T
+    const unsigned long long e = ((unsigned long long)k << 32) | (0xffffffffu - (unsigned)(d0 + c));
+    rbest = (k != 0u && e > rbest) ? e : rbest;
+  }
+#pragma unroll
+  for (int o = kRows; o < 32; o <<= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xffffffffu, rbest, o);
+    rbest = other > rbest ? other : rbest;
+  }
+  // A best is nonzero exactly where its line's entries here hold an
+  // eligible key: the chunk's mask bit.
+  if (lane < kRows) s_rowpart[cg][kRows * rg + lane] = rbest;
+  s_colpart[rg][32 * cg + lane] = cbest;
+  __syncthreads();
+  if (tid < kBlockRows) {  // row t_blk + tid: chunks d_blk / 32 and the next, in one mask word
+    const unsigned long long r0 = s_rowpart[0][tid], r1 = s_rowpart[1][tid];
+    const unsigned long long v = max(r0, r1);
+    const int ch = d_blk >> 5;
+    const unsigned bits = ((r0 != 0ull ? 1u : 0u) | (r1 != 0ull ? 2u : 0u)) << (ch & 31);
+    if (v != 0ull && t_blk + tid < T) {
+      atomicMax(ls.rowbest + t_blk + tid, v);
+      atomicOr(ls.rowmask + (size_t)(t_blk + tid) * ls.rw + (ch >> 5), bits);
+    }
+  } else if (tid < kBlockRows + kStageCols) {  // column d_blk + c: the chunks of the block's rows, in one mask word
+    const int c = tid - kBlockRows;
+    unsigned long long v = 0ull;
+    unsigned bits = 0u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v = max(v, s_colpart[q][c]);
+      bits |= (s_colpart[q][c] != 0ull ? 1u : 0u) << (((t_blk + kRows * q) >> 5) & 31);
+    }
+    if (v != 0ull && d_blk + c < D) {
+      atomicMax(ls.colbest + d_blk + c, v);
+      atomicOr(ls.colmask + (size_t)(d_blk + c) * ls.cw + (t_blk >> 5 >> 5), bits);
+    }
+  }
+}
+
+// A launch on `st`; with `after`, one that may start while the kernel
+// before it finishes (`grid_launch_dependents`, `grid_dependency_wait`), so
+// that its loads of the step's inputs overlap that kernel.
+template <class... Params, class... Args>
+cudaError_t launch_after(bool after, void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem, cudaStream_t st,
+                         cudaLaunchAttribute* extra, Args... args) {
+  cudaLaunchAttribute attrs[2];
+  int n = 0;
+  if (after) {
+    attrs[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attrs[n++].val.programmaticStreamSerializationAllowed = 1;
+  }
+  if (extra) attrs[n++] = *extra;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attrs;
+  cfg.numAttrs = n;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The stage kernel's launch: blocks of 32-row warps where they fill the
+// card twice over, else of 8-row warps (four times the blocks).
+cudaError_t launch_stage(const TrackerIn& in, const TrackerParams& p, const GeneralPlan& g, unsigned* scratch, int B,
+                         cudaStream_t st) {
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const unsigned cols = (unsigned)((g.assoc.rstride + kStageCols - 1) / kStageCols);
+  const unsigned big = (unsigned)((g.assoc.cstride + 127) / 128);
+  cudaError_t err;
+  if ((size_t)cols * big * B >= 2 * (size_t)sms) {
+    err = launch_after(true, tracker_stage_kernel<32>, dim3(cols, big, (unsigned)B), dim3(kStageThreads), 0, st,
+                       nullptr, in, p, g, scratch);
+  } else {
+    const unsigned small = (unsigned)((g.assoc.cstride + 31) / 32);
+    err = launch_after(true, tracker_stage_kernel<8>, dim3(cols, small, (unsigned)B), dim3(kStageThreads), 0, st,
+                       nullptr, in, p, g, scratch);
+  }
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Instances: kStaged where the stage kernels ran (the keys in device
+// scratch), kWide beyond 1,024 slots (only staged).
+template <bool kStaged, bool kWide>
 __global__ void __launch_bounds__(kGeneralThreads)
 tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, GeneralPlan g,
                      unsigned* __restrict__ scratch) {
+  static_assert(kStaged || !kWide, "beyond 1,024 slots the stage kernels rank the slots");
   extern __shared__ __align__(16) float4 s_gen[];
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
+  PHASE_MARK(0);
   const AssocPlan& a = g.assoc;
   const int me = (int)cluster.block_rank(), lane_b = blockIdx.x / a.cluster;
   const int T = p.T, D = p.D, W = 2 * p.L;
@@ -693,8 +995,9 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
   unsigned* s_want = s_live + kAssocBitWords;
   unsigned* s_conf = s_want + kAssocBitWords;
   int* s_next_id = reinterpret_cast<int*>(s_conf + kAssocBitWords);
-  // The sort's pairs take the room of the rounds' received bests (16
-  // cstride bytes >= 8 sort_size(T)) before `assoc_init` and after the rounds.
+  // The ranks' pairs take the room of the rounds' received bests (16
+  // cstride bytes >= 8 sort_size(T) and 8 (sort_size(a.rows) + C a.rows))
+  // before `assoc_init` and after the rounds.
   unsigned long long* s_sort = s.allrow;
   const BoxRef tb{g.lines_in_smem ? s_tb : nullptr, in.bbox}, db{g.lines_in_smem ? s_db : nullptr, in.det_bbox};
   const int* dcls = g.lines_in_smem ? s_dcls : in.det_class;
@@ -702,7 +1005,8 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tw = (T + 31) >> 5, dw = (D + 31) >> 5;  // words of the slot and detection bits
   const int2 rows = assoc_span(me, a.rows, T), cols = assoc_span(me, a.cols, D);
-  unsigned* rowkeys = scratch ? scratch + ((size_t)lane_b * a.cluster + me) * assoc_key_words(a) : s.keys;
+  const LaneScratch ls = kStaged ? lane_scratch(scratch, g, T, D, lane_b) : LaneScratch{};
+  unsigned* rowkeys = kStaged ? ls.keys + (size_t)me * assoc_key_words(a) : s.keys;
   unsigned* colkeys = rowkeys + (size_t)a.rows * a.rstride;
 
   // --- loads: every slot's id, every detection, this block's slots ---------
@@ -745,22 +1049,55 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
   }
   if (tid == 0) *s_next_id = *in.next_id;
   __syncthreads();
+  PHASE_MARK(1);
 
   // --- the id rank: every slot's, dead slots last, ties by slot -------------
-  sort_slots(
-      T, s_sort,
-      [&](int t) {
-        const int id = T <= kGeneralThreads ? id0 : in.track_id[t];
-        return rank_pair(id > 0 ? id : kI32Max, t);
-      },
-      [&](int place, unsigned t) { s.rank[t] = place; });
-  assoc_init(s, a);  // after the sort: no block pushes into s_sort's room before every block has arrived
+  if constexpr (kStaged) {
+    // The rank kernel's, once the stage kernel (after it) has finished:
+    // the loads above ran meanwhile.
+    grid_dependency_wait();
+    for (int t = tid; t < T; t += kGeneralThreads) s.rank[t] = ls.rank[t];
+  } else {
+    sort_slots(
+        T, s_sort,
+        [&](int t) {
+          const int id = T <= kGeneralThreads ? id0 : in.track_id[t];
+          return rank_pair(id > 0 ? id : kI32Max, t);
+        },
+        [&](int place, unsigned t) { s.rank[t] = place; });
+  }
+  assoc_init(s, a);  // after the ranks: no block pushes into their room before every block has arrived
   __syncthreads();
+  PHASE_MARK(2);
 
   // --- the keys of this block's slots and detections, then the rounds -------
-  stage_general_keys(tb, db, s_live, s_valid, s, rowkeys, colkeys, a, T, D, rows, cols, p.iou_threshold);
+  if constexpr (kStaged) {
+    // The stage kernel's bests, packed for its atomicMax, as the rounds
+    // order them: a row's (key, least column), a column's (key, least rank).
+    for (int i = tid; i < rows.y; i += kGeneralThreads) {
+      const int t = rows.x + i;
+      const unsigned long long v = ls.rowbest[t];
+      const unsigned d = 0xffffffffu - (unsigned)v;
+      s.rowbest[i] = line_entry((unsigned)(v >> 32), true, (unsigned)s.rank[t] * (unsigned)D + 0x80000000u + d);
+    }
+    for (int j = tid; j < cols.y; j += kGeneralThreads) {
+      const int d = cols.x + j;
+      const unsigned long long v = ls.colbest[d];
+      const unsigned r = 0xffffffffu - (unsigned)v;
+      const bool any = v != 0ull;
+      s.colbest[j] = line_entry((unsigned)(v >> 32), true, r * (unsigned)D + (unsigned)d + 0x80000000u);
+      s.colrow[j] = any ? ls.by_rank[r] : 0;
+    }
+  } else {
+    stage_general_keys(tb, db, s_live, s_valid, s, rowkeys, colkeys, a, T, D, rows, cols, p.iou_threshold);
+  }
   __syncthreads();
-  cluster_associate(s, rowkeys, colkeys, a, T, D, true);
+  PHASE_MARK(3);
+  if constexpr (kStaged)
+    cluster_associate<true>(s, rowkeys, colkeys, a, T, D, true, LineMasks{ls.rowmask, ls.colmask, ls.rw, ls.cw});
+  else
+    cluster_associate(s, rowkeys, colkeys, a, T, D, true);
+  PHASE_MARK(4);
 
   // --- this block's ring rows out as they were; this frame's writes follow ---
   if (g.stage_ring) cp_async_wait_all();
@@ -778,6 +1115,7 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
   for (int i = done + tid; i < n_ring; i += kGeneralThreads) dst[i] = src[i];
   if (tid < dw) s_want[tid] = s_valid[tid] & ~s.taken[tid];
   __syncthreads();
+  PHASE_MARK(5);
 
   // --- births: the k-th unmatched valid detection takes the k-th free slot ----
   int n_free = 0, n_want = 0;
@@ -795,21 +1133,31 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
       for (int k = 0; k < r; ++k) bits &= bits - 1u;
       return 32 * w + __ffs(bits) - 1;
     };
+    // Each slot's confirmed key: to block 0, which orders them, or beyond
+    // 1,024 slots kept by the slot's own block.
     confirmed = slot_update(t_mine, sl, tb[t_mine], s.match[tid], s_free, n_birth, next_id, nth_want, db, dcls,
-                            dconf, cluster.map_shared_rank(s_ckey, 0), out, p);
+                            dconf, kWide ? s_ckey : cluster.map_shared_rank(s_ckey, 0), out, p);
   }
-  // Each slot's confirmed key went to block 0 (`slot_update`), and each
-  // warp's confirmed bits go there too.
+  // Each warp's confirmed bits go to block 0, which counts them.
   const unsigned cb = __ballot_sync(0xffffffffu, confirmed);
   if (lane == 0 && 32 * warp < rows.y) cluster.map_shared_rank(s_conf, 0)[(rows.x >> 5) + warp] = cb;
-  cluster.sync();  // block 0 holds every slot's confirmed key and bit
-  if (me != 0) return;
+  PHASE_MARK(6);
 
   // --- confirmed order: stable by (id, slot), unconfirmed slots last ---------
-  sort_slots(
-      T, s_sort, [&](int t) { return rank_pair(s_ckey[t], t); },
-      [&](int place, unsigned t) { out.order[place] = (int)t; });
-  if (warp == 0) {
+  if constexpr (kWide) {
+    // Every block places its own slots (`cluster_places`' barrier also
+    // brings every warp's confirmed bits to block 0).
+    const int2 placed = cluster_places(a, mine ? rank_pair(s_ckey[t_mine], t_mine) : ~0ull, s_sort);
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");  // this block's gathers are done
+    if (placed.y >= 0 && (tid & 3) == 0) out.order[placed.x] = placed.y;
+  } else {
+    cluster.sync();  // block 0 holds every slot's confirmed key and bit
+    if (me == 0)
+      sort_slots(
+          T, s_sort, [&](int t) { return rank_pair(s_ckey[t], t); },
+          [&](int place, unsigned t) { out.order[place] = (int)t; });
+  }
+  if (me == 0 && warp == 0) {
     int n_conf = 0;
     for (int w = lane; w < tw; w += 32) n_conf += __popc(s_conf[w]);
     n_conf = __reduce_add_sync(0xffffffffu, n_conf);
@@ -818,18 +1166,43 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
       *out.next_id = next_id + n_birth;
     }
   }
+  PHASE_MARK(7);
+  if constexpr (kWide) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");  // no block leaves while others gather
+}
+
+// One launch of the cluster kernel's instance: B clusters of the plan's
+// size, its dynamic shared memory allowed; after the stage kernels, it may
+// start while they finish.
+template <bool kStaged, bool kWide>
+int launch_general(const TrackerIn& in, const TrackerOut& out, const TrackerParams& p, const GeneralPlan& g,
+                   unsigned* scratch, int B, cudaStream_t st) {
+  cudaError_t err = allow_dynamic_smem<tracker_step_general<kStaged, kWide>>(g.smem);
+  if (err == cudaSuccess && g.assoc.cluster > 8)
+    err = cudaFuncSetAttribute(tracker_step_general<kStaged, kWide>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = (unsigned)g.assoc.cluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  err = launch_after(kStaged, tracker_step_general<kStaged, kWide>, dim3((unsigned)B * (unsigned)g.assoc.cluster),
+                     dim3(kGeneralThreads), g.smem, st, &cluster, in, out, p, g, scratch);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Words of device scratch a lane of the launch at (T, D, L) needs for the
-// association's keys (0: they fit in shared memory, or the small instance
-// runs), or -1 outside the limits.
+// association's keys, the id ranks, the first round's bests and the chunk
+// masks (0: the keys fit in shared memory, or the small instance runs), or
+// -1 outside the limits.
 extern "C" long long madpp_tracker_scratch(int T, int D, int L) {
   if (T < 1 || T > kGeneralMax || D < 1 || D > kGeneralMax || L < 1) return -1;
   if (T <= kMaxT && D <= kMaxD) return 0;
   const GeneralPlan g = general_plan(T, D, L);
-  return g.keys_in_smem ? 0 : (long long)(assoc_key_words(g.assoc) * g.assoc.cluster);
+  return g.keys_in_smem ? 0 : (long long)lane_scratch_words(g, T, D);
 }
 
 // The blocks a lane of the launch at (T, D, L) takes (its cluster; 1 for
@@ -857,27 +1230,18 @@ extern "C" int madpp_tracker_step(
   if (T > kMaxT || D > kMaxD) {
     const GeneralPlan g = general_plan(T, D, L);
     if (!g.keys_in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
-    cudaError_t err = allow_dynamic_smem<tracker_step_general>(g.smem);
-    if (err == cudaSuccess && g.assoc.cluster > 8)
-      err = cudaFuncSetAttribute(tracker_step_general, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
     const TrackerParams p{T, D, L, iou_threshold, max_age, min_hits, 0};
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = (unsigned)g.assoc.cluster;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.gridDim = dim3((unsigned)B * (unsigned)g.assoc.cluster);
-    cfg.blockDim = dim3(kGeneralThreads);
-    cfg.dynamicSmemBytes = g.smem;
-    cfg.stream = (cudaStream_t)stream;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, tracker_step_general, in, out, p, g,
-                             g.keys_in_smem ? (unsigned*)nullptr : (unsigned*)scratch);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (g.keys_in_smem) return launch_general<false, false>(in, out, p, g, nullptr, B, st);
+    // The ranks, the keys and the first bests over the card, then the cluster.
+    tracker_rank_kernel<<<dim3((unsigned)((T + kRankSlots - 1) / kRankSlots), (unsigned)B), kRankThreads, 0, st>>>(
+        (const int*)track_id, T, D, g, (unsigned*)scratch);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    err = launch_stage(in, p, g, (unsigned*)scratch, B, st);
+    if (err != cudaSuccess) return (int)err;
+    return T > kGeneralThreads ? launch_general<true, true>(in, out, p, g, (unsigned*)scratch, B, st)
+                               : launch_general<true, false>(in, out, p, g, (unsigned*)scratch, B, st);
   }
   const size_t iou_bytes = sizeof(float) * round4((size_t)T * (size_t)(D + 1));
   const size_t key_bytes = sizeof(unsigned) * 32 * (size_t)((T + 31) / 32) * (size_t)assoc_key_stride(D);
@@ -890,3 +1254,13 @@ extern "C" int madpp_tracker_step(
   tracker_step_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(in, out, p);
   return (int)cudaGetLastError();
 }
+
+#ifdef MADPP_PHASE_CLOCKS
+// The phase clocks of the last general launch (lane 0's blocks): for each
+// of kAssocClusterMax blocks, kPhaseMarks clock64() reads (start, then the
+// end of each phase).  Copies them to host memory `out`; returns the CUDA
+// error code.
+extern "C" int madpp_tracker_phases(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
+}
+#endif

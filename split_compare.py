@@ -2,7 +2,7 @@
 """Where the time of kernels K1 to K5 goes on a CUDA card, for this checkout
 and, beside it, for another checkout of the port.
 
-    python3 split_compare.py [OTHER_CHECKOUT] [--out FILE]
+    python3 split_compare.py [OTHER_CHECKOUT] [--large] [--out FILE]
     python3 split_compare.py --resources [--sass-dir DIR] [OTHER_CHECKOUT]
 
 Runs, in a fresh process per run, `chip_smoke.measure_split` (the launch
@@ -23,6 +23,14 @@ the parent commit unpacked with ``git archive``), the runs go in turns,
 other, this, this, other, so that a drift of the card or the host falls on
 both; each run builds that checkout's kernels.  Prints one JSON line a run
 and, with --out, writes them all to FILE.
+
+With --large it times instead, in the same turns, the general and wide
+instances: K1, K4 and K3 at `chip_smoke.GENERAL_SHAPES`, at (1,024, 64)
+and (K1 and K4) at `WIDE_SHAPES`, K5's large instance at (64, 8,400) and
+(2, 33,600) on `chip_smoke._pools`, each as device microseconds a call
+(`batch_us`: `chip_smoke.kernels_device_ms` over 50 calls, the mean span
+from a call's first kernel's start to its last one's end, the calls
+enqueued behind a device sleep so that no gap is the host's).
 
 With --resources it prints instead, once a checkout, each kernel's
 registers a thread and its stack, static shared and spilled bytes, as
@@ -183,7 +191,48 @@ def single_block_fork(smoke, device, pools) -> dict:
     return result
 
 
-def run_one(label: str, resources: bool, sass_dir: Path | None = None) -> dict:
+LARGE_REPS = 50
+
+
+def batch_us(smoke, fn, key: str, reps: int = LARGE_REPS) -> float:
+    """Device microseconds a call of ``fn``: `chip_smoke.kernels_device_ms`
+    of the kernels whose name holds ``key``, in the order a trace of one
+    call shows them (the two checkouts may launch different kernels)."""
+    _, records = smoke.card_trace(fn)
+    names = tuple(e.name for e in sorted(records, key=lambda e: e.time_range.start) if key in e.name)
+    return smoke.kernels_device_ms(fn, names, reps)[1] * 1e3
+
+
+def large_times(smoke, device) -> dict:
+    """`batch_us` of K1, K4 and K3's general instances and of K5's large
+    instance (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for t, d in smoke.GENERAL_SHAPES + ((1024, 64),) + smoke.WIDE_SHAPES:
+        x = smoke.large_kernel_inputs(device, t, d)
+        cfg, table, dets = x["cfg"], x["table"], x["dets"]
+        iou, rank = x["association"]
+        calls = {"K1": (lambda: smoke.tracker_kernel.tracker_step(table, dets, cfg, cfg.min_hits), "tracker_"),
+                 "K4": (lambda: smoke.association_kernel.greedy_associate(iou, rank, cfg.iou_threshold),
+                        "associate_general")}
+        if (t, d) in smoke.LARGE_SHAPES:
+            rules, state, (tdets, ttable, vrow) = x["rules"], x["state"], x["tag_frame"]
+            calls["K3"] = (lambda: smoke.tagging_kernel.tagging_step(rules, state, tdets, ttable, vrow), "tagging_step")
+        out[f"{t}x{d}"] = {}
+        for name, (fn, key) in calls.items():
+            fn()
+            out[f"{t}x{d}"][name] = batch_us(smoke, fn, key)
+    for b, k in ((64, 8400), (2, 33600)):
+        boxes, scores = (torch.tensor(v, device=device) for v in smoke._pools(np.random.default_rng(b * k), b, k))
+        fn = lambda boxes=boxes, scores=scores: smoke.nms_kernel.nms_keep(boxes, scores, 0.45)  # noqa: E731
+        fn()
+        out[f"{b}x{k}"] = {"K5": batch_us(smoke, fn, "nms_", reps=10)}
+    return out
+
+
+def run_one(label: str, resources: bool, sass_dir: Path | None = None, large: bool = False) -> dict:
     """One run in this process: see the module's docstring."""
     import time
 
@@ -204,6 +253,10 @@ def run_one(label: str, resources: bool, sass_dir: Path | None = None) -> dict:
                 (sass_dir / f"{label}_{k}.sass").write_text("\n".join(listing) + "\n")
         sass = {k: {"instructions": len(v), "opcodes": opcode_counts(v)} for k, v in listings.items()}
         return {**result, "resources": usage, "sass": sass}
+    if large:
+        device = torch.device("cuda")
+        result["large"] = large_times(smoke, device)
+        return result
     device, inputs = torch.device("cuda"), smoke.synthetic_inputs()
     pools = smoke.nms_pools_from(smoke.yolo_chunk_candidates(device))
     result.update(split=smoke.measure_split(device, inputs, pools), kernels=smoke.measure_kernels(device, inputs),
@@ -214,8 +267,9 @@ def run_one(label: str, resources: bool, sass_dir: Path | None = None) -> dict:
     return result
 
 
-def run(label: str, checkout: Path, resources: bool, sass_dir: Path | None = None) -> dict:
+def run(label: str, checkout: Path, resources: bool, sass_dir: Path | None = None, large: bool = False) -> dict:
     cmd = [sys.executable, str(HERE / "split_compare.py"), "--run-one", label] + (["--resources"] if resources else [])
+    cmd += ["--large"] if large else []
     cmd += ["--sass-dir", str(sass_dir)] if sass_dir is not None else []
     out = subprocess.run(cmd, cwd=checkout, check=True, capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(checkout)})
@@ -227,13 +281,16 @@ def main(argv) -> int:
     resources = "--resources" in args
     if resources:
         args.remove("--resources")
+    large = "--large" in args
+    if large:
+        args.remove("--large")
     sass_dir = None
     if "--sass-dir" in args:
         i = args.index("--sass-dir")
         sass_dir = Path(args[i + 1]).resolve()
         del args[i:i + 2]
     if "--run-one" in args:
-        print(json.dumps(run_one(args[args.index("--run-one") + 1], resources, sass_dir)))
+        print(json.dumps(run_one(args[args.index("--run-one") + 1], resources, sass_dir, large)))
         return 0
     out_file = None
     if "--out" in args:
@@ -247,7 +304,7 @@ def main(argv) -> int:
         order = [("other", other), ("this", HERE), ("this", HERE), ("other", other)] if other else [("this", HERE)]
     results = []
     for label, checkout in order:
-        result = {"run": label, **run(label, checkout, resources, sass_dir)}
+        result = {"run": label, **run(label, checkout, resources, sass_dir, large)}
         print(json.dumps(result), flush=True)
         results.append(result)
     if out_file is not None:

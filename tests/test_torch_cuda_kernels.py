@@ -265,17 +265,49 @@ def test_large_paths_on_card(device):
 
 def test_wide_instances_match_plain(device):
     """K1 and K4's general instances at (1,025, 64), (2,048, 300), (4,096,
-    1,024) and (4,096, 4,096), the ladders 4,097 rounds long at the last;
-    K3's at 1,025, 2,048 and 4,096 slots in both modes and on the crafted
-    stream; K5's large instance at (64, 1,025), (64, 8,400) and (2,
-    33,600); K1 at 8 lanes at (2,048, 300): each bit for bit its plain
-    version (chip_smoke's `wide_tables`)."""
+    1,024) and (4,096, 4,096), the ladders 4,097 rounds long at the last
+    (K1 there through its rank and stage kernels before the cluster
+    kernel); K3's at 1,025, 2,048 and 4,096 slots in both modes and on the
+    crafted stream; K5's large instance (its mask and tiled scan kernels)
+    at (64, 1,025), (64, 8,400) and (2, 33,600); K1 at 8 lanes at (2,048,
+    300): each bit for bit its plain version (chip_smoke's
+    `wide_tables`)."""
     result = chip_smoke.check_wide_tables(device)
     assert {c["case"] for c in result["tracker"]} >= {"staircase_4096x4096", "all_equal_4096x4096", "churn_2048x300"}
     assert {"case": "staircase_4096x4096", "matched": 4096} in result["association"]
     assert {c["cluster"] for c in result["tagging"] if "cluster" in c} == {5, 8, 16}
     assert any(c["case"] == "sparse_chain_2x33600" for c in result["nms"])
     torch.cuda.synchronize()
+
+
+def test_wide_instances_launch_their_kernels(device):
+    """One call of K1's wrapper beyond 1,024 slots runs the rank, stage and
+    cluster kernels and counts one launch; at (1,024, 64), where its keys
+    stay in shared memory, the cluster kernel alone; one call of K5's
+    beyond 1,024 candidates runs the mask and scan kernels and counts one;
+    each equal to its plain version."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import nms_kernel, tracker_kernel
+
+    for (t, d), kernels in (((1025, 64), chip_smoke.K1_STAGED_KERNELS + (chip_smoke.K1_CLUSTER_KERNEL,)),
+                            ((1024, 64), (chip_smoke.K1_CLUSTER_KERNEL,))):
+        x = chip_smoke.large_kernel_inputs(device, t, d)
+        cfg, table, dets = x["cfg"], x["table"], x["dets"]
+        assert chip_smoke.k1_kernels(t, d, cfg.trajectory_length) == kernels
+        before = tracker_kernel.launches
+        got, records = chip_smoke.card_trace(lambda: tracker_kernel.tracker_step(table, dets, cfg, cfg.min_hits))
+        assert tracker_kernel.launches == before + 1
+        every = chip_smoke.K1_STAGED_KERNELS + (chip_smoke.K1_CLUSTER_KERNEL,)
+        assert {k for k in every if any(k in e.name for e in records)} == set(kernels)
+        want = chip_smoke.plain_tracker_step(table, dets, cfg)
+        for a, b in zip(chip_smoke._tensors(got), chip_smoke._tensors(want)):
+            assert torch.equal(a, b)
+    case = chip_smoke.wide_nms_cases(2, 2048)["random_2x2048"]
+    bx, sc = torch.tensor(case.boxes, device=device), torch.tensor(case.scores, device=device)
+    before = nms_kernel.launches
+    keep, records = chip_smoke.card_trace(lambda: nms_kernel.nms_keep(bx, sc, case.thr))
+    assert nms_kernel.launches == before + 1
+    assert all(any(k in e.name for e in records) for k in ("nms_mask_kernel", "nms_scan_kernel"))
+    assert torch.equal(keep, chip_smoke.plain_nms_keep(bx, sc, case.thr))
 
 
 def test_wide_paths_on_card(device):

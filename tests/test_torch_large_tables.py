@@ -673,3 +673,459 @@ def test_mask_and_scan_model_matches_plain_and_jax(name, k, one_thread):
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
     np.testing.assert_array_equal(got.numpy(), np.asarray(_jax_keep(case.thr)(jnp.asarray(case.boxes),
                                                                               jnp.asarray(case.scores))))
+
+
+# --- K1's wide instance: the ranks by counting ---------------------------------
+
+I32_MAX = 2**31 - 1
+_U64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+RANK_SIZES = (1025, 2048, 4096)
+RANK_CASES = ("random_ties", "dead_slots", "all_equal")
+WIDE_PARTS = 16  # association.cuh `assoc_plan`'s cluster beyond 1,024 slots
+
+
+def sort_pairs_model(values: np.ndarray) -> np.ndarray:
+    """tracker_step.cu `sort_pairs` step for step: the bitonic network over
+    n uint64 values, a value a thread (n a power of two from 32 to 1,024);
+    each step every thread i keeps the smaller or the larger of its value
+    and thread i ^ j's, the run of k sorted up where i & k is 0.  Steps of j
+    under 32 are the kernel's shuffles, the others its shared-memory steps:
+    every k up to 32 by shuffles, then for each k from 64 the steps of j
+    from k / 2 down to 32 through shared memory and j = 16 .. 1 by
+    shuffles."""
+    v = values.copy()
+    n = v.shape[0]
+    i = np.arange(n)
+
+    def step(j, k):
+        o = v[i ^ j]
+        up = ((i & j) == 0) == ((i & k) == 0)
+        v[:] = np.where(up, np.minimum(v, o), np.maximum(v, o))
+
+    for k in (2, 4, 8, 16, 32):
+        j = k >> 1
+        while j > 0:
+            step(j, k)
+            j >>= 1
+    k = 64
+    while k <= n:
+        j = k >> 1
+        while j >= 32:
+            step(j, k)
+            j >>= 1
+        for j in (16, 8, 4, 2, 1):
+            step(j, k)
+        k <<= 1
+    return v
+
+
+def rank_pairs(keys: np.ndarray) -> np.ndarray:
+    """tracker_step.cu `rank_pair` of every slot: its key's bits with the
+    sign flipped (signed order as unsigned) above the slot."""
+    flipped = (keys.astype(np.int64) & 0xFFFFFFFF) ^ 0x80000000
+    return (flipped.astype(np.uint64) << np.uint64(32)) | np.arange(keys.shape[0], dtype=np.uint64)
+
+
+def _sort_size(n: int) -> int:
+    p = 32
+    while p < n:
+        p <<= 1
+    return p
+
+
+def lower_count_model(lists: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """The binary search of tracker_step.cu `cluster_places` over each row
+    of ``lists`` (sorted) for its value in ``x``: the entries below it,
+    step by step from the largest power of two within the list's length."""
+    n = lists.shape[1]
+    pos = np.zeros(lists.shape[0], np.int64)
+    step = 1 << (n.bit_length() - 1)
+    rows = np.arange(lists.shape[0])
+    while step > 0:
+        at = np.minimum(pos + step - 1, n - 1)
+        pos += np.where((pos + step <= n) & (lists[rows, at] < x), step, 0)
+        step >>= 1
+    return pos
+
+
+def cluster_places_model(keys: np.ndarray) -> np.ndarray:
+    """tracker_step.cu `cluster_places` over `WIDE_PARTS` blocks of the
+    association's partition: each block sorts its slots' pairs (padded with
+    ~0 to `sort_size`) by `sort_pairs_model` and keeps the first ``rows``
+    as its list; the place of its s-th pair is s plus, for every other
+    block, the pairs below it in that block's list (`lower_count_model`).
+    Returns each slot's place."""
+    T = keys.shape[0]
+    rows = _split(T, WIDE_PARTS)
+    per = rows[0][1] - rows[0][0]
+    pairs = rank_pairs(keys)
+    lists = np.full((WIDE_PARTS, per), _U64, np.uint64)
+    for b, (r0, r1) in enumerate(rows):
+        v = np.full(_sort_size(per), _U64, np.uint64)
+        v[:r1 - r0] = pairs[r0:r1]
+        lists[b] = sort_pairs_model(v)[:per]
+    place = np.full(T, -1, np.int64)
+    for b in range(WIDE_PARTS):
+        live = lists[b] != _U64
+        x = lists[b][live]
+        total = np.flatnonzero(live).astype(np.int64)
+        for o in range(WIDE_PARTS):
+            if o != b:
+                total += lower_count_model(np.broadcast_to(lists[o], (x.shape[0], per)), x)
+        place[(x & np.uint64(0xFFFFFFFF)).astype(np.int64)] = total
+    return place
+
+
+def rank_kernel_model(keys: np.ndarray) -> np.ndarray:
+    """tracker_step.cu `tracker_rank_kernel`'s count: the keys padded with
+    I32_MAX to a multiple of 4, each slot's rank the keys below it and the
+    equal keys at lower slots."""
+    T = keys.shape[0]
+    padded = np.full(-(-T // 4) * 4, I32_MAX, np.int64)
+    padded[:T] = keys
+    j = np.arange(padded.shape[0])
+    kt = keys.astype(np.int64)[:, None]
+    return ((padded[None, :] < kt) | ((padded[None, :] == kt) & (j[None, :] < np.arange(T)[:, None]))).sum(axis=1)
+
+
+def _rank_keys(T: int, case: str) -> np.ndarray:
+    """Ranked keys as the kernel ranks them: an id where the slot is live
+    (confirmed), else I32_MAX."""
+    rng = np.random.default_rng(T + RANK_CASES.index(case))
+    if case == "random_ties":
+        ids = rng.integers(-3, T // 8, T)  # about an eighth of the values each, some dead
+    elif case == "dead_slots":
+        ids = np.where(rng.random(T) < 0.5, rng.integers(1, 2**31 - 1, T), rng.integers(-5, 1, T))
+    else:
+        ids = np.full(T, 7)
+    return np.where(ids > 0, ids, I32_MAX).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_rank():
+    from multimodal_autonomous_driving_perception_and_planning_tpu.tracking.tracker import _rank_by_count
+
+    return jax.jit(_rank_by_count)
+
+
+@pytest.mark.parametrize("case", RANK_CASES)
+@pytest.mark.parametrize("T", RANK_SIZES)
+def test_wide_ranks_by_counting_match_plain_and_jax(T, case, one_thread):
+    """K1's ranks beyond 1,024 slots, modelled: the rank kernel's count
+    (`rank_kernel_model`) and the cluster's placement (`cluster_places_model`:
+    16 blocks' `sort_pairs` networks, then binary searches in the other
+    blocks' lists) both equal a stable argsort of (key, slot), the port's
+    `_rank_by_count` and JAX's, jitted, on tied keys, I32_MAX dead slots
+    and all-equal keys at 1,025, 2,048 and 4,096 slots.  A copy whose
+    `sort_pairs_model` drops the last merge's shuffle stage (j = 16 .. 1 at
+    k = n) fails all 9 of these cases and all 6 sort-network cases
+    below."""
+    from multimodal_autonomous_driving_perception_and_planning_torch.tracking.tracker import _rank_by_count
+
+    keys = _rank_keys(T, case)
+    want = np.empty(T, np.int64)
+    want[np.argsort(keys, kind="stable")] = np.arange(T)
+    np.testing.assert_array_equal(cluster_places_model(keys), want)
+    np.testing.assert_array_equal(rank_kernel_model(keys), want)
+    k32 = keys.astype(np.int32)
+    np.testing.assert_array_equal(_rank_by_count(torch.tensor(k32)).numpy(), want)
+    np.testing.assert_array_equal(np.asarray(_jax_rank()(jnp.asarray(k32))), want)
+
+
+@pytest.mark.parametrize("n", (32, 64, 128, 256, 512, 1024))
+def test_sort_pairs_network_sorts(n):
+    """`sort_pairs_model` sorts n pairs of tied keys, dead slots and ~0
+    padding, as `np.sort` does."""
+    rng = np.random.default_rng(n)
+    keys = np.where(rng.random(n) < 0.3, I32_MAX, rng.integers(0, n // 4 + 1, n))
+    v = rank_pairs(keys)
+    v[rng.random(n) < 0.1] = _U64
+    np.testing.assert_array_equal(sort_pairs_model(v), np.sort(v))
+
+
+# --- K5's large instance: the mask's layout and decision, the tiled scan -------
+
+TILE_WORDS = 8  # nms_keep.cu kTileWords
+CHUNK_WORDS = 64  # nms_keep.cu kChunkWords
+LAYOUT_K = (1025, 1056, 1100, 2500, 4097, 8400, 33_600)
+
+
+def ceil_sum(n, m: int):
+    """nms_keep.cu `ceil_sum`: sum_{u = 1 .. n} ceil(u / m), m even."""
+    q, r = n // m, n % m
+    return (q + 1) * (m // 2 * q + r)
+
+
+def row_base_model(i, W: int):
+    """nms_keep.cu `row_base`: row i's segment of its image's mask, the
+    groups' segments of 8 ceil((W - g) / 8) words side by side."""
+    g = i >> 5
+    return 256 * (ceil_sum(W, 8) - ceil_sum(W - g, 8)) + (i & 31) * 8 * ((W - g + 7) >> 3)
+
+
+@pytest.mark.parametrize("K", LAYOUT_K)
+def test_large_nms_mask_layout(K):
+    """The large instance's packed mask: every row's segment (its words from
+    its own on, padded to a sector) starts on a 32-byte sector, the
+    segments of an image follow one another without overlap, an image fits
+    in the K W words a image of the wrapper's workspace takes (rounded
+    down to a sector), and the mask kernel's grid (`tri_group`) takes each
+    (row group, 64-word chunk) of the upper triangle exactly once."""
+    W = -(-K // 32)
+    rows = np.arange(32 * W)
+    base = row_base_model(rows, W)
+    seg = 8 * ((W - (rows >> 5) + 7) >> 3)
+    assert (base % 8 == 0).all() and base[0] == 0
+    np.testing.assert_array_equal(base[1:], base[:-1] + seg[:-1])
+    image = 256 * ceil_sum(W, 8)
+    assert base[-1] + seg[-1] == image <= (K * W) & ~7
+    assert nms_kernel.workspace_words(1, K)[0] == K * W
+    total = ceil_sum(W, CHUNK_WORDS)
+    before = total - ceil_sum(W - np.arange(W), CHUNK_WORDS)  # blocks before group g
+    L = np.arange(total)
+    g = np.searchsorted(before, L, side="right") - 1  # the kernel's binary search: the last g with before <= L
+    chunk = L - before[g]
+    got = set(zip(g.tolist(), chunk.tolist()))
+    want = {(gg, c) for gg in range(W) for c in range(-(-(W - gg) // CHUNK_WORDS))}
+    assert got == want and len(got) == total
+
+
+def mask_decision_model(boxes: torch.Tensor, thr: float) -> torch.Tensor:
+    """nms_keep.cu's large mask kernel's decision of iou(i, j) > thr for
+    every pair of one image's (K, 4) boxes: with the threshold in [2^-20,
+    2^20] and both areas in [2^-38, 2^38], inter > union hi (above) or
+    inter < union lo (below), hi and lo thr (1 +- 2^-19) and the
+    intersection max(iw, 0) max(ih, 0); the pairs between the two, or
+    outside those ranges, by the exact `pairwise_iou` (0 where the boxes
+    do not overlap)."""
+    f32 = torch.float32
+    a, b = boxes[:, None, :], boxes[None, :, :]
+    iw = torch.minimum(a[..., 2], b[..., 2]) - torch.maximum(a[..., 0], b[..., 0])
+    ih = torch.minimum(a[..., 3], b[..., 3]) - torch.maximum(a[..., 1], b[..., 1])
+    wh = boxes[:, 2:] - boxes[:, :2]
+    area = wh[:, 0] * wh[:, 1]
+    ok = (area >= 2.0**-38) & (area <= 2.0**38)
+    t = torch.tensor(thr, dtype=f32)
+    hi, lo = t * torch.tensor(1 + 2.0**-19, dtype=f32), t * torch.tensor(1 - 2.0**-19, dtype=f32)
+    inter = iw.clamp_min(0.0) * ih.clamp_min(0.0)
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops.geometry import fma32
+
+    uni = fma32(*torch.broadcast_tensors(wh[None, :, 0], wh[None, :, 1], area[:, None])) - inter
+    above, below = inter > uni * hi, inter < uni * lo
+    fast = (2.0**-20 <= thr <= 2.0**20) & ok[:, None] & ok[None, :] & (above | below)
+    overlap = (iw > 0) & (ih > 0)
+    exact = torch.where(overlap, pairwise_iou(boxes, boxes) > thr, torch.tensor(0.0 > thr))
+    return torch.where(fast, above, exact)
+
+
+def tiled_scan_model(S: np.ndarray, alive: np.ndarray) -> np.ndarray:
+    """nms_keep.cu's scan over one image's suppression bits S[i, j] (i < j),
+    tile by tile of TILE_WORDS words: warp 0 solves the tile's words from
+    its diagonal block alone, each word's candidates (not removed) all kept
+    where none suppresses another, else kept in score order, a kept one at
+    a time removing those it suppresses (the fixpoint keep = cand &
+    ~OR_{b kept} diag_b, solved greedily), then ORs the kept rows' later
+    words inside the tile into their removed bits; then the tile's
+    kept rows with a later bit (`nz`) are ORed into every word past the
+    tile.  Returns the keep bits."""
+    K = S.shape[0]
+    W = -(-K // 32)
+    bits = np.zeros((32 * W, 32 * W), bool)
+    bits[:K, :K] = np.triu(S, 1)
+    mask = np.packbits(bits.reshape(32 * W, W, 32), axis=-1, bitorder="little").view("<u4")[..., 0].astype(np.int64)
+    own = np.arange(32 * W) // 32
+    nz = np.array([mask[i, own[i] + 1:].any() for i in range(32 * W)])
+    live = np.zeros(32 * W, bool)
+    live[:K] = alive
+    removed = (~np.packbits(live.reshape(W, 32), axis=-1, bitorder="little").view("<u4")[:, 0]).astype(np.int64)
+    removed &= 0xFFFFFFFF
+    keep = np.zeros(32 * W, bool)
+    for t in range(-(-W // TILE_WORDS)):
+        words = range(TILE_WORDS * t, min(TILE_WORDS * (t + 1), W))
+        rem = {w: int(removed[w]) for w in words}
+        listed = []
+        for w in words:
+            cand = ~rem[w] & 0xFFFFFFFF
+            diag = [int(x) for x in mask[32 * w:32 * w + 32, w]]
+            kept = cand
+            if any(cand >> b & 1 and diag[b] & cand for b in range(32)):
+                kept, left = 0, cand
+                while left:
+                    b = (left & -left).bit_length() - 1
+                    kept |= 1 << b
+                    left &= ~(diag[b] | 1 << b)
+            rows = [32 * w + lane for lane in range(32) if kept >> lane & 1]
+            keep[rows] = True
+            for v in words:
+                if v > w:
+                    for r in rows:
+                        rem[v] |= int(mask[r, v])
+            listed += [r for r in rows if nz[r]]
+        past = TILE_WORDS * (t + 1)
+        for r in listed:
+            removed[past:] |= mask[r, past:]
+    return keep[:K]
+
+
+def _tile_chain(k: int) -> "chip_smoke.NmsCase":
+    """A chain of 40 boxes 5 apart (each suppresses only the next) at
+    candidates 236 .. 275, across word 8, the first tile's end, the others
+    disjoint: every other link kept, the chain's suppression carried from
+    one tile into the next."""
+    boxes = chip_smoke._far_boxes(k)
+    x = np.arange(40) * 5.0
+    boxes[236:276] = np.stack([x, np.zeros(40), x + 10.0, np.full(40, 10.0)], 1)
+    return chip_smoke.NmsCase(boxes[None], chip_smoke._descending(k)[None], 0.3)
+
+
+@pytest.mark.parametrize("k", (1100, 2500))
+@pytest.mark.parametrize("name", NMS_MODEL_CASES + ("tile_chain",))
+def test_tiled_scan_model_matches_plain_and_jax(name, k, one_thread):
+    """K5's large instance, modelled: the mask kernel's division-free
+    decision (`mask_decision_model`) and the tiled scan
+    (`tiled_scan_model`) on `chip_smoke.nms_cases`' corners scaled past
+    1,024 candidates and on a chain across the first tile's end: bit for
+    bit the plain fixpoint and JAX's XLA fixpoint, jitted.  A copy of the
+    scan that ORs a tile's rows into the later words before the tile's own
+    fixpoint (its candidates, not its kept rows) fails 8 of these 28 cases
+    (the tile chain, dead entries between live ones, degenerate boxes at
+    threshold 0, NaN and inf coordinates, at both sizes)."""
+    if name == "tile_chain":
+        case = _tile_chain(k)
+    else:
+        case = chip_smoke.nms_cases()[name]
+        case = chip_smoke.scale_nms_case(case, case.scores.shape[0], k)
+    boxes, scores = torch.tensor(case.boxes), torch.tensor(case.scores)
+    got = np.stack([tiled_scan_model(mask_decision_model(boxes[b], case.thr).numpy(), (scores[b] > 0).numpy())
+                    for b in range(boxes.shape[0])])
+    np.testing.assert_array_equal(got, _nms_keep_plain(boxes, scores, case.thr).numpy())
+    np.testing.assert_array_equal(got, np.asarray(_jax_keep(case.thr)(jnp.asarray(case.boxes),
+                                                                      jnp.asarray(case.scores))))
+
+
+# --- K1's wide instance: the key lines staged over the card -------------------
+
+STAGE_SHAPES = ((1025, 64), (1024, 1024), (2048, 300), (4096, 160))
+STAGE_TILES = ((128, 64), (32, 64))  # tracker_step.cu `launch_stage`: a stage block's tile, large and small tables
+
+
+def assoc_keys(iou: torch.Tensor, thr: float) -> np.ndarray:
+    """association.cuh `assoc_key`: the IoU's bits with the sign cleared,
+    plus one, where iou >= thr and iou >= 0; else 0 (int64)."""
+    bits = iou.view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    return torch.where((iou >= thr) & (iou >= 0), bits + 1, 0).numpy()
+
+
+def _stage_inputs(t: int, d: int, thr: float):
+    """`random_dets` boxes for a table of t slots (ids with ties, about a
+    third dead) and d detections, and the keys of every pair: 0 where the
+    slot is dead or the detection invalid."""
+    rng = np.random.default_rng(t * 3 + d)
+    slots = chip_smoke.random_dets(rng, t, "cpu", p_valid=0.65)
+    dets = chip_smoke.random_dets(rng, d, "cpu")
+    ids = np.where(slots.valid.numpy(), rng.integers(1, t // 3 + 2, t), 0)
+    keys = assoc_keys(pairwise_iou(slots.bbox, dets.bbox), thr)
+    keys = np.where((ids > 0)[:, None] & dets.valid.numpy()[None, :], keys, 0)
+    return slots.bbox, dets.bbox, ids, keys
+
+
+def line_firsts(keys: np.ndarray, rank: np.ndarray):
+    """`stage_general_keys`' first round, line by line: each row's best
+    entry (key << 32 | ~(rank D + d + 2^31), the largest), each column's
+    and the row holding it (the least such row: entries never tie)."""
+    T, D = keys.shape
+    tie = (rank[:, None] * D + np.arange(D)[None, :] + 2**31) & _MASK32
+    entry = np.where(keys != 0, (keys << 32) | (~tie & _MASK32), 0)
+    return entry.max(axis=1), entry.max(axis=0), np.where(entry.max(axis=0) != 0, entry.argmax(axis=0), 0)
+
+
+def stage_kernel_model(keys: np.ndarray, rank: np.ndarray, tile: tuple):
+    """tracker_step.cu `tracker_stage_kernel` over ``tile`` (rows,
+    columns) blocks: each key computed once, its row's and its column's best within
+    the tile packed as the kernel packs them for its atomicMax (a row's
+    (key, 2^32 - 1 - column), a column's (key, 2^32 - 1 - rank)), the
+    maximum over tiles, then unpacked by the cluster kernel into the
+    rounds' entries (a column's row through the inverse of the rank); and
+    each line's chunk mask, bit c set where entries 32 c .. 32 c + 31 hold
+    a key.  Returns (row bests, column bests, column rows, row masks,
+    column masks)."""
+    T, D = keys.shape
+    by_rank = np.empty(T, np.int64)
+    by_rank[rank] = np.arange(T)
+    rowbest = np.zeros(T, np.int64)
+    colbest = np.zeros(D, np.int64)
+    rows_per, cols_per = tile
+    for t0 in range(0, T, rows_per):
+        for d0 in range(0, D, cols_per):
+            k = keys[t0:t0 + rows_per, d0:d0 + cols_per]
+            d = np.arange(d0, d0 + k.shape[1])
+            r = rank[t0:t0 + k.shape[0]]
+            rowbest[t0:t0 + k.shape[0]] = np.maximum(
+                rowbest[t0:t0 + k.shape[0]], np.where(k != 0, (k << 32) | (_MASK32 - d[None, :]), 0).max(axis=1))
+            colbest[d0:d0 + k.shape[1]] = np.maximum(
+                colbest[d0:d0 + k.shape[1]], np.where(k != 0, (k << 32) | (_MASK32 - r[:, None]), 0).max(axis=0))
+    rkey, rd = rowbest >> 32, _MASK32 - (rowbest & _MASK32)
+    rows = np.where(rowbest != 0, (rkey << 32) | (~((rank * D + rd + 2**31) & _MASK32) & _MASK32), 0)
+    ckey, cr = colbest >> 32, _MASK32 - (colbest & _MASK32)
+    cols = np.where(colbest != 0, (ckey << 32) | (~((cr * D + np.arange(D) + 2**31) & _MASK32) & _MASK32), 0)
+    colrow = np.where(colbest != 0, by_rank[np.where(colbest != 0, cr, 0)], 0)
+    pad = lambda n: -(-n // 32) * 32  # noqa: E731
+    rk = np.zeros((T, pad(D)), bool)
+    rk[:, :D] = keys != 0
+    ck = np.zeros((D, pad(T)), bool)
+    ck[:, :T] = keys.T != 0
+    return rows, cols, colrow, rk.reshape(T, -1, 32).any(axis=2), ck.reshape(D, -1, 32).any(axis=2)
+
+
+def masked_best(line_keys: np.ndarray, ties: np.ndarray, dead: np.ndarray, chunks: np.ndarray) -> int:
+    """association.cuh `row_line_best_masked` (and its column twin): the
+    best live entry over the chunks whose mask bit is set and whose 32
+    lines are not all dead."""
+    n = line_keys.shape[0]
+    best = 0
+    for c in np.flatnonzero(chunks):
+        span = slice(32 * c, min(32 * c + 32, n))
+        if dead[span].all() and span.stop - span.start == 32:
+            continue
+        k, tie, gone = line_keys[span], ties[span], dead[span]
+        e = np.where((k != 0) & ~gone, (k << 32) | (~tie & _MASK32), 0)
+        best = max(best, int(e.max(initial=0)))
+    return best
+
+
+@pytest.mark.parametrize("thr", (0.3, 0.0))
+@pytest.mark.parametrize("shape", STAGE_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_staged_key_lines_match_the_per_line_staging(shape, thr, one_thread):
+    """K1's keys staged over the card, modelled (`stage_kernel_model`):
+    each key computed once gives every row's and every column's first-round
+    best, and the column's row, bit for bit as `stage_general_keys`
+    computes them twice, line by line (`line_firsts`), on tied IoUs (boxes
+    quantized to 20 px), dead slots, invalid detections and tied ids, at
+    thresholds 0.3 and 0 (where IoUs of 0 are eligible); the keys are the
+    port's `pairwise_iou` and JAX's, jitted; and a best taken over the
+    chunks the masks mark (`masked_best`), with random columns taken,
+    equals the best over the whole line; both of the kernel's tile shapes.  A copy that packs a column's best
+    with its slot instead of its id rank fails 8 of these 8 cases."""
+    from multimodal_autonomous_driving_perception_and_planning_tpu.ops.geometry import pairwise_iou as jax_iou
+    from multimodal_autonomous_driving_perception_and_planning_torch.tracking.tracker import _rank_by_count
+
+    t, d = shape
+    tb, db, ids, keys = _stage_inputs(t, d, thr)
+    jax_keys = assoc_keys(torch.from_numpy(np.array(jax.jit(jax_iou)(jnp.asarray(tb.numpy()),
+                                                                        jnp.asarray(db.numpy())))), thr)
+    np.testing.assert_array_equal(np.where(keys != 0, jax_keys, 0), keys)
+    rank = _rank_by_count(torch.tensor(np.where(ids > 0, ids, I32_MAX).astype(np.int32))).numpy().astype(np.int64)
+    want_rows, want_cols, want_colrow = line_firsts(keys, rank)
+    for tile in STAGE_TILES:
+        rows, cols, colrow, rmask, cmask = stage_kernel_model(keys, rank, tile)
+        np.testing.assert_array_equal(rows, want_rows)
+        np.testing.assert_array_equal(cols, want_cols)
+        np.testing.assert_array_equal(colrow, want_colrow)
+    assert (keys != 0).any()
+    rng = np.random.default_rng(t + d)
+    taken = rng.random(d) < 0.5
+    taken[: 32 * (d // 64)] = True  # whole words of taken columns, as the rounds leave them
+    tie_row = (rank[:, None] * d + np.arange(d)[None, :] + 2**31) & _MASK32
+    for i in rng.choice(t, 64, replace=False):
+        dense = np.where((keys[i] != 0) & ~taken, (keys[i] << 32) | (~tie_row[i] & _MASK32), 0).max()
+        assert masked_best(keys[i], tie_row[i], taken, rmask[i]) == dense
