@@ -3625,7 +3625,7 @@ def check_partition_edges(device, sizes=PARTITION_SIZES) -> list:
                 matched.append(int((want >= 0).sum()))
             cases.append({"T": t, "D": d, "k1_cluster": tracker_kernel.cluster_size(t, d, cfg.trajectory_length),
                           "k4_cluster": association_kernel.cluster_size(t, d), "k1_max_matched": k1["max_matched"],
-                          "k4_matched": matched})
+                          "k4_matched": matched, "k4_kernels": k4_kernels(t, d)})
     return cases
 
 
@@ -3633,7 +3633,9 @@ def check_large_association(device, trials: int = 4) -> list:
     """K4's general instance against its plain version at GENERAL_SHAPES:
     random and tied ranks, full matrices, the key-order corners (ranks at
     int32's ends whose tie-break keys wrap at these D, -0 and +0, the
-    threshold, NaN), and the staircase (1,025 rounds at (1,024, 1,024))."""
+    threshold, NaN), and the staircase (1,025 rounds at (1,024, 1,024));
+    each shape's kernels (`k4_kernels`: the staged route at (1,024,
+    1,024)) with its random case."""
     cases = []
 
     def compare(name, iou, rank, thr):
@@ -3648,7 +3650,7 @@ def check_large_association(device, trials: int = 4) -> list:
         rng = np.random.default_rng(t * 7 + d)
         cases.append({"case": f"random_{t}x{d}", "matched": [
             compare(f"random {t}x{d} {i}", *random_association(rng, t, d), float(rng.choice([0.0, 0.3, 0.5])))
-            for i in range(trials)]})
+            for i in range(trials)], "kernels": k4_kernels(t, d)})
         cases.append({"case": f"tied_ranks_{t}x{d}", "matched": [
             compare(f"tied {t}x{d} {i}", *random_association(rng, t, d, tied=True), 0.3) for i in range(trials)]})
         cases.append({"case": f"full_{t}x{d}", "matched": [
@@ -3856,7 +3858,8 @@ def check_wide_association(device) -> list:
     random and tied ranks, full matrices, the key-order corners (ranks at
     int32's ends whose tie-break keys rank * D + column wrap at these D, -0
     and +0, the threshold, NaN), and the staircase and all-equal ladders
-    (4,097 rounds at 4,096 x 4,096), bit for bit."""
+    (4,097 rounds at 4,096 x 4,096), bit for bit, every shape on the staged
+    route (its kernels with its random case)."""
     cases = []
 
     def compare(name, iou, rank, thr):
@@ -3868,9 +3871,12 @@ def check_wide_association(device) -> list:
         return int((want >= 0).sum())
 
     for t, d in WIDE_SHAPES:
+        if k4_kernels(t, d) != K4_STAGED_KERNELS + (K4_CLUSTER_KERNEL,):
+            raise AssertionError(f"K4 at ({t}, {d}) does not take the staged route: {k4_kernels(t, d)}")
         rng = np.random.default_rng(t * 7 + d)
         cases.append({"case": f"random_{t}x{d}", "matched": [
-            compare(f"random {t}x{d} {i}", *random_association(rng, t, d), thr) for i, thr in enumerate((0.0, 0.3))]})
+            compare(f"random {t}x{d} {i}", *random_association(rng, t, d), thr) for i, thr in enumerate((0.0, 0.3))],
+            "kernels": k4_kernels(t, d)})
         cases.append({"case": f"tied_ranks_{t}x{d}",
                       "matched": compare(f"tied {t}x{d}", *random_association(rng, t, d, tied=True), 0.3)})
         cases.append({"case": f"full_{t}x{d}", "matched": compare(f"full {t}x{d}", *full_association(rng, t, d), 0.3)})
@@ -4240,6 +4246,17 @@ def k1_kernels(t: int, d: int, length: int) -> tuple:
     return (K1_STAGED_KERNELS if staged else ()) + (K1_CLUSTER_KERNEL,)
 
 
+K4_STAGED_KERNELS = ("associate_stage_kernel",)  # before the cluster, where the keys are staged over the card
+K4_CLUSTER_KERNEL = "associate_general_kernel"
+
+
+def k4_kernels(t: int, d: int) -> tuple:
+    """The kernels one launch of K4's general instance at (t, d) runs: the
+    cluster kernel, after the stage kernel on the staged route (the wrapper
+    then allocates its scratch)."""
+    return (K4_STAGED_KERNELS if association_kernel.scratch_words(t, d) > 0 else ()) + (K4_CLUSTER_KERNEL,)
+
+
 def whole_calls(records, names: tuple) -> list:
     """The calls in a trace's ``records`` of a function that launches the
     kernels ``names`` in that order, each the list of its records; a call
@@ -4329,20 +4346,23 @@ def measure_large_kernels(device, reps: int = 200) -> dict:
             "tracker_step": lambda: plain_tracker_step(table, dets, cfg),
             "associate": lambda: _greedy_associate_plain(iou, rank, cfg.iou_threshold),
         }
-        launchers = {"tracker_step": (k1, K1_CLUSTER_KERNEL), "associate": (k4, "associate_general_kernel")}
+        launchers = {"tracker_step": (k1, K1_CLUSTER_KERNEL), "associate": (k4, K4_CLUSTER_KERNEL)}
         counted = {"tracker_step": k1_m, "associate": k4_m}
         if (t, d) in LARGE_SHAPES or (t in WIDE_TAG_SIZES and (t, d) != WIDE_SHAPES[-1]):
             k3_timings(x, launchers, counted, plain, "tagging_step_cluster")
         ms = {name: time_cuda(fn, n, warmup=5) for name, (fn, _) in launchers.items()}
         # One trace a kernel, kept when it saw 80% of the launches: a trace
         # of 100 general K1 launches dropped 12 of them on an H100.  K1's
-        # device time is its kernels' (rank, stage and cluster) together.
+        # and K4's device time is their kernels' (K1: rank, stage and
+        # cluster; K4: stage and cluster) together.
         traced = min(n, 100)
         dev = {name: next(iter(device_times({name: launcher}, reps=traced, min_seen=traced * 4 // 5).values()))
-               for name, launcher in launchers.items() if name != "tracker_step"}
-        k1_by, k1_ms, k1_seen = kernels_device_ms(k1, k1_kernels(t, d, cfg.trajectory_length), traced)
-        dev["tracker_step"] = (k1_ms, k1_seen)
-        k1_m["device_ms_by_kernel"] = k1_by
+               for name, launcher in launchers.items() if name not in ("tracker_step", "associate")}
+        for name, fn, names, m in (("tracker_step", k1, k1_kernels(t, d, cfg.trajectory_length), k1_m),
+                                   ("associate", k4, k4_kernels(t, d), k4_m)):
+            by, span_ms, seen = kernels_device_ms(fn, names, traced)
+            dev[name] = (span_ms, seen)
+            m["device_ms_by_kernel"] = by
         out[f"{t}x{d}"] = {name: _timed(m, ms[name], dev[name], time_cuda(plain[name], 5, warmup=1))
                            for name, m in counted.items()}
     # The yardstick of K3's general instance: its small instance at T = 128,
@@ -4361,22 +4381,67 @@ def measure_large_kernels(device, reps: int = 200) -> dict:
 
 PHASE_SHAPES = (SORT_YARDSTICK, (1025, 64), (4096, 1024))
 PHASES = ("loads", "id_rank", "staging", "rounds", "ring_copy", "updates", "confirmed_order")
-PHASE_LIB = "libtracker_phases.so"
+K4_PHASE_SHAPES = ((1024, 1024),) + WIDE_SHAPES
+K4_PHASES = ("ranks", "staging", "rounds", "match")
+PHASE_BLOCKS, PHASE_MARKS = 16, 8  # block.cuh kPhaseBlocks, kPhaseMarks
 
 
-def start_phase_build():
-    """Starts nvcc on tracker_step.cu with -DMADPP_PHASE_CLOCKS (the cluster
-    kernel's clock64() reads, tracker_step.cu `PHASE_MARK`) into the build
-    directory, in the background beside the kernels' own build; returns the
-    process and the library's path."""
+def start_phase_build(source: str = "tracker_step.cu"):
+    """Starts nvcc on ``source`` with -DMADPP_PHASE_CLOCKS (its cluster
+    kernel's clock64() reads, block.cuh `PHASE_MARK`) into the build
+    directory as a library of its own, in the background beside the
+    kernels' own build; returns the process and the library's path."""
     from torch.utils import cpp_extension
 
     nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = build.BUILD_DIR / PHASE_LIB
+    target = build.BUILD_DIR / f"lib{Path(source).stem}_phases.so"
     cmd = [nvcc, *build.NVCC_FLAGS, "-DMADPP_PHASE_CLOCKS", "-shared", "-Xcompiler", "-fPIC", "-o", str(target),
-           str(build.CSRC / "tracker_step.cu")]
+           str(build.CSRC / source)]
     return subprocess.Popen(cmd), target
+
+
+def phase_library(job, launcher: str, argtypes: list, marks: str) -> tuple:
+    """The phase-clock build of `start_phase_build` once it has finished:
+    its C launcher ``launcher``, typed with ``argtypes``, and a function
+    that copies the last launch's marks out through ``marks`` (a list of
+    PHASE_BLOCKS x PHASE_MARKS clock64() reads)."""
+    proc, target = job
+    if proc.wait() != 0:
+        raise RuntimeError(f"the phase-clock build of {target.name} failed ({proc.returncode})")
+    lib = ctypes.CDLL(str(target))
+    launch, copy_out = getattr(lib, launcher), getattr(lib, marks)
+    launch.argtypes, launch.restype = argtypes, ctypes.c_int
+    copy_out.argtypes, copy_out.restype = [ctypes.c_void_p], ctypes.c_int
+    buf = (ctypes.c_longlong * (PHASE_BLOCKS * PHASE_MARKS))()
+
+    def copy():
+        if copy_out(ctypes.addressof(buf)) != 0:
+            raise RuntimeError(f"{marks} failed")
+        return list(buf)
+
+    return launch, copy
+
+
+def read_phases(run, copy_marks, cluster: int, names: tuple, reps: int) -> dict:
+    """Each phase's cycles on the slowest block of the cluster and on block
+    0, the mean of ``reps`` calls of ``run`` after one, and each phase's
+    share of the slowest block's total; ``copy_marks`` returns the marks of
+    the last call (PHASE_BLOCKS x PHASE_MARKS clock64() reads)."""
+    runs = []
+    for _ in range(reps + 1):
+        run()
+        torch.cuda.synchronize()
+        m = np.array(copy_marks(), dtype=np.int64).reshape(PHASE_BLOCKS, PHASE_MARKS)[:cluster, :len(names) + 1]
+        runs.append(np.diff(m, axis=1))
+    cycles = np.mean(runs[1:], axis=0)  # (blocks, phases)
+    slowest = cycles[int(np.argmax(cycles.sum(axis=1)))]
+    return {
+        "cluster": int(cycles.shape[0]),
+        "cycles_slowest_block": dict(zip(names, slowest.round(1).tolist())),
+        "cycles_block0": dict(zip(names, cycles[0].round(1).tolist())),
+        "share_slowest_block": dict(zip(names, (slowest / slowest.sum()).round(4).tolist())),
+    }
 
 
 class _Swapped:
@@ -4403,43 +4468,39 @@ def kernels_with(**swap):
 
 
 def measure_phases(device, job, reps: int = 6) -> dict:
-    """The cluster kernel's phases at PHASE_SHAPES, from the phase-clock
-    build (`start_phase_build`) launched through the wrapper: each phase's
-    cycles on the slowest block of the cluster and on block 0, the mean of
-    ``reps`` launches after one, and each phase's share of the slowest
-    block's total."""
-    proc, target = job
-    if proc.wait() != 0:
-        raise RuntimeError(f"the phase-clock build of tracker_step.cu failed ({proc.returncode})")
-    lib = ctypes.CDLL(str(target))
+    """K1's cluster kernel's phases at PHASE_SHAPES, from the phase-clock
+    build of tracker_step.cu (`start_phase_build`) launched through the
+    wrapper (`read_phases`)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.madpp_tracker_step.argtypes = [vp] * 19 + [ci, ci, ci, ci, cf, ci, ci, vp]
-    lib.madpp_tracker_step.restype = ci
-    lib.madpp_tracker_phases.argtypes = [vp]
-    lib.madpp_tracker_phases.restype = ci
-    marks = (ctypes.c_longlong * (16 * len(PHASES) + 16))()
+    launch, copy = phase_library(job, "madpp_tracker_step", [vp] * 19 + [ci, ci, ci, ci, cf, ci, ci, vp],
+                                 "madpp_tracker_phases")
     out = {}
     for t, d in PHASE_SHAPES:
         x = large_kernel_inputs(device, t, d)
         cfg, table, dets = x["cfg"], x["table"], x["dets"]
-        runs = []
-        with kernels_with(tracker_step=lib.madpp_tracker_step):
-            for _ in range(reps + 1):
-                tracker_kernel.tracker_step(table, dets, cfg, cfg.min_hits)
-                torch.cuda.synchronize()
-                if lib.madpp_tracker_phases(ctypes.addressof(marks)) != 0:
-                    raise RuntimeError("madpp_tracker_phases failed")
-                c = tracker_kernel.cluster_size(t, d, cfg.trajectory_length)
-                m = np.array(marks[:16 * (len(PHASES) + 1)], dtype=np.int64).reshape(16, -1)[:c]
-                runs.append(np.diff(m, axis=1))
-        cycles = np.mean(runs[1:], axis=0)  # (blocks, phases)
-        slowest = cycles[int(np.argmax(cycles.sum(axis=1)))]
-        out[f"{t}x{d}"] = {
-            "cluster": int(cycles.shape[0]),
-            "cycles_slowest_block": dict(zip(PHASES, slowest.round(1).tolist())),
-            "cycles_block0": dict(zip(PHASES, cycles[0].round(1).tolist())),
-            "share_slowest_block": dict(zip(PHASES, (slowest / slowest.sum()).round(4).tolist())),
-        }
+        with kernels_with(tracker_step=launch):
+            out[f"{t}x{d}"] = read_phases(lambda: tracker_kernel.tracker_step(table, dets, cfg, cfg.min_hits), copy,
+                                          tracker_kernel.cluster_size(t, d, cfg.trajectory_length), PHASES, reps)
+    return out
+
+
+def measure_k4_phases(device, job, reps: int = 6) -> dict:
+    """K4's cluster kernel's phases (rank loads, staging, rounds, match
+    write) at K4_PHASE_SHAPES on `large_kernel_inputs`' matrices, from the
+    phase-clock build of associate.cu (`start_phase_build`) launched
+    through the wrapper (`read_phases`), with the rounds each matrix takes
+    (`association_rounds`)."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    launch, copy = phase_library(job, "madpp_associate", [vp] * 3 + [ci, ci, cf, vp, vp], "madpp_associate_phases")
+    out = {}
+    for t, d in K4_PHASE_SHAPES:
+        x = large_kernel_inputs(device, t, d)
+        iou, rank = x["association"]
+        thr = x["cfg"].iou_threshold
+        with kernels_with(associate=launch):
+            out[f"{t}x{d}"] = read_phases(lambda: association_kernel.greedy_associate(iou, rank, thr), copy,
+                                          association_kernel.cluster_size(t, d), K4_PHASES, reps)
+        out[f"{t}x{d}"]["rounds"] = association_rounds(iou, rank, thr)
     return out
 
 
@@ -4495,8 +4556,9 @@ def measure_round_cost(device, reps: int = 10) -> dict:
     """K4's general instance on the staircase (one pair a round, every live
     line stale in each) at (256, 128) and (1,024, 1,024), beside the
     3-round matrix of `large_kernel_inputs` at (256, 128): device ms from
-    a profiler trace, the rounds, and the device us a round the staircase
-    adds over the 3-round matrix at (256, 128)."""
+    a profiler trace (`kernels_device_ms`, the stage kernel's start to the
+    cluster kernel's end where it is staged), the rounds, and the device
+    us a round the staircase adds over the 3-round matrix at (256, 128)."""
     x = large_kernel_inputs(device, 256, 128)
     iou3, rank3 = x["association"]
     thr = x["cfg"].iou_threshold
@@ -4506,8 +4568,9 @@ def measure_round_cost(device, reps: int = 10) -> dict:
                                       torch.arange(t, dtype=torch.int32, device=device))
     out = {}
     for name, (iou, rank) in cases.items():
-        ms, seen = device_times({name: (lambda iou=iou, rank=rank: association_kernel.greedy_associate(
-            iou, rank, thr), "associate_general_kernel")}, reps=reps, min_seen=reps * 4 // 5)[name]
+        t, d = iou.shape
+        _, ms, seen = kernels_device_ms(lambda iou=iou, rank=rank: association_kernel.greedy_associate(iou, rank, thr),
+                                        k4_kernels(t, d), reps)
         out[name] = {"rounds": association_rounds(iou, rank, thr), "device_ms": ms, "profiled_launches": seen}
     a, b = out["large_256x128"], out["staircase_256x128"]
     out["us_a_round_256x128"] = (b["device_ms"] - a["device_ms"]) * 1e3 / (b["rounds"] - a["rounds"])
@@ -6026,7 +6089,7 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    phase_job = start_phase_build()
+    phase_job, k4_phase_job = start_phase_build(), start_phase_build("associate.cu")
     lib = build.kernels()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "binding": type(lib).__name__})
 
@@ -6112,6 +6175,7 @@ def main(argv) -> int:
     wide_nms = measure_wide_nms(device, params)
     emit({"phase": "large_times", "card": smi, "kernels": {**large_times, **wide_nms},
           "round_cost": measure_round_cost(device), "k1_phases": measure_phases(device, phase_job),
+          "k4_phases": measure_k4_phases(device, k4_phase_job),
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     emit({"phase": "large_paths", "card": smi, **measure_large_paths(device, params, frames, ego),

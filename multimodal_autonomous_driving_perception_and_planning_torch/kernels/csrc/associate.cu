@@ -1,5 +1,5 @@
 // Kernel K4: the standalone greedy IoU association, one (T, D) matrix per
-// launch, in one thread block.
+// launch.
 //
 // Replaces the Pallas TPU kernel in the JAX package's
 // ops/association_pallas.py (`_associate_kernel`, launched by
@@ -21,16 +21,30 @@
 //    eligible pairs; warp 0 runs the rounds when at most 32 are eligible,
 //    a warp a 32 rows otherwise, with one barrier a round.
 //
-// Two instances, chosen by shape: the one above for T <= 128 and D <= 64,
-// and for larger tables, up to 4,096 rows and 4,096 columns, a thread block
-// cluster of up to 16 blocks of 1,024 threads (association.cuh, "The
-// general instance"): each block stages the keys of its rows and columns
-// once, in shared memory or, where they do not fit (1,024 x 1,024 and
-// beyond), in a device scratch the wrapper allocates, and the rounds
-// exchange their bests through distributed shared memory.  Bound at
-// (1,024, 1,024): the 4 MB matrix read once, 1.25 us at 3.35 TB/s, and
-// at (4,096, 4,096) the 64 MB one, 20 us; the design reads it once a
-// launch and then only keys.  The wrapper checks the limits.
+// Instances, chosen by shape (`general_launch`): the one above for T <= 128
+// and D <= 64; for larger tables, up to 4,096 rows and 4,096 columns, a
+// thread block cluster of up to 16 blocks of 1,024 threads (association.cuh,
+// "The general instance"), whose rounds exchange their bests through
+// distributed shared memory.  The cluster takes its keys by one of two
+// routes (`staged_route`):
+//  - in the cluster, where they fit in its shared memory up to 1,024 rows
+//    and columns: each block computes the keys of its rows and of its
+//    columns from the matrix (`stage_rows`, `stage_cols`), each key twice,
+//    and its first bests from its lines;
+//  - staged, where they do not fit ((1,024, 1,024) and beyond) or beyond
+//    1,024 lines: two kernels on the stream.  `associate_stage_kernel`
+//    computes each key once over the whole card (association.cuh, "Staging
+//    over the whole card") into a device scratch the wrapper allocates,
+//    both layouts, and each line's best entry in each chunk of 32 entries,
+//    a column's with a row that holds it, stored in place: no atomic, so
+//    nothing to clear first.  The cluster kernel may start while it
+//    finishes (programmatic dependent launch), loads the ranks meanwhile,
+//    then takes each line's first best and chunk masks from those chunk
+//    bests (`staged_firsts`) and runs the masked rounds, which read only
+//    the chunks with an eligible key.
+// Bound at (1,024, 1,024): the 4 MB matrix read once, 1.25 us at 3.35
+// TB/s; at (4,096, 4,096) the 64 MB one, 20 us.  The staged route reads it
+// once and writes 2 keys an entry.  The wrapper checks the limits.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -74,7 +88,7 @@ associate_kernel(const float* __restrict__ iou, const int* __restrict__ rank, in
                    s_scratch);
 }
 
-// The general instance's staging: the row lines of this block's rows and
+// The in-cluster route's staging: the row lines of this block's rows and
 // the column lines of its columns, as keys, from `iou` in device memory.
 // Both keep several loads in flight a thread (a load a step, then its
 // store, left each thread waiting on device memory once an entry), and
@@ -157,11 +171,154 @@ __device__ inline int row_warps(const AssocPlan& p, int2 rows, int2 cols) {
   return min(warps - 1, max(1, (int)(((long long)warps * nr + (nr + nc) / 2) / (nr + nc))));
 }
 
+// The staged route's device scratch: every block's key lines (block r's at
+// r assoc_key_words), then each row line's best entry in each of its
+// chunks of 32 columns, each column line's in each of its chunks of 32 rows
+// with a row that holds it (0 where the chunk holds no eligible key), all
+// written by `associate_stage_kernel`.
+struct StagedScratch {
+  unsigned* keys;
+  unsigned long long *rowpart, *colpart;  // [T][rch], [D][cch]
+  int* colrow;                            // [D][cch]
+  int rch, cch;                           // chunks of a row line, of a column line
+};
+
+__host__ __device__ inline size_t staged_words(const AssocPlan& p, int T, int D) {
+  const size_t rch = (D + 31) / 32, cch = (T + 31) / 32;
+  return ((size_t)p.cluster * assoc_key_words(p) + 2 * T * rch + 3 * D * cch + 3) & ~(size_t)3;
+}
+
+__device__ inline StagedScratch staged_scratch(unsigned* scratch, const AssocPlan& p, int T, int D) {
+  StagedScratch s;
+  s.rch = (D + 31) / 32;
+  s.cch = (T + 31) / 32;
+  s.keys = scratch;
+  s.rowpart = reinterpret_cast<unsigned long long*>(scratch + (size_t)p.cluster * assoc_key_words(p));
+  s.colpart = s.rowpart + (size_t)T * s.rch;
+  s.colrow = reinterpret_cast<int*>(s.colpart + (size_t)D * s.cch);
+  return s;
+}
+
+// The stage kernel (association.cuh, "Staging over the whole card"): a
+// warp's kRows rows by 32 columns, every load in flight at once, each key
+// written to its row line and, through the transpose, to its column line;
+// each entry's 64-bit key the rounds' own (`line_entry`: the IoU key, then
+// the inverted tie-break key rank * D + d + 2^31 in wrapping 32-bit
+// arithmetic), so that a chunk's best is the rounds' best of it on every
+// rank, tied or at int32's ends.  A warp's 32 columns are one chunk of its
+// rows; its 32 rows one chunk of its columns in big tiles, and in small
+// tiles the block's 4 row groups together.
+template <int kRows>
+__global__ void __launch_bounds__(kStageThreads)
+associate_stage_kernel(const float* __restrict__ iou, const int* __restrict__ rank, int T, int D, float thr,
+                       AssocPlan a, unsigned* __restrict__ scratch) {
+  constexpr int kBlockRows = 4 * kRows;
+  __shared__ unsigned s_base[kBlockRows];  // each row's tie-break base, rank * D + 2^31
+  __shared__ unsigned s_tile[kStageThreads / 32][kRows][33];
+  __shared__ unsigned long long s_cbest[4][kStageCols];
+  __shared__ int s_crow[4][kStageCols];
+  grid_launch_dependents();  // the cluster kernel loads its ranks meanwhile
+  const StagedScratch ss = staged_scratch(scratch, a, T, D);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, rg = warp >> 1, cg = warp & 1;
+  const int t_blk = blockIdx.y * kBlockRows, d_blk = blockIdx.x * kStageCols;
+  const int t0 = t_blk + kRows * rg, d0 = d_blk + 32 * cg, d = d0 + lane;
+  float v[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) v[i] = (t0 + i < T && d < D) ? __ldg(iou + (size_t)(t0 + i) * D + d) : -1.0f;
+  if (tid < kBlockRows)
+    s_base[tid] = t_blk + tid < T ? (unsigned)__ldg(rank + t_blk + tid) * (unsigned)D + 0x80000000u : 0u;
+  __syncthreads();
+  const unsigned* base = s_base + kRows * rg;
+  unsigned (*tile)[33] = s_tile[warp];
+  unsigned* rowline = stage_row_line(ss.keys, a, t0);
+  unsigned* colline = stage_col_line(ss.keys, a, d0);
+  unsigned long long cbest = 0ull;  // lane by column: column d's best of the warp's rows, and its row
+  int crow = 0;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const unsigned k = assoc_key(v[i], thr);
+    tile[i][lane] = k;
+    if (t0 + i < T && d < a.rstride) rowline[(size_t)i * a.rstride + d] = k;  // zero past D
+    const unsigned long long e = line_entry(k, true, base[i] + (unsigned)d);
+    if (e > cbest) cbest = e, crow = t0 + i;
+  }
+  __syncwarp();
+  const unsigned long long rbest = stage_transpose<kRows>(tile, colline, a, D, t0, d0, [&](unsigned k, int i, int dk) {
+    return line_entry(k, true, base[i] + (unsigned)dk);
+  });
+  if (lane < kRows && t0 + lane < T && d0 < D) ss.rowpart[(size_t)(t0 + lane) * ss.rch + (d0 >> 5)] = rbest;
+  if constexpr (kRows == 32) {
+    if (d < D && t0 < T) {
+      const size_t at = (size_t)d * ss.cch + (t0 >> 5);
+      ss.colpart[at] = cbest;
+      ss.colrow[at] = crow;
+    }
+  } else {
+    s_cbest[rg][32 * cg + lane] = cbest;
+    s_crow[rg][32 * cg + lane] = crow;
+    __syncthreads();
+    if (tid < kStageCols && d_blk + tid < D) {
+      unsigned long long b = s_cbest[0][tid];
+      int r = s_crow[0][tid];
+#pragma unroll
+      for (int q = 1; q < 4; ++q)
+        if (s_cbest[q][tid] > b) b = s_cbest[q][tid], r = s_crow[q][tid];
+      const size_t at = (size_t)(d_blk + tid) * ss.cch + (t_blk >> 5);
+      ss.colpart[at] = b;
+      ss.colrow[at] = r;
+    }
+  }
+}
+
+// The staged route's first bests: each of this block's lines' best (every
+// row live, every column untaken) as the maximum of its chunk bests, a
+// column's row the one its best chunk names, and each line's chunk masks
+// (association.cuh `LineMasks`, `rmask` and `cmask` the words of the
+// block's rows and columns), a bit where its chunk best is not 0: a warp a
+// line, lane c chunk c of each mask word.
+__device__ inline void staged_firsts(const StagedScratch& ss, const AssocShared& s, unsigned* rmask, unsigned* cmask,
+                                     int2 rows, int2 cols) {
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int l = threadIdx.x >> 5; l < rows.y + cols.y; l += nwarps) {
+    const bool is_row = l < rows.y;
+    const int i = is_row ? l : l - rows.y, n = is_row ? ss.rch : ss.cch, words = (n + 31) >> 5;
+    const size_t at = is_row ? (size_t)(rows.x + i) * ss.rch : (size_t)(cols.x + i) * ss.cch;
+    const unsigned long long* part = (is_row ? ss.rowpart : ss.colpart) + at;
+    unsigned long long v[4];
+    int r[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int c = 32 * w + lane;
+      v[w] = c < n ? part[c] : 0ull;
+      r[w] = !is_row && c < n ? ss.colrow[at + c] : 0;
+    }
+    unsigned* mask = is_row ? rmask + (size_t)i * words : cmask + (size_t)i * words;
+    unsigned long long best = 0ull;
+    int row = 0;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      if (v[w] > best) best = v[w], row = r[w];
+      const unsigned bits = __ballot_sync(0xffffffffu, v[w] != 0ull);
+      if (lane == 0 && w < words) mask[w] = bits;
+    }
+    if (is_row) {
+      best = warp_max_u64(best);
+      if (lane == 0) s.rowbest[i] = best;
+    } else {
+      int arg;
+      best = col_best_of_warp(best, row, &arg);
+      if (lane == 0) s.colbest[i] = best, s.colrow[i] = arg;
+    }
+  }
+}
+
 // The general instance: one cluster (`assoc_plan`) for the matrix.  Each
-// block loads every row's rank, stages the keys of its rows and columns
-// (`stage_rows`, `stage_cols`) and runs the cluster rounds.  `scratch`
-// holds the key lines when they do not fit in shared memory (block r's at
-// r assoc_key_words), else is null.
+// block loads every row's rank, then takes its lines' keys and first bests
+// by its route, runs the cluster rounds and writes its rows' matches.
+// Staged: `scratch` is the stage kernel's (`StagedScratch`), the chunk
+// masks in shared memory after the rounds'; else the keys go to shared
+// memory and `scratch` is null.
+template <bool kStaged>
 __global__ void __launch_bounds__(kAssocClusterThreads)
 associate_general_kernel(const float* __restrict__ iou, const int* __restrict__ rank, int* __restrict__ match,
                          int T, int D, float thr, AssocPlan p, unsigned* __restrict__ scratch) {
@@ -169,54 +326,106 @@ associate_general_kernel(const float* __restrict__ iou, const int* __restrict__ 
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int me = (int)cluster.block_rank();
-  const AssocShared s = assoc_carve(s_general, p, scratch == nullptr);
-  unsigned* rowkeys = scratch ? scratch + (size_t)me * assoc_key_words(p) : s.keys;
-  unsigned* colkeys = rowkeys + (size_t)p.rows * p.rstride;
+  const AssocShared s = assoc_carve(s_general, p, !kStaged);
   const int2 rows = assoc_span(me, p.rows, T), cols = assoc_span(me, p.cols, D);
+  PHASE_MARK(0);
   assoc_init(s, p);
   for (int t = threadIdx.x; t < T; t += blockDim.x) s.rank[t] = rank[t];
-  const int rw = 32 * row_warps(p, rows, cols);
-  if ((int)threadIdx.x < rw) {
-    stage_rows(iou, D, thr, rowkeys, p, rows, threadIdx.x, rw);
+  PHASE_MARK(1);
+  if constexpr (kStaged) {
+    const StagedScratch ss = staged_scratch(scratch, p, T, D);
+    unsigned* rowkeys = ss.keys + (size_t)me * assoc_key_words(p);
+    unsigned* rmask = s_general + assoc_shared_bytes(p, false) / 4;
+    unsigned* cmask = rmask + (size_t)p.rows * mask_words(D);
+    grid_dependency_wait();  // the stage kernel's keys and chunk bests
+    staged_firsts(ss, s, rmask, cmask, rows, cols);
+    __syncthreads();
+    PHASE_MARK(2);
+    cluster_associate<true>(s, rowkeys, rowkeys + (size_t)p.rows * p.rstride, p, T, D, true,
+                            LineMasks{rmask, cmask, mask_words(D), mask_words(T)});
   } else {
-    stage_cols(iou, T, D, thr, colkeys, p, cols, threadIdx.x - rw, blockDim.x - rw);
+    unsigned* colkeys = s.keys + (size_t)p.rows * p.rstride;
+    const int rw = 32 * row_warps(p, rows, cols);
+    if ((int)threadIdx.x < rw) {
+      stage_rows(iou, D, thr, s.keys, p, rows, threadIdx.x, rw);
+    } else {
+      stage_cols(iou, T, D, thr, colkeys, p, cols, threadIdx.x - rw, blockDim.x - rw);
+    }
+    __syncthreads();
+    PHASE_MARK(2);
+    cluster_associate(s, s.keys, colkeys, p, T, D);
   }
-  __syncthreads();
-  cluster_associate(s, rowkeys, colkeys, p, T, D);
+  PHASE_MARK(3);
   for (int i = threadIdx.x; i < rows.y; i += blockDim.x) match[rows.x + i] = s.match[i];
+  PHASE_MARK(4);
   // No block leaves before every block has received its last bests.
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-// The general instance's launch plan at (T, D): the cluster, whether the
-// key lines fit in shared memory, and its bytes a block.
+// The route of the general instance at (T, D) on the cluster `p`: staged
+// where the keys do not fit in its shared memory (`keys_fit`), beyond 1,024
+// lines, and where a block's column lines hold at least 4 times the keys
+// of its row lines: on such tall tables the few blocks that own columns
+// stage T-long lines while the others wait.  Else in the cluster, whose
+// rounds read the lines from shared memory.  (`split_compare.py --routes`
+// times both; on an H100 the staged route won by 17-25% at (512, 64),
+// (768, 64), (1,024, 64) and (1,025, 64), column lines 5.4-8 times the row
+// lines', and lost by 4-19% at (64, 300), (160, 80), (256, 128), (384,
+// 128) and (512, 512), at most 2 times.)
+bool staged_route(const AssocPlan& p, int T, int D, bool keys_fit) {
+  return !keys_fit || T > 1024 || D > 1024 || (size_t)p.cols * p.cstride >= 4 * (size_t)p.rows * p.rstride;
+}
+
+// The general instance's launch plan at (T, D): the cluster, the route and
+// the cluster kernel's shared memory a block (the staged route's chunk
+// masks after the rounds').
 struct GeneralLaunch {
   AssocPlan plan;
-  bool keys_in_smem;
+  bool staged;
   size_t smem;
 };
 
 GeneralLaunch general_launch(int T, int D) {
   GeneralLaunch g;
   g.plan = assoc_plan(T, D);
-  g.keys_in_smem = assoc_shared_bytes(g.plan, true) <= kAssocSmemLimit;
-  g.smem = assoc_shared_bytes(g.plan, g.keys_in_smem);
+  g.staged = staged_route(g.plan, T, D, assoc_shared_bytes(g.plan, true) <= kAssocSmemLimit);
+  g.smem = g.staged ? assoc_shared_bytes(g.plan, false) +
+                          4 * ((size_t)g.plan.rows * mask_words(D) + (size_t)g.plan.cols * mask_words(T))
+                    : assoc_shared_bytes(g.plan, true);
   return g;
 }
 
 bool is_general(int T, int D) { return T > kMaxT || D > kMaxD; }
 
+// One launch of the cluster kernel's instance; staged, after the stage
+// kernel, it may start while that one finishes.
+template <bool kStaged>
+cudaError_t launch_cluster(const GeneralLaunch& g, const float* iou, const int* rank, int* match, int T, int D,
+                           float thr, unsigned* scratch, cudaStream_t st) {
+  cudaError_t err = allow_dynamic_smem<associate_general_kernel<kStaged>>(g.smem);
+  if (err == cudaSuccess && g.plan.cluster > 8)
+    err = cudaFuncSetAttribute(associate_general_kernel<kStaged>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = (unsigned)g.plan.cluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  return launch_after(kStaged, associate_general_kernel<kStaged>, dim3((unsigned)g.plan.cluster),
+                      dim3(kAssocClusterThreads), g.smem, st, &cluster, iou, rank, match, T, D, thr, g.plan, scratch);
+}
+
 }  // namespace
 
-// Words of device scratch the launch at (T, D) needs (0: none, the keys
-// fit in shared memory or the small instance runs), or -1 outside the
+// Words of device scratch the launch at (T, D) needs (0: none, the small
+// instance runs or the cluster stages the keys itself), or -1 outside the
 // limits.
 extern "C" long long madpp_associate_scratch(int T, int D) {
   if (T < 1 || D < 1 || T > kAssocGeneralMax || D > kAssocGeneralMax) return -1;
   if (!is_general(T, D)) return 0;
   const GeneralLaunch g = general_launch(T, D);
-  return g.keys_in_smem ? 0 : (long long)(assoc_key_words(g.plan) * g.plan.cluster);
+  return g.staged ? (long long)staged_words(g.plan, T, D) : 0;
 }
 
 // The cluster size the launch at (T, D) takes (1 for the small instance's
@@ -229,32 +438,36 @@ extern "C" int madpp_associate_cluster(int T, int D) {
 extern "C" int madpp_associate(const void* iou, const void* rank, void* match, int T, int D, float thr,
                                void* scratch, void* stream) {
   if (T < 1 || D < 1 || T > kAssocGeneralMax || D > kAssocGeneralMax) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (is_general(T, D)) {
     const GeneralLaunch g = general_launch(T, D);
-    if (!g.keys_in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
-    cudaError_t err = allow_dynamic_smem<associate_general_kernel>(g.smem);
-    if (err == cudaSuccess && g.plan.cluster > 8)
-      err = cudaFuncSetAttribute(associate_general_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = (unsigned)g.plan.cluster;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.gridDim = dim3((unsigned)g.plan.cluster);
-    cfg.blockDim = dim3(kAssocClusterThreads);
-    cfg.dynamicSmemBytes = g.smem;
-    cfg.stream = (cudaStream_t)stream;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, associate_general_kernel, (const float*)iou, (const int*)rank, (int*)match, T,
-                             D, thr, g.plan, g.keys_in_smem ? (unsigned*)nullptr : (unsigned*)scratch);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    const float* x = (const float*)iou;
+    const int* r = (const int*)rank;
+    if (!g.staged) return (int)launch_cluster<false>(g, x, r, (int*)match, T, D, thr, nullptr, st);
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    unsigned* sc = (unsigned*)scratch;
+    const bool big = stage_big_tiles(g.plan, 1);
+    if (big) {
+      associate_stage_kernel<32><<<stage_grid(g.plan, 1, true), kStageThreads, 0, st>>>(x, r, T, D, thr, g.plan, sc);
+    } else {
+      associate_stage_kernel<8><<<stage_grid(g.plan, 1, false), kStageThreads, 0, st>>>(x, r, T, D, thr, g.plan, sc);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) err = launch_cluster<true>(g, x, r, (int*)match, T, D, thr, sc, st);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
   }
   const size_t smem = sizeof(unsigned) * 32 * (size_t)((T + 31) / 32) * (size_t)assoc_key_stride(D);
-  associate_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>((const float*)iou, (const int*)rank,
-                                                               (int*)match, T, D, thr);
+  associate_kernel<<<1, kThreads, smem, st>>>((const float*)iou, (const int*)rank, (int*)match, T, D, thr);
   return (int)cudaGetLastError();
 }
+
+#ifdef MADPP_PHASE_CLOCKS
+// The phase clocks of the last general launch (block.cuh `PHASE_MARK`):
+// for each of kPhaseBlocks blocks, clock64() at the start and at the end of
+// the rank loads, the staging, the rounds and the match write.  Copies the
+// kPhaseBlocks x kPhaseMarks reads to host memory `out`; returns the CUDA
+// error code.
+extern "C" int madpp_associate_phases(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
+}
+#endif

@@ -363,18 +363,25 @@ __device__ inline void greedy_associate(const float* iou, int ld, unsigned* keys
 //    columns [r K, r K + K), R and K multiples of 32 (`AssocPlan::rows`,
 //    `cols`).  It keeps the keys of its rows (its row lines, a row's D
 //    keys in a row) and of its columns (its column lines, a column's T
-//    keys in a row), each the 32-bit `assoc_key`, staged once a launch
-//    (K1: `stage_general_keys`, K4: `stage_rows`, `stage_cols`): every key
-//    is computed twice, by its row's owner and by its column's owner, so no block ever needs another's keys, and
-//    no round divides or reads a float.  Where K1's keys leave shared
-//    memory, kernels before the cluster compute each key once over the
-//    whole card (tracker_step.cu `tracker_stage_kernel`), with each line's
-//    chunk masks, by which the rounds skip chunks with no eligible key
-//    (`LineMasks`).  The lines live in the block's
-//    shared memory where they fit (the launchers' plans, `keys_in_smem`),
-//    else in a device scratch the wrapper allocates (4 MB of keys, 8 MB
-//    with both layouts, at 1,024 x 1,024; 128 MB at 4,096 x 4,096, beyond
-//    the 50 MB L2), which the rounds read from L2 or device memory.
+//    keys in a row), each the 32-bit `assoc_key`, staged once a launch,
+//    so that no round divides or reads a float.  Two routes:
+//    * in the cluster, where the lines fit in the block's shared memory
+//      (K1 up to 1,024 slots, `stage_general_keys`; K4 up to 1,024 rows
+//      and columns, associate.cu `stage_rows`, `stage_cols`): each key is
+//      computed twice, by its row's owner and by its column's owner, so no
+//      block ever needs another's keys;
+//    * staged, where they leave shared memory (4 MB of keys, 8 MB with
+//      both layouts, at 1,024 x 1,024; 128 MB at 4,096 x 4,096, beyond the
+//      50 MB L2) and beyond 1,024 lines: a stage kernel before the cluster
+//      computes each key once over the whole card into a device scratch
+//      the wrapper allocates ("Staging over the whole card", below), with
+//      each line's first best and chunk masks, by which the rounds skip
+//      chunks with no eligible key (`LineMasks`, `cluster_associate<true>`);
+//      the rounds read the lines from L2 or device memory.  K1 takes the
+//      first bests by 64-bit atomicMax and the masks by atomicOr into a
+//      scratch its rank kernel clears; K4, which has no kernel before its
+//      stage kernel, stores each line's best in each chunk in place and
+//      the cluster kernel takes the maximum and the masks from those.
 //  - Bests.  A warp a line for both kinds: lanes read the line 16 bytes at
 //    a time, mask taken columns (row lines) or matched rows (column lines)
 //    with bits every block holds, and a warp reduction gives the line's
@@ -406,8 +413,8 @@ __device__ inline void greedy_associate(const float* iou, int ld, unsigned* keys
 // at 1,024 x 1,024 its 1,025 rounds read about 2 G keys in all.  The
 // received bests take 16 (T + D) bytes a block, 128 KB at 4,096 x 4,096,
 // and with the ranks and bits the rounds' shared memory 151 KB there
-// (`assoc_shared_bytes`, the keys off-chip): about where one cluster of 16
-// blocks ends.
+// (`assoc_shared_bytes`, the keys off-chip; K4's staged route adds its
+// lines' chunk masks, 8 KB): about where one cluster of 16 blocks ends.
 constexpr int kAssocGeneralMax = 4096;
 constexpr int kAssocClusterThreads = 1024;
 constexpr int kAssocClusterMax = 16;  // above 8 needs cudaFuncAttributeNonPortableClusterSizeAllowed
@@ -598,17 +605,21 @@ __device__ inline unsigned long long col_line_best(const unsigned* line, int n4,
   return col_best_of_warp(best, at, arg);
 }
 
-// Chunk masks of a block's key lines, where the stager wrote them (K1's
-// lines staged over the card, tracker_step.cu `tracker_stage_kernel`): bit
-// c of a line's mask words is set when its chunk c (entries 32 c .. 32 c +
-// 31) holds an eligible key.  Row t's words at rows + t rw, column d's at
-// cols + d cw.  A recomputed best reads only the chunks whose bit is set
-// and whose columns (rows) are not all taken (matched): the others hold no
-// live eligible entry, so the best is the same.
+// Chunk masks of a block's key lines, where the lines were staged over the
+// card (K1: tracker_step.cu `tracker_stage_kernel`; K4: associate.cu
+// `associate_stage_kernel`): bit c of a line's mask words is set when its
+// chunk c (entries 32 c .. 32 c + 31) holds an eligible key.  The block's
+// i-th row's words at rows + i rw, its j-th column's at cols + j cw
+// (`mask_words` each).  A recomputed best reads only the chunks whose bit
+// is set and whose columns (rows) are not all taken (matched): the others
+// hold no live eligible entry, so the best is the same.
 struct LineMasks {
   const unsigned *rows, *cols;
   int rw, cw;
 };
+
+// Mask words of a line of n entries: a bit a chunk of 32.
+__host__ __device__ inline int mask_words(int n) { return (n + 1023) / 1024; }
 
 // The chunks of one of a line's 32-chunk mask words that a recomputed best
 // reads, as a ballot (lane c: chunk 32 m + c).
@@ -701,7 +712,7 @@ __device__ inline int cluster_associate(const AssocShared& s, const unsigned* ro
       unsigned long long best = s.rowbest[i];
       if (fresh || (!first && !bit_of(s.matched, t) && best != 0ull && bit_of(s.taken, ~(unsigned)best - base))) {
         if constexpr (kMasked)
-          best = row_line_best_masked(rowkeys + (size_t)i * p.rstride, rn4, masks.rows + (size_t)t * masks.rw,
+          best = row_line_best_masked(rowkeys + (size_t)i * p.rstride, rn4, masks.rows + (size_t)i * masks.rw,
                                       masks.rw, s.taken, base);
         else
           best = row_line_best(rowkeys + (size_t)i * p.rstride, rn4, s.taken, base);
@@ -716,7 +727,7 @@ __device__ inline int cluster_associate(const AssocShared& s, const unsigned* ro
       if (fresh || (!first && !bit_of(s.taken, d) && best != 0ull && bit_of(s.matched, s.colrow[j]))) {
         int arg;
         if constexpr (kMasked)
-          best = col_line_best_masked(colkeys + (size_t)j * p.cstride, cn4, masks.cols + (size_t)d * masks.cw,
+          best = col_line_best_masked(colkeys + (size_t)j * p.cstride, cn4, masks.cols + (size_t)j * masks.cw,
                                       masks.cw, s.matched, s.rank, (unsigned)D, (unsigned)d + 0x80000000u, &arg);
         else
           best = col_line_best(colkeys + (size_t)j * p.cstride, cn4, s.matched, s.rank, (unsigned)D,
@@ -759,4 +770,76 @@ __device__ inline int cluster_associate(const AssocShared& s, const unsigned* ro
     }
     if (!__syncthreads_or(any)) return rounds;
   }
+}
+
+// --- Staging over the whole card -----------------------------------------
+//
+// Where the keys leave shared memory, a stage kernel before the cluster
+// kernel computes each key once over the whole card (K1: tracker_step.cu
+// `tracker_stage_kernel`; K4: associate.cu `associate_stage_kernel`) into a
+// device scratch, block r's lines at r assoc_key_words.  A stage block
+// takes a tile of 4 kRows rows by kStageCols columns on kStageThreads
+// threads, 8 warps as 4 row groups of kRows rows by 2 column groups of 32
+// columns.  A warp writes its keys to their row lines, lane by column, and
+// through a shared-memory transpose to their column lines, lane by row
+// (`stage_transpose`), and takes in the same pass each of its lines' best
+// within its part of the tile.  kRows is 32 where such tiles fill the
+// card's SMs twice over, else 8 (`stage_big_tiles`), so that small tables
+// still fill it.
+constexpr int kStageThreads = 256, kStageCols = 64;
+
+// The row line of row t, a warp's first, in the lines from `keys`: a warp's
+// rows lie in one block's lines (the partition's spans are multiples of 32).
+__device__ __forceinline__ unsigned* stage_row_line(unsigned* keys, const AssocPlan& a, int t) {
+  const int r = t / a.rows;
+  return keys + (size_t)r * assoc_key_words(a) + (size_t)(t - r * a.rows) * a.rstride;
+}
+
+// The column line of column d, a warp's first (its 32 columns lie in one
+// block's lines).
+__device__ __forceinline__ unsigned* stage_col_line(unsigned* keys, const AssocPlan& a, int d) {
+  const int r = d / a.cols;
+  return keys + (size_t)r * assoc_key_words(a) + (size_t)a.rows * a.rstride + (size_t)(d - r * a.cols) * a.cstride;
+}
+
+// The transpose half of a stage warp's tile.  `tile[i][c]` holds the key of
+// row t0 + i, column d0 + c.  Lane by row (row t0 + lane % kRows, kRows of
+// the 32 columns from kRows (lane / kRows)), the warp stores the keys into
+// the column lines from `colline` (column d0's), a column's kRows stores
+// side by side, zero past T up to the lines' stride.  Returns the largest
+// `row_entry(k, i, d)` over row t0 + i's eligible keys of the 32 columns,
+// combined over the row's lanes (lanes i < kRows hold row t0 + i's).
+template <int kRows, class RowEntry>
+__device__ __forceinline__ unsigned long long stage_transpose(unsigned (*tile)[33], unsigned* colline,
+                                                              const AssocPlan& a, int D, int t0, int d0,
+                                                              RowEntry row_entry) {
+  const int lane = threadIdx.x & 31, r = lane % kRows, c0 = kRows * (lane / kRows), t = t0 + r;
+  unsigned long long rbest = 0ull;
+#pragma unroll 4
+  for (int c = c0; c < c0 + kRows; ++c) {
+    const unsigned k = tile[r][c];
+    if (d0 + c < D && t < a.cstride) colline[(size_t)c * a.cstride + t] = k;
+    const unsigned long long e = row_entry(k, r, d0 + c);
+    rbest = (k != 0u && e > rbest) ? e : rbest;
+  }
+#pragma unroll
+  for (int o = kRows; o < 32; o <<= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xffffffffu, rbest, o);
+    rbest = other > rbest ? other : rbest;
+  }
+  return rbest;
+}
+
+// Whether the stage kernel over `a`'s lines for B lanes takes blocks of
+// 32-row warps (when they fill the card's SMs twice over) or of 8-row warps
+// (four times the blocks); and its grid (x: column tiles, y: row tiles, z:
+// lanes).
+inline bool stage_big_tiles(const AssocPlan& a, int B) {
+  const size_t cols = (a.rstride + kStageCols - 1) / kStageCols, big = (a.cstride + 127) / 128;
+  return cols * big * B >= 2 * (size_t)device_sms();
+}
+
+inline dim3 stage_grid(const AssocPlan& a, int B, bool big) {
+  return dim3((unsigned)((a.rstride + kStageCols - 1) / kStageCols),
+              (unsigned)(big ? (a.cstride + 127) / 128 : (a.cstride + 31) / 32), (unsigned)B);
 }

@@ -1,7 +1,7 @@
 // Helpers of kernels K1 (tracker_step.cu), K3 (tagging_step.cu), K4
 // (associate.cu) and K5 (nms_keep.cu): asynchronous staging into shared
-// memory, their launchers' shared memory limit, and the address of a word
-// in another block of a thread block cluster.
+// memory, their launchers' shared memory limit, the address of a word in
+// another block of a thread block cluster, and phase clocks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -108,3 +108,55 @@ __device__ __forceinline__ void grid_launch_dependents() {
 }
 
 __device__ __forceinline__ void grid_dependency_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+
+// A launch on `st`, with the attribute `extra` where it is not null; with
+// `after`, one that may start while the kernel before it finishes
+// (`grid_launch_dependents`, `grid_dependency_wait`), so that its loads of
+// its own inputs overlap that kernel.
+template <class... Params, class... Args>
+inline cudaError_t launch_after(bool after, void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                                cudaStream_t st, cudaLaunchAttribute* extra, Args... args) {
+  cudaLaunchAttribute attrs[2];
+  int n = 0;
+  if (after) {
+    attrs[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attrs[n++].val.programmaticStreamSerializationAllowed = 1;
+  }
+  if (extra) attrs[n++] = *extra;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attrs;
+  cfg.numAttrs = n;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The SMs of the current device, read once.
+inline int device_sms() {
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
+// Phase clocks of a cluster kernel, in a build with -DMADPP_PHASE_CLOCKS
+// only: thread 0 of each of the first kPhaseBlocks blocks stores clock64()
+// at the start (mark 0) and at the end of each phase (marks 1, 2, ...);
+// the source's `madpp_*_phases` copies them out, kPhaseMarks a block.
+// Each source is built into a library of its own for this.
+#ifdef MADPP_PHASE_CLOCKS
+constexpr int kPhaseBlocks = 16, kPhaseMarks = 8;
+static __device__ long long g_phase_clocks[kPhaseBlocks * kPhaseMarks];
+#define PHASE_MARK(k)                                      \
+  if (threadIdx.x == 0 && blockIdx.x < (unsigned)kPhaseBlocks) \
+  g_phase_clocks[blockIdx.x * kPhaseMarks + (k)] = clock64()
+#else
+#define PHASE_MARK(k) \
+  do {                \
+  } while (0)
+#endif

@@ -534,8 +534,6 @@ struct LaneScratch {
   int rw, cw;  // mask words a row, a column
 };
 
-__host__ __device__ inline int mask_words(int n) { return (n + 1023) / 1024; }
-
 __host__ __device__ inline size_t lane_scratch_words(const GeneralPlan& g, int T, int D) {
   const size_t n = (size_t)g.assoc.cluster * assoc_key_words(g.assoc) + 2 * round4((size_t)T) + 2 * ((size_t)T + D) +
                    (size_t)T * mask_words(D) + (size_t)D * mask_words(T);
@@ -735,22 +733,6 @@ __device__ inline int2 cluster_places(const AssocPlan& a, unsigned long long v, 
   return make_int2(place, x == ~0ull ? -1 : (int)(unsigned)x);
 }
 
-// Phase clocks of the cluster kernel, in a build with -DMADPP_PHASE_CLOCKS
-// only: thread 0 of each block of lane 0 stores clock64() at the start and
-// after each phase (loads, id rank with the wait for the stage kernels,
-// staging, rounds, ring copy, updates, confirmed order);
-// `madpp_tracker_phases` copies them out.
-#ifdef MADPP_PHASE_CLOCKS
-constexpr int kPhaseMarks = 8;
-__device__ long long g_phase_clocks[kAssocClusterMax * kPhaseMarks];
-#define PHASE_MARK(k) \
-  if (threadIdx.x == 0 && blockIdx.x < (unsigned)kAssocClusterMax) g_phase_clocks[blockIdx.x * kPhaseMarks + (k)] = clock64()
-#else
-#define PHASE_MARK(k) \
-  do {            \
-  } while (0)
-#endif
-
 // --- Staging over the whole card, where the keys leave shared memory -----
 //
 // At (1,024, 1,024) and beyond the keys live in device scratch, and
@@ -765,7 +747,8 @@ __device__ long long g_phase_clocks[kAssocClusterMax * kPhaseMarks];
 //    fill the card), each key computed once (`general_iou_key`,
 //    `pair_iou`'s division only where the boxes overlap) and written to its
 //    row line, lane by column, and through a shared-memory transpose to its
-//    column line, lane by row.  The first round's bests come out of the
+//    column line, lane by row (association.cuh `stage_transpose`, shared
+//    with K4's stage kernel).  The first round's bests come out of the
 //    same pass: each line's best within the tile, combined over the
 //    block's warps, then maxed into the scratch's bests by one 64-bit
 //    atomicMax a line and block, packed so that the maximum is the rounds'
@@ -776,7 +759,6 @@ __device__ long long g_phase_clocks[kAssocClusterMax * kPhaseMarks];
 // to the rounds, which read only the chunks the masks mark.  Each kernel
 // may start while the one before it finishes (`launch_after`).
 constexpr int kRankThreads = 1024, kRankSlots = kRankThreads / 32;
-constexpr int kStageThreads = 256, kStageCols = 64;
 
 __global__ void __launch_bounds__(kRankThreads)
 tracker_rank_kernel(const int* __restrict__ track_id, int T, int D, GeneralPlan g, unsigned* __restrict__ scratch) {
@@ -846,12 +828,8 @@ tracker_stage_kernel(TrackerIn lanes_in, TrackerParams p, GeneralPlan g, unsigne
   const float4 db = valid ? make_float4(in.det_bbox[4 * d], in.det_bbox[4 * d + 1], in.det_bbox[4 * d + 2],
                                         in.det_bbox[4 * d + 3])
                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  // The warp's rows and 32 columns each lie in one block's lines (the
-  // partition's spans are multiples of 32).
-  const int rown = t0 / a.rows, coln = d0 / a.cols;
-  unsigned* rowline = ls.keys + (size_t)rown * assoc_key_words(a) + (size_t)(t0 - rown * a.rows) * a.rstride;
-  unsigned* colline = ls.keys + (size_t)coln * assoc_key_words(a) + (size_t)a.rows * a.rstride +
-                      (size_t)(d0 - coln * a.cols) * a.cstride;
+  unsigned* rowline = stage_row_line(ls.keys, a, t0);
+  unsigned* colline = stage_col_line(ls.keys, a, d0);
   const unsigned zero_key = assoc_key(0.0f, p.iou_threshold);
   unsigned (*tile)[33] = s_tile[warp];
   grid_dependency_wait();  // the ranks, and the bests and masks cleared
@@ -868,22 +846,9 @@ tracker_stage_kernel(TrackerIn lanes_in, TrackerParams p, GeneralPlan g, unsigne
     cbest = (k != 0u && e > cbest) ? e : cbest;
   }
   __syncwarp();
-  // Lane by row: row t0 + lane % kRows, columns kRows (lane / kRows) .. of
-  // the warp's 32, each column's stores kRows rows side by side.
-  unsigned long long rbest = 0ull;
-  const int r = lane % kRows, c0 = kRows * (lane / kRows), t = t0 + r;
-#pragma unroll 4
-  for (int c = c0; c < c0 + kRows; ++c) {
-    const unsigned k = tile[r][c];
-    if (d0 + c < D && t < a.cstride) colline[(size_t)c * a.cstride + t] = k;  // zero past T
-    const unsigned long long e = ((unsigned long long)k << 32) | (0xffffffffu - (unsigned)(d0 + c));
-    rbest = (k != 0u && e > rbest) ? e : rbest;
-  }
-#pragma unroll
-  for (int o = kRows; o < 32; o <<= 1) {
-    const unsigned long long other = __shfl_xor_sync(0xffffffffu, rbest, o);
-    rbest = other > rbest ? other : rbest;
-  }
+  const unsigned long long rbest = stage_transpose<kRows>(tile, colline, a, D, t0, d0, [](unsigned k, int, int dk) {
+    return ((unsigned long long)k << 32) | (0xffffffffu - (unsigned)dk);
+  });
   // A best is nonzero exactly where its line's entries here hold an
   // eligible key: the chunk's mask bit.
   if (lane < kRows) s_rowpart[cg][kRows * rg + lane] = rbest;
@@ -914,50 +879,14 @@ tracker_stage_kernel(TrackerIn lanes_in, TrackerParams p, GeneralPlan g, unsigne
   }
 }
 
-// A launch on `st`; with `after`, one that may start while the kernel
-// before it finishes (`grid_launch_dependents`, `grid_dependency_wait`), so
-// that its loads of the step's inputs overlap that kernel.
-template <class... Params, class... Args>
-cudaError_t launch_after(bool after, void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem, cudaStream_t st,
-                         cudaLaunchAttribute* extra, Args... args) {
-  cudaLaunchAttribute attrs[2];
-  int n = 0;
-  if (after) {
-    attrs[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attrs[n++].val.programmaticStreamSerializationAllowed = 1;
-  }
-  if (extra) attrs[n++] = *extra;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attrs;
-  cfg.numAttrs = n;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
-// The stage kernel's launch: blocks of 32-row warps where they fill the
-// card twice over, else of 8-row warps (four times the blocks).
+// The stage kernel's launch (association.cuh `stage_big_tiles`).
 cudaError_t launch_stage(const TrackerIn& in, const TrackerParams& p, const GeneralPlan& g, unsigned* scratch, int B,
                          cudaStream_t st) {
-  static const int sms = [] {
-    int dev = 0, n = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
-  const unsigned cols = (unsigned)((g.assoc.rstride + kStageCols - 1) / kStageCols);
-  const unsigned big = (unsigned)((g.assoc.cstride + 127) / 128);
-  cudaError_t err;
-  if ((size_t)cols * big * B >= 2 * (size_t)sms) {
-    err = launch_after(true, tracker_stage_kernel<32>, dim3(cols, big, (unsigned)B), dim3(kStageThreads), 0, st,
-                       nullptr, in, p, g, scratch);
-  } else {
-    const unsigned small = (unsigned)((g.assoc.cstride + 31) / 32);
-    err = launch_after(true, tracker_stage_kernel<8>, dim3(cols, small, (unsigned)B), dim3(kStageThreads), 0, st,
-                       nullptr, in, p, g, scratch);
-  }
+  const bool big = stage_big_tiles(g.assoc, B);
+  const dim3 grid = stage_grid(g.assoc, B, big);
+  const cudaError_t err =
+      big ? launch_after(true, tracker_stage_kernel<32>, grid, dim3(kStageThreads), 0, st, nullptr, in, p, g, scratch)
+          : launch_after(true, tracker_stage_kernel<8>, grid, dim3(kStageThreads), 0, st, nullptr, in, p, g, scratch);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -1094,7 +1023,9 @@ tracker_step_general(TrackerIn lanes_in, TrackerOut lanes_out, TrackerParams p, 
   __syncthreads();
   PHASE_MARK(3);
   if constexpr (kStaged)
-    cluster_associate<true>(s, rowkeys, colkeys, a, T, D, true, LineMasks{ls.rowmask, ls.colmask, ls.rw, ls.cw});
+    cluster_associate<true>(s, rowkeys, colkeys, a, T, D, true,
+                            LineMasks{ls.rowmask + (size_t)rows.x * ls.rw, ls.colmask + (size_t)cols.x * ls.cw, ls.rw,
+                                      ls.cw});
   else
     cluster_associate(s, rowkeys, colkeys, a, T, D, true);
   PHASE_MARK(4);
@@ -1256,10 +1187,11 @@ extern "C" int madpp_tracker_step(
 }
 
 #ifdef MADPP_PHASE_CLOCKS
-// The phase clocks of the last general launch (lane 0's blocks): for each
-// of kAssocClusterMax blocks, kPhaseMarks clock64() reads (start, then the
-// end of each phase).  Copies them to host memory `out`; returns the CUDA
-// error code.
+// The phase clocks of the last general launch (lane 0's blocks, block.cuh
+// `PHASE_MARK`): for each of kPhaseBlocks blocks, kPhaseMarks clock64()
+// reads (start, then the end of each phase: loads, id rank with the wait for
+// the stage kernels, staging, rounds, ring copy, updates, confirmed order).
+// Copies them to host memory `out`; returns the CUDA error code.
 extern "C" int madpp_tracker_phases(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
 }

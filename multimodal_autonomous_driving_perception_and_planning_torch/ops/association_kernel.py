@@ -15,10 +15,16 @@ memory, where the plain version synchronises with the host once a
 round.  The wrapper does one pass of checks (ops/launch.py),
 one allocation and the launch on the current stream without re-entering
 the device context.  Tables beyond 128 rows or 64 columns take the
-kernel's general instance, a thread block cluster of up to 16 blocks
-whose key lines live in shared memory where they fit; where they do not
-(1,024 x 1,024: 8 MB of keys; 4,096 x 4,096: 128 MB), the wrapper
-allocates them a device scratch, by shape alone (`scratch_words`).
+kernel's general instance, a thread block cluster of up to 16 blocks.
+Up to 1,024 rows and columns, where its key lines fit in the cluster's
+shared memory, each block computes its lines' keys from the matrix
+itself.  Where they do not fit (1,024 x 1,024: 8 MB of keys; 4,096 x
+4,096: 128 MB) and beyond 1,024 lines, a stage kernel over the whole card
+computes each key once into a device scratch, with each line's best in
+each chunk of 32 entries, and the cluster kernel, started while it
+finishes, takes its first bests and chunk masks from those and runs
+rounds that skip the chunks with no eligible key.  The wrapper allocates
+that scratch by shape alone (`scratch_words`).
 """
 
 from __future__ import annotations
@@ -39,9 +45,10 @@ MAX_COLS = 4096
 
 @functools.lru_cache(maxsize=None)
 def scratch_words(T: int, D: int) -> int:
-    """32-bit words of device scratch the launch at (T, D) takes for its
-    keys: 0 where they fit in the cluster's shared memory (the launcher's
-    own rule, asked of the built library)."""
+    """32-bit words of device scratch the launch at (T, D) takes for the
+    stage kernel's keys and chunk bests: 0 where the cluster stages its
+    keys itself, or the small instance runs (the launcher's own rule,
+    asked of the built library)."""
     return int(build.kernels().associate_scratch(T, D))
 
 

@@ -4,6 +4,7 @@ and, beside it, for another checkout of the port.
 
     python3 split_compare.py [OTHER_CHECKOUT] [--large] [--out FILE]
     python3 split_compare.py --resources [--sass-dir DIR] [OTHER_CHECKOUT]
+    python3 split_compare.py --routes [--out FILE]
 
 Runs, in a fresh process per run, `chip_smoke.measure_split` (the launch
 floor, each wrapper's host split, and each kernel's device time on inputs
@@ -31,6 +32,13 @@ and (K1 and K4) at `WIDE_SHAPES`, K5's large instance at (64, 8,400) and
 (`batch_us`: `chip_smoke.kernels_device_ms` over 50 calls, the mean span
 from a call's first kernel's start to its last one's end, the calls
 enqueued behind a device sleep so that no gap is the host's).
+
+With --routes it times instead, in this checkout alone, K4's general
+instance by its two routes at `ROUTE_SHAPES`, general shapes up to 1,025
+lines where the keys fit in the cluster's shared memory: associate.cu
+built twice from a copy of the sources, its `staged_route` forced to each
+route (`ROUTE_FORCE`), each fork held to the plain version, then
+`batch_us` of each in turns, in-cluster, staged, staged, in-cluster.
 
 With --resources it prints instead, once a checkout, each kernel's
 registers a thread and its stack, static shared and spilled bytes, as
@@ -216,7 +224,7 @@ def large_times(smoke, device) -> dict:
         iou, rank = x["association"]
         calls = {"K1": (lambda: smoke.tracker_kernel.tracker_step(table, dets, cfg, cfg.min_hits), "tracker_"),
                  "K4": (lambda: smoke.association_kernel.greedy_associate(iou, rank, cfg.iou_threshold),
-                        "associate_general")}
+                        "associate_")}
         if (t, d) in smoke.LARGE_SHAPES:
             rules, state, (tdets, ttable, vrow) = x["rules"], x["state"], x["tag_frame"]
             calls["K3"] = (lambda: smoke.tagging_kernel.tagging_step(rules, state, tdets, ttable, vrow), "tagging_step")
@@ -229,6 +237,81 @@ def large_times(smoke, device) -> dict:
         fn = lambda boxes=boxes, scores=scores: smoke.nms_kernel.nms_keep(boxes, scores, 0.45)  # noqa: E731
         fn()
         out[f"{b}x{k}"] = {"K5": batch_us(smoke, fn, "nms_", reps=10)}
+    return out
+
+
+# By each block's key words (association.cuh `assoc_key_words`): 10,240 at
+# (160, 80) to 39,040 at (1,025, 64).
+ROUTE_SHAPES = ((64, 300), (160, 80), (256, 128), (384, 128), (512, 64), (768, 64), (512, 512), (1024, 64),
+                (1025, 64))
+ROUTE_FORCE = {"in_cluster": "return !keys_fit;", "staged": "return true;"}
+ROUTE_RULE = re.compile(r"(bool staged_route\([^)]*\) \{\s*)return [^;]*;(\s*\})")
+
+
+def route_forks(smoke) -> dict:
+    """associate.cu built once a route of `ROUTE_FORCE`, in parallel, from
+    a copy of the sources whose `staged_route` returns that route: each
+    fork's launcher and scratch rule, typed for the wrapper."""
+    import shutil
+
+    from torch.utils import cpp_extension
+
+    build = smoke.build
+    nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
+    jobs = {}
+    for route, body in ROUTE_FORCE.items():
+        out = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
+        shutil.copytree(build.CSRC, out / "csrc")
+        src = out / "csrc" / "associate.cu"
+        text, n = ROUTE_RULE.subn(lambda m, body=body: m.group(1) + body + m.group(2), src.read_text())
+        if n != 1:
+            raise AssertionError("associate.cu's staged_route was not found")
+        src.write_text(text)
+        lib = out / "libassociate_fork.so"
+        cmd = [nvcc, *build.NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-o", str(lib), str(src)]
+        jobs[route] = (subprocess.Popen(cmd), cmd, lib)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    forks = {}
+    for route, (proc, cmd, lib) in jobs.items():
+        if proc.wait() != 0:
+            raise subprocess.CalledProcessError(proc.returncode, cmd)
+        dll = ctypes.CDLL(str(lib))
+        dll.madpp_associate.argtypes, dll.madpp_associate.restype = [vp] * 3 + [ci, ci, cf, vp, vp], ci
+        dll.madpp_associate_scratch.argtypes, dll.madpp_associate_scratch.restype = [ci, ci], ctypes.c_longlong
+        forks[route] = {"associate": dll.madpp_associate, "associate_scratch": dll.madpp_associate_scratch}
+    return forks
+
+
+def route_times(smoke, device) -> dict:
+    """K4 at `ROUTE_SHAPES` on `chip_smoke.large_kernel_inputs`' matrices
+    through each fork of `route_forks`, called through the wrapper: each
+    fork's matches against the plain version first, then `batch_us` in
+    turns (in-cluster, staged, staged, in-cluster), with each fork's
+    kernels and scratch words."""
+    import torch
+
+    forks = route_forks(smoke)
+    order = ("in_cluster", "staged", "staged", "in_cluster")
+    out = {}
+    for t, d in ROUTE_SHAPES:
+        x = smoke.large_kernel_inputs(device, t, d)
+        iou, rank = x["association"]
+        thr = x["cfg"].iou_threshold
+        want = smoke._greedy_associate_plain(iou, rank, thr)
+        fn = lambda: smoke.association_kernel.greedy_associate(iou, rank, thr)  # noqa: E731
+        row = {"rounds": smoke.association_rounds(iou, rank, thr)}
+        for route in order:
+            smoke.association_kernel.scratch_words.cache_clear()
+            with smoke.kernels_with(**forks[route]):
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"K4's {route} route differs from the plain version at ({t}, {d})")
+                _, records = smoke.card_trace(fn)
+                row.setdefault(route, {"kernels": sorted({re.search(r"associate_\w+(?:<\w+>)?", e.name).group(0)
+                                                          for e in records if "associate_" in e.name}),
+                                       "scratch_words": smoke.association_kernel.scratch_words(t, d), "us": []})
+                row[route]["us"].append(batch_us(smoke, fn, "associate_"))
+        smoke.association_kernel.scratch_words.cache_clear()
+        out[f"{t}x{d}"] = row
     return out
 
 
@@ -289,6 +372,21 @@ def main(argv) -> int:
         i = args.index("--sass-dir")
         sass_dir = Path(args[i + 1]).resolve()
         del args[i:i + 2]
+    if "--routes" in args:
+        args.remove("--routes")
+        import torch
+
+        smoke = load_smoke()
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True).stdout.strip()
+        smoke.build.kernels()
+        result = {"card": card, "routes": route_times(smoke, torch.device("cuda"))}
+        print(json.dumps(result), flush=True)
+        if "--out" in args:
+            out_file = Path(args[args.index("--out") + 1])
+            out_file.parent.mkdir(parents=True, exist_ok=True)
+            out_file.write_text(json.dumps(result, indent=1))
+        return 0
     if "--run-one" in args:
         print(json.dumps(run_one(args[args.index("--run-one") + 1], resources, sass_dir, large)))
         return 0

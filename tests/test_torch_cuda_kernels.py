@@ -310,6 +310,63 @@ def test_wide_instances_launch_their_kernels(device):
     assert torch.equal(keep, chip_smoke.plain_nms_keep(bx, sc, case.thr))
 
 
+def _assoc_plan_words(t: int, d: int) -> int:
+    """association.cuh `assoc_plan` at (t, d), its blocks' key words, and the
+    staged route's scratch (associate.cu `staged_words`): every block's
+    key lines, then 2 words a row chunk best, 3 a column chunk best and
+    its row, rounded up to 4 words."""
+    c = 1
+    while c < (t + d + 63) // 64 and c < 16:
+        c *= 2
+    rows = 32 * ((-(-t // 32) + c - 1) // c)
+    cols = 32 * ((-(-d // 32) + c - 1) // c)
+    key_words = rows * (-(-d // 4) * 4) + cols * (-(-t // 4) * 4)
+    n = c * key_words + 2 * t * -(-d // 32) + 3 * d * -(-t // 32)
+    return -(-n // 4) * 4
+
+
+def test_k4_staged_route_on_tied_and_wrapping_ranks(device, monkeypatch):
+    """K4's staged route (the stage kernel over the card, then the cluster
+    kernel) at (1,024, 1,024) and (4,096, 4,096), on tied ranks and on the
+    key-order corners (ranks at int32's ends whose tie-break keys rank * D
+    + column wrap), bit for bit its plain version; each call counts one
+    launch and runs both kernels; the scratch the wrapper allocates is
+    every block's key lines and the chunk bests, as the launcher sizes
+    it."""
+    import numpy as np
+
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import association_kernel
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops.association import _greedy_associate_plain
+
+    sizes = []
+    empty = torch.empty
+
+    def recording_empty(*args, **kwargs):
+        out = empty(*args, **kwargs)
+        if out.dtype == torch.int32 and out.dim() == 1:
+            sizes.append(out.numel())
+        return out
+
+    for t, d in ((1024, 1024), (4096, 4096)):
+        assert chip_smoke.k4_kernels(t, d) == chip_smoke.K4_STAGED_KERNELS + (chip_smoke.K4_CLUSTER_KERNEL,)
+        assert association_kernel.scratch_words(t, d) == _assoc_plan_words(t, d)
+        rng = np.random.default_rng(t + d)
+        for name, (iou, rank) in (("tied", chip_smoke.random_association(rng, t, d, tied=True)),
+                                  ("wrapping", chip_smoke.key_corner_association(rng, t, d, 0.3))):
+            iou_t, rank_t = torch.tensor(iou, device=device), torch.tensor(rank, device=device)
+            before, sizes[:] = association_kernel.launches, []
+            with monkeypatch.context() as m:
+                m.setattr(torch, "empty", recording_empty)
+                got, records = chip_smoke.card_trace(
+                    lambda: association_kernel.greedy_associate(iou_t, rank_t, 0.3))
+            assert association_kernel.launches == before + 1
+            assert sizes == [t, _assoc_plan_words(t, d)]  # the matches, then the scratch
+            assert all(any(k in e.name for e in records) for k in chip_smoke.k4_kernels(t, d))
+            want = _greedy_associate_plain(iou_t, rank_t, 0.3)
+            assert torch.equal(got, want), f"K4 {name} {t}x{d}: {int((got != want).sum())} rows differ"
+            assert (want >= 0).any()
+
+
 def test_wide_paths_on_card(device):
     """`yolo_all_anchors` (K5 at (64, 8,400)), `tagging_4096` (K1 at (4,096,
     1,024) and K3 at 4,096 slots a frame, more than 1,024 of them live) and

@@ -151,7 +151,7 @@ def _split(n: int, parts: int) -> list:
 
 
 def cluster_rounds_model(iou: torch.Tensor, rank: torch.Tensor, thr: float, parts: int,
-                         threads: int | None = None) -> torch.Tensor:
+                         threads: int | None = None, staged: tuple | None = None) -> torch.Tensor:
     """The cluster schedule of association.cuh's general instance in plain
     torch.  Each entry is the kernel's 64-bit key, (IoU key << 32) | ~(rank
     * D + d + 2^31) in 32-bit arithmetic that wraps, the IoU key its bits
@@ -162,7 +162,11 @@ def cluster_rounds_model(iou: torch.Tensor, rank: torch.Tensor, thr: float, part
     the exchange hands every part every row's and column's best; each part
     then accepts every live row whose best is its column's best, in passes
     of ``threads`` rows (a thread a row each pass; all rows in one pass by
-    default), and the loop ends at the first round that accepts nothing."""
+    default), and the loop ends at the first round that accepts nothing.
+    With ``staged`` (row bests, column bests, column rows, row and column
+    chunk masks, as bool (T, ceil(D / 32)) and (D, ceil(T / 32))), the
+    first round takes those bests as they are, and a recomputed best reads
+    only the chunks its line's mask marks, as the masked rounds do."""
     T, D = iou.shape
     eligible = (iou >= thr) & (iou >= 0.0)
     key = torch.where(eligible, (iou.view(torch.int32).to(torch.int64) & 0x7FFFFFFF) + 1, 0)
@@ -176,11 +180,17 @@ def cluster_rounds_model(iou: torch.Tensor, rank: torch.Tensor, thr: float, part
     colbest = torch.zeros(D, dtype=torch.int64)
     colrow = torch.zeros(D, dtype=torch.int64)
     match = torch.full((T,), -1, dtype=torch.int32)
+    row_entry = col_entry = entry
+    if staged is not None:
+        rowbest, colbest, colrow = (torch.as_tensor(np.asarray(x, np.int64)).clone() for x in staged[:3])
+        rmask, cmask = (torch.as_tensor(np.asarray(m, bool)) for m in staged[3:])
+        row_entry = torch.where(rmask[:, torch.arange(D) // 32], entry, 0)
+        col_entry = torch.where(cmask[:, torch.arange(T) // 32].T, entry, 0)
 
     def column_of(best, b):  # the column of a row's best key
         return ((~best & _MASK32) - b) & _MASK32
 
-    first = True
+    first = staged is None  # the first round's bests are to compute
     while True:
         for (r0, r1), (c0, c1) in zip(rows, cols):
             rb, cb = rowbest[r0:r1], colbest[c0:c1]
@@ -188,12 +198,12 @@ def cluster_rounds_model(iou: torch.Tensor, rank: torch.Tensor, thr: float, part
             stale &= taken[column_of(rb, base[r0:r1]).clamp(max=D - 1)]
             stale |= first
             if stale.any():
-                live = torch.where(taken[None, :], 0, entry[r0:r1][stale])
+                live = torch.where(taken[None, :], 0, row_entry[r0:r1][stale])
                 rowbest[r0:r1][stale] = live.amax(dim=1)
             stale = ~taken[c0:c1] & (cb != 0) & matched[colrow[c0:c1]]
             stale |= first
             if stale.any():
-                live = torch.where(matched[:, None], 0, entry[:, c0:c1][:, stale])
+                live = torch.where(matched[:, None], 0, col_entry[:, c0:c1][:, stale])
                 best, arg = live.max(dim=0)
                 colbest[c0:c1][stale] = best
                 colrow[c0:c1][stale] = arg
@@ -1129,3 +1139,132 @@ def test_staged_key_lines_match_the_per_line_staging(shape, thr, one_thread):
     for i in rng.choice(t, 64, replace=False):
         dense = np.where((keys[i] != 0) & ~taken, (keys[i] << 32) | (~tie_row[i] & _MASK32), 0).max()
         assert masked_best(keys[i], tie_row[i], taken, rmask[i]) == dense
+
+
+# --- K4's staged route: the keys staged over the card from the matrix --------
+
+K4_STAGE_CASES = ("tied_ranks", "key_corners")
+
+
+def k4_stage_kernel_model(keys: np.ndarray, rank: np.ndarray, tile: tuple):
+    """associate.cu `associate_stage_kernel` over ``tile`` (rows, columns)
+    blocks of 8 warps, 4 row groups of rows / 4 by 2 column groups of 32,
+    then the cluster kernel's `staged_firsts`.  Each entry is the rounds'
+    own 64-bit key (IoU key << 32 | ~(rank * D + d + 2^31), the tie-break
+    key wrapping in 32 bits).  A warp keeps each of its rows' best over its
+    32 columns (one chunk of the row line) and each of its columns' best
+    over its rows with the first row at it; a chunk of a column line is a
+    warp's 32 rows in big tiles, the block's 4 row groups of 8 combined in
+    order in small ones.  The cluster kernel takes a line's first best as
+    the maximum of its chunk bests, lane c reading chunks c, c + 32, ...
+    and keeping the first it finds greater, a column's row the least row
+    of the lanes at the maximum, and a mask bit where a chunk best is not
+    0.  Returns (row bests, column bests, column rows, row masks, column
+    masks)."""
+    T, D = keys.shape
+    tie = (rank[:, None].astype(np.int64) * D + np.arange(D)[None, :] + 2**31) & _MASK32
+    entry = np.where(keys != 0, (keys << 32) | (~tie & _MASK32), 0)
+    rch, cch = -(-D // 32), -(-T // 32)
+    rowpart = np.zeros((T, rch), np.int64)
+    colpart = np.zeros((D, cch), np.int64)
+    colrow = np.zeros((D, cch), np.int64)
+    rows_per, cols_per = tile
+    k_rows = rows_per // 4
+    for t_blk in range(0, T, rows_per):
+        for d_blk in range(0, D, cols_per):
+            groups = []  # the block's row groups' column bests and rows
+            for rg in range(4):
+                t0 = t_blk + k_rows * rg
+                best, at = np.zeros(cols_per, np.int64), np.zeros(cols_per, np.int64)
+                for cg in range(2):
+                    d0 = d_blk + 32 * cg
+                    e = entry[t0:t0 + k_rows, d0:d0 + 32]
+                    if e.size == 0:
+                        continue
+                    rowpart[t0:t0 + e.shape[0], d0 // 32] = e.max(axis=1)
+                    best[32 * cg:32 * cg + e.shape[1]] = e.max(axis=0)
+                    at[32 * cg:32 * cg + e.shape[1]] = t0 + e.argmax(axis=0)  # the first row at the maximum
+                groups.append((t0, best, at))
+            d = np.arange(d_blk, min(d_blk + cols_per, D))
+            if k_rows == 32:
+                for t0, best, at in groups:
+                    if t0 < T:
+                        colpart[d, t0 // 32], colrow[d, t0 // 32] = best[:d.size], at[:d.size]
+            else:
+                best, at = groups[0][1].copy(), groups[0][2].copy()
+                for _, b, a in groups[1:]:
+                    better = b > best
+                    best, at = np.where(better, b, best), np.where(better, a, at)
+                colpart[d, t_blk // 32], colrow[d, t_blk // 32] = best[:d.size], at[:d.size]
+
+    def firsts(part, rows):
+        lanes = np.zeros((part.shape[0], 32), np.int64)
+        lane_rows = np.zeros((part.shape[0], 32), np.int64)
+        for c in range(part.shape[1]):
+            better = part[:, c] > lanes[:, c % 32]
+            lanes[:, c % 32] = np.where(better, part[:, c], lanes[:, c % 32])
+            lane_rows[:, c % 32] = np.where(better, rows[:, c], lane_rows[:, c % 32])
+        best = lanes.max(axis=1)
+        return best, np.where(lanes == best[:, None], lane_rows, np.iinfo(np.int64).max).min(axis=1)
+
+    rows, _ = firsts(rowpart, np.zeros_like(rowpart))
+    cols, col_rows = firsts(colpart, colrow)
+    return rows, cols, col_rows, rowpart != 0, colpart != 0
+
+
+def _k4_stage_case(t: int, d: int, thr: float, kind: str):
+    """K4's inputs for the stage model: tied ranks (`random_association`) or
+    the key-order corners (`key_corner_association`: ranks at int32's ends
+    whose tie-break keys wrap, -0 and +0, the threshold, NaN, tied IoUs)."""
+    rng = np.random.default_rng(t * 11 + d + int(thr * 10) + K4_STAGE_CASES.index(kind))
+    if kind == "tied_ranks":
+        return chip_smoke.random_association(rng, t, d, tied=True)
+    return chip_smoke.key_corner_association(rng, t, d, thr)
+
+
+@pytest.mark.parametrize("kind", K4_STAGE_CASES)
+@pytest.mark.parametrize("thr", (0.3, 0.0))
+@pytest.mark.parametrize("shape", STAGE_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k4_staged_bests_match_the_per_line_bests(shape, thr, kind, one_thread):
+    """K4's staged route, modelled (`k4_stage_kernel_model`) on both of the
+    stage kernel's tiles: every row's and column's first-round best and
+    chunk masks equal the per-line bests (`line_firsts`, with K4's own
+    ranks) and the chunks that hold an eligible key, and each column's row
+    holds its best entry; through the masked rounds
+    (`cluster_rounds_model` over 16 parts with those bests and masks, in
+    passes of 1,024 rows) the matches equal the plain version and JAX's
+    jitted fixpoint, bit for bit, on tied ranks and on the key-order
+    corners.  Mutations counted on copies of this file outside the
+    repository: a copy that packs a column's chunk best as K1 does, (key,
+    2^32 - 1 - rank) with the rank unwrapped, and names the row by it
+    fails 8 of these 16 cases (every key-corner case: ranks whose keys
+    wrap); one that drops a chunk's mask bit where its best's key is the
+    threshold's fails 6 (the key corners at all but (4,096, 160)); one that
+    names the last row at a column's chunk maximum, another holding row,
+    fails none, as any holding row gives the same matches."""
+    t, d = shape
+    iou, rank = _k4_stage_case(t, d, thr, kind)
+    keys = assoc_keys(torch.tensor(iou), thr)
+    rank64 = rank.astype(np.int64)
+    want_rows, want_cols, want_colrow = line_firsts(keys, rank64)
+    tie = (rank64[:, None] * d + np.arange(d)[None, :] + 2**31) & _MASK32
+    entry = np.where(keys != 0, (keys << 32) | (~tie & _MASK32), 0)
+    for tile in STAGE_TILES:
+        rows, cols, colrow, rmask, cmask = k4_stage_kernel_model(keys, rank, tile)
+        np.testing.assert_array_equal(rows, want_rows)
+        np.testing.assert_array_equal(cols, want_cols)
+        eligible = cols != 0
+        np.testing.assert_array_equal(entry[colrow[eligible], np.flatnonzero(eligible)], cols[eligible])
+        pad = lambda n: -(-n // 32) * 32  # noqa: E731
+        rk = np.zeros((t, pad(d)), bool)
+        rk[:, :d] = keys != 0
+        ck = np.zeros((d, pad(t)), bool)
+        ck[:, :t] = keys.T != 0
+        np.testing.assert_array_equal(rmask, rk.reshape(t, -1, 32).any(axis=2))
+        np.testing.assert_array_equal(cmask, ck.reshape(d, -1, 32).any(axis=2))
+    assert (keys != 0).any() and (cols != 0).any()
+    want = np.asarray(jax_greedy_associate(jnp.asarray(iou), jnp.asarray(rank), thr, backend="cpu"))
+    got = cluster_rounds_model(torch.tensor(iou), torch.tensor(rank), thr, 16, threads=CLUSTER_THREADS,
+                               staged=(rows, cols, colrow, rmask, cmask)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _greedy_associate_plain(torch.tensor(iou), torch.tensor(rank), thr).numpy())
