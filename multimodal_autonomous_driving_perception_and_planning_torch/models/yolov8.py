@@ -33,6 +33,7 @@ from torch.func import functional_call
 
 from ..ops.nms import nms
 from ..utils.device import float32_matmuls, resolve_device
+from ..utils.profiler import NO_SPAN, SPANS
 
 # depth multiple, width multiple, max-channel cap.
 YOLOV8_VARIANTS = {
@@ -469,10 +470,14 @@ def make_yolo_detector(
     def detect_fn(params: Dict[str, torch.Tensor], frames_bgr, return_candidates: bool = False):
         frames = torch.as_tensor(frames_bgr).to(dev)
         single = frames.dim() == 3
-        x, scale, pad = preprocess(frames[None] if single else frames, img_size)
-        outputs = functional_call(model, params, (x,), strict=True)
-        cands = candidates_from_outputs(outputs, scale, pad)
-        tables = tables_from_candidates(cands, iou_threshold, score_threshold, max_det, pre_topk, taxonomy)
+        rec = SPANS.active()
+        with rec.span("tower") if rec else NO_SPAN:
+            x, scale, pad = preprocess(frames[None] if single else frames, img_size)
+            outputs = functional_call(model, params, (x,), strict=True)
+        with rec.span("decode") if rec else NO_SPAN:
+            cands = candidates_from_outputs(outputs, scale, pad)
+        with rec.span("nms", pool=min(pre_topk, cands["scores"].shape[-1])) if rec else NO_SPAN:
+            tables = tables_from_candidates(cands, iou_threshold, score_threshold, max_det, pre_topk, taxonomy)
         if single:
             tables = {k: v[0] for k, v in tables.items()}
         return (tables, cands) if return_candidates else tables

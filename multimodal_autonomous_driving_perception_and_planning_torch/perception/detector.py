@@ -22,6 +22,7 @@ from ..host import CLASS_COLORS, CLASS_NAMES, HostDetection, to_numpy
 from ..models.yolov8 import infer_variant_from_state_dict, load_torch_state_dict, make_yolo_detector
 from ..pipeline import make_sequence_runner
 from ..utils.device import resolve_device
+from ..utils.profiler import NO_SPAN, SPANS
 from ..viz.draw import draw_detections
 
 TABLE_KEYS = ("bbox", "class_id", "confidence", "valid")
@@ -35,12 +36,17 @@ def _detect_chunks(detect_fn, params, frames, batch: int, dev: torch.device, kee
     frames = torch.as_tensor(frames)
     t = frames.shape[0]
     tables, cands = [], []
+    rec = SPANS.active()
     for start in range(0, t, batch):
-        chunk = frames[start : start + batch].to(dev)
-        if chunk.shape[0] < batch:
-            pad = chunk.new_zeros((batch - chunk.shape[0],) + tuple(chunk.shape[1:]))
-            chunk = torch.cat([chunk, pad])
-        out = detect_fn(params, chunk, return_candidates=keep_candidates)
+        src = frames[start : start + batch]
+        n = src.shape[0]
+        with rec.span("detect", frames=n, padded=batch - n) if rec else NO_SPAN:
+            with _h2d_span(rec, src, dev):
+                chunk = src.to(dev)
+            if n < batch:
+                pad = chunk.new_zeros((batch - n,) + tuple(chunk.shape[1:]))
+                chunk = torch.cat([chunk, pad])
+            out = detect_fn(params, chunk, return_candidates=keep_candidates)
         if keep_candidates:
             out, c = out
             cands.append(c)
@@ -51,6 +57,24 @@ def _detect_chunks(detect_fn, params, frames, batch: int, dev: torch.device, kee
     candidates = {k: torch.cat([c[k] for c in cands])[:t] for k in ("boxes", "scores", "classes")}
     candidates.update(scale=cands[0]["scale"], pad=cands[0]["pad"])
     return stream, candidates
+
+
+def _h2d_span(rec, src: torch.Tensor, dev: torch.device):
+    """The ``h2d`` span of a chunk's upload: the bytes it moves (none when
+    the chunk is on the device already) and whether its source is pinned."""
+    if rec is None:
+        return NO_SPAN
+    copied = src.device.type != dev.type
+    return rec.span("h2d", bytes=src.nbytes if copied else 0, pinned=copied and src.is_pinned())
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """The launch counters of kernels K1, K2, K3 and K5 (tracker,
+    estimator, tagging, NMS), as `segment` spans count them."""
+    from ..ops import kalman_kernel, nms_kernel, tagging_kernel, tracker_kernel
+
+    return {"k1_launches": tracker_kernel.launches, "k2_launches": kalman_kernel.launches,
+            "k3_launches": tagging_kernel.launches, "k5_launches": nms_kernel.launches}
 
 
 def make_yolo_frontend(
@@ -123,7 +147,7 @@ def make_yolo_sequence_runner(
     )
     run_frames = make_sequence_runner(cfg, device=dev)
 
-    def run(params, state, frames, ego, keep_candidates: bool = False):
+    def run_segment(params, state, frames, ego, keep_candidates: bool):
         stream, candidates = _detect_chunks(detect_fn, params, frames, batch, dev, keep_candidates)
         inputs = dict(stream, ego_measurement=torch.as_tensor(ego, dtype=torch.float32))
         if cfg.use_frames:
@@ -132,6 +156,17 @@ def make_yolo_sequence_runner(
         if keep_candidates:
             outs["detections"], outs["candidates"] = stream, candidates
         return final, outs
+
+    def run(params, state, frames, ego, keep_candidates: bool = False):
+        rec = SPANS.active()
+        if rec is None:
+            return run_segment(params, state, frames, ego, keep_candidates)
+        t = len(frames)
+        with rec.span("segment", frames=t, chunks=-(-t // batch)) as sp:
+            before = _kernel_launches()
+            result = run_segment(params, state, frames, ego, keep_candidates)
+            sp.counts.update({k: v - before[k] for k, v in _kernel_launches().items()})
+        return result
 
     return init_fn, run
 

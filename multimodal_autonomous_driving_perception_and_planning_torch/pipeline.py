@@ -54,6 +54,7 @@ from .types import (
 )
 from .utils.convert import kalman_model_from_numpy
 from .utils.device import resolve_device
+from .utils.profiler import NO_SPAN, SPANS
 
 
 def initial_state(cfg: PipelineConfig, device="cuda") -> PipelineState:
@@ -167,56 +168,62 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device, ops: bool = False):
         lead = tuple(state.frame_idx.shape)
         measured, lane_idx = lanes_of(lead)
         rows = {}
+        rec = SPANS.active()
 
         # Lanes and scene features, from the camera frame.  The lane step
         # reads the Canny hysteresis's flag on the host, so with a lane
         # axis it runs once a lane (K1-K3 still run once for all lanes);
         # batching it belongs with its CUDA graph (ROADMAP items 5a, 7b).
         if lane_step is not None and "frame" in inputs:
-            if lead:
-                lanes, lane_obs, frame_feats = map_lanes(lane_step, lead[0], state.lanes, inputs["frame"])
-            else:
-                lanes, lane_obs, frame_feats = lane_step(state.lanes, inputs["frame"])
-            rows["lane_f"], rows["lane_b"] = _pack_lane_obs(lane_obs)
+            with rec.span("lanes") if rec else NO_SPAN:
+                if lead:
+                    lanes, lane_obs, frame_feats = map_lanes(lane_step, lead[0], state.lanes, inputs["frame"])
+                else:
+                    lanes, lane_obs, frame_feats = lane_step(state.lanes, inputs["frame"])
+                rows["lane_f"], rows["lane_b"] = _pack_lane_obs(lane_obs)
         else:
             lanes, lane_obs, frame_feats = state.lanes, None, None
 
         # Tracking: kernel K1 on the card, the confirmed order included.
-        table, match, order, n_confirmed = track(state.tracks, dets, cfg.tracker, cfg.tracker.min_hits)
+        with rec.span("track") if rec else NO_SPAN:
+            table, match, order, n_confirmed = track(state.tracks, dets, cfg.tracker, cfg.tracker.min_hits)
 
         # Ego estimation: kernel K2 on the card, the state as its one row.
-        kalman, vrow = estimate(
-            state.kalman,
-            model,
-            inputs["ego_measurement"],
-            inputs.get("has_measurement", measured),
-            cfg.estimator,
-        )
-        vstate = vehicle_state_from_row(vrow)
+        with rec.span("estimate") if rec else NO_SPAN:
+            kalman, vrow = estimate(
+                state.kalman,
+                model,
+                inputs["ego_measurement"],
+                inputs.get("has_measurement", measured),
+                cfg.estimator,
+            )
+            vstate = vehicle_state_from_row(vrow)
 
         # Planning.
-        current = torch.stack([vstate.x, vstate.y, vstate.heading, vstate.speed], dim=-1)
-        pr = plan(
-            current,
-            cfg.planner,
-            reference_positions=inputs.get("reference_positions"),
-            reference_valid=inputs.get("reference_valid"),
-            obstacles=inputs.get("obstacles"),
-            obstacles_valid=inputs.get("obstacles_valid"),
-        )
-        if lead:
-            best_positions = pr.positions[lane_idx, pr.best]
-            best_velocities = pr.velocities[lane_idx, pr.best]
-        else:
-            best = pr.best.view(1)
-            best_positions = pr.positions.index_select(0, best)[0]
-            best_velocities = pr.velocities.index_select(0, best)[0]
+        with rec.span("plan") if rec else NO_SPAN:
+            current = torch.stack([vstate.x, vstate.y, vstate.heading, vstate.speed], dim=-1)
+            pr = plan(
+                current,
+                cfg.planner,
+                reference_positions=inputs.get("reference_positions"),
+                reference_valid=inputs.get("reference_valid"),
+                obstacles=inputs.get("obstacles"),
+                obstacles_valid=inputs.get("obstacles_valid"),
+            )
+            if lead:
+                best_positions = pr.positions[lane_idx, pr.best]
+                best_velocities = pr.velocities[lane_idx, pr.best]
+            else:
+                best = pr.best.view(1)
+                best_positions = pr.positions.index_select(0, best)[0]
+                best_velocities = pr.velocities.index_select(0, best)[0]
 
         # Tagging: kernel K3 on the card, in frames mode with lanes.
         if tagging_step is not None:
-            tagging_state, rows["tag_f"], rows["tag_i"] = tagging_step(
-                state.tagging, dets, table, vrow, lane_obs, frame_feats
-            )
+            with rec.span("tag") if rec else NO_SPAN:
+                tagging_state, rows["tag_f"], rows["tag_i"] = tagging_step(
+                    state.tagging, dets, table, vrow, lane_obs, frame_feats
+                )
         else:
             tagging_state = state.tagging
 
@@ -359,6 +366,13 @@ def _make_runner(cfg: PipelineConfig, dev: torch.device, lanes: bool, step=None)
         return (v.transpose(0, 1) if lanes else v).contiguous()
 
     def run(state: PipelineState, inputs: Dict[str, Any]):
+        rec = SPANS.active()
+        if rec is None:
+            return run_loop(state, inputs, None)
+        with rec.span("frames") as sp:
+            return run_loop(state, inputs, rec, sp.counts)
+
+    def run_loop(state: PipelineState, inputs: Dict[str, Any], rec, counts=None):
         unknown = set(inputs) - set(_INPUT_DTYPES)
         if unknown:
             raise ValueError(
@@ -381,35 +395,41 @@ def _make_runner(cfg: PipelineConfig, dev: torch.device, lanes: bool, step=None)
                 raise ValueError(f"inputs need a leading lane axis of {lead[0]}; got {bad}")
         elif lead:
             raise ValueError("make_sequence_runner takes an unbatched state; use make_batched_sequence_runner")
-        xs = {k: as_input(k, v) for k, v in inputs.items()}
+        with rec.span("inputs") if rec else NO_SPAN:
+            xs = {k: as_input(k, v) for k, v in inputs.items()}
         num_frames = xs["bbox"].shape[0]
+        if rec:
+            counts.update(frames=num_frames, lanes=lead[0] if lead else 1)
 
         bufs: Dict[str, torch.Tensor] = {}
         for f in range(num_frames):
-            frame = {k: v[f] for k, v in xs.items()}
-            frame["detections"] = Detections(
-                bbox=frame.pop("bbox"),
-                class_id=frame.pop("class_id"),
-                confidence=frame.pop("confidence"),
-                valid=frame.pop("valid"),
-            )
-            state, out, rows = step(state, frame)
-            out.update(rows)
-            if not bufs:
-                bufs = {
-                    k: torch.empty((*lead, num_frames, *v.shape[len(lead):]), dtype=v.dtype, device=dev)
-                    for k, v in out.items()
-                }
-            for k, v in out.items():
-                (bufs[k][:, f] if lanes else bufs[k][f]).copy_(v)
+            with rec.span("step", frame=f) if rec else NO_SPAN:
+                frame = {k: v[f] for k, v in xs.items()}
+                frame["detections"] = Detections(
+                    bbox=frame.pop("bbox"),
+                    class_id=frame.pop("class_id"),
+                    confidence=frame.pop("confidence"),
+                    valid=frame.pop("valid"),
+                )
+                state, out, rows = step(state, frame)
+                out.update(rows)
+                with rec.span("write") if rec else NO_SPAN:
+                    if not bufs:
+                        bufs = {
+                            k: torch.empty((*lead, num_frames, *v.shape[len(lead):]), dtype=v.dtype, device=dev)
+                            for k, v in out.items()
+                        }
+                    for k, v in out.items():
+                        (bufs[k][:, f] if lanes else bufs[k][f]).copy_(v)
 
-        outs: Dict[str, Any] = dict(bufs)
-        vs = outs.pop("vehicle_state", None)
-        if vs is not None:
-            outs["vehicle_state"] = VehicleState(
-                *(vs[..., i].contiguous() for i in range(len(VEHICLE_STATE_FIELDS)))
-            )
-        _unpack_rows(outs, cfg.tracker.max_tracks)
+        with rec.span("unpack") if rec else NO_SPAN:
+            outs: Dict[str, Any] = dict(bufs)
+            vs = outs.pop("vehicle_state", None)
+            if vs is not None:
+                outs["vehicle_state"] = VehicleState(
+                    *(vs[..., i].contiguous() for i in range(len(VEHICLE_STATE_FIELDS)))
+                )
+            _unpack_rows(outs, cfg.tracker.max_tracks)
         return state, outs
 
     return run
