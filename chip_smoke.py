@@ -42,6 +42,13 @@ Phases, each printing one JSON line:
      of 0, below 0 and from 1 up, class-offset, degenerate, NaN and inf
      boxes, dead entries between live ones, subnormal IoUs, and batches of
      1 to 200 images; and boxes off 16-byte alignment;
+  7a. kernel K6 (the planner) against its plain version on the card
+     (`check_planner_kernel`, within `hold_plan`'s bars): the default grid
+     from headings near +-pi, rest, backing up and far-off starts (also
+     from K2's vehicle row, bit for bit), a NaN start, a reference path
+     with none, some and all points valid, obstacles in the hard and soft
+     bands, ties (all costs equal, two equal minima), a 55 x 81 grid, and
+     1, 8 and 64 random lanes, each lane bit for bit its B = 1 launch;
   8. the main path: `make_sequence_runner` on the card over the 300-frame
      synthetic stream in bench.py's configuration, against the same runner
      on the CPU, with each kernel's launches counted in that run;
@@ -302,6 +309,7 @@ from multimodal_autonomous_driving_perception_and_planning_torch.ops.nms import 
     nms,
     nms_prefilter,
 )
+from multimodal_autonomous_driving_perception_and_planning_torch.planning import planner
 from multimodal_autonomous_driving_perception_and_planning_torch.perception.detector import (
     make_yolo_sequence_runner,
 )
@@ -364,6 +372,12 @@ KERNEL_MODULES = {
     "associate": association_kernel,
     "nms_keep": nms_kernel,
 }
+# K6 (the planner) where the checkout has it: split_compare.py loads this
+# script against another checkout's package, which may predate it.
+if importlib.util.find_spec(f"{PKG}.ops.planner_kernel") is not None:
+    from multimodal_autonomous_driving_perception_and_planning_torch.ops import planner_kernel
+
+    KERNEL_MODULES["plan_step"] = planner_kernel
 # The YOLO path: yolov8n at 640 in 64-frame chunks, benchmarks/suite.py's
 # frames, with the JAX test's thresholds for random weights
 # (tests/test_yolo_nms.py:218-225) in float32 and the JAX defaults in bf16.
@@ -1434,6 +1448,256 @@ def check_nms_kernel(device, trials: int = 8) -> list:
     return cases
 
 
+# --- kernel K6, the planner -------------------------------------------------
+# Start states (x, y, heading, speed) of the planner checks: headings near
+# +pi and -pi (from y = 0, so that the heading's small sine keeps one sign
+# along the straight plan: where it flips, atan2 jumps by 2 pi and either
+# side's rounding decides), from rest, backing up (the speed crosses zero
+# between waypoints), far from the origin, and a plain one.
+PLANNER_STATES = {
+    "plain": (3.2, -1.5, 0.12, 9.3),
+    "heading_pi": (0.0, 0.0, 3.1415925, 10.0),
+    "heading_minus_pi": (0.0, 0.0, -3.1415925, 10.0),
+    "zero_speed": (1.0, 2.0, 0.7, 0.0),
+    "negative_speed": (-4.0, 1.0, -0.4, -2.0),
+    "far_off": (30000.0, -12000.0, 1.1, 12.0),
+}
+# A grid beyond a warp a candidate: 55 candidates (the block's 32 warps
+# loop) of 81 waypoints (three chunks of 32 lanes).
+PLANNER_WIDE = pt.PlannerConfig(num_samples=11, target_velocities=(6.0, 8.0, 10.0, 12.0, 14.0), planning_horizon=8.0)
+# K6 against its plain version: positions, speeds and costs within 1e-5 of
+# their largest magnitude (at least 1).  The two sum in other orders: the
+# arc length is a prefix sum over up to 51 speeds (the kernel's warp scan,
+# the tensor op's own tree), and a cost a sum of 51 squares a term; float32
+# keeps 2^-24 relative a rounding, so the sums part by a few ulps of their
+# largest partial sums (2e-7 to 1e-6 relative), the positions by the ulps
+# of the arc length they carry.  The order holds exactly but between costs
+# within that bar of each other, where either side's rounding decides.
+PLAN_RTOL = 1e-5
+F32_EPS = 2.0**-23
+
+
+def plan_fields(pr, best_positions=None, best_velocities=None) -> dict:
+    """A plan's fields as float64 numpy arrays (ints as they are)."""
+    out = {k: getattr(pr, k).detach().cpu().numpy() for k in
+           ("positions", "headings", "velocities", "curvatures", "costs", "order", "best")}
+    for k in ("positions", "headings", "velocities", "curvatures", "costs"):
+        out[k] = out[k].astype(np.float64)
+    if best_positions is not None:
+        out["best_positions"] = best_positions.detach().cpu().numpy()
+        out["best_velocities"] = best_velocities.detach().cpu().numpy()
+    return out
+
+
+def _plan_gap(got: np.ndarray, want: np.ndarray) -> float:
+    """Largest gap over the largest finite magnitude of ``want`` (at least
+    1); NaN against NaN is no gap, NaN against a number an infinite one."""
+    both = np.isnan(got) & np.isnan(want)
+    diff = np.where(both, 0.0, np.abs(got - want))
+    diff = np.where(np.isnan(diff), np.inf, diff)
+    scale = np.abs(want[np.isfinite(want)])
+    return float(diff.max() / max(1.0, scale.max() if scale.size else 1.0))
+
+
+def hold_plan(label: str, got: dict, want: dict, dt: float) -> dict:
+    """One lane's plan from K6 (``got``, `plan_fields`) against its plain
+    version (``want``): positions, speeds and costs at PLAN_RTOL; headings
+    within 2 ulps of the largest coordinate over the shortest step between
+    waypoints (atan2 of neighbours' differences, which carry the
+    coordinates' rounding), curvatures within twice that over the smallest
+    v dt + 1e-6 (their divisor) and 4 ulps of the largest; the order a
+    permutation in which every place holds a cost within the cost bar of
+    the plain order's, exactly the stable sort of K6's own costs, and
+    ``best`` its first place.  Returns the gaps."""
+    gaps = {k: _plan_gap(got[k], want[k]) for k in ("positions", "velocities", "costs")}
+    bad = {k: g for k, g in gaps.items() if not g <= PLAN_RTOL}
+    pos = want["positions"]
+    finite = np.isfinite(pos).all()
+    if finite:
+        scale = max(1.0, float(np.abs(pos).max()))
+        step = float(np.linalg.norm(np.diff(pos, axis=-2), axis=-1).min())
+        head_bar = 2 * F32_EPS * scale / step if step > 0 else np.inf
+        v = want["velocities"][..., 1:-1] * dt + 1e-6
+        kappa = want["curvatures"]
+        curv_bar = 2 * head_bar / float(np.abs(v).min()) + 4 * F32_EPS * float(np.abs(kappa).max())
+        gaps["headings"] = float(np.abs(got["headings"] - want["headings"]).max())
+        gaps["curvatures"] = float(np.abs(got["curvatures"] - kappa).max())
+        gaps["heading_bar"], gaps["curvature_bar"] = head_bar, curv_bar
+        if not gaps["headings"] <= head_bar:
+            bad["headings"] = gaps["headings"]
+        if not gaps["curvatures"] <= curv_bar:
+            bad["curvatures"] = gaps["curvatures"]
+    if bad:
+        raise AssertionError(f"{label}: K6 beyond its bars against the plain version: {bad} ({gaps})")
+    costs, order = want["costs"], got["order"]
+    if sorted(order.tolist()) != list(range(costs.size)):
+        raise AssertionError(f"{label}: K6's order {order.tolist()} is not a permutation")
+    own = torch.sort(torch.from_numpy(got["costs"]), stable=True).indices.numpy()
+    if not np.array_equal(order, own):
+        raise AssertionError(f"{label}: K6's order {order.tolist()} is not the stable sort of its costs {own.tolist()}")
+    if int(got["best"]) != int(order[0]):
+        raise AssertionError(f"{label}: K6's best {int(got['best'])} is not its order's first")
+    if not np.isnan(costs).all():
+        bar = PLAN_RTOL * max(1.0, float(np.nanmax(np.abs(costs))))
+        off = np.abs(costs[order] - costs[want["order"]])
+        if not (off <= bar).all():
+            raise AssertionError(f"{label}: K6's order {order.tolist()} parts from {want['order'].tolist()} "
+                                 f"beyond the cost bar {bar}")
+        gaps["order_places_off"] = int((order != want["order"]).sum())
+    elif not np.array_equal(order, want["order"]):
+        raise AssertionError(f"{label}: with every cost NaN the order is not the index order")
+    if "best_positions" in got:
+        b = int(got["best"])
+        if not (np.array_equal(got["best_positions"], got["positions"][b].astype(np.float32), equal_nan=True)
+                and np.array_equal(got["best_velocities"], got["velocities"][b].astype(np.float32), equal_nan=True)):
+            raise AssertionError(f"{label}: K6's chosen rows are not candidate {b}'s")
+    return gaps
+
+
+def planner_inputs(case: str, R: int = 64, O: int = 16) -> dict:
+    """A case's reference path and obstacles as numpy arrays: a path of R
+    points with none, 20 or all valid, or obstacles that the plain plans
+    pass inside twice the radius (the hard band) and between twice and
+    four times (the soft band), a third one masked; else none."""
+    if case.startswith("ref"):
+        pts = np.zeros((R, 2), np.float32)
+        pts[:, 0] = np.arange(R, dtype=np.float32) * np.float32(1.5)
+        pts[:, 1] = np.float32(0.8) + np.sin(np.arange(R, dtype=np.float32) * np.float32(0.2))
+        valid = np.arange(R) < {"ref_none": 0, "ref_some": 20, "ref_all": R}[case]
+        return dict(reference_positions=pts, reference_valid=valid)
+    if case == "obstacles":
+        obs = np.zeros((O, 3), np.float32)
+        obs[0] = (15.0, 0.5, 2.0)
+        obs[1] = (30.0, -3.0, 1.5)
+        obs[2] = (20.0, 2.0, 3.0)
+        valid = np.zeros(O, bool)
+        valid[:2] = True
+        return dict(obstacles=obs, obstacles_valid=valid)
+    return {}
+
+
+def _random_lanes(B: int, cfg, seed: int) -> tuple:
+    """B random start states, reference paths (a random count of valid
+    points, some lanes none) and obstacles (about half masked)."""
+    rng = np.random.default_rng(seed)
+    R, O = cfg.max_reference_points, cfg.max_obstacles
+    states = np.stack([rng.uniform(-50, 50, B), rng.uniform(-50, 50, B), rng.uniform(-np.pi, np.pi, B),
+                       rng.uniform(-1, 15, B)], 1).astype(np.float32)
+    ref = np.cumsum(rng.uniform(-1, 2, (B, R, 2)), axis=1).astype(np.float32) + states[:, None, :2]
+    ref_valid = np.arange(R)[None, :] < rng.integers(0, R + 1, (B, 1))
+    obs = np.concatenate([states[:, None, :2] + rng.uniform(-30, 30, (B, O, 2)), rng.uniform(0.5, 3, (B, O, 1))],
+                         -1).astype(np.float32)
+    obs_valid = rng.uniform(size=(B, O)) < 0.5
+    return states, dict(reference_positions=ref, reference_valid=ref_valid, obstacles=obs, obstacles_valid=obs_valid)
+
+
+def check_planner_kernel(device, lane_counts=None) -> list:
+    """K6 against its plain version (`planner.plan_plain`) on the card,
+    each lane held by `hold_plan`: the default grid from `PLANNER_STATES`,
+    also as K2's vehicle row (bit for bit the state's launch); a NaN
+    start (every cost NaN, the index order); the reference path with
+    none, some and all points valid; obstacles in the hard and soft bands,
+    one masked; ties: every weight 0 (all costs equal) and a target speed
+    listed twice (two equal minima, best the first); the grid beyond a warp
+    (`PLANNER_WIDE`); and B = 1, 8 and 64 random lanes with paths and
+    obstacles, each lane bit for bit its B = 1 launch."""
+    cases = []
+
+    def run(label, states, cfg, arrays, lanes):
+        st = torch.tensor(states, device=device)
+        ins = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
+        got = plan_fields(*planner_kernel.plan_step(st, cfg, **ins))
+        gaps = []
+        for b in range(lanes):
+            lane_ins = {k: v[b] for k, v in ins.items()} if st.dim() > 1 else ins
+            lane_st = st[b] if st.dim() > 1 else st
+            want = plan_fields(planner.plan_plain(lane_st, cfg, **lane_ins))
+            mine = {k: (v[b] if st.dim() > 1 else v) for k, v in got.items()}
+            gaps.append(hold_plan(f"K6 {label} lane {b}", mine, want, cfg.dt))
+            if st.dim() > 1:
+                one = plan_fields(*planner_kernel.plan_step(lane_st.contiguous(), cfg,
+                                                            **{k: v.contiguous() for k, v in lane_ins.items()}))
+                for k, v in one.items():
+                    if not np.array_equal(mine[k], v, equal_nan=np.issubdtype(np.asarray(v).dtype, np.floating)):
+                        raise AssertionError(f"K6 {label}: lane {b}'s {k} differs from its B = 1 launch")
+        worst = {k: max(g[k] for g in gaps if k in g) for k in gaps[0]}
+        cases.append({"case": label, "lanes": lanes, "C": int(got["costs"].shape[-1]),
+                      "N": int(got["velocities"].shape[-1]), "worst": worst})
+        return got
+
+    cfg = pt.PlannerConfig()
+    for name, state in PLANNER_STATES.items():
+        got = run(name, np.asarray(state, np.float32), cfg, {}, 1)
+        row = torch.zeros(len(VEHICLE_STATE_FIELDS), device=device)
+        row[list(planner_kernel.ROW_FIELDS)] = torch.tensor(state, device=device)
+        by_row = plan_fields(*planner_kernel.plan_step(row, cfg, fields=planner_kernel.ROW_FIELDS))
+        for k, v in by_row.items():
+            if not np.array_equal(got[k], v):
+                raise AssertionError(f"K6 {name}: {k} from the vehicle row differs from the state's launch")
+    run("nan_start", np.asarray((np.nan, 0.0, 0.0, 10.0), np.float32), cfg, {}, 1)
+    for case in ("ref_none", "ref_some", "ref_all", "obstacles"):
+        run(case, np.asarray(PLANNER_STATES["plain"], np.float32), cfg,
+            planner_inputs(case, cfg.max_reference_points, cfg.max_obstacles), 1)
+    zero = dataclasses.replace(cfg, w_velocity=0.0, w_acceleration=0.0, w_curvature=0.0)
+    got = run("all_costs_equal", np.asarray(PLANNER_STATES["plain"], np.float32), zero, {}, 1)
+    if got["order"].tolist() != list(range(cfg.num_candidates)) or int(got["best"]) != 0:
+        raise AssertionError(f"K6 all_costs_equal: order {got['order'].tolist()}, best {int(got['best'])}")
+    twice = dataclasses.replace(cfg, target_velocities=(10.0, 10.0))
+    got = run("two_equal_minima", np.asarray(PLANNER_STATES["plain"], np.float32), twice, {}, 1)
+    b = int(got["best"])
+    if b % 2 or got["costs"][b] != got["costs"][b + 1] or int(got["order"][1]) != b + 1:
+        raise AssertionError(f"K6 two_equal_minima: best {b}, order {got['order'].tolist()}")
+    run("wide_55x81", np.asarray(PLANNER_STATES["plain"], np.float32), PLANNER_WIDE, {}, 1)
+    for B in lane_counts or LANE_COUNTS:
+        states, arrays = _random_lanes(B, cfg, seed=B)
+        run(f"lanes_{B}", states, cfg, arrays, B)
+    torch.cuda.synchronize()
+    return cases
+
+
+def plan_step_work(B: int, C: int, N: int, R: int = 0, O: int = 0) -> tuple:
+    """(bytes, operations) of one K6 launch: the grids (5 vectors) read once,
+    a lane's 4 start fields, path and obstacles read, and its outputs
+    written once; operations counted from the kernel's arithmetic, 28 a
+    waypoint of a candidate (speed 2, arc length 3, blend 1, position 8,
+    heading 3, curvature 5, the speed and acceleration terms 6) and 7 a
+    reference point or obstacle, plus C comparisons a candidate for the
+    order."""
+    grids = 4 * (3 * N + 2 * C)
+    lane_in = 4 * 4 + R * 9 + O * 13
+    lane_out = 4 * (5 * C * N + C + 3 * N) + 4 * (C + 1)
+    ops = C * N * (28 + 7 * (R + O)) + C * C
+    return grids + B * (lane_in + lane_out), B * ops
+
+
+def measure_planner_kernel(device, lane_counts=None, reps: int = 2000) -> dict:
+    """K6 at the frame step's default grid, from a vehicle row, at each lane
+    count: ms a call (CUDA events over ``reps`` wrapper calls, a quarter of
+    them beyond one lane), device ms (a profiler trace of 100), the plain
+    version's ms (`plan_from_row_plain`, the tensor ops the frame step ran,
+    over PLAIN_REPS calls) and the bound."""
+    cfg = pt.PlannerConfig()
+    out = {}
+    for B in lane_counts or LANE_COUNTS:
+        states, _ = _random_lanes(B, cfg, seed=100 + B)
+        rows = torch.zeros((B, len(VEHICLE_STATE_FIELDS)), device=device)
+        rows[:, list(planner_kernel.ROW_FIELDS)] = torch.from_numpy(states).to(device)
+        row = rows[0] if B == 1 else rows
+
+        def launch():
+            return planner.plan_from_row(row, cfg)
+
+        n_bytes, ops = plan_step_work(B, cfg.num_candidates, cfg.num_waypoints)
+        m = {"ms": time_cuda(launch, reps if B == 1 else reps // 4),
+             "plain_ms": time_cuda(lambda: planner.plan_from_row_plain(row, cfg), PLAIN_REPS),
+             "bytes": n_bytes, "operations": ops}
+        m["device_ms"], m["profiled_launches"] = device_times({"plan_step": (launch, "plan_step_kernel")})["plan_step"]
+        t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_PER_S * 1e3
+        m["bound_ms"], m["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        out[f"lanes_{B}"] = m
+    return out
+
+
 def _zero_counts() -> None:
     for module in KERNEL_MODULES.values():
         module.launches = 0
@@ -1495,7 +1759,7 @@ def check_main_path(device, inputs: dict, enable_tagging: bool = False):
     launches = _read_counts()
     errs = compare_outputs("main path", got, want)
     expected = {name: 0 for name in KERNEL_MODULES}
-    expected.update(tracker_step=NUM_FRAMES, kalman_step=NUM_FRAMES)
+    expected.update(tracker_step=NUM_FRAMES, kalman_step=NUM_FRAMES, plan_step=NUM_FRAMES)
     if enable_tagging:
         expected["tagging_step"] = NUM_FRAMES
     if launches != expected:
@@ -1664,7 +1928,7 @@ def check_yolo_path(device, params: dict, frames, ego, settings: dict, label: st
     torch.cuda.synchronize()
     launches = _read_counts()
     expected = {name: 0 for name in KERNEL_MODULES}
-    expected.update(tracker_step=len(frames), kalman_step=len(frames),
+    expected.update(tracker_step=len(frames), kalman_step=len(frames), plan_step=len(frames),
                     nms_keep=math.ceil(len(frames) / YOLO_BATCH))
     if launches != expected:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
@@ -1784,7 +2048,7 @@ def check_frames_path(device, inputs: dict):
     torch.cuda.synchronize()
     launches = _read_counts()
     expected = {name: 0 for name in KERNEL_MODULES}
-    expected.update(tracker_step=NUM_FRAMES, kalman_step=NUM_FRAMES, tagging_step=NUM_FRAMES)
+    expected.update(tracker_step=NUM_FRAMES, kalman_step=NUM_FRAMES, tagging_step=NUM_FRAMES, plan_step=NUM_FRAMES)
     if launches != expected:
         raise AssertionError(f"frames path: kernel launches {launches}, expected {expected}")
     errs = compare_outputs("frames path", got, want)
@@ -1818,7 +2082,7 @@ def check_yolo_frames(device, params: dict, inputs: dict, frames_out: dict) -> d
     torch.cuda.synchronize()
     launches = _read_counts()
     expected = {name: 0 for name in KERNEL_MODULES}
-    expected.update(tracker_step=n, kalman_step=n, tagging_step=n, nms_keep=1)
+    expected.update(tracker_step=n, kalman_step=n, tagging_step=n, plan_step=n, nms_keep=1)
     if launches != expected:
         raise AssertionError(f"YOLO with frames: kernel launches {launches}, expected {expected}")
     tables = outs.pop("detections")
@@ -2763,9 +3027,9 @@ def _stack_streams(streams: list) -> dict:
 
 def compare_lane(label: str, got: dict, b: int, want: dict) -> float:
     """Lane ``b`` of a batched card run against an unbatched card run: every
-    output and tag bit for bit (the kernels run each lane as its B = 1
-    launch does), but the planner's floats, held at MAIN_ATOL (its batched
-    reductions may sum in another order); returns their largest gap."""
+    output and tag bit for bit, the planner's floats too (the kernels, K6
+    among them, run each lane as its B = 1 launch does); returns the
+    planner floats' largest gap, 0 where they hold."""
     gap = 0.0
     for k, w in want.items():
         if k == "tags":
@@ -2776,11 +3040,9 @@ def compare_lane(label: str, got: dict, b: int, want: dict) -> float:
             for f in VEHICLE_STATE_FIELDS:
                 if not torch.equal(getattr(got[k], f)[b], getattr(w, f)):
                     raise AssertionError(f"{label}: lane {b} vehicle_state.{f} differs from its unbatched run")
-        elif k in PLANNER_FLOATS:
-            err = float((got[k][b] - w).abs().max())
-            gap = max(gap, err)
-            if not err <= MAIN_ATOL:
-                raise AssertionError(f"{label}: lane {b} {k} off by {err}")
+        elif k in PLANNER_FLOATS and not torch.equal(got[k][b], w):
+            gap = max(gap, float((got[k][b] - w).abs().max()))
+            raise AssertionError(f"{label}: lane {b} {k} off by {gap} from its unbatched run")
         elif not torch.equal(got[k][b], w):
             raise AssertionError(f"{label}: lane {b} {k} differs from its unbatched run")
     return gap
@@ -2808,7 +3070,7 @@ def check_batched_path(device, streams: list) -> dict:
     torch.cuda.synchronize()
     launches = _read_counts()
     expected = {name: 0 for name in KERNEL_MODULES}
-    expected.update(tracker_step=frames, kalman_step=frames, tagging_step=frames)
+    expected.update(tracker_step=frames, kalman_step=frames, tagging_step=frames, plan_step=frames)
     if launches != expected:
         raise AssertionError(f"batched path: kernel launches {launches}, expected {expected}")
     gap = max(compare_lane("batched path", got, b, w) for b, (_, w) in enumerate(singles))
@@ -2840,7 +3102,7 @@ def check_multicamera_path(device, streams: list) -> dict:
     torch.cuda.synchronize()
     launches = _read_counts()
     expected = {name: 0 for name in KERNEL_MODULES}
-    expected.update(tracker_step=frames, kalman_step=frames)
+    expected.update(tracker_step=frames, kalman_step=frames, plan_step=frames)
     if launches != expected:
         raise AssertionError(f"multi-camera path: kernel launches {launches}, expected {expected}")
     gap = max(compare_lane("multi-camera path", got, c, w) for c, (_, w) in enumerate(singles))
@@ -2893,6 +3155,8 @@ def check_serve_path(device) -> dict:
         print(json.dumps(loadgen), flush=True)
         if loadgen["errors"] or loadgen["completed_requests"] != SERVE_SESSIONS * SERVE_CHUNKS:
             raise AssertionError(f"serve path: {loadgen['completed_requests']} requests, errors {loadgen['errors']}")
+        # No K6: the server runs the exported program, whose planner is the
+        # tensor ops (utils/export.py traces no call of the kernel library).
         expected = {name: 0 for name in KERNEL_MODULES}
         expected.update(tracker_step=runs * SERVE_CHUNK, kalman_step=runs * SERVE_CHUNK,
                         tagging_step=runs * SERVE_CHUNK)
@@ -3760,7 +4024,7 @@ def check_large_tagging_path(device, frames: int = LARGE_FRAMES) -> dict:
     torch.cuda.synchronize()
     launches = _read_counts()
     expected = {name: 0 for name in KERNEL_MODULES}
-    expected.update(tracker_step=frames, kalman_step=frames, tagging_step=frames)
+    expected.update(tracker_step=frames, kalman_step=frames, tagging_step=frames, plan_step=frames)
     if launches != expected:
         raise AssertionError(f"large tagging path: kernel launches {launches}, expected {expected}")
     errs = compare_outputs("large tagging path", got, want)
@@ -4023,10 +4287,35 @@ def plain_on_card():
     tracker_kernel.tracker_step, tagging_kernel.tagging_step = tracker, tagging
     kalman_kernel.kalman_step, nms_kernel.nms_keep = kalman, plain_nms_keep
     try:
-        yield
+        with plain_planner():
+            yield
     finally:
         (tracker_kernel.tracker_step, tagging_kernel.tagging_step, kalman_kernel.kalman_step,
          nms_kernel.nms_keep) = saved
+
+
+def _plan_step_plain(state, cfg, reference_positions=None, reference_valid=None, obstacles=None,
+                     obstacles_valid=None, fields=None):
+    """`planner_kernel.plan_step` in the tensor ops of the program
+    utils/export.py traces (`planner.plan_from_row_plain`)."""
+    refs = (reference_positions, reference_valid, obstacles, obstacles_valid)
+    if tuple(fields or planner_kernel.STATE_FIELDS) != planner_kernel.ROW_FIELDS:
+        row = state.new_zeros(state.shape[:-1] + (len(VEHICLE_STATE_FIELDS),))
+        row[..., list(planner_kernel.ROW_FIELDS)] = state[..., list(fields or planner_kernel.STATE_FIELDS)]
+        state = row
+    return planner.plan_from_row_plain(state, cfg, *refs)
+
+
+@contextlib.contextmanager
+def plain_planner():
+    """K6's wrapper replaced by its plain version: an eager runner inside
+    plans as an exported program does, bit for bit, and launches no K6."""
+    saved = planner_kernel.plan_step
+    planner_kernel.plan_step = _plan_step_plain
+    try:
+        yield
+    finally:
+        planner_kernel.plan_step = saved
 
 
 def cpu_prefix_run(cfg, inputs: dict, frames: int, chunk: int = WIDE_CHUNK) -> tuple:
@@ -4090,7 +4379,8 @@ def check_yolo_all_anchors(device, params: dict, frames, ego) -> dict:
     state = pt.initial_state(cfg, device=device)
     (_, outs), launches = _counted_run("yolo_all_anchors", lambda: run(params, state, frames, ego,
                                                                        keep_candidates=True),
-                                       dict(tracker_step=len(frames), kalman_step=len(frames), nms_keep=1))
+                                       dict(tracker_step=len(frames), kalman_step=len(frames), plan_step=len(frames),
+                                            nms_keep=1))
     tables, cands = outs.pop("detections"), outs.pop("candidates")
     pool = (cands["scores"] > YOLO_F32["score_threshold"]).sum(dim=1)  # live candidates of each frame's pool
     kw = (YOLO_IOU, YOLO_F32["score_threshold"], cfg.detector.max_detections, YOLO_ANCHORS_640)
@@ -4145,7 +4435,8 @@ def check_wide_runner_path(device, label: str, cfg, inputs: dict, frames: int, l
     run = pt.make_sequence_runner(cfg, device=device)
     state = pt.initial_state(cfg, device=device)
     (_, got), launches = _counted_run(label, lambda: run(state, inputs),
-                                      dict(tracker_step=frames, kalman_step=frames, tagging_step=frames))
+                                      dict(tracker_step=frames, kalman_step=frames, tagging_step=frames,
+                                           plan_step=frames))
     want, n, cpu_s = cpu_prefix_run(cfg, inputs, frames)
     errs = {"cpu": compare_outputs(f"{label} against the CPU", _first(got, n), want)}
     if lanes:
@@ -4906,8 +5197,8 @@ def check_host_stack(device) -> dict:
             raise AssertionError(f"host stack: ObjectDetector.detect_stream {k} differs from make_yolo_frontend")
     expected = {name: 0 for name in KERNEL_MODULES}
     # K1 a frame in MultiObjectTracker.update, K2 in VehicleStateEstimator.step,
-    # K3 in AutoTagger.tag_frame, K5 once for the YOLO chunk.
-    expected.update(tracker_step=n, kalman_step=n, tagging_step=n, nms_keep=1)
+    # K3 in AutoTagger.tag_frame, K6 in MotionPlanner.plan, K5 once for the YOLO chunk.
+    expected.update(tracker_step=n, kalman_step=n, tagging_step=n, plan_step=n, nms_keep=1)
     if launches != expected:
         raise AssertionError(f"host stack: the facades' kernel launches {launches}, expected {expected}")
     return {"frames": n, "road_frames": HOST_ROAD_FRAMES, "launches": launches,
@@ -4986,7 +5277,7 @@ def check_device_detections(device) -> dict:
     _, from_card = run(pt.initial_state(cfg, device=device), dict(stream, ego_measurement=ego))
     torch.cuda.synchronize()
     launches = _read_counts()
-    _expect("device detections", launches, tracker_step=n, kalman_step=n, tagging_step=n)
+    _expect("device detections", launches, tracker_step=n, kalman_step=n, tagging_step=n, plan_step=n)
     for k in MAIN_DISCRETE + MAIN_FLOAT:
         if not torch.equal(from_card[k], from_host[k]):
             raise AssertionError(f"device detections: {k} differs between the card's tables and their host copy")
@@ -5115,7 +5406,7 @@ def check_stream_path(device, measure: bool = True) -> dict:
     with source() as src:
         outs, stats = run_stream(cfg, src, total, chunk=chunk, runner=runner, device=device)
     launches = _read_counts()
-    _expect("stream path", launches, tracker_step=padded, kalman_step=padded, tagging_step=padded)
+    _expect("stream path", launches, tracker_step=padded, kalman_step=padded, tagging_step=padded, plan_step=padded)
     if stats["frames"] != total or outs["track_id"].shape[0] != total or outs["track_id"].device.type != "cpu":
         raise AssertionError(f"stream path: {stats['frames']} frames, outputs {tuple(outs['track_id'].shape)}")
     gaps = compare_stream("stream path", outs, want)
@@ -5224,7 +5515,7 @@ def check_demo_path(device, renders: bool) -> dict:
         torch.cuda.synchronize()
         launches = _read_counts()
         k = n + demo.WARM_FRAMES
-        _expect("demo", launches, tracker_step=k, kalman_step=k, tagging_step=k)
+        _expect("demo", launches, tracker_step=k, kalman_step=k, tagging_step=k, plan_step=k)
         frames = demo._synthetic_frames(cfg, n, 0, True)
         _, inputs = demo._build_inputs(frames, n, 1.0 / 30.0, True, cfg)
         _, ref = pt.make_sequence_runner(cfg, device=device)(pt.initial_state(cfg, device=device), inputs)
@@ -5246,7 +5537,7 @@ def check_demo_path(device, renders: bool) -> dict:
             yolo, yolo_s = yolo_run.records, yolo_run.device_s
         torch.cuda.synchronize()
         yolo_launches = _read_counts()
-        _expect("demo --yolo", yolo_launches, tracker_step=4, kalman_step=4, tagging_step=4, nms_keep=1)
+        _expect("demo --yolo", yolo_launches, tracker_step=4, kalman_step=4, tagging_step=4, plan_step=4, nms_keep=1)
         out["yolo"] = {"frames": 2, "launches": yolo_launches, "detections": sum(len(r.detections) for r in yolo),
                        "device_s": yolo_s}
 
@@ -5267,7 +5558,7 @@ def check_demo_path(device, renders: bool) -> dict:
         torch.cuda.synchronize()
         multi_launches = _read_counts()
         m = MULTICAM_FRAMES
-        _expect("multi-camera demo", multi_launches, tracker_step=m, kalman_step=m, tagging_step=m)
+        _expect("multi-camera demo", multi_launches, tracker_step=m, kalman_step=m, tagging_step=m, plan_step=m)
         if confirmed != fleet.tolist():
             raise AssertionError("multi-camera demo: the fleet counts differ from the cameras' confirmed tracks")
         out["multicamera"] = {"cameras": MULTICAM_CAMERAS, "frames": m, "launches": multi_launches,
@@ -5291,7 +5582,7 @@ def check_webview_path(device, renders: bool) -> dict:
     seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = _read_counts()
-    _expect("webview", launches, tracker_step=n, kalman_step=n, tagging_step=n)
+    _expect("webview", launches, tracker_step=n, kalman_step=n, tagging_step=n, plan_step=n)
     mono = webview.DashboardData(total=n)
     webview.process_into(mono, n, chunk=n, device=device)
     if [ft.all_tags for ft in prog.frame_tags] != [ft.all_tags for ft in mono.frame_tags]:
@@ -5437,7 +5728,8 @@ def run_frames_artifact(directory: str, device) -> dict:
 
     image_ops.canny_rounds = counted
     try:
-        (e_state, e_outs, e_s), e_reads = host_reads(lambda: chained(eager))
+        with plain_planner():  # the artifact's planner is the tensor ops
+            (e_state, e_outs, e_s), e_reads = host_reads(lambda: chained(eager))
     finally:
         image_ops.canny_rounds = plain
     for c, (g, w) in enumerate(zip(x_outs, e_outs)):
@@ -5664,7 +5956,8 @@ def run_artifacts(directory: str, device="cuda") -> dict:
         _zero_counts()
         x_state, x_outs = chained(exported)
         launches = _read_counts()
-        e_state, e_outs = chained(eager)
+        with plain_planner():  # the artifact's planner is the tensor ops
+            e_state, e_outs = chained(eager)
         steps = len(chunks) * EXPORT_CHUNK
         _expect(f"export path {label}", launches, tracker_step=steps, kalman_step=steps,
                 **({"tagging_step": steps} if tagging else {}))
@@ -5829,7 +6122,8 @@ def cross_camera_mesh(device, tagging: bool) -> dict:
     seconds = time.perf_counter() - t0
     launches = _read_counts()
     label = f"cross_card camera mesh (tagging {tagging}, {mesh.size} ranks)"
-    _expect(label, launches, tracker_step=frames, kalman_step=frames, **({"tagging_step": frames} if tagging else {}))
+    _expect(label, launches, tracker_step=frames, kalman_step=frames, plan_step=frames,
+            **({"tagging_step": frames} if tagging else {}))
     _, ref = pt.make_batched_sequence_runner(cfg, device=device)(stack_states(cfg, CROSS_CAMERAS, device=device),
                                                                  inputs)
     n, rank = mesh.size, dist.get_rank()
@@ -6101,6 +6395,9 @@ def main(argv) -> int:
     emit({"phase": "tagging_kernel", "cases": k3, "result": "discrete exact, floats within bounds"})
     emit({"phase": "association_kernel", "cases": check_association_kernel(device), "result": "exact"})
     emit({"phase": "nms_kernel", "cases": check_nms_kernel(device), "result": "exact"})
+    k6 = check_planner_kernel(device)
+    emit({"phase": "planner_kernel", "cases": k6,
+          "result": "within hold_plan's bars of the plain version; each lane bit for bit its B = 1 launch"})
 
     inputs = synthetic_inputs()
     main_path, _ = check_main_path(device, inputs)
@@ -6154,6 +6451,8 @@ def main(argv) -> int:
     times = measure_kernels(device, inputs)
     pools = nms_pools_from(yolo_cands)
     times["nms_keep"] = measure_nms_kernel(device, pools)
+    planner_times = measure_planner_kernel(device)
+    times["plan_step"] = planner_times["lanes_1"]
     split = measure_split(device, inputs, pools)
     kernel_s = time.perf_counter() - t0
     paths = measure_paths(device, inputs, frames=road)
@@ -6169,7 +6468,7 @@ def main(argv) -> int:
                       "blip": time.perf_counter() - t0 - kernel_s - paths_s - yolo_s}})
     t0 = time.perf_counter()
     emit({"phase": "lane_times", "card": smi, "kernels": measure_lane_kernels(device, inputs),
-          "paths": measure_batched_paths(device), "seconds": time.perf_counter() - t0})
+          "planner": planner_times, "paths": measure_batched_paths(device), "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     large_times = measure_large_kernels(device)
     wide_nms = measure_wide_nms(device, params)
@@ -6208,6 +6507,8 @@ def main(argv) -> int:
                       0.0, association_path),
         "nms_keep": (f"{PKG}/kernels/csrc/nms_keep.cu", f"{JAX_PKG}/ops/nms_pallas.py:39",
                      0.0, yolo_path),
+        "plan_step": (f"{PKG}/kernels/csrc/plan_step.cu", "none: the JAX planner is tensor ops that XLA fuses",
+                      max(c["worst"]["costs"] for c in k6), main_path),
     }
     kernels = []
     for name, (source, replaces, err, path) in sources.items():

@@ -5,10 +5,10 @@ source and the small pybind11 binding file in one call (ninja runs the
 compilers in parallel).  Without ninja, one ``nvcc -shared`` per source, all
 started together, builds a library with a plain C interface each, and ctypes
 binds them.  Either way the result exposes ``tracker_step`` (K1),
-``kalman_step`` (K2), ``tagging_step`` (K3), ``associate`` (K4) and
+``kalman_step`` (K2), ``tagging_step`` (K3), ``associate`` (K4),
 ``nms_keep`` (K5, and ``nms_keep_large``, its instance beyond 1,024
-candidates), which take pointers and the stream as integers and
-return the CUDA error code of the launch, and the plan queries of the
+candidates) and ``plan_step`` (K6), which take pointers and the stream as
+integers and return the CUDA error code of the launch, and the plan queries of the
 general instances, from the shape alone: ``tracker_scratch``,
 ``tracker_cluster``, ``tagging_cluster``, ``associate_scratch`` and
 ``associate_cluster`` (K1's and K4's key scratch in 32-bit words, and K1's,
@@ -30,7 +30,9 @@ from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-CUDA_SOURCES = ("tracker_step.cu", "kalman_step.cu", "tagging_step.cu", "associate.cu", "nms_keep.cu")
+CUDA_SOURCES = (
+    "tracker_step.cu", "kalman_step.cu", "tagging_step.cu", "associate.cu", "nms_keep.cu", "plan_step.cu",
+)
 BINDINGS = "bindings.cpp"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 _NAME = "madpp_torch_kernels"
@@ -106,6 +108,9 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
     nms.madpp_nms_keep.restype = ci
     nms.madpp_nms_keep_large.argtypes = [vp] * 5 + [ci, ci, cf, vp]
     nms.madpp_nms_keep_large.restype = ci
+    planner = ctypes.CDLL(str(BUILD_DIR / "libplan_step.so"))
+    planner.madpp_plan_step.argtypes = [vp] * 12 + [ci] * 10 + [cf] * 6 + [vp]
+    planner.madpp_plan_step.restype = ci
     return SimpleNamespace(
         tracker_step=tracker.madpp_tracker_step,
         kalman_step=kalman.madpp_kalman_step,
@@ -118,4 +123,5 @@ def build_ctypes(cuda_home: str | None) -> SimpleNamespace:
         associate_cluster=associate.madpp_associate_cluster,
         nms_keep=nms.madpp_nms_keep,
         nms_keep_large=nms.madpp_nms_keep_large,
+        plan_step=planner.madpp_plan_step,
     )

@@ -36,6 +36,11 @@ extern "C" int madpp_associate_cluster(int, int);
 extern "C" int madpp_nms_keep(const void*, const void*, void*, int, int, float, void*);
 extern "C" int madpp_nms_keep_large(const void*, const void*, void*, void*, void*, int, int, float, void*);
 
+extern "C" int madpp_plan_step(const void*, const void*, const void*, const void*, const void*, const void*,
+                               const void*, const void*, const void*, const void*, void*, void*, int, int, int,
+                               int, int, int, int, int, int, int, float, float, float, float, float, float,
+                               void*);
+
 namespace {
 
 inline void* ptr(std::uintptr_t p) { return reinterpret_cast<void*>(p); }
@@ -94,6 +99,19 @@ int nms_keep_large(pybind11::args a) {
                               ptr(a[8].cast<std::uintptr_t>()));
 }
 
+int plan_step(pybind11::args a) {
+  if (a.size() != 29) throw std::invalid_argument("plan_step takes 29 arguments");
+  void* p[12];
+  for (int i = 0; i < 12; ++i) p[i] = ptr(a[i].cast<std::uintptr_t>());
+  int n[10];
+  for (int i = 0; i < 10; ++i) n[i] = a[12 + i].cast<int>();
+  float w[6];
+  for (int i = 0; i < 6; ++i) w[i] = a[22 + i].cast<float>();
+  return madpp_plan_step(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11], n[0], n[1],
+                         n[2], n[3], n[4], n[5], n[6], n[7], n[8], n[9], w[0], w[1], w[2], w[3], w[4], w[5],
+                         ptr(a[28].cast<std::uintptr_t>()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -108,4 +126,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("associate_cluster", &madpp_associate_cluster, "K4's blocks at (T, D); -1 outside its limits.");
   m.def("nms_keep", &nms_keep, "Launch kernel K5; returns the CUDA error code.");
   m.def("nms_keep_large", &nms_keep_large, "Launch K5's large instance (K > 1,024); returns the CUDA error code.");
+  m.def("plan_step", &plan_step, "Launch kernel K6; returns the CUDA error code.");
 }

@@ -69,12 +69,13 @@ def _h2d_span(rec, src: torch.Tensor, dev: torch.device):
 
 
 def _kernel_launches() -> Dict[str, int]:
-    """The launch counters of kernels K1, K2, K3 and K5 (tracker,
-    estimator, tagging, NMS), as `segment` spans count them."""
-    from ..ops import kalman_kernel, nms_kernel, tagging_kernel, tracker_kernel
+    """The launch counters of kernels K1, K2, K3, K5 and K6 (tracker,
+    estimator, tagging, NMS, planner), as `segment` spans count them."""
+    from ..ops import kalman_kernel, nms_kernel, planner_kernel, tagging_kernel, tracker_kernel
 
     return {"k1_launches": tracker_kernel.launches, "k2_launches": kalman_kernel.launches,
-            "k3_launches": tagging_kernel.launches, "k5_launches": nms_kernel.launches}
+            "k3_launches": tagging_kernel.launches, "k5_launches": nms_kernel.launches,
+            "k6_launches": planner_kernel.launches}
 
 
 def make_yolo_frontend(

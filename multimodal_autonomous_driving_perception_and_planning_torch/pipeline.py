@@ -3,22 +3,21 @@
 One frame is ``(state, inputs) -> (state', out)``: with ``use_frames`` and
 a camera frame, find the lanes and the scene features (tensor ops,
 perception/lanes.py); track (kernel K1 on the card), estimate the ego state
-(kernel K2 on the card), plan (tensor ops), and, with ``enable_tagging``,
-tag (kernel K3 on the card, in frames mode when the frame gave lanes and
-scene features).  The sequence runner loops that step over a whole
-sequence and writes each frame's outputs into preallocated ``(F, ...)``
-buffers, so that no frame waits for the host but for the Canny
-hysteresis's convergence reads.  The tags travel as K3's two packed rows a
+(kernel K2 on the card), plan (kernel K6 on the card), and, with
+``enable_tagging``, tag (kernel K3 on the card, in frames mode when the
+frame gave lanes and scene features).  The sequence runner loops that step
+over a whole sequence and writes each frame's outputs into preallocated
+``(F, ...)`` buffers, so that no frame waits for the host but for the
+Canny hysteresis's convergence reads.  The tags travel as K3's two packed rows a
 frame and the lane observation as two rows, unpacked once, after the loop.
 
 Lanes: `make_batched_sequence_runner` runs B independent streams (the
 server's sessions, the multi-camera runner's cameras) through the same
 frame step with a leading lane axis on the state and the inputs: the
-counterpart of ``jax.vmap(make_sequence_runner(...))``.  Kernels K1, K2 and
-K3 take the lane axis, one launch a frame for all lanes; the planner's
-tensor ops take it as a leading dimension.  The unbatched runner and
-`make_pipeline_step` run that frame step with no lane axis, which is B = 1
-of the same kernels.
+counterpart of ``jax.vmap(make_sequence_runner(...))``.  Kernels K1, K2, K3
+and K6 take the lane axis, one launch a frame for all lanes.  The unbatched
+runner and `make_pipeline_step` run that frame step with no lane axis,
+which is B = 1 of the same kernels.
 
 Entry points run on the card unless the caller asks for ``device="cpu"``,
 where each kernel's plain version runs instead.
@@ -35,7 +34,7 @@ from .estimation.ego import estimator_step_row
 from .ops import library, tracker_kernel
 from .ops.kalman import make_constant_accel_model
 from .perception.lanes import make_lane_step
-from .planning.planner import plan
+from .planning import planner
 from .tagging.rules import make_packed_tagging_step, unpack_tags
 from .tracking.tracker import tracker_update_with_order
 from .types import (
@@ -133,14 +132,17 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device, ops: bool = False):
     axis, (B, ...), or none.
 
     With ``ops``, K1-K3 go through the ``madpp`` custom ops
-    (ops/library.py), as in the program that utils/export.py traces;
-    without, through their wrappers, or their plain versions on the CPU."""
+    (ops/library.py), as in the program that utils/export.py traces, and
+    the planner through its tensor ops (``torch.export`` traces no call
+    of the kernel library); without, K1-K3 and K6 through their wrappers,
+    or their plain versions on the CPU."""
     check_card_limits(cfg, dev)
     if ops:
         track, estimate = library.tracker_update_with_order, library.estimator_step_row
-        make_tagging = library.make_packed_tagging_step
+        make_tagging, plan_from_row = library.make_packed_tagging_step, planner.plan_from_row_plain
     else:
         track, estimate, make_tagging = tracker_update_with_order, estimator_step_row, make_packed_tagging_step
+        plan_from_row = planner.plan_from_row
     model = kalman_model_from_numpy(
         *make_constant_accel_model(
             cfg.estimator.dt,
@@ -152,21 +154,15 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device, ops: bool = False):
     )
     tagging_step = make_tagging(cfg) if cfg.enable_tagging else None
     lane_step = make_lane_step(cfg, dev) if cfg.use_frames else None
-    # Per lane count: the default has-measurement flags and the lane indices.
+    # Per lane count: the default has-measurement flags.
     per_lanes: Dict[tuple, Any] = {}
-
-    def lanes_of(lead: tuple):
-        if lead not in per_lanes:
-            per_lanes[lead] = (
-                torch.ones(lead, dtype=torch.bool, device=dev),
-                torch.arange(lead[0], device=dev) if lead else None,
-            )
-        return per_lanes[lead]
 
     def step(state: PipelineState, inputs: Dict[str, Any]):
         dets = inputs["detections"]
         lead = tuple(state.frame_idx.shape)
-        measured, lane_idx = lanes_of(lead)
+        if lead not in per_lanes:
+            per_lanes[lead] = torch.ones(lead, dtype=torch.bool, device=dev)
+        measured = per_lanes[lead]
         rows = {}
         rec = SPANS.active()
 
@@ -197,26 +193,17 @@ def _make_frame_step(cfg: PipelineConfig, dev: torch.device, ops: bool = False):
                 inputs.get("has_measurement", measured),
                 cfg.estimator,
             )
-            vstate = vehicle_state_from_row(vrow)
 
-        # Planning.
+        # Planning: kernel K6 on the card, from K2's row where it lies.
         with rec.span("plan") if rec else NO_SPAN:
-            current = torch.stack([vstate.x, vstate.y, vstate.heading, vstate.speed], dim=-1)
-            pr = plan(
-                current,
+            pr, best_positions, best_velocities = plan_from_row(
+                vrow,
                 cfg.planner,
                 reference_positions=inputs.get("reference_positions"),
                 reference_valid=inputs.get("reference_valid"),
                 obstacles=inputs.get("obstacles"),
                 obstacles_valid=inputs.get("obstacles_valid"),
             )
-            if lead:
-                best_positions = pr.positions[lane_idx, pr.best]
-                best_velocities = pr.velocities[lane_idx, pr.best]
-            else:
-                best = pr.best.view(1)
-                best_positions = pr.positions.index_select(0, best)[0]
-                best_velocities = pr.velocities.index_select(0, best)[0]
 
         # Tagging: kernel K3 on the card, in frames mode with lanes.
         if tagging_step is not None:
@@ -341,11 +328,11 @@ def make_batched_sequence_runner(cfg: PipelineConfig, device="cuda"):
     The state carries a leading lane axis on every leaf (`types.stack_lanes`
     of B states), and every input a leading (B, F) pair of axes, as
     `make_sequence_runner`'s inputs with a lane axis in front.  Each frame
-    launches K1, K2 and K3 once for all B lanes.  Returns
+    launches K1, K2, K3 and K6 once for all B lanes.  Returns
     ``(final_state, outs)``, ``outs`` with leading (B, F) axes; lane b's
     outputs are those of `make_sequence_runner` on lane b's state and
-    inputs (bit for bit in the kernels' outputs, the planner's floats
-    within rounding of its batched reductions).
+    inputs: on the card bit for bit, on the CPU the planner's floats
+    within rounding of its batched reductions.
     """
     return _make_runner(cfg, resolve_device(device), lanes=True)
 

@@ -1,4 +1,4 @@
-"""Kernels K1-K5 against their plain versions on a CUDA card (K1, K3 and
+"""Kernels K1-K6 against their plain versions on a CUDA card (K1, K3 and
 K4 beyond 128 slots and 64 detections too, up to 4,096; K5 up to 33,600
 candidates), the paths that run them, the
 host stack and its per-frame facades, and the BLIP captioner (no kernel of
@@ -60,7 +60,7 @@ def test_kalman_kernel_matches_plain(device):
 def test_main_path_on_card_matches_cpu(device):
     result, _ = chip_smoke.check_main_path(device, chip_smoke.synthetic_inputs())
     assert result["launches"] == {"tracker_step": 300, "kalman_step": 300, "tagging_step": 0, "associate": 0,
-                                  "nms_keep": 0}
+                                  "nms_keep": 0, "plan_step": 300}
 
 
 def test_tagging_kernel_matches_plain(device):
@@ -94,7 +94,7 @@ def test_tagging_and_association_paths_on_card(device):
     inputs = chip_smoke.synthetic_inputs()
     result, outs = chip_smoke.check_main_path(device, inputs, enable_tagging=True)
     assert result["launches"] == {"tracker_step": 300, "kalman_step": 300, "tagging_step": 300, "associate": 0,
-                                  "nms_keep": 0}
+                                  "nms_keep": 0, "plan_step": 300}
     assoc = chip_smoke.check_association_path(device, inputs, outs)
     assert assoc["launches"]["associate"] == 300
 
@@ -111,6 +111,57 @@ def test_nms_kernel_matches_plain(device):
         "fuzz_K16", "fuzz_K64", "fuzz_K256", "fuzz_K1024", "chain_all_kept_all_dead"
     ] + list(chip_smoke.nms_cases()) + ["misaligned_boxes"]
     torch.cuda.synchronize()
+
+
+def test_planner_kernel_matches_plain(device):
+    """K6 against its plain version: the default grid from headings near
+    +-pi, rest, backing up and far off (and from K2's vehicle row, bit for
+    bit the state's launch), a NaN start, the reference path with none,
+    some and all points valid, obstacles in the hard and soft bands, all
+    costs equal, two equal minima, a 55 x 81 grid, and B = 1, 8 and 64
+    random lanes, each lane bit for bit its B = 1 launch
+    (chip_smoke.py `hold_plan` gives the bars and their reasons)."""
+    cases = chip_smoke.check_planner_kernel(device)
+    assert [c["case"] for c in cases] == list(chip_smoke.PLANNER_STATES) + [
+        "nan_start", "ref_none", "ref_some", "ref_all", "obstacles", "all_costs_equal", "two_equal_minima",
+        "wide_55x81", "lanes_1", "lanes_8", "lanes_64"]
+    torch.cuda.synchronize()
+
+
+def test_segment_spans_count_one_k6_launch_a_frame(device):
+    """Two segments of the YOLO runner on the card with the span recorder
+    on: each `segment` span counts one K6 launch a frame, as it counts K1's
+    and K2's."""
+    import numpy as np
+
+    import multimodal_autonomous_driving_perception_and_planning_torch as pt
+    from multimodal_autonomous_driving_perception_and_planning_torch.data import synthetic as syn
+    from multimodal_autonomous_driving_perception_and_planning_torch.data.frames import SyntheticRoadGenerator
+    from multimodal_autonomous_driving_perception_and_planning_torch.perception.detector import (
+        make_yolo_sequence_runner,
+    )
+    from multimodal_autonomous_driving_perception_and_planning_torch.utils.profiler import SPANS
+
+    T = 6  # two chunks of 4, the second padded
+    cfg = pt.DEFAULT_CONFIG.replace(use_frames=False, enable_tagging=True, emit_candidates=False,
+                                    emit_trajectories=False)
+    frames = SyntheticRoadGenerator().generate_frames(T)
+    ego = syn.ego_motion_stream(T, seed=0).astype(np.float32)
+    init_fn, run = make_yolo_sequence_runner(cfg, batch=4, score_threshold=0.05, img_size=64, device=device)
+    params = init_fn(torch.Generator().manual_seed(0))
+    state = pt.initial_state(cfg, device=device)
+    SPANS.enable()
+    try:
+        for _ in range(2):
+            state, _ = run(params, state, frames, ego)
+        torch.cuda.synchronize()
+        spans, dropped, _ = SPANS.drain()
+    finally:
+        SPANS.enable(False)
+    segments = [s.counts for s in spans if s.name == "segment"]
+    assert dropped == 0 and len(segments) == 2
+    for counts in segments:
+        assert counts["frames"] == counts["k6_launches"] == counts["k1_launches"] == counts["k2_launches"] == T
 
 
 def test_yolo_path_on_card_matches_cpu(device):
@@ -134,7 +185,7 @@ def test_frames_path_on_card_matches_cpu(device):
     road = chip_smoke.frames_inputs()
     result, outs = chip_smoke.check_frames_path(device, road)
     assert result["launches"] == {"tracker_step": 300, "kalman_step": 300, "tagging_step": 300, "associate": 0,
-                                  "nms_keep": 0}
+                                  "nms_keep": 0, "plan_step": 300}
     assert result["lanes_found"]["offset"] > 0
     yolo = chip_smoke.check_yolo_frames(device, chip_smoke.yolo_params(device), road, outs)
     assert yolo["launches"]["nms_keep"] == 1 and yolo["launches"]["tagging_step"] == 64
@@ -398,7 +449,7 @@ def test_host_stack_on_card(device):
     result = chip_smoke.check_host_stack(device)
     n = chip_smoke.HOST_FRAMES
     assert result["launches"] == {"tracker_step": n, "kalman_step": n, "tagging_step": n, "associate": 0,
-                                  "nms_keep": 1}
+                                  "nms_keep": 1, "plan_step": n}
 
 
 @pytest.mark.parametrize("B", [1, 8, 64])
@@ -422,8 +473,10 @@ def test_batched_and_multicamera_paths_match_unbatched_card_runs(device):
     streams = chip_smoke.lane_streams(8, 60)
     batched = chip_smoke.check_batched_path(device, streams)
     assert batched["launches"]["tracker_step"] == batched["launches"]["tagging_step"] == 60
+    assert batched["launches"]["plan_step"] == 60 and batched["planner_max_abs_gap"] == 0.0
     cams = chip_smoke.check_multicamera_path(device, streams)
-    assert cams["launches"]["kalman_step"] == 60 and cams["launches"]["tagging_step"] == 0
+    assert cams["launches"]["kalman_step"] == cams["launches"]["plan_step"] == 60
+    assert cams["launches"]["tagging_step"] == 0
 
 
 def test_serve_path_and_kalman_bank_on_card(device):
@@ -456,7 +509,7 @@ def test_stream_path_pinned_double_buffer(device):
     result = chip_smoke.check_stream_path(device, measure=False)
     padded = 320
     assert result["launches"] == {"tracker_step": padded, "kalman_step": padded, "tagging_step": padded,
-                                  "associate": 0, "nms_keep": 0}
+                                  "associate": 0, "nms_keep": 0, "plan_step": padded}
     assert result["max_abs_err"] <= chip_smoke.MAIN_ATOL and result["small_ring"]["max_abs_err"] <= chip_smoke.MAIN_ATOL
     assert result["feed_probe"]["chunks_differing"] == []
 

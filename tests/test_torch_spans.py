@@ -146,8 +146,8 @@ def test_the_spans_count_frames_padding_and_bytes(yolo_spans):
     seg = spans[0]
     assert seg.counts["frames"] == T and seg.counts["chunks"] == 2
     # The CPU runs no kernel: the launch counters do not move.
-    assert {k: seg.counts[k] for k in ("k1_launches", "k2_launches", "k3_launches", "k5_launches")} == dict.fromkeys(
-        ("k1_launches", "k2_launches", "k3_launches", "k5_launches"), 0)
+    counters = ("k1_launches", "k2_launches", "k3_launches", "k5_launches", "k6_launches")
+    assert {k: seg.counts[k] for k in counters} == dict.fromkeys(counters, 0)
     detects = [s for s in spans if s.name == "detect"]
     assert [(d.counts["frames"], d.counts["padded"]) for d in detects] == [(4, 0), (2, 2)]
     h2d = [s for s in spans if s.name == "h2d"]
